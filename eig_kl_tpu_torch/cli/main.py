@@ -1,0 +1,317 @@
+"""Command-line interface of the port (``python -m eig_kl_tpu_torch ...``).
+
+The subcommands, flags, output files and console blocks of
+``eig_kl_tpu/cli/main.py``:
+
+* ``eig <file> --solver power``  == ``./cEIG`` with gKL2's power solver
+* ``kl <file> [-EIG]``           == ``./cKL|./gKL``  (cKL.cpp:424, gKL.cu:672)
+* ``fused <file> [-EIG]``        == ``./gKL2``       (gKL2.cu:989)
+* ``generate <mult> -o FILE``    == ``circuit_generator.py`` (:71-84)
+* ``info``                       == printGPUInfo    (gKL.cu:555-571)
+
+``--device {cuda,cpu}`` (default ``cuda``) takes the place of the JAX
+CLI's ``--platform``.  Options whose code is not yet ported (multi-start,
+passes, kicks, sharding, the lanczos/lobpcg solvers) exit 1 with
+"not yet ported" and the ROADMAP item.  Output lands in
+``pre_saved_EIG/`` and ``results/`` relative to the working directory.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+
+def _add_device(p: argparse.ArgumentParser) -> None:
+    p.add_argument(
+        "--device",
+        choices=["cuda", "cpu"],
+        default="cuda",
+        help="run on the card (default) or on the CPU with the kernels' "
+        "plain PyTorch versions",
+    )
+
+
+def _add_common(p: argparse.ArgumentParser) -> None:
+    p.add_argument("input", help="path to .hgr circuit")
+    _add_device(p)
+    p.add_argument(
+        "-EIG",
+        dest="eig_init",
+        action="store_true",
+        help="initialize from pre_saved_EIG/<base>_out.txt (the reference -EIG flag)",
+    )
+    p.add_argument("--seed", type=int, default=0, help="random-init seed")
+    p.add_argument(
+        "--f64", action="store_true", help="run in float64 (CPU only for now)"
+    )
+    p.add_argument(
+        "--passes", type=int, default=1,
+        help="KL passes (only 1, the reference's semantics, is ported)",
+    )
+    p.add_argument(
+        "--kicks", type=int, default=0,
+        help="iterated-local-search rounds (not yet ported)",
+    )
+    p.add_argument(
+        "--kick-frac", type=float, default=0.15,
+        help="kick size as a fraction of nodes",
+    )
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="eig_kl_tpu_torch",
+        description="EIG+KL hypergraph partitioner on PyTorch and CUDA",
+    )
+    sub = ap.add_subparsers(dest="command", required=True)
+
+    p_eig = sub.add_parser("eig", help="spectral (Fiedler) partition, writes pre_saved_EIG/")
+    p_eig.add_argument("input")
+    _add_device(p_eig)
+    p_eig.add_argument(
+        "--solver", choices=["lanczos", "power", "lobpcg"], default="lanczos",
+        help="only 'power' is ported",
+    )
+    prec = p_eig.add_mutually_exclusive_group()
+    prec.add_argument("--f32", action="store_true", help="force float32")
+    prec.add_argument(
+        "--f64", action="store_true",
+        help="force float64 (the default on the CPU; the card runs f32)",
+    )
+    p_eig.add_argument("--tol", type=float, default=1e-6)
+
+    p_kl = sub.add_parser("kl", help="KL refinement (random or -EIG init)")
+    _add_common(p_kl)
+    p_kl.add_argument(
+        "--gain-eps", type=float, default=0.0,
+        help="non-improving threshold (0.0 = cKL, 1e-6 = gKL)",
+    )
+    p_kl.add_argument("--starts", type=int, default=1, help="multi-start (not yet ported)")
+    p_kl.add_argument("--perturb", type=float, default=0.05, help="with --starts (not yet ported)")
+    p_kl.add_argument(
+        "--sharded", action="store_true", help="multi-device KL (not yet ported)"
+    )
+    p_kl.add_argument(
+        "--table", action="store_true",
+        help="print the per-swap iteration table (cKL.cpp:323-330)",
+    )
+    p_kl.add_argument(
+        "--shuffled-ties", action="store_true",
+        help="random init only: break equal-gain ties in the reference's "
+        "randomized scan order (cKL.cpp:175-193) instead of by node index",
+    )
+
+    p_fused = sub.add_parser(
+        "fused", help="in-process power-iteration EIG + KL (gKL2 pipeline)"
+    )
+    _add_common(p_fused)
+    p_fused.add_argument("--starts", type=int, default=1, help="multi-start (not yet ported)")
+    p_fused.add_argument("--perturb", type=float, default=0.05, help="with --starts (not yet ported)")
+    p_fused.add_argument(
+        "--solver", choices=["auto", "power", "lanczos", "lobpcg"], default="auto",
+        help="in-process eigensolver; 'auto' picks lanczos at <=256 nodes "
+        "and power above; only 'power' is ported",
+    )
+    p_fused.add_argument(
+        "--power-iters", type=int, default=None,
+        help="cap the power-iteration budget (reference cap 1000, gKL2.cu:26)",
+    )
+
+    p_gen = sub.add_parser("generate", help="synthetic circuit generator")
+    p_gen.add_argument("size", type=float, help="size multiplier (1.0 = 201,920 nodes)")
+    p_gen.add_argument("--output", "-o", default="generated_circuit.hgr")
+    p_gen.add_argument("--seed", type=int, default=None)
+
+    sub.add_parser("info", help="print the CUDA devices (printGPUInfo analog)")
+    return ap
+
+
+class NotPorted(Exception):
+    """A requested option whose code is not yet ported."""
+
+
+def _check_ported(args, fused: bool) -> None:
+    if getattr(args, "starts", 1) != 1:
+        raise NotPorted("--starts > 1 (ROADMAP.md A6)")
+    if args.passes != 1:
+        raise NotPorted("--passes other than 1 (ROADMAP.md A6)")
+    if args.kicks > 0:
+        raise NotPorted("--kicks (ROADMAP.md A6)")
+    if getattr(args, "sharded", False):
+        raise NotPorted("--sharded (ROADMAP.md A8)")
+    if args.f64 and args.device == "cuda":
+        raise NotPorted("--f64 on the card (ROADMAP.md A9)")
+    if fused and args.eig_init:
+        from eig_kl_tpu_torch.io.hgr import peek_hgr_header
+        from eig_kl_tpu_torch.utils.config import SpectralConfig, resolve_solver
+
+        _, num_nodes = peek_hgr_header(args.input)
+        solver = resolve_solver(SpectralConfig(solver=args.solver), num_nodes).solver
+        if solver != "power":
+            raise NotPorted(f"the {solver} solver (ROADMAP.md A7)")
+
+
+def cmd_eig(args) -> int:
+    import torch
+
+    from eig_kl_tpu_torch.io.eigfile import eig_out_path, write_eig_file
+    from eig_kl_tpu_torch.io.hgr import read_hgr
+    from eig_kl_tpu_torch.models.pipelines import spectral_partition
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+    from eig_kl_tpu_torch.utils.device import resolve_device
+
+    resolve_device(args.device)
+    if args.solver != "power":
+        raise NotPorted(f"the {args.solver} solver (ROADMAP.md A7)")
+    if args.f32:
+        dtype = torch.float32
+    elif args.f64:
+        if args.device == "cuda":
+            raise NotPorted("--f64 on the card (ROADMAP.md A9)")
+        dtype = torch.float64
+    else:
+        dtype = None  # f32 on the card, f64 on the CPU
+    t0 = time.perf_counter()
+    hg = read_hgr(args.input)
+    print(f"Problem size: {hg.num_nets} nets, {hg.num_nodes} nodes, {hg.num_pins} pins")
+    run = spectral_partition(
+        hg, SpectralConfig(solver=args.solver, tolerance=args.tol),
+        dtype=dtype, device=args.device,
+    )
+    os.makedirs("pre_saved_EIG", exist_ok=True)
+    os.makedirs("results", exist_ok=True)
+    out = eig_out_path(args.input)
+    write_eig_file(out, run.eig)
+    left, right = run.eig.balance()
+    print(f"lambda_2 = {run.eig.eigenvalue:.12g}")
+    print(f"median   = {run.eig.median:.12g}")
+    print(f"balance  = {left} / {right}")
+    print(f"Execution time: {time.perf_counter() - t0:.3f} seconds")
+    print(f"Results written to: {out}")
+    return 0
+
+
+def _run_kl(args, fused: bool) -> int:
+    import torch
+
+    from eig_kl_tpu_torch.io.eigfile import eig_out_path
+    from eig_kl_tpu_torch.io.hgr import read_hgr
+    from eig_kl_tpu_torch.models.pipelines import fused_partition, kl_partition
+    from eig_kl_tpu_torch.utils import logging as rlog
+    from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
+    from eig_kl_tpu_torch.utils.device import resolve_device
+
+    _check_ported(args, fused)
+    resolve_device(args.device)
+    dtype = torch.float64 if args.f64 else torch.float32
+    t0 = time.perf_counter()
+    hg = read_hgr(args.input)
+    print(f"Circuit: {hg.num_nets} nets, {hg.num_nodes} nodes, {hg.num_pins} pins")
+    kl_config = KLConfig(gain_eps=getattr(args, "gain_eps", 1e-6))
+    if fused:
+        spec_kwargs = {}
+        if args.power_iters is not None:
+            spec_kwargs["max_iterations"] = args.power_iters
+        run = fused_partition(
+            hg,
+            use_eig=args.eig_init,
+            spectral_config=SpectralConfig(solver=args.solver, **spec_kwargs),
+            kl_config=kl_config,
+            seed=args.seed,
+            dtype=dtype,
+            device=args.device,
+        )
+    else:
+        run = kl_partition(
+            hg,
+            init=eig_out_path(args.input) if args.eig_init else None,
+            kl_config=kl_config,
+            seed=args.seed,
+            dtype=dtype,
+            shuffled_ties=args.shuffled_ties,
+            device=args.device,
+        )
+    runtime = time.perf_counter() - t0
+    out = rlog.kl_results_path(args.input, args.eig_init)
+    rlog.write_kl_trajectory(out, run.kl)
+    if run.nnz is not None:
+        print(rlog.format_matrix_stats(hg.num_nodes, run.nnz))
+    if getattr(args, "table", False):
+        print(rlog.format_iteration_table(run.kl, kl_seconds=run.timings.get("kl.pass")))
+    print(rlog.format_final_results(run.kl, runtime))
+    for name, secs in sorted(run.timings.items()):
+        print(f"  [{name}] {secs:.3f}s")
+    if run.spectral_iterations is not None:
+        print(f"Power iterations: {run.spectral_iterations}")
+    print(f"Device: {_device_name(args.device)}")
+    print(f"Trajectory written to: {out}")
+    return 0
+
+
+def _device_name(device: str) -> str:
+    import torch
+
+    if device == "cuda":
+        return f"cuda ({torch.cuda.get_device_name(0)})"
+    return "cpu"
+
+
+def cmd_generate(args) -> int:
+    from eig_kl_tpu_torch.models.generator import CircuitGenerator
+
+    hg = CircuitGenerator(args.size, args.seed).write(args.output)
+    print(f"Generated circuit written to: {args.output}")
+    print(
+        f"Circuit size: {args.size}x reference "
+        f"({hg.num_nets} nets, {hg.num_nodes} nodes, {hg.num_pins} pins)"
+    )
+    return 0
+
+
+def cmd_info() -> int:
+    import torch
+
+    print("================= Device Info ===================")
+    if not torch.cuda.is_available():
+        print("No CUDA device (run with --device cpu)")
+        return 0
+    for i in range(torch.cuda.device_count()):
+        p = torch.cuda.get_device_properties(i)
+        print(f"Device {i}: {p.name} (cuda)")
+        print(
+            f"  sm_{p.major}{p.minor}, {p.multi_processor_count} SMs, "
+            f"{p.total_memory / 2**30:.1f} GiB"
+        )
+    return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    args = build_parser().parse_args(argv)
+    try:
+        if args.command == "eig":
+            return cmd_eig(args)
+        if args.command == "kl":
+            return _run_kl(args, fused=False)
+        if args.command == "fused":
+            return _run_kl(args, fused=True)
+        if args.command == "generate":
+            return cmd_generate(args)
+        if args.command == "info":
+            return cmd_info()
+    except FileNotFoundError as e:
+        print(f"Error: file not found: {e.filename}", file=sys.stderr)
+        return 1
+    except NotPorted as e:
+        print(f"Error: {e} is not yet ported to eig_kl_tpu_torch", file=sys.stderr)
+        return 1
+    except (ValueError, OSError, RuntimeError) as e:
+        print(f"Error: {e}", file=sys.stderr)
+        return 1
+    return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

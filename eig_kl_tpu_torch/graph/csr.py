@@ -1,0 +1,211 @@
+"""Graph containers: host-side symmetric CSR and device-side CSR.
+
+:class:`Graph` is the port's copy of the host container of
+``eig_kl_tpu/graph/csr.py``.  :class:`DeviceGraph` differs from the JAX
+package's: that one holds a padded ELL layout, because XLA wants static
+shapes and the TPU gathers whole rows.  Here the device holds the CSR
+arrays themselves, which is what the hand-written kernels read: the
+SpMV walks each row's span, and the KL pass updates exactly the entries
+of the two swapped rows.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def ell_width(max_degree: int, pad_multiple: int = 8) -> int:
+    """Row width of the JAX package's padded ELL (``Graph.to_device``)."""
+    return max(-(-max_degree // pad_multiple) * pad_multiple, pad_multiple)
+
+
+@dataclasses.dataclass(frozen=True)
+class Graph:
+    """Symmetric weighted graph in CSR form (host / NumPy).
+
+    Attributes:
+      num_nodes: node count n.
+      indptr: int64[n+1] CSR row offsets (both edge directions stored,
+        like the flattened adjacency at gKL.cu:248-268).
+      indices: int32[nnz] column indices, sorted within each row.
+      data: float64[nnz] edge weights.
+    """
+
+    num_nodes: int
+    indptr: np.ndarray
+    indices: np.ndarray
+    data: np.ndarray
+
+    @classmethod
+    def from_upper_coo(
+        cls, n: int, rows: np.ndarray, cols: np.ndarray, weights: np.ndarray
+    ) -> "Graph":
+        """Build from deduplicated upper-triangular COO (rows < cols)."""
+        r = np.concatenate([rows, cols]).astype(np.int64)
+        c = np.concatenate([cols, rows]).astype(np.int64)
+        w = np.concatenate([weights, weights])
+        order = np.lexsort((c, r))
+        r, c, w = r[order], c[order], w[order]
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(r, minlength=n), out=indptr[1:])
+        return cls(
+            num_nodes=n,
+            indptr=indptr,
+            indices=c.astype(np.int32),
+            data=np.asarray(w),
+        )
+
+    @classmethod
+    def from_arrays(
+        cls, indptr: np.ndarray, indices: np.ndarray, data: np.ndarray
+    ) -> "Graph":
+        """Wrap existing CSR arrays (for example the JAX package's
+        ``Graph`` fields) without re-deriving them."""
+        indptr = np.asarray(indptr, dtype=np.int64)
+        return cls(
+            num_nodes=int(indptr.shape[0] - 1),
+            indptr=indptr,
+            indices=np.asarray(indices, dtype=np.int32),
+            data=np.asarray(data),
+        )
+
+    @property
+    def nnz(self) -> int:
+        """Stored entries (2x the undirected edge count)."""
+        return int(self.indices.shape[0])
+
+    @property
+    def degrees(self) -> np.ndarray:
+        """Unweighted degree (neighbors per node)."""
+        return np.diff(self.indptr)
+
+    @property
+    def weighted_degrees(self) -> np.ndarray:
+        """deg_i = sum_j w_ij."""
+        out = np.zeros(self.num_nodes, dtype=self.data.dtype)
+        np.add.at(out, np.repeat(np.arange(self.num_nodes), self.degrees), self.data)
+        return out
+
+    @property
+    def total_weight(self) -> float:
+        """Sum of undirected edge weights T = sum_{i<j} w_ij."""
+        return float(self.data.sum()) / 2.0
+
+    @property
+    def max_degree(self) -> int:
+        d = self.degrees
+        return int(d.max()) if d.size else 0
+
+    def relabel(self, perm: np.ndarray) -> "Graph":
+        """Relabel nodes: old node ``perm[p]`` becomes new node ``p``
+        (reproduces cKL's shuffled tie-break order, cKL.cpp:175-193)."""
+        n = self.num_nodes
+        new_id = np.empty(n, dtype=np.int64)
+        new_id[perm] = np.arange(n, dtype=np.int64)
+        rows = new_id[np.repeat(np.arange(n, dtype=np.int64), self.degrees)]
+        cols = new_id[self.indices.astype(np.int64)]
+        order = np.lexsort((cols, rows))
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(np.bincount(rows, minlength=n), out=indptr[1:])
+        return Graph(
+            num_nodes=n,
+            indptr=indptr,
+            indices=cols[order].astype(np.int32),
+            data=self.data[order],
+        )
+
+    def to_device(
+        self, device: torch.device | str, dtype: torch.dtype = torch.float32
+    ) -> "DeviceGraph":
+        """Upload the CSR arrays.  Weights, weighted degrees and the total
+        weight are derived in float64 on the host and rounded once to
+        ``dtype``, as the JAX package's ``Graph.to_device`` does."""
+        if self.nnz >= 2**31:
+            raise ValueError(f"nnz {self.nnz} does not fit int32 CSR offsets")
+        np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+        return DeviceGraph(
+            indptr=torch.as_tensor(self.indptr.astype(np.int32)).to(device),
+            indices=torch.as_tensor(self.indices.astype(np.int32)).to(device),
+            data=torch.as_tensor(self.data.astype(np_dtype)).to(device),
+            degrees=torch.as_tensor(
+                np.asarray(self.weighted_degrees, dtype=np_dtype)
+            ).to(device),
+            total_weight=torch.as_tensor(
+                np.asarray(self.total_weight, dtype=np_dtype)
+            ).to(device),
+            row_width=ell_width(self.max_degree),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceGraph:
+    """Device-resident CSR adjacency.
+
+    Attributes:
+      indptr: int32[n+1] row offsets.
+      indices: int32[nnz] neighbor ids, sorted within each row.
+      data: float[nnz] edge weights.
+      degrees: float[n] weighted degrees (sum_j w_ij).
+      total_weight: float scalar, T = sum_{i<j} w_ij.
+      row_width: the JAX package's ELL width for this graph (the largest
+        degree rounded up to a multiple of 8).  The SpMV's summation
+        order follows it (:mod:`eig_kl_tpu_torch.ops.spmv`).
+    """
+
+    indptr: torch.Tensor
+    indices: torch.Tensor
+    data: torch.Tensor
+    degrees: torch.Tensor
+    total_weight: torch.Tensor
+    row_width: int
+
+    @property
+    def num_nodes(self) -> int:
+        return int(self.indptr.shape[0] - 1)
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indices.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.data.dtype
+
+
+def device_graph_from_jax(
+    ell_indices: np.ndarray,
+    ell_weights: np.ndarray,
+    degrees: np.ndarray,
+    total_weight: np.ndarray,
+    device: torch.device | str,
+) -> DeviceGraph:
+    """The port's CSR :class:`DeviceGraph` from the arrays of a JAX
+    package ``DeviceGraph`` (passed as numpy).
+
+    ELL rows are padded with ``(row, 0.0)``; those pads are dropped.  The
+    graph has no self-loops, so a ``(row, 0.0)`` entry is always a pad.
+    Row order and each row's entry order are kept, so the CSR holds the
+    same values in the same order as the host ``Graph`` the ELL was
+    built from.
+    """
+    idx = np.asarray(ell_indices)
+    w = np.asarray(ell_weights)
+    n = idx.shape[0]
+    keep = ~((idx == np.arange(n)[:, None]) & (w == 0))
+    indptr = np.zeros(n + 1, dtype=np.int32)
+    np.cumsum(keep.sum(axis=1), out=indptr[1:])
+    return DeviceGraph(
+        indptr=torch.as_tensor(indptr).to(device),
+        indices=torch.as_tensor(idx[keep].astype(np.int32)).to(device),
+        data=torch.as_tensor(np.ascontiguousarray(w[keep])).to(device),
+        degrees=torch.as_tensor(np.array(degrees)).to(device),
+        total_weight=torch.as_tensor(np.array(total_weight)).to(device),
+        row_width=int(idx.shape[1]),
+    )

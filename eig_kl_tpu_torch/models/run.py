@@ -1,0 +1,26 @@
+"""Result bundle of an end-to-end run (the port's copy of
+``eig_kl_tpu/models/run.py``, plus the power iteration count)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+from eig_kl_tpu_torch.io.eigfile import EigResult
+from eig_kl_tpu_torch.kl.result import KLResult
+
+
+@dataclasses.dataclass
+class PartitionRunData:
+    """Result bundle of an end-to-end run."""
+
+    circuit: str
+    eig: EigResult | None
+    kl: KLResult | None
+    timings: dict[str, float]
+    #: adjacency nonzeros (both directions), for the matrix-statistics
+    #: block (cKL.cpp:134-146); None when no graph was built.
+    nnz: int | None = None
+    #: per-start best cuts of a multi-start run (not yet ported).
+    start_cuts: list | None = None
+    #: power-iteration steps of the spectral phase; None without one.
+    spectral_iterations: int | None = None

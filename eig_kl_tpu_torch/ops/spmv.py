@@ -1,0 +1,143 @@
+"""The SpMV ``y = A @ x``: kernel K1 (``csrc/spmv_csr.cu``), its plain
+version, and the dispatch between them.
+
+Replaces the plan-based dispatch of ``eig_kl_tpu/ops/spmv_pallas.py``
+(``spmv_pallas``/``spmv_pallas_2d``) and the v1 and v2 Pallas kernels
+behind it.  The power solver runs one SpMV per step; the KL pass runs
+one for its initial ``A @ s`` and one for the final recount.
+
+Summation order.  K1 and the plain version add each row in one fixed
+order: the order in which XLA's CPU backend adds the rows of the JAX
+package's f32 ELL SpMV (``eig_kl_tpu/ops/partition.py:spmv``), so that
+the f32 result equals the JAX package's CPU result bit for bit.  That
+order depends on the ELL width ``W = DeviceGraph.row_width`` (the
+largest degree rounded up to a multiple of 8):
+
+* ``W <= 32``: the entries of a row go to 8 lanes by their position in
+  the row (position mod 8); each lane accumulates its entries in order
+  with fused multiply-adds (one rounding per entry); the 8 lane sums
+  combine as ``((l0+l4) + (l2+l6)) + ((l1+l5) + (l3+l7))``.
+* ``W > 32``: the row is cut into windows of 32 positions after
+  ``(32 * ceil(W / 32) - W) // 2`` leading pad positions; each window
+  adds its rounded products in order, and the window sums add in order.
+
+The ELL's padding entries add exact zeros and are skipped.  The f64
+plain version uses the same order with unfused multiply-adds (PyTorch
+has no exact f64 fused multiply-add); it is not bit-identical to XLA's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from eig_kl_tpu_torch.graph.csr import DeviceGraph
+from eig_kl_tpu_torch.ops._build import Kernel
+
+_P = ctypes.c_void_p
+K1 = Kernel(
+    "spmv_csr", "spmv_csr_f32", [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]
+)
+
+LANES = 8
+WINDOW = 32
+
+
+def row_ids(g: DeviceGraph) -> torch.Tensor:
+    """int64[nnz]: the row of every stored entry."""
+    counts = (g.indptr[1:] - g.indptr[:-1]).long()
+    return torch.repeat_interleave(torch.arange(g.num_nodes, device=g.device), counts)
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` for f32 tensors with one rounding, like ``fmaf``.
+
+    The product is exact in f64.  The f64 sum is formed round-to-odd (its
+    exact error from TwoSum decides the last bit), which makes the final
+    rounding to f32 the correctly rounded fused result (Boldo and
+    Melquiond, "When double rounding is odd", 2005).
+    """
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - c
+    err = (p - bp) + (c - (s - bp))
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
+def _accumulate(acc, rows, slot, step, values, fused_with=None):
+    """``acc[rows, slot] += values`` in increasing ``step`` order; with
+    ``fused_with`` the add is ``fma(values, fused_with, acc)``."""
+    for j in range(int(step.max()) + 1 if step.numel() else 0):
+        sel = step == j
+        r, s = rows[sel], slot[sel]
+        if fused_with is None:
+            acc[r, s] = acc[r, s] + values[sel]
+        else:
+            acc[r, s] = fma_f32(values[sel], fused_with[sel], acc[r, s])
+    return acc
+
+
+def spmv_plain(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x`` in plain PyTorch, in the graph's dtype, in K1's order."""
+    n, dt, dev = g.num_nodes, g.dtype, g.device
+    rows = row_ids(g)
+    pos = torch.arange(g.nnz, device=dev) - g.indptr[:-1].long()[rows]
+    xv = x[g.indices.long()].to(dt)
+    if g.row_width <= WINDOW:
+        lanes = torch.zeros(n, LANES, dtype=dt, device=dev)
+        if dt == torch.float32:
+            _accumulate(lanes, rows, pos % LANES, pos // LANES, g.data, fused_with=xv)
+        else:
+            _accumulate(lanes, rows, pos % LANES, pos // LANES, g.data * xv)
+        while lanes.shape[1] > 1:
+            half = lanes.shape[1] // 2
+            lanes = lanes[:, :half] + lanes[:, half:]
+        return lanes[:, 0].contiguous()
+    m = -(-g.row_width // WINDOW)
+    shifted = pos + (m * WINDOW - g.row_width) // 2
+    windows = torch.zeros(n, m, dtype=dt, device=dev)
+    _accumulate(windows, rows, shifted // WINDOW, shifted % WINDOW, g.data * xv)
+    y = torch.zeros(n, dtype=dt, device=dev)
+    for j in range(m):
+        y = y + windows[:, j]
+    return y
+
+
+def spmv_csr(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
+    """Launch K1 on the current stream; ``x`` and the graph are f32 on the
+    card."""
+    n = g.num_nodes
+    if x.device.type != "cuda" or g.device != x.device:
+        raise ValueError("spmv_csr needs x and the graph on one CUDA device")
+    if x.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(
+            "the card's SpMV is float32 only (an f64 engine on the card is "
+            f"ROADMAP.md A9); got x {x.dtype}, graph {g.dtype}"
+        )
+    if x.shape != (n,) or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous ({n},) vector, got {tuple(x.shape)}")
+    y = torch.empty(n, dtype=torch.float32, device=x.device)
+    K1(
+        g.indptr.data_ptr(),
+        g.indices.data_ptr(),
+        g.data.data_ptr(),
+        x.data_ptr(),
+        y.data_ptr(),
+        n,
+        g.row_width,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return y
+
+
+def spmv(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
+    """``A @ x``: K1 for a tensor on the card, the plain version for a
+    tensor on the CPU."""
+    if x.device.type == "cpu":
+        return spmv_plain(g, x)
+    return spmv_csr(g, x)

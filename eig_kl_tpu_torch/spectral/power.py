@@ -1,0 +1,151 @@
+"""gKL2-flavor spectral partitioner: shift-inverted power iteration (the
+port of ``eig_kl_tpu/spectral/power.py:_power_core_impl``, ``:122``).
+
+The reference builds a row-degree-normalized Laplacian with off-diagonal
+``-2 w_ij / deg_i`` and diagonal ``+2`` from the KL-weighted adjacency
+(gKL2.cu:262-303) and iterates ``y = x - (L x) / shift`` with shift 2.0
+(gKL2.cu:335-353), normalising every step.  The start vector is the JAX
+package's ``jax.random.uniform(PRNGKey(seed)) - 0.5``, reproduced bit
+for bit by :func:`eig_kl_tpu_torch.utils.threefry.uniform`.
+
+The steps run on the device; the exit tests run on the host, which reads
+one scalar per check (every ``check_interval`` steps for "sign", every
+step for "gkl2").  Norms and dot products add in the fixed order of
+:mod:`eig_kl_tpu_torch.ops.reduce`, which makes the iterate equal the JAX
+package's CPU iterate bit for bit.  The "momentum" exit is not yet
+ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from eig_kl_tpu_torch.graph.csr import DeviceGraph
+from eig_kl_tpu_torch.ops.reduce import tree_dot, tree_norm
+from eig_kl_tpu_torch.ops.select import upper_median
+from eig_kl_tpu_torch.ops.spmv import spmv
+from eig_kl_tpu_torch.utils.config import SpectralConfig
+from eig_kl_tpu_torch.utils.threefry import uniform
+
+#: Exits the port implements; "momentum" is ROADMAP.md A7.
+CONVERGENCE_RULES = ("sign", "gkl2")
+
+
+def resolve_convergence(convergence: str, dtype: torch.dtype) -> str:
+    """"auto" -> "gkl2" for f64, "sign" otherwise (power.py's auto rule)."""
+    if convergence == "auto":
+        return "gkl2" if dtype == torch.float64 else "sign"
+    if convergence not in CONVERGENCE_RULES:
+        raise NotImplementedError(
+            f"power convergence {convergence!r} is not yet ported to "
+            "eig_kl_tpu_torch (ROADMAP.md A7)"
+        )
+    return convergence
+
+
+def _power_core(
+    g: DeviceGraph,
+    *,
+    shift: float,
+    tolerance: float,
+    min_iters: int,
+    max_iters: int,
+    seed: int,
+    dtype: torch.dtype,
+    convergence: str = "gkl2",
+    check_interval: int = 25,
+    stable_checks: int = 2,
+):
+    """The power solve.  Returns ``(lam, v, iterations)`` with ``lam`` a
+    0-d tensor and ``v`` the final iterate on the graph's device."""
+    convergence = resolve_convergence(convergence, dtype)
+    n = g.num_nodes
+    inv_shift = 1.0 / shift
+    safe_deg = torch.where(g.degrees > 0, g.degrees, 1.0).to(dtype)
+
+    def norm_lap(x):
+        # L x with L = 2 I - 2 D^-1 A (row-normalized, gKL2.cu:262-303).
+        return 2.0 * x - 2.0 * spmv(g, x.to(g.dtype)).to(dtype) / safe_deg
+
+    def step(x):
+        y = x - inv_shift * norm_lap(x)  # gKL2.cu:65-89 sparseMVKernel
+        nrm = tree_norm(y)
+        safe = nrm > 0
+        return torch.where(safe, y / torch.where(safe, nrm, 1.0), y), nrm
+
+    np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
+    x0 = uniform(seed, n, np_dtype) - np_dtype.type(0.5)
+    x, nrm = step(torch.as_tensor(x0).to(g.device))
+    iteration = 1
+
+    if convergence == "sign":
+        # f32-appropriate exit (eig_kl_tpu/spectral/power.py:193-262):
+        # watch the median-split pattern every check_interval steps; stop
+        # when it is stable for stable_checks checks, or when its change
+        # rose 10% above its minimum (then the minimum's iterate wins).
+        flip_tol = 1e-3
+
+        def split_of(v):
+            return upper_median(v, n) > v
+
+        split = split_of(x)
+        best_x, best_flips, flips, stable = x, n + 1, n + 1, 0
+        f32 = np.float32
+        while True:
+            past_min = iteration > min_iters
+            crisp = stable >= stable_checks and past_min
+            rose = f32(flips) > f32(1.1) * f32(best_flips) and past_min
+            if crisp or rose or iteration >= max_iters:
+                break
+            for _ in range(check_interval):
+                x = step(x)[0]
+            new_split = split_of(x)
+            d = int((new_split != split).sum())
+            flips = min(d, n - d)
+            if flips < best_flips:
+                best_x, best_flips = x, flips
+            stable = stable + 1 if flips <= flip_tol * n else 0
+            split = new_split
+            iteration += check_interval
+        v = best_x if flips > best_flips else x
+    else:  # "gkl2": the reference's rule (gKL2.cu:26-27, 370-377)
+        norm, prev = nrm, torch.zeros((), dtype=dtype, device=g.device)
+        while True:
+            done = bool(torch.abs(norm - prev) < tolerance) and iteration > min_iters
+            if done or iteration >= max_iters:
+                break
+            x, nrm = step(x)
+            prev, norm = norm, nrm
+            iteration += 1
+        v = x
+    lam = tree_dot(v, norm_lap(v))  # Rayleigh quotient
+    return lam, v, iteration
+
+
+def power_partition_fiedler(
+    g: DeviceGraph,
+    config: SpectralConfig = SpectralConfig(solver="power"),
+    *,
+    dtype: torch.dtype = torch.float32,
+):
+    """Power solve + "upper"-median split, fetched to the host.
+
+    Returns ``(eigenvalue, median, values, sides, iterations)`` with
+    ``sides[i] = median > values[i]`` (int8), the gKL2 split semantics
+    (gKL2.cu:403-414)."""
+    lam, v, iters = _power_core(
+        g,
+        shift=config.shift,
+        tolerance=config.tolerance,
+        min_iters=config.min_power_iters,
+        max_iters=config.max_iterations,
+        seed=config.seed,
+        dtype=dtype,
+        convergence=config.convergence,
+        check_interval=config.check_interval,
+        stable_checks=config.stable_checks,
+    )
+    med = upper_median(v)
+    sides = (med > v).to(torch.int8)
+    return float(lam), float(med), v.cpu().numpy(), sides.cpu().numpy(), iters

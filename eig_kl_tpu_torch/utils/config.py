@@ -1,0 +1,112 @@
+"""Configuration for the two algorithm phases.
+
+The port's own copy of ``eig_kl_tpu/utils/config.py``: the same fields,
+defaults and rules, so that a configuration means the same thing in
+both packages.  The reference's hard-coded constants, with their
+origins:
+
+* terminate limit ``log2(n) + 5`` (cKL.cpp:303, gKL.cu:443)
+* gain epsilon: cKL stops counting on ``gain <= 0`` (cKL.cpp:382), the
+  GPU versions on ``gain <= 1e-6`` (gKL.cu:26,495)
+* power iteration: max 1000 iterations, convergence ``|delta norm| <
+  1e-6`` only after iteration 100, shift 2.0, seed 42
+  (gKL2.cu:26-27,322,335,370-377)
+* Lanczos/Spectra: nev=2, ncv=min(100, n/2) (cEIG.cpp:195)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+
+@dataclasses.dataclass(frozen=True)
+class KLConfig:
+    """KL refinement options.
+
+    Attributes:
+      gain_eps: swaps with gain <= gain_eps count toward termination
+        (0.0 matches cKL.cpp:382; 1e-6 matches gKL.cu:495).
+      terminate_extra: terminate after ``floor(log2(n)) + terminate_extra``
+        consecutive non-improving swaps (5 in the reference).
+      max_iterations: hard cap on swaps; None = min side size (the
+        natural KL exhaustion point).
+      refresh_interval: if > 0, recompute the cached ``A @ s`` and the
+        incremental cut from scratch every this many swaps.  Not yet
+        ported: the port's engine raises for values > 0.
+      use_pallas: engine selection of the JAX package; the port has one
+        engine and ignores it.
+      passes: number of KL passes.  The port runs exactly one (the
+        reference's semantics, cKL.cpp:363, gKL.cu:484).
+      kicks: iterated-local-search rounds.  Not yet ported (0 only).
+      kick_frac: kick size as a fraction of nodes.
+    """
+
+    gain_eps: float = 0.0
+    terminate_extra: int = 5
+    max_iterations: int | None = None
+    refresh_interval: int = 0
+    use_pallas: bool | None = None
+    passes: int = 1
+    kicks: int = 0
+    kick_frac: float = 0.15
+
+    def terminate_limit(self, num_nodes: int) -> int:
+        return int(math.log2(max(num_nodes, 2))) + self.terminate_extra
+
+
+@dataclasses.dataclass(frozen=True)
+class SpectralConfig:
+    """Spectral (Fiedler) phase options.
+
+    Attributes:
+      solver: "lanczos", "power", "lobpcg" or "auto" (lanczos when the
+        circuit has at most ``auto_lanczos_max_nodes`` nodes, power
+        otherwise).  The port implements "power" only.  Resolve with
+        :func:`resolve_solver` before dispatching.
+      num_lanczos: Krylov subspace size (lanczos only).
+      max_iterations: power-iteration cap (gKL2.cu:26).
+      tolerance: power delta-norm tolerance (gKL2.cu:27).
+      min_power_iters: power iteration only tests convergence after this
+        many steps (gKL2.cu:377).
+      shift: power-iteration spectral shift (gKL2.cu:335).
+      seed: RNG seed for the initial vector (srand(42), gKL2.cu:322).
+      convergence: power-iteration exit rule.  "gkl2" = the reference's
+        ``|delta norm| < tolerance`` (gKL2.cu:370-377); "sign" = stop when
+        the median-split sign pattern is unchanged across
+        ``stable_checks`` consecutive checks ``check_interval`` steps
+        apart, or once its change rose past its minimum; "momentum" is
+        not yet ported.  "auto" (default) = "sign" for f32, "gkl2" for
+        f64.
+      check_interval: power steps between sign-stability checks.
+      stable_checks: consecutive unchanged checks required to stop.
+      inter_dtype: dtype of the TPU SpMV's streamed intermediates.  The
+        port's SpMV runs all-f32 and does not read it.
+      host_refine: host f64 polish of lanczos/lobpcg pairs (not ported).
+    """
+
+    solver: str = "lanczos"
+    num_lanczos: int | None = None
+    max_iterations: int = 1000
+    tolerance: float = 1e-6
+    min_power_iters: int = 100
+    shift: float = 2.0
+    seed: int = 42
+    convergence: str = "auto"
+    check_interval: int = 25
+    stable_checks: int = 2
+    inter_dtype: str = "bfloat16"
+    host_refine: bool | None = None
+    auto_lanczos_max_nodes: int = 256
+
+
+def resolve_solver(config: SpectralConfig, num_nodes: int) -> SpectralConfig:
+    """Resolve ``solver="auto"`` to a concrete solver for this circuit:
+    lanczos at ``auto_lanczos_max_nodes`` nodes or fewer, power above.
+    No-op for concrete solvers."""
+    if config.solver != "auto":
+        return config
+    solver = (
+        "lanczos" if num_nodes <= config.auto_lanczos_max_nodes else "power"
+    )
+    return dataclasses.replace(config, solver=solver)
