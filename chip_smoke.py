@@ -32,6 +32,8 @@ SEED = 42
 JAX_CPU_BEST_CUT = 39697.91
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+STARTS, PERTURB, KICKS = 8, 0.05, 2  # the multi-start path
+PASS_FIELDS = ("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars")
 
 
 def card_line() -> str:
@@ -61,22 +63,78 @@ def check(cond: bool, what: str) -> None:
         raise AssertionError(what)
 
 
-def k2_bound(g, swaps: int, swapped: torch.Tensor) -> tuple[float, str, int, int]:
-    """K2's least time for a pass of ``swaps`` swaps that swapped the nodes
-    ``swapped``: ``(ms, bound_by, bytes, operations)``.
+def swaps_of(out) -> list[tuple[int, torch.Tensor]]:
+    """Per start of a PassOutput (with or without a start axis): the
+    number of swaps and the nodes they swapped."""
+    log_a = out.log_a.reshape(-1, out.log_a.shape[-1])
+    log_b = out.log_b.reshape(-1, out.log_b.shape[-1])
+    counts = out.scalars.reshape(-1, 8)[:, 2].long().tolist()
+    return [
+        (it, torch.cat([log_a[k, 1 : it + 1], log_b[k, 1 : it + 1]]))
+        for k, it in enumerate(counts)
+    ]
 
-    Bytes: the graph, sf0 and a_s0 read once; the final sf, four logs and
-    8 scalars written once.  Operations: what the pass needs with the TPU
-    kernel's per-128-node row-max cache, not K2's flat scan: per swap a
-    compare for each cached row maximum of each side, and a multiply and
-    an add for each entry of the two swapped rows.
+
+def k2_bound(g, starts) -> tuple[float, str, int, int]:
+    """K2's least time for one launch over ``starts``, a list of
+    ``(swaps, swapped nodes)`` per start: ``(ms, bound_by, bytes,
+    operations)``.
+
+    Bytes: the graph read once; per start sf0, a_s0 and the four
+    parameters read once, and the final sf, the entries the pass wrote
+    into its four logs and 8 scalars written once.  Operations: what
+    these passes need with the TPU kernel's per-128-node row-max cache,
+    not K2's flat scan: per swap a compare for each cached row maximum of
+    each side, and a multiply and an add for each entry of the two swapped
+    rows.
     """
     n, nnz = g.num_nodes, g.nnz
-    n_bytes = 4 * (g.indptr.numel() + 2 * nnz + 3 * n + 4 * (swaps + 1) + 8)
     degrees = (g.indptr[1:] - g.indptr[:-1]).long()
-    n_ops = swaps * 2 * -(-n // 128) + 2 * int(degrees[swapped.long()].sum())
+    n_bytes, n_ops = 4 * (g.indptr.numel() + 2 * nnz), 0
+    for swaps, swapped in starts:
+        n_bytes += 4 * (3 * n + 4 + 4 * (swaps + 1) + 8)
+        n_ops += swaps * 2 * -(-n // 128) + 2 * int(degrees[swapped.long()].sum())
     t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", n_bytes, n_ops
+
+
+def host_cut(g_host, sides) -> float:
+    """The cut of ``sides`` on the host graph, recounted in float64."""
+    n = g_host.num_nodes
+    sgn = 1.0 - 2.0 * np.asarray(sides, dtype=np.float64)
+    rows = np.repeat(np.arange(n), np.diff(g_host.indptr))
+    a_sgn = np.bincount(rows, weights=g_host.data * sgn[g_host.indices], minlength=n)
+    return float(0.25 * (g_host.data.sum() - sgn @ a_sgn))
+
+
+def check_same_pass(a, b, what: str) -> None:
+    for name in PASS_FIELDS:
+        check(torch.equal(getattr(a, name), getattr(b, name)), f"{what}: {name} differs")
+
+
+def report_device_busy(what: str, fn) -> None:
+    """Run ``fn`` once under the profiler and print the device's busy time,
+    its share of the wall time, and the kernels that took most of it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # Kernels only: an operator's device time is its kernels' time again.
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in events)
+    if busy_us == 0:
+        print(f"{what}: the profiler recorded no device time: device busy share not measured")
+        return
+    print(
+        f"{what}, profiled: e2e {wall:.3f} s, device busy {busy_us / 1e6:.3f} s "
+        f"({100 * busy_us / 1e6 / wall:.1f} %); top kernels by device time:"
+    )
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x  {e.key[:90]}")
 
 
 def main() -> int:
@@ -84,8 +142,16 @@ def main() -> int:
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
     from eig_kl_tpu_torch.graph.csr import DeviceGraph
     from eig_kl_tpu_torch.graph.expand import clique_expand
-    from eig_kl_tpu_torch.kl.megakernel import K2, kl_pass_cuda, kl_pass_plain
-    from eig_kl_tpu_torch.kl.init import random_split
+    from eig_kl_tpu_torch.kl.megakernel import (
+        K2,
+        K2_STARTS,
+        _batch_init,
+        kl_pass_batch_cuda,
+        kl_pass_batch_plain,
+        kl_pass_cuda,
+        kl_pass_plain,
+    )
+    from eig_kl_tpu_torch.kl.init import perturb_split, random_split
     from eig_kl_tpu_torch.models.generator import CircuitGenerator
     from eig_kl_tpu_torch.models.pipelines import fused_partition
     from eig_kl_tpu_torch.ops import _build
@@ -173,8 +239,7 @@ def main() -> int:
     check(torch.equal(out_k.scalars, out_p.scalars), "K2 scalars differ from kl_pass_plain")
     k2_err = float((out_k.log_cut[: it + 1] - out_p.log_cut[: it + 1]).abs().max())
     k2_ms = min(k2_ms, cuda_ms(lambda: kl_pass_cuda(*args), 2))
-    swapped = torch.cat([out_k.log_a[1 : it + 1], out_k.log_b[1 : it + 1]])
-    k2_bound_ms, k2_bound_by, k2_bytes, k2_ops = k2_bound(g, it, swapped)
+    k2_bound_ms, k2_bound_by, k2_bytes, k2_ops = k2_bound(g, swaps_of(out_k))
     print(
         f"K2: {it} swaps from a random split, logs and sf bitwise equal to the plain "
         f"version; {k2_ms:.3f} ms ({1e3 * k2_ms / max(it, 1):.3f} us/swap), plain "
@@ -182,15 +247,90 @@ def main() -> int:
         f"({k2_bytes} bytes, {k2_ops} operations)"
     )
 
+    # Phase 4b: the batched K2 against kl_pass_batch_plain.  Four starts in
+    # one launch, with caps that keep the plain version to some seconds: a
+    # capped pass, a zero cap (no swap, scalars still written), a second
+    # capped pass, and a re-entry with a best cut below the cut and a
+    # termination count carried in.
+    limit = KLConfig().terminate_limit(n)
+    b_sides = torch.as_tensor(np.stack([random_split(n, SEED + i) for i in range(4)])).to(dev)
+    b_s = sides_to_signs(b_sides, torch.float32)
+    b_as, b_cut0 = _batch_init(g, b_s)
+    b_best0 = b_cut0.clone()
+    b_best0[3] = 1.0  # below any cut the pass reaches
+    b_cap = torch.tensor([3000, 0, 2000, 1000], dtype=torch.int32, device=dev)
+    b_term0 = torch.tensor([0, 0, 0, 7], dtype=torch.int32, device=dev)
+    b_args = (g, b_s, b_as, b_cut0, b_best0, b_cap, b_term0, 3001, limit, 1e-6)
+    out_b = kl_pass_batch_cuda(*b_args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_bp = kl_pass_batch_plain(*b_args)
+    torch.cuda.synchronize()
+    kb_plain_ms = (time.perf_counter() - t0) * 1e3
+    check_same_pass(out_b, out_bp, "batched K2 against kl_pass_batch_plain")
+    b_its = out_b.scalars[:, 2].long().tolist()
+    check(b_its == b_cap.tolist(), f"the capped starts ran {b_its} swaps")
+    check(float(out_b.scalars[3, 1]) == float(b_best0[3]), "best0 below cut0 was not kept")
+    kb_err = float((out_b.log_cut - out_bp.log_cut).abs().max())
+    kb_ms = cuda_ms(lambda: kl_pass_batch_cuda(*b_args), 3)
+    kb_bound_ms, kb_bound_by, kb_bytes, kb_ops = k2_bound(g, swaps_of(out_b))
+    print(
+        f"K2 batched: 4 starts, {b_its} swaps, sf, logs and scalars bitwise equal to the "
+        f"plain version; {kb_ms:.3f} ms, plain {kb_plain_ms:.1f} ms, bound "
+        f"{kb_bound_ms:.4f} ms by {kb_bound_by} ({kb_bytes} bytes, {kb_ops} operations)"
+    )
+    # The same four starts, full passes: one batched launch against four
+    # single-start launches.
+    full_cap = torch.tensor(
+        [min(c, n - c) for c in b_sides.sum(dim=1, dtype=torch.int64).tolist()],
+        dtype=torch.int32, device=dev,
+    )
+    zeros = torch.zeros_like(full_cap)
+    log_len = int(full_cap.max()) + 1
+    out_full = kl_pass_batch_cuda(g, b_s, b_as, b_cut0, b_cut0, full_cap, zeros, log_len, limit, 1e-6)
+    for k in range(4):
+        single = kl_pass_cuda(g, b_s[k], b_as[k], float(b_cut0[k]), int(full_cap[k]), limit, 1e-6)
+        m = single.log_cut.shape[0]
+        check(torch.equal(out_full.sf[k], single.sf), f"start {k}: sf differs from a single launch")
+        check(torch.equal(out_full.scalars[k], single.scalars), f"start {k}: scalars differ from a single launch")
+        for name in PASS_FIELDS[1:5]:
+            log = getattr(out_full, name)[k]
+            check(torch.equal(log[:m], getattr(single, name)), f"start {k}: {name} differs from a single launch")
+            check(not bool(log[m:].any()), f"start {k}: {name} is not zero past its cap")
+    torch.cuda.synchronize()
+    print(
+        "K2 batched: full passes of 4 starts "
+        f"({out_full.scalars[:, 2].long().tolist()} swaps) bitwise equal to 4 single launches"
+    )
+    # Microseconds per swap of the slowest start against the number of
+    # starts in the launch: the state is 8 B x n per start, and the card's
+    # L2 holds 50 MB.
+    sweep = {}
+    for num in (1, 8, 32):
+        w_sides = torch.as_tensor(np.stack([random_split(n, SEED + i) for i in range(num)])).to(dev)
+        w_s = sides_to_signs(w_sides, torch.float32)
+        w_as, w_cut0 = _batch_init(g, w_s)
+        w_cap = torch.full((num,), 5000, dtype=torch.int32, device=dev)
+        w_args = (g, w_s, w_as, w_cut0, w_cut0, w_cap, torch.zeros_like(w_cap), 5001, limit, 1e-6)
+        w_out = kl_pass_batch_cuda(*w_args)
+        w_ms = cuda_ms(lambda: kl_pass_batch_cuda(*w_args), 2)
+        sweep[num] = 1e3 * w_ms / int(w_out.scalars[:, 2].max())
+        print(
+            f"K2 with {num} starts of 5,000 swaps each: {w_ms:.3f} ms, {sweep[num]:.3f} us per swap "
+            f"of the slowest start, state {8 * n * num / 1e6:.1f} MB"
+        )
+
     # Phase 5: the fused pipeline end to end, through the user's entry point.
     K1.launches = 0
     K2.launches = 0
+    K2_STARTS.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run = fused_partition(hg, use_eig=True, device="cuda")
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
-    k1_launches, k2_launches = K1.launches, K2.launches
+    k1_launches, k2_launches = K1.launches, K2_STARTS[1]
+    check(K2.launches == k2_launches, "the one-start run launched K2 with several starts")
     kl = run.kl
     iters = run.spectral_iterations
     check(k1_launches >= iters + 2, f"K1 launched {k1_launches} times for {iters} power steps")
@@ -207,26 +347,23 @@ def main() -> int:
         best.shape == (n,) and int(best.sum()) == int(np.asarray(run.eig.sides).sum()),
         "best partition does not keep the spectral split's balance",
     )
-    sgn = 1.0 - 2.0 * best.astype(np.float64)
-    rows = np.repeat(np.arange(n), np.diff(g_host.indptr))
-    a_sgn = np.bincount(rows, weights=g_host.data * sgn[g_host.indices], minlength=n)
-    host_cut = 0.25 * (g_host.data.sum() - sgn @ a_sgn)
+    recount = host_cut(g_host, best)
     check(
-        abs(host_cut - kl.best_cut) <= 1e-4 * kl.best_cut,
-        f"best cut {kl.best_cut} disagrees with the host f64 recount {host_cut}",
+        abs(recount - kl.best_cut) <= 1e-4 * kl.best_cut,
+        f"best cut {kl.best_cut} disagrees with the host f64 recount {recount}",
     )
     print(
         f"fused gen {MULTIPLIER}x: {iters} power iterations, initial cut {kl.initial_cut}, "
         f"best cut {kl.best_cut} after {kl.iterations} swaps, final {kl.final_cut}, "
         f"verified {kl.verified_cut} (drift {drift:.3g}), host f64 recount of the best "
-        f"partition {host_cut:.4f}; e2e {e2e_s:.3f} s on {card}; spans "
+        f"partition {recount:.4f}; e2e {e2e_s:.3f} s on {card}; spans "
         + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(run.timings.items()))
     )
     print(f"launches on the main path: K1 {k1_launches}, K2 {k2_launches}")
     # Each node is swapped at most once, so the swapped nodes are those
     # whose side the pass changed.
     moved = torch.as_tensor(np.flatnonzero(np.asarray(kl.sides) != np.asarray(run.eig.sides)))
-    main_ms, main_by, main_bytes, main_ops = k2_bound(g, kl.iterations, moved.to(dev))
+    main_ms, main_by, main_bytes, main_ops = k2_bound(g, [(kl.iterations, moved.to(dev))])
     print(
         f"K2 on the main path: {kl.iterations} swaps, bound {main_ms:.4f} ms by {main_by} "
         f"({main_bytes} bytes, {main_ops} operations)"
@@ -247,28 +384,96 @@ def main() -> int:
         f"e2e repeats: {', '.join(f'{t:.3f}' for t in repeats)} s; spans of the last: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(again.timings.items()))
     )
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    report_device_busy("the fused run", lambda: fused_partition(hg, use_eig=True, device="cuda"))
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fused_partition(hg, use_eig=True, device="cuda")
+    # Phase 7: the multi-start path through the user's entry point: 8
+    # spectral-seeded starts per batched launch, passes until converged,
+    # kicks around the winner.
+    multi_config = KLConfig(gain_eps=1e-6, passes=0, kicks=KICKS)
+
+    def multi_run():
         torch.cuda.synchronize()
-        prof_wall = time.perf_counter() - t0
-    # Kernels only: an operator's device time is its kernels' time again.
-    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in events)
-    if busy_us > 0:
-        print(
-            f"profiled e2e {prof_wall:.3f} s, device busy {busy_us / 1e6:.3f} s "
-            f"({100 * busy_us / 1e6 / prof_wall:.1f} %); top kernels by device time:"
+        t = time.perf_counter()
+        r = fused_partition(
+            hg, use_eig=True, starts=STARTS, perturb=PERTURB, kl_config=multi_config, device="cuda"
         )
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-            print(
-                f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x  {e.key[:90]}"
-            )
-    else:
-        print("profiler recorded no device time: device busy share not measured")
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    K1.launches = 0
+    K2.launches = 0
+    K2_STARTS.clear()
+    multi, multi_s = multi_run()
+    m_k1, m_batched, m_single = K1.launches, K2_STARTS[STARTS], K2_STARTS[1]
+    mkl = multi.kl
+    check(K2.launches == m_batched + m_single, f"K2 launches by starts: {dict(K2_STARTS)}")
+    check(2 <= m_batched <= 16, f"the batched K2 launched {m_batched} times, not once per pass of 2 to 16")
+    check(KICKS <= m_single <= 16 * KICKS, f"the one-start K2 launched {m_single} times for {KICKS} kicks")
+    # Each pass launches K1 for its initial A@s and for its recount, once
+    # per start; the power solve launches it once per step and once more.
+    check(
+        m_k1 == multi.spectral_iterations + 1 + 2 * STARTS * m_batched + 2 * m_single,
+        f"K1 launched {m_k1} times for {multi.spectral_iterations} power steps, "
+        f"{m_batched} batch passes and {m_single} kick passes",
+    )
+    check(multi.spectral_iterations == iters, "the multi-start run took another number of power steps")
+    check(np.array_equal(multi.eig.sides, run.eig.sides), "the multi-start run split otherwise")
+    check(len(multi.start_cuts) == STARTS, "no best cut per start")
+    # Start 0 is the unperturbed split: its first pass is the one-start run.
+    check(
+        mkl.best_cut <= min(multi.start_cuts) <= multi.start_cuts[0] <= kl.best_cut,
+        f"best cut {mkl.best_cut}, per start {multi.start_cuts}, one start {kl.best_cut}",
+    )
+    m_drift = abs(mkl.final_cut - mkl.verified_cut) / mkl.final_cut
+    check(m_drift <= 1e-5, f"cut drift of the last pass {m_drift:.3g} above 1e-5")
+    m_best = np.asarray(mkl.best_sides)
+    check(
+        m_best.shape == (n,) and int(m_best.sum()) == int(np.asarray(multi.eig.sides).sum()),
+        "the multi-start best partition does not keep the spectral split's balance",
+    )
+    m_recount = host_cut(g_host, m_best)
+    check(
+        abs(m_recount - mkl.best_cut) <= 1e-4 * mkl.best_cut,
+        f"best cut {mkl.best_cut} disagrees with the host f64 recount {m_recount}",
+    )
+    multi2, multi2_s = multi_run()
+    check(multi2.kl.best_cut == mkl.best_cut, "a repeated multi-start run gave another best cut")
+    check(multi2.start_cuts == multi.start_cuts, "a repeated multi-start run gave other per-start cuts")
+    print(
+        f"multi-start gen {MULTIPLIER}x ({STARTS} starts, perturb {PERTURB}, passes until "
+        f"converged, {KICKS} kicks): per-start best cuts "
+        f"{[round(c, 2) for c in multi.start_cuts]}, {m_batched} batch passes, {m_single} kick "
+        f"passes, best cut {mkl.best_cut} (one start: {kl.best_cut}), winner's swaps "
+        f"{mkl.iterations}, final {mkl.final_cut}, verified {mkl.verified_cut} (drift "
+        f"{m_drift:.3g}), host f64 recount {m_recount:.4f}; e2e {multi_s:.3f} s and "
+        f"{multi2_s:.3f} s on {card}; spans "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(multi.timings.items()))
+    )
+    print(f"launches on the multi-start path: K1 {m_k1}, K2 batched {m_batched}, K2 one start {m_single}")
+    report_device_busy("the multi-start run", multi_run)
+    # The launch of that path's first pass, alone: its 8 starts from the
+    # spectral split and its jitters.
+    base = np.asarray(multi.eig.sides, dtype=np.int8)
+    p_sides = torch.as_tensor(
+        np.stack([base] + [perturb_split(base, 1 + i, PERTURB) for i in range(STARTS - 1)])
+    ).to(dev)
+    p_s = sides_to_signs(p_sides, torch.float32)
+    p_as, p_cut0 = _batch_init(g, p_s)
+    p_cap = torch.tensor(
+        [min(c, n - c) for c in p_sides.sum(dim=1, dtype=torch.int64).tolist()],
+        dtype=torch.int32, device=dev,
+    )
+    p_args = (g, p_s, p_as, p_cut0, p_cut0, p_cap, torch.zeros_like(p_cap), int(p_cap.max()) + 1, limit, 1e-6)
+    p_out = kl_pass_batch_cuda(*p_args)
+    p_ms = cuda_ms(lambda: kl_pass_batch_cuda(*p_args), 2)
+    p_its = p_out.scalars[:, 2].long().tolist()
+    check(p_its[0] == kl.iterations, "start 0's first pass is not the one-start run's pass")
+    p_bound_ms, p_bound_by, p_bytes, p_ops = k2_bound(g, swaps_of(p_out))
+    print(
+        f"K2 batched, the first pass of the multi-start path: {p_its} swaps, {p_ms:.3f} ms "
+        f"({1e3 * p_ms / max(p_its):.3f} us per swap of the longest start), bound "
+        f"{p_bound_ms:.4f} ms by {p_bound_by} ({p_bytes} bytes, {p_ops} operations)"
+    )
 
     kernels = [
         {
@@ -277,6 +482,7 @@ def main() -> int:
             "source": "eig_kl_tpu_torch/csrc/spmv_csr.cu",
             "replaces": "eig_kl_tpu/ops/spmv_pallas.py:339",
             "launches": k1_launches,
+            "launches_multi_start": m_k1,
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": k1_plain_ms,
@@ -290,12 +496,29 @@ def main() -> int:
             "source": "eig_kl_tpu_torch/csrc/kl_pass.cu",
             "replaces": "eig_kl_tpu/kl/megakernel.py:144",
             "launches": k2_launches,
+            "launches_multi_start": m_single,
             "max_abs_err": k2_err,
             "ms": k2_ms,
             "plain_ms": k2_plain_ms,
             "bound_ms": k2_bound_ms,
             "bound_by": k2_bound_by,
             "library_ms": None,
+        },
+        {
+            "name": "K2 kl_pass_f32, batched over starts",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/kl_pass.cu",
+            "replaces": "eig_kl_tpu/kl/megakernel.py:638",
+            "launches": m_batched,
+            "max_abs_err": kb_err,
+            "ms": kb_ms,
+            "plain_ms": kb_plain_ms,
+            "bound_ms": kb_bound_ms,
+            "bound_by": kb_bound_by,
+            "library_ms": None,
+            "first_pass_ms": p_ms,
+            "first_pass_bound_ms": p_bound_ms,
+            "us_per_swap_by_starts": sweep,
         },
     ]
     print(json.dumps({"kernels": kernels}))

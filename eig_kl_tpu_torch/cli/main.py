@@ -10,9 +10,11 @@ The subcommands, flags, output files and console blocks of
 * ``info``                       == printGPUInfo    (gKL.cu:555-571)
 
 ``--device {cuda,cpu}`` (default ``cuda``) takes the place of the JAX
-CLI's ``--platform``.  Options whose code is not yet ported (multi-start,
-passes, kicks, sharding, the lanczos/lobpcg solvers) exit 1 with
-"not yet ported" and the ROADMAP item.  Output lands in
+CLI's ``--platform``.  ``--starts``, ``--perturb``, ``--passes``,
+``--kicks`` and ``--kick-frac`` mean what they mean there; a multi-start
+run uses one card, whatever the host has.  Options whose code is not yet
+ported (``--sharded``, the lanczos/lobpcg solvers, ``--f64`` on the card)
+exit 1 with "not yet ported" and the ROADMAP item.  Output lands in
 ``pre_saved_EIG/`` and ``results/`` relative to the working directory.
 """
 
@@ -49,15 +51,18 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--passes", type=int, default=1,
-        help="KL passes (only 1, the reference's semantics, is ported)",
+        help="KL passes: each pass after the first restarts from the best "
+        "partition with all nodes unlocked (classic multi-pass KL; 1 = the "
+        "reference's single-pass semantics, 0 = until converged)",
     )
     p.add_argument(
         "--kicks", type=int, default=0,
-        help="iterated-local-search rounds (not yet ported)",
+        help="iterated local search: after the descent, perturb the best "
+        "partition and re-descend this many times, keeping the global best",
     )
     p.add_argument(
         "--kick-frac", type=float, default=0.15,
-        help="kick size as a fraction of nodes",
+        help="kick size as a fraction of nodes (large kicks escape the basin)",
     )
 
 
@@ -89,8 +94,17 @@ def build_parser() -> argparse.ArgumentParser:
         "--gain-eps", type=float, default=0.0,
         help="non-improving threshold (0.0 = cKL, 1e-6 = gKL)",
     )
-    p_kl.add_argument("--starts", type=int, default=1, help="multi-start (not yet ported)")
-    p_kl.add_argument("--perturb", type=float, default=0.05, help="with --starts (not yet ported)")
+    p_kl.add_argument(
+        "--starts", type=int, default=1,
+        help="multi-start: run N refinements in one batched launch per pass, "
+        "keep the best.  Random inits, or with -EIG, perturbed spectral "
+        "inits (start 0 unperturbed)",
+    )
+    p_kl.add_argument(
+        "--perturb", type=float, default=0.05,
+        help="with -EIG --starts: fraction of nodes pair-swapped to jitter "
+        "each start's spectral init",
+    )
     p_kl.add_argument(
         "--sharded", action="store_true", help="multi-device KL (not yet ported)"
     )
@@ -108,8 +122,17 @@ def build_parser() -> argparse.ArgumentParser:
         "fused", help="in-process power-iteration EIG + KL (gKL2 pipeline)"
     )
     _add_common(p_fused)
-    p_fused.add_argument("--starts", type=int, default=1, help="multi-start (not yet ported)")
-    p_fused.add_argument("--perturb", type=float, default=0.05, help="with --starts (not yet ported)")
+    p_fused.add_argument(
+        "--starts", type=int, default=1,
+        help="spectral-seeded multi-start: one spectral solve, N "
+        "perturbed-init refinements in one batched launch per pass, best "
+        "kept (random inits without -EIG)",
+    )
+    p_fused.add_argument(
+        "--perturb", type=float, default=0.05,
+        help="with -EIG --starts: fraction of nodes pair-swapped to jitter "
+        "each start's spectral init",
+    )
     p_fused.add_argument(
         "--solver", choices=["auto", "power", "lanczos", "lobpcg"], default="auto",
         help="in-process eigensolver; 'auto' picks lanczos at <=256 nodes "
@@ -134,12 +157,6 @@ class NotPorted(Exception):
 
 
 def _check_ported(args, fused: bool) -> None:
-    if getattr(args, "starts", 1) != 1:
-        raise NotPorted("--starts > 1 (ROADMAP.md A6)")
-    if args.passes != 1:
-        raise NotPorted("--passes other than 1 (ROADMAP.md A6)")
-    if args.kicks > 0:
-        raise NotPorted("--kicks (ROADMAP.md A6)")
     if getattr(args, "sharded", False):
         raise NotPorted("--sharded (ROADMAP.md A8)")
     if args.f64 and args.device == "cuda":
@@ -194,7 +211,32 @@ def cmd_eig(args) -> int:
     return 0
 
 
+def _kl_multi_start(args, hg, kl_config, dtype):
+    """``kl --starts N``: random splits from ``--seed``, or with ``-EIG``
+    the split of the EIG file (start 0) and balanced jitters of it, all
+    starts in one batched launch per pass, then the kicks around the
+    winner (the JAX CLI's multi-start branch, ``cli/main.py:354-436``)."""
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.io.eigfile import eig_out_path
+    from eig_kl_tpu_torch.kl.init import split_from_eig
+    from eig_kl_tpu_torch.models.pipelines import PartitionRun, _multi_start_dispatch
+    from eig_kl_tpu_torch.utils.device import resolve_device
+
+    g_host = clique_expand(hg, "kl")
+    g = g_host.to_device(resolve_device(args.device), dtype)
+    base = split_from_eig(eig_out_path(args.input)) if args.eig_init else None
+    best, cuts = _multi_start_dispatch(
+        g, base, kl_config, starts=args.starts, perturb=args.perturb,
+        seed=args.seed, perturb_base=args.eig_init,
+    )
+    return PartitionRun(
+        circuit=hg.name, eig=None, kl=best, timings={}, nnz=g_host.nnz,
+        start_cuts=cuts.tolist(),
+    )
+
+
 def _run_kl(args, fused: bool) -> int:
+    import numpy as np
     import torch
 
     from eig_kl_tpu_torch.io.eigfile import eig_out_path
@@ -210,7 +252,12 @@ def _run_kl(args, fused: bool) -> int:
     t0 = time.perf_counter()
     hg = read_hgr(args.input)
     print(f"Circuit: {hg.num_nets} nets, {hg.num_nodes} nodes, {hg.num_pins} pins")
-    kl_config = KLConfig(gain_eps=getattr(args, "gain_eps", 1e-6))
+    kl_config = KLConfig(
+        gain_eps=getattr(args, "gain_eps", 1e-6),
+        passes=args.passes,
+        kicks=args.kicks,
+        kick_frac=args.kick_frac,
+    )
     if fused:
         spec_kwargs = {}
         if args.power_iters is not None:
@@ -222,8 +269,12 @@ def _run_kl(args, fused: bool) -> int:
             kl_config=kl_config,
             seed=args.seed,
             dtype=dtype,
+            starts=args.starts,
+            perturb=args.perturb,
             device=args.device,
         )
+    elif args.starts > 1:
+        run = _kl_multi_start(args, hg, kl_config, dtype)
     else:
         run = kl_partition(
             hg,
@@ -237,6 +288,11 @@ def _run_kl(args, fused: bool) -> int:
     runtime = time.perf_counter() - t0
     out = rlog.kl_results_path(args.input, args.eig_init)
     rlog.write_kl_trajectory(out, run.kl)
+    if run.start_cuts is not None:
+        print(
+            "Multi-start best cuts: "
+            f"{np.sort(np.asarray(run.start_cuts))[:8].round(2).tolist()} ..."
+        )
     if run.nnz is not None:
         print(rlog.format_matrix_stats(hg.num_nodes, run.nnz))
     if getattr(args, "table", False):

@@ -1,9 +1,15 @@
-// K2: one whole KL pass in one persistent thread block, in float32.
+// K2: S independent KL passes in one launch, one persistent thread block
+// per start, in float32.
 //
-// Replaces eig_kl_tpu/kl/megakernel.py:_kernel (:144) in its single-start
-// form (launched by _run, :507): first-max selection per side, the two row
-// updates of A@s, the lock, the Kahan-summed cut, the four swap logs and
-// the termination rule, all in one launch.
+// Replaces eig_kl_tpu/kl/megakernel.py:_kernel (:144) in both its forms:
+// batched (launched by _run_batched, :602, the pallas_call at :638, a grid
+// over the starts) and single-start (launched by _run, :507), which is
+// S = 1 of the same kernel here.  Per start: first-max selection per side,
+// the two row updates of A@s, the lock, the Kahan-summed cut, the four swap
+// logs and the termination rule.  Each start brings its own cut0, best0
+// (the best cut of earlier chunks of the same pass), cap and term0 (the
+// termination count carried in), so a pass can be re-entered after a
+// from-scratch refresh of A@s (megakernel.py:459-468, :1207).
 //
 // Bound on this card: latency.  The swap chain is serial (each selection
 // reads the state the previous swap wrote), as the TPU kernel's single
@@ -13,10 +19,19 @@
 // once per call, the bytes the pass must move (CSR, sf, a_s, logs) take
 // microseconds at 3.35 TB/s; the chain of some ten thousand dependent
 // swaps, each paying L2 and barrier latency, is what takes the time.
+// Starts share nothing but the read-only graph, so S blocks run side by
+// side on S of the card's SMs (and queue beyond that); what they compete
+// for is L2: 8 bytes per node and start of state, scanned once per swap.
 //
 // Design:
+// * Grid: blockIdx.x is the start.  Blocks never talk to each other (no
+//   atomics, no grid sync), so a start's bits do not depend on S or on the
+//   other starts, and S may exceed the number of SMs.  The per-start
+//   parameters are read from device arrays, so a batch is launched without
+//   the host ever reading a cut.
 // * State: sf = side sign * free (0 = locked or padding) and a_s = A@s,
-//   both f32 in global memory (1.6 MB at gen 1.0x, resident in L2).  The
+//   both f32 in global memory, one stripe per start (1.6 MB per start at
+//   gen 1.0x, resident in L2 while the batch's stripes fit there).  The
 //   node count is padded to a multiple of 4 with sf = 0 so the scan reads
 //   float4s.
 // * Selection: each thread scans its nodes in increasing order, keeping a
@@ -104,11 +119,25 @@ __device__ __forceinline__ void update_row(const int* indptr, const int* indices
 
 __global__ void __launch_bounds__(kThreads, 1)
     kl_pass_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                   const float* __restrict__ data, float* sf, float* as, int n4,
-                   float cut0, int cap, int terminate_limit, float gain_eps,
-                   float* __restrict__ log_cut, float* __restrict__ log_gain,
-                   int* __restrict__ log_a, int* __restrict__ log_b,
-                   float* __restrict__ out) {
+                   const float* __restrict__ data, float* sf_all, float* as_all,
+                   int n4, const float* __restrict__ cut0s,
+                   const float* __restrict__ best0s, const int* __restrict__ caps,
+                   const int* __restrict__ term0s, int terminate_limit,
+                   float gain_eps, int log_len, float* __restrict__ log_cut_all,
+                   float* __restrict__ log_gain_all, int* __restrict__ log_a_all,
+                   int* __restrict__ log_b_all, float* __restrict__ out_all) {
+  // This block's start: its state stripe, its logs, its parameters.
+  const size_t start = blockIdx.x;
+  float* sf = sf_all + start * 4 * static_cast<size_t>(n4);
+  float* as = as_all + start * 4 * static_cast<size_t>(n4);
+  float* log_cut = log_cut_all + start * log_len;
+  float* log_gain = log_gain_all + start * log_len;
+  int* log_a = log_a_all + start * log_len;
+  int* log_b = log_b_all + start * log_len;
+  float* out = out_all + start * 8;
+  const float cut0 = cut0s[start];
+  const int cap = caps[start];
+
   __shared__ float red_v[2][kWarps];
   __shared__ int red_i[2][kWarps];
   __shared__ int cnt[2][kWarps];
@@ -140,6 +169,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   int it = 0, term = 0, stop = 0, nf0 = 0, nf1 = 0;
   float cut = cut0, comp = 0.0f, best = cut0;
   if (tid == 0) {
+    best = fminf(cut0, best0s[start]);
+    term = term0s[start];
+    log_cut[0] = cut0;
     for (int w = 0; w < kWarps; ++w) {
       nf0 += cnt[0][w];
       nf1 += cnt[1][w];
@@ -237,20 +269,28 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace
 
-// sf and a_s hold n_padded floats (a multiple of 4) and are updated in
-// place; the logs hold at least cap + 1 entries, of which the pass writes
-// 1..iterations; out receives the 8 scalars of megakernel.py:486-494.
+// sf and a_s hold num_starts stripes of n_padded floats (a multiple of 4)
+// and are updated in place; cut0, best0 (float) and cap, term0 (int) hold
+// one value per start; each log holds num_starts stripes of log_len entries
+// (log_len > every cap), of which a pass writes 0..iterations; out receives
+// 8 scalars per start, those of megakernel.py:486-494.
 extern "C" int kl_pass_f32(const void* indptr, const void* indices,
                            const void* data, void* sf, void* as, int n_padded,
-                           float cut0, int cap, int terminate_limit,
-                           float gain_eps, void* log_cut, void* log_gain,
-                           void* log_a, void* log_b, void* out, void* stream) {
-  if (n_padded % 4 != 0) return static_cast<int>(cudaErrorInvalidValue);
-  kl_pass_kernel<<<1, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+                           int num_starts, const void* cut0, const void* best0,
+                           const void* cap, const void* term0,
+                           int terminate_limit, float gain_eps, int log_len,
+                           void* log_cut, void* log_gain, void* log_a,
+                           void* log_b, void* out, void* stream) {
+  if (n_padded % 4 != 0 || num_starts < 1 || log_len < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kl_pass_kernel<<<num_starts, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(indptr), static_cast<const int*>(indices),
       static_cast<const float*>(data), static_cast<float*>(sf),
-      static_cast<float*>(as), n_padded / 4, cut0, cap, terminate_limit,
-      gain_eps, static_cast<float*>(log_cut), static_cast<float*>(log_gain),
+      static_cast<float*>(as), n_padded / 4, static_cast<const float*>(cut0),
+      static_cast<const float*>(best0), static_cast<const int*>(cap),
+      static_cast<const int*>(term0), terminate_limit, gain_eps, log_len,
+      static_cast<float*>(log_cut), static_cast<float*>(log_gain),
       static_cast<int*>(log_a), static_cast<int*>(log_b),
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());

@@ -5,6 +5,8 @@
 * spectral ("-EIG"): read sides from the EIG result file
   (cKL.cpp:155-174) -- here, directly from an :class:`EigResult` or the
   on-disk file.
+* perturbed: a balanced jitter of an existing split, the seed of
+  spectral multi-start and of the kicks (:func:`perturb_split`).
 """
 
 from __future__ import annotations
@@ -52,3 +54,33 @@ def split_from_eig(eig: EigResult | str) -> np.ndarray:
 def sides_balance(sides: np.ndarray) -> tuple[int, int]:
     right = int(np.asarray(sides).sum())
     return len(sides) - right, right
+
+
+def perturb_split(
+    sides: np.ndarray,
+    seed: int | np.random.Generator = 0,
+    frac: float = 0.05,
+) -> np.ndarray:
+    """Balanced perturbation of an existing partition: swap the sides of
+    ``ceil(frac * n / 2)`` random cross pairs (one node from each side),
+    preserving the balance exactly.
+
+    This seeds spectral multi-start: each start jitters the spectral
+    init into a different KL basin, and multi-pass refinement
+    (:mod:`eig_kl_tpu_torch.kl.multipass`) descends each.  The draws are
+    ``choice(side0)`` then ``choice(side1)`` on one ``default_rng(seed)``,
+    so a seed gives the split the JAX package's ``perturb_split`` gives.
+    """
+    sides = np.asarray(sides, dtype=np.int8)
+    if not 0.0 <= frac <= 1.0:
+        raise ValueError(f"frac must be in [0, 1], got {frac}")
+    rng = _rng(seed)
+    side0 = np.flatnonzero(sides == 0)
+    side1 = np.flatnonzero(sides == 1)
+    k = min(int(np.ceil(frac * len(sides) / 2)), len(side0), len(side1))
+    if k == 0:  # frac == 0 disables the jitter entirely
+        return sides.copy()
+    out = sides.copy()
+    out[rng.choice(side0, size=k, replace=False)] = 1
+    out[rng.choice(side1, size=k, replace=False)] = 0
+    return out

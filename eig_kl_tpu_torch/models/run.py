@@ -20,7 +20,8 @@ class PartitionRunData:
     #: adjacency nonzeros (both directions), for the matrix-statistics
     #: block (cKL.cpp:134-146); None when no graph was built.
     nnz: int | None = None
-    #: per-start best cuts of a multi-start run (not yet ported).
+    #: per-start best cuts when the run was a multi-start (printed by
+    #: the CLI as "Multi-start best cuts: ..."); None otherwise.
     start_cuts: list | None = None
     #: power-iteration steps of the spectral phase; None without one.
     spectral_iterations: int | None = None

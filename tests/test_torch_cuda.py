@@ -119,3 +119,106 @@ def test_fused_on_the_card_equals_the_cpu_run(cuda):
         assert getattr(card.kl, name) == getattr(cpu.kl, name), name
     np.testing.assert_array_equal(card.kl.best_sides, cpu.kl.best_sides)
     np.testing.assert_array_equal(card.kl.cut_trajectory, cpu.kl.cut_trajectory)
+
+
+def _batch_inputs(g, seeds):
+    from eig_kl_tpu_torch.kl.init import random_split
+    from eig_kl_tpu_torch.kl.megakernel import _batch_init
+    from eig_kl_tpu_torch.ops.partition import sides_to_signs
+
+    sides = torch.as_tensor(np.stack([random_split(g.num_nodes, s) for s in seeds])).to(g.device)
+    s = sides_to_signs(sides, torch.float32)
+    a_s, cut0 = _batch_init(g, s)
+    return s, a_s, cut0
+
+
+@pytest.mark.parametrize("kind", ["gen_0.02", "hub44"])
+def test_k2_batched_equals_plain_and_single_launches_bitwise(cuda, kind):
+    """One launch of 3 starts: a full pass, a zero cap, and a re-entry with
+    a best cut below the cut and a termination count carried in."""
+    from eig_kl_tpu_torch.kl.megakernel import (
+        K2, K2_STARTS, kl_pass_batch, kl_pass_batch_plain, kl_pass_cuda,
+    )
+
+    _, g = _graphs(kind, cuda)
+    n = g.num_nodes
+    s, a_s, cut0 = _batch_inputs(g, [5, 6, 7])
+    best0 = cut0.clone()
+    best0[2] -= 3.25
+    cap = torch.tensor([n // 2, 0, 90], dtype=torch.int32, device=cuda)
+    term0 = torch.tensor([0, 0, 4], dtype=torch.int32, device=cuda)
+    args = (g, s, a_s, cut0, best0, cap, term0, n // 2 + 1, 16, 1e-6)
+    before, before3 = K2.launches, K2_STARTS[3]
+    got = kl_pass_batch(*args)
+    assert (K2.launches, K2_STARTS[3]) == (before + 1, before3 + 1)  # a batch is one launch
+    ref = kl_pass_batch_plain(*args)
+    torch.cuda.synchronize()
+    its = got.scalars[:, 2].tolist()
+    assert its[0] > 50 and its[1] == 0 and 0 < its[2] <= 90
+    assert float(got.scalars[2, 1]) <= float(best0[2])
+    for name in ("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    # Start 0 is what a launch of that start alone gives.
+    one = kl_pass_cuda(g, s[0], a_s[0], float(cut0[0]), n // 2, 16, 1e-6)
+    for name in ("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars"):
+        assert torch.equal(getattr(got.start(0), name), getattr(one, name)), name
+
+
+def test_k2_batched_wrapper_checks_its_arguments(cuda):
+    from eig_kl_tpu_torch.kl.megakernel import kl_pass_batch_cuda
+
+    _, g = _graphs("gen_0.02", cuda)
+    s, a_s, cut0 = _batch_inputs(g, [1, 2])
+    cap = torch.tensor([5, 5], dtype=torch.int32, device=cuda)
+    zero = torch.zeros_like(cap)
+    with pytest.raises(TypeError, match="float32"):
+        kl_pass_batch_cuda(g, s.double(), a_s, cut0, cut0, cap, zero, 6, 16, 0.0)
+    with pytest.raises(TypeError, match="int32"):
+        kl_pass_batch_cuda(g, s, a_s, cut0, cut0, cap.long(), zero, 6, 16, 0.0)
+    with pytest.raises(ValueError, match="matrices"):
+        kl_pass_batch_cuda(g, s[0], a_s[0], cut0, cut0, cap, zero, 6, 16, 0.0)
+    with pytest.raises(ValueError, match="cut0"):
+        kl_pass_batch_cuda(g, s, a_s, cut0[:1], cut0, cap, zero, 6, 16, 0.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        kl_pass_batch_cuda(g, s, a_s, cut0.cpu(), cut0, cap, zero, 6, 16, 0.0)
+
+
+def test_refresh_interval_on_the_card_equals_the_cpu_run(cuda):
+    from eig_kl_tpu_torch.kl.init import random_split
+    from eig_kl_tpu_torch.kl.megakernel import K2_STARTS, refine_mega
+    from eig_kl_tpu_torch.utils.config import KLConfig
+
+    g_cpu, g = _graphs("gen_0.02", cuda)
+    sides = random_split(g.num_nodes, 9)
+    cfg = KLConfig(gain_eps=1e-6, refresh_interval=100)
+    before = K2_STARTS[1]
+    card = refine_mega(g, sides, cfg)
+    assert K2_STARTS[1] - before == -(-card.iterations // 100)  # one launch per chunk
+    cpu = refine_mega(g_cpu, sides, cfg)
+    for name in ("iterations", "initial_cut", "best_cut", "final_cut", "verified_cut"):
+        assert getattr(card, name) == getattr(cpu, name), name
+    np.testing.assert_array_equal(card.best_sides, cpu.best_sides)
+    np.testing.assert_array_equal(card.cut_trajectory, cpu.cut_trajectory)
+
+
+def test_fused_multi_start_on_the_card_equals_the_cpu_run(cuda):
+    """3 starts, passes until converged: one batched launch per pass, and
+    the card's bits are the CPU path's."""
+    from eig_kl_tpu_torch.io.hgr import read_hgr
+    from eig_kl_tpu_torch.kl.megakernel import K2, K2_STARTS
+    from eig_kl_tpu_torch.models.pipelines import fused_partition
+    from eig_kl_tpu_torch.utils.config import KLConfig
+
+    hg = read_hgr(GEN_002)
+    cfg = KLConfig(gain_eps=1e-6, passes=0)
+    K2.launches = 0
+    K2_STARTS.clear()
+    card = fused_partition(hg, starts=3, kl_config=cfg)
+    assert 2 <= K2_STARTS[3] == K2.launches <= 16
+    cpu = fused_partition(hg, starts=3, kl_config=cfg, device="cpu")
+    assert card.start_cuts == cpu.start_cuts
+    for name in ("iterations", "initial_cut", "best_cut", "final_cut", "verified_cut"):
+        assert getattr(card.kl, name) == getattr(cpu.kl, name), name
+    np.testing.assert_array_equal(card.kl.sides, cpu.kl.sides)
+    np.testing.assert_array_equal(card.kl.best_sides, cpu.kl.best_sides)
+    np.testing.assert_array_equal(card.kl.cut_trajectory, cpu.kl.cut_trajectory)

@@ -243,18 +243,6 @@ def test_refine_mega_honours_the_cap_and_replays_the_first_best(max_iterations):
     assert replay_swaps(sides, np.zeros(1, np.int32), np.zeros(1, np.int32), 0).tolist() == sides.tolist()
 
 
-def test_refresh_interval_is_not_ported():
-    from eig_kl_tpu_torch.graph.expand import clique_expand
-    from eig_kl_tpu_torch.io.hgr import read_hgr
-    from eig_kl_tpu_torch.kl.megakernel import refine_mega
-    from eig_kl_tpu_torch.utils.config import KLConfig
-
-    hg = read_hgr(GEN_002)
-    g = clique_expand(hg, "kl").to_device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A3"):
-        refine_mega(g, np.zeros(hg.num_nodes, np.int8), KLConfig(refresh_interval=10))
-
-
 def test_kl_kernel_wrapper_refuses_cpu_tensors():
     from eig_kl_tpu_torch.graph.expand import clique_expand
     from eig_kl_tpu_torch.io.hgr import read_hgr

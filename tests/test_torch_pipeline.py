@@ -146,13 +146,9 @@ def test_default_device_is_the_card(entry, monkeypatch):
 def test_fused_rejects_what_is_not_ported():
     from eig_kl_tpu_torch.io.hgr import read_hgr
     from eig_kl_tpu_torch.models.pipelines import fused_partition
-    from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
 
     hg = read_hgr(GEN_002)
-    with pytest.raises(NotImplementedError, match="A6"):
-        fused_partition(hg, starts=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        fused_partition(hg, kl_config=KLConfig(passes=2), device="cpu")
     with pytest.raises(NotImplementedError, match="A7"):
         fused_partition(hg, spectral_config=SpectralConfig(solver="lanczos"), device="cpu")
 
@@ -220,9 +216,6 @@ def test_cli_missing_file(workdir, capsys):
 @pytest.mark.parametrize(
     "flags, item",
     [
-        (["--starts", "4"], "A6"),
-        (["--passes", "3"], "A6"),
-        (["--kicks", "2"], "A6"),
         (["--solver", "lanczos"], "A7"),
     ],
 )
