@@ -4,19 +4,23 @@ Run from the repository root, with no arguments::
 
     python3 chip_smoke.py
 
-It builds the port's kernels from ``eig_kl_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card at the shapes of the main
-path, drives the fused EIG+KL pipeline (``fused_partition``, the path of
-``python -m eig_kl_tpu_torch fused <file> -EIG``) once on the generated
-circuit at 1.0x the reference scale (seed 42, 201,920 nodes), checks that
-the run went through the kernels and that its cuts are right, and prints
-one JSON line per the kernels and, last, ``{"ok": true, "device": ...}``.
+It builds the port's kernels and host library from
+``eig_kl_tpu_torch/csrc``, holds each kernel against its plain PyTorch
+version on the card at the shapes of the main path, drives the fused
+EIG+KL pipeline (``fused_partition``, the path of ``python -m
+eig_kl_tpu_torch fused <file> -EIG``) once on the generated circuit at 1.0x
+the reference scale (seed 42, 201,920 nodes), then the multi-start path,
+then the v3 path (``fused_refine_mega`` on the same graph with a v3 SpMV
+plan attached), checks that each run went through its kernels and that
+its cuts are right, and prints one JSON line per the kernels and, last,
+``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits nonzero and prints no
 result; so does a machine without a CUDA card.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -146,6 +150,7 @@ def main() -> int:
         K2,
         K2_STARTS,
         _batch_init,
+        fused_refine_mega,
         kl_pass_batch_cuda,
         kl_pass_batch_plain,
         kl_pass_cuda,
@@ -156,16 +161,29 @@ def main() -> int:
     from eig_kl_tpu_torch.models.pipelines import fused_partition
     from eig_kl_tpu_torch.ops import _build
     from eig_kl_tpu_torch.ops.spmv import K1, row_ids, spmv_csr, spmv_plain
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
     from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
-    from eig_kl_tpu_torch.utils.config import KLConfig
+    from eig_kl_tpu_torch.ops.reduce import K4, fma_dot_cuda, fma_dot_plain
+    from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
+    from eig_kl_tpu_torch.utils.tracing import Tracer
 
     dev = torch.device("cuda")
     card = card_line()
+    all_kernels = (K1, K2, V.K3A, V.K3B, V.K3C, K4)
+
+    def reset_counts():
+        for kern in all_kernels:
+            kern.launches = 0
+        K2_STARTS.clear()
+
+    def v3_launched():
+        return [kern.symbol for kern in (V.K3A, V.K3B, V.K3C, K4) if kern.launches]
     print(f"card: {card}")
 
-    # Phase 1: build every kernel from the sources in the checkout.
+    # Phase 1: build every kernel and the host library from the sources in
+    # the checkout, one compiler per source, all at once.
     t0 = time.perf_counter()
-    logs = _build.build()
+    logs = _build.build(_build.KERNEL_SOURCES + _build.HOST_SOURCES)
     print(f"kernel build: {time.perf_counter() - t0:.2f} s ({', '.join(logs) or 'cached'})")
     for name, log in logs.items():
         for line in log.splitlines():
@@ -321,9 +339,7 @@ def main() -> int:
         )
 
     # Phase 5: the fused pipeline end to end, through the user's entry point.
-    K1.launches = 0
-    K2.launches = 0
-    K2_STARTS.clear()
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run = fused_partition(hg, use_eig=True, device="cuda")
@@ -331,6 +347,7 @@ def main() -> int:
     e2e_s = time.perf_counter() - t0
     k1_launches, k2_launches = K1.launches, K2_STARTS[1]
     check(K2.launches == k2_launches, "the one-start run launched K2 with several starts")
+    check(not v3_launched(), f"the main path launched {v3_launched()}")
     kl = run.kl
     iters = run.spectral_iterations
     check(k1_launches >= iters + 2, f"K1 launched {k1_launches} times for {iters} power steps")
@@ -400,10 +417,9 @@ def main() -> int:
         torch.cuda.synchronize()
         return r, time.perf_counter() - t
 
-    K1.launches = 0
-    K2.launches = 0
-    K2_STARTS.clear()
+    reset_counts()
     multi, multi_s = multi_run()
+    check(not v3_launched(), f"the multi-start path launched {v3_launched()}")
     m_k1, m_batched, m_single = K1.launches, K2_STARTS[STARTS], K2_STARTS[1]
     mkl = multi.kl
     check(K2.launches == m_batched + m_single, f"K2 launches by starts: {dict(K2_STARTS)}")
@@ -475,6 +491,156 @@ def main() -> int:
         f"{p_bound_ms:.4f} ms by {p_bound_by} ({p_bytes} bytes, {p_ops} operations)"
     )
 
+    # Phase 8: the v3 path.  The same circuit's graph built by the native
+    # host library against the NumPy build, the v3 plan attached to the
+    # device graph, K3a/K3b/K3c against their plain versions at its
+    # shapes, then the fused pipeline on the v3-planned graph.
+    t0 = time.perf_counter()
+    g_nat = clique_expand(hg, "kl", use_native=True)
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    g_np = clique_expand(hg, "kl", use_native=False)
+    np_s = time.perf_counter() - t0
+    for name in ("indptr", "indices", "data"):
+        a, b = getattr(g_nat, name), getattr(g_np, name)
+        check(a.dtype == b.dtype and np.array_equal(a.view(np.uint8), b.view(np.uint8)),
+              f"native and NumPy expansions differ in {name}")
+    print(f"graph build: native expansion {nat_s:.3f} s, NumPy {np_s:.3f} s, arrays equal")
+    t0 = time.perf_counter()
+    plan = V.build_plan_v3_for_graph(g_host, dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    N, P, C = plan.padded_nnz, plan.padded_nodes, plan.num_chunks
+    stages = len(V.benes_distances(N))
+    print(f"v3 plan: N {N} slots, {stages} Benes stages, {C} chunks, P {P}; host build {plan_s:.3f} s")
+    g3 = dataclasses.replace(g, plan=plan)
+
+    xp = torch.zeros(P, device=dev)
+    xp[:n] = x
+
+    def bits(t):
+        return t.view(torch.int32)
+
+    def held(kernel, plain, first, arg, what):
+        """The kernel's output, checked bitwise (zero signs included)
+        against its plain version and a second launch; with its max |diff|."""
+        out, ref = kernel(first, arg), plain(first, arg)
+        check(torch.equal(bits(out), bits(ref)), f"{what} differs from its plain version")
+        check(torch.equal(bits(out), bits(kernel(first, arg))), f"two {what} launches differ")
+        return out, float((out - ref).abs().max())
+
+    e_k, k3a_err = held(V.gather_v3_cuda, V.gather_v3_plain, plan, xp, "K3a")
+    b_k, k3b_err = held(V.benes_v3_cuda, V.benes_v3_plain, plan.masks, e_k, "K3b")
+    _, k3c_err = held(V.reduce_v3_cuda, V.reduce_v3_plain, plan, b_k, "K3c")
+
+    def v3_plain(_, arg):
+        return V.reduce_v3_plain(plan, V.benes_v3_plain(plan.masks, V.gather_v3_plain(plan, arg)))
+
+    y3p, v3_self_err = held(lambda _, arg: V.spmv_v3_padded(plan, arg), v3_plain, None, xp, "the v3 SpMV")
+    # K4, the power solve's Rayleigh quotient over the padded state.
+    k4_x, k4_y = xp, y3p
+    k4, k4_err = held(fma_dot_cuda, fma_dot_plain, k4_x, k4_y, "K4")
+    y3 = V.spmv_v3(plan, x)
+    v3_err = (y3.double() - y_k.double()).abs()
+    check(bool((v3_err <= 1e-5 * a_abs).all()), "the v3 SpMV disagrees with K1 beyond 1e-5*(|A||x|)")
+    torch.cuda.synchronize()
+    k3a_ms = cuda_ms(lambda: V.gather_v3_cuda(plan, xp), 200)
+    k3b_ms = cuda_ms(lambda: V.benes_v3_cuda(plan.masks, e_k), 50)
+    k3c_ms = cuda_ms(lambda: V.reduce_v3_cuda(plan, b_k), 200)
+    v3_ms = cuda_ms(lambda: V.spmv_v3(plan, x), 50)
+    k3a_plain_ms = cuda_ms(lambda: V.gather_v3_plain(plan, xp), 5)
+    k3b_plain_ms = cuda_ms(lambda: V.benes_v3_plain(plan.masks, e_k), 5)
+    k3c_plain_ms = cuda_ms(lambda: V.reduce_v3_plain(plan, b_k), 5)
+    v3_plain_ms = cuda_ms(lambda: v3_plain(None, xp), 3)
+    v3_lib_ms = cuda_ms(lambda: a_sparse @ x, 200)
+    k4_ms = cuda_ms(lambda: fma_dot_cuda(k4_x, k4_y), 20)
+    k4_plain_ms = cuda_ms(lambda: fma_dot_plain(k4_x, k4_y), 3)
+    k4_lib_ms = cuda_ms(lambda: torch.dot(k4_x, k4_y), 200)
+    # Least bytes each kernel must move, each input read once and each
+    # output written once.  K3a: cw8 (4C), col_local (2N), weights (4N),
+    # x (4P) in, e (4N) out.  K3b, the whole network: e (4N) and one row
+    # of switch bits per stage (N/8 each) in, e (4N) out.  K3c: rw8 (4C),
+    # row_local (2N), route_src (2 x 1024 per chunk = 4N), e (4N) in, y
+    # (4P) out.  Their flops (N multiplies, 9N adds) take far less time.
+    # The whole v3 SpMV: x and the plan in, y out; the products between
+    # its kernels need not reach memory.  K4: x and y (4P each) in, one
+    # float out; its P fused multiply-adds take far less time at the
+    # card's rate (the chain's latency is what K4 pays).
+    # No PyTorch call computes K3a, K3b or K3c alone, so their library_ms
+    # is null; torch.sparse's y = A @ x computes the function of the whole
+    # v3 SpMV and is that entry's library_ms.  torch.dot is K4's.
+    k3a_bytes = 4 * C + 2 * N + 4 * N + 4 * P + 4 * N
+    k3b_bytes = 4 * N + stages * N // 8 + 4 * N
+    k3c_bytes = 4 * C + 2 * N + 2 * 1024 * C + 4 * N + 4 * P
+    v3_bytes = 4 * C + 2 * N + 4 * N + 4 * P + stages * N // 8 + 4 * C + 2 * N + 2 * 1024 * C + 4 * P
+    k4_bytes = 8 * P + 4
+    k3a_bound, k3b_bound, k3c_bound, v3_bound, k4_bound = (
+        b / HBM_BYTES_PER_S * 1e3 for b in (k3a_bytes, k3b_bytes, k3c_bytes, v3_bytes, k4_bytes)
+    )
+    print(
+        f"K3a/K3b/K3c bitwise equal to their plain versions and to a second launch; v3 SpMV "
+        f"against K1: max |diff| {float(v3_err.max()):.3g}; K3a {k3a_ms:.4f} ms (plain "
+        f"{k3a_plain_ms:.3f}, bound {k3a_bound:.4f}, {k3a_bytes} bytes), K3b {k3b_ms:.4f} ms "
+        f"for {stages} stages (plain {k3b_plain_ms:.3f}, bound {k3b_bound:.4f}, {k3b_bytes} "
+        f"bytes), K3c {k3c_ms:.4f} ms (plain {k3c_plain_ms:.3f}, bound {k3c_bound:.4f}, "
+        f"{k3c_bytes} bytes); whole v3 SpMV {v3_ms:.4f} ms (plain {v3_plain_ms:.3f}, bound "
+        f"{v3_bound:.4f}, {v3_bytes} bytes), torch.sparse {v3_lib_ms:.4f} ms, K1 {k1_ms:.4f} ms"
+    )
+    print(
+        f"K4 over P = {P}: {float(k4)!r} bitwise equal to the host chain and to a second launch; "
+        f"{k4_ms:.4f} ms (plain {k4_plain_ms:.3f}, bound {k4_bound:.5f}, {k4_bytes} bytes), "
+        f"torch.dot {k4_lib_ms:.4f} ms"
+    )
+
+    # The same SpMV under the profiler: each kernel's device time per
+    # launch, apart from the host's time to issue the 43 launches.
+    report_device_busy("20 v3 SpMVs", lambda: [V.spmv_v3(plan, x) for _ in range(20)])
+
+    def v3_run():
+        tracer = Tracer(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fused_refine_mega(g3, SpectralConfig(solver="power"), KLConfig(gain_eps=1e-6), tracer=tracer)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, tracer.spans
+
+    reset_counts()
+    (v3_eig, v3_kl, v3_iters), v3_s, v3_spans = v3_run()
+    k4_launches = K4.launches
+    v3_launches = {k: kern.launches for k, kern in (("K3a", V.K3A), ("K3b", V.K3B), ("K3c", V.K3C))}
+    v3_spmvs = v3_launches["K3a"]
+    check(K1.launches == 0, f"K1 launched {K1.launches} times on the v3 path")
+    check(K2.launches == 1, f"K2 launched {K2.launches} times on the v3 path, not once")
+    check(v3_launches["K3c"] == v3_spmvs, f"v3 launches {v3_launches}: K3c not once per SpMV")
+    check(v3_launches["K3b"] == stages * v3_spmvs, f"v3 launches {v3_launches}: K3b not {stages} per SpMV")
+    check(v3_spmvs >= v3_iters + 2, f"{v3_spmvs} v3 SpMVs for {v3_iters} power steps")
+    check(k4_launches == 1, f"K4 launched {k4_launches} times on the v3 path, not once")
+    v3_drift = abs(v3_kl.final_cut - v3_kl.verified_cut) / v3_kl.final_cut
+    check(v3_drift <= 1e-5, f"v3 path: cut drift {v3_drift:.3g} above 1e-5")
+    check(v3_kl.best_cut <= v3_kl.initial_cut, "v3 path: best cut above the initial cut")
+    check(v3_kl.best_cut <= 1.03 * JAX_CPU_BEST_CUT, f"v3 path: best cut {v3_kl.best_cut} above 1.03 x {JAX_CPU_BEST_CUT}")
+    v3_best = np.asarray(v3_kl.best_sides)
+    check(
+        v3_best.shape == (n,) and int(v3_best.sum()) == int(np.asarray(v3_eig.sides).sum()),
+        "v3 path: best partition does not keep the spectral split's balance",
+    )
+    v3_recount = host_cut(g_host, v3_best)
+    check(
+        abs(v3_recount - v3_kl.best_cut) <= 1e-4 * v3_kl.best_cut,
+        f"v3 path: best cut {v3_kl.best_cut} disagrees with the host f64 recount {v3_recount}",
+    )
+    (_, v3_kl2, _), v3_s2, _ = v3_run()
+    check(v3_kl2.best_cut == v3_kl.best_cut, "a repeated v3 run gave another best cut")
+    print(
+        f"v3 path (fused_refine_mega on the v3-planned graph): {v3_iters} power iterations, "
+        f"lambda {v3_eig.eigenvalue!r}, initial cut {v3_kl.initial_cut}, best cut "
+        f"{v3_kl.best_cut} after {v3_kl.iterations} swaps, final {v3_kl.final_cut}, verified "
+        f"{v3_kl.verified_cut} (drift {v3_drift:.3g}), host f64 recount {v3_recount:.4f}; e2e "
+        f"{v3_s:.3f} s and {v3_s2:.3f} s on {card}; spans "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(v3_spans.items()))
+    )
+    print(f"launches on the v3 path: {v3_spmvs} SpMVs, {v3_launches}, K4 1, K1 0, K2 1")
+
     kernels = [
         {
             "name": "K1 spmv_csr_f32",
@@ -519,6 +685,71 @@ def main() -> int:
             "first_pass_ms": p_ms,
             "first_pass_bound_ms": p_bound_ms,
             "us_per_swap_by_starts": sweep,
+        },
+        {
+            "name": "K3a gather_v3_f32",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/spmv_v3.cu",
+            "replaces": "eig_kl_tpu/ops/spmv_pallas.py:1698",
+            "launches": v3_launches["K3a"],
+            "max_abs_err": k3a_err,
+            "ms": k3a_ms,
+            "plain_ms": k3a_plain_ms,
+            "bound_ms": k3a_bound,
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
+        {
+            "name": "K3b benes_v3_f32, all stages of one network",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/spmv_v3.cu",
+            "replaces": "eig_kl_tpu/ops/spmv_pallas.py:1718",
+            "launches": v3_launches["K3b"],
+            "max_abs_err": k3b_err,
+            "ms": k3b_ms,
+            "plain_ms": k3b_plain_ms,
+            "bound_ms": k3b_bound,
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
+        {
+            "name": "K3c reduce_v3_f32",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/spmv_v3.cu",
+            "replaces": "eig_kl_tpu/ops/spmv_pallas.py:1802",
+            "launches": v3_launches["K3c"],
+            "max_abs_err": k3c_err,
+            "ms": k3c_ms,
+            "plain_ms": k3c_plain_ms,
+            "bound_ms": k3c_bound,
+            "bound_by": "bytes",
+            "library_ms": None,
+        },
+        {
+            "name": "v3 SpMV spmv_v3: K3a + K3b + K3c",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/spmv_v3.cu",
+            "replaces": "eig_kl_tpu/ops/spmv_pallas.py:1841",
+            "launches": v3_spmvs,
+            "max_abs_err": v3_self_err,
+            "ms": v3_ms,
+            "plain_ms": v3_plain_ms,
+            "bound_ms": v3_bound,
+            "bound_by": "bytes",
+            "library_ms": v3_lib_ms,
+        },
+        {
+            "name": "K4 fma_dot_f32",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/fma_dot.cu",
+            "replaces": "eig_kl_tpu/spectral/power.py:413 (jnp.vdot, an XLA op, no Pallas kernel)",
+            "launches": k4_launches,
+            "max_abs_err": k4_err,
+            "ms": k4_ms,
+            "plain_ms": k4_plain_ms,
+            "bound_ms": k4_bound,
+            "bound_by": "bytes",
+            "library_ms": k4_lib_ms,
         },
     ]
     print(json.dumps({"kernels": kernels}))

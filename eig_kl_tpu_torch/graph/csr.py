@@ -12,9 +12,13 @@ of the two swapped rows.
 from __future__ import annotations
 
 import dataclasses
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
+
+if TYPE_CHECKING:
+    from eig_kl_tpu_torch.ops.spmv_v3 import SpmvPlanV3
 
 
 def ell_width(max_degree: int, pad_multiple: int = 8) -> int:
@@ -153,6 +157,10 @@ class DeviceGraph:
       row_width: the JAX package's ELL width for this graph (the largest
         degree rounded up to a multiple of 8).  The SpMV's summation
         order follows it (:mod:`eig_kl_tpu_torch.ops.spmv`).
+      plan: a v3 SpMV plan of the same matrix, or None.  With a plan, an
+        f32 graph's SpMV and power solve take the v3 route (the JAX
+        package's ``DeviceGraph.plan``); attach one with
+        ``dataclasses.replace(g, plan=build_plan_v3_for_graph(host, dev))``.
     """
 
     indptr: torch.Tensor
@@ -161,6 +169,7 @@ class DeviceGraph:
     degrees: torch.Tensor
     total_weight: torch.Tensor
     row_width: int
+    plan: "SpmvPlanV3 | None" = None
 
     @property
     def num_nodes(self) -> int:

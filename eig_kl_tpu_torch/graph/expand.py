@@ -1,5 +1,7 @@
-"""Clique expansion: hypergraph -> weighted graph (the port's copy of the
-NumPy expansion in ``eig_kl_tpu/graph/expand.py``).
+"""Clique expansion: hypergraph -> weighted graph (the port's copy of
+``eig_kl_tpu/graph/expand.py``: a NumPy expansion, and the native C++
+builder of :mod:`eig_kl_tpu_torch.io.native_io`, which gives the same
+arrays).
 
 Each k-pin net is expanded into all k(k-1)/2 node pairs; weights of
 duplicate pairs accumulate.  Two weight conventions exist in the
@@ -20,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 
 from eig_kl_tpu_torch.graph.csr import Graph
+from eig_kl_tpu_torch.io import native_io
 from eig_kl_tpu_torch.io.hgr import Hypergraph
 
 _WEIGHTINGS = ("eig", "kl")
@@ -58,15 +61,26 @@ def expand_pairs(
     return np.concatenate(us), np.concatenate(vs), np.concatenate(ws)
 
 
-def clique_expand(hg: Hypergraph, weighting: str = "kl", *, dtype=np.float64) -> Graph:
+def clique_expand(
+    hg: Hypergraph,
+    weighting: str = "kl",
+    *,
+    dtype=np.float64,
+    use_native: bool | None = None,
+) -> Graph:
     """Clique-expand a hypergraph into a symmetric weighted :class:`Graph`.
 
     Duplicate pairs are weight-accumulated (Eigen's ``setFromTriplets``
     dup-sum at cEIG.cpp:124, the ``+=`` insert at cKL.cpp:128);
     self-loops from repeated pins within one net are dropped.
+    ``use_native``: force (True) or forbid (False) the native builder;
+    None = use it if the host library builds, else NumPy.  A failure of
+    the built library raises.
     """
     if weighting not in _WEIGHTINGS:
         raise ValueError(f"weighting must be one of {_WEIGHTINGS}, got {weighting!r}")
+    if use_native or (use_native is None and native_io.available()):
+        return native_io.clique_expand_native(hg, weighting, dtype=dtype)
     u, v, w = expand_pairs(hg, weighting)
     keep = u != v
     u, v, w = u[keep], v[keep], w[keep]

@@ -1,6 +1,6 @@
-"""`.hgr` hypergraph file format reader/writer (the port's copy of the
-NumPy parser and writer in ``eig_kl_tpu/io/hgr.py``; the native C++
-parser is not ported).
+"""`.hgr` hypergraph file format reader/writer (the port's copy of
+``eig_kl_tpu/io/hgr.py``: a NumPy parser, and the native C++ tokenizer of
+:mod:`eig_kl_tpu_torch.io.native_io`, which gives the same arrays).
 
 Format (reference README.md:170-187; parsed at cEIG.cpp:178-182,94-101,
 cKL.cpp:92-132, gKL.cu:581-649):
@@ -19,6 +19,8 @@ import dataclasses
 import os
 
 import numpy as np
+
+from eig_kl_tpu_torch.io import native_io
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,11 +105,30 @@ def peek_hgr_header(path: str | os.PathLike) -> tuple[int, int]:
     raise ValueError(f"empty .hgr file: {path}")
 
 
-def read_hgr(path: str | os.PathLike) -> Hypergraph:
-    """Read a `.hgr` file."""
+def read_hgr(path: str | os.PathLike, *, use_native: bool | None = None) -> Hypergraph:
+    """Read a `.hgr` file.
+
+    Args:
+      path: path to the file.
+      use_native: force (True) or forbid (False) the native C++ parser;
+        None = use it if the host library builds, else NumPy.  With None,
+        a file the native parser refuses is read again by the NumPy
+        parser, which names the fault as the JAX package's does; if that
+        parser reads it, the native failure raises.
+    """
     path = os.fspath(path)
-    with open(path, "r") as f:
-        hg = _parse_tokens(f.read())
+    if use_native is False or (use_native is None and not native_io.available()):
+        with open(path, "r") as f:
+            hg = _parse_tokens(f.read())
+    else:
+        try:
+            hg = native_io.read_hgr_native(path)
+        except OSError as err:
+            if use_native:
+                raise
+            with open(path, "r") as f:
+                _parse_tokens(f.read())
+            raise err
     return dataclasses.replace(hg, name=os.path.basename(path))
 
 

@@ -1,11 +1,17 @@
-"""Build and load the hand-written CUDA kernels in ``csrc/``.
+"""Build and load the hand-written CUDA kernels and the host library in
+``csrc/``.
 
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a
 shared library of its own with a plain C interface, loaded with
 ``ctypes`` (no PyTorch headers: a build takes seconds, not minutes).
-Libraries go into ``eig_kl_tpu_torch/_build/``, named by a hash of the
-source and the flags, and are built at first use.  :func:`build` starts
-one ``nvcc`` per source, all at once.
+The host library ``csrc/eigkl_native.cpp`` (parser, clique expansion,
+Benes router; :mod:`eig_kl_tpu_torch.io.native_io`) compiles the same
+way with the host C++ compiler and no CUDA.  Libraries go into
+``eig_kl_tpu_torch/_build/``, named by a hash of the source, the flags,
+the compiler (its path and ``--version``) and the platform, so a library
+built on one machine is not loaded on another; they are built at first
+use.  :func:`build` starts one compiler
+per source, all at once.
 
 Nothing here touches CUDA when the module is imported.  Every C entry
 point returns ``cudaGetLastError()`` after its launch; :class:`Kernel`
@@ -15,8 +21,10 @@ raises if that is not 0, and only then counts the launch.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 from pathlib import Path
@@ -29,7 +37,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-KERNEL_SOURCES = ("spmv_csr", "kl_pass")
+HOST_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared")
+KERNEL_SOURCES = ("spmv_csr", "kl_pass", "spmv_v3", "fma_dot")
+HOST_SOURCES = ("eigkl_native",)
 
 
 def _nvcc() -> str:
@@ -43,18 +53,46 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX"), "c++", "g++"):
+        path = cand and shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler (c++ or g++) found: set CXX")
+
+
+def _source(name: str) -> tuple[Path, tuple[str, ...], str]:
+    """The source file of ``name``, its compiler flags and its compiler."""
+    if name in HOST_SOURCES:
+        return CSRC / f"{name}.cpp", HOST_FLAGS, _cxx()
+    return CSRC / f"{name}.cu", NVCC_FLAGS, _nvcc()
+
+
+@functools.lru_cache(maxsize=None)
+def _compiler_identity(compiler: str) -> str:
+    """The compiler's resolved path and its ``--version`` output."""
+    out = subprocess.run(
+        [compiler, "--version"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, timeout=60,
+    ).stdout
+    return f"{os.path.realpath(compiler)}\n{out}"
+
+
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives."""
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
-    digest.update(" ".join(NVCC_FLAGS).encode())
+    """Where the library built from ``csrc/<name>.cu`` (or ``.cpp``) lives."""
+    src, flags, compiler = _source(name)
+    digest = hashlib.sha256(src.read_bytes())
+    for part in (" ".join(flags), _compiler_identity(compiler), platform.platform()):
+        digest.update(b"\0" + part.encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names=KERNEL_SOURCES) -> dict[str, str]:
     """Build every named library that is missing, in parallel.
 
-    Returns the compiler's output per source built (register and shared
-    memory use, from ``-Xptxas -v``); raises if any build fails.
+    Returns the compiler's output per source built (for a kernel, its
+    register and shared memory use, from ``-Xptxas -v``); raises if any
+    build fails.
     """
     BUILD_DIR.mkdir(exist_ok=True)
     jobs = {}
@@ -63,7 +101,8 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
         if out.exists():
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        src, flags, compiler = _source(name)
+        cmd = [compiler, *flags, "-o", str(tmp), str(src)]
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )
@@ -72,7 +111,7 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
     for name, (proc, tmp, out) in jobs.items():
         logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{logs[name]}")
+            failed.append(f"{name} (compiler exit {proc.returncode}):\n{logs[name]}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)

@@ -1,5 +1,6 @@
 """The SpMV ``y = A @ x``: kernel K1 (``csrc/spmv_csr.cu``), its plain
-version, and the dispatch between them.
+version, and the dispatch between them and the v3 route
+(:mod:`eig_kl_tpu_torch.ops.spmv_v3`) for an f32 graph with a v3 plan.
 
 Replaces the plan-based dispatch of ``eig_kl_tpu/ops/spmv_pallas.py``
 (``spmv_pallas``/``spmv_pallas_2d``) and the v1 and v2 Pallas kernels
@@ -34,6 +35,7 @@ import torch
 
 from eig_kl_tpu_torch.graph.csr import DeviceGraph
 from eig_kl_tpu_torch.ops._build import Kernel
+from eig_kl_tpu_torch.ops.spmv_v3 import spmv_v3
 
 _P = ctypes.c_void_p
 K1 = Kernel(
@@ -136,8 +138,11 @@ def spmv_csr(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x``: K1 for a tensor on the card, the plain version for a
-    tensor on the CPU."""
+    """``A @ x``: for an f32 graph with a v3 plan the v3 route, else K1;
+    the kernels for a tensor on the card, the plain versions for a tensor
+    on the CPU."""
+    if g.plan is not None and g.dtype == torch.float32:
+        return spmv_v3(g.plan, x.to(torch.float32))
     if x.device.type == "cpu":
         return spmv_plain(g, x)
     return spmv_csr(g, x)

@@ -14,17 +14,27 @@ step for "gkl2").  Norms and dot products add in the fixed order of
 :mod:`eig_kl_tpu_torch.ops.reduce`, which makes the iterate equal the JAX
 package's CPU iterate bit for bit.  The "momentum" exit is not yet
 ported.
+
+An f32 graph with a v3 plan iterates on zero-padded ``(P/128, 128)``
+state through the v3 SpMV, as the JAX package's plan branch does
+(``power.py:140-165``): 1 in the padding of the degrees, the norm over
+the padded state in XLA's order for a 2-D reduction, the Rayleigh
+quotient as XLA's vector dot over the padded state (K4 on the card).
+f64 ignores the plan.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from eig_kl_tpu_torch.graph.csr import DeviceGraph
-from eig_kl_tpu_torch.ops.reduce import tree_dot, tree_norm
+from eig_kl_tpu_torch.ops.reduce import fma_dot, tree_dot, tree_norm, tree_norm_2d
 from eig_kl_tpu_torch.ops.select import upper_median
 from eig_kl_tpu_torch.ops.spmv import spmv
+from eig_kl_tpu_torch.ops.spmv_v3 import spmv_v3_padded
 from eig_kl_tpu_torch.utils.config import SpectralConfig
 from eig_kl_tpu_torch.utils.threefry import uniform
 
@@ -64,19 +74,61 @@ def _power_core(
     inv_shift = 1.0 / shift
     safe_deg = torch.where(g.degrees > 0, g.degrees, 1.0).to(dtype)
 
+    if g.plan is not None and dtype == torch.float32:
+        P = g.plan.padded_nodes
+
+        def to_state(x):
+            z = torch.zeros(P, dtype=dtype, device=g.device)
+            z[:n] = x
+            return z.view(P // 128, 128)
+
+        def from_state(x2d):
+            return x2d.reshape(-1)[:n]
+
+        deg_used = to_state(safe_deg)
+        deg_used.view(-1)[n:] = 1.0
+
+        def matvec(x2d):
+            return spmv_v3_padded(g.plan, x2d)
+
+        # XLA's 2-D order is matched up to 32 rows of 128 and above 1,024;
+        # in between, for row counts whose last block XLA vectorizes, the
+        # norm (and so the iterate) can differ from the JAX package's in
+        # the last bits (ops/reduce.py:tree_sum_2d).
+        norm_of = tree_norm_2d
+
+        def dot_of(x, y):
+            return fma_dot(x.reshape(-1), y.reshape(-1))
+
+    else:
+
+        def to_state(x):
+            return x
+
+        def from_state(x):
+            return x
+
+        deg_used = safe_deg
+        g_csr = dataclasses.replace(g, plan=None)  # f64 ignores the plan
+
+        def matvec(x):
+            return spmv(g_csr, x.to(g.dtype)).to(dtype)
+
+        norm_of, dot_of = tree_norm, tree_dot
+
     def norm_lap(x):
         # L x with L = 2 I - 2 D^-1 A (row-normalized, gKL2.cu:262-303).
-        return 2.0 * x - 2.0 * spmv(g, x.to(g.dtype)).to(dtype) / safe_deg
+        return 2.0 * x - 2.0 * matvec(x) / deg_used
 
     def step(x):
         y = x - inv_shift * norm_lap(x)  # gKL2.cu:65-89 sparseMVKernel
-        nrm = tree_norm(y)
+        nrm = norm_of(y)
         safe = nrm > 0
         return torch.where(safe, y / torch.where(safe, nrm, 1.0), y), nrm
 
     np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
     x0 = uniform(seed, n, np_dtype) - np_dtype.type(0.5)
-    x, nrm = step(torch.as_tensor(x0).to(g.device))
+    x, nrm = step(to_state(torch.as_tensor(x0).to(g.device)))
     iteration = 1
 
     if convergence == "sign":
@@ -86,7 +138,8 @@ def _power_core(
         # rose 10% above its minimum (then the minimum's iterate wins).
         flip_tol = 1e-3
 
-        def split_of(v):
+        def split_of(x):
+            v = from_state(x)
             return upper_median(v, n) > v
 
         split = split_of(x)
@@ -119,8 +172,8 @@ def _power_core(
             prev, norm = norm, nrm
             iteration += 1
         v = x
-    lam = tree_dot(v, norm_lap(v))  # Rayleigh quotient
-    return lam, v, iteration
+    lam = dot_of(v, norm_lap(v))  # Rayleigh quotient
+    return lam, from_state(v), iteration
 
 
 def power_partition_fiedler(

@@ -222,3 +222,109 @@ def test_fused_multi_start_on_the_card_equals_the_cpu_run(cuda):
     np.testing.assert_array_equal(card.kl.sides, cpu.kl.sides)
     np.testing.assert_array_equal(card.kl.best_sides, cpu.kl.best_sides)
     np.testing.assert_array_equal(card.kl.cut_trajectory, cpu.kl.cut_trajectory)
+
+
+def _v3_graph(kind):
+    """A host graph for the v3 kernels: gen 0.02x, or 2,000 nodes with one
+    row of degree 1,300 (it spans three chunks or more)."""
+    from eig_kl_tpu_torch.graph.csr import Graph
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+
+    if kind == "gen_0.02":
+        return clique_expand(_hypergraph(kind), "kl")
+    rng = np.random.default_rng(7)
+    n, hub = 2000, 700
+    u, v = rng.integers(0, n, 6000), rng.integers(0, n, 6000)
+    others = rng.choice(np.delete(np.arange(n), hub), 1300, replace=False)
+    u, v = np.concatenate([u, np.full(1300, hub)]), np.concatenate([v, others])
+    keep = u != v
+    key = np.unique(np.minimum(u, v)[keep] * n + np.maximum(u, v)[keep])
+    w = rng.uniform(0.1, 1.0, key.size).astype(np.float32).astype(np.float64)
+    return Graph.from_upper_coo(n, key // n, key % n, w)
+
+
+@pytest.mark.parametrize("kind", ["gen_0.02", "hub"])
+def test_v3_kernels_equal_plain_bitwise_and_are_deterministic(cuda, kind):
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+
+    g_host = _v3_graph(kind)
+    plan = V.build_plan_v3_for_graph(g_host, cuda)
+    n, P = g_host.num_nodes, plan.padded_nodes
+    x = np.zeros(P, np.float32)
+    x[:n] = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    x[:n:37] = -0.0
+    xp = torch.as_tensor(x).to(cuda)
+    e_csr = torch.as_tensor(np.random.default_rng(2).standard_normal(plan.padded_nnz).astype(np.float32))
+    e_csr[::53] = -0.0
+    before = (V.K3A.launches, V.K3B.launches, V.K3C.launches)
+    for kernel, plain, first, arg in (
+        (V.gather_v3_cuda, V.gather_v3_plain, plan, xp),
+        (V.benes_v3_cuda, V.benes_v3_plain, plan.masks, e_csr.to(cuda)),
+        (V.reduce_v3_cuda, V.reduce_v3_plain, plan, e_csr.to(cuda)),
+    ):
+        a, b = kernel(first, arg), kernel(first, arg)
+        torch.cuda.synchronize()
+        ref = plain(first, arg)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert torch.equal(a.view(torch.int32), ref.view(torch.int32))
+    stages = len(V.benes_distances(plan.padded_nnz))
+    assert (V.K3A.launches, V.K3B.launches, V.K3C.launches) == (
+        before[0] + 2, before[1] + 2 * stages, before[2] + 2
+    )
+    # The whole SpMV on the card equals the plain route on the CPU.
+    cpu_plan = V.build_plan_v3_for_graph(g_host, "cpu")
+    y = V.spmv_v3(plan, xp[:n])
+    y_cpu = V.spmv_v3(cpu_plan, torch.as_tensor(x[:n]))
+    assert torch.equal(y.cpu().view(torch.int32), y_cpu.view(torch.int32))
+
+
+@pytest.mark.parametrize("size", [0, 1, 2047, 2048, 4097, 202_752])
+def test_k4_equals_the_host_chain_bitwise(cuda, size):
+    from eig_kl_tpu_torch.ops.reduce import K4, fma_dot, fma_dot_plain
+
+    rng = np.random.default_rng(size)
+    x = rng.standard_normal(size).astype(np.float32)
+    y = (rng.standard_normal(size) * rng.uniform(0.1, 10.0, size)).astype(np.float32)
+    x[::7], y[::11] = 0.0, -0.0
+    xc, yc = torch.as_tensor(x).to(cuda), torch.as_tensor(y).to(cuda)
+    before = K4.launches
+    a, b = fma_dot(xc, yc), fma_dot(xc, yc)
+    assert K4.launches == before + 2 and a.device.type == "cuda"
+    ref = fma_dot_plain(torch.as_tensor(x), torch.as_tensor(y))
+    assert a.cpu().view(torch.int32) == b.cpu().view(torch.int32) == ref.view(torch.int32)
+
+
+def test_v3_fused_on_the_card_equals_the_cpu_run(cuda):
+    """fused_refine_mega on the v3-planned gen 0.02x graph: the card's
+    bits are the CPU path's (which the CPU tests hold to the JAX
+    package), every SpMV goes through K3a, K3b and K3c, and the Rayleigh
+    quotient through K4."""
+    import dataclasses
+
+    from eig_kl_tpu_torch.kl.megakernel import K2, fused_refine_mega
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+    from eig_kl_tpu_torch.ops.reduce import K4
+    from eig_kl_tpu_torch.ops.spmv import K1
+    from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
+
+    g_host = _v3_graph("gen_0.02")
+    runs = []
+    for dev in (cuda, torch.device("cpu")):
+        g = dataclasses.replace(g_host.to_device(dev), plan=V.build_plan_v3_for_graph(g_host, dev))
+        for kern in (K1, K2, V.K3A, V.K3B, V.K3C, K4):
+            kern.launches = 0
+        runs.append(fused_refine_mega(g, SpectralConfig(solver="power"), KLConfig(gain_eps=1e-6)))
+        if dev.type == "cuda":
+            stages = len(V.benes_distances(g.plan.padded_nnz))
+            launches = (K1.launches, K2.launches, V.K3A.launches, V.K3B.launches, V.K3C.launches, K4.launches)
+    (eig, kl, iters), (ceig, ckl, citers) = runs
+    assert iters == citers == 201
+    spmvs = launches[2]
+    assert launches == (0, 1, spmvs, stages * spmvs, spmvs, 1) and spmvs >= iters + 2
+    assert eig.eigenvalue == ceig.eigenvalue
+    np.testing.assert_array_equal(eig.sides, ceig.sides)
+    np.testing.assert_array_equal(eig.values, ceig.values)
+    for name in ("iterations", "initial_cut", "best_cut", "final_cut", "verified_cut"):
+        assert getattr(kl, name) == getattr(ckl, name), name
+    np.testing.assert_array_equal(kl.best_sides, ckl.best_sides)
+    np.testing.assert_array_equal(kl.cut_trajectory, ckl.cut_trajectory)

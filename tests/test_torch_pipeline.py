@@ -289,3 +289,29 @@ def test_port_modules_import_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_port_never_loads_the_jax_native_library():
+    """The port parses, expands and routes with its own host library,
+    never the JAX package's ``native/libeigkl.so``."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'eig_kl_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "from eig_kl_tpu_torch.io.hgr import read_hgr\n"
+        "from eig_kl_tpu_torch.graph.expand import clique_expand\n"
+        "from eig_kl_tpu_torch.ops.spmv_v3 import build_plan_v3_for_graph\n"
+        f"g = clique_expand(read_hgr({GEN_002!r}, use_native=True), 'kl', use_native=True)\n"
+        "build_plan_v3_for_graph(g, 'cpu')\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert 'eigkl_native-' in maps, 'the port did not load its own library'\n"
+        "assert 'libeigkl' not in maps, 'the port loaded native/libeigkl.so'\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, cwd=REPO,
+        env=env, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"

@@ -1,0 +1,414 @@
+"""The port's v3 SpMV on the CPU against the JAX package's: the Benes
+router, the plan, each of the three kernels (the TPU kernels in interpret
+mode, the port's plain versions), the whole SpMV bit for bit, the padded
+power solve's sums, and the v3-planned fused pipeline end to end.
+"""
+
+import dataclasses
+import functools
+import pathlib
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from conftest import random_hypergraph
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+GEN_002 = str(REPO / "benchmarks" / "data" / "gen_0.02_42.hgr")
+
+
+def _bits(a) -> np.ndarray:
+    """int32 view of an f32 array: equal views mean equal values with
+    equal zero signs."""
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.int32)
+
+
+def _coo(g):
+    """``(n, rows, cols, f32 weights)`` of a host graph, as the JAX
+    package's callers hand them to ``build_plan_v3``."""
+    rows = np.repeat(np.arange(g.num_nodes, dtype=np.int64), np.diff(g.indptr))
+    return g.num_nodes, rows, g.indices.astype(np.int64), g.data.astype(np.float32)
+
+
+def _gen002():
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.io.hgr import read_hgr
+
+    return clique_expand(read_hgr(GEN_002, use_native=False), "kl", use_native=False)
+
+
+def _random():
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.io.hgr import Hypergraph
+
+    hg = random_hypergraph(np.random.default_rng(3), num_nodes=700, num_nets=900, max_net=7)
+    hg = Hypergraph(hg.num_nodes, hg.num_nets, hg.pins, hg.net_offsets)
+    return clique_expand(hg, "kl", use_native=False)
+
+
+def _hub():
+    """2,000 nodes: a sparse random graph plus node 700 joined to 1,300
+    others, so that row 700 (degree > 1,024) spans at least three chunks."""
+    from eig_kl_tpu_torch.graph.csr import Graph
+
+    rng = np.random.default_rng(7)
+    n, hub = 2000, 700
+    u, v = rng.integers(0, n, 6000), rng.integers(0, n, 6000)
+    others = rng.choice(np.delete(np.arange(n), hub), 1300, replace=False)
+    u, v = np.concatenate([u, np.full(1300, hub)]), np.concatenate([v, others])
+    keep = u != v
+    key = np.unique(np.minimum(u, v)[keep] * n + np.maximum(u, v)[keep])
+    w = rng.uniform(0.1, 1.0, key.size).astype(np.float32).astype(np.float64)
+    g = Graph.from_upper_coo(n, key // n, key % n, w)
+    assert g.degrees[hub] > 1024
+    return g
+
+
+GRAPHS = {"gen_0.02": _gen002, "random": _random, "hub": _hub}
+
+
+@functools.lru_cache(maxsize=None)
+def _plans(kind):
+    """(host graph, JAX plan, the port's plan on the CPU) of one graph."""
+    from eig_kl_tpu.ops import spmv_pallas as SP
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+
+    g = GRAPHS[kind]()
+    return g, SP.build_plan_v3(*_coo(g)), V.build_plan_v3(*_coo(g), "cpu")
+
+
+def _port_of(jplan):
+    from eig_kl_tpu_torch.ops.spmv_v3 import plan_v3_from_jax
+
+    leaves, aux = jplan.tree_flatten()
+    return plan_v3_from_jax(*(np.asarray(a) for a in leaves), *aux, device="cpu")
+
+
+def _state(n, P, seed):
+    """A padded f32 state with some -0.0 entries and zero padding."""
+    x = np.zeros(P, np.float32)
+    x[:n] = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    x[: n : 37] = -0.0
+    return x
+
+
+# ----------------------------------------------------------------- router
+
+
+@pytest.mark.parametrize("N", [32, 256, 4096, 1 << 15])
+def test_router_words_equal_the_jax_router(N):
+    from eig_kl_tpu.io import native_io as jax_native
+    from eig_kl_tpu_torch.io import native_io
+
+    dest = np.random.default_rng(N).permutation(N).astype(np.int32)
+    got = native_io.benes_route_native(N, dest)
+    assert got.dtype == np.uint32 and got.shape == (2 * (N.bit_length() - 1) - 1, N // 32)
+    np.testing.assert_array_equal(got, jax_native.benes_route_native(N, dest))
+
+
+def test_router_rejects_what_it_cannot_route():
+    from eig_kl_tpu_torch.io import native_io
+
+    with pytest.raises(ValueError, match="power of two"):
+        native_io.benes_route_native(48, np.arange(48, dtype=np.int32))
+    with pytest.raises(ValueError, match="permutation"):
+        native_io.benes_route_native(64, np.zeros(64, np.int32))
+
+
+# ------------------------------------------------------------------- plan
+
+
+@pytest.mark.parametrize("kind", ["gen_0.02", "random"])
+def test_plan_equals_the_jax_plan(kind):
+    _, jplan, plan = _plans(kind)
+    ported = _port_of(jplan)
+    for f in dataclasses.fields(plan):
+        a, b = getattr(plan, f.name), getattr(ported, f.name)
+        if isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and a.shape == b.shape, f.name
+            assert torch.equal(a, b), f.name
+        else:
+            assert a == b, f.name
+    assert plan.masks.shape == (2 * plan.padded_nnz.bit_length() - 3, plan.padded_nnz // 32)
+
+
+def test_plan_raises_as_the_jax_plan_does():
+    from eig_kl_tpu.ops import spmv_pallas as SP
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+
+    # More than BENES_MAX slots.
+    rows = np.repeat(np.arange(4096, dtype=np.int64), 513)
+    cols = np.tile(np.arange(513, dtype=np.int64), 4096)
+    w = np.ones(rows.size, np.float32)
+    for build in (SP.build_plan_v3, functools.partial(V.build_plan_v3, device="cpu")):
+        with pytest.raises(ValueError, match="exceeds BENES_MAX"):
+            build(4096, rows, cols, w)
+    # A chunk whose rows lie more than 1,024 apart (a run of empty rows).
+    rows = np.concatenate([np.arange(10), np.arange(4000, 4010)]).astype(np.int64)
+    cols = rows[::-1].copy()
+    w = np.ones(20, np.float32)
+    for build in (SP.build_plan_v3, functools.partial(V.build_plan_v3, device="cpu")):
+        with pytest.raises(ValueError, match="row indices"):
+            build(5000, rows, cols, w)
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def _jax_gather(jplan, x):
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    from eig_kl_tpu.ops import spmv_pallas as SP
+
+    C, R, G = jplan.col_local.shape[0], jplan.padded_nodes // 128, SP.GB3
+    return pl.pallas_call(
+        SP._gather_v3_kernel,
+        out_shape=jax.ShapeDtypeStruct((C * 4, 128), jnp.float32),
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1,
+            grid=(C // G,),
+            in_specs=[
+                pl.BlockSpec((R, 128), lambda c, *_: (0, 0), memory_space=pltpu.VMEM),
+                pl.BlockSpec((G, 4, 128), lambda c, *_: (c, 0, 0)),
+                pl.BlockSpec((G, 4, 128), lambda c, *_: (c, 0, 0)),
+            ],
+            out_specs=pl.BlockSpec((G * 4, 128), lambda c, *_: (c, 0)),
+        ),
+        interpret=True,
+    )(jplan.cw8, jnp.asarray(x.reshape(R, 128)), jplan.col_local, jplan.weights)
+
+
+def _jax_benes(masks, e):
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    from eig_kl_tpu.ops import spmv_pallas as SP
+
+    N = e.size
+    Rn = N // 128
+    return pl.pallas_call(
+        functools.partial(SP._benes_kernel, n_pad=N),
+        out_shape=jax.ShapeDtypeStruct((Rn, 128), jnp.float32),
+        in_specs=[
+            pl.BlockSpec(memory_space=pl.ANY),
+            pl.BlockSpec(memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        scratch_shapes=[
+            pltpu.VMEM((2, Rn // 32, 128), jnp.int32),
+            pltpu.SemaphoreType.DMA((2,)),
+        ],
+        input_output_aliases={1: 0},
+        interpret=True,
+    )(jnp.asarray(masks), jnp.asarray(np.asarray(e).reshape(Rn, 128)))
+
+
+def _jax_reduce(jplan, e):
+    from jax.experimental import pallas as pl
+    from jax.experimental.pallas import tpu as pltpu
+    from eig_kl_tpu.ops import spmv_pallas as SP
+
+    C, R, G = jplan.col_local.shape[0], jplan.padded_nodes // 128, SP.GB3
+    return pl.pallas_call(
+        SP._reduce_v3_kernel,
+        out_shape=jax.ShapeDtypeStruct((R, 128), jnp.float32),
+        grid_spec=pltpu.PrefetchScalarGridSpec(
+            num_scalar_prefetch=1,
+            grid=(C // G,),
+            in_specs=[
+                pl.BlockSpec((G * 4, 128), lambda c, *_: (c, 0)),
+                pl.BlockSpec((G, 4, 128), lambda c, *_: (c, 0, 0)),
+                pl.BlockSpec((G, 8, 128), lambda c, *_: (c, 0, 0)),
+            ],
+            out_specs=pl.BlockSpec((R, 128), lambda c, *_: (0, 0), memory_space=pltpu.VMEM),
+        ),
+        interpret=True,
+    )(jplan.rw8, jnp.asarray(np.asarray(e).reshape(-1, 128)), jplan.row_local, jplan.route_src)
+
+
+@pytest.mark.parametrize("kind", ["gen_0.02", "hub"])
+def test_gather_and_reduce_equal_the_tpu_kernels(kind):
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+
+    g, jplan, plan = _plans(kind)
+    x = _state(g.num_nodes, plan.padded_nodes, 1)
+    e = V.gather_v3_plain(plan, torch.as_tensor(x))
+    np.testing.assert_array_equal(_bits(e), _bits(_jax_gather(jplan, x)).reshape(-1))
+    # The reduce on products in CSR order, some of them -0.0.
+    e_csr = np.random.default_rng(2).standard_normal(plan.padded_nnz).astype(np.float32)
+    e_csr[::53] = -0.0
+    y = V.reduce_v3_plain(plan, torch.as_tensor(e_csr))
+    np.testing.assert_array_equal(_bits(y), _bits(_jax_reduce(jplan, e_csr)).reshape(-1))
+
+
+def test_benes_equals_the_tpu_kernel():
+    """As ``tests/test_pallas_kernels.py`` calls the Benes kernel: N =
+    8,192, a random permutation, switch bits from the router."""
+    from eig_kl_tpu.ops import spmv_pallas as SP
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+    from eig_kl_tpu_torch.io import native_io
+
+    N = 8192
+    rng = np.random.default_rng(0)
+    dest = rng.permutation(N).astype(np.int32)
+    x = rng.standard_normal(N).astype(np.float32)
+    x[::11] = -0.0
+    tpu_masks = SP._benes_masks(dest)
+    masks = V.unpack_tpu_masks(tpu_masks)
+    np.testing.assert_array_equal(masks, native_io.benes_route_native(N, dest).view(np.int32))
+    got = V.benes_v3_plain(torch.as_tensor(masks), torch.as_tensor(x))
+    np.testing.assert_array_equal(_bits(got), _bits(_jax_benes(tpu_masks, x)).reshape(-1))
+    exp = np.empty(N, np.float32)
+    exp[dest] = x
+    np.testing.assert_array_equal(_bits(got), _bits(exp))
+
+
+@pytest.mark.parametrize("kind", ["gen_0.02", "hub"])
+def test_spmv_v3_equals_spmv_pallas_bitwise(kind):
+    from eig_kl_tpu.ops import spmv_pallas as SP
+    from eig_kl_tpu_torch.graph.csr import Graph
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+    from eig_kl_tpu_torch.ops.spmv import spmv
+
+    g, jplan, plan = _plans(kind)
+    n = g.num_nodes
+    x = _state(n, n, 3)
+    ref = np.asarray(SP.spmv_pallas(jplan, jnp.asarray(x), interpret=True))
+    got = V.spmv_v3(plan, torch.as_tensor(x))
+    np.testing.assert_array_equal(_bits(got), _bits(ref))
+    # The dispatch: an f32 graph with a plan takes the v3 route.
+    gd = dataclasses.replace(Graph.from_arrays(g.indptr, g.indices, g.data).to_device("cpu"), plan=plan)
+    np.testing.assert_array_equal(_bits(spmv(gd, torch.as_tensor(x))), _bits(ref))
+    if kind == "hub":
+        # Row 700 crosses at least two chunk boundaries.
+        lo, hi = g.indptr[700], g.indptr[701]
+        assert hi // V.CHUNK - lo // V.CHUNK >= 2
+
+
+# ------------------------------------------------------ padded power solve
+
+
+@pytest.mark.parametrize("rows", [8, 32, 192, 1584])
+def test_padded_norm_equals_jnp_linalg_norm(rows):
+    """The power solve's norm of its ``(P/128, 128)`` state, in XLA's
+    order for a 2-D reduction (1,584 rows: gen 1.0x; 32: gen 0.02x)."""
+    from eig_kl_tpu_torch.ops.reduce import tree_norm_2d
+
+    rng = np.random.default_rng(rows)
+    norm = jax.jit(jnp.linalg.norm)
+    for _ in range(4):
+        x = _state(rows * 128 - int(rng.integers(0, 1000)), rows * 128, int(rng.integers(1 << 30)))
+        x *= rng.uniform(0.1, 10.0, x.size).astype(np.float32)
+        x2d = x.reshape(rows, 128)
+        got = tree_norm_2d(torch.as_tensor(x2d))
+        assert got.dtype == torch.float32
+        assert _bits(got) == _bits(norm(jnp.asarray(x2d)))
+
+
+@pytest.mark.parametrize("P", [4096, 202752])
+def test_padded_dot_equals_jnp_vdot(P):
+    """The Rayleigh quotient's dot over the padded state: XLA's vector dot
+    is one chain of fused multiply-adds."""
+    from eig_kl_tpu_torch.ops.reduce import fma_dot
+
+    x, y = _state(P - 58, P, 5), _state(P - 58, P, 6)
+    got = fma_dot(torch.as_tensor(x), torch.as_tensor(y))
+    ref = jax.jit(jnp.vdot)(jnp.asarray(x.reshape(-1, 128)), jnp.asarray(y.reshape(-1, 128)))
+    assert _bits(got) == _bits(ref)
+
+
+def test_padded_norm_order_differs_where_xla_vectorizes_its_last_block():
+    """Between 32 and 1,024 rows the last block is ``(k, 4)``; at k = 4
+    (128 rows) XLA's final reduce is vectorized across rows, an order
+    ``tree_sum_2d`` does not reproduce: some sums differ, in the last bits
+    only."""
+    from eig_kl_tpu_torch.ops.reduce import tree_norm_2d
+
+    rng = np.random.default_rng(128)
+    norm = jax.jit(jnp.linalg.norm)
+    differ = 0
+    for _ in range(40):
+        x2d = (_state(128 * 128, 128 * 128, int(rng.integers(1 << 30))) * rng.uniform(
+            0.1, 10.0, 128 * 128).astype(np.float32)).reshape(128, 128)
+        got = int(_bits(tree_norm_2d(torch.as_tensor(x2d))).reshape(-1)[0])
+        ref = int(_bits(norm(jnp.asarray(x2d))).reshape(-1)[0])
+        assert abs(got - ref) <= 2
+        differ += got != ref
+    assert differ > 0
+
+
+def test_fma_dot_runs_the_host_chain_for_cpu_tensors_only():
+    """On the CPU ``fma_dot`` is the host chain; K4's wrapper refuses a
+    tensor that is not on the card and launches nothing."""
+    from eig_kl_tpu_torch.ops.reduce import K4, fma_dot, fma_dot_cuda, fma_dot_plain
+
+    x, y = torch.as_tensor(_state(4000, 4096, 7)), torch.as_tensor(_state(4000, 4096, 8))
+    before = K4.launches
+    assert _bits(fma_dot(x, y)) == _bits(fma_dot_plain(x, y))
+    with pytest.raises(ValueError, match="CUDA"):
+        fma_dot_cuda(x, y)
+    assert K4.launches == before
+
+
+# ------------------------------------------------------------ the slice
+
+
+@pytest.fixture(scope="module")
+def v3_fused():
+    """The v3-planned fused pipeline on gen 0.02x: the JAX package's
+    (interpret mode) and the port's (on the CPU)."""
+    from eig_kl_tpu.kl.megakernel import MegaGraph, fused_refine_mega as jax_fused
+    from eig_kl_tpu.utils.config import KLConfig as JaxKL, SpectralConfig as JaxSpec
+    from eig_kl_tpu_torch.graph.csr import Graph
+    from eig_kl_tpu_torch.kl.megakernel import fused_refine_mega
+    from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
+
+    from eig_kl_tpu.graph.csr import Graph as JaxGraph
+
+    g, jplan, plan = _plans("gen_0.02")
+    jg = JaxGraph(g.num_nodes, g.indptr, g.indices, g.data)
+    jdev = jg.to_device()._replace(plan=jplan)
+    ref = jax_fused(MegaGraph(jg, plan=jplan, device_graph=jdev), jdev, JaxSpec(solver="power"),
+                    JaxKL(gain_eps=1e-6), interpret=True)
+    gd = dataclasses.replace(Graph.from_arrays(g.indptr, g.indices, g.data).to_device("cpu"), plan=plan)
+    got = fused_refine_mega(gd, SpectralConfig(solver="power"), KLConfig(gain_eps=1e-6))
+    return ref, got
+
+
+def test_v3_fused_equals_the_jax_run(v3_fused):
+    """Tolerance 0: the same power steps, eigenvalue, split and swaps."""
+    (jeig, jkl), (eig, kl, iters) = v3_fused
+    assert iters == 201
+    assert eig.eigenvalue == jeig.eigenvalue == 1.2118805646896362
+    np.testing.assert_array_equal(eig.sides, jeig.sides)
+    assert int(eig.sides.sum()) == 1932
+    np.testing.assert_array_equal(_bits(eig.values), _bits(jeig.values))
+    assert kl.initial_cut == jkl.initial_cut == 1042.352294921875
+    assert kl.best_cut == jkl.best_cut == 815.5189819335938
+    assert kl.iterations == jkl.iterations == 171
+    assert kl.final_cut == jkl.final_cut
+    np.testing.assert_array_equal(kl.cut_trajectory, jkl.cut_trajectory)
+    np.testing.assert_array_equal(kl.gain_trajectory, jkl.gain_trajectory)
+    np.testing.assert_array_equal(kl.sides, jkl.sides)
+    np.testing.assert_array_equal(kl.best_sides, jkl.best_sides)
+    # The recount of the final partition adds s . (A s) in the port's tree
+    # order; the JAX package's mega path takes jnp.vdot (a chain of fused
+    # multiply-adds) and lands 2.4e-4 higher.
+    assert kl.verified_cut == pytest.approx(jkl.verified_cut, rel=1e-6)
+
+
+def test_v3_fused_differs_from_the_unplanned_run(v3_fused):
+    """The v3 route is another summation order, so another run of the
+    system, not K1's relabelled: without a plan the power solve lands on
+    another eigenvalue."""
+    from eig_kl_tpu_torch.graph.csr import Graph
+    from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+
+    g, _, _ = _plans("gen_0.02")
+    (_, _), (eig, _, _) = v3_fused
+    gd = Graph.from_arrays(g.indptr, g.indices, g.data).to_device("cpu")
+    lam = power_partition_fiedler(gd, SpectralConfig(solver="power"))[0]
+    assert lam == pytest.approx(eig.eigenvalue, rel=1e-4) and lam != eig.eigenvalue
