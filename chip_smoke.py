@@ -11,7 +11,9 @@ EIG+KL pipeline (``fused_partition``, the path of ``python -m
 eig_kl_tpu_torch fused <file> -EIG``) once on the generated circuit at 1.0x
 the reference scale (seed 42, 201,920 nodes), then the multi-start path,
 then the v3 path (``fused_refine_mega`` on the same graph with a v3 SpMV
-plan attached), checks that each run went through its kernels and that
+plan attached), then the sharded KL pass (``smega_refine`` at 1, 2, 4 and
+8 shards, one thread-block cluster each, from the one-start run's
+spectral split), checks that each run went through its kernels and that
 its cuts are right, and prints one JSON line per the kernels and, last,
 ``{"ok": true, "device": ...}``.
 Any failed check raises, so the script exits nonzero and prints no
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -38,6 +41,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 STARTS, PERTURB, KICKS = 8, 0.05, 2  # the multi-start path
 PASS_FIELDS = ("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars")
+SHARDS = (1, 2, 4, 8)  # the smega path's shard counts, one cluster of S blocks each
+GEN_002 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks", "data", "gen_0.02_42.hgr")
 
 
 def card_line() -> str:
@@ -146,6 +151,7 @@ def main() -> int:
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
     from eig_kl_tpu_torch.graph.csr import DeviceGraph
     from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.io.hgr import read_hgr
     from eig_kl_tpu_torch.kl.megakernel import (
         K2,
         K2_STARTS,
@@ -164,12 +170,19 @@ def main() -> int:
     from eig_kl_tpu_torch.ops import spmv_v3 as V
     from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
     from eig_kl_tpu_torch.ops.reduce import K4, fma_dot_cuda, fma_dot_plain
+    from eig_kl_tpu_torch.parallel.smega import (
+        K5,
+        SmegaPlan,
+        smega_pass_cuda,
+        smega_pass_plain,
+        smega_refine,
+    )
     from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
     from eig_kl_tpu_torch.utils.tracing import Tracer
 
     dev = torch.device("cuda")
     card = card_line()
-    all_kernels = (K1, K2, V.K3A, V.K3B, V.K3C, K4)
+    all_kernels = (K1, K2, V.K3A, V.K3B, V.K3C, K4, K5)
 
     def reset_counts():
         for kern in all_kernels:
@@ -641,6 +654,141 @@ def main() -> int:
     )
     print(f"launches on the v3 path: {v3_spmvs} SpMVs, {v3_launches}, K4 1, K1 0, K2 1")
 
+    # Phase 9: the sharded KL pass (smega_refine, K5) at S = 1, 2, 4, 8
+    # shards, one thread-block cluster of S blocks, from the one-start
+    # run's spectral split.  The plans are built and uploaded outside the
+    # clock, as a caller reuses one per graph.
+    t_phase = time.perf_counter()
+    sm_sides = np.asarray(run.eig.sides, dtype=np.int8)
+    sm_config = KLConfig(gain_eps=1e-6)
+    plans, plan_s = {}, {}
+    for shards in SHARDS:
+        t0 = time.perf_counter()
+        plans[shards] = SmegaPlan(g_host, shards)
+        plan_s[shards] = time.perf_counter() - t0
+        plans[shards].device_graph(dev)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    sm, sm_s = {}, {}
+    for shards in SHARDS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sm[shards] = smega_refine(g_host, sm_sides, shards, sm_config, plan=plans[shards])
+        torch.cuda.synchronize()
+        sm_s[shards] = time.perf_counter() - t0
+    k5_launches, sm_k1 = K5.launches, K1.launches
+    check(k5_launches == len(SHARDS), f"K5 launched {k5_launches} times for {len(SHARDS)} smega runs")
+    check(sm_k1 == len(SHARDS), f"K1 launched {sm_k1} times for {len(SHARDS)} smega runs")
+    check(K2.launches == 0 and not v3_launched(), "the smega path launched K2 or a v3 kernel")
+    # (a) One trajectory at every shard count; (d) drift and best <= initial.
+    for shards in SHARDS:
+        r = sm[shards]
+        for name in ("iterations", "initial_cut", "final_cut", "best_cut", "verified_cut"):
+            check(getattr(r, name) == getattr(sm[1], name), f"smega at S = {shards}: {name} differs from S = 1")
+        for name in ("sides", "best_sides", "cut_trajectory", "gain_trajectory"):
+            check(np.array_equal(getattr(r, name), getattr(sm[1], name)),
+                  f"smega at S = {shards}: {name} differs from S = 1")
+        sm_drift = abs(r.final_cut - r.verified_cut) / r.final_cut
+        check(sm_drift <= 1e-5, f"smega at S = {shards}: cut drift {sm_drift:.3g} above 1e-5")
+        check(r.best_cut <= r.initial_cut, f"smega at S = {shards}: best cut above the initial cut")
+
+    # The pass alone: K5 at each S against K2 from the same split and A@s.
+    n1 = int(sm_sides.sum())
+    cap = min(n1, n - n1)
+    s = sides_to_signs(torch.as_tensor(sm_sides).to(dev), torch.float32)
+    a_s = spmv_csr(g, s)
+    cut_tree = float(cut_size(g, s, a_s))
+    k2_args = (g, s, a_s, cut_tree, cap, limit, 1e-6)
+    k2_main = kl_pass_cuda(*k2_args)
+    k2_main_ms = cuda_ms(lambda: kl_pass_cuda(*k2_args), 2)
+    it = int(k2_main.scalars[2])
+    check(it == sm[1].iterations == kl.iterations, "K2's and K5's passes ran different iteration counts")
+    cut_host = sm[1].initial_cut
+
+    def k5_args(shards, num_swaps, log_len):
+        n_pad = plans[shards].n_pad
+        sf0 = torch.zeros(n_pad, device=dev)
+        as0 = torch.zeros(n_pad, device=dev)
+        sf0[:n], as0[:n] = s, a_s
+        return (plans[shards].device_graph(dev), shards, sf0, as0, cut_host, num_swaps, n - n1, n1, log_len, limit, 1e-6)
+
+    sm_ms = {}
+    # K5 computes K2's function: the same swaps have the same least time.
+    sm_moved = torch.as_tensor(np.flatnonzero(sm[1].sides != sm_sides)).to(dev)
+    sm_bound = k2_bound(g, [(it, sm_moved)])
+    for shards in SHARDS:
+        args = k5_args(shards, cap, cap + 1)
+        out = smega_pass_cuda(*args)
+        sm_ms[shards] = cuda_ms(lambda: smega_pass_cuda(*args), 2)
+        check(int(out.scalars[2]) == it, f"K5 at S = {shards} ran {int(out.scalars[2])} swaps, K2 {it}")
+        # (b) K2's swaps and gains; the cut log starts from another cut0.
+        for name in ("log_a", "log_b", "log_gain"):
+            check(torch.equal(getattr(out, name)[: it + 1], getattr(k2_main, name)[: it + 1]),
+                  f"K5 at S = {shards}: {name} differs from K2's")
+        check(torch.equal(out.sf[:n], k2_main.sf), f"K5 at S = {shards}: final sf differs from K2's")
+    cut_gap = abs(cut_host - cut_tree)
+    gains = np.abs(sm[1].gain_trajectory[1:].astype(np.float64)).sum()
+    cut_tol = cut_gap + 4 * 2.0**-24 * (abs(cut_host) + gains)  # Kahan's bound, both runs
+    cut_diff = float(np.abs(sm[1].cut_trajectory - k2_main.log_cut[: it + 1].cpu().numpy().astype(np.float64)).max())
+    check(cut_diff <= cut_tol, f"smega's and K2's cut logs differ by {cut_diff}, above {cut_tol}")
+    print(
+        f"smega gen {MULTIPLIER}x from the spectral split (S = {SHARDS}): {it} swaps, best cut "
+        f"{sm[1].best_cut}, final {sm[1].final_cut}, verified {sm[1].verified_cut}; swaps, gains, "
+        f"iterations and both partitions bitwise equal at every S and to K2's pass; cut0 host f64 "
+        f"{cut_host!r} against K2's tree order {cut_tree!r}, cut logs {cut_diff:.6g} apart (bound "
+        f"{cut_tol:.6g})"
+    )
+    for shards in SHARDS:
+        print(
+            f"K5 at S = {shards}: {sm_ms[shards]:.3f} ms per pass, {1e3 * sm_ms[shards] / it:.3f} us/swap "
+            f"(K2 in this call: {k2_main_ms:.3f} ms, {1e3 * k2_main_ms / it:.3f} us/swap); bound "
+            f"{sm_bound[0]:.4f} ms by {sm_bound[1]}; plan build {plan_s[shards]:.3f} s; "
+            f"smega_refine e2e {sm_s[shards]:.3f} s"
+        )
+    print(f"launches on the smega path: K5 {k5_launches}, K1 {sm_k1}; smega e2e seconds at S = 8: {sm_s[8]:.3f}")
+
+    # (c) K5 against smega_pass_plain on the card: the first 1,000 swaps at
+    # S = 1 and S = 8, and whole passes on gen 0.02x at S = 2 and 4.
+    k5_err = 0.0
+    for shards in (1, 8):
+        capped_args = k5_args(shards, 1000, 1001)
+        out_k = smega_pass_cuda(*capped_args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out_p = smega_pass_plain(*capped_args)
+        torch.cuda.synchronize()
+        k5_plain_ms = (time.perf_counter() - t0) * 1e3
+        check_same_pass(out_k, out_p, f"K5 at S = {shards} against smega_pass_plain")
+        check(int(out_k.scalars[2]) == 1000, f"the capped K5 pass at S = {shards} ran {int(out_k.scalars[2])} swaps")
+        k5_err = max(k5_err, float((out_k.log_cut - out_p.log_cut).abs().max()))
+    k5_ms = cuda_ms(lambda: smega_pass_cuda(*capped_args), 3)  # S = 8, as the plain time
+    capped = torch.cat([out_k.log_a[1:], out_k.log_b[1:]])
+    k5_bound_ms, k5_bound_by, k5_bytes, k5_ops = k2_bound(g, [(1000, capped)])
+    small = clique_expand(read_hgr(GEN_002), "kl")
+    small_sides = random_split(small.num_nodes, SEED)
+    for shards in (2, 4):
+        plan_small = SmegaPlan(small, shards)
+        dg = plan_small.device_graph(dev)
+        s_small = sides_to_signs(torch.as_tensor(small_sides).to(dev), torch.float32)
+        sf0 = torch.zeros(plan_small.n_pad, device=dev)
+        as0 = torch.zeros(plan_small.n_pad, device=dev)
+        sf0[: small.num_nodes], as0[: small.num_nodes] = s_small, spmv_csr(dg, s_small)
+        m1 = int(small_sides.sum())
+        m_cap = min(m1, small.num_nodes - m1)
+        args = (dg, shards, sf0, as0, float(cut_size(dg, s_small, as0[: small.num_nodes])), m_cap,
+                small.num_nodes - m1, m1, m_cap + 1, KLConfig().terminate_limit(small.num_nodes), 1e-6)
+        out_k = smega_pass_cuda(*args)
+        check_same_pass(out_k, smega_pass_plain(*args), f"K5 on gen 0.02x at S = {shards} against smega_pass_plain")
+        check(int(out_k.scalars[2]) > 100, f"K5 on gen 0.02x at S = {shards} ran {int(out_k.scalars[2])} swaps")
+    print(
+        f"K5 bitwise equal to smega_pass_plain: 1,000 swaps at S = 1 and 8 (gen {MULTIPLIER}x), whole "
+        f"passes at S = 2 and 4 (gen 0.02x); the 1,000 swaps at S = 8: {k5_ms:.3f} ms, plain "
+        f"{k5_plain_ms:.1f} ms, bound {k5_bound_ms:.4f} ms by {k5_bound_by} ({k5_bytes} bytes, "
+        f"{k5_ops} operations)"
+    )
+    print(f"smega phase: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [
         {
             "name": "K1 spmv_csr_f32",
@@ -750,6 +898,25 @@ def main() -> int:
             "bound_ms": k4_bound,
             "bound_by": "bytes",
             "library_ms": k4_lib_ms,
+        },
+        {
+            "name": "K5 smega_pass_f32, S = 8, the first 1,000 swaps of the main path's pass",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/smega.cu",
+            "replaces": "eig_kl_tpu/parallel/smega.py:166",
+            "launches": k5_launches,
+            "max_abs_err": k5_err,
+            "ms": k5_ms,
+            "plain_ms": k5_plain_ms,
+            "bound_ms": k5_bound_ms,
+            "bound_by": k5_bound_by,
+            "library_ms": None,
+            "pass_swaps": it,
+            "pass_ms_by_shards": sm_ms,
+            "pass_bound_ms": sm_bound[0],
+            "us_per_swap_by_shards": {k: 1e3 * v / it for k, v in sm_ms.items()},
+            "k2_pass_ms": k2_main_ms,
+            "e2e_s_by_shards": sm_s,
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,10 @@
 The same EIG+KL hypergraph bipartitioner (spectral initialization from
 the Fiedler vector of the clique-expanded graph, then Kernighan-Lin
 swap refinement), running on an NVIDIA H100 through hand-written CUDA
-kernels: ``csrc/spmv_csr.cu`` (the SpMV) and ``csrc/kl_pass.cu`` (one
-whole KL pass of each of S starts in one launch).  Module paths and public names mirror
+kernels: ``csrc/spmv_csr.cu`` (the SpMV), ``csrc/kl_pass.cu`` (one
+whole KL pass of each of S starts in one launch) and ``csrc/smega.cu``
+(one pass with its nodes sharded over the blocks of a thread-block
+cluster), among others in ``csrc/``.  Module paths and public names mirror
 ``eig_kl_tpu``; the package imports neither JAX nor ``eig_kl_tpu``.
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"``, where each kernel's plain PyTorch version runs.

@@ -158,7 +158,7 @@ class NotPorted(Exception):
 
 def _check_ported(args, fused: bool) -> None:
     if getattr(args, "sharded", False):
-        raise NotPorted("--sharded (ROADMAP.md A8)")
+        raise NotPorted("--sharded, the cross-card sharded_kl2 engine (ROADMAP.md A8b)")
     if args.f64 and args.device == "cuda":
         raise NotPorted("--f64 on the card (ROADMAP.md A9)")
     if fused and args.eig_init:

@@ -12,7 +12,7 @@ The JAX package also has a ``vmap`` of its XLA engine over starts
 without the mega-kernel.  The port has one engine, whose plain version
 plays that part on the CPU, so there is no separate counterpart.  The
 start axis sharded over several devices
-(``multi_start_refine_mega_sharded``, ``:275``) is ROADMAP.md A8.
+(``multi_start_refine_mega_sharded``, ``:275``) is ROADMAP.md A8b.
 """
 
 from __future__ import annotations

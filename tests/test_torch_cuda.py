@@ -7,6 +7,7 @@ installed; run it on the card, without the JAX-side ``conftest.py``, with::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -328,3 +329,116 @@ def test_v3_fused_on_the_card_equals_the_cpu_run(cuda):
         assert getattr(kl, name) == getattr(ckl, name), name
     np.testing.assert_array_equal(kl.best_sides, ckl.best_sides)
     np.testing.assert_array_equal(kl.cut_trajectory, ckl.cut_trajectory)
+
+
+def _smega_inputs(g_host, n_shards, device, seed=5):
+    """A seeded random split of ``g_host`` as K5's padded inputs on
+    ``device``: (graph, shard count, sf0, as0, cut0, cap, nf0, nf1)."""
+    from eig_kl_tpu_torch.kl.init import random_split
+    from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
+    from eig_kl_tpu_torch.ops.spmv import spmv
+    from eig_kl_tpu_torch.parallel.smega import SmegaPlan
+
+    plan = SmegaPlan(g_host, n_shards, align=128)
+    g = plan.device_graph(torch.device(device))
+    n = g.num_nodes
+    sides = random_split(n, seed)
+    s = sides_to_signs(torch.as_tensor(sides).to(device), torch.float32)
+    sf0 = torch.zeros(plan.n_pad, device=device)
+    as0 = torch.zeros(plan.n_pad, device=device)
+    sf0[:n] = s
+    as0[:n] = spmv(g, s)
+    n1 = int(sides.sum())
+    return g, n_shards, sf0, as0, float(cut_size(g, s, as0[:n])), min(n1, n - n1), n - n1, n1
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+def test_k5_equals_plain_bitwise(cuda, n_shards):
+    """One cluster of S blocks: the whole pass from a random split, and a
+    pass capped at 50 swaps, bitwise equal to the plain version on the card
+    and on the CPU, and to the single-chip K2's swaps."""
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.kl.megakernel import kl_pass_cuda
+    from eig_kl_tpu_torch.parallel.smega import K5, smega_pass, smega_pass_plain
+
+    g_host = clique_expand(_hypergraph("gen_0.02"), "kl")
+    args = _smega_inputs(g_host, n_shards, cuda)
+    g, _, sf0, as0, cut0, cap, nf0, nf1 = args
+    cpu_args = _smega_inputs(g_host, n_shards, "cpu")
+    passes = []
+    for c in (cap, 50):
+        tail = (c, nf0, nf1, cap + 1, 16, 1e-6)
+        before = K5.launches
+        got = smega_pass(g, n_shards, sf0, as0, cut0, *tail)
+        assert K5.launches == before + 1
+        ref = smega_pass_plain(g, n_shards, sf0, as0, cut0, *tail)
+        ref_cpu = smega_pass(*cpu_args[:5], *tail)
+        torch.cuda.synchronize()
+        it = int(got.scalars[2])
+        assert it > 50 if c == cap else it == 50
+        for name in ("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars"):
+            assert torch.equal(getattr(got, name), getattr(ref, name)), name
+            assert torch.equal(getattr(got, name).cpu(), getattr(ref_cpu, name)), name
+        passes.append(got)
+    n = g.num_nodes
+    single = kl_pass_cuda(g, sf0[:n].contiguous(), as0[:n].contiguous(), cut0, cap, 16, 1e-6)
+    for name in ("log_cut", "log_gain", "log_a", "log_b", "scalars"):
+        assert torch.equal(getattr(passes[0], name), getattr(single, name)), name
+
+
+def test_smega_refine_on_the_card_equals_the_cpu_run(cuda):
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.kl.init import random_split
+    from eig_kl_tpu_torch.ops.spmv import K1
+    from eig_kl_tpu_torch.parallel.smega import K5, smega_refine
+    from eig_kl_tpu_torch.utils.config import KLConfig
+
+    g_host = clique_expand(_hypergraph("gen_0.02"), "kl")
+    sides = random_split(g_host.num_nodes, 3)
+    cfg = KLConfig(gain_eps=1e-6)
+    K1.launches = K5.launches = 0
+    card = smega_refine(g_host, sides, 4, cfg)  # the default device is the card
+    assert (K1.launches, K5.launches) == (1, 1)
+    cpu = smega_refine(g_host, sides, 4, cfg, device="cpu")
+    for name in ("iterations", "initial_cut", "best_cut", "final_cut", "verified_cut"):
+        assert getattr(card, name) == getattr(cpu, name), name
+    for name in ("sides", "best_sides", "cut_trajectory", "gain_trajectory"):
+        np.testing.assert_array_equal(getattr(card, name), getattr(cpu, name))
+
+
+@pytest.mark.parametrize("n_shards", [3, 16])
+def test_k5_refuses_other_shard_counts(cuda, n_shards):
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.parallel.smega import K5, smega_pass_cuda
+
+    g_host = clique_expand(_hypergraph("gen_0.02"), "kl")
+    g, _, sf0, as0, cut0, cap, nf0, nf1 = _smega_inputs(g_host, n_shards, cuda)
+    before = K5.launches
+    with pytest.raises(ValueError, match="A8b"):
+        smega_pass_cuda(g, n_shards, sf0, as0, cut0, cap, nf0, nf1, cap + 1, 16, 1e-6)
+    assert K5.launches == before
+
+
+def test_k5_wrapper_checks_its_arguments(cuda):
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.parallel.smega import K5, smega_pass, smega_pass_cuda
+
+    g_host = clique_expand(_hypergraph("gen_0.02"), "kl")
+    g, shards, sf0, as0, cut0, cap, nf0, nf1 = _smega_inputs(g_host, 2, cuda)
+    tail = (cut0, cap, nf0, nf1, cap + 1, 16, 1e-6)
+    before = K5.launches
+    with pytest.raises(TypeError, match="float32"):
+        smega_pass(g, shards, sf0.double(), as0, *tail)
+    with pytest.raises(TypeError, match="int32"):
+        smega_pass(dataclasses.replace(g, indices=g.indices.long()), shards, sf0, as0, *tail)
+    with pytest.raises(ValueError, match="CUDA"):
+        smega_pass_cuda(g, shards, sf0.cpu(), as0, *tail)
+    with pytest.raises(ValueError, match="CUDA"):
+        smega_pass_cuda(dataclasses.replace(g, indptr=g.indptr.cpu()), shards, sf0, as0, *tail)
+    with pytest.raises(ValueError, match="nodes"):
+        smega_pass(g, shards, sf0[:3840], as0[:3840], *tail)  # fewer than the graph's 4,038
+    with pytest.raises(ValueError, match="multiple"):
+        smega_pass(g, shards, sf0[:-1], as0[:-1], *tail)
+    with pytest.raises(ValueError, match="log_len"):
+        smega_pass(g, shards, sf0, as0, cut0, cap, nf0, nf1, cap, 16, 1e-6)
+    assert K5.launches == before
