@@ -42,6 +42,12 @@ F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
 STARTS, PERTURB, KICKS = 8, 0.05, 2  # the multi-start path
 PASS_FIELDS = ("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars")
 SHARDS = (1, 2, 4, 8)  # the smega path's shard counts, one cluster of S blocks each
+#: The bits every PR of the port has reproduced at gen 1.0x seed 42: the
+#: one-start run's power iterations, swaps and best cut; the multi-start
+#: best cut; the v3 path's power iterations and best cut (rounded to 0.01).
+MAIN_ITERS, MAIN_SWAPS, MAIN_BEST = 326, 8348, 39693.86
+MULTI_BEST = 39581.65
+V3_ITERS, V3_BEST = 351, 39709.99
 GEN_002 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks", "data", "gen_0.02_42.hgr")
 
 
@@ -146,6 +152,30 @@ def report_device_busy(what: str, fn) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x  {e.key[:90]}")
 
 
+def k3b_group_device_us(fn, num_groups: int) -> list[float] | None:
+    """Run ``fn`` (whole K3b networks, one after another) under the
+    profiler: the mean device time in microseconds of each of K3b's
+    ``num_groups`` launches per network, in launch order, or None if the
+    profiler saw no whole network."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA and "benes_group" in e.name),
+        key=lambda e: e.time_range.start,
+    )
+    # The profiler may miss the first kernels of the window: count whole
+    # networks from the last launch back.
+    kernels = kernels[len(kernels) % num_groups :]
+    if not kernels:
+        return None
+    per = [kernels[k::num_groups] for k in range(num_groups)]
+    return [sum(e.time_range.elapsed_us() for e in group) / len(group) for group in per]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -156,6 +186,7 @@ def main() -> int:
         K2,
         K2_STARTS,
         _batch_init,
+        k2_selection,
         fused_refine_mega,
         kl_pass_batch_cuda,
         kl_pass_batch_plain,
@@ -261,7 +292,7 @@ def main() -> int:
     out_p = kl_pass_plain(*args)
     torch.cuda.synchronize()
     k2_plain_ms = (time.perf_counter() - t0) * 1e3
-    it = int(out_k.scalars[2])
+    it = it_random = int(out_k.scalars[2])
     check(int(out_p.scalars[2]) == it, "K2 and kl_pass_plain ran different iteration counts")
     check(torch.equal(out_k.log_a, out_p.log_a), "K2 log_a differs from kl_pass_plain")
     check(torch.equal(out_k.log_b, out_p.log_b), "K2 log_b differs from kl_pass_plain")
@@ -270,13 +301,50 @@ def main() -> int:
     check(torch.equal(out_k.scalars, out_p.scalars), "K2 scalars differ from kl_pass_plain")
     k2_err = float((out_k.log_cut[: it + 1] - out_p.log_cut[: it + 1]).abs().max())
     k2_ms = min(k2_ms, cuda_ms(lambda: kl_pass_cuda(*args), 2))
+    # The same pass with the row-max cache in its global-memory branch
+    # (the wrapper takes it above about 3.5M nodes).
+    one = torch.tensor([cut0], device=dev)
+    cap_t = torch.tensor([cap], dtype=torch.int32, device=dev)
+    g_args = (g, s[None], a_s[None], one, one, cap_t, torch.zeros_like(cap_t), cap + 1, args[5], 1e-6)
+    out_g = kl_pass_batch_cuda(*g_args, _cache="global")
+    check_same_pass(out_g.start(0), out_k, "K2 with its cache in global memory against K2")
+    k2_global_ms = cuda_ms(lambda: kl_pass_batch_cuda(*g_args, _cache="global"), 2)
     k2_bound_ms, k2_bound_by, k2_bytes, k2_ops = k2_bound(g, swaps_of(out_k))
     print(
         f"K2: {it} swaps from a random split, logs and sf bitwise equal to the plain "
         f"version; {k2_ms:.3f} ms ({1e3 * k2_ms / max(it, 1):.3f} us/swap), plain "
         f"{k2_plain_ms:.1f} ms, bound {k2_bound_ms:.4f} ms by {k2_bound_by} "
-        f"({k2_bytes} bytes, {k2_ops} operations)"
+        f"({k2_bytes} bytes, {k2_ops} operations); the cache in global memory: "
+        f"bitwise equal, {k2_global_ms:.3f} ms ({1e3 * k2_global_ms / max(it, 1):.3f} us/swap)"
     )
+
+    # K2's two selections on smaller circuits, in turns (flat, cache,
+    # cache, flat): where the row-max cache starts to pay
+    # (K2_CACHE_MIN_NODES).
+    crossover = {}
+    for mult in (0.02, 0.05, 0.1, 0.25):
+        c_hg = read_hgr(GEN_002) if mult == 0.02 else CircuitGenerator(mult, SEED).generate()
+        c_g = clique_expand(c_hg, "kl").to_device(dev)
+        c_n = c_g.num_nodes
+        c_sides = torch.as_tensor(random_split(c_n, SEED)).to(dev)
+        c_s = sides_to_signs(c_sides, torch.float32)
+        c_as, c_cut = _batch_init(c_g, c_s[None])
+        c_n1 = int(c_sides.sum())
+        c_cap = torch.tensor([min(c_n1, c_n - c_n1)], dtype=torch.int32, device=dev)
+        c_args = (c_g, c_s[None], c_as, c_cut, c_cut, c_cap, torch.zeros_like(c_cap), int(c_cap) + 1,
+                  KLConfig().terminate_limit(c_n), 1e-6)
+        outs = {sel: kl_pass_batch_cuda(*c_args, _cache=sel) for sel in ("flat", "shared")}
+        check_same_pass(outs["flat"], outs["shared"], f"K2's two selections at gen {mult}x")
+        c_it = int(outs["flat"].scalars[0, 2])
+        times = {"flat": [], "shared": []}
+        for sel in ("flat", "shared", "shared", "flat"):
+            times[sel].append(cuda_ms(lambda: kl_pass_batch_cuda(*c_args, _cache=sel), 5))
+        crossover[c_n] = {sel: 1e3 * min(t) / c_it for sel, t in times.items()}
+        print(
+            f"K2 at gen {mult}x ({c_n} nodes, {c_it} swaps, the two selections bitwise equal): "
+            f"flat scan {crossover[c_n]['flat']:.3f} us/swap, row-max cache "
+            f"{crossover[c_n]['shared']:.3f} us/swap; the wrapper takes {k2_selection(c_n, c_g.row_width)}"
+        )
 
     # Phase 4b: the batched K2 against kl_pass_batch_plain.  Four starts in
     # one launch, with caps that keep the plain version to some seconds: a
@@ -365,6 +433,11 @@ def main() -> int:
     iters = run.spectral_iterations
     check(k1_launches >= iters + 2, f"K1 launched {k1_launches} times for {iters} power steps")
     check(k2_launches == 1, f"K2 launched {k2_launches} times, not once")
+    check(
+        (iters, kl.iterations) == (MAIN_ITERS, MAIN_SWAPS) and abs(kl.best_cut - MAIN_BEST) < 0.005,
+        f"the one-start run: {iters} power iterations, {kl.iterations} swaps, best cut "
+        f"{kl.best_cut}, not {MAIN_ITERS}, {MAIN_SWAPS}, {MAIN_BEST}",
+    )
     drift = abs(kl.final_cut - kl.verified_cut) / kl.final_cut
     check(drift <= 1e-5, f"cut drift {drift:.3g} above 1e-5")
     check(kl.best_cut <= kl.initial_cut, "best cut above the initial cut")
@@ -453,6 +526,7 @@ def main() -> int:
         mkl.best_cut <= min(multi.start_cuts) <= multi.start_cuts[0] <= kl.best_cut,
         f"best cut {mkl.best_cut}, per start {multi.start_cuts}, one start {kl.best_cut}",
     )
+    check(abs(mkl.best_cut - MULTI_BEST) < 0.005, f"multi-start best cut {mkl.best_cut}, not {MULTI_BEST}")
     m_drift = abs(mkl.final_cut - mkl.verified_cut) / mkl.final_cut
     check(m_drift <= 1e-5, f"cut drift of the last pass {m_drift:.3g} above 1e-5")
     m_best = np.asarray(mkl.best_sides)
@@ -525,7 +599,12 @@ def main() -> int:
     plan_s = time.perf_counter() - t0
     N, P, C = plan.padded_nnz, plan.padded_nodes, plan.num_chunks
     stages = len(V.benes_distances(N))
-    print(f"v3 plan: N {N} slots, {stages} Benes stages, {C} chunks, P {P}; host build {plan_s:.3f} s")
+    groups = V.benes_groups(N)
+    print(
+        f"v3 plan: N {N} slots, {stages} Benes stages in {len(groups)} K3b launches "
+        f"({[(gr.first, gr.last, gr.run) for gr in groups]}: first, last stage, run), {C} chunks, "
+        f"P {P}; host build {plan_s:.3f} s"
+    )
     g3 = dataclasses.replace(g, plan=plan)
 
     xp = torch.zeros(P, device=dev)
@@ -553,14 +632,26 @@ def main() -> int:
     # K4, the power solve's Rayleigh quotient over the padded state.
     k4_x, k4_y = xp, y3p
     k4, k4_err = held(fma_dot_cuda, fma_dot_plain, k4_x, k4_y, "K4")
+    # K3b with tiles of 2^13 slots (two blocks per SM) against the
+    # default 2^14 (one).
+    b_k13 = V.benes_v3_cuda(plan.masks, e_k, _tile=1 << 13)
+    check(torch.equal(bits(b_k13), bits(b_k)), "K3b with tiles of 2^13 differs")
+    # One v3 SpMV is K3a, K3b's groups and K3c: at most 5 launches.
+    reset_counts()
     y3 = V.spmv_v3(plan, x)
+    per_spmv = V.K3A.launches + V.K3B.launches + V.K3C.launches
+    check(per_spmv == 2 + len(groups) <= 5, f"one v3 SpMV made {per_spmv} launches")
     v3_err = (y3.double() - y_k.double()).abs()
     check(bool((v3_err <= 1e-5 * a_abs).all()), "the v3 SpMV disagrees with K1 beyond 1e-5*(|A||x|)")
     torch.cuda.synchronize()
     k3a_ms = cuda_ms(lambda: V.gather_v3_cuda(plan, xp), 200)
-    k3b_ms = cuda_ms(lambda: V.benes_v3_cuda(plan.masks, e_k), 50)
+    # The two tiles in turns: default, 2^13, 2^13, default.
+    k3b_ms = cuda_ms(lambda: V.benes_v3_cuda(plan.masks, e_k), 200)
+    k3b13_ms = cuda_ms(lambda: V.benes_v3_cuda(plan.masks, e_k, _tile=1 << 13), 200)
+    k3b13_ms = min(k3b13_ms, cuda_ms(lambda: V.benes_v3_cuda(plan.masks, e_k, _tile=1 << 13), 200))
+    k3b_ms = min(k3b_ms, cuda_ms(lambda: V.benes_v3_cuda(plan.masks, e_k), 200))
     k3c_ms = cuda_ms(lambda: V.reduce_v3_cuda(plan, b_k), 200)
-    v3_ms = cuda_ms(lambda: V.spmv_v3(plan, x), 50)
+    v3_ms = cuda_ms(lambda: V.spmv_v3(plan, x), 200)
     k3a_plain_ms = cuda_ms(lambda: V.gather_v3_plain(plan, xp), 5)
     k3b_plain_ms = cuda_ms(lambda: V.benes_v3_plain(plan.masks, e_k), 5)
     k3c_plain_ms = cuda_ms(lambda: V.reduce_v3_plain(plan, b_k), 5)
@@ -594,7 +685,8 @@ def main() -> int:
         f"K3a/K3b/K3c bitwise equal to their plain versions and to a second launch; v3 SpMV "
         f"against K1: max |diff| {float(v3_err.max()):.3g}; K3a {k3a_ms:.4f} ms (plain "
         f"{k3a_plain_ms:.3f}, bound {k3a_bound:.4f}, {k3a_bytes} bytes), K3b {k3b_ms:.4f} ms "
-        f"for {stages} stages (plain {k3b_plain_ms:.3f}, bound {k3b_bound:.4f}, {k3b_bytes} "
+        f"for {stages} stages in {len(groups)} launches (tiles of {V.BENES_TILE}; of 2^13: {k3b13_ms:.4f} ms, "
+        f"bitwise equal; plain {k3b_plain_ms:.3f}, bound {k3b_bound:.4f}, {k3b_bytes} "
         f"bytes), K3c {k3c_ms:.4f} ms (plain {k3c_plain_ms:.3f}, bound {k3c_bound:.4f}, "
         f"{k3c_bytes} bytes); whole v3 SpMV {v3_ms:.4f} ms (plain {v3_plain_ms:.3f}, bound "
         f"{v3_bound:.4f}, {v3_bytes} bytes), torch.sparse {v3_lib_ms:.4f} ms, K1 {k1_ms:.4f} ms"
@@ -606,8 +698,24 @@ def main() -> int:
     )
 
     # The same SpMV under the profiler: each kernel's device time per
-    # launch, apart from the host's time to issue the 43 launches.
+    # launch, apart from the host's time to issue the launches; then each
+    # K3b group's device time per launch.
     report_device_busy("20 v3 SpMVs", lambda: [V.spmv_v3(plan, x) for _ in range(20)])
+    k3b_group_us = {}
+    for tile in (V.BENES_TILE, 1 << 13):
+        tile_groups = V.benes_groups(N, tile)
+        us = k3b_group_device_us(
+            lambda: [V.benes_v3_cuda(plan.masks, e_k, _tile=tile) for _ in range(20)], len(tile_groups)
+        )
+        k3b_group_us[tile] = us
+        if us is None:
+            print(f"K3b groups, tiles of {tile}: the profiler recorded no K3b kernel: not measured")
+            continue
+        print(
+            f"K3b device time per launch, tiles of {tile}, by group (first, last stage, run): "
+            + ", ".join(f"{(gr.first, gr.last, gr.run)} {t:.2f} us" for gr, t in zip(tile_groups, us))
+            + f"; sum {sum(us):.2f} us"
+        )
 
     def v3_run():
         tracer = Tracer(dev)
@@ -625,9 +733,16 @@ def main() -> int:
     check(K1.launches == 0, f"K1 launched {K1.launches} times on the v3 path")
     check(K2.launches == 1, f"K2 launched {K2.launches} times on the v3 path, not once")
     check(v3_launches["K3c"] == v3_spmvs, f"v3 launches {v3_launches}: K3c not once per SpMV")
-    check(v3_launches["K3b"] == stages * v3_spmvs, f"v3 launches {v3_launches}: K3b not {stages} per SpMV")
+    check(
+        v3_launches["K3b"] == len(groups) * v3_spmvs,
+        f"v3 launches {v3_launches}: K3b not {len(groups)} per SpMV",
+    )
     check(v3_spmvs >= v3_iters + 2, f"{v3_spmvs} v3 SpMVs for {v3_iters} power steps")
     check(k4_launches == 1, f"K4 launched {k4_launches} times on the v3 path, not once")
+    check(
+        v3_iters == V3_ITERS and abs(v3_kl.best_cut - V3_BEST) < 0.005,
+        f"v3 path: {v3_iters} power iterations, best cut {v3_kl.best_cut}, not {V3_ITERS}, {V3_BEST}",
+    )
     v3_drift = abs(v3_kl.final_cut - v3_kl.verified_cut) / v3_kl.final_cut
     check(v3_drift <= 1e-5, f"v3 path: cut drift {v3_drift:.3g} above 1e-5")
     check(v3_kl.best_cut <= v3_kl.initial_cut, "v3 path: best cut above the initial cut")
@@ -817,6 +932,12 @@ def main() -> int:
             "bound_ms": k2_bound_ms,
             "bound_by": k2_bound_by,
             "library_ms": None,
+            "swaps": it_random,
+            "global_cache_ms": k2_global_ms,
+            "main_pass_swaps": it,
+            "main_pass_ms": k2_main_ms,
+            "us_per_swap": 1e3 * k2_main_ms / it,
+            "us_per_swap_flat_and_cache_by_nodes": crossover,
         },
         {
             "name": "K2 kl_pass_f32, batched over starts",
@@ -848,7 +969,7 @@ def main() -> int:
             "library_ms": None,
         },
         {
-            "name": "K3b benes_v3_f32, all stages of one network",
+            "name": "K3b benes_v3_f32, all stages of one network in its groups' launches",
             "route": "cuda",
             "source": "eig_kl_tpu_torch/csrc/spmv_v3.cu",
             "replaces": "eig_kl_tpu/ops/spmv_pallas.py:1718",
@@ -859,6 +980,10 @@ def main() -> int:
             "bound_ms": k3b_bound,
             "bound_by": "bytes",
             "library_ms": None,
+            "launches_per_network": len(groups),
+            "group_device_us": k3b_group_us[V.BENES_TILE],
+            "tile_2_13_ms": k3b13_ms,
+            "tile_2_13_group_device_us": k3b_group_us[1 << 13],
         },
         {
             "name": "K3c reduce_v3_f32",

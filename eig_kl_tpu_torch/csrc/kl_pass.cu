@@ -13,45 +13,69 @@
 //
 // Bound on this card: latency.  The swap chain is serial (each selection
 // reads the state the previous swap wrote), as the TPU kernel's single
-// core makes it.  Each swap's flat selection scan reads sf and a_s once,
-// 8 bytes per node (1.6 MB at gen 1.0x), from L2 into one SM, followed by
-// two block-wide reductions, two row updates and four barriers.  Counted
-// once per call, the bytes the pass must move (CSR, sf, a_s, logs) take
-// microseconds at 3.35 TB/s; the chain of some ten thousand dependent
-// swaps, each paying L2 and barrier latency, is what takes the time.
-// Starts share nothing but the read-only graph, so S blocks run side by
-// side on S of the card's SMs (and queue beyond that); what they compete
-// for is L2: 8 bytes per node and start of state, scanned once per swap.
+// core makes it.  Counted once per call, the bytes the pass must move
+// (CSR, sf, a_s, logs) take microseconds at 3.35 TB/s; the chain of some
+// ten thousand dependent swaps, each paying L2 and barrier latency, is
+// what takes the time.  Starts share nothing but the read-only graph, so
+// S blocks run side by side on S of the card's SMs (and queue beyond
+// that).
 //
 // Design:
 // * Grid: blockIdx.x is the start.  Blocks never talk to each other (no
-//   atomics, no grid sync), so a start's bits do not depend on S or on the
-//   other starts, and S may exceed the number of SMs.  The per-start
-//   parameters are read from device arrays, so a batch is launched without
-//   the host ever reading a cut.
+//   atomics across blocks, no grid sync), so a start's bits do not depend
+//   on S or on the other starts, and S may exceed the number of SMs.  The
+//   per-start parameters are read from device arrays, so a batch is
+//   launched without the host ever reading a cut.
 // * State: sf = side sign * free (0 = locked or padding) and a_s = A@s,
-//   both f32 in global memory, one stripe per start (1.6 MB per start at
-//   gen 1.0x, resident in L2 while the batch's stripes fit there).  The
-//   node count is padded to a multiple of 4 with sf = 0 so the scan reads
-//   float4s.
-// * Selection: each thread scans its nodes in increasing order, keeping a
-//   strict-> first maximum of D = -(sf * a_s) over sf > 0 and over sf < 0;
-//   warp shuffles and one shared-memory round combine (value, index) pairs
-//   by "larger value, or equal value (+0 == -0) at a lower index".  That
-//   is the TPU kernel's first maximum, in both its flat form and its
-//   hierarchical form (megakernel.py:313-351), and torch.argmax's.
+//   both f32 in global memory, one stripe per start.  The node count is
+//   padded to a multiple of 128 with sf = 0: row r is nodes 128r..128r+127.
+// * Row-max cache (the TPU kernel's hierarchical selection,
+//   megakernel.py:265-351): per start and row, rm_l[r] and rm_r[r], the
+//   maximum of D = -(sf * a_s) over the row's nodes with sf > 0 and with
+//   sf < 0 (-inf if none).  It lives in dynamic shared memory (12.7 KB at
+//   gen 1.0x; the 227 KB opt-in holds about 3.5M nodes) or, for larger
+//   graphs, in a global-memory stripe per start, through the same
+//   pointers; the wrapper chooses from n (and, below K2_CACHE_MIN_NODES,
+//   the flat scan, see below).  Beside it: one dirty bit per
+//   row and a list of dirty rows.  Each launch fills it from the sf and
+//   a_s it is given (one warp per row), so a re-entry needs nothing more.
+// * Selection, per swap and side: a block-wide first maximum over the
+//   cached rows, "larger, or equal (+0 == -0) at a lower row"; then one
+//   warp loads the winning row's 128 nodes and takes the first whose
+//   masked D equals that maximum, and reports that node's own D.  This is
+//   the flat first maximum over nodes: every node holding the maximum
+//   value lies in a row whose cached value equals it, so the first such
+//   node lies in the first such row, and is that row's first node with
+//   D == max.  The cache is computed with the lane search's expression,
+//   and fmaxf returns one of its arguments, so the equality is exact.  A
+//   locked node has sf = 0 and is in no side's maximum, so once its row
+//   is refreshed it is never handed out; the loop stops before a side
+//   runs out (nf0, nf1), as before.
 // * Row updates: row a's entries add -2*s_a*w into a_s in parallel, then a
 //   barrier, then row b's (megakernel.py:385-415's order); neighbours in
 //   one row are distinct, so no two threads touch one entry.  The thread
-//   that meets b in row a records w_ab.
+//   that meets b in row a records w_ab.  Each thread that updates a_s[j]
+//   marks row j >> 7 dirty; the first to set a row's bit appends the row
+//   to the list (rows beyond the list's capacity: every flagged row is
+//   found by a walk over all rows instead).  Thread 0 marks the rows of
+//   a and b after locking them.  After a barrier, one warp per dirty row
+//   recomputes both sides' maxima, and the dirty bits are cleared: at
+//   most 2 * 43 + 2 rows at gen 1.0x, three rounds of 32 warps.
 // * Bookkeeping on thread 0: lock both nodes, gain = m_l + m_r - 2*w_ab,
 //   Kahan-compensated cut (megakernel.py:424-431), the four logs written
 //   straight to global memory at index it, and the termination counter
 //   (gain <= gain_eps counts; stop when it exceeds terminate_limit).
+// * Five block barriers per swap: after the row scan, after the lane
+//   search, between the two rows, before and after the refresh.
+// * Small graphs: the cache's refresh costs one more barrier and one more
+//   round trip to L2 per swap, which the flat scan's few float4s per
+//   thread do not; below K2_CACHE_MIN_NODES (kl/megakernel.py, the
+//   crossover measured on the card) the same kernel, instantiated with
+//   kCache = false, scans all nodes per swap: each thread keeps a strict-
+//   > first maximum of its nodes in increasing order, and the same
+//   (value, index) reductions give the first maximum.
 // * Every add and multiply is explicitly rounded (no FMA contraction), so
 //   the pass reproduces the plain PyTorch version's bits.
-// The TPU kernel's per-row max cache (megakernel.py:265-324) is a later
-// optimisation: it would cut the per-swap scan from n to n/128 values.
 
 #include <cuda_runtime.h>
 
@@ -61,6 +85,7 @@ namespace {
 
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
+constexpr int kRow = 128;  // nodes per cached row
 constexpr unsigned kFull = 0xffffffffu;
 
 // (v2, i2) beats (v1, i1): a larger value, or an equal one at a lower index.
@@ -86,10 +111,21 @@ __device__ __forceinline__ int warp_sum(int c) {
   return c;
 }
 
-// Indices reach a thread in increasing order, so a strict > keeps the first.
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// D = -(sf * a_s) of one node, the value both the cache and the lane
+// search compare.
+__device__ __forceinline__ float gain_d(float f, float a) { return -__fmul_rn(f, a); }
+
+// The flat scan's step: indices reach a thread in increasing order, so a
+// strict > keeps the first maximum of each side.
 __device__ __forceinline__ void consider(float f, float a, int idx, float& vl,
                                          int& il, float& vr, int& ir) {
-  const float d = -(f * a);
+  const float d = gain_d(f, a);
   if (f > 0.0f) {
     if (d > vl) {
       vl = d;
@@ -103,10 +139,57 @@ __device__ __forceinline__ void consider(float f, float a, int idx, float& vl,
   }
 }
 
-// Adds coef * w into a_s over one CSR row; returns nothing, records w_ab.
+// One start's row-max cache: in dynamic shared memory or in a global
+// stripe, laid out as rm_l[rows], rm_r[rows], dirty[ceil(rows / 32)],
+// list[list_cap] (4-byte words).
+struct Cache {
+  float* rm_l;
+  float* rm_r;
+  unsigned* dirty;
+  int* list;
+};
+
+// Both sides' maxima of row r, computed by one warp (lane k holds nodes
+// 128r + 4k .. 128r + 4k + 3) and written by lane 0.
+__device__ __forceinline__ void refresh_row(const float* sf, const float* as,
+                                            const Cache& c, int r, int lane) {
+  const float4 f = reinterpret_cast<const float4*>(sf)[r * (kRow / 4) + lane];
+  const float4 a = reinterpret_cast<const float4*>(as)[r * (kRow / 4) + lane];
+  const float fs[4] = {f.x, f.y, f.z, f.w};
+  const float as4[4] = {a.x, a.y, a.z, a.w};
+  const float neg_inf = __int_as_float(0xff800000);
+  float ml = neg_inf, mr = neg_inf;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float d = gain_d(fs[k], as4[k]);
+    if (fs[k] > 0.0f) ml = fmaxf(ml, d);
+    if (fs[k] < 0.0f) mr = fmaxf(mr, d);
+  }
+  ml = warp_max(ml);
+  mr = warp_max(mr);
+  if (lane == 0) {
+    c.rm_l[r] = ml;
+    c.rm_r[r] = mr;
+  }
+}
+
+// Marks row r dirty; the first to mark it appends it to the list.
+__device__ __forceinline__ void mark(const Cache& c, int r, int list_cap,
+                                     int* count) {
+  const unsigned bit = 1u << (r & 31);
+  if (atomicOr(&c.dirty[r >> 5], bit) & bit) return;
+  const int k = atomicAdd(count, 1);
+  if (k < list_cap) c.list[k] = r;
+}
+
+// Adds coef * w into a_s over one CSR row and, with the cache, marks the
+// rows it changed; the thread that meets b records w_ab (if wab is given).
+template <bool kCache>
 __device__ __forceinline__ void update_row(const int* indptr, const int* indices,
                                            const float* data, float* as, int row,
-                                           float coef, int b, float* wab) {
+                                           float coef, int b, float* wab,
+                                           const Cache& c, int list_cap,
+                                           int* count) {
   const int lo = indptr[row];
   const int deg = indptr[row + 1] - lo;
   for (int k = threadIdx.x; k < deg; k += kThreads) {
@@ -114,22 +197,34 @@ __device__ __forceinline__ void update_row(const int* indptr, const int* indices
     const float w = data[lo + k];
     as[j] = __fadd_rn(as[j], __fmul_rn(coef, w));
     if (wab != nullptr && j == b) *wab = w;
+    if constexpr (kCache) mark(c, j / kRow, list_cap, count);
   }
 }
 
+// kCache: selection through the row-max cache; else the flat scan.
+template <bool kCache>
 __global__ void __launch_bounds__(kThreads, 1)
     kl_pass_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
                    const float* __restrict__ data, float* sf_all, float* as_all,
-                   int n4, const float* __restrict__ cut0s,
+                   int rows, int list_cap, unsigned* cache_global,
+                   const float* __restrict__ cut0s,
                    const float* __restrict__ best0s, const int* __restrict__ caps,
                    const int* __restrict__ term0s, int terminate_limit,
                    float gain_eps, int log_len, float* __restrict__ log_cut_all,
                    float* __restrict__ log_gain_all, int* __restrict__ log_a_all,
                    int* __restrict__ log_b_all, float* __restrict__ out_all) {
-  // This block's start: its state stripe, its logs, its parameters.
+  // This block's start: its state stripe, its cache, its logs, its
+  // parameters.
   const size_t start = blockIdx.x;
-  float* sf = sf_all + start * 4 * static_cast<size_t>(n4);
-  float* as = as_all + start * 4 * static_cast<size_t>(n4);
+  const size_t n_pad = static_cast<size_t>(rows) * kRow;
+  float* sf = sf_all + start * n_pad;
+  float* as = as_all + start * n_pad;
+  const int dirty_words = (rows + 31) / 32;
+  const size_t cache_words = 2 * static_cast<size_t>(rows) + dirty_words + list_cap;
+  extern __shared__ unsigned cache_shared[];
+  unsigned* cw = cache_global != nullptr ? cache_global + start * cache_words : cache_shared;
+  const Cache cache{reinterpret_cast<float*>(cw), reinterpret_cast<float*>(cw + rows),
+                    cw + 2 * rows, reinterpret_cast<int*>(cw + 2 * rows + dirty_words)};
   float* log_cut = log_cut_all + start * log_len;
   float* log_gain = log_gain_all + start * log_len;
   int* log_a = log_a_all + start * log_len;
@@ -141,18 +236,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ float red_v[2][kWarps];
   __shared__ int red_i[2][kWarps];
   __shared__ int cnt[2][kWarps];
-  __shared__ int sh_a, sh_b, sh_go;
-  __shared__ float sh_ml, sh_mr, sh_wab;
+  __shared__ int sh_sel[2], sh_go, sh_count;
+  __shared__ float sh_m[2], sh_wab;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const float4* sf4 = reinterpret_cast<const float4*>(sf);
-  const float4* as4 = reinterpret_cast<const float4*>(as);
 
-  // Free nodes per side at the start (padding has sf = 0).
+  // Free nodes per side at the start (padding has sf = 0), the cache
+  // filled, no row dirty.
   int c0 = 0, c1 = 0;
-  for (int q = tid; q < n4; q += kThreads) {
+  for (size_t q = tid; q < n_pad / 4; q += kThreads) {
     const float4 f = sf4[q];
     c0 += (f.x > 0.0f) + (f.y > 0.0f) + (f.z > 0.0f) + (f.w > 0.0f);
     c1 += (f.x < 0.0f) + (f.y < 0.0f) + (f.z < 0.0f) + (f.w < 0.0f);
@@ -162,6 +257,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (lane == 0) {
     cnt[0][warp] = c0;
     cnt[1][warp] = c1;
+  }
+  if constexpr (kCache) {
+    for (int r = warp; r < rows; r += kWarps) refresh_row(sf, as, cache, r, lane);
+    for (int w = tid; w < dirty_words; w += kThreads) cache.dirty[w] = 0u;
   }
   __syncthreads();
 
@@ -182,18 +281,35 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const float neg_inf = __int_as_float(0xff800000);
   while (sh_go) {
-    // Selection: first maximum of D per side.
+    // Selection, 1: the first row holding each side's maximum (or, flat,
+    // the first node).
+    if (tid == 0) sh_count = 0;  // every thread read it before the last barrier
     float vl = neg_inf, vr = neg_inf;
     int il = INT_MAX, ir = INT_MAX;
+    if constexpr (kCache) {
+      for (int r = tid; r < rows; r += kThreads) {
+        const float ml = cache.rm_l[r];
+        const float mr = cache.rm_r[r];
+        if (ml > vl) {
+          vl = ml;
+          il = r;
+        }
+        if (mr > vr) {
+          vr = mr;
+          ir = r;
+        }
+      }
+    } else {
+      const float4* as4 = reinterpret_cast<const float4*>(as);
 #pragma unroll 4
-    for (int q = tid; q < n4; q += kThreads) {
-      const float4 f = sf4[q];
-      const float4 a = as4[q];
-      const int base = 4 * q;
-      consider(f.x, a.x, base, vl, il, vr, ir);
-      consider(f.y, a.y, base + 1, vl, il, vr, ir);
-      consider(f.z, a.z, base + 2, vl, il, vr, ir);
-      consider(f.w, a.w, base + 3, vl, il, vr, ir);
+      for (int q = tid; q < rows * (kRow / 4); q += kThreads) {
+        const float4 f = sf4[q];
+        const float4 a = as4[q];
+        consider(f.x, a.x, 4 * q, vl, il, vr, ir);
+        consider(f.y, a.y, 4 * q + 1, vl, il, vr, ir);
+        consider(f.z, a.z, 4 * q + 2, vl, il, vr, ir);
+        consider(f.w, a.w, 4 * q + 3, vl, il, vr, ir);
+      }
     }
     warp_argmax(vl, il);
     warp_argmax(vr, ir);
@@ -204,38 +320,72 @@ __global__ void __launch_bounds__(kThreads, 1)
       red_i[1][warp] = ir;
     }
     __syncthreads();
-    if (warp == 0) {
-      vl = red_v[0][lane];
-      il = red_i[0][lane];
-      vr = red_v[1][lane];
-      ir = red_i[1][lane];
-      warp_argmax(vl, il);
-      warp_argmax(vr, ir);
-      if (lane == 0) {
-        sh_a = il;
-        sh_ml = vl;
-        sh_b = ir;
-        sh_mr = vr;
-        sh_wab = 0.0f;
+
+    // Selection, 2: warp 0 for side 0, warp 1 for side 1; with the cache,
+    // the first node of the winning row whose masked D equals the maximum.
+    if (warp < 2) {
+      float v = red_v[warp][lane];
+      int r = red_i[warp][lane];
+      warp_argmax(v, r);
+      v = __shfl_sync(kFull, v, 0);
+      r = __shfl_sync(kFull, r, 0);
+      if (r == INT_MAX) __trap();  // no candidate: nf0 and nf1 say otherwise
+      if constexpr (!kCache) {
+        if (lane == 0) {
+          sh_sel[warp] = r;
+          sh_m[warp] = v;
+          if (warp == 0) sh_wab = 0.0f;
+        }
+      } else {
+        const float4 f = sf4[r * (kRow / 4) + lane];
+        const float4 a = reinterpret_cast<const float4*>(as)[r * (kRow / 4) + lane];
+        const float fs[4] = {f.x, f.y, f.z, f.w};
+        const float as4[4] = {a.x, a.y, a.z, a.w};
+        int first = 4;
+        float d_first = 0.0f;
+#pragma unroll
+        for (int k = 3; k >= 0; --k) {
+          const float d = gain_d(fs[k], as4[k]);
+          if ((warp == 0 ? fs[k] > 0.0f : fs[k] < 0.0f) && d == v) {
+            first = k;
+            d_first = d;
+          }
+        }
+        const unsigned hit = __ballot_sync(kFull, first < 4);
+        if (hit == 0u) __trap();  // the cache disagrees with the row
+        const int src = __ffs(hit) - 1;
+        const int k = __shfl_sync(kFull, first, src);
+        const float d = __shfl_sync(kFull, d_first, src);
+        if (lane == 0) {
+          sh_sel[warp] = r * kRow + 4 * src + k;
+          sh_m[warp] = d;
+          if (warp == 0) sh_wab = 0.0f;
+        }
       }
     }
     __syncthreads();
 
     // Row updates: all of row a, then all of row b.  The chosen nodes are
     // free, so sf holds their signs.
-    const int a = sh_a;
-    const int b = sh_b;
+    const int a = sh_sel[0];
+    const int b = sh_sel[1];
     const float coef_a = __fmul_rn(-2.0f, sf[a]);
     const float coef_b = __fmul_rn(-2.0f, sf[b]);
-    update_row(indptr, indices, data, as, a, coef_a, b, &sh_wab);
+    update_row<kCache>(indptr, indices, data, as, a, coef_a, b, &sh_wab, cache,
+                       list_cap, &sh_count);
     __syncthreads();
-    update_row(indptr, indices, data, as, b, coef_b, b, nullptr);
+    update_row<kCache>(indptr, indices, data, as, b, coef_b, b, nullptr, cache,
+                       list_cap, &sh_count);
 
     if (tid == 0) {
       sf[a] = 0.0f;
       sf[b] = 0.0f;
+      if constexpr (kCache) {
+        mark(cache, a / kRow, list_cap, &sh_count);
+        mark(cache, b / kRow, list_cap, &sh_count);
+      }
       const float gain =
-          __fsub_rn(__fadd_rn(sh_ml, sh_mr), __fmul_rn(2.0f, sh_wab));
+          __fsub_rn(__fadd_rn(sh_m[0], sh_m[1]), __fmul_rn(2.0f, sh_wab));
       const float y = __fsub_rn(-gain, comp);
       const float t = __fadd_rn(cut, y);
       comp = __fsub_rn(__fsub_rn(t, cut), y);
@@ -253,6 +403,29 @@ __global__ void __launch_bounds__(kThreads, 1)
       sh_go = !stop && it < cap && nf0 > 0 && nf1 > 0;
     }
     __syncthreads();
+    if constexpr (!kCache) continue;
+
+    // Refresh: one warp per dirty row, both sides.  Every flagged row is
+    // in the list (or, past its capacity, found by the walk), so all dirty
+    // bits are clear after this phase.
+    const int dirty = sh_count;
+    if (dirty <= list_cap) {
+      for (int k = warp; k < dirty; k += kWarps) {
+        const int r = cache.list[k];
+        refresh_row(sf, as, cache, r, lane);
+        if (lane == 0) cache.dirty[r >> 5] = 0u;  // its word's rows are all listed
+      }
+    } else {
+      for (int r = warp; r < rows; r += kWarps) {
+        if (!((cache.dirty[r >> 5] >> (r & 31)) & 1u)) continue;
+        refresh_row(sf, as, cache, r, lane);
+      }
+    }
+    __syncthreads();
+    if (dirty > list_cap) {
+      for (int w = tid; w < dirty_words; w += kThreads) cache.dirty[w] = 0u;
+      __syncthreads();
+    }
   }
 
   if (tid == 0) {
@@ -269,30 +442,45 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 }  // namespace
 
-// sf and a_s hold num_starts stripes of n_padded floats (a multiple of 4)
-// and are updated in place; cut0, best0 (float) and cap, term0 (int) hold
-// one value per start; each log holds num_starts stripes of log_len entries
-// (log_len > every cap), of which a pass writes 0..iterations; out receives
-// 8 scalars per start, those of megakernel.py:486-494.
+// sf and a_s hold num_starts stripes of n_padded floats (a multiple of
+// 128) and are updated in place; cut0, best0 (float) and cap, term0 (int)
+// hold one value per start; each log holds num_starts stripes of log_len
+// entries (log_len > every cap), of which a pass writes 0..iterations; out
+// receives 8 scalars per start, those of megakernel.py:486-494.  With
+// use_cache, the row cache takes 2 * rows + ceil(rows / 32) + list_cap
+// words per start (rows = n_padded / 128): in dynamic shared memory if
+// cache is null, else in num_starts stripes of that many words at cache.
+// Without, the flat scan runs and cache and list_cap are unused.
 extern "C" int kl_pass_f32(const void* indptr, const void* indices,
                            const void* data, void* sf, void* as, int n_padded,
-                           int num_starts, const void* cut0, const void* best0,
-                           const void* cap, const void* term0,
-                           int terminate_limit, float gain_eps, int log_len,
-                           void* log_cut, void* log_gain, void* log_a,
-                           void* log_b, void* out, void* stream) {
-  if (n_padded % 4 != 0 || num_starts < 1 || log_len < 1) {
+                           int use_cache, int list_cap, void* cache, int num_starts,
+                           const void* cut0, const void* best0, const void* cap,
+                           const void* term0, int terminate_limit,
+                           float gain_eps, int log_len, void* log_cut,
+                           void* log_gain, void* log_a, void* log_b, void* out,
+                           void* stream) {
+  if (n_padded % kRow != 0 || n_padded < kRow || list_cap < 0 || num_starts < 1 ||
+      log_len < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  kl_pass_kernel<<<num_starts, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int rows = n_padded / kRow;
+  const size_t words = 2 * static_cast<size_t>(rows) + (rows + 31) / 32 + list_cap;
+  const size_t smem = use_cache && cache == nullptr ? 4 * words : 0;
+  auto kernel = use_cache ? kl_pass_kernel<true> : kl_pass_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<num_starts, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(indptr), static_cast<const int*>(indices),
       static_cast<const float*>(data), static_cast<float*>(sf),
-      static_cast<float*>(as), n_padded / 4, static_cast<const float*>(cut0),
-      static_cast<const float*>(best0), static_cast<const int*>(cap),
-      static_cast<const int*>(term0), terminate_limit, gain_eps, log_len,
-      static_cast<float*>(log_cut), static_cast<float*>(log_gain),
-      static_cast<int*>(log_a), static_cast<int*>(log_b),
-      static_cast<float*>(out));
+      static_cast<float*>(as), rows, list_cap, static_cast<unsigned*>(cache),
+      static_cast<const float*>(cut0), static_cast<const float*>(best0),
+      static_cast<const int*>(cap), static_cast<const int*>(term0),
+      terminate_limit, gain_eps, log_len, static_cast<float*>(log_cut),
+      static_cast<float*>(log_gain), static_cast<int*>(log_a),
+      static_cast<int*>(log_b), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,10 @@ One launch runs one pass of each of S starts, one thread block per start,
 as the TPU mega-kernel does in its batched form (``megakernel.py:_kernel``
 with ``batched=True``, launched by ``_run_batched``, ``:602``); a single
 start is S = 1 of the same kernel.  Per swap: the first maximum of
-``D = -(sf * a_s)`` over each side (``sf`` = side sign * free), the two
+``D = -(sf * a_s)`` over each side (``sf`` = side sign * free; K2 finds
+it through a per-128-node row-max cache, as the TPU kernel does above
+``HIER_THRESHOLD``, or by a flat scan on small graphs, the plain version
+by a flat argmax: the same node), the two
 row updates of the cached ``a_s = A @ s``, the lock, the gain
 ``D_a + D_b - 2 w_ab`` added into a Kahan-compensated cut, the four swap
 logs, and the termination rule (``floor(log2 n) + 5`` consecutive swaps
@@ -41,12 +44,44 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 K2 = Kernel(
     "kl_pass",
     "kl_pass_f32",
-    [_P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P],
 )
 #: K2's launches by their number of starts (``K2.launches`` is the total):
 #: ``K2_STARTS[1]`` counts the single-start form, ``K2_STARTS[8]`` batches
 #: of 8.  Only :func:`kl_pass_batch_cuda` adds to it, one per launch.
 K2_STARTS: collections.Counter = collections.Counter()
+
+ROW = 128  #: nodes per row of K2's row-max cache
+#: K2 selects through its row-max cache from this many nodes up, and by a
+#: flat scan below.  The crossover on the H100 (chip_smoke.py, PERF.md):
+#: gen 0.02x (4,038 nodes) 2.19 us per swap flat against 2.58 cached,
+#: gen 0.05x (10,096) 2.70 against 2.67, gen 0.1x (20,192) 3.67 against
+#: 2.76.
+K2_CACHE_MIN_NODES = 10_000
+#: Dynamic shared memory K2's cache may take: the H100's 227 KB opt-in
+#: per block less 1 KB for the kernel's own shared variables (under 800 B).
+K2_SHARED_CACHE_BYTES = 232_448 - 1024
+
+
+def k2_cache_words(n_padded: int, row_width: int) -> tuple[int, int]:
+    """``(words, list_cap)`` of one start's row-max cache in K2 for
+    ``n_padded`` nodes (a multiple of :data:`ROW`): both sides' maxima per
+    row, a dirty bit per row, and a list of dirty rows with room for the
+    most one swap can touch (two rows of at most ``row_width`` entries,
+    plus the rows of a and b)."""
+    rows = n_padded // ROW
+    list_cap = min(rows, 2 * row_width + 2)
+    return 2 * rows + -(-rows // 32) + list_cap, list_cap
+
+
+def k2_selection(num_nodes: int, row_width: int) -> str:
+    """How K2 selects for a graph of ``num_nodes``: "flat" below
+    :data:`K2_CACHE_MIN_NODES`, else "shared" while the cache fits
+    :data:`K2_SHARED_CACHE_BYTES`, else "global"."""
+    if num_nodes < K2_CACHE_MIN_NODES:
+        return "flat"
+    words = k2_cache_words(-(-num_nodes // ROW) * ROW, row_width)[0]
+    return "shared" if 4 * words <= K2_SHARED_CACHE_BYTES else "global"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,12 +240,21 @@ def kl_pass_batch_cuda(
     log_len: int,
     terminate_limit: int,
     gain_eps: float,
+    *,
+    _cache: str | None = None,
 ) -> PassOutput:
     """Launch K2 on the current stream: ``grid = (S,)``, one block of 1,024
     threads runs the whole pass of one start.  Everything is f32 (``cap``
     and ``term0`` int32) on one card; the per-start parameters are device
     arrays, so nothing is read back before the launch.  Inputs are not
-    modified."""
+    modified.
+
+    From :data:`K2_CACHE_MIN_NODES` nodes up the selection goes through a
+    per-start row-max cache, kept in the block's shared memory while it
+    fits :data:`K2_SHARED_CACHE_BYTES` (about 3.5M nodes), else in a
+    global-memory stripe per start; below, a flat scan.  ``_cache``
+    ("flat", "shared" or "global") forces one of the three, for tests and
+    measurements."""
     n = g.num_nodes
     dev = sf0.device
     per_start = {"cut0": cut0, "best0": best0, "cap": cap, "term0": term0}
@@ -233,7 +277,15 @@ def kl_pass_batch_cuda(
             raise ValueError(f"{name} must be a contiguous ({num_starts},) vector")
     if log_len < 1:
         raise ValueError("log_len must be at least 1 (and above every cap)")
-    padded = -(-n // 4) * 4  # the scan reads float4s; padding has sf = 0
+    padded = -(-n // ROW) * ROW  # whole cache rows; padding has sf = 0
+    words, list_cap = k2_cache_words(padded, g.row_width)
+    if _cache is None:
+        _cache = k2_selection(n, g.row_width)
+    if _cache not in ("flat", "shared", "global"):
+        raise ValueError(f"_cache must be 'flat', 'shared' or 'global', not {_cache!r}")
+    cache = None
+    if _cache == "global":
+        cache = torch.empty(num_starts, words, dtype=torch.int32, device=dev)
     sf = torch.zeros(num_starts, padded, dtype=torch.float32, device=dev)
     a_s = torch.zeros(num_starts, padded, dtype=torch.float32, device=dev)
     sf[:, :n] = sf0
@@ -250,6 +302,9 @@ def kl_pass_batch_cuda(
         sf.data_ptr(),
         a_s.data_ptr(),
         padded,
+        int(_cache != "flat"),
+        list_cap,
+        None if cache is None else cache.data_ptr(),
         num_starts,
         cut0.data_ptr(),
         best0.data_ptr(),

@@ -124,8 +124,8 @@ class Kernel:
     """One C entry point of a built library, with its launch count.
 
     ``launches`` is a plain integer: the wrapper that launches the kernel
-    adds one per successful launch, and nothing else changes it except a
-    caller resetting it to 0.
+    adds one per kernel launched by a successful call, and nothing else
+    changes it except a caller resetting it to 0.
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
@@ -147,11 +147,13 @@ class Kernel:
         err.restype = ctypes.c_char_p
         self._fn, self._err = fn, err
 
-    def __call__(self, *args) -> None:
+    def __call__(self, *args, launches: int = 1) -> None:
+        """Call the entry point; ``launches`` is the number of kernels it
+        launches (an entry point may launch a kernel more than once)."""
         if self._fn is None:
             self._load()
         code = self._fn(*args)
         if code != 0:
             msg = self._err(code).decode()
             raise RuntimeError(f"{self.symbol} failed: CUDA error {code} ({msg})")
-        self.launches += 1
+        self.launches += launches

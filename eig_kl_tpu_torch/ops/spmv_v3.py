@@ -12,9 +12,12 @@ its gather slot to its CSR slot, with switch bits from the host router
 
 * K3a ``gather_v3`` (TPU ``_gather_v3_kernel``, ``:1698``):
   ``e[s] = (0 + x[128 * cw8[s // 512] + col_local[s]]) * w[s]``.
-* K3b ``benes_v3`` (TPU ``_benes_kernel``, ``:1718``), one launch per
-  stage: ``e'[p] = bit_s(p) ? e[p ^ d_s] : e[p]``, with distances
-  ``N/2, ..., 2, 1, 2, ..., N/2``.
+* K3b ``benes_v3`` (TPU ``_benes_kernel``, ``:1718``):
+  ``e'[p] = bit_s(p) ? e[p ^ d_s] : e[p]`` for each stage, with distances
+  ``N/2, ..., 2, 1, 2, ..., N/2``, in the groups of :func:`benes_groups`:
+  one launch per group, each block running the group's stages on one tile
+  of :data:`BENES_TILE` slots in shared memory (three launches per
+  network of more than one tile).
 * K3c ``reduce_v3`` (TPU ``_reduce_v3_kernel``, ``:1802``): per chunk, a
   9-step segmented Hillis-Steele scan keyed on ``row_local``, then each
   row's segment-last value is routed into the chunk's row window.
@@ -34,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,10 +48,14 @@ BENES_MAX = 1 << 21  #: largest padded slot count N a plan may have
 CHUNK = 512  #: slots per chunk
 WINDOW = 1024  #: x-window and y-window size of a chunk
 SCAN_STEPS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
+#: slots per tile of K3b: 64 KB of f32 in one block's shared memory
+#: (2^14 measured faster than 2^13 on the H100, PERF.md).  The high groups
+#: need ``m <= 2 log2(BENES_TILE) - 5`` (N = 2^m): 2^23, above BENES_MAX.
+BENES_TILE = 1 << 14
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K3A = Kernel("spmv_v3", "gather_v3_f32", [_P, _P, _P, _P, _P, _I, _P])
-K3B = Kernel("spmv_v3", "benes_v3_f32", [_P, _P, _P, _I, _I, _P])
+K3B = Kernel("spmv_v3", "benes_v3_f32", [_P, _P, _P, _I, _P, _I, _P])
 K3C = Kernel("spmv_v3", "reduce_v3_f32", [_P, _P, _P, _P, _P, _I, _P])
 
 
@@ -95,6 +103,53 @@ def benes_distances(n_slots: int) -> list[int]:
     ``lev`` is the first half, row ``2m - 2 - lev`` the last half)."""
     m = n_slots.bit_length() - 1
     return [n_slots >> (s + 1) for s in range(m)] + [2 << s for s in range(m - 1)]
+
+
+class BenesGroup(NamedTuple):
+    """Consecutive Benes stages that K3b runs in one launch.
+
+    Block ``b`` holds ``tile`` slots in runs of ``run`` contiguous slots:
+    its tile position ``i`` is slot ``(i // run) * tile + b * run + i % run``
+    (``run == tile``: the contiguous tile from ``b * tile``).  A stage's
+    distance ``d`` is the tile distance ``d`` if ``d < tile``, else
+    ``d // tile * run``.
+    """
+
+    first: int  #: first stage (a row of the plan's masks)
+    last: int  #: last stage, inclusive
+    tile: int  #: slots per block, 2^t
+    run: int  #: contiguous slots per run, 2^l, a multiple of 32
+
+
+def benes_groups(n_slots: int, tile: int = BENES_TILE) -> list[BenesGroup]:
+    """K3b's launches for a network on ``n_slots = 2^m`` slots, in order.
+
+    ``n_slots <= tile``: one group of all stages on one tile of
+    ``n_slots``.  Otherwise three: the first ``h = m - t`` stages
+    (distances ``>= tile``), the ``2t - 1`` middle ones (``< tile``) and
+    the last ``h``, the high groups in runs of ``tile >> h`` slots.  A run
+    must hold at least one 32-bit switch word, so ``m <= 2t - 5``.
+
+    Raises ``ValueError`` for a slot count or tile that is not a power of
+    two of at least 32, or an ``m`` above ``2t - 5``.
+    """
+    m, t = n_slots.bit_length() - 1, tile.bit_length() - 1
+    if n_slots != 1 << m or m < 5 or tile != 1 << t or t < 5:
+        raise ValueError(f"the slot count {n_slots} and tile {tile} must be powers of two >= 32")
+    if m <= t:
+        return [BenesGroup(0, 2 * m - 2, n_slots, n_slots)]
+    h = m - t
+    if t - h < 5:
+        raise ValueError(
+            f"a network of 2^{m} slots needs m <= 2t - 5 = {2 * t - 5} with tiles of 2^{t} "
+            "slots (each run of the high groups one switch word or more)"
+        )
+    run = tile >> h
+    return [
+        BenesGroup(0, h - 1, tile, run),
+        BenesGroup(h, h + 2 * t - 2, tile, tile),
+        BenesGroup(h + 2 * t - 1, 2 * m - 2, tile, run),
+    ]
 
 
 def _round_up(x: int, m: int) -> int:
@@ -341,22 +396,28 @@ def gather_v3_cuda(plan: SpmvPlanV3, x: torch.Tensor) -> torch.Tensor:
     return e
 
 
-def benes_v3_cuda(masks: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
-    """Launch K3b once per stage on the current stream, between two
-    buffers (an in-place exchange would race between ``p`` and ``p ^ d``)."""
+def benes_v3_cuda(masks: torch.Tensor, e: torch.Tensor, *, _tile: int = BENES_TILE) -> torch.Tensor:
+    """Launch K3b on the current stream: the whole network, one launch per
+    group of :func:`benes_groups`, into a new tensor (``e`` is not
+    modified).  ``_tile`` is for tests and measurements only."""
     n_slots = e.numel()
-    stages = benes_distances(n_slots)
-    if masks.dtype != torch.int32 or masks.shape != (len(stages), n_slots // 32) or not masks.is_contiguous():
-        raise ValueError(f"masks must be contiguous int32 ({len(stages)}, {n_slots // 32})")
+    groups = benes_groups(n_slots, _tile)
+    stages = len(benes_distances(n_slots))
+    if masks.dtype != torch.int32 or masks.shape != (stages, n_slots // 32) or not masks.is_contiguous():
+        raise ValueError(f"masks must be contiguous int32 ({stages}, {n_slots // 32})")
     _check(masks, e, n_slots, "e")
-    bufs = (torch.empty_like(e), torch.empty_like(e))
-    src = e
-    for s, d in enumerate(stages):
-        dst = bufs[s % 2]
-        mask_row = masks.data_ptr() + 4 * s * (n_slots // 32)
-        K3B(mask_row, src.data_ptr(), dst.data_ptr(), n_slots, d, _stream(e))
-        src = dst
-    return src
+    out = torch.empty_like(e)
+    spec = (ctypes.c_int * (4 * len(groups)))(
+        *(v for gr in groups for v in (
+            gr.first, gr.last - gr.first + 1, gr.tile.bit_length() - 1, gr.run.bit_length() - 1,
+        ))
+    )
+    K3B(
+        masks.data_ptr(), e.data_ptr(), out.data_ptr(), n_slots.bit_length() - 1,
+        ctypes.cast(spec, ctypes.c_void_p), len(groups), _stream(e),
+        launches=len(groups),
+    )
+    return out
 
 
 def reduce_v3_cuda(plan: SpmvPlanV3, e: torch.Tensor) -> torch.Tensor:

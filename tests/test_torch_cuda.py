@@ -33,6 +33,15 @@ def _hypergraph(kind):
 
     if kind == "gen_0.02":
         return read_hgr(GEN_002)
+    if kind == "dyadic":
+        # KL weights 1/(k-1) in {1, 1/2, 1/4, 1/8}: exact sums, many ties.
+        rng = np.random.default_rng(12)
+        n = 3000
+        sizes = rng.choice([2, 3, 5, 9], size=3600, p=[0.6, 0.2, 0.15, 0.05])
+        nets = [rng.choice(n, k, replace=False) for k in sizes]
+        offs = np.zeros(len(nets) + 1, np.int64)
+        np.cumsum(sizes, out=offs[1:])
+        return Hypergraph(n, len(nets), np.concatenate(nets).astype(np.int32), offs)
     rng = np.random.default_rng(11)
     n, hub = 1500, int(kind[3:])
     sizes = rng.choice([2, 3, 4, 5, 6, 8], size=n, p=[.84, .02, .06, .02, .04, .02])
@@ -75,28 +84,65 @@ def test_k1_refuses_f64(cuda):
         spmv(g_host_dev, torch.zeros(g_host_dev.num_nodes, dtype=torch.float64, device=cuda))
 
 
-@pytest.mark.parametrize("kind", ["gen_0.02", "hub44"])
-def test_k2_equals_plain_bitwise(cuda, kind):
-    from eig_kl_tpu_torch.kl.init import random_split
-    from eig_kl_tpu_torch.kl.megakernel import K2, kl_pass, kl_pass_plain
-    from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
-    from eig_kl_tpu_torch.ops.spmv import spmv
+#: K2's cases: (graph, starts, split, selection, cap).  gen 0.02x has
+#: 4,038 nodes (not a multiple of the cache's 128-node rows); "dyadic" is
+#: full of ties; "lopsided" puts a tenth of the nodes on side 1 and turns
+#: the termination rule off, so side 1 runs out.  The selection is the
+#: wrapper's choice (None: the flat scan on these small graphs) or forced:
+#: the row-max cache in shared memory, in its global-memory branch, or
+#: the flat scan.
+K2_CASES = {
+    "gen_0.02": ("gen_0.02", 1, "random", None, None),
+    "gen_0.02-shared": ("gen_0.02", 1, "random", "shared", None),
+    "gen_0.02-global": ("gen_0.02", 1, "random", "global", None),
+    "hub44": ("hub44", 1, "random", None, None),
+    "hub44-shared": ("hub44", 1, "random", "shared", None),
+    "dyadic-shared": ("dyadic", 1, "random", "shared", None),
+    "dyadic-global": ("dyadic", 1, "random", "global", None),
+    "dyadic-flat": ("dyadic", 1, "random", "flat", None),
+    "lopsided-shared": ("gen_0.02", 1, "lopsided", "shared", None),
+    "lopsided-flat": ("gen_0.02", 1, "lopsided", "flat", None),
+    "dyadic-8-shared": ("dyadic", 8, "random", "shared", None),
+    "gen_0.02-8-global": ("gen_0.02", 8, "random", "global", 400),
+    "gen_0.02-32-shared": ("gen_0.02", 32, "random", "shared", 150),
+    "gen_0.02-32-flat": ("gen_0.02", 32, "random", "flat", 150),
+}
 
+
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_k2_equals_plain_bitwise(cuda, case):
+    from eig_kl_tpu_torch.kl.megakernel import K2, kl_pass, kl_pass_batch_cuda, kl_pass_batch_plain
+
+    kind, starts, split, cache, cap = K2_CASES[case]
     _, g = _graphs(kind, cuda)
-    sides = torch.as_tensor(random_split(g.num_nodes, 5)).to(cuda)
-    s = sides_to_signs(sides, torch.float32)
-    a_s = spmv(g, s)
-    cut0 = float(cut_size(g, s, a_s))
-    n1 = int(sides.sum())
-    args = (g, s, a_s, cut0, min(n1, g.num_nodes - n1), 16, 1e-6)
+    n = g.num_nodes
+    if split == "lopsided":
+        rng = np.random.default_rng(3)
+        sides = np.zeros((1, n), np.int8)
+        sides[0, rng.choice(n, n // 10, replace=False)] = 1
+        s, a_s, cut0 = _batch_inputs(g, sides=sides)
+        limit, caps = n, [n // 2]
+    else:
+        s, a_s, cut0 = _batch_inputs(g, list(range(5, 5 + starts)))
+        n1 = (s < 0).sum(dim=1).tolist()
+        limit, caps = 16, [min(k, n - k) if cap is None else cap for k in n1]
+    cap_t = torch.tensor(caps, dtype=torch.int32, device=cuda)
+    args = (g, s, a_s, cut0, cut0, cap_t, torch.zeros_like(cap_t), max(caps) + 1, limit, 1e-6)
     before = K2.launches
-    got = kl_pass(*args)
+    got = kl_pass_batch_cuda(*args, _cache=cache)
     assert K2.launches == before + 1
-    ref = kl_pass_plain(*args)
+    ref = kl_pass_batch_plain(*args)
     torch.cuda.synchronize()
-    assert int(got.scalars[2]) > 50
+    its = got.scalars[:, 2].long().tolist()
+    assert min(its) > 50
+    if split == "lopsided":
+        assert its == [n // 10] and float(got.scalars[0, 5]) == 0.0
     for name in ("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars"):
         assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    if starts == 1 and cache is None and split == "random":
+        one = kl_pass(g, s[0], a_s[0], float(cut0[0]), caps[0], limit, 1e-6)
+        for name in ("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars"):
+            assert torch.equal(getattr(one, name), getattr(got.start(0), name)), name
 
 
 def test_fused_on_the_card_equals_the_cpu_run(cuda):
@@ -122,23 +168,30 @@ def test_fused_on_the_card_equals_the_cpu_run(cuda):
     np.testing.assert_array_equal(card.kl.cut_trajectory, cpu.kl.cut_trajectory)
 
 
-def _batch_inputs(g, seeds):
+def _batch_inputs(g, seeds=(), sides=None):
+    """Signs, ``A @ s`` and cuts of one start per seeded random split (or
+    per row of ``sides``), on the graph's device."""
     from eig_kl_tpu_torch.kl.init import random_split
     from eig_kl_tpu_torch.kl.megakernel import _batch_init
     from eig_kl_tpu_torch.ops.partition import sides_to_signs
 
-    sides = torch.as_tensor(np.stack([random_split(g.num_nodes, s) for s in seeds])).to(g.device)
+    if sides is None:
+        sides = np.stack([random_split(g.num_nodes, s) for s in seeds])
+    sides = torch.as_tensor(sides).to(g.device)
     s = sides_to_signs(sides, torch.float32)
     a_s, cut0 = _batch_init(g, s)
     return s, a_s, cut0
 
 
+@pytest.mark.parametrize("cache", [None, "shared", "global"])
 @pytest.mark.parametrize("kind", ["gen_0.02", "hub44"])
-def test_k2_batched_equals_plain_and_single_launches_bitwise(cuda, kind):
+def test_k2_batched_equals_plain_and_single_launches_bitwise(cuda, kind, cache):
     """One launch of 3 starts: a full pass, a zero cap, and a re-entry with
-    a best cut below the cut and a termination count carried in."""
+    a best cut below the cut and a termination count carried in; the
+    wrapper's selection (the flat scan here), or the row-max cache in
+    shared memory or in its global-memory branch."""
     from eig_kl_tpu_torch.kl.megakernel import (
-        K2, K2_STARTS, kl_pass_batch, kl_pass_batch_plain, kl_pass_cuda,
+        K2, K2_STARTS, kl_pass_batch, kl_pass_batch_cuda, kl_pass_batch_plain, kl_pass_cuda,
     )
 
     _, g = _graphs(kind, cuda)
@@ -150,7 +203,10 @@ def test_k2_batched_equals_plain_and_single_launches_bitwise(cuda, kind):
     term0 = torch.tensor([0, 0, 4], dtype=torch.int32, device=cuda)
     args = (g, s, a_s, cut0, best0, cap, term0, n // 2 + 1, 16, 1e-6)
     before, before3 = K2.launches, K2_STARTS[3]
-    got = kl_pass_batch(*args)
+    if cache is None:
+        got = kl_pass_batch(*args)
+    else:
+        got = kl_pass_batch_cuda(*args, _cache=cache)
     assert (K2.launches, K2_STARTS[3]) == (before + 1, before3 + 1)  # a batch is one launch
     ref = kl_pass_batch_plain(*args)
     torch.cuda.synchronize()
@@ -184,10 +240,17 @@ def test_k2_batched_wrapper_checks_its_arguments(cuda):
         kl_pass_batch_cuda(g, s, a_s, cut0.cpu(), cut0, cap, zero, 6, 16, 0.0)
 
 
-def test_refresh_interval_on_the_card_equals_the_cpu_run(cuda):
+@pytest.mark.parametrize("selection", ["flat", "cache"])
+def test_refresh_interval_on_the_card_equals_the_cpu_run(cuda, selection, monkeypatch):
+    """Kernel re-entry every 100 swaps, through the flat scan (the size's
+    own choice) and through the row-max cache (its threshold lowered)."""
+    from eig_kl_tpu_torch.kl import megakernel
     from eig_kl_tpu_torch.kl.init import random_split
     from eig_kl_tpu_torch.kl.megakernel import K2_STARTS, refine_mega
     from eig_kl_tpu_torch.utils.config import KLConfig
+
+    if selection == "cache":
+        monkeypatch.setattr(megakernel, "K2_CACHE_MIN_NODES", 0)
 
     g_cpu, g = _graphs("gen_0.02", cuda)
     sides = random_split(g.num_nodes, 9)
@@ -268,15 +331,37 @@ def test_v3_kernels_equal_plain_bitwise_and_are_deterministic(cuda, kind):
         ref = plain(first, arg)
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         assert torch.equal(a.view(torch.int32), ref.view(torch.int32))
-    stages = len(V.benes_distances(plan.padded_nnz))
+    groups = len(V.benes_groups(plan.padded_nnz))
     assert (V.K3A.launches, V.K3B.launches, V.K3C.launches) == (
-        before[0] + 2, before[1] + 2 * stages, before[2] + 2
+        before[0] + 2, before[1] + 2 * groups, before[2] + 2
     )
     # The whole SpMV on the card equals the plain route on the CPU.
     cpu_plan = V.build_plan_v3_for_graph(g_host, "cpu")
     y = V.spmv_v3(plan, xp[:n])
     y_cpu = V.spmv_v3(cpu_plan, torch.as_tensor(x[:n]))
     assert torch.equal(y.cpu().view(torch.int32), y_cpu.view(torch.int32))
+
+
+@pytest.mark.parametrize("m, tile", [(m, 1 << 14) for m in (5, 12, 13, 14, 17, 21)] + [(13, 1 << 13), (21, 1 << 13)])
+def test_k3b_equals_plain_bitwise(cuda, m, tile):
+    """K3b on random switch bits at N = 2^m: one launch per group, bitwise
+    equal to the plain network and to a second call, its input unchanged."""
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+
+    N = 1 << m
+    rng = np.random.default_rng(m)
+    masks = torch.as_tensor(rng.integers(0, 2**32, (2 * m - 1, N // 32), dtype=np.uint32).view(np.int32))
+    x = rng.standard_normal(N).astype(np.float32)
+    x[::13] = -0.0
+    e = torch.as_tensor(x)
+    before = V.K3B.launches
+    a = V.benes_v3_cuda(masks.to(cuda), e.to(cuda), _tile=tile)
+    b = V.benes_v3_cuda(masks.to(cuda), e.to(cuda), _tile=tile)
+    torch.cuda.synchronize()
+    assert V.K3B.launches == before + 2 * len(V.benes_groups(N, tile))
+    ref = V.benes_v3_plain(masks, e)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(a.cpu().view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.parametrize("size", [0, 1, 2047, 2048, 4097, 202_752])
@@ -316,12 +401,12 @@ def test_v3_fused_on_the_card_equals_the_cpu_run(cuda):
             kern.launches = 0
         runs.append(fused_refine_mega(g, SpectralConfig(solver="power"), KLConfig(gain_eps=1e-6)))
         if dev.type == "cuda":
-            stages = len(V.benes_distances(g.plan.padded_nnz))
+            groups = len(V.benes_groups(g.plan.padded_nnz))
             launches = (K1.launches, K2.launches, V.K3A.launches, V.K3B.launches, V.K3C.launches, K4.launches)
     (eig, kl, iters), (ceig, ckl, citers) = runs
     assert iters == citers == 201
     spmvs = launches[2]
-    assert launches == (0, 1, spmvs, stages * spmvs, spmvs, 1) and spmvs >= iters + 2
+    assert launches == (0, 1, spmvs, groups * spmvs, spmvs, 1) and spmvs >= iters + 2
     assert eig.eigenvalue == ceig.eigenvalue
     np.testing.assert_array_equal(eig.sides, ceig.sides)
     np.testing.assert_array_equal(eig.values, ceig.values)

@@ -142,6 +142,32 @@ def test_kl_pass_batch_kernel_wrapper_refuses_cpu_tensors():
     assert (K2.launches, sum(K2_STARTS.values())) == before
 
 
+@pytest.mark.parametrize(
+    "num_nodes, row_width, selection, words",
+    [
+        (4038, 48, "flat", None),  # gen 0.02x
+        (9_999, 48, "flat", None),
+        (10_000, 48, "shared", 2 * 79 + 3 + 79),  # the list no longer than the rows
+        (201_920, 48, "shared", 2 * 1578 + 50 + 98),  # gen 1.0x
+        (3_230_720, 48, "shared", 2 * 25_240 + 789 + 98),  # gen 16x
+        (4_000_000, 48, "global", 2 * 31_250 + 977 + 98),
+        (20_000, 1300, "shared", 2 * 157 + 5 + 157),
+    ],
+)
+def test_k2_selection_and_cache_layout(num_nodes, row_width, selection, words):
+    """K2's flat scan below the measured crossover, the row-max cache in
+    shared memory up to the 227 KB opt-in, in global memory above; the
+    cache's words per start: both sides' maxima per 128-node row, a dirty
+    bit per row, a list of the rows one swap can touch."""
+    from eig_kl_tpu_torch.kl.megakernel import K2_SHARED_CACHE_BYTES, ROW, k2_cache_words, k2_selection
+
+    assert k2_selection(num_nodes, row_width) == selection
+    if words is not None:
+        got, cap = k2_cache_words(-(-num_nodes // ROW) * ROW, row_width)
+        assert got == words and cap <= 2 * row_width + 2
+        assert (4 * got <= K2_SHARED_CACHE_BYTES) == (selection == "shared")
+
+
 def _dyadic(seed, num_nodes, num_nets):
     from eig_kl_tpu.graph.expand import clique_expand
 

@@ -287,6 +287,104 @@ def test_spmv_v3_equals_spmv_pallas_bitwise(kind):
         assert hi // V.CHUNK - lo // V.CHUNK >= 2
 
 
+# ------------------------------------------------------- K3b's grouping
+
+
+def _benes_tiled(masks, e, groups):
+    """K3b's launches emulated tile by tile, in the kernel's layout: for
+    each group, block b's tile position i holds slot ``(i // run) * tile +
+    b * run + i % run``; its switch bit is bit ``i % 32`` of the tile's
+    word ``i // 32``, loaded from the word of the slot at ``32 * (i //
+    32)``; a stage at distance d exchanges tile positions at distance d
+    (d < tile) or ``d // tile * run``."""
+    from eig_kl_tpu_torch.ops.spmv_v3 import benes_distances
+
+    dists = benes_distances(e.numel())
+    shifts = torch.arange(32, dtype=torch.int32)
+    out = e.clone()
+    for gr in groups:
+        blocks = e.numel() // gr.tile
+        i = torch.arange(gr.tile)
+        slot = (i // gr.run) * gr.tile + torch.arange(blocks)[:, None] * gr.run + i % gr.run
+        tile = out[slot]
+        for s in range(gr.first, gr.last + 1):
+            d = dists[s]
+            dt = d if d < gr.tile else d // gr.tile * gr.run
+            words = masks[s][slot[:, ::32] // 32]
+            bits = ((words[..., None] >> shifts) & 1).reshape(blocks, gr.tile).bool()
+            partner = tile.view(blocks, -1, 2, dt).flip(2).reshape(blocks, gr.tile)
+            tile = torch.where(bits, partner, tile)
+        out[slot] = tile
+    return out
+
+
+@pytest.mark.parametrize(
+    "m, tile",
+    [(m, 1 << 14) for m in (5, 12, 13, 14, 17, 21)]
+    + [(m, 1 << 13) for m in (13, 14, 17, 21)]
+    + [(m, 1 << 11) for m in (5, 12, 17)],
+)
+def test_benes_groups_in_the_kernel_layout_equal_the_plain_network(m, tile):
+    """Random switch bits (not a permutation: each position decides
+    alone), some values -0.0: the groups cover every stage once, in order,
+    and the tiled emulation equals ``benes_v3_plain`` bit for bit."""
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+
+    N = 1 << m
+    groups = V.benes_groups(N, tile)
+    stages = [s for gr in groups for s in range(gr.first, gr.last + 1)]
+    assert stages == list(range(2 * m - 1))
+    assert len(groups) == (1 if N <= tile else 3)
+    assert all(gr.run % 32 == 0 and gr.tile == min(N, tile) for gr in groups)
+    rng = np.random.default_rng(m)
+    masks = torch.as_tensor(rng.integers(0, 2**32, (2 * m - 1, N // 32), dtype=np.uint32).view(np.int32))
+    x = rng.standard_normal(N).astype(np.float32)
+    x[::13] = -0.0
+    e = torch.as_tensor(x)
+    got = _benes_tiled(masks, e, groups)
+    np.testing.assert_array_equal(_bits(got), _bits(V.benes_v3_plain(masks, e)))
+
+
+def test_benes_groups_route_the_gen002_plan():
+    """The plan's own switch bits: the tiled emulation moves every product
+    to its CSR slot, as the plain network does."""
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+
+    _, _, plan = _plans("gen_0.02")
+    N = plan.padded_nnz
+    groups = V.benes_groups(N)
+    assert N > V.BENES_TILE and len(groups) == 3
+    e = V.gather_v3_plain(plan, torch.as_tensor(_state(4038, plan.padded_nodes, 5)))
+    np.testing.assert_array_equal(
+        _bits(_benes_tiled(plan.masks, e, groups)), _bits(V.benes_v3_plain(plan.masks, e))
+    )
+
+
+def test_benes_wrapper_refuses_what_the_tiles_cannot_hold():
+    """m <= 2t - 5: 2^21 slots fit tiles of 2^13, not 2^22; 2^23 fit the
+    kernel's tiles of 2^14, not 2^24; 2^14 slots do not fit tiles of 2^9.
+    The wrapper refuses before it looks at the device."""
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+
+    assert V.BENES_TILE == 1 << 14
+    assert [len(V.benes_groups(N)) for N in (V.BENES_MAX, 1 << 23)] == [3, 3]
+    assert V.benes_groups(V.BENES_MAX)[0].run == 128
+    assert len(V.benes_groups(V.BENES_MAX, 1 << 13)) == 3
+    with pytest.raises(ValueError, match="2t - 5 = 21"):
+        V.benes_groups(2 * V.BENES_MAX, 1 << 13)
+    with pytest.raises(ValueError, match="2t - 5 = 23"):
+        V.benes_groups(1 << 24)
+    with pytest.raises(ValueError, match="power"):
+        V.benes_groups(3 << 12)
+    masks = torch.zeros(27, (1 << 14) // 32, dtype=torch.int32)
+    before = V.K3B.launches
+    with pytest.raises(ValueError, match="2t - 5 = 13"):
+        V.benes_v3_cuda(masks, torch.zeros(1 << 14), _tile=1 << 9)
+    with pytest.raises(ValueError, match="CUDA"):
+        V.benes_v3_cuda(masks, torch.zeros(1 << 14), _tile=1 << 10)
+    assert V.K3B.launches == before
+
+
 # ------------------------------------------------------ padded power solve
 
 
