@@ -152,11 +152,12 @@ def report_device_busy(what: str, fn) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x  {e.key[:90]}")
 
 
-def k3b_group_device_us(fn, num_groups: int) -> list[float] | None:
-    """Run ``fn`` (whole K3b networks, one after another) under the
-    profiler: the mean device time in microseconds of each of K3b's
-    ``num_groups`` launches per network, in launch order, or None if the
-    profiler saw no whole network."""
+def device_us_per_launch(fn, kernel: str, num_groups: int = 1) -> list[float] | None:
+    """Run ``fn`` (calls that each launch the kernels whose names contain
+    ``kernel`` ``num_groups`` times, one after another) under the
+    profiler: the mean device time in microseconds of each of the
+    ``num_groups`` launches per call, in launch order (K3b: its groups), or
+    None if the profiler saw no whole call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -164,11 +165,11 @@ def k3b_group_device_us(fn, num_groups: int) -> list[float] | None:
         fn()
         torch.cuda.synchronize()
     kernels = sorted(
-        (e for e in prof.events() if e.device_type == DeviceType.CUDA and "benes_group" in e.name),
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA and kernel in e.name),
         key=lambda e: e.time_range.start,
     )
     # The profiler may miss the first kernels of the window: count whole
-    # networks from the last launch back.
+    # calls from the last launch back.
     kernels = kernels[len(kernels) % num_groups :]
     if not kernels:
         return None
@@ -203,7 +204,12 @@ def main() -> int:
     from eig_kl_tpu_torch.ops.reduce import K4, fma_dot_cuda, fma_dot_plain
     from eig_kl_tpu_torch.parallel.smega import (
         K5,
+        K5_CACHE_MIN_NODES,
+        K5_LAYOUTS,
+        K5_SHARED_BYTES,
         SmegaPlan,
+        k5_layout,
+        k5_shared_bytes,
         smega_pass_cuda,
         smega_pass_plain,
         smega_refine,
@@ -321,10 +327,11 @@ def main() -> int:
     # K2's two selections on smaller circuits, in turns (flat, cache,
     # cache, flat): where the row-max cache starts to pay
     # (K2_CACHE_MIN_NODES).
-    crossover = {}
+    crossover, crossover_graphs = {}, {}
     for mult in (0.02, 0.05, 0.1, 0.25):
         c_hg = read_hgr(GEN_002) if mult == 0.02 else CircuitGenerator(mult, SEED).generate()
-        c_g = clique_expand(c_hg, "kl").to_device(dev)
+        crossover_graphs[mult] = clique_expand(c_hg, "kl")
+        c_g = crossover_graphs[mult].to_device(dev)
         c_n = c_g.num_nodes
         c_sides = torch.as_tensor(random_split(c_n, SEED)).to(dev)
         c_s = sides_to_signs(c_sides, torch.float32)
@@ -704,8 +711,9 @@ def main() -> int:
     k3b_group_us = {}
     for tile in (V.BENES_TILE, 1 << 13):
         tile_groups = V.benes_groups(N, tile)
-        us = k3b_group_device_us(
-            lambda: [V.benes_v3_cuda(plan.masks, e_k, _tile=tile) for _ in range(20)], len(tile_groups)
+        us = device_us_per_launch(
+            lambda: [V.benes_v3_cuda(plan.masks, e_k, _tile=tile) for _ in range(20)], "benes_group",
+            len(tile_groups),
         )
         k3b_group_us[tile] = us
         if us is None:
@@ -716,6 +724,23 @@ def main() -> int:
             + ", ".join(f"{(gr.first, gr.last, gr.run)} {t:.2f} us" for gr, t in zip(tile_groups, us))
             + f"; sum {sum(us):.2f} us"
         )
+
+    # K3c's device time per launch, apart from the host's launch overhead:
+    # inside whole v3 SpMVs (after K3b, as on the v3 path) and alone, back
+    # to back on one input.
+    k3c_us = {}
+    for where, fn in (("in the v3 SpMV", lambda: [V.spmv_v3(plan, x) for _ in range(20)]),
+                      ("alone", lambda: [V.reduce_v3_cuda(plan, b_k) for _ in range(20)])):
+        us = device_us_per_launch(fn, "reduce_v3")
+        k3c_us[where] = None if us is None else us[0]
+    print(
+        "K3c device time per launch: "
+        + ", ".join(
+            f"{where} " + ("not measured (the profiler recorded no K3c kernel)" if us is None else f"{us:.2f} us")
+            for where, us in k3c_us.items()
+        )
+        + f" (bound {1e3 * k3c_bound:.2f} us)"
+    )
 
     def v3_run():
         tracer = Tracer(dev)
@@ -828,20 +853,37 @@ def main() -> int:
         sf0[:n], as0[:n] = s, a_s
         return (plans[shards].device_graph(dev), shards, sf0, as0, cut_host, num_swaps, n - n1, n1, log_len, limit, 1e-6)
 
-    sm_ms = {}
+    # K5 in every layout that fits a shard (the wrapper's choice among
+    # them) at every S: the whole pass bitwise equal across layouts and to
+    # K2's swaps, timed in turns (forward, then backward).
+    def fitting(n_local):
+        return [lay for lay in K5_LAYOUTS if k5_shared_bytes(n_local, lay) <= K5_SHARED_BYTES]
+
+    sm_layout = {shards: k5_layout(plans[shards].n_local, shards) for shards in SHARDS}
+    sm_ms, sm_ms_layout = {}, {}
     # K5 computes K2's function: the same swaps have the same least time.
     sm_moved = torch.as_tensor(np.flatnonzero(sm[1].sides != sm_sides)).to(dev)
     sm_bound = k2_bound(g, [(it, sm_moved)])
     for shards in SHARDS:
         args = k5_args(shards, cap, cap + 1)
-        out = smega_pass_cuda(*args)
-        sm_ms[shards] = cuda_ms(lambda: smega_pass_cuda(*args), 2)
-        check(int(out.scalars[2]) == it, f"K5 at S = {shards} ran {int(out.scalars[2])} swaps, K2 {it}")
-        # (b) K2's swaps and gains; the cut log starts from another cut0.
-        for name in ("log_a", "log_b", "log_gain"):
-            check(torch.equal(getattr(out, name)[: it + 1], getattr(k2_main, name)[: it + 1]),
-                  f"K5 at S = {shards}: {name} differs from K2's")
-        check(torch.equal(out.sf[:n], k2_main.sf), f"K5 at S = {shards}: final sf differs from K2's")
+        layouts = fitting(plans[shards].n_local)
+        first = None
+        for lay in layouts:
+            out = smega_pass_cuda(*args, _layout=lay)
+            check(int(out.scalars[2]) == it, f"K5 at S = {shards} ({lay}) ran {int(out.scalars[2])} swaps, K2 {it}")
+            # (b) K2's swaps and gains; the cut log starts from another cut0.
+            for name in ("log_a", "log_b", "log_gain"):
+                check(torch.equal(getattr(out, name)[: it + 1], getattr(k2_main, name)[: it + 1]),
+                      f"K5 at S = {shards} ({lay}): {name} differs from K2's")
+            check(torch.equal(out.sf[:n], k2_main.sf), f"K5 at S = {shards} ({lay}): final sf differs from K2's")
+            if first is None:
+                first = out
+            check_same_pass(out, first, f"K5 at S = {shards}: {lay} against {layouts[0]}")
+        times = {lay: [] for lay in layouts}
+        for lay in layouts + layouts[::-1]:
+            times[lay].append(cuda_ms(lambda: smega_pass_cuda(*args, _layout=lay), 2))
+        sm_ms_layout[shards] = {lay: min(t) for lay, t in times.items()}
+        sm_ms[shards] = sm_ms_layout[shards][sm_layout[shards]]
     cut_gap = abs(cut_host - cut_tree)
     gains = np.abs(sm[1].gain_trajectory[1:].astype(np.float64)).sum()
     cut_tol = cut_gap + 4 * 2.0**-24 * (abs(cut_host) + gains)  # Kahan's bound, both runs
@@ -856,34 +898,40 @@ def main() -> int:
     )
     for shards in SHARDS:
         print(
-            f"K5 at S = {shards}: {sm_ms[shards]:.3f} ms per pass, {1e3 * sm_ms[shards] / it:.3f} us/swap "
-            f"(K2 in this call: {k2_main_ms:.3f} ms, {1e3 * k2_main_ms / it:.3f} us/swap); bound "
+            f"K5 at S = {shards} ({plans[shards].n_local} nodes per shard, the wrapper takes "
+            f"{sm_layout[shards]!r}): {sm_ms[shards]:.3f} ms per pass, {1e3 * sm_ms[shards] / it:.3f} us/swap; "
+            "by layout, bitwise equal: "
+            + ", ".join(f"{lay} {v:.3f} ms ({1e3 * v / it:.3f} us/swap)" for lay, v in sm_ms_layout[shards].items())
+            + f" (K2 in this call: {k2_main_ms:.3f} ms, {1e3 * k2_main_ms / it:.3f} us/swap); bound "
             f"{sm_bound[0]:.4f} ms by {sm_bound[1]}; plan build {plan_s[shards]:.3f} s; "
             f"smega_refine e2e {sm_s[shards]:.3f} s"
         )
     print(f"launches on the smega path: K5 {k5_launches}, K1 {sm_k1}; smega e2e seconds at S = 8: {sm_s[8]:.3f}")
 
     # (c) K5 against smega_pass_plain on the card: the first 1,000 swaps at
-    # S = 1 and S = 8, and whole passes on gen 0.02x at S = 2 and 4.
+    # every S in every layout that fits, and whole passes on gen 0.02x at
+    # S = 2 and 4 in every layout.
     k5_err = 0.0
-    for shards in (1, 8):
+    for shards in SHARDS:
         capped_args = k5_args(shards, 1000, 1001)
-        out_k = smega_pass_cuda(*capped_args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         out_p = smega_pass_plain(*capped_args)
         torch.cuda.synchronize()
         k5_plain_ms = (time.perf_counter() - t0) * 1e3
-        check_same_pass(out_k, out_p, f"K5 at S = {shards} against smega_pass_plain")
-        check(int(out_k.scalars[2]) == 1000, f"the capped K5 pass at S = {shards} ran {int(out_k.scalars[2])} swaps")
-        k5_err = max(k5_err, float((out_k.log_cut - out_p.log_cut).abs().max()))
+        for lay in fitting(plans[shards].n_local):
+            out_k = smega_pass_cuda(*capped_args, _layout=lay)
+            check_same_pass(out_k, out_p, f"K5 at S = {shards} ({lay}) against smega_pass_plain")
+            check(int(out_k.scalars[2]) == 1000,
+                  f"the capped K5 pass at S = {shards} ({lay}) ran {int(out_k.scalars[2])} swaps")
+            k5_err = max(k5_err, float((out_k.log_cut - out_p.log_cut).abs().max()))
     k5_ms = cuda_ms(lambda: smega_pass_cuda(*capped_args), 3)  # S = 8, as the plain time
-    capped = torch.cat([out_k.log_a[1:], out_k.log_b[1:]])
+    capped = torch.cat([out_p.log_a[1:], out_p.log_b[1:]])
     k5_bound_ms, k5_bound_by, k5_bytes, k5_ops = k2_bound(g, [(1000, capped)])
-    small = clique_expand(read_hgr(GEN_002), "kl")
+    small = crossover_graphs[0.02]
     small_sides = random_split(small.num_nodes, SEED)
     for shards in (2, 4):
-        plan_small = SmegaPlan(small, shards)
+        plan_small = SmegaPlan(small, shards, align=128)
         dg = plan_small.device_graph(dev)
         s_small = sides_to_signs(torch.as_tensor(small_sides).to(dev), torch.float32)
         sf0 = torch.zeros(plan_small.n_pad, device=dev)
@@ -893,15 +941,53 @@ def main() -> int:
         m_cap = min(m1, small.num_nodes - m1)
         args = (dg, shards, sf0, as0, float(cut_size(dg, s_small, as0[: small.num_nodes])), m_cap,
                 small.num_nodes - m1, m1, m_cap + 1, KLConfig().terminate_limit(small.num_nodes), 1e-6)
-        out_k = smega_pass_cuda(*args)
-        check_same_pass(out_k, smega_pass_plain(*args), f"K5 on gen 0.02x at S = {shards} against smega_pass_plain")
-        check(int(out_k.scalars[2]) > 100, f"K5 on gen 0.02x at S = {shards} ran {int(out_k.scalars[2])} swaps")
+        out_p = smega_pass_plain(*args)
+        check(int(out_p.scalars[2]) > 100, f"gen 0.02x at S = {shards} ran {int(out_p.scalars[2])} swaps")
+        for lay in fitting(plan_small.n_local):
+            check_same_pass(smega_pass_cuda(*args, _layout=lay), out_p,
+                            f"K5 on gen 0.02x at S = {shards} ({lay}) against smega_pass_plain")
     print(
-        f"K5 bitwise equal to smega_pass_plain: 1,000 swaps at S = 1 and 8 (gen {MULTIPLIER}x), whole "
-        f"passes at S = 2 and 4 (gen 0.02x); the 1,000 swaps at S = 8: {k5_ms:.3f} ms, plain "
-        f"{k5_plain_ms:.1f} ms, bound {k5_bound_ms:.4f} ms by {k5_bound_by} ({k5_bytes} bytes, "
-        f"{k5_ops} operations)"
+        f"K5 bitwise equal to smega_pass_plain: 1,000 swaps at S = {SHARDS} in every layout that fits "
+        f"(gen {MULTIPLIER}x), whole passes at S = 2 and 4 in all three (gen 0.02x); the 1,000 swaps at "
+        f"S = 8 ({sm_layout[8]}): {k5_ms:.3f} ms, plain {k5_plain_ms:.1f} ms, bound {k5_bound_ms:.4f} ms by "
+        f"{k5_bound_by} ({k5_bytes} bytes, {k5_ops} operations)"
     )
+
+    # K5's flat scan against its cache on smaller circuits, at S = 1 and 8,
+    # whole passes from a random split, in turns: where the cache starts to
+    # pay (K5_CACHE_MIN_NODES, on the nodes per shard).
+    k5_crossover = {}
+    for mult, c_host in crossover_graphs.items():
+        c_n = c_host.num_nodes
+        c_sides = random_split(c_n, SEED)
+        c_n1 = int(c_sides.sum())
+        c_cap = min(c_n1, c_n - c_n1)
+        for shards in (1, 8):
+            c_plan = SmegaPlan(c_host, shards)
+            dg = c_plan.device_graph(dev)
+            c_s = sides_to_signs(torch.as_tensor(c_sides).to(dev), torch.float32)
+            sf0 = torch.zeros(c_plan.n_pad, device=dev)
+            as0 = torch.zeros(c_plan.n_pad, device=dev)
+            sf0[:c_n], as0[:c_n] = c_s, spmv_csr(dg, c_s)
+            args = (dg, shards, sf0, as0, float(cut_size(dg, c_s, as0[:c_n])), c_cap, c_n - c_n1, c_n1,
+                    c_cap + 1, KLConfig().terminate_limit(c_n), 1e-6)
+            layouts = fitting(c_plan.n_local)
+            outs = {lay: smega_pass_cuda(*args, _layout=lay) for lay in layouts}
+            for lay in layouts[1:]:
+                check_same_pass(outs[lay], outs["flat"], f"K5's layouts at gen {mult}x, S = {shards}")
+            c_it = int(outs["flat"].scalars[2])
+            times = {lay: [] for lay in layouts}
+            for lay in layouts + layouts[::-1]:
+                times[lay].append(cuda_ms(lambda: smega_pass_cuda(*args, _layout=lay), 3))
+            us = {lay: 1e3 * min(t) / c_it for lay, t in times.items()}
+            k5_crossover[f"gen {mult}x, S = {shards}, {c_plan.n_local} nodes per shard"] = us
+            print(
+                f"K5 at gen {mult}x, S = {shards} ({c_plan.n_local} nodes per shard, {c_it} swaps, the "
+                "layouts bitwise equal): "
+                + ", ".join(f"{lay} {v:.3f} us/swap" for lay, v in us.items())
+                + f"; the wrapper takes {k5_layout(c_plan.n_local, shards)} "
+                f"(cache from {K5_CACHE_MIN_NODES} nodes per shard)"
+            )
     print(f"smega phase: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = [
@@ -997,6 +1083,8 @@ def main() -> int:
             "bound_ms": k3c_bound,
             "bound_by": "bytes",
             "library_ms": None,
+            "device_us_per_launch_in_the_v3_spmv": k3c_us["in the v3 SpMV"],
+            "device_us_per_launch_alone": k3c_us["alone"],
         },
         {
             "name": "v3 SpMV spmv_v3: K3a + K3b + K3c",
@@ -1025,7 +1113,7 @@ def main() -> int:
             "library_ms": k4_lib_ms,
         },
         {
-            "name": "K5 smega_pass_f32, S = 8, the first 1,000 swaps of the main path's pass",
+            "name": "K5 smega_pass_f32, S = 8 in the wrapper's layout, the first 1,000 swaps of the main path's pass",
             "route": "cuda",
             "source": "eig_kl_tpu_torch/csrc/smega.cu",
             "replaces": "eig_kl_tpu/parallel/smega.py:166",
@@ -1040,6 +1128,11 @@ def main() -> int:
             "pass_ms_by_shards": sm_ms,
             "pass_bound_ms": sm_bound[0],
             "us_per_swap_by_shards": {k: 1e3 * v / it for k, v in sm_ms.items()},
+            "layout_by_shards": sm_layout,
+            "us_per_swap_by_shards_and_layout": {
+                k: {lay: 1e3 * v / it for lay, v in by.items()} for k, by in sm_ms_layout.items()
+            },
+            "us_per_swap_by_layout_on_smaller_circuits": k5_crossover,
             "k2_pass_ms": k2_main_ms,
             "e2e_s_by_shards": sm_s,
         },

@@ -14,32 +14,57 @@
 // trajectory does not depend on S, and equals K2's (csrc/kl_pass.cu).
 //
 // Bound on this card: latency.  The swap chain is serial.  Each swap a
-// block scans 8 bytes per node of its stripe (8 n / S bytes per swap over
-// the cluster) from L2, reduces it, crosses two cluster barriers, and walks
+// block selects its candidates, crosses two cluster barriers, and walks
 // two CSR rows (indptr -> indices -> a_s, dependent loads).  The bytes the
 // whole pass must move take microseconds at 3.35 TB/s.
 //
 // Design:
 // * Launch: grid = S blocks = one cluster of S (1, 2, 4 or 8, the portable
 //   sizes); block r is shard r (cluster.block_rank()).
-// * State: sf = side sign * free (0 = locked or padding) and a_s = A@s, f32
-//   in global memory; shard r owns nodes [r * n_local, (r + 1) * n_local)
-//   and reads and writes only that stripe.  n_local is a multiple of 128,
-//   so the scan reads float4s.
+// * State: sf = side sign * free (0 = locked or padding) and a_s = A@s,
+//   f32; shard r owns nodes [r * n_local, (r + 1) * n_local) and reads and
+//   writes only that stripe.  Three layouts, one instantiation each, chosen
+//   by the wrapper from n_local (parallel/smega.py:k5_layout):
+//   - kFlat: the state in global memory; every swap each thread scans its
+//     float4s of the stripe (n_local a multiple of 4).  Below the measured
+//     crossover (K5_CACHE_MIN_NODES) this is the fastest.
+//   - kCacheGlobal: the state in global memory, and a row-max cache of the
+//     stripe in shared memory (n_local a multiple of 128).
+//   - kCacheShared: the block loads its stripe of sf and a_s into dynamic
+//     shared memory, runs the whole loop there beside the cache, and writes
+//     both back at the end: the TPU kernel's VMEM-resident state
+//     (smega.py:662-663).  8 B per node: up to 28,544 nodes per shard in
+//     the 227 KB opt-in (S = 8 at gen 1.0x: 25,600 nodes, 207 KB).
+// * Row-max cache (K2's, csrc/kl_pass.cu, over the shard's own rows; the
+//   TPU kernel's `hierarchical` mode, smega.py:257-308): rm_l[r] and
+//   rm_r[r], the maximum of D = -(sf * a_s) over local row r's 128 nodes
+//   with sf > 0 and with sf < 0 (-inf if none); a dirty bit per row and a
+//   list of dirty rows with room for every row (so it never overflows).
+//   Local selection: a block-wide first maximum over the cached rows,
+//   "larger, or equal (+0 == -0) at a lower row"; then one warp per side
+//   searches the winning row's lanes and reports the first node whose D
+//   equals the maximum, with that node's own D.  That is the flat first
+//   maximum over the shard's nodes (K2's proof, per shard).  A shard with
+//   no free node on a side reports (-inf, INT_MAX), as the flat scan does.
+//   Owner-computes refresh (smega.py:439-446): a block marks the local rows
+//   of the entries it added, the owners of a and b mark a's and b's rows
+//   after locking them, and one warp per listed row recomputes both sides'
+//   maxima.  The refresh ends before the round-B cluster.sync(), so the
+//   one-slot argument below still holds and every block leaves the loop at
+//   the same swap.
 // * Adjacency: A is symmetric, so the rows of shard r that neighbour node
 //   v are the entries of CSR row v whose columns lie in shard r's stripe.
 //   Each block walks the whole row and keeps those entries.  That replaces
 //   the TPU kernel's column-transpose layout (_build_colT), a shape for its
 //   DMA engine: the same entries, each node receiving the same adds.
-// * Round A: each block finds its first maximum of D = -(sf * a_s) per side
-//   (as K2 does, strict > along a thread, "larger, or equal (+0 == -0) at a
-//   lower index" across threads), writes (m_l, a, m_r, b) into its own
-//   shared slot, cluster.sync(), and warp 0 of every block reads the
-//   S slots (lane k reads block k's) and combines them by the same rule.
-//   Indices are global and a shard's are above a lower shard's, so "lower
-//   index" is the TPU kernel's "lower shard, then lower local index".
-//   Indices travel as int32: the TPU's 12/12-bit split exists only because
-//   its lanes are f32.
+// * Round A: each block finds its first maximum of D per side (flat: strict
+//   > along a thread, "larger, or equal at a lower index" across threads;
+//   cached: as above), writes (m_l, a, m_r, b) into its own shared slot,
+//   cluster.sync(), and warp 0 of every block reads the S slots (lane k
+//   reads block k's) and combines them by the same rule.  Indices are
+//   global and a shard's are above a lower shard's, so "lower index" is the
+//   TPU kernel's "lower shard, then lower local index".  Indices travel as
+//   int32: the TPU's 12/12-bit split exists only because its lanes are f32.
 // * Column updates: each block applies -2w to its entries of row a, a
 //   block barrier, then +2w to its entries of row b (the order of K2 and of
 //   :446-514).  In b's owner, the thread that meets b in row a records
@@ -51,6 +76,10 @@
 //   of a swap, and the block writes the next candidate only after that
 //   round-B barrier; w_ab is read after the round-B barrier, and written
 //   next only after the following round-A barrier.
+// * Barriers per swap: flat six (a block barrier after the local
+//   reduction, cluster A, one after the exchange, one between the rows,
+//   cluster B, one after the bookkeeping); the cache adds one before its
+//   refresh.
 // * Bookkeeping on thread 0 of every block: the gain, the Kahan-summed cut,
 //   the best cut and the termination counter, computed from the same bits
 //   with the same code in every block, so every block leaves the loop at
@@ -60,10 +89,6 @@
 //   alive until its peers' last reads.
 // * Every add and multiply is explicitly rounded (no FMA contraction), so
 //   the pass reproduces the plain PyTorch version's bits.
-// Left for later: keeping a shard's state in shared memory (at S = 8 and
-// gen 1.0x a shard's 25,600 nodes x 8 B = 200 KB fit one block's 227 KB,
-// the counterpart of the TPU kernel's VMEM-resident state), and the TPU
-// kernel's per-row max cache (used there above 2^17 nodes per shard).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -77,7 +102,13 @@ namespace {
 constexpr int kThreads = 1024;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxShards = 8;
+constexpr int kRow = 128;  // nodes per cached row
 constexpr unsigned kFull = 0xffffffffu;
+
+// The three layouts of the state and the selection.
+constexpr int kFlat = 0;
+constexpr int kCacheGlobal = 1;
+constexpr int kCacheShared = 2;
 
 struct Candidate {
   float m_l;
@@ -103,10 +134,20 @@ __device__ __forceinline__ void warp_argmax(float& v, int& i) {
   }
 }
 
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// D = -(sf * a_s) of one node, the value the scan, the cache and the lane
+// search compare.
+__device__ __forceinline__ float gain_d(float f, float a) { return -__fmul_rn(f, a); }
+
 // Indices reach a thread in increasing order, so a strict > keeps the first.
 __device__ __forceinline__ void consider(float f, float a, int idx, float& vl,
                                          int& il, float& vr, int& ir) {
-  const float d = -(f * a);
+  const float d = gain_d(f, a);
   if (f > 0.0f) {
     if (d > vl) {
       vl = d;
@@ -120,24 +161,71 @@ __device__ __forceinline__ void consider(float f, float a, int idx, float& vl,
   }
 }
 
-// Adds coef * w into a_s over the entries of one CSR row whose columns lie
-// in the stripe [r0, r0 + n_local); where wab is given, the thread that
-// meets column b records its weight there.
+// One shard's row-max cache in shared memory: rm_l[rows], rm_r[rows],
+// dirty[ceil(rows / 32)], list[rows] (4-byte words).
+struct Cache {
+  float* rm_l;
+  float* rm_r;
+  unsigned* dirty;
+  int* list;
+};
+
+// Both sides' maxima of local row r of the stripe (sfl, asl), computed by
+// one warp (lane k holds nodes 128r + 4k .. 128r + 4k + 3), written by
+// lane 0.
+__device__ __forceinline__ void refresh_row(const float* sfl, const float* asl,
+                                            const Cache& c, int r, int lane) {
+  const float4 f = reinterpret_cast<const float4*>(sfl)[r * (kRow / 4) + lane];
+  const float4 a = reinterpret_cast<const float4*>(asl)[r * (kRow / 4) + lane];
+  const float fs[4] = {f.x, f.y, f.z, f.w};
+  const float as4[4] = {a.x, a.y, a.z, a.w};
+  const float neg_inf = __int_as_float(0xff800000);
+  float ml = neg_inf, mr = neg_inf;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float d = gain_d(fs[k], as4[k]);
+    if (fs[k] > 0.0f) ml = fmaxf(ml, d);
+    if (fs[k] < 0.0f) mr = fmaxf(mr, d);
+  }
+  ml = warp_max(ml);
+  mr = warp_max(mr);
+  if (lane == 0) {
+    c.rm_l[r] = ml;
+    c.rm_r[r] = mr;
+  }
+}
+
+// Marks local row r dirty; the first to mark it appends it to the list
+// (which has room for every row).
+__device__ __forceinline__ void mark(const Cache& c, int r, int* count) {
+  const unsigned bit = 1u << (r & 31);
+  if (atomicOr(&c.dirty[r >> 5], bit) & bit) return;
+  c.list[atomicAdd(count, 1)] = r;
+}
+
+// Adds coef * w into the stripe's a_s (asl, local offsets) over the entries
+// of one CSR row whose columns lie in the stripe [r0, r0 + n_local); with
+// the cache, marks their rows; where wab is given, the thread that meets
+// column b records its weight there.
+template <bool kCache>
 __device__ __forceinline__ void update_row(const int* indptr, const int* indices,
-                                           const float* data, float* as, int row,
+                                           const float* data, float* asl, int row,
                                            int r0, int n_local, float coef, int b,
-                                           float* wab) {
+                                           float* wab, const Cache& c, int* count) {
   const int lo = indptr[row];
   const int deg = indptr[row + 1] - lo;
   for (int k = threadIdx.x; k < deg; k += kThreads) {
     const int j = indices[lo + k];
-    if (static_cast<unsigned>(j - r0) >= static_cast<unsigned>(n_local)) continue;
+    const int jl = j - r0;
+    if (static_cast<unsigned>(jl) >= static_cast<unsigned>(n_local)) continue;
     const float w = data[lo + k];
-    as[j] = __fadd_rn(as[j], __fmul_rn(coef, w));
+    asl[jl] = __fadd_rn(asl[jl], __fmul_rn(coef, w));
     if (wab != nullptr && j == b) *wab = w;
+    if constexpr (kCache) mark(c, jl / kRow, count);
   }
 }
 
+template <int kLayout>
 __global__ void __launch_bounds__(kThreads, 1)
     smega_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
                  const float* __restrict__ data, float* sf, float* as, int n_local,
@@ -146,6 +234,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                  float* __restrict__ log_cut, float* __restrict__ log_gain,
                  int* __restrict__ log_a, int* __restrict__ log_b,
                  float* __restrict__ out) {
+  constexpr bool kCache = kLayout != kFlat;
   cg::cluster_group cluster = cg::this_cluster();
   const int me = static_cast<int>(cluster.block_rank());
 
@@ -153,16 +242,43 @@ __global__ void __launch_bounds__(kThreads, 1)
   __shared__ float wab_slot;
   __shared__ float red_v[2][kWarps];
   __shared__ int red_i[2][kWarps];
-  __shared__ int sh_a, sh_b, sh_go;
+  __shared__ int sh_a, sh_b, sh_go, sh_count;
   __shared__ float sh_ml, sh_mr, sh_wab;
+  extern __shared__ float4 dyn[];
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int r0 = me * n_local;
   const int n4 = n_local / 4;
-  const float4* sf4 = reinterpret_cast<const float4*>(sf + r0);
-  const float4* as4 = reinterpret_cast<const float4*>(as + r0);
+  const int rows = n_local / kRow;
+  const int dirty_words = (rows + 31) / 32;
+
+  // This shard's stripe, at local offsets: in global memory or, with
+  // kCacheShared, loaded into the dynamic shared memory ahead of the cache.
+  float* sfl = sf + r0;
+  float* asl = as + r0;
+  unsigned* cw = reinterpret_cast<unsigned*>(dyn);
+  if constexpr (kLayout == kCacheShared) {
+    float4* sf4s = dyn;
+    float4* as4s = dyn + n4;
+    const float4* sf4g = reinterpret_cast<const float4*>(sf + r0);
+    const float4* as4g = reinterpret_cast<const float4*>(as + r0);
+    for (int q = tid; q < n4; q += kThreads) {
+      sf4s[q] = sf4g[q];
+      as4s[q] = as4g[q];
+    }
+    sfl = reinterpret_cast<float*>(sf4s);
+    asl = reinterpret_cast<float*>(as4s);
+    cw = reinterpret_cast<unsigned*>(dyn + 2 * n4);
+  }
+  const Cache cache{reinterpret_cast<float*>(cw), reinterpret_cast<float*>(cw + rows),
+                    cw + 2 * rows, reinterpret_cast<int*>(cw + 2 * rows + dirty_words)};
+  if constexpr (kCache) {
+    __syncthreads();  // the stripe is loaded
+    for (int r = warp; r < rows; r += kWarps) refresh_row(sfl, asl, cache, r, lane);
+    for (int w = tid; w < dirty_words; w += kThreads) cache.dirty[w] = 0u;
+  }
 
   // The scalar state lives in thread 0's registers, the same in every block.
   int term = 0, stop = 0, nf0 = nf0_in, nf1 = nf1_in;
@@ -171,23 +287,42 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) {
     if (me == 0) log_cut[0] = cut0;
     sh_go = cap > 0 && nf0 > 0 && nf1 > 0;
+    sh_count = 0;
   }
   __syncthreads();
 
   const float neg_inf = __int_as_float(0xff800000);
   while (sh_go) {
-    // Round A, local part: this shard's first maximum of D per side.
+    // Round A, local part: this shard's first maximum of D per side (with
+    // the cache: of the row maxima, the row's index).
     float vl = neg_inf, vr = neg_inf;
     int il = INT_MAX, ir = INT_MAX;
+    if constexpr (kCache) {
+      for (int r = tid; r < rows; r += kThreads) {
+        const float ml = cache.rm_l[r];
+        const float mr = cache.rm_r[r];
+        if (ml > vl) {
+          vl = ml;
+          il = r;
+        }
+        if (mr > vr) {
+          vr = mr;
+          ir = r;
+        }
+      }
+    } else {
+      const float4* sf4 = reinterpret_cast<const float4*>(sfl);
+      const float4* as4 = reinterpret_cast<const float4*>(asl);
 #pragma unroll 4
-    for (int q = tid; q < n4; q += kThreads) {
-      const float4 f = sf4[q];
-      const float4 a = as4[q];
-      const int base = r0 + 4 * q;
-      consider(f.x, a.x, base, vl, il, vr, ir);
-      consider(f.y, a.y, base + 1, vl, il, vr, ir);
-      consider(f.z, a.z, base + 2, vl, il, vr, ir);
-      consider(f.w, a.w, base + 3, vl, il, vr, ir);
+      for (int q = tid; q < n4; q += kThreads) {
+        const float4 f = sf4[q];
+        const float4 a = as4[q];
+        const int base = r0 + 4 * q;
+        consider(f.x, a.x, base, vl, il, vr, ir);
+        consider(f.y, a.y, base + 1, vl, il, vr, ir);
+        consider(f.z, a.z, base + 2, vl, il, vr, ir);
+        consider(f.w, a.w, base + 3, vl, il, vr, ir);
+      }
     }
     warp_argmax(vl, il);
     warp_argmax(vr, ir);
@@ -198,14 +333,58 @@ __global__ void __launch_bounds__(kThreads, 1)
       red_i[1][warp] = ir;
     }
     __syncthreads();
-    if (warp == 0) {
-      vl = red_v[0][lane];
-      il = red_i[0][lane];
-      vr = red_v[1][lane];
-      ir = red_i[1][lane];
-      warp_argmax(vl, il);
-      warp_argmax(vr, ir);
-      if (lane == 0) cand = Candidate{vl, il, vr, ir};
+    if constexpr (kCache) {
+      // Warp 0 for side 0, warp 1 for side 1: the winning row, then the
+      // first node in it whose masked D equals the maximum.
+      if (warp < 2) {
+        float v = red_v[warp][lane];
+        int r = red_i[warp][lane];
+        warp_argmax(v, r);
+        v = __shfl_sync(kFull, v, 0);
+        r = __shfl_sync(kFull, r, 0);
+        int node = INT_MAX;
+        float m = neg_inf;
+        if (r != INT_MAX) {
+          const float4 f = reinterpret_cast<const float4*>(sfl)[r * (kRow / 4) + lane];
+          const float4 a = reinterpret_cast<const float4*>(asl)[r * (kRow / 4) + lane];
+          const float fs[4] = {f.x, f.y, f.z, f.w};
+          const float as4[4] = {a.x, a.y, a.z, a.w};
+          int first = 4;
+          float d_first = 0.0f;
+#pragma unroll
+          for (int k = 3; k >= 0; --k) {
+            const float d = gain_d(fs[k], as4[k]);
+            if ((warp == 0 ? fs[k] > 0.0f : fs[k] < 0.0f) && d == v) {
+              first = k;
+              d_first = d;
+            }
+          }
+          const unsigned hit = __ballot_sync(kFull, first < 4);
+          if (hit == 0u) __trap();  // the cache disagrees with the row
+          const int src = __ffs(hit) - 1;
+          node = r0 + r * kRow + 4 * src + __shfl_sync(kFull, first, src);
+          m = __shfl_sync(kFull, d_first, src);
+        }
+        if (lane == 0) {
+          if (warp == 0) {
+            cand.m_l = m;
+            cand.a = node;
+          } else {
+            cand.m_r = m;
+            cand.b = node;
+          }
+        }
+      }
+    } else {
+      if (warp == 0) {
+        vl = red_v[0][lane];
+        il = red_i[0][lane];
+        vr = red_v[1][lane];
+        ir = red_i[1][lane];
+        warp_argmax(vl, il);
+        warp_argmax(vr, ir);
+        if (lane == 0) cand = Candidate{vl, il, vr, ir};
+      }
     }
     cluster.sync();
 
@@ -240,15 +419,31 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int owner_b = b / n_local;
 
     // Owner-computes: my entries of row a (s_a = +1), then of row b (s_b = -1).
-    update_row(indptr, indices, data, as, a, r0, n_local, -2.0f, b,
-               owner_b == me ? &sh_wab : nullptr);
+    update_row<kCache>(indptr, indices, data, asl, a, r0, n_local, -2.0f, b,
+                       owner_b == me ? &sh_wab : nullptr, cache, &sh_count);
     __syncthreads();
-    update_row(indptr, indices, data, as, b, r0, n_local, 2.0f, b, nullptr);
+    update_row<kCache>(indptr, indices, data, asl, b, r0, n_local, 2.0f, b, nullptr,
+                       cache, &sh_count);
     if (tid == 0) {
-      if (owner_a == me) sf[a] = 0.0f;
+      if (owner_a == me) {
+        sfl[a - r0] = 0.0f;
+        if constexpr (kCache) mark(cache, (a - r0) / kRow, &sh_count);
+      }
       if (owner_b == me) {
-        sf[b] = 0.0f;
+        sfl[b - r0] = 0.0f;
+        if constexpr (kCache) mark(cache, (b - r0) / kRow, &sh_count);
         wab_slot = sh_wab;
+      }
+    }
+    if constexpr (kCache) {
+      // Refresh: one warp per dirty row of this shard, both sides; every
+      // flagged row is listed, so all dirty bits are clear after it.
+      __syncthreads();
+      const int dirty = sh_count;
+      for (int k = warp; k < dirty; k += kWarps) {
+        const int r = cache.list[k];
+        refresh_row(sfl, asl, cache, r, lane);
+        if (lane == 0) cache.dirty[r >> 5] = 0u;  // its word's rows are all listed
       }
     }
     cluster.sync();
@@ -256,6 +451,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // Round B: w_ab from b's owner, then the replicated bookkeeping.
     ++it;
     if (tid == 0) {
+      sh_count = 0;  // read by every thread before the barrier above
       const float w_ab = *cluster.map_shared_rank(&wab_slot, owner_b);
       const float gain = __fsub_rn(__fadd_rn(sh_ml, sh_mr), __fmul_rn(2.0f, w_ab));
       const float y = __fsub_rn(-gain, comp);
@@ -280,6 +476,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   // No block leaves while a peer may still read its shared memory.
   cluster.sync();
 
+  if constexpr (kLayout == kCacheShared) {
+    float4* sf4g = reinterpret_cast<float4*>(sf + r0);
+    float4* as4g = reinterpret_cast<float4*>(as + r0);
+    for (int q = tid; q < n4; q += kThreads) {
+      sf4g[q] = dyn[q];
+      as4g[q] = dyn[n4 + q];
+    }
+  }
   if (tid == 0 && me == 0) {
     out[0] = cut;
     out[1] = best;
@@ -296,33 +500,52 @@ bool valid_shards(int n_shards) {
   return n_shards == 1 || n_shards == 2 || n_shards == 4 || n_shards == kMaxShards;
 }
 
-// How many clusters of n_shards blocks the card holds at once, asked once
-// per size (0: not asked yet).
-int max_clusters[kMaxShards + 1] = {};
+// Dynamic shared memory of one block in a layout: the cache's 3 words per
+// row and a dirty bit per row, and with kCacheShared the stripe's sf and
+// a_s (parallel/smega.py:k5_shared_bytes chooses the layout from it).
+long long shared_bytes(int n_local, int layout) {
+  if (layout == kFlat) return 0;
+  const long long rows = n_local / kRow;
+  const long long cache = 4 * (3 * rows + (rows + 31) / 32);
+  return layout == kCacheShared ? 8LL * n_local + cache : cache;
+}
 
 }  // namespace
 
-// One pass over n_shards * n_local nodes (n_local a multiple of 4), of a
-// graph of at most that many nodes.  sf and as hold the padded state and
+// One pass over n_shards * n_local nodes of a graph of at most that many
+// nodes, in a layout (0 flat: n_local a multiple of 4; 1 and 2, the row-max
+// cache: n_local a multiple of 128).  sf and as hold the padded state and
 // are updated in place; each log holds log_len entries (log_len > cap), of
 // which the pass writes 0..iterations; out receives the 8 scalars of
 // smega.py:603-610.  Returns cudaErrorLaunchOutOfResources, launching
-// nothing, if the card cannot hold one cluster of n_shards blocks.
+// nothing, if the card cannot hold one cluster of n_shards blocks with the
+// layout's shared memory.
 extern "C" int smega_pass_f32(const void* indptr, const void* indices,
                               const void* data, void* sf, void* as, int n_local,
-                              int n_shards, float cut0, int cap, int nf0,
+                              int n_shards, int layout, float cut0, int cap, int nf0,
                               int nf1, int terminate_limit, float gain_eps,
                               int log_len, void* log_cut,
                               void* log_gain, void* log_a, void* log_b, void* out,
                               void* stream) {
-  if (n_local < 4 || n_local % 4 != 0 || !valid_shards(n_shards) || log_len < 1 ||
-      cap >= log_len) {
+  const int unit = layout == kFlat ? 4 : kRow;
+  if (n_local < unit || n_local % unit != 0 || !valid_shards(n_shards) ||
+      layout < kFlat || layout > kCacheShared || log_len < 1 || cap >= log_len) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  auto kernel = layout == kFlat          ? smega_kernel<kFlat>
+                : layout == kCacheGlobal ? smega_kernel<kCacheGlobal>
+                                         : smega_kernel<kCacheShared>;
+  const long long smem = shared_bytes(n_local, layout);
+  if (smem > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // The opt-in first, so that the occupancy query sees the real footprint.
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(n_shards, 1, 1);
   config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
   config.stream = static_cast<cudaStream_t>(stream);
   attr.id = cudaLaunchAttributeClusterDimension;
   attr.val.clusterDim.x = n_shards;
@@ -330,14 +553,13 @@ extern "C" int smega_pass_f32(const void* indptr, const void* indices,
   attr.val.clusterDim.z = 1;
   config.attrs = &attr;
   config.numAttrs = 1;
-  if (max_clusters[n_shards] == 0) {
-    const cudaError_t err = cudaOccupancyMaxActiveClusters(
-        &max_clusters[n_shards], reinterpret_cast<const void*>(smega_kernel), &config);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (max_clusters[n_shards] < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  }
-  const cudaError_t err = cudaLaunchKernelEx(
-      &config, smega_kernel, static_cast<const int*>(indptr),
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel),
+                                       &config);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  err = cudaLaunchKernelEx(
+      &config, kernel, static_cast<const int*>(indptr),
       static_cast<const int*>(indices), static_cast<const float*>(data),
       static_cast<float*>(sf), static_cast<float*>(as), n_local, n_shards, cut0,
       cap, nf0, nf1, terminate_limit, gain_eps,

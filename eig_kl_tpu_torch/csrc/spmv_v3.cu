@@ -63,14 +63,22 @@
 //   bounds K3b now is the pairwise shared-memory stages (PERF.md).
 // * K3c: one 512-thread block per chunk.  The scan is the TPU kernel's:
 //   step k (1, 2, ..., 256) sets e[f] += (f >= k && rl[f-k] == rl[f]) ?
-//   e[f-k] : +0, double-buffered in shared memory.  y must equal the TPU
+//   e[f-k] : +0 (that +0 add turns a -0 into +0; the bits depend on it).
+//   Steps 1..16 run within each warp, in registers and shuffles: each lane
+//   holds its slot and the slot 32 below it (a halo the warp recomputes),
+//   so no barrier; steps 32..256 run in shared memory, double-buffered,
+//   one barrier each: five block barriers per chunk.  y must equal the TPU
 //   kernel's chunk-ordered accumulation ((+0 + p1) + p2) + ... over the
 //   chunks holding part of a row, so there are no atomics: a row inside
 //   one chunk is written by that chunk's block; a row that crosses chunk
 //   boundaries is summed, in chunk order, by the block of the chunk where
-//   it starts, which scans the following chunks itself (a chunk's first
-//   segment depends only on its own slots).  A row of degree > 512 spans
-//   three or more chunks and takes that loop more than once.
+//   it starts.  What it reads of a following chunk is the scan's value at
+//   the end of that chunk's first segment, which depends only on the
+//   segment's own slots (the chunk start is the segment start, and every
+//   step's mask is relative to the position): warp 0 scans those slots
+//   alone, in registers up to 32 of them, else in a scratch buffer.  A row
+//   of degree > 512 spans three or more chunks and takes that loop more
+//   than once.
 
 #include <cuda_runtime.h>
 
@@ -79,6 +87,7 @@ namespace {
 constexpr int kChunk = 512;
 constexpr int kWindow = 1024;
 constexpr int kBenesThreads = 1024;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 __global__ void gather_v3_kernel(const int* __restrict__ cw8,
                                  const short* __restrict__ col_local,
@@ -215,27 +224,90 @@ __global__ void __launch_bounds__(kBenesThreads)
   for (int i = threadIdx.x; i < T; i += kBenesThreads) out[slot(i)] = tile[i];
 }
 
-// Segmented inclusive scan of chunk c into shared memory; returns the
-// buffer that holds the result.  Every thread of the block calls it.
-__device__ float* scan_chunk(const float* __restrict__ e,
-                             const short* __restrict__ row_local, int c,
-                             float (*buf)[kChunk], short* rl) {
+// Steps 1..16 of the segmented scan within one warp.  Lane l holds chunk
+// position p = 32w + l (hi, row rhi) and the position 32 slots below it
+// (lo, row rlo; below the chunk: 0 and row -1, which no real row equals).
+// Step k adds to every position the value k slots below it if that lies in
+// the same row, else +0, from the values of the step before.  For hi at a
+// lane l < k that value is lo's at lane l - k + 32, which is right after
+// steps 1..k/2 because it needs nothing below the warp's 64 positions
+// (32 - k >= k - 1 for k <= 16).  Returns hi after step 16.
+__device__ __forceinline__ float warp_scan_steps(float hi, float lo, int rhi,
+                                                 int rlo, int lane) {
+#pragma unroll
+  for (int k = 1; k < 32; k <<= 1) {
+    const int src = (lane - k) & 31;
+    const float hi_s = __shfl_sync(kFullMask, hi, src);
+    const float lo_s = __shfl_sync(kFullMask, lo, src);
+    const int rhi_s = __shfl_sync(kFullMask, rhi, src);
+    const int rlo_s = __shfl_sync(kFullMask, rlo, src);
+    const bool in_warp = lane >= k;
+    const float up = in_warp ? hi_s : lo_s;
+    const int r_up = in_warp ? rhi_s : rlo_s;
+    hi = __fadd_rn(hi, r_up == rhi ? up : 0.0f);
+    lo = __fadd_rn(lo, (in_warp && rlo_s == rlo) ? lo_s : 0.0f);
+  }
+  return hi;
+}
+
+// Steps 32..256 of the segmented scan of a chunk, after warp_scan_steps
+// gave thread t its slot's value v (row rhi): in shared memory,
+// double-buffered, one block barrier each.  Returns the buffer that holds
+// the result.  Every thread of the block calls it, once.
+__device__ float* block_scan_steps(float v, int rhi, float (*buf)[kChunk], short* rl) {
   const int t = threadIdx.x;
-  __syncthreads();  // the previous chunk's values are no longer read
-  buf[0][t] = e[c * kChunk + t];
-  rl[t] = row_local[c * kChunk + t];
+  buf[0][t] = v;
+  rl[t] = static_cast<short>(rhi);
   __syncthreads();
   float* cur = buf[0];
   float* nxt = buf[1];
-  for (int k = 1; k < kChunk; k <<= 1) {
-    const float add = (t >= k && rl[t - k] == rl[t]) ? cur[t - k] : 0.0f;
-    nxt[t] = __fadd_rn(cur[t], add);
+  for (int k = 32; k < kChunk; k <<= 1) {
+    v = __fadd_rn(v, (t >= k && rl[t - k] == rhi) ? cur[t - k] : 0.0f);
+    nxt[t] = v;
     __syncthreads();
     float* tmp = cur;
     cur = nxt;
     nxt = tmp;
   }
   return cur;
+}
+
+// The scan's value at position src of chunk c whose positions 0..src are
+// one row (the chunk's first segment), computed by one warp: the same
+// steps on those slots alone.  Within the segment every step's mask is
+// "position >= k", so no row offsets are read.  Up to 32 slots in
+// registers (steps 32..256 then add +0, as the block's scan does there);
+// longer segments in the warp's scratch, 32 slots per lane step.
+__device__ float first_segment_end(const float* __restrict__ e, int c, int src,
+                                   float (*scratch)[kChunk], int lane) {
+  const float* ec = e + c * kChunk;
+  if (src < 32) {
+    float v = lane <= src ? ec[lane] : 0.0f;
+#pragma unroll
+    for (int k = 1; k < 32; k <<= 1) {
+      const float up = __shfl_up_sync(kFullMask, v, k);
+      v = __fadd_rn(v, lane >= k ? up : 0.0f);
+    }
+#pragma unroll
+    for (int k = 32; k < kChunk; k <<= 1) v = __fadd_rn(v, 0.0f);
+    return __shfl_sync(kFullMask, v, src);
+  }
+  for (int j = lane; j <= src; j += 32) scratch[0][j] = ec[j];
+  __syncwarp();
+  float* cur = scratch[0];
+  float* nxt = scratch[1];
+  for (int k = 1; k < kChunk; k <<= 1) {
+    for (int j = lane; j <= src; j += 32) {
+      nxt[j] = __fadd_rn(cur[j], j >= k ? cur[j - k] : 0.0f);
+    }
+    __syncwarp();
+    float* tmp = cur;
+    cur = nxt;
+    nxt = tmp;
+  }
+  const float v = cur[src];
+  __syncwarp();  // the scratch is free for the next chunk
+  return v;
 }
 
 __device__ __forceinline__ int row_at(const int* rw8, const short* row_local,
@@ -257,42 +329,59 @@ __global__ void __launch_bounds__(kChunk)
                      const float* __restrict__ e, float* __restrict__ y,
                      int n_chunks) {
   __shared__ float buf[2][kChunk];
+  __shared__ float scratch[2][kChunk];
   __shared__ short rl[kChunk];
   const int c = blockIdx.x;
-  if (!chunk_valid(row_local, route_src, c)) return;  // uniform per block
+  const int t = threadIdx.x;
+  // The thread's own loads (its slot and the one 32 below, the two window
+  // rows it routes) travel while the block checks its chunk (two dependent
+  // loads), and the warp steps use them before the check's answer is
+  // needed: a padding chunk leaves before its first barrier.
+  const int base = c * kChunk;
+  const int rhi = row_local[base + t];
+  const int src0 = route_src[c * kWindow + t];
+  const int src1 = route_src[c * kWindow + kChunk + t];
+  const int window = 128 * rw8[c];
+  const bool valid = chunk_valid(row_local, route_src, c);
+  const float v0 = warp_scan_steps(e[base + t], t >= 32 ? e[base + t - 32] : 0.0f, rhi,
+                                   t >= 32 ? row_local[base + t - 32] : -1, t & 31);
+  if (!valid) return;  // uniform per block
   const int head_row = row_at(rw8, row_local, c, 0);
   const int tail_row = row_at(rw8, row_local, c, kChunk - 1);
   const bool head_cont = c > 0 && row_at(rw8, row_local, c - 1, kChunk - 1) == head_row;
   const bool tail_cont = c + 1 < n_chunks &&
                          chunk_valid(row_local, route_src, c + 1) &&
                          row_at(rw8, row_local, c + 1, 0) == tail_row;
-  const float* v = scan_chunk(e, row_local, c, buf, rl);
+  const float* v = block_scan_steps(v0, rhi, buf, rl);
 
   // Rows that lie in this chunk alone: y = +0 + (+0 + segment sum).
-  for (int r = threadIdx.x; r < kWindow; r += kChunk) {
-    const int src = route_src[c * kWindow + r];
+  const int srcs[2] = {src0, src1};
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int src = srcs[k];
     if (src < 0) continue;
-    const int row = 128 * rw8[c] + r;
+    const int row = window + t + k * kChunk;
     if ((head_cont && row == head_row) || (tail_cont && row == tail_row)) continue;
     y[row] = __fadd_rn(0.0f, v[src]);
   }
 
   // The row that leaves this chunk and started here: its partials from
-  // this chunk and the following ones, added in chunk order.
-  if (tail_cont && !(head_cont && head_row == tail_row)) {
+  // this chunk and the following ones, added in chunk order; warp 0 scans
+  // only each following chunk's first segment.
+  if (tail_cont && !(head_cont && head_row == tail_row) && t < 32) {
+    const int lane = t;
     float acc = __fadd_rn(0.0f, v[kChunk - 1]);
     int cc = c + 1;
     while (true) {
-      const float* u = scan_chunk(e, row_local, cc, buf, rl);
       const int src = route_src[cc * kWindow + (tail_row - 128 * rw8[cc])];
-      acc = __fadd_rn(acc, __fadd_rn(0.0f, u[src]));
+      acc = __fadd_rn(acc, __fadd_rn(0.0f, first_segment_end(e, cc, src, scratch, lane)));
       const bool more = src == kChunk - 1 && cc + 1 < n_chunks &&
                         chunk_valid(row_local, route_src, cc + 1) &&
                         row_at(rw8, row_local, cc + 1, 0) == tail_row;
       if (!more) break;
       ++cc;
     }
-    if (threadIdx.x == 0) y[tail_row] = acc;
+    if (lane == 0) y[tail_row] = acc;
   }
 }
 

@@ -13,7 +13,12 @@ for ``mesh.shape["mp"]``; the same engine across cards is ROADMAP.md A8b.
 
 Per swap, per shard ``r`` (nodes ``[r * n_local, (r + 1) * n_local)``):
 
-1. the local first maximum of ``D = -(sf * a_s)`` per side;
+1. the local first maximum of ``D = -(sf * a_s)`` per side (K5: through
+   a row-max cache of the shard's own 128-node rows from
+   :data:`K5_CACHE_MIN_NODES` nodes per shard up, refreshed by the owner
+   of the rows a swap touched, as the TPU kernel's ``hierarchical`` mode;
+   with the shard's state in shared memory where it fits; a flat scan
+   below; :func:`k5_layout`);
 2. round A: the global winner of each side by "larger value, then lower
    shard, then lower local index" (smega.py:351-362), which is the first
    maximum over all nodes, so the trajectory equals the single-chip
@@ -53,10 +58,57 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 K5 = Kernel(
     "smega",
     "smega_pass_f32",
-    [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P],
+    [_P, _P, _P, _P, _P, _I, _I, _I, _F, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P, _P, _P],
 )
 #: The cluster sizes K5 launches: the portable ones, at most 8 blocks.
 CLUSTER_SHARDS = (1, 2, 4, 8)
+#: K5's three layouts, in the kernel's numbering: the flat scan over the
+#: state in global memory; the per-shard row-max cache in shared memory
+#: with the state in global memory; cache and state in shared memory.
+K5_LAYOUTS = ("flat", "global", "shared")
+ROW = 128  #: nodes per row of K5's row-max cache
+#: K5 selects through its row-max cache from this many nodes per shard up,
+#: and by a flat scan below.  The crossover on the H100 (chip_smoke.py,
+#: PERF.md), flat against the cache with the state in shared memory, µs
+#: per swap: 4,096 nodes per shard 3.94 against 4.19, 7,168 nodes 4.49
+#: against 4.28, 10,240 nodes 4.57 against 4.20; the next multiple of
+#: 1,024 above the interpolated 5,700.
+K5_CACHE_MIN_NODES = 6_144
+#: Dynamic shared memory one block of K5 may take: the H100's 227 KB
+#: opt-in per block less 1 KB for the kernel's own shared variables
+#: (under 600 B).
+K5_SHARED_BYTES = 232_448 - 1024
+
+
+def k5_shared_bytes(n_local: int, layout: str) -> int:
+    """Dynamic shared memory of one block of K5 (``csrc/smega.cu:
+    shared_bytes``): none for "flat"; for the cache both sides'
+    maxima per 128-node row, a dirty bit per row and a list with room for
+    every row; "shared" adds the stripe's sf and a_s, 8 bytes per node."""
+    if layout == "flat":
+        return 0
+    rows = n_local // ROW
+    cache = 4 * (3 * rows + -(-rows // 32))
+    return cache + (8 * n_local if layout == "shared" else 0)
+
+
+def k5_layout(n_local: int, n_shards: int) -> str:
+    """K5's layout for ``n_shards`` shards of ``n_local`` nodes: "flat"
+    below :data:`K5_CACHE_MIN_NODES` (or where ``n_local`` is no multiple
+    of 128, or where the cache alone outgrows shared memory, past
+    2,443,008 nodes per shard); else "shared", cache and state in shared
+    memory, where they fit :data:`K5_SHARED_BYTES` (up to 28,544 nodes per
+    shard); else "global", the cache in shared memory and the state in
+    global memory.  The shard count does not enter: a block's footprint
+    is its own."""
+    if n_shards not in CLUSTER_SHARDS:
+        raise ValueError(f"K5 runs 1, 2, 4 or 8 shards, not {n_shards}")
+    if n_local < K5_CACHE_MIN_NODES or n_local % ROW:
+        return "flat"
+    for layout in ("shared", "global"):
+        if k5_shared_bytes(n_local, layout) <= K5_SHARED_BYTES:
+            return layout
+    return "flat"
 
 
 def _round_up(x: int, m: int) -> int:
@@ -121,7 +173,9 @@ def smega_pass_plain(
     ``torch.argmax`` returns the first maximum and counts -0.0 and +0.0 as
     equal, as K5 does, within a shard and across the S candidates.  The S
     owners' entries of a row touch disjoint nodes, one add each, so one
-    ``index_add_`` over the row does what they do.
+    ``index_add_`` over the row does what they do.  This is the flat
+    reference of all three of K5's layouts: the cached selection finds the
+    same node (``tests/test_torch_smega.py`` emulates it).
     """
     t = np.float32
     n_pad = sf0.shape[0]
@@ -206,11 +260,16 @@ def smega_pass_cuda(
     log_len: int,
     terminate_limit: int,
     gain_eps: float,
+    *,
+    _layout: str | None = None,
 ) -> PassOutput:
     """Launch K5 on the current stream: one cluster of ``n_shards`` blocks
     of 1,024 threads, block r running shard r.  The state is f32, the
     graph's index arrays int32, on one card; inputs are not modified.
-    Raises if the card cannot hold the cluster."""
+    The layout is :func:`k5_layout`'s for the shard size; ``_layout``
+    ("flat", "global" or "shared") forces one, for tests and
+    measurements.  Raises if the card cannot hold the cluster in that
+    layout."""
     if n_shards not in CLUSTER_SHARDS:
         raise ValueError(
             f"K5 runs {n_shards} shards as one thread-block cluster, which takes 1, 2, 4 "
@@ -235,6 +294,15 @@ def smega_pass_cuda(
         )
     if not 0 <= cap < log_len:
         raise ValueError(f"log_len {log_len} must exceed the cap {cap}")
+    n_local = n_pad // n_shards
+    if _layout is None:
+        _layout = k5_layout(n_local, n_shards)
+    if _layout not in K5_LAYOUTS:
+        raise ValueError(f"_layout must be 'flat', 'global' or 'shared', not {_layout!r}")
+    if _layout != "flat" and n_local % ROW:
+        raise ValueError(f"K5's row-max cache needs shards of a multiple of {ROW} nodes, not {n_local}")
+    if k5_shared_bytes(n_local, _layout) > K5_SHARED_BYTES:
+        raise ValueError(f"K5's {_layout!r} layout does not fit one block's shared memory at {n_local} nodes")
     sf, a_s = sf0.contiguous().clone(), as0.contiguous().clone()
     log_cut = torch.zeros(log_len, dtype=torch.float32, device=dev)
     log_gain = torch.zeros_like(log_cut)
@@ -248,8 +316,9 @@ def smega_pass_cuda(
         g.data.data_ptr(),
         sf.data_ptr(),
         a_s.data_ptr(),
-        n_pad // n_shards,
+        n_local,
         n_shards,
+        K5_LAYOUTS.index(_layout),
         cut0,
         cap,
         nf0,

@@ -437,14 +437,16 @@ def _smega_inputs(g_host, n_shards, device, seed=5):
     return g, n_shards, sf0, as0, float(cut_size(g, s, as0[:n])), min(n1, n - n1), n - n1, n1
 
 
+@pytest.mark.parametrize("layout", [None, "flat", "global", "shared"])
 @pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
-def test_k5_equals_plain_bitwise(cuda, n_shards):
-    """One cluster of S blocks: the whole pass from a random split, and a
-    pass capped at 50 swaps, bitwise equal to the plain version on the card
+def test_k5_equals_plain_bitwise(cuda, n_shards, layout):
+    """One cluster of S blocks in each of K5's layouts (None: the
+    wrapper's choice): the whole pass from a random split, and a pass
+    capped at 50 swaps, bitwise equal to the plain version on the card
     and on the CPU, and to the single-chip K2's swaps."""
     from eig_kl_tpu_torch.graph.expand import clique_expand
     from eig_kl_tpu_torch.kl.megakernel import kl_pass_cuda
-    from eig_kl_tpu_torch.parallel.smega import K5, smega_pass, smega_pass_plain
+    from eig_kl_tpu_torch.parallel.smega import K5, smega_pass, smega_pass_cuda, smega_pass_plain
 
     g_host = clique_expand(_hypergraph("gen_0.02"), "kl")
     args = _smega_inputs(g_host, n_shards, cuda)
@@ -454,7 +456,10 @@ def test_k5_equals_plain_bitwise(cuda, n_shards):
     for c in (cap, 50):
         tail = (c, nf0, nf1, cap + 1, 16, 1e-6)
         before = K5.launches
-        got = smega_pass(g, n_shards, sf0, as0, cut0, *tail)
+        if layout is None:
+            got = smega_pass(g, n_shards, sf0, as0, cut0, *tail)
+        else:
+            got = smega_pass_cuda(g, n_shards, sf0, as0, cut0, *tail, _layout=layout)
         assert K5.launches == before + 1
         ref = smega_pass_plain(g, n_shards, sf0, as0, cut0, *tail)
         ref_cpu = smega_pass(*cpu_args[:5], *tail)
@@ -469,6 +474,49 @@ def test_k5_equals_plain_bitwise(cuda, n_shards):
     single = kl_pass_cuda(g, sf0[:n].contiguous(), as0[:n].contiguous(), cut0, cap, 16, 1e-6)
     for name in ("log_cut", "log_gain", "log_a", "log_b", "scalars"):
         assert torch.equal(getattr(passes[0], name), getattr(single, name)), name
+
+
+@pytest.mark.parametrize("layout", ["flat", "global", "shared"])
+@pytest.mark.parametrize("n_shards", [1, 8])
+def test_k5_ties_and_a_side_running_out(cuda, n_shards, layout):
+    """The dyadic graph (exact sums, many tied gains, +0 and -0 among
+    them) from a 30/70 split with no termination rule: the pass runs to
+    its cap, until the smaller side has no free node left, shards running
+    out one by one.  Bitwise equal to the plain version and to K2's pass
+    with its row-max cache (forced to "shared") on the same input."""
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.kl.megakernel import kl_pass_batch_cuda
+    from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
+    from eig_kl_tpu_torch.ops.spmv import spmv
+    from eig_kl_tpu_torch.parallel.smega import SmegaPlan, smega_pass_cuda, smega_pass_plain
+
+    g_host = clique_expand(_hypergraph("dyadic"), "kl")
+    plan = SmegaPlan(g_host, n_shards, align=128)
+    g = plan.device_graph(cuda)
+    n = g.num_nodes
+    sides = (np.random.default_rng(4).random(n) < 0.3).astype(np.int8)
+    s = sides_to_signs(torch.as_tensor(sides).to(cuda), torch.float32)
+    sf0 = torch.zeros(plan.n_pad, device=cuda)
+    as0 = torch.zeros_like(sf0)
+    sf0[:n], as0[:n] = s, spmv(g, s)
+    n1 = int(sides.sum())
+    cap, cut0 = min(n1, n - n1), float(cut_size(g, s, as0[:n]))
+    args = (g, n_shards, sf0, as0, cut0, cap, n - n1, n1, cap + 1, n, 1e-6)
+    got = smega_pass_cuda(*args, _layout=layout)
+    ref = smega_pass_plain(*args)
+    torch.cuda.synchronize()
+    assert int(got.scalars[2]) == cap and int(got.scalars[5]) == 0
+    for name in ("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    one = torch.tensor([cut0], device=cuda)
+    cap_t = torch.tensor([cap], dtype=torch.int32, device=cuda)
+    k2 = kl_pass_batch_cuda(
+        g, s[None], as0[:n][None].contiguous(), one, one, cap_t, torch.zeros_like(cap_t), cap + 1, n, 1e-6,
+        _cache="shared",
+    ).start(0)
+    for name in ("log_cut", "log_gain", "log_a", "log_b", "scalars"):
+        assert torch.equal(getattr(got, name), getattr(k2, name)), name
+    assert torch.equal(got.sf[:n], k2.sf)
 
 
 def test_smega_refine_on_the_card_equals_the_cpu_run(cuda):
@@ -502,6 +550,50 @@ def test_k5_refuses_other_shard_counts(cuda, n_shards):
     with pytest.raises(ValueError, match="A8b"):
         smega_pass_cuda(g, n_shards, sf0, as0, cut0, cap, nf0, nf1, cap + 1, 16, 1e-6)
     assert K5.launches == before
+
+
+def test_k5_layout_refusals(cuda):
+    """A cached layout needs shards of whole 128-node rows, and the
+    "shared" layout a stripe that fits one block; nothing is launched."""
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.parallel.smega import K5, smega_pass_cuda
+
+    g_host = clique_expand(_hypergraph("gen_0.02"), "kl")
+    g, shards, sf0, as0, cut0, cap, nf0, nf1 = _smega_inputs(g_host, 1, cuda)
+    tail = (cut0, cap, nf0, nf1, cap + 1, 16, 1e-6)
+    before = K5.launches
+    odd = torch.zeros(4100, device=cuda)
+    odd[: sf0.numel()] = sf0
+    with pytest.raises(ValueError, match="multiple of 128"):
+        smega_pass_cuda(g, 1, odd, odd, *tail, _layout="global")
+    big = torch.zeros(40_960, device=cuda)
+    big[: sf0.numel()] = sf0
+    with pytest.raises(ValueError, match="does not fit"):
+        smega_pass_cuda(g, 1, big, big, *tail, _layout="shared")
+    with pytest.raises(ValueError, match="_layout"):
+        smega_pass_cuda(g, 1, sf0, as0, *tail, _layout="cache")
+    assert K5.launches == before
+
+
+def test_k3c_equals_plain_bitwise_with_negative_zero_rows(cuda):
+    """K3c alone on the hub graph's plan (a row of degree 1,300 over three
+    chunks or more) and gen 0.02x's, with -0 products scattered and in
+    whole rows: bitwise equal to ``reduce_v3_plain``."""
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+
+    for kind in ("gen_0.02", "hub"):
+        g_host = _v3_graph(kind)
+        plan = V.build_plan_v3_for_graph(g_host, cuda)
+        cpu_plan = V.build_plan_v3_for_graph(g_host, "cpu")
+        rows = np.repeat(np.arange(g_host.num_nodes), np.diff(g_host.indptr))
+        for seed in (0, 1):
+            x = np.random.default_rng(seed).standard_normal(plan.padded_nnz).astype(np.float32)
+            x[seed::53] = -0.0
+            x[: rows.size][rows % 17 == seed] = -0.0
+            e = torch.as_tensor(x)
+            got = V.reduce_v3_cuda(plan, e.to(cuda))
+            ref = V.reduce_v3_plain(cpu_plan, e)
+            assert torch.equal(got.cpu().view(torch.int32), ref.view(torch.int32)), (kind, seed)
 
 
 def test_k5_wrapper_checks_its_arguments(cuda):

@@ -296,3 +296,209 @@ def test_smega_refine_runs_on_the_card_unless_told_otherwise(dyadic, monkeypatch
     g, sides = dyadic
     with pytest.raises(RuntimeError, match="no CUDA device"):
         smega_refine(_port_graph(g), sides, 1)
+
+
+# --------------------------------------------- K5's layouts and its cache
+
+
+def _gen_n_local(num_nodes, n_shards, align=1024):
+    from eig_kl_tpu_torch.parallel.smega import _round_up
+
+    return _round_up(num_nodes, n_shards * align) // n_shards
+
+
+@pytest.mark.parametrize(
+    "num_nodes, n_shards, n_local, layout, shared_bytes",
+    [
+        # gen 1.0x (201,920 nodes), align 1,024: 1,584 / 792 / 400 / 200 rows.
+        (201_920, 1, 202_752, "global", 4 * (3 * 1584 + 50)),
+        (201_920, 2, 101_376, "global", 4 * (3 * 792 + 25)),
+        (201_920, 4, 51_200, "global", 4 * (3 * 400 + 13)),
+        (201_920, 8, 25_600, "shared", 8 * 25_600 + 4 * (3 * 200 + 7)),
+        # gen 0.02x (4,038 nodes): below the crossover at every S.
+        (4038, 1, 4096, "flat", 0),
+        (4038, 8, 1024, "flat", 0),
+    ],
+)
+def test_k5_layout_at_gen_scales(num_nodes, n_shards, n_local, layout, shared_bytes):
+    """K5's layout and its block's dynamic shared memory from the shard
+    size alone: at gen 1.0x the state fits shared memory only at S = 8
+    (207,228 B of the 227 KB opt-in)."""
+    from eig_kl_tpu_torch.parallel.smega import K5_SHARED_BYTES, k5_layout, k5_shared_bytes
+
+    assert _gen_n_local(num_nodes, n_shards) == n_local
+    assert k5_layout(n_local, n_shards) == layout
+    assert k5_shared_bytes(n_local, layout) == shared_bytes <= K5_SHARED_BYTES
+
+
+@pytest.mark.parametrize(
+    "n_local, layout",
+    [
+        ("a row below the crossover", "flat"),
+        ("the crossover", "cache"),  # "shared" or "global", whichever fits
+        ("the crossover + 4", "flat"),  # no multiple of 128
+        (28_544, "shared"),  # the most nodes whose state fits: 231,056 B
+        (28_672, "global"),  # 232,092 B: one row more does not
+        (2_443_008, "global"),  # the cache alone: 231,420 B of 231,424
+        (2_443_136, "flat"),  # one row more: 231,432 B, so the flat scan
+    ],
+)
+def test_k5_layout_branches(n_local, layout):
+    from eig_kl_tpu_torch.parallel.smega import (
+        K5_CACHE_MIN_NODES,
+        K5_SHARED_BYTES,
+        ROW,
+        k5_layout,
+        k5_shared_bytes,
+    )
+
+    base = -(-K5_CACHE_MIN_NODES // ROW) * ROW
+    n_local = {
+        "a row below the crossover": base - ROW, "the crossover": base, "the crossover + 4": base + 4,
+    }.get(n_local, n_local)
+    fits = {lay: k5_shared_bytes(n_local, lay) <= K5_SHARED_BYTES for lay in ("shared", "global")}
+    if layout == "cache":
+        layout = "shared" if fits["shared"] else "global"
+    for n_shards in (1, 2, 4, 8):
+        assert k5_layout(n_local, n_shards) == layout
+    if layout == "shared":
+        assert fits["shared"]
+    elif layout == "global":
+        assert fits["global"] and not fits["shared"]
+    with pytest.raises(ValueError, match="1, 2, 4 or 8"):
+        k5_layout(n_local, 3)
+
+
+def _k5_cached_pass(g, n_shards, sf0, as0, cut0, cap, nf0, nf1, log_len, limit, eps):
+    """K5's cached loop (``smega.cu``, kCacheGlobal and kCacheShared) in
+    NumPy: per shard a row-max cache of its own 128-node rows, the first
+    maximum row by row, the lane search reporting the node's own D, the
+    S candidates combined by "larger, then lower shard", and the
+    owner-computes refresh: shard r refreshes only the rows of its stripe
+    that its own entries, or its own locks, touched.  After every refresh
+    the cache must equal one recomputed from scratch."""
+    t = np.float32
+    neg = t(-np.inf)
+    sf, a_s = sf0.numpy().copy(), as0.numpy().copy()
+    n_pad = sf.size
+    n_local = n_pad // n_shards
+    rows = n_local // 128
+    indptr, cols, data = (x.numpy() for x in (g.indptr, g.indices, g.data))
+    lane = np.arange(128)
+
+    def row_maxes(shard, row):
+        """Both sides' maxima of local rows ``row`` of shards ``shard``."""
+        nodes = (shard * n_local + row * 128)[:, None] + lane
+        f = sf[nodes]
+        d = -(f * a_s[nodes])
+        return np.where(f > 0, d, neg).max(axis=1), np.where(f < 0, d, neg).max(axis=1)
+
+    everything = np.repeat(np.arange(n_shards), rows), np.tile(np.arange(rows), n_shards)
+    cache = np.stack(row_maxes(*everything)).reshape(2, n_shards, rows)
+    log_cut, log_gain = np.zeros(log_len, t), np.zeros(log_len, t)
+    log_a, log_b = np.zeros(log_len, np.int32), np.zeros(log_len, np.int32)
+    cut = log_cut[0] = t(cut0)
+    best, comp, two = cut, t(0.0), t(2.0)
+    it = term = stop = 0
+    shard_ids = np.arange(n_shards)
+    while stop == 0 and it < cap and nf0 > 0 and nf1 > 0:
+        picked = []
+        for side in (0, 1):
+            row = cache[side].argmax(axis=1)  # first maximum row of each shard
+            m = cache[side][shard_ids, row]
+            nodes = (shard_ids * n_local + row * 128)[:, None] + lane
+            f = sf[nodes]
+            d = -(f * a_s[nodes])
+            hit = ((f > 0) if side == 0 else (f < 0)) & (d == m[:, None])
+            has = m > neg
+            assert hit[has].any(axis=1).all(), "the cache disagrees with a row"
+            k = hit.argmax(axis=1)
+            val = np.where(has, d[shard_ids, k], neg)
+            win = int(val.argmax())  # larger, then lower shard
+            picked.append((int(nodes[win, k[win]]), val[win], bool(has[win])))
+        (a, m_l, has_a), (b, m_r, has_b) = picked
+        if not (has_a and has_b):
+            break
+        touched = []
+        w_ab = t(0.0)
+        for node, coef in ((a, t(-2.0)), (b, two)):
+            lo, hi = indptr[node], indptr[node + 1]
+            c = cols[lo:hi]
+            a_s[c] = a_s[c] + coef * data[lo:hi]  # each owner's entries: one add each
+            if node == a:
+                w_ab = data[lo:hi][c == b].sum(dtype=t)
+            touched.append(c)
+        sf[a] = sf[b] = 0.0
+        touched = np.unique(np.concatenate(touched + [np.array([a, b])]))
+        owner, row = touched // n_local, (touched % n_local) // 128
+        dirty = np.unique(owner * rows + row)
+        cache[:, dirty // rows, dirty % rows] = np.stack(row_maxes(dirty // rows, dirty % rows))
+        assert np.array_equal(cache, np.stack(row_maxes(*everything)).reshape(2, n_shards, rows))
+        gain = (m_l + m_r) - two * w_ab
+        y = -gain - comp
+        tot = cut + y
+        comp = (tot - cut) - y
+        cut = tot
+        best = min(cut, best)
+        it += 1
+        log_cut[it], log_gain[it], log_a[it], log_b[it] = cut, gain, a, b
+        term = term + 1 if gain <= t(eps) else 0
+        stop = int(term > limit)
+        nf0 -= 1
+        nf1 -= 1
+    scalars = np.array([cut, best, it, term, nf0, nf1, t(cut0), stop], dtype=t)
+    return sf, log_cut, log_gain, log_a, log_b, scalars
+
+
+def _k5_case(kind, n_shards, frac):
+    """(device graph, K5's arguments) of a split of ``kind``'s graph with
+    ``frac`` of the nodes on side 1, padded for ``n_shards`` shards.  An
+    unequal split runs with no termination rule, to its cap: until the
+    smaller side has no free node left, shard by shard."""
+    from eig_kl_tpu_torch.graph.expand import clique_expand as port_expand
+    from eig_kl_tpu_torch.io.hgr import Hypergraph, read_hgr
+    from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
+    from eig_kl_tpu_torch.ops.spmv import spmv
+    from eig_kl_tpu_torch.parallel.smega import SmegaPlan
+    from eig_kl_tpu_torch.utils.config import KLConfig
+
+    if kind == "gen_0.02":
+        hg = read_hgr(GEN_002)
+    else:
+        # Dyadic weights 1, 1/2, 1/4 and many nets: exact sums, many tied
+        # gains, +0 and -0 among them (a_s cancels to +0, -(1 * 0) = -0).
+        h = dyadic_hypergraph(np.random.default_rng(31), num_nodes=1700, num_nets=1900)
+        hg = Hypergraph(h.num_nodes, h.num_nets, h.pins, h.net_offsets)
+    g_host = port_expand(hg, "kl", use_native=False)
+    plan = SmegaPlan(g_host, n_shards, align=128)
+    g = plan.device_graph(torch.device("cpu"))
+    n = g.num_nodes
+    sides = (np.random.default_rng(n_shards).random(n) < frac).astype(np.int8)
+    s = sides_to_signs(torch.as_tensor(sides), torch.float32)
+    sf0, as0 = torch.zeros(plan.n_pad), torch.zeros(plan.n_pad)
+    sf0[:n], as0[:n] = s, spmv(g, s)
+    n1 = int(sides.sum())
+    cap = min(n1, n - n1)
+    cut0 = float(cut_size(g, s, as0[:n]))
+    limit = KLConfig().terminate_limit(n) if frac == 0.5 else n
+    return g, (n_shards, sf0, as0, cut0, cap, n - n1, n1, cap + 1, limit, 1e-6)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4, 8])
+@pytest.mark.parametrize("kind, frac", [("dyadic", 0.5), ("dyadic", 0.3), ("gen_0.02", 0.5)])
+def test_k5_cached_selection_equals_the_flat_pass(kind, frac, n_shards):
+    """K5's per-shard cached selection and owner-only refresh, emulated,
+    run the whole pass of ``smega_pass_plain`` (the flat first maximum)
+    bit for bit: swaps, gains, cuts, final sf and scalars.  The unequal
+    split (30 %) runs to its cap, shards running out of free nodes on one
+    side one after another; at S = 8 the last shard is all padding."""
+    from eig_kl_tpu_torch.parallel.smega import smega_pass_plain
+
+    g, args = _k5_case(kind, n_shards, frac)
+    ref = smega_pass_plain(g, *args)
+    got = _k5_cached_pass(g, *args)
+    assert int(ref.scalars[2]) == args[4] if frac != 0.5 else int(ref.scalars[2]) > 300
+    for name, x in zip(("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars"), got):
+        np.testing.assert_array_equal(
+            x.view(np.int32), getattr(ref, name).numpy().view(np.int32), name
+        )

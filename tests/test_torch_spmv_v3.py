@@ -360,6 +360,119 @@ def test_benes_groups_route_the_gen002_plan():
     )
 
 
+def _k3c_first_segment_end(ec, src, used):
+    """K3c's warp 0 on the first segment (positions 0..src) of a chunk's
+    products ``ec``: in registers up to 32 slots (steps 32..256 add +0),
+    else the whole loop over the segment's slots."""
+    f0 = np.float32(0.0)
+    if src < 32:
+        used.add("registers")
+        lane = np.arange(32)
+        v = np.where(lane <= src, ec[:32], f0)
+        for k in (1, 2, 4, 8, 16):
+            v = v + np.where(lane >= k, np.roll(v, k), f0)
+        for _ in (32, 64, 128, 256):
+            v = v + f0
+        return v[src]
+    used.add("scratch")
+    cur = ec[: src + 1].copy()
+    j = np.arange(src + 1)
+    for k in (1, 2, 4, 8, 16, 32, 64, 128, 256):
+        shifted = np.zeros_like(cur)
+        shifted[k:] = cur[:-k]
+        cur = cur + np.where(j >= k, shifted, f0)
+    return cur[src]
+
+
+def _k3c_kernel_layout(plan, e, used):
+    """K3c as the kernel runs it, in NumPy: per chunk steps 1..16 within
+    each warp of 32 slots, each lane holding its slot and the one 32 below
+    it (row -1 below the chunk), then steps 32..256 over the chunk; rows in
+    one chunk written by it, a crossing row summed in chunk order by the
+    chunk where it starts, from the following chunks' first segments
+    alone."""
+    f0 = np.float32(0.0)
+    C = plan.num_chunks
+    ev = e.numpy().reshape(C, 512)
+    rl = plan.row_local.numpy().reshape(C, 512).astype(np.int32)
+    route = plan.route_src.numpy().reshape(C, 1024).astype(np.int64)
+    base = 128 * plan.rw8.numpy().astype(np.int64)
+    hi, rhi = ev.reshape(C, 16, 32).copy(), rl.reshape(C, 16, 32)
+    lo, rlo = np.zeros_like(hi), np.full_like(rhi, -1)
+    lo[:, 1:], rlo[:, 1:] = hi[:, :-1], rhi[:, :-1]
+    lane = np.arange(32)
+    for k in (1, 2, 4, 8, 16):
+        src = (lane - k) & 31
+        hi_s, lo_s, rhi_s, rlo_s = hi[..., src], lo[..., src], rhi[..., src], rlo[..., src]
+        in_warp = lane >= k
+        up, r_up = np.where(in_warp, hi_s, lo_s), np.where(in_warp, rhi_s, rlo_s)
+        hi, lo = hi + np.where(r_up == rhi, up, f0), lo + np.where(in_warp & (rlo_s == rlo), lo_s, f0)
+    v = hi.reshape(C, 512)
+    for k in (32, 64, 128, 256):
+        same = np.zeros((C, 512), bool)
+        same[:, k:] = rl[:, :-k] == rl[:, k:]
+        shifted = np.zeros_like(v)
+        shifted[:, k:] = v[:, :-k]
+        v = v + np.where(same, shifted, f0)
+
+    def valid(c):
+        return route[c, rl[c, 511]] >= 0
+
+    y = np.zeros(plan.padded_nodes, np.float32)
+    for c in range(C):
+        if not valid(c):
+            continue
+        head, tail = base[c] + rl[c, 0], base[c] + rl[c, 511]
+        head_cont = c > 0 and base[c - 1] + rl[c - 1, 511] == head
+        tail_cont = c + 1 < C and valid(c + 1) and base[c + 1] + rl[c + 1, 0] == tail
+        for r in np.flatnonzero(route[c] >= 0):
+            row = base[c] + r
+            if not ((head_cont and row == head) or (tail_cont and row == tail)):
+                y[row] = f0 + v[c, route[c, r]]
+        if tail_cont and not (head_cont and head == tail):
+            acc, cc = f0 + v[c, 511], c + 1
+            while True:
+                src = route[cc, tail - base[cc]]
+                acc = acc + (f0 + _k3c_first_segment_end(ev[cc], src, used))
+                if not (src == 511 and cc + 1 < C and valid(cc + 1) and base[cc + 1] + rl[cc + 1, 0] == tail):
+                    break
+                used.add("three chunks or more")
+                cc += 1
+            y[tail] = acc
+    return y
+
+
+@pytest.mark.parametrize(
+    "kind, branches",
+    [
+        ("gen_0.02", {"registers"}),
+        ("random", {"registers", "scratch"}),
+        ("hub", {"registers", "scratch", "three chunks or more"}),
+    ],
+)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_k3c_in_the_kernel_layout_equals_the_plain_reduce(kind, branches, seed):
+    """K3c's warp steps with their halo and its first-segment scans of the
+    following chunks, emulated, equal ``reduce_v3_plain`` bit for bit on
+    gen 0.02x, the 700-node random graph and the hub graph (a row of
+    degree 1,300 over three chunks or more), with -0 products: scattered,
+    and whole rows of them (their sums turn +0 only through the scan's +0
+    adds).  ``branches``: the first-segment scans each graph takes (in
+    registers up to 32 slots, in the scratch buffer beyond, a row over
+    three chunks or more)."""
+    from eig_kl_tpu_torch.ops import spmv_v3 as V
+
+    g, _, plan = _plans(kind)
+    rows = np.repeat(np.arange(g.num_nodes), np.diff(g.indptr))
+    x = np.random.default_rng(seed).standard_normal(plan.padded_nnz).astype(np.float32)
+    x[seed::53] = -0.0
+    x[: rows.size][rows % 17 == seed] = -0.0
+    e = torch.as_tensor(x)
+    used = set()
+    np.testing.assert_array_equal(_bits(_k3c_kernel_layout(plan, e, used)), _bits(V.reduce_v3_plain(plan, e)))
+    assert used == branches
+
+
 def test_benes_wrapper_refuses_what_the_tiles_cannot_hold():
     """m <= 2t - 5: 2^21 slots fit tiles of 2^13, not 2^22; 2^23 fit the
     kernel's tiles of 2^14, not 2^24; 2^14 slots do not fit tiles of 2^9.
