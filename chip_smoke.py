@@ -15,7 +15,9 @@ plan attached), then the sharded KL pass (``smega_refine`` at 1, 2, 4 and
 8 shards, one thread-block cluster each, from the one-start run's
 spectral split), checks that each run went through its kernels and that
 its cuts are right, and prints one JSON line per the kernels and, last,
-``{"ok": true, "device": ...}``.
+``{"ok": true, "device": ...}``.  The kernels: K1 (the CSR SpMV, and its
+power step entry point), K2, K3a/b/c, K4, K5 and K6 (the fixed-order sum
+of the norms and cuts, and the power step's scale).
 Any failed check raises, so the script exits nonzero and prints no
 result; so does a machine without a CUDA card.
 """
@@ -76,6 +78,15 @@ def cuda_ms(fn, reps: int) -> float:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def bits32(t: torch.Tensor) -> torch.Tensor:
+    """The bits of an f32 tensor: equal bits mean equal values and zero signs."""
+    return t.view(torch.int32)
+
+
+def fmt_us(us) -> str:
+    return "not measured (the profiler recorded no such kernel)" if us is None else f"{us[0]:.2f} us"
 
 
 def swaps_of(out) -> list[tuple[int, torch.Tensor]]:
@@ -152,6 +163,22 @@ def report_device_busy(what: str, fn) -> None:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x  {e.key[:90]}")
 
 
+def device_us_per_call(fn, calls: int) -> tuple[float, float] | None:
+    """Run ``fn`` (``calls`` calls of one function) under the profiler: the
+    device time in microseconds of all its kernels per call, and the number
+    of kernels per call; None if the profiler saw no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kernels:
+        return None
+    return sum(e.time_range.elapsed_us() for e in kernels) / calls, len(kernels) / calls
+
+
 def device_us_per_launch(fn, kernel: str, num_groups: int = 1) -> list[float] | None:
     """Run ``fn`` (calls that each launch the kernels whose names contain
     ``kernel`` ``num_groups`` times, one after another) under the
@@ -198,10 +225,20 @@ def main() -> int:
     from eig_kl_tpu_torch.models.generator import CircuitGenerator
     from eig_kl_tpu_torch.models.pipelines import fused_partition
     from eig_kl_tpu_torch.ops import _build
-    from eig_kl_tpu_torch.ops.spmv import K1, row_ids, spmv_csr, spmv_plain
+    from eig_kl_tpu_torch.ops.spmv import (
+        K1,
+        K1_STEP,
+        power_step_cuda,
+        power_step_plain,
+        row_ids,
+        spmv_csr,
+        spmv_plain,
+    )
     from eig_kl_tpu_torch.ops import spmv_v3 as V
     from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
-    from eig_kl_tpu_torch.ops.reduce import K4, fma_dot_cuda, fma_dot_plain
+    from eig_kl_tpu_torch.ops import reduce as R
+    from eig_kl_tpu_torch.ops.reduce import K4, K6, K6_SCALE, fma_dot_cuda, fma_dot_plain
+    from eig_kl_tpu_torch.spectral.power import _power_core, power_operator
     from eig_kl_tpu_torch.parallel.smega import (
         K5,
         K5_CACHE_MIN_NODES,
@@ -219,7 +256,7 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
-    all_kernels = (K1, K2, V.K3A, V.K3B, V.K3C, K4, K5)
+    all_kernels = (K1, K1_STEP, K2, V.K3A, V.K3B, V.K3C, K4, K5, K6, K6_SCALE)
 
     def reset_counts():
         for kern in all_kernels:
@@ -265,20 +302,100 @@ def main() -> int:
     )
     err = (y_k.double() - y_p.double()).abs()
     check(bool((err <= 1e-5 * a_abs).all()), "K1 disagrees with spmv_plain beyond 1e-5*(|A||x|)")
+    check(torch.equal(bits32(y_k), bits32(y_p)), "K1 is not bitwise equal to spmv_plain")
     check(torch.equal(y_k, y_k2), "two K1 launches differ")
     k1_err = float(err.max())
-    k1_ms = cuda_ms(lambda: spmv_csr(g, x), 200)
-    k1_plain_ms = cuda_ms(lambda: spmv_plain(g, x), 5)
     a_sparse = torch.sparse_csr_tensor(
         g.indptr.long(), g.indices.long(), g.data, size=(n, n), check_invariants=True
     )
+    # K1 and torch.sparse by CUDA events, then each one's device time per launch.
+    k1_ms = cuda_ms(lambda: spmv_csr(g, x), 200)
+    k1_plain_ms = cuda_ms(lambda: spmv_plain(g, x), 5)
     k1_lib_ms = cuda_ms(lambda: a_sparse @ x, 200)
+    k1_us = device_us_per_launch(lambda: [spmv_csr(g, x) for _ in range(50)], "spmv_csr_kernel")
+    k1_lib_us = device_us_per_call(lambda: [a_sparse @ x for _ in range(50)], 50)
     k1_bytes = 4 * (g.indptr.numel() + 2 * nnz + 2 * n)
     k1_bound_ms = max(k1_bytes / HBM_BYTES_PER_S, 2 * nnz / F32_OPS_PER_S) * 1e3
     print(
-        f"K1: max |kernel - plain| {k1_err:.3g} (bitwise equal: {torch.equal(y_k, y_p)}), "
-        f"{k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms, torch.sparse {k1_lib_ms:.4f} ms, "
-        f"bound {k1_bound_ms:.4f} ms ({k1_bytes} bytes)"
+        f"K1: bitwise equal to spmv_plain; {k1_ms:.4f} ms, plain {k1_plain_ms:.3f} ms, torch.sparse "
+        f"{k1_lib_ms:.4f} ms, bound {k1_bound_ms:.4f} ms ({k1_bytes} bytes); device time per "
+        f"launch: K1 {fmt_us(k1_us)}, torch.sparse "
+        + ("not measured" if k1_lib_us is None else f"{k1_lib_us[0]:.2f} us in {k1_lib_us[1]:.1f} kernels per call")
+    )
+    # K1's power step entry point against power_step_plain at gen 1.0x.
+    deg = torch.where(g.degrees > 0, g.degrees, 1.0)
+    step_k = power_step_cuda(g, x, deg, 0.5)
+    step_plain = power_step_plain(g, x, deg, 0.5)
+    check(torch.equal(bits32(step_k), bits32(step_plain)), "K1's step differs from power_step_plain")
+    check(torch.equal(bits32(step_k), bits32(power_step_cuda(g, x, deg, 0.5))), "two K1 step launches differ")
+    step_third = power_step_cuda(g, x, deg, 1.0 / 3.0)
+    step_third_plain = power_step_plain(g, x, deg, 1.0 / 3.0)
+    check(torch.equal(bits32(step_third), bits32(step_third_plain)), "K1's step differs from power_step_plain at shift 3")
+    k1s_err = max(float((step_k - step_plain).abs().max()), float((step_third - step_third_plain).abs().max()))
+    k1s_ms = cuda_ms(lambda: power_step_cuda(g, x, deg, 0.5), 200)
+    k1s_plain_ms = cuda_ms(lambda: power_step_plain(g, x, deg, 0.5), 5)
+    k1s_us = device_us_per_launch(lambda: [power_step_cuda(g, x, deg, 0.5) for _ in range(50)], "power_step_kernel")
+    k1s_bytes = k1_bytes + 4 * n  # and deg; k1_bytes reads x once already
+    k1s_bound_ms = max(k1s_bytes / HBM_BYTES_PER_S, (2 * nnz + 6 * n) / F32_OPS_PER_S) * 1e3
+    print(
+        f"K1 step: bitwise equal to power_step_plain (shift 2 and 3); {k1s_ms:.4f} ms, device "
+        f"{fmt_us(k1s_us)} per launch, plain {k1s_plain_ms:.3f} ms, bound {k1s_bound_ms:.4f} ms ({k1s_bytes} bytes)"
+    )
+
+    # Phase 3b: K6 against its plain versions at the main path's shapes:
+    # the 1-D norm, sum and dot over n, the 2-D norm over the v3 state.
+    k6 = {}
+    k6_err = 0.0
+    for what, shape in (("1-D", (n,)), ("2-D", (-(-n // 1024) * 8, 128))):
+        v = (torch.rand(shape, generator=gen) - 0.5).to(dev)
+        v.view(-1)[::97] = -0.0
+        w = (torch.rand(shape, generator=gen) - 0.5).to(dev)
+        plain_sum = R.tree_sum_plain if what == "1-D" else R.tree_sum_2d_plain
+        cases = {
+            "norm": (lambda v=v: R.tree_sum_cuda(v, square=True, root=True),
+                     lambda v=v, ps=plain_sum: R._root(R._products_plain(v, v, ps))),
+            "sum": (lambda v=v: R.tree_sum_cuda(v), lambda v=v, ps=plain_sum: ps(v)),
+            "dot": (lambda v=v, w=w: R.tree_sum_cuda(v, w), lambda v=v, w=w, ps=plain_sum: R._products_plain(v, w, ps)),
+        }
+        for case, (kern, plain) in cases.items():
+            got = [kern() for _ in range(3)]
+            ref = plain()
+            for o in got:
+                check(torch.equal(bits32(o), bits32(ref)), f"K6 {what} {case} differs from its plain version")
+            k6_err = max(k6_err, float((got[0] - ref).abs()))
+        numel = v.numel()
+        norm_kern, norm_plain = cases["norm"]
+        k6[what] = {
+            "shape": list(shape),
+            "ms": cuda_ms(norm_kern, 200),
+            "sum_ms": cuda_ms(cases["sum"][0], 200),
+            "dot_ms": cuda_ms(cases["dot"][0], 200),
+            "plain_ms": cuda_ms(norm_plain, 3),
+            "library_ms": cuda_ms(lambda v=v: torch.linalg.vector_norm(v), 200),
+            "device_us": device_us_per_launch(lambda k=norm_kern: [k() for _ in range(50)], "tree_sum_kernel"),
+            "bound_ms": 4 * numel / HBM_BYTES_PER_S * 1e3,
+        }
+        rounds = [list(r.windows) for r in R.reduce_rounds(tuple(shape))]
+        print(
+            f"K6 {what} over {tuple(shape)} (rounds {rounds}): norm, sum and dot bitwise equal "
+            f"to the plain versions and over 3 launches; norm {k6[what]['ms']:.4f} ms (sum "
+            f"{k6[what]['sum_ms']:.4f}, dot {k6[what]['dot_ms']:.4f}), device {fmt_us(k6[what]['device_us'])} "
+            f"per launch, plain {k6[what]['plain_ms']:.3f} ms, torch.linalg.vector_norm (another order) "
+            f"{k6[what]['library_ms']:.4f} ms, bound {k6[what]['bound_ms']:.5f} ms ({4 * numel} bytes)"
+        )
+    nrm = R.tree_norm(step_k)
+    scaled = R.normalize_cuda(step_k, nrm)
+    scaled_plain = R.normalize_plain(step_k, nrm)
+    check(torch.equal(bits32(scaled), bits32(scaled_plain)), "K6's scale differs from normalize_plain")
+    k6s_err = float((scaled - scaled_plain).abs().max())
+    k6s_ms = cuda_ms(lambda: R.normalize_cuda(step_k, nrm), 200)
+    k6s_plain_ms = cuda_ms(lambda: R.normalize_plain(step_k, nrm), 200)
+    k6s_lib_ms = cuda_ms(lambda: step_k / nrm, 200)
+    k6s_us = device_us_per_launch(lambda: [R.normalize_cuda(step_k, nrm) for _ in range(50)], "scale_by_kernel")
+    k6s_bound_ms = 8 * n / HBM_BYTES_PER_S * 1e3
+    print(
+        f"K6 scale: bitwise equal to normalize_plain; {k6s_ms:.4f} ms, device {fmt_us(k6s_us)} per launch, "
+        f"plain {k6s_plain_ms:.4f} ms, y / nrm {k6s_lib_ms:.4f} ms, bound {k6s_bound_ms:.5f} ms ({8 * n} bytes)"
     )
 
     # Phase 4: K2 against kl_pass_plain from one seeded balanced split.
@@ -434,11 +551,18 @@ def main() -> int:
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
     k1_launches, k2_launches = K1.launches, K2_STARTS[1]
+    main_launches = {kern.symbol: kern.launches for kern in all_kernels}
     check(K2.launches == k2_launches, "the one-start run launched K2 with several starts")
     check(not v3_launched(), f"the main path launched {v3_launched()}")
     kl = run.kl
     iters = run.spectral_iterations
-    check(k1_launches >= iters + 2, f"K1 launched {k1_launches} times for {iters} power steps")
+    # K1: the Rayleigh quotient's L x, the pass's A @ s and its recount;
+    # K1's step, K6's norm and K6's scale once per power step; K6 also for
+    # the Rayleigh quotient and the two cuts' two sums.
+    check(k1_launches == 3, f"K1 launched {k1_launches} times, not 3")
+    check(K1_STEP.launches == iters, f"K1's step launched {K1_STEP.launches} times for {iters} power steps")
+    check(K6.launches == iters + 5, f"K6 launched {K6.launches} times for {iters} power steps")
+    check(K6_SCALE.launches == iters, f"K6's scale launched {K6_SCALE.launches} times for {iters} power steps")
     check(k2_launches == 1, f"K2 launched {k2_launches} times, not once")
     check(
         (iters, kl.iterations) == (MAIN_ITERS, MAIN_SWAPS) and abs(kl.best_cut - MAIN_BEST) < 0.005,
@@ -469,7 +593,7 @@ def main() -> int:
         f"partition {recount:.4f}; e2e {e2e_s:.3f} s on {card}; spans "
         + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(run.timings.items()))
     )
-    print(f"launches on the main path: K1 {k1_launches}, K2 {k2_launches}")
+    print(f"launches on the main path: {main_launches}")
     # Each node is swapped at most once, so the swapped nodes are those
     # whose side the pass changed.
     moved = torch.as_tensor(np.flatnonzero(np.asarray(kl.sides) != np.asarray(run.eig.sides)))
@@ -495,6 +619,28 @@ def main() -> int:
         + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(again.timings.items()))
     )
     report_device_busy("the fused run", lambda: fused_partition(hg, use_eig=True, device="cuda"))
+    # The power solve's device launches: 25 bare steps, then the whole
+    # solve with its sign checks, each under the profiler.
+    op = power_operator(g, 2.0, torch.float32)
+    px = op.step(op.to_state(x))[0]
+    step_calls = device_us_per_call(lambda: [op.step(px) for _ in range(25)], 25)
+    config = SpectralConfig(solver="power")
+    solve_calls = device_us_per_call(
+        lambda: _power_core(g, shift=config.shift, tolerance=config.tolerance, min_iters=config.min_power_iters,
+                            max_iters=config.max_iterations, seed=config.seed, dtype=torch.float32,
+                            convergence=config.convergence, check_interval=config.check_interval,
+                            stable_checks=config.stable_checks), iters)
+    check(step_calls is not None and step_calls[1] <= 4, f"a power step made {step_calls} (us, kernels) on the card")
+    steps_launches = {
+        "per_step": step_calls[1], "device_us_per_step": step_calls[0],
+        "per_step_in_the_solve": None if solve_calls is None else solve_calls[1],
+        "device_us_per_step_in_the_solve": None if solve_calls is None else solve_calls[0],
+    }
+    print(
+        f"power solve: {step_calls[1]:.2f} kernels and {step_calls[0]:.2f} us of device time per bare step; "
+        "the whole solve (sign checks included): "
+        + ("not measured" if solve_calls is None else f"{solve_calls[1]:.2f} kernels and {solve_calls[0]:.2f} us per step")
+    )
 
     # Phase 7: the multi-start path through the user's entry point: 8
     # spectral-seeded starts per batched launch, passes until converged,
@@ -519,12 +665,16 @@ def main() -> int:
     check(2 <= m_batched <= 16, f"the batched K2 launched {m_batched} times, not once per pass of 2 to 16")
     check(KICKS <= m_single <= 16 * KICKS, f"the one-start K2 launched {m_single} times for {KICKS} kicks")
     # Each pass launches K1 for its initial A@s and for its recount, once
-    # per start; the power solve launches it once per step and once more.
+    # per start; the power solve launches K1's step once per step and K1
+    # once, for the Rayleigh quotient.
+    m_launches = {kern.symbol: kern.launches for kern in all_kernels}
     check(
-        m_k1 == multi.spectral_iterations + 1 + 2 * STARTS * m_batched + 2 * m_single,
-        f"K1 launched {m_k1} times for {multi.spectral_iterations} power steps, "
-        f"{m_batched} batch passes and {m_single} kick passes",
+        m_k1 == 1 + 2 * STARTS * m_batched + 2 * m_single,
+        f"K1 launched {m_k1} times for {m_batched} batch passes and {m_single} kick passes",
     )
+    check(K1_STEP.launches == multi.spectral_iterations, f"K1's step launched {K1_STEP.launches} times")
+    check(K6.launches > multi.spectral_iterations and K6_SCALE.launches == multi.spectral_iterations,
+          f"K6 launched {K6.launches} times, its scale {K6_SCALE.launches}")
     check(multi.spectral_iterations == iters, "the multi-start run took another number of power steps")
     check(np.array_equal(multi.eig.sides, run.eig.sides), "the multi-start run split otherwise")
     check(len(multi.start_cuts) == STARTS, "no best cut per start")
@@ -559,7 +709,7 @@ def main() -> int:
         f"{multi2_s:.3f} s on {card}; spans "
         + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(multi.timings.items()))
     )
-    print(f"launches on the multi-start path: K1 {m_k1}, K2 batched {m_batched}, K2 one start {m_single}")
+    print(f"launches on the multi-start path: {m_launches}, K2 batched {m_batched}, K2 one start {m_single}")
     report_device_busy("the multi-start run", multi_run)
     # The launch of that path's first pass, alone: its 8 starts from the
     # spectral split and its jitters.
@@ -755,7 +905,11 @@ def main() -> int:
     k4_launches = K4.launches
     v3_launches = {k: kern.launches for k, kern in (("K3a", V.K3A), ("K3b", V.K3B), ("K3c", V.K3C))}
     v3_spmvs = v3_launches["K3a"]
-    check(K1.launches == 0, f"K1 launched {K1.launches} times on the v3 path")
+    v3_all = {kern.symbol: kern.launches for kern in all_kernels}
+    check(K1.launches == 0 and K1_STEP.launches == 0, f"K1 launched on the v3 path: {v3_all}")
+    # The 2-D norm is one K6 launch per power step; K6 also adds the two
+    # cuts' two sums.
+    check(K6.launches == v3_iters + 4 and K6_SCALE.launches == v3_iters, f"K6 on the v3 path: {v3_all}")
     check(K2.launches == 1, f"K2 launched {K2.launches} times on the v3 path, not once")
     check(v3_launches["K3c"] == v3_spmvs, f"v3 launches {v3_launches}: K3c not once per SpMV")
     check(
@@ -792,7 +946,7 @@ def main() -> int:
         f"{v3_s:.3f} s and {v3_s2:.3f} s on {card}; spans "
         + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(v3_spans.items()))
     )
-    print(f"launches on the v3 path: {v3_spmvs} SpMVs, {v3_launches}, K4 1, K1 0, K2 1")
+    print(f"launches on the v3 path: {v3_spmvs} SpMVs, {v3_all}")
 
     # Phase 9: the sharded KL pass (smega_refine, K5) at S = 1, 2, 4, 8
     # shards, one thread-block cluster of S blocks, from the one-start
@@ -1004,6 +1158,24 @@ def main() -> int:
             "bound_ms": k1_bound_ms,
             "bound_by": "bytes",
             "library_ms": k1_lib_ms,
+            "device_us_per_launch": None if k1_us is None else k1_us[0],
+            "library_device_us_per_call": None if k1_lib_us is None else k1_lib_us[0],
+            "library_kernels_per_call": None if k1_lib_us is None else k1_lib_us[1],
+        },
+        {
+            "name": "K1 power_step_f32",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/spmv_csr.cu",
+            "replaces": "eig_kl_tpu/ops/spmv_pallas.py:339 (the SpMV, with the power step of eig_kl_tpu/spectral/power.py:184)",
+            "launches": main_launches["power_step_f32"],
+            "launches_multi_start": m_launches["power_step_f32"],
+            "max_abs_err": k1s_err,
+            "ms": k1s_ms,
+            "plain_ms": k1s_plain_ms,
+            "bound_ms": k1s_bound_ms,
+            "bound_by": "bytes",
+            "library_ms": None,
+            "device_us_per_launch": None if k1s_us is None else k1s_us[0],
         },
         {
             "name": "K2 kl_pass_f32",
@@ -1135,6 +1307,39 @@ def main() -> int:
             "us_per_swap_by_layout_on_smaller_circuits": k5_crossover,
             "k2_pass_ms": k2_main_ms,
             "e2e_s_by_shards": sm_s,
+        },
+        {
+            "name": "K6 tree_sum_f32, the 1-D norm over n",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/tree_sum.cu",
+            "replaces": "eig_kl_tpu/spectral/power.py:185 (jnp.linalg.norm) and eig_kl_tpu/ops/partition.py:88 (.sum()), XLA ops, no Pallas kernel",
+            "launches": main_launches["tree_sum_f32"],
+            "launches_multi_start": m_launches["tree_sum_f32"],
+            "launches_v3": v3_all["tree_sum_f32"],
+            "max_abs_err": k6_err,
+            "ms": k6["1-D"]["ms"],
+            "plain_ms": k6["1-D"]["plain_ms"],
+            "bound_ms": k6["1-D"]["bound_ms"],
+            "bound_by": "bytes",
+            "library_ms": k6["1-D"]["library_ms"],
+            "by_shape": k6,
+            "power_solve_launches": steps_launches,
+        },
+        {
+            "name": "K6 scale_by_f32, the power step's y / nrm",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/tree_sum.cu",
+            "replaces": "eig_kl_tpu/spectral/power.py:187 (jnp.where(safe, y / nrm, y), XLA ops, no Pallas kernel)",
+            "launches": main_launches["scale_by_f32"],
+            "launches_multi_start": m_launches["scale_by_f32"],
+            "launches_v3": v3_all["scale_by_f32"],
+            "max_abs_err": k6s_err,
+            "ms": k6s_ms,
+            "plain_ms": k6s_plain_ms,
+            "bound_ms": k6s_bound_ms,
+            "bound_by": "bytes",
+            "library_ms": k6s_lib_ms,
+            "device_us_per_launch": None if k6s_us is None else k6s_us[0],
         },
     ]
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,5 @@
-// K1: y = A @ x for the symmetric CSR adjacency, in float32.
+// K1: y = A @ x for the symmetric CSR adjacency, in float32; and the power
+// step that ends in it, y = x - inv_shift * (2 x - 2 (A @ x) / deg).
 //
 // Replaces the TPU SpMV kernels of eig_kl_tpu/ops/spmv_pallas.py: v1
 // (_spmv_kernel, :339), v2's gather pass (_gather_kernel, :1049) and v2's
@@ -9,12 +10,15 @@
 //
 // Bound on this card: bytes.  One call must read indptr, indices, data and
 // x and write y once, 11.3 MB at gen 1.0x (201,920 rows, 1,107,844 nnz), or
-// 3.4 us at 3.35 TB/s; its 2*nnz flops are negligible.
+// 3.4 us at 3.35 TB/s; its 2*nnz flops are negligible.  The power step
+// also reads deg (0.8 MB more).  What limits it is the x gathers: each
+// fetches 4 bytes of a 32-byte sector from L2, at random on a circuit, and
+// on an H100 the gathers alone take about 10 us at gen 1.0x
+// (tools/k1_k6_floors.py).
 //
-// Design: one thread per row, which adds the row in one fixed order with
-// no atomics, so the result is deterministic.  The order is XLA's CPU
-// order for the JAX package's f32 ELL SpMV, which depends on the ELL width
-// W (the largest degree rounded up to a multiple of 8):
+// The order of the adds is XLA's CPU order for the JAX package's f32 ELL
+// SpMV, which depends on the ELL width W (the largest degree rounded up to
+// a multiple of 8):
 // * W <= 32: entry k of the row goes to lane k mod 8; each lane
 //   accumulates with fused multiply-adds; the lanes combine as
 //   ((l0+l4) + (l2+l6)) + ((l1+l5) + (l3+l7)).
@@ -22,55 +26,182 @@
 //   positions; each window adds its rounded products in order, and the
 //   window sums add in order.
 // So K1, the plain version (ops/spmv.py) and the JAX package's CPU SpMV
-// agree bit for bit.  Neighbouring threads walk neighbouring rows, whose
-// spans are contiguous, and x (0.8 MB at gen 1.0x) stays in L2 across the
-// gathers.  At a mean degree of 5.5 a thread's loads are short; a warp per
-// group of rows with coalesced loads is later work.
+// agree bit for bit.  The power step rounds each of its operations as the
+// plain version's PyTorch sequence does, and its last one, x - c * lap, as
+// one fused multiply-add, as XLA's CPU fusion contracts it.
+//
+// Design: a warp per 32 consecutive rows, one lane per row, one writer per
+// row, no atomics.  The warp's rows span one contiguous range of the CSR
+// arrays.  Its 32 lanes load that span coalesced (indices and data) and
+// issue its x gathers all at once, into the warp's buffer in shared
+// memory: for W <= 32 the data and the gathered x apart (the lane FMAs
+// need both), for W > 32 the rounded products.  Then each lane walks its
+// own row in the buffer in XLA's order: for W <= 32 the 8 lane FMA chains
+// (entries l, l+8, l+16, l+24) and their fixed combine; for W > 32 one
+// chain per window, each window's sum added to the row's as the walk
+// enters the next window.  A warp's span holds at most 32 * W entries, so
+// for W <= 32 it is one buffer of 1,024 entries; for W > 32 the warp takes
+// it 256 entries at a time and each lane carries its chain across them.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kLanes = 8;
+constexpr int kLanes = 8;  // XLA's FMA lanes for W <= 32
 constexpr int kWindow = 32;
+constexpr int kWarps = 4;  // warps per block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kSpan = 1024;   // W <= 32: a warp's span, at most 32 * W entries
+constexpr int kChunk = 256;   // W > 32: the entries a warp buffers at a time
+constexpr int kPerLane = 8;    // loads in flight per lane
+constexpr int kStage = 32 * kPerLane;
 
-__global__ void spmv_csr_kernel(const int* __restrict__ indptr,
-                                const int* __restrict__ indices,
-                                const float* __restrict__ data,
-                                const float* __restrict__ x,
-                                float* __restrict__ y, int n, int row_width) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const int lo = indptr[row];
-  const int hi = indptr[row + 1];
-  float out = 0.0f;
+// Floats of shared memory per warp.
+__host__ __device__ __forceinline__ int buffer_floats(int row_width) {
+  return row_width <= kWindow ? 2 * kSpan : kChunk;
+}
+
+// Row r0 + lane's sum in XLA's order on that lane, for the warp's rows
+// r0 .. r0 + 31 (rows at or past n count as empty).  `buf` is the warp's
+// buffer: 2 * kSpan floats for W <= 32, kChunk for W > 32.
+__device__ __forceinline__ float row_sum(const int* __restrict__ indptr,
+                                         const int* __restrict__ indices,
+                                         const float* __restrict__ data,
+                                         const float* __restrict__ x, float* buf, int r0,
+                                         int n, int row_width) {
+  // Every load below is unconditional, at an index clamped into range, and
+  // a select drops what is out of range: a load under a branch makes the
+  // lane wait for it before it issues the next one.
+  const int lane = threadIdx.x & 31;
+  const int row = r0 + lane;
+  const int lo = __ldg(indptr + min(row, n - 1));
+  const int hi = row < n ? __ldg(indptr + min(row, n - 1) + 1) : lo;
+  const int span_lo = __ldg(indptr + r0);
+  const int span_hi = __ldg(indptr + min(r0 + 32, n));
   if (row_width <= kWindow) {
+    // The span holds at most 32 * W <= kSpan entries.
+    float* d = buf;
+    float* xv = buf + kSpan;
+    const int len = min(span_hi - span_lo, kSpan);
+    for (int base = 0; base < len; base += kStage) {
+      int col[kPerLane];
+      float w[kPerLane];
+      float xg[kPerLane];
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q) {
+        const int i = min(base + lane + 32 * q, len - 1);
+        col[q] = __ldg(indices + span_lo + i);
+        w[q] = __ldg(data + span_lo + i);
+      }
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q) xg[q] = __ldg(x + col[q]);
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q) {
+        const int i = base + lane + 32 * q;
+        if (i < len) {
+          d[i] = w[q];
+          xv[i] = xg[q];
+        }
+      }
+    }
+    __syncwarp();
+    const int b = lo - span_lo;
+    const int deg = row < n ? min(hi - lo, kSpan - b) : 0;
     float acc[kLanes];
 #pragma unroll
-    for (int l = 0; l < kLanes; ++l) acc[l] = 0.0f;
-    for (int k0 = lo; k0 < hi; k0 += kLanes) {
+    for (int q = 0; q < kLanes; ++q) acc[q] = 0.0f;
+    for (int t0 = 0; t0 < deg; t0 += kLanes) {
 #pragma unroll
-      for (int l = 0; l < kLanes; ++l) {
-        const int k = k0 + l;
-        if (k < hi) acc[l] = __fmaf_rn(data[k], __ldg(x + indices[k]), acc[l]);
+      for (int q = 0; q < kLanes; ++q) {
+        const int t = min(b + t0 + q, kSpan - 1);
+        const float next = __fmaf_rn(d[t], xv[t], acc[q]);
+        acc[q] = t0 + q < deg ? next : acc[q];
       }
     }
-    out = __fadd_rn(__fadd_rn(__fadd_rn(acc[0], acc[4]), __fadd_rn(acc[2], acc[6])),
-                    __fadd_rn(__fadd_rn(acc[1], acc[5]), __fadd_rn(acc[3], acc[7])));
-  } else {
-    const int windows = (row_width + kWindow - 1) / kWindow;
-    const int pad = (windows * kWindow - row_width) / 2;
-    for (int j = 0; j < windows; ++j) {
-      const int a = max(lo + j * kWindow - pad, lo);
-      const int b = min(lo + (j + 1) * kWindow - pad, hi);
-      float s = 0.0f;
-      for (int k = a; k < b; ++k) {
-        s = __fadd_rn(s, __fmul_rn(data[k], __ldg(x + indices[k])));
-      }
-      out = __fadd_rn(out, s);
-    }
+    return __fadd_rn(__fadd_rn(__fadd_rn(acc[0], acc[4]), __fadd_rn(acc[2], acc[6])),
+                     __fadd_rn(__fadd_rn(acc[1], acc[5]), __fadd_rn(acc[3], acc[7])));
   }
-  y[row] = out;
+  const int windows = (row_width + kWindow - 1) / kWindow;
+  const int pad = (windows * kWindow - row_width) / 2;
+  float out = 0.0f;
+  float s = 0.0f;
+  for (int c0 = span_lo; c0 < span_hi; c0 += kChunk) {
+    const int len = min(kChunk, span_hi - c0);
+    for (int base = 0; base < len; base += kStage) {
+      int col[kPerLane];
+      float w[kPerLane];
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q) {
+        const int i = min(base + lane + 32 * q, len - 1);
+        col[q] = __ldg(indices + c0 + i);
+        w[q] = __ldg(data + c0 + i);
+      }
+      float xg[kPerLane];
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q) xg[q] = __ldg(x + col[q]);
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q) {
+        const int i = base + lane + 32 * q;
+        if (i < len) buf[i] = __fmul_rn(w[q], xg[q]);
+      }
+    }
+    __syncwarp();
+    const int ke = min(hi, c0 + len);
+    for (int k = max(lo, c0); k < ke;) {
+      // Entering a window: add the last one's sum (the first time, +0 to
+      // +0, which changes nothing).  Then add this window's products.
+      const int offset = (k - lo + pad) & (kWindow - 1);
+      if (offset == 0) {
+        out = __fadd_rn(out, s);
+        s = 0.0f;
+      }
+      const int end = min(ke, k + kWindow - offset);
+#pragma unroll 4
+      for (; k < end; ++k) s = __fadd_rn(s, buf[k - c0]);
+    }
+    __syncwarp();
+  }
+  return __fadd_rn(out, s);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    spmv_csr_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                    const float* __restrict__ data, const float* __restrict__ x,
+                    float* __restrict__ y, int n, int row_width) {
+  extern __shared__ float buffers[];
+  const int warp = threadIdx.x >> 5;
+  const int r0 = (blockIdx.x * kWarps + warp) * 32;
+  if (r0 >= n) return;
+  float* buf = buffers + warp * buffer_floats(row_width);
+  const float s = row_sum(indptr, indices, data, x, buf, r0, n, row_width);
+  const int row = r0 + (threadIdx.x & 31);
+  if (row < n) y[row] = s;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    power_step_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                      const float* __restrict__ data, const float* __restrict__ x,
+                      const float* __restrict__ deg, float inv_shift,
+                      float* __restrict__ y, int n, int row_width) {
+  extern __shared__ float buffers[];
+  const int warp = threadIdx.x >> 5;
+  const int r0 = (blockIdx.x * kWarps + warp) * 32;
+  if (r0 >= n) return;
+  float* buf = buffers + warp * buffer_floats(row_width);
+  const int row = r0 + (threadIdx.x & 31);
+  const float xr = __ldg(x + min(row, n - 1));
+  const float dr = __ldg(deg + min(row, n - 1));
+  const float ax = row_sum(indptr, indices, data, x, buf, r0, n, row_width);
+  if (row < n) {
+    const float lap = __fsub_rn(__fmul_rn(2.0f, xr), __fdiv_rn(__fmul_rn(2.0f, ax), dr));
+    y[row] = __fmaf_rn(-inv_shift, lap, xr);
+  }
+}
+
+int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+
+size_t shared_bytes(int row_width) {
+  return static_cast<size_t>(kWarps) * buffer_floats(row_width) * sizeof(float);
 }
 
 }  // namespace
@@ -79,12 +210,24 @@ extern "C" int spmv_csr_f32(const void* indptr, const void* indices,
                             const void* data, const void* x, void* y, int n,
                             int row_width, void* stream) {
   if (n > 0) {
-    const int threads = 256;
-    const int blocks = (n + threads - 1) / threads;
-    spmv_csr_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+    spmv_csr_kernel<<<blocks_for(n), kThreads, shared_bytes(row_width),
+                      static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(indptr), static_cast<const int*>(indices),
         static_cast<const float*>(data), static_cast<const float*>(x),
         static_cast<float*>(y), n, row_width);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int power_step_f32(const void* indptr, const void* indices, const void* data,
+                              const void* x, const void* deg, float inv_shift, void* y,
+                              int n, int row_width, void* stream) {
+  if (n > 0) {
+    power_step_kernel<<<blocks_for(n), kThreads, shared_bytes(row_width),
+                        static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(indptr), static_cast<const int*>(indices),
+        static_cast<const float*>(data), static_cast<const float*>(x),
+        static_cast<const float*>(deg), inv_shift, static_cast<float*>(y), n, row_width);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -7,10 +7,10 @@ shared library of its own with a plain C interface, loaded with
 The host library ``csrc/eigkl_native.cpp`` (parser, clique expansion,
 Benes router; :mod:`eig_kl_tpu_torch.io.native_io`) compiles the same
 way with the host C++ compiler and no CUDA.  Libraries go into
-``eig_kl_tpu_torch/_build/``, named by a hash of the source, the flags,
-the compiler (its path and ``--version``) and the platform, so a library
-built on one machine is not loaded on another; they are built at first
-use.  :func:`build` starts one compiler
+``eig_kl_tpu_torch/_build/``, named by a hash of the source and the
+headers of ``csrc/`` it includes, the flags, the compiler (its path and
+``--version``) and the platform, so a library built on one machine, or
+from another header, is not loaded; they are built at first use.  :func:`build` starts one compiler
 per source, all at once.
 
 Nothing here touches CUDA when the module is imported.  Every C entry
@@ -25,6 +25,7 @@ import functools
 import hashlib
 import os
 import platform
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -38,7 +39,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 HOST_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared")
-KERNEL_SOURCES = ("spmv_csr", "kl_pass", "spmv_v3", "fma_dot", "smega")
+KERNEL_SOURCES = ("spmv_csr", "kl_pass", "spmv_v3", "fma_dot", "smega", "tree_sum")
 HOST_SOURCES = ("eigkl_native",)
 
 
@@ -78,10 +79,30 @@ def _compiler_identity(compiler: str) -> str:
     return f"{os.path.realpath(compiler)}\n{out}"
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.MULTILINE)
+
+
+def included_headers(src: Path) -> list[Path]:
+    """The headers beside ``src`` that it includes with ``#include "..."``,
+    directly or through another of them, each once, in the order first
+    met."""
+    found, todo = [], [src]
+    while todo:
+        here = todo.pop(0)
+        for name in _INCLUDE.findall(here.read_bytes()):
+            header = here.parent / name.decode()
+            if header.is_file() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
+
+
 def library_path(name: str) -> Path:
     """Where the library built from ``csrc/<name>.cu`` (or ``.cpp``) lives."""
     src, flags, compiler = _source(name)
     digest = hashlib.sha256(src.read_bytes())
+    for header in included_headers(src):
+        digest.update(b"\0" + header.name.encode() + b"\0" + header.read_bytes())
     for part in (" ".join(flags), _compiler_identity(compiler), platform.platform()):
         digest.update(b"\0" + part.encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"

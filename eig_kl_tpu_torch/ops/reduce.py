@@ -1,4 +1,5 @@
-"""Sums in one fixed order, the same on every device.
+"""Sums in one fixed order, the same on every device: kernel K6
+(``csrc/tree_sum.cu``), its plain versions, and K4 (``csrc/fma_dot.cu``).
 
 The power solver's sign exit compares median splits of iterates in
 which hundreds of nodes tie with the median to the last bit (symmetric
@@ -13,26 +14,105 @@ the card equals the JAX package's CPU iterate bit for bit.
 The order: zero-pad the vector to a multiple of 32, the padding split
 between the two ends (the smaller half in front); add each window of 32
 in sequence; repeat until at most 32 values remain; add those in
-sequence.
+sequence.  :func:`reduce_rounds` lists those rounds for a shape (1-D, or
+the 2-D order of :func:`tree_sum_2d`).  A sum of products (a norm's
+squares, a dot) rounds each product before a window adds it; where no
+round is taken (at most 32 values per axis), XLA fuses each product
+into its add, a chain of fused multiply-adds in order, and so does this.
+
+K6 runs a whole sum in one launch for an f32 tensor on the card, the
+plain versions run it for a tensor on the CPU (f32 and f64); a failed
+build or launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from eig_kl_tpu_torch.ops._build import Kernel
+from eig_kl_tpu_torch.ops.spmv import fma_f32
 
 _WINDOW = 32
-K4 = Kernel("fma_dot", "fma_dot_f32", [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+_P = ctypes.c_void_p
+K4 = Kernel("fma_dot", "fma_dot_f32", [_P] * 3 + [ctypes.c_int, _P])
+K6 = Kernel(
+    "tree_sum", "tree_sum_f32",
+    [_P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P],
+)
+K6_SCALE = Kernel("tree_sum", "scale_by_f32", [_P, _P, _P, ctypes.c_int, _P])
+#: K6's mode: the values summed are v, v * v or v * w.
+_SUM, _SQUARE, _PRODUCT = 0, 1, 2
+_MAX_ROUNDS = 8  # csrc/tree_sum.cu:kMaxRounds
+
+
+class ReduceRound(NamedTuple):
+    """One round of the fixed order: the round's input shape, its windows
+    per axis (the next round's shape), a window's extent per axis, and the
+    zeros padded in front of each axis."""
+
+    shape: tuple[int, ...]
+    windows: tuple[int, ...]
+    window: tuple[int, ...]
+    pads: tuple[int, ...]
+
+
+@functools.lru_cache(maxsize=None)
+def reduce_rounds(shape: tuple[int, ...]) -> tuple[ReduceRound, ...]:
+    """The rounds of :func:`tree_sum` (a 1-D shape) or :func:`tree_sum_2d`
+    (a 2-D shape): each axis longer than 32 is cut into windows of 32 after
+    a centred zero pad, an axis of at most 32 is one window; repeat until no
+    axis is longer than 32.  What remains, ``rounds[-1].windows`` (or the
+    shape itself if there is no round), is added in row-major order."""
+    shape = tuple(int(s) for s in shape)
+    rounds = []
+    while max(shape, default=0) > _WINDOW:
+        windows, window, pads = [], [], []
+        for size in shape:
+            m = -(-size // _WINDOW) if size > _WINDOW else 1
+            windows.append(m)
+            window.append(_WINDOW if size > _WINDOW else size)
+            pads.append((m * _WINDOW - size) // 2 if size > _WINDOW else 0)
+        rounds.append(ReduceRound(shape, tuple(windows), tuple(window), tuple(pads)))
+        shape = tuple(windows)
+    return tuple(rounds)
 
 
 def tree_sum(v: torch.Tensor) -> torch.Tensor:
-    """Sum of the 1-D tensor ``v`` in the fixed order above (0-d tensor)."""
+    """Sum of the 1-D tensor ``v`` in the fixed order above (0-d tensor):
+    K6 for a tensor on the card, :func:`tree_sum_plain` on the CPU."""
+    if v.device.type == "cpu":
+        return tree_sum_plain(v)
+    return tree_sum_cuda(v)
+
+
+def tree_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``x . y`` with the products summed by :func:`tree_sum`."""
+    if x.device.type == "cpu":
+        return _products_plain(x, y, tree_sum_plain)
+    return tree_sum_cuda(x, y)
+
+
+def tree_norm(x: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm with the squares summed by :func:`tree_sum`.
+
+    An f32 root is taken in f64 and rounded once, which gives the
+    correctly rounded f32 root on every device (PyTorch's f32 ``sqrt`` on
+    the CPU is sometimes an ulp off; XLA's is correctly rounded).
+    """
+    if x.device.type == "cpu":
+        return _root(_products_plain(x, x, tree_sum_plain))
+    return tree_sum_cuda(x, square=True, root=True)
+
+
+def tree_sum_plain(v: torch.Tensor) -> torch.Tensor:
+    """:func:`tree_sum` in plain PyTorch."""
     while v.numel() > _WINDOW:
         m = -(-v.numel() // _WINDOW)
         lo = (m * _WINDOW - v.numel()) // 2
@@ -49,19 +129,17 @@ def tree_sum(v: torch.Tensor) -> torch.Tensor:
     return acc
 
 
-def tree_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``x . y`` with the products summed by :func:`tree_sum`."""
-    return tree_sum(x * y)
-
-
-def tree_norm(x: torch.Tensor) -> torch.Tensor:
-    """Euclidean norm with the squares summed by :func:`tree_sum`.
-
-    An f32 root is taken in f64 and rounded once, which gives the
-    correctly rounded f32 root on every device (PyTorch's f32 ``sqrt`` on
-    the CPU is sometimes an ulp off; XLA's is correctly rounded).
-    """
-    return _root(tree_sum(x * x))
+def _products_plain(x: torch.Tensor, y: torch.Tensor, sum_plain) -> torch.Tensor:
+    """The sum of ``x * y`` in ``sum_plain``'s order.  In f32 where no
+    round is taken, XLA's loop fuses each product into its add: a chain of
+    fused multiply-adds in row-major order (f64 has no exact fused
+    multiply-add in PyTorch and keeps the rounded products)."""
+    if x.dtype != torch.float32 or reduce_rounds(tuple(x.shape)):
+        return sum_plain(x * y)
+    acc = torch.zeros((), dtype=x.dtype, device=x.device)
+    for a, b in zip(x.reshape(-1).unbind(), y.reshape(-1).unbind()):
+        acc = fma_f32(a, b, acc)
+    return acc
 
 
 def _root(s: torch.Tensor) -> torch.Tensor:
@@ -77,7 +155,8 @@ def tree_sum_2d(v: torch.Tensor) -> torch.Tensor:
     windows of 32 after a centred zero pad (the smaller half in front), an
     axis of at most 32 is one window; each window adds its elements in
     row-major order; repeat until no axis is longer than 32, then add what
-    remains in row-major order.
+    remains in row-major order.  K6 for a tensor on the card,
+    :func:`tree_sum_2d_plain` on the CPU.
 
     Matched bit for bit where the last block is one row of windows
     (``P <= 4,096``: gen 0.02x) or where the first round leaves more than
@@ -88,6 +167,13 @@ def tree_sum_2d(v: torch.Tensor) -> torch.Tensor:
     reproduce; for other k, such as 6 (P = 24,576), the loop stays scalar
     in row-major order and is matched.  Unmatched sums differ in the last
     bits only."""
+    if v.device.type == "cpu":
+        return tree_sum_2d_plain(v)
+    return tree_sum_cuda(v)
+
+
+def tree_sum_2d_plain(v: torch.Tensor) -> torch.Tensor:
+    """:func:`tree_sum_2d` in plain PyTorch."""
     while max(v.shape) > _WINDOW:
         spec = []
         for size in v.shape:
@@ -113,7 +199,105 @@ def tree_sum_2d(v: torch.Tensor) -> torch.Tensor:
 def tree_norm_2d(x: torch.Tensor) -> torch.Tensor:
     """Euclidean norm of the 2-D tensor ``x``, the squares summed by
     :func:`tree_sum_2d`; an f32 root is taken as in :func:`tree_norm`."""
-    return _root(tree_sum_2d(x * x))
+    if x.device.type == "cpu":
+        return _root(_products_plain(x, x, tree_sum_2d_plain))
+    return tree_sum_cuda(x, square=True, root=True)
+
+
+@functools.lru_cache(maxsize=None)
+def k6_plan(shape: tuple[int, ...]):
+    """K6's launch plan for a 1-D or 2-D shape: the host int array the C
+    entry point reads (the number of rounds, the values left after them,
+    then per round its input rows and columns, windows per axis, window
+    extents and lead pads, a 1-D shape taken as one row), the scratch it
+    needs and where its second half starts."""
+    rounds = reduce_rounds(shape)
+    if len(rounds) > _MAX_ROUNDS:
+        raise ValueError(f"K6 takes at most {_MAX_ROUNDS} rounds; {shape} needs {len(rounds)}")
+    words = [len(rounds), math.prod(rounds[-1].windows if rounds else shape)]
+    for r in rounds:
+        for part, lead in ((r.shape, 1), (r.windows, 1), (r.window, 1), (r.pads, 0)):
+            words.extend((lead, *part) if len(shape) == 1 else part)
+    outs = [math.prod(r.windows) for r in rounds[:2]] + [0, 0]
+    return (ctypes.c_int * len(words))(*words), outs[0] + outs[1], outs[0]
+
+
+_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(device: torch.device, stream) -> torch.Tensor:
+    """K6's ticket counter for one stream: zero between launches (the last
+    block of each launch resets it), so launches on one stream share it and
+    launches on two streams never do."""
+    key = (device.index, stream.cuda_stream)
+    if key not in _TICKETS:
+        _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def tree_sum_cuda(
+    v: torch.Tensor, w: torch.Tensor | None = None, *, square: bool = False, root: bool = False
+) -> torch.Tensor:
+    """Launch K6 on the current stream: the sum of ``v`` (``v * v`` with
+    ``square``, ``v * w`` with ``w``) in the order of :func:`tree_sum` for
+    a 1-D tensor or of :func:`tree_sum_2d` for a 2-D one, its f32 root taken
+    as in :func:`tree_norm` with ``root``.  Contiguous f32 tensors on one
+    card; returns a 0-d f32 tensor there."""
+    both = (v,) if w is None else (v, w)
+    if v.device.type != "cuda" or any(t.device != v.device for t in both):
+        raise ValueError("tree_sum_cuda needs its tensors on one CUDA device")
+    if any(t.dtype != torch.float32 for t in both):
+        raise TypeError(
+            "the card's fixed-order sum is float32 only (an f64 engine on the card "
+            f"is ROADMAP.md A9); got {[t.dtype for t in both]}"
+        )
+    if v.dim() not in (1, 2) or any(t.shape != v.shape or not t.is_contiguous() for t in both):
+        raise ValueError(f"tree_sum_cuda: contiguous 1-D or 2-D tensors of one shape, got {[tuple(t.shape) for t in both]}")
+    if v.numel() >= 2**31 - 2**16:
+        raise ValueError(f"tree_sum_cuda: {v.numel()} values do not fit its int32 indices")
+    plan, scratch_len, second = k6_plan(tuple(v.shape))
+    mode = _PRODUCT if w is not None else _SQUARE if square else _SUM
+    stream = torch.cuda.current_stream(v.device)
+    scratch = torch.empty(scratch_len, dtype=torch.float32, device=v.device)
+    out = torch.empty((), dtype=torch.float32, device=v.device)
+    # The kernel's loads are unconditional, at clamped indices: an empty
+    # input hands it the output's float to read and drop.
+    src = both[0] if v.numel() else out
+    K6(
+        src.data_ptr(), (both[-1] if v.numel() else out).data_ptr(), mode, ctypes.addressof(plan),
+        scratch.data_ptr(), second, _ticket(v.device, stream).data_ptr(), out.data_ptr(), int(root),
+        stream.cuda_stream,
+    )
+    return out
+
+
+def normalize(y: torch.Tensor, nrm: torch.Tensor) -> torch.Tensor:
+    """``y / nrm`` where ``nrm > 0``, else ``y`` (the power step's last
+    operation, with ``nrm`` a 0-d tensor): K6's scale entry point for a
+    tensor on the card, :func:`normalize_plain` on the CPU."""
+    if y.device.type == "cpu":
+        return normalize_plain(y, nrm)
+    return normalize_cuda(y, nrm)
+
+
+def normalize_plain(y: torch.Tensor, nrm: torch.Tensor) -> torch.Tensor:
+    """:func:`normalize` in plain PyTorch."""
+    safe = nrm > 0
+    return torch.where(safe, y / torch.where(safe, nrm, 1.0), y)
+
+
+def normalize_cuda(y: torch.Tensor, nrm: torch.Tensor) -> torch.Tensor:
+    """Launch K6's scale entry point on the current stream: a contiguous f32
+    tensor and a 0-d f32 norm on one card."""
+    if y.device.type != "cuda" or nrm.device != y.device:
+        raise ValueError("normalize_cuda needs y and nrm on one CUDA device")
+    if y.dtype != torch.float32 or nrm.dtype != torch.float32:
+        raise TypeError(f"normalize_cuda is float32 only (ROADMAP.md A9); got {y.dtype}, {nrm.dtype}")
+    if not y.is_contiguous() or nrm.dim() != 0 or y.numel() >= 2**31:
+        raise ValueError(f"normalize_cuda: a contiguous tensor and a 0-d norm, got {tuple(y.shape)}, {tuple(nrm.shape)}")
+    out = torch.empty_like(y)
+    K6_SCALE(y.data_ptr(), nrm.data_ptr(), out.data_ptr(), y.numel(), torch.cuda.current_stream(y.device).cuda_stream)
+    return out
 
 
 def fma_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

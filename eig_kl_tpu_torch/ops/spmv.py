@@ -1,6 +1,8 @@
 """The SpMV ``y = A @ x``: kernel K1 (``csrc/spmv_csr.cu``), its plain
 version, and the dispatch between them and the v3 route
-(:mod:`eig_kl_tpu_torch.ops.spmv_v3`) for an f32 graph with a v3 plan.
+(:mod:`eig_kl_tpu_torch.ops.spmv_v3`) for an f32 graph with a v3 plan;
+and K1's second entry point, the power step that ends in the SpMV
+(:func:`power_step`).
 
 Replaces the plan-based dispatch of ``eig_kl_tpu/ops/spmv_pallas.py``
 (``spmv_pallas``/``spmv_pallas_2d``) and the v1 and v2 Pallas kernels
@@ -31,6 +33,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from eig_kl_tpu_torch.graph.csr import DeviceGraph
@@ -40,6 +43,10 @@ from eig_kl_tpu_torch.ops.spmv_v3 import spmv_v3
 _P = ctypes.c_void_p
 K1 = Kernel(
     "spmv_csr", "spmv_csr_f32", [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]
+)
+K1_STEP = Kernel(
+    "spmv_csr", "power_step_f32",
+    [_P, _P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, _P],
 )
 
 LANES = 8
@@ -110,12 +117,10 @@ def spmv_plain(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def spmv_csr(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on the current stream; ``x`` and the graph are f32 on the
-    card."""
+def _check_card(g: DeviceGraph, x: torch.Tensor, what: str) -> None:
     n = g.num_nodes
     if x.device.type != "cuda" or g.device != x.device:
-        raise ValueError("spmv_csr needs x and the graph on one CUDA device")
+        raise ValueError(f"{what} needs x and the graph on one CUDA device")
     if x.dtype != torch.float32 or g.dtype != torch.float32:
         raise TypeError(
             "the card's SpMV is float32 only (an f64 engine on the card is "
@@ -123,14 +128,20 @@ def spmv_csr(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
         )
     if x.shape != (n,) or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous ({n},) vector, got {tuple(x.shape)}")
-    y = torch.empty(n, dtype=torch.float32, device=x.device)
+
+
+def spmv_csr(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
+    """Launch K1 on the current stream; ``x`` and the graph are f32 on the
+    card."""
+    _check_card(g, x, "spmv_csr")
+    y = torch.empty(g.num_nodes, dtype=torch.float32, device=x.device)
     K1(
         g.indptr.data_ptr(),
         g.indices.data_ptr(),
         g.data.data_ptr(),
         x.data_ptr(),
         y.data_ptr(),
-        n,
+        g.num_nodes,
         g.row_width,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
@@ -146,3 +157,40 @@ def spmv(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
     if x.device.type == "cpu":
         return spmv_plain(g, x)
     return spmv_csr(g, x)
+
+
+def power_step(g: DeviceGraph, x: torch.Tensor, deg: torch.Tensor, inv_shift: float) -> torch.Tensor:
+    """One shift-inverted power step before its norm (``power.py:119-124``
+    of the JAX package): ``y = x - inv_shift * L x`` with ``L x = 2 x - 2
+    (A @ x) / deg``.  K1's step entry point for a tensor on the card,
+    :func:`power_step_plain` on the CPU; the graph carries no v3 plan."""
+    if x.device.type == "cpu":
+        return power_step_plain(g, x, deg, inv_shift)
+    return power_step_cuda(g, x, deg, inv_shift)
+
+
+def power_step_plain(g: DeviceGraph, x: torch.Tensor, deg: torch.Tensor, inv_shift: float) -> torch.Tensor:
+    """:func:`power_step` in plain PyTorch, each operation rounded on its
+    own, except the last in f32: XLA's CPU fusion contracts ``x - c * lap``
+    into one fused multiply-add, which changes no bit where ``c`` is a power
+    of two (shift 2.0) and rounds once less elsewhere."""
+    lap = 2.0 * x - 2.0 * spmv_plain(g, x.to(g.dtype)).to(x.dtype) / deg
+    if x.dtype != torch.float32:
+        return x - inv_shift * lap
+    c = torch.tensor(-np.float32(inv_shift), device=x.device)
+    return fma_f32(c, lap, x)
+
+
+def power_step_cuda(g: DeviceGraph, x: torch.Tensor, deg: torch.Tensor, inv_shift: float) -> torch.Tensor:
+    """Launch K1's step entry point on the current stream: the f32 graph,
+    ``x`` and ``deg`` (contiguous, ``(n,)``) on one card."""
+    _check_card(g, x, "power_step_cuda")
+    if deg.device != x.device or deg.dtype != torch.float32 or deg.shape != x.shape or not deg.is_contiguous():
+        raise ValueError(f"deg must be a contiguous f32 ({g.num_nodes},) vector on x's card")
+    y = torch.empty_like(x)
+    K1_STEP(
+        g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), x.data_ptr(), deg.data_ptr(),
+        float(np.float32(inv_shift)), y.data_ptr(), g.num_nodes, g.row_width,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return y

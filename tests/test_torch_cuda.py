@@ -151,15 +151,19 @@ def test_fused_on_the_card_equals_the_cpu_run(cuda):
     from eig_kl_tpu_torch.io.hgr import read_hgr
     from eig_kl_tpu_torch.kl.megakernel import K2
     from eig_kl_tpu_torch.models.pipelines import fused_partition
-    from eig_kl_tpu_torch.ops.spmv import K1
+    from eig_kl_tpu_torch.ops.reduce import K6, K6_SCALE
+    from eig_kl_tpu_torch.ops.spmv import K1, K1_STEP
 
     hg = read_hgr(GEN_002)
-    K1.launches = K2.launches = 0
+    K1.launches = K1_STEP.launches = K2.launches = K6.launches = K6_SCALE.launches = 0
     card = fused_partition(hg)  # the default device is the card
-    k1, k2 = K1.launches, K2.launches
+    k1, k1_step, k2, k6, k6_scale = K1.launches, K1_STEP.launches, K2.launches, K6.launches, K6_SCALE.launches
     cpu = fused_partition(hg, device="cpu")
     assert card.spectral_iterations == cpu.spectral_iterations == 201
-    assert (k1, k2) == (card.spectral_iterations + 3, 1)
+    # K1: the Rayleigh quotient's L x, the pass's A @ s and its recount;
+    # K6: a norm per step, the Rayleigh quotient's dot, the two cut sums.
+    iters = card.spectral_iterations
+    assert (k1, k1_step, k2, k6, k6_scale) == (3, iters, 1, iters + 1 + 4, iters)
     np.testing.assert_array_equal(card.eig.sides, cpu.eig.sides)
     np.testing.assert_array_equal(card.eig.values, cpu.eig.values)
     for name in ("iterations", "initial_cut", "best_cut", "final_cut", "verified_cut"):
@@ -619,3 +623,168 @@ def test_k5_wrapper_checks_its_arguments(cuda):
     with pytest.raises(ValueError, match="log_len"):
         smega_pass(g, shards, sf0, as0, cut0, cap, nf0, nf1, cap, 16, 1e-6)
     assert K5.launches == before
+
+
+K6_SHAPES = [(0,), (1,), (31,), (32,), (33,), (1023,), (1025,), (4038,), (201_920,), (100_003,),
+             (32, 128), (192, 128), (1584, 128), (33, 70), (1, 1000), (64_000, 10), (5, 7), (0, 100)]
+
+
+def _k6_inputs(shape, seed):
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(shape) * 10.0 ** rng.uniform(-1.0, 1.0, shape)
+    w = rng.standard_normal(shape)
+    pick = rng.random(shape)
+    v[pick < 0.1], v[(pick >= 0.1) & (pick < 0.2)] = 0.0, -0.0
+    return torch.as_tensor(v.astype(np.float32)), torch.as_tensor(w.astype(np.float32))
+
+
+def _k6_plain(mode, v, w):
+    from eig_kl_tpu_torch.ops import reduce as R
+
+    one_d = v.dim() == 1
+    if mode == "sum":
+        return (R.tree_sum_plain if one_d else R.tree_sum_2d_plain)(v)
+    if mode == "norm":
+        return R._root(R._products_plain(v, v, R.tree_sum_plain if one_d else R.tree_sum_2d_plain))
+    return R._products_plain(v, w, R.tree_sum_plain if one_d else R.tree_sum_2d_plain)
+
+
+@pytest.mark.parametrize("shape", K6_SHAPES)
+@pytest.mark.parametrize("mode", ["sum", "norm", "dot"])
+def test_k6_equals_plain_bitwise_and_is_deterministic(cuda, shape, mode):
+    """K6 (the sum, the norm with its root, the dot) against the plain
+    versions on the card and on the CPU, +0 and -0 among the inputs, and
+    equal over repeated launches."""
+    from eig_kl_tpu_torch.ops.reduce import K6, tree_sum_cuda
+
+    v, w = _k6_inputs(shape, sum(shape))
+    vc, wc = v.to(cuda), w.to(cuda)
+    kw = {"sum": {}, "norm": {"square": True, "root": True}, "dot": {}}[mode]
+    args = (vc, wc) if mode == "dot" else (vc,)
+    before = K6.launches
+    outs = [tree_sum_cuda(*args, **kw) for _ in range(5)]
+    assert K6.launches == before + 5
+    ref_card = _k6_plain(mode, vc, wc)
+    ref_cpu = _k6_plain(mode, v, w)
+    torch.cuda.synchronize()
+    bits = {int(o.cpu().view(torch.int32)) for o in outs}
+    assert bits == {int(ref_card.cpu().view(torch.int32))} == {int(ref_cpu.view(torch.int32))}
+
+
+def test_k6_dispatch_on_the_card(cuda):
+    """tree_sum, tree_dot, tree_norm, tree_sum_2d and tree_norm_2d launch
+    K6 once each on a CUDA tensor and give the CPU's bits."""
+    from eig_kl_tpu_torch.ops import reduce as R
+
+    v, w = _k6_inputs((4096,), 1)
+    before = R.K6.launches
+    for fn, args in ((R.tree_sum, (v,)), (R.tree_dot, (v, w)), (R.tree_norm, (v,)),
+                     (R.tree_sum_2d, (v.view(32, 128),)), (R.tree_norm_2d, (v.view(32, 128),))):
+        got = fn(*(a.to(cuda) for a in args))
+        assert got.device.type == "cuda"
+        assert got.cpu().view(torch.int32) == fn(*args).view(torch.int32)
+    assert R.K6.launches == before + 5
+
+
+def test_k6_ticket_resets_between_launches_and_streams(cuda):
+    """Back-to-back launches of different shapes on the default stream,
+    then interleaved on two more streams without a synchronisation between
+    them: every result right, every stream's ticket 0 afterwards."""
+    from eig_kl_tpu_torch.ops import reduce as R
+
+    shapes = [(201_920,), (1584, 128), (7,), (4038,), (64_000, 10)]
+    inputs = [_k6_inputs(shape, k)[0] for k, shape in enumerate(shapes)]
+    want = [int(_k6_plain("sum", v, v).view(torch.int32)) for v in inputs]
+    on_card = [v.to(cuda) for v in inputs]
+    first = [R.tree_sum_cuda(v) for _ in range(3) for v in on_card]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    later = []
+    for _ in range(4):
+        for k, v in enumerate(on_card):
+            with torch.cuda.stream(streams[k % 2]):
+                later.append((k, R.tree_sum_cuda(v)))
+    torch.cuda.synchronize()
+    assert [int(o.cpu().view(torch.int32)) for o in first] == want * 3
+    assert all(int(o.cpu().view(torch.int32)) == want[k] for k, o in later)
+    assert all(int(t.item()) == 0 for t in R._TICKETS.values())
+
+
+def test_k6_refuses_f64_and_odd_tensors(cuda):
+    from eig_kl_tpu_torch.ops.reduce import K6, tree_norm, tree_sum_cuda
+
+    before = K6.launches
+    with pytest.raises(TypeError, match="A9"):
+        tree_norm(torch.zeros(100, dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        tree_sum_cuda(torch.zeros(64, 2, device=cuda).t())
+    with pytest.raises(ValueError, match="contiguous"):
+        tree_sum_cuda(torch.zeros(2, 2, 2, device=cuda))
+    assert K6.launches == before
+
+
+def test_k6_scale_equals_plain_bitwise(cuda):
+    from eig_kl_tpu_torch.ops.reduce import K6_SCALE, normalize_cuda, normalize_plain
+
+    y = _k6_inputs((201_920,), 3)[0].to(cuda)
+    before = K6_SCALE.launches
+    for nrm in (torch.tensor(3.7, device=cuda), torch.tensor(0.0, device=cuda), torch.tensor(float("nan"), device=cuda)):
+        got = normalize_cuda(y, nrm)
+        assert torch.equal(got.view(torch.int32), normalize_plain(y, nrm).view(torch.int32))
+    assert K6_SCALE.launches == before + 3
+
+
+@pytest.mark.parametrize("kind", ["gen_0.02", "hub10", "hub44", "hub130", "hub1300"])
+def test_k1_and_its_step_equal_plain_bitwise(cuda, kind):
+    """K1 against spmv_plain, and K1's power step entry point against
+    power_step_plain (on the card and on the CPU) at shift 2.0 and 3.0,
+    for W <= 32 (gen 0.02x, hub10), W > 32 (hub44: two windows), a row of
+    more than 64 entries (hub130; it and gen 0.02x have rows of degree 0)
+    and one of 1,300 (its warp's span crosses K1's buffers of 1,024
+    entries)."""
+    from eig_kl_tpu_torch.ops.spmv import K1, K1_STEP, power_step, power_step_plain, spmv_csr, spmv_plain
+
+    if kind == "hub1300":
+        g_host = _v3_graph("hub")
+        g_cpu, g = g_host.to_device("cpu"), g_host.to_device(cuda)
+        assert g_host.max_degree >= 1300
+    else:
+        g_cpu, g = _graphs(kind, cuda)
+        assert kind in ("hub10", "hub44") or bool((g_cpu.degrees == 0).any())
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(g.num_nodes).astype(np.float32))
+    deg = torch.where(g_cpu.degrees > 0, g_cpu.degrees, 1.0)
+    before = (K1_STEP.launches, K1.launches)
+    for inv in (0.5, 1.0 / 3.0):
+        y = power_step(g, x.to(cuda), deg.to(cuda), inv)
+        assert torch.equal(y.view(torch.int32), power_step_plain(g, x.to(cuda), deg.to(cuda), inv).view(torch.int32))
+        assert torch.equal(y.cpu().view(torch.int32), power_step_plain(g_cpu, x, deg, inv).view(torch.int32))
+    ax = spmv_csr(g, x.to(cuda))
+    assert torch.equal(ax.cpu().view(torch.int32), spmv_plain(g_cpu, x).view(torch.int32))
+    assert (K1_STEP.launches, K1.launches) == (before[0] + 2, before[1] + 1)
+
+
+def test_power_step_on_the_card_launches_at_most_4_kernels(cuda):
+    """On gen 0.02x, an f32 CSR power step is K1's step, K6 and K6's scale:
+    the profiler sees at most 4 kernels per step (3 here), and the steps'
+    bits are the CPU's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from eig_kl_tpu_torch.spectral.power import power_operator
+
+    g_cpu, g = _graphs("gen_0.02", cuda)
+    op, op_cpu = power_operator(g, 2.0, torch.float32), power_operator(g_cpu, 2.0, torch.float32)
+    x0 = torch.as_tensor(np.random.default_rng(0).random(g.num_nodes).astype(np.float32) - 0.5)
+    x = op.step(x0.to(cuda))[0]
+    torch.cuda.synchronize()
+    steps = 10
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            x = op.step(x)[0]
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert 0 < len(kernels) <= 4 * steps, sorted({e.name for e in kernels})
+    x_cpu = op_cpu.step(x0)[0]
+    for _ in range(steps):
+        x_cpu = op_cpu.step(x_cpu)[0]
+    assert torch.equal(x.cpu().view(torch.int32), x_cpu.view(torch.int32))

@@ -1,0 +1,389 @@
+"""The port's fixed-order sums (``ops/reduce.py``, kernel K6's plain
+versions) and the power step (K1's step entry point's plain version)
+against the JAX package on the CPU, bit for bit; K6's round plan and its
+layout, emulated as the kernel runs it, against the plain sums.
+
+Every comparison here is bitwise (tolerance 0): the point of the order is
+that the port's f32 iterate equals the JAX package's.
+"""
+
+import math
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+GEN_002 = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "data", "gen_0.02_42.hgr")
+SIZES_1D = [1, 31, 32, 33, 1023, 1025, 4038, 201_920] + [
+    int(s) for s in np.random.default_rng(5).integers(34, 60_000, 3)
+]
+_jnp_sum = jax.jit(jnp.sum)
+_jnp_norm = jax.jit(jnp.linalg.norm)
+_jnp_dot_sum = jax.jit(lambda a, b: jnp.sum(a * b))
+
+
+def _bits(a) -> np.ndarray:
+    """int32 view of f32 values: equal views mean equal values with equal
+    zero signs."""
+    return np.ascontiguousarray(np.asarray(a, np.float32)).view(np.int32)
+
+
+def _values(rng, shape, zeros=False):
+    """Seeded f32 values of magnitude 0.1-10 and both signs; with
+    ``zeros``, about a tenth of them +0 and a tenth -0."""
+    v = rng.standard_normal(shape) * 10.0 ** rng.uniform(-1.0, 1.0, shape)
+    if zeros:
+        pick = rng.random(shape)
+        v[pick < 0.1] = 0.0
+        v[(pick >= 0.1) & (pick < 0.2)] = -0.0
+    return v.astype(np.float32)
+
+
+@pytest.mark.parametrize("size", SIZES_1D)
+def test_1d_sums_equal_xla(size):
+    """(a) ``tree_sum_plain``, ``tree_norm`` and ``tree_dot`` against XLA's
+    ``jnp.sum``, ``jnp.linalg.norm`` and ``jnp.sum(a * b)`` on the CPU."""
+    from eig_kl_tpu_torch.ops.reduce import tree_dot, tree_norm, tree_sum_plain
+
+    rng = np.random.default_rng(size)
+    v, w = _values(rng, size), _values(rng, size)
+    tv, tw = torch.as_tensor(v), torch.as_tensor(w)
+    assert _bits(tree_sum_plain(tv)) == _bits(_jnp_sum(v))
+    assert _bits(tree_norm(tv)) == _bits(_jnp_norm(v))
+    assert _bits(tree_dot(tv, tw)) == _bits(_jnp_dot_sum(v, w))
+
+
+@pytest.mark.parametrize("shape", [(32,), (5, 7), (7, 5), (2, 32), (32, 32)])
+def test_short_products_are_fused_as_xla_fuses_them(shape):
+    """Where no round is taken (no axis over 32), XLA adds a product with
+    one rounding (a fused multiply-add, in row-major order): ``tree_norm``
+    and ``tree_norm_2d`` do so too, and rounding the products first
+    differs for some arrays.  (A ``(k, 4)`` array is the vectorized case
+    ``tree_sum_2d`` names as unmatched.)"""
+    from eig_kl_tpu_torch.ops.reduce import tree_norm, tree_norm_2d, tree_sum_2d_plain, tree_sum_plain
+
+    norm, sum_plain = (tree_norm, tree_sum_plain) if len(shape) == 1 else (tree_norm_2d, tree_sum_2d_plain)
+    differ = 0
+    for seed in range(10):
+        v = _values(np.random.default_rng(seed), shape)
+        assert _bits(norm(torch.as_tensor(v))) == _bits(_jnp_norm(v))
+        rounded = torch.sqrt(sum_plain(torch.as_tensor(v * v)).double()).float()
+        differ += int((_bits(rounded) != _bits(_jnp_norm(v))).any())
+    assert differ > 0
+
+
+@pytest.mark.parametrize(
+    "shape, plan",
+    [
+        # (windows, pads) per round; gen 1.0x's 1-D and 2-D norms first.
+        ((201_920,), [((6310,), (0,)), ((198,), (13,)), ((7,), (13,))]),
+        ((1584, 128), [((50, 4), (8, 0)), ((2, 1), (7, 0))]),
+        ((4038,), [((127,), (13,)), ((4,), (0,))]),
+        ((32, 128), [((1, 4), (0, 0))]),
+        ((192, 128), [((6, 4), (0, 0))]),
+        ((33,), [((2,), (15,))]),
+        ((1000,), [((32,), (12,))]),
+        ((33, 70), [((2, 3), (15, 13))]),
+        ((1, 1000), [((1, 32), (0, 12))]),
+        ((64_000, 10), [((2000, 1), (0, 0)), ((63, 1), (8, 0)), ((2, 1), (0, 0))]),
+        ((32,), []),
+        ((5, 7), []),
+    ],
+)
+def test_reduce_rounds(shape, plan):
+    """(b) The rounds of the fixed order, as the host hands them to K6."""
+    from eig_kl_tpu_torch.ops.reduce import reduce_rounds
+
+    rounds = reduce_rounds(shape)
+    assert [(r.windows, r.pads) for r in rounds] == plan
+    for k, r in enumerate(rounds):
+        assert r.shape == (shape if k == 0 else rounds[k - 1].windows)
+        for size, m, w, pad in zip(r.shape, r.windows, r.window, r.pads):
+            assert (m, w, pad) == ((1, size, 0) if size <= 32 else (math.ceil(size / 32), 32, (32 * m - size) // 2))
+    assert max(rounds[-1].windows if rounds else shape) <= 32
+
+
+def test_k6_plan_at_gen_1x():
+    """K6's host plan: the rounds as (rows, cols, windows, extents, pads)
+    ints, a vector taken as one row; the scratch holds rounds 1 and 2."""
+    from eig_kl_tpu_torch.ops.reduce import k6_plan
+
+    words, scratch, second = k6_plan((201_920,))
+    assert list(words) == [3, 7, 1, 201_920, 1, 6310, 1, 32, 0, 0, 1, 6310, 1, 198, 1, 32, 0, 13,
+                           1, 198, 1, 7, 1, 32, 0, 13]
+    assert (scratch, second) == (6310 + 198, 6310)
+    words, scratch, second = k6_plan((1584, 128))
+    assert list(words) == [2, 2, 1584, 128, 50, 4, 32, 32, 8, 0, 50, 4, 2, 1, 32, 4, 7, 0]
+    assert (scratch, second) == (200 + 2, 200)
+    assert list(k6_plan((7,))[0]) == [0, 7] and k6_plan((7,))[1:] == (0, 0)
+
+
+# K6's layout, as csrc/tree_sum.cu runs it.
+_WARPS, _STRIDE = 8, 33
+
+
+def _vector_round(load, n, m, lead, dst, warps, written):
+    """``vector_round``: warp ``warp`` of ``warps`` takes the groups of 32
+    windows at first = 32 warp, 32 (warp + warps), ...; lane ``lane``
+    stores value ``lane`` of window ``first + k`` at tile[k * 33 + lane],
+    then adds window ``first + lane`` from tile[lane * 33 + e]."""
+    for warp in range(warps):
+        firsts = np.arange(32 * warp, m, 32 * warps)
+        if not firsts.size:
+            continue
+        k = np.arange(32)[None, :, None]
+        lane = np.arange(32)[None, None, :]
+        i = (firsts[:, None, None] + k) * 32 + lane - lead
+        tile = np.zeros((firsts.size, 32 * _STRIDE), np.float32)
+        tile[:, (k * _STRIDE + lane).reshape(-1)] = np.where((i >= 0) & (i < n), load(np.clip(i, 0, max(n - 1, 0))), 0.0).reshape(firsts.size, -1)
+        acc = np.zeros((firsts.size, 32), np.float32)
+        for e in range(32):
+            acc = acc + tile[:, np.arange(32) * _STRIDE + e]
+        win = firsts[:, None] + np.arange(32)[None, :]
+        keep = win < m
+        dst[win[keep]] = acc[keep]
+        np.add.at(written, win[keep], 1)
+
+
+def _tile_round(load, r, dst, warps, written):
+    """``tile_round``: warp ``warp`` takes windows warp, warp + warps, ...;
+    value e of a window is row row0 + e / wb, column col0 + e % wb; lane 0
+    adds e = 0, 1, ... in order."""
+    rows, cols, win_rows, win_cols, wa, wb, la, lb = r
+    for warp in range(warps):
+        w = np.arange(warp, win_rows * win_cols, warps)
+        if not w.size:
+            continue
+        e = np.arange(wa * wb)[None, :]
+        a = ((w // win_cols) * wa - la)[:, None] + e // wb
+        b = ((w % win_cols) * wb - lb)[:, None] + e % wb
+        ok = (a >= 0) & (a < rows) & (b >= 0) & (b < cols)
+        tile = np.where(ok, load(np.where(ok, a * cols + b, 0)), 0.0).astype(np.float32)
+        acc = np.zeros(w.size, np.float32)
+        for k in range(wa * wb):
+            acc = acc + tile[:, k]
+        dst[w] = acc
+        np.add.at(written, w, 1)
+
+
+def _run_round(load, r, dst, warps, written):
+    rows, cols, win_rows, win_cols, wa, wb, la, lb = r
+    if rows == 1 or cols == 1:
+        _vector_round(load, rows * cols, win_rows * win_cols, la + lb, dst, warps, written)
+    else:
+        _tile_round(load, r, dst, warps, written)
+
+
+def _k6_emulated(v, w, mode, root, plan=None):
+    """K6 on the host from ``k6_plan``'s ints (or ``plan``): round 1 over
+    the grid that ``tree_sum_f32`` launches (every window written exactly
+    once), then the last block's rounds over the scratch (round k's sums
+    at 0 or at ``second``, alternating), its final chain and the root."""
+    from eig_kl_tpu_torch.ops.reduce import k6_plan
+    from eig_kl_tpu_torch.ops.spmv import fma_f32
+
+    words, scratch_len, second = plan or k6_plan(v.shape)
+    words = list(words)
+    num_rounds, final_count = words[:2]
+    rounds = [words[2 + 8 * k : 10 + 8 * k] for k in range(num_rounds)]
+    flat_v, flat_w = v.reshape(-1), w.reshape(-1)
+
+    def source(i):
+        if mode == "sum":
+            return flat_v[i]
+        return np.float32(flat_v[i] * (flat_v[i] if mode == "square" else flat_w[i]))
+
+    scratch = np.full(scratch_len, np.nan, np.float32)
+    if num_rounds:
+        r = rounds[0]
+        windows = r[2] * r[3]
+        warps = math.ceil(windows / 32) if r[0] == 1 or r[1] == 1 else windows
+        blocks = math.ceil(warps / _WARPS) if warps > _WARPS else 1
+        written = np.zeros(windows, np.int64)
+        _run_round(source, r, scratch[:windows], blocks * _WARPS, written)
+        assert (written == 1).all()
+    src, dst = 0, second
+    for r in rounds[1:]:
+        windows = r[2] * r[3]
+        written = np.zeros(windows, np.int64)
+        out = scratch[dst : dst + windows]
+        _run_round(lambda i, s=scratch[src:].copy(): s[i], r, out, _WARPS, written)
+        assert (written == 1).all()
+        src, dst = dst, src
+    acc = torch.zeros((), dtype=torch.float32)
+    if num_rounds:
+        for x in scratch[src : src + final_count]:
+            acc = acc + torch.tensor(x)
+    else:
+        b = flat_v if mode == "square" else flat_w
+        for i in range(final_count):
+            a = torch.tensor(flat_v[i])
+            acc = acc + a if mode == "sum" else fma_f32(a, torch.tensor(b[i]), acc)
+    if root:
+        return np.float32(np.sqrt(np.float64(acc)))
+    return acc.numpy()
+
+
+@pytest.mark.parametrize(
+    "shape",
+    [(1,), (31,), (32,), (33,), (1025,), (4038,), (201_920,), (100_003,),
+     (32, 128), (192, 128), (1584, 128), (33, 70), (1, 1000), (1000, 1), (5, 7), (64_000, 10)],
+)
+@pytest.mark.parametrize("mode", ["sum", "square", "product"])
+def test_k6_layout_emulated_equals_the_plain_sums(shape, mode):
+    """(c) K6's window assignment and rounds, emulated, against the plain
+    sums: ``tree_sum_plain``/``tree_sum_2d_plain`` and the norm and dot
+    built on them, with +0 and -0 among the inputs."""
+    from eig_kl_tpu_torch.ops.reduce import (
+        _products_plain, tree_dot, tree_norm, tree_norm_2d, tree_sum_2d_plain, tree_sum_plain,
+    )
+
+    rng = np.random.default_rng(sum(shape))
+    v, w = _values(rng, shape, zeros=True), _values(rng, shape, zeros=True)
+    tv, tw = torch.as_tensor(v), torch.as_tensor(w)
+    if mode == "sum":
+        want = (tree_sum_plain if len(shape) == 1 else tree_sum_2d_plain)(tv)
+    elif mode == "square":
+        want = (tree_norm if len(shape) == 1 else tree_norm_2d)(tv)
+    elif len(shape) == 1:
+        want = tree_dot(tv, tw)
+    else:
+        want = _products_plain(tv, tw, tree_sum_2d_plain)
+    got = _k6_emulated(v, w, mode, root=mode == "square")
+    assert _bits(got) == _bits(want)
+
+
+@pytest.mark.parametrize("shape, word", [((4038,), 9), ((4038,), 17), ((1584, 128), 9), ((1584, 128), 16)])
+def test_k6_layout_emulation_sees_a_wrong_pad(shape, word):
+    """The emulation is not blind: a plan with a lead pad off by one (round
+    1's or round 2's) changes the sum."""
+    from eig_kl_tpu_torch.ops.reduce import k6_plan
+
+    v = _values(np.random.default_rng(1), shape)
+    words, scratch, second = k6_plan(shape)
+    bad = list(words)
+    bad[word] += 1
+    right = _k6_emulated(v, v, "sum", root=False)
+    wrong = _k6_emulated(v, v, "sum", root=False, plan=(bad, scratch, second))
+    assert _bits(right) != _bits(wrong)
+
+
+def test_sum_2d_of_one_row_is_the_1d_sum():
+    from eig_kl_tpu_torch.ops.reduce import tree_sum_2d_plain, tree_sum_plain
+
+    v = torch.as_tensor(_values(np.random.default_rng(2), 201_920))
+    assert _bits(tree_sum_2d_plain(v.view(1, -1))) == _bits(tree_sum_plain(v))
+    assert _bits(tree_sum_2d_plain(v.view(-1, 1))) == _bits(tree_sum_plain(v))
+
+
+@pytest.fixture(scope="module")
+def gen002_f32():
+    """(JAX DeviceGraph, port DeviceGraph) of gen 0.02x at f32."""
+    from eig_kl_tpu.graph.expand import clique_expand
+    from eig_kl_tpu.io.hgr import read_hgr
+    from eig_kl_tpu_torch.graph.csr import device_graph_from_jax
+
+    g_host = clique_expand(read_hgr(GEN_002, use_native=False), "kl", use_native=False)
+    g_jax = g_host.to_device(dtype="float32")
+    return g_jax, device_graph_from_jax(
+        np.asarray(g_jax.ell_indices), np.asarray(g_jax.ell_weights),
+        np.asarray(g_jax.degrees), np.asarray(g_jax.total_weight), "cpu",
+    )
+
+
+@pytest.mark.parametrize("steps", [1, 5])
+@pytest.mark.parametrize("shift", [2.0, 3.0])
+def test_power_steps_equal_the_jax_steps(gen002_f32, shift, steps):
+    """(d) The port's power steps (``power_step_plain``, the tree-ordered
+    norm and ``normalize_plain``) against the JAX package's ``x - inv_shift
+    * norm_lap(x)`` steps in its ``_power_core``, bit for bit.  At shift
+    3.0 the step's last product is not exact, and XLA's fused multiply-add
+    decides the bits."""
+    from eig_kl_tpu.spectral.power import _power_core as jax_core
+    from eig_kl_tpu_torch.spectral.power import _power_core
+
+    g_jax, g = gen002_f32
+    kw = dict(shift=shift, tolerance=1e-6, min_iters=100, max_iters=steps, seed=42, convergence="gkl2")
+    lam_j, v_j, it_j = jax_core(g_jax, dtype="float32", **kw)
+    lam_t, v_t, it_t = _power_core(g, dtype=torch.float32, **kw)
+    assert it_t == it_j == steps
+    np.testing.assert_array_equal(_bits(v_t), _bits(v_j))
+
+
+def test_power_step_plain_at_shift_2_is_the_separately_rounded_sequence(gen002_f32):
+    """At shift 2.0 the fused last operation changes no bit: the product
+    by 0.5 is exact."""
+    from eig_kl_tpu_torch.ops.spmv import power_step_plain, spmv_plain
+
+    g = gen002_f32[1]
+    x = torch.as_tensor(_values(np.random.default_rng(4), g.num_nodes))
+    deg = torch.where(g.degrees > 0, g.degrees, 1.0)
+    separate = x - 0.5 * (2.0 * x - 2.0 * spmv_plain(g, x) / deg)
+    np.testing.assert_array_equal(_bits(power_step_plain(g, x, deg, 0.5)), _bits(separate))
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """(e) On CPU tensors the dispatch runs the plain versions and launches
+    nothing; the kernels' wrappers refuse CPU tensors and count no launch."""
+    from eig_kl_tpu_torch.ops import reduce as R
+    from eig_kl_tpu_torch.ops.spmv import K1_STEP
+
+    v = torch.as_tensor(_values(np.random.default_rng(3), 4038))
+    counts = (R.K6.launches, R.K6_SCALE.launches, K1_STEP.launches)
+    assert _bits(R.tree_sum(v)) == _bits(R.tree_sum_plain(v))
+    assert _bits(R.tree_sum_2d(v.view(2, -1))) == _bits(R.tree_sum_2d_plain(v.view(2, -1)))
+    nrm = R.tree_norm(v)
+    np.testing.assert_array_equal(_bits(R.normalize(v, nrm)), _bits(R.normalize_plain(v, nrm)))
+    with pytest.raises(ValueError, match="CUDA"):
+        R.tree_sum_cuda(v)
+    with pytest.raises(ValueError, match="CUDA"):
+        R.tree_sum_cuda(v, v, root=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        R.normalize_cuda(v, nrm)
+    assert (R.K6.launches, R.K6_SCALE.launches, K1_STEP.launches) == counts
+
+
+def test_power_step_cuda_refuses_cpu_tensors(gen002_f32):
+    from eig_kl_tpu_torch.ops.spmv import K1_STEP, power_step_cuda
+
+    g = gen002_f32[1]
+    x = torch.zeros(g.num_nodes)
+    before = K1_STEP.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        power_step_cuda(g, x, x, 0.5)
+    assert K1_STEP.launches == before
+
+
+def test_normalize_plain_keeps_a_zero_norm():
+    from eig_kl_tpu_torch.ops.reduce import normalize_plain
+
+    y = torch.tensor([1.0, -2.0, 0.0])
+    assert torch.equal(normalize_plain(y, torch.tensor(0.0)), y)
+    assert torch.equal(normalize_plain(y, torch.tensor(2.0)), torch.tensor([0.5, -1.0, 0.0]))
+
+
+def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
+    """A kernel's library name changes with the headers of ``csrc/`` it
+    includes, directly or through another header, and not with a system
+    header or a header it does not include."""
+    from eig_kl_tpu_torch.ops import _build
+
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\nint x;\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  # include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "c.cuh").write_text("// c\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(_build, "_compiler_identity", lambda compiler: "nvcc 0")
+    assert _build.included_headers(tmp_path / "k.cu") == [tmp_path / "a.cuh", tmp_path / "b.cuh"]
+    first = _build.library_path("k")
+    (tmp_path / "c.cuh").write_text("// c, changed\n")
+    assert _build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, changed\n")
+    second = _build.library_path("k")
+    assert second != first and second.name.startswith("k-")
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// a, changed\n')
+    assert _build.library_path("k") not in (first, second)
