@@ -25,10 +25,12 @@ result; so does a machine without a CUDA card.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -50,7 +52,47 @@ SHARDS = (1, 2, 4, 8)  # the smega path's shard counts, one cluster of S blocks 
 MAIN_ITERS, MAIN_SWAPS, MAIN_BEST = 326, 8348, 39693.86
 MULTI_BEST = 39581.65
 V3_ITERS, V3_BEST = 351, 39709.99
+#: The largest connected component of that circuit: nodes, nets, pins.
+LCC_COUNTS = (184406, 209370, 520304)
+#: The JAX package's runs on that component on the CPU at f32
+#: (tools/lcc_reference.py): Lanczos with the host f64 refinement (its
+#: restarts and lambda_2), LOBPCG's iterations, one KL pass (KLConfig())
+#: from the Lanczos split, and the momentum exit on the KL-weighted graph
+#: (its iterations, median and a digest of its split; the port's plain run
+#: on the CPU gives the same iterations and split, its vector differs in
+#: the last bits: ROADMAP.md C9).
+JAX_LCC_RESTARTS, JAX_LCC_LAMBDA2 = 7, 0.04756223033233042
+JAX_LCC_LOBPCG_ITERS = 169
+JAX_LCC_KL_INITIAL, JAX_LCC_KL_BEST, JAX_LCC_KL_SWAPS = 55795.1953125, 40172.46875, 16579
+JAX_LCC_MOMENTUM_ITERS, JAX_LCC_MOMENTUM_MEDIAN = 726, 1.5583746062475257e-05
+JAX_LCC_MOMENTUM_SIDES = "1ea518686d1bcfa2"
 GEN_002 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks", "data", "gen_0.02_42.hgr")
+
+
+def largest_component(hg):
+    """The largest connected component of a hypergraph: its nodes renumbered
+    in order, and the nets whose pins all lie in it.  The generator's
+    circuits are disconnected (gen 1.0x seed 42: 201,920 nodes, the largest
+    component 184,406), and on a disconnected graph lambda_2 = 0 and a
+    "Fiedler vector" is an arbitrary null vector; the Lanczos, LOBPCG and
+    momentum phases run on this component."""
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csgraph
+
+    from eig_kl_tpu_torch.io.hgr import Hypergraph
+
+    sizes = np.diff(hg.net_offsets)
+    first = np.repeat(hg.pins[hg.net_offsets[:-1]], sizes)
+    n = hg.num_nodes
+    adj = sp.coo_matrix((np.ones(len(first)), (first, hg.pins)), shape=(n, n))
+    _, label = csgraph.connected_components(adj, directed=False)
+    keep = label == np.argmax(np.bincount(label))
+    new_id = np.cumsum(keep) - 1
+    nets = np.add.reduceat(keep[hg.pins].astype(np.int64), hg.net_offsets[:-1]) == sizes
+    pins = new_id[hg.pins[np.repeat(nets, sizes)]].astype(np.int32)
+    offsets = np.zeros(int(nets.sum()) + 1, np.int64)
+    np.cumsum(sizes[nets], out=offsets[1:])
+    return Hypergraph(int(keep.sum()), int(nets.sum()), pins, offsets, name="lcc.hgr")
 
 
 def card_line() -> str:
@@ -223,22 +265,32 @@ def main() -> int:
     )
     from eig_kl_tpu_torch.kl.init import perturb_split, random_split
     from eig_kl_tpu_torch.models.generator import CircuitGenerator
-    from eig_kl_tpu_torch.models.pipelines import fused_partition
+    from eig_kl_tpu_torch.io.eigfile import read_eig_file, write_eig_file
+    from eig_kl_tpu_torch.models.pipelines import fused_partition, kl_partition, spectral_partition
     from eig_kl_tpu_torch.ops import _build
     from eig_kl_tpu_torch.ops.spmv import (
         K1,
+        K1_LAPLACIAN,
+        K1_LAZY,
+        K1_SPMM,
         K1_STEP,
+        laplacian_cuda,
+        laplacian_plain,
+        lazy_walk_cuda,
+        lazy_walk_plain,
         power_step_cuda,
         power_step_plain,
         row_ids,
+        spmm_cuda,
+        spmm_plain,
         spmv_csr,
         spmv_plain,
     )
     from eig_kl_tpu_torch.ops import spmv_v3 as V
     from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
     from eig_kl_tpu_torch.ops import reduce as R
-    from eig_kl_tpu_torch.ops.reduce import K4, K6, K6_SCALE, fma_dot_cuda, fma_dot_plain
-    from eig_kl_tpu_torch.spectral.power import _power_core, power_operator
+    from eig_kl_tpu_torch.ops.reduce import K4, K6, K6_AXPY, K6_SCALE, K6_STEP, fma_dot_cuda, fma_dot_plain
+    from eig_kl_tpu_torch.spectral.power import _power_core, power_operator, power_partition_fiedler
     from eig_kl_tpu_torch.parallel.smega import (
         K5,
         K5_CACHE_MIN_NODES,
@@ -256,7 +308,8 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
-    all_kernels = (K1, K1_STEP, K2, V.K3A, V.K3B, V.K3C, K4, K5, K6, K6_SCALE)
+    all_kernels = (K1, K1_STEP, K1_LAPLACIAN, K1_SPMM, K1_LAZY, K2, V.K3A, V.K3B, V.K3C, K4, K5, K6,
+                   K6_SCALE, K6_STEP, K6_AXPY)
 
     def reset_counts():
         for kern in all_kernels:
@@ -910,6 +963,7 @@ def main() -> int:
     # The 2-D norm is one K6 launch per power step; K6 also adds the two
     # cuts' two sums.
     check(K6.launches == v3_iters + 4 and K6_SCALE.launches == v3_iters, f"K6 on the v3 path: {v3_all}")
+    check(K6_STEP.launches == v3_iters, f"K6's padded step on the v3 path: {v3_all}")
     check(K2.launches == 1, f"K2 launched {K2.launches} times on the v3 path, not once")
     check(v3_launches["K3c"] == v3_spmvs, f"v3 launches {v3_launches}: K3c not once per SpMV")
     check(
@@ -1144,6 +1198,206 @@ def main() -> int:
             )
     print(f"smega phase: {time.perf_counter() - t_phase:.1f} s")
 
+    # Phase 10: the Lanczos, LOBPCG and momentum paths, on the circuit's
+    # largest connected component (on the whole, disconnected circuit
+    # lambda_2 = 0 and a Fiedler vector is arbitrary).
+    t_phase = time.perf_counter()
+    lcc = largest_component(hg)
+    counts = (lcc.num_nodes, lcc.num_nets, len(lcc.pins))
+    check(counts == LCC_COUNTS, f"the largest component has {counts} nodes, nets, pins, not {LCC_COUNTS}")
+    ln = lcc.num_nodes
+    lcc_kl_host = clique_expand(lcc, "kl")
+    lg = clique_expand(lcc, "eig").to_device(dev, torch.float32)
+    lk = lcc_kl_host.to_device(dev, torch.float32)
+    l_nnz = lg.nnz
+    print(f"largest component: {ln} nodes, {lcc.num_nets} nets, {len(lcc.pins)} pins, nnz {l_nnz}, "
+          f"row width {lg.row_width} ({time.perf_counter() - t_phase:.2f} s)")
+    a_lcc = torch.sparse_csr_tensor(lg.indptr.long(), lg.indices.long(), lg.data, size=(ln, ln))
+    csr_bytes = 4 * (lg.indptr.numel() + 2 * l_nnz)
+
+    def bound(n_bytes, n_ops):
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+    def held_bitwise(kern, plain, what):
+        got, again, ref = kern(), kern(), plain()
+        check(torch.equal(bits32(got), bits32(ref)), f"{what} is not bitwise equal to its plain version")
+        check(torch.equal(got, again), f"two launches of {what} differ")
+        return float((got - ref).abs().max())
+
+    new = {}
+    xl = (torch.rand(ln, generator=gen) - 0.5).to(dev)
+    xl[::97] = -0.0
+    dl = torch.sqrt(torch.where(lk.degrees > 0, lk.degrees, 1.0).double()).float().reciprocal()
+    new["laplacian"] = dict(
+        kern=lambda: laplacian_cuda(lg, xl), plain=lambda: laplacian_plain(lg, xl),
+        lib=lambda: lg.degrees * xl - a_lcc @ xl, symbol="laplacian_kernel",
+        bound=bound(csr_bytes + 12 * ln, 2 * l_nnz + 2 * ln),
+    )
+    a_lk = torch.sparse_csr_tensor(lk.indptr.long(), lk.indices.long(), lk.data, size=(ln, ln))
+    new["lazy walk"] = dict(
+        kern=lambda: lazy_walk_cuda(lk, xl, dl), plain=lambda: lazy_walk_plain(lk, xl, dl),
+        lib=lambda: 0.5 * (xl + dl * (a_lk @ (dl * xl))), symbol="lazy_walk_kernel",
+        bound=bound(4 * (lk.indptr.numel() + 2 * l_nnz) + 12 * ln, 2 * l_nnz + 4 * ln),
+    )
+    for k in (4, 12):
+        X = (torch.rand(ln, k, generator=gen) - 0.5).to(dev)
+        cols = [X[:, j].contiguous() for j in range(k)]
+        new[f"spmm k={k}"] = dict(
+            kern=lambda X=X: spmm_cuda(lg, X, laplacian=True),
+            plain=lambda X=X: spmm_plain(lg, X, laplacian=True),
+            lib=lambda X=X: lg.degrees[:, None] * X - torch.sparse.mm(a_lcc, X), symbol="spmm",
+            bound=bound(csr_bytes + 4 * ln + 8 * ln * k, (2 * l_nnz + 2 * ln) * k),
+            k1_columns=lambda cols=cols: [spmv_csr(lg, c) for c in cols],
+        )
+        check(torch.equal(spmm_cuda(lg, X), torch.stack([spmv_csr(lg, c) for c in cols], dim=1)),
+              f"a column of the blocked product at k = {k} differs from K1 on that column")
+    c_axpy = torch.tensor(-0.37, device=dev)
+    yl = (torch.rand(ln, generator=gen) - 0.5).to(dev)
+    new["axpy"] = dict(
+        kern=lambda: R.axpy_cuda(c_axpy, xl, yl), plain=lambda: R.axpy_plain(c_axpy, xl, yl),
+        lib=lambda: torch.addcmul(yl, c_axpy, xl), symbol="axpy_kernel", bound=bound(12 * ln, 2 * ln),
+    )
+    x2d, ax2d = xp.view(P // 128, 128), y3p.view(P // 128, 128)
+    deg2d = torch.ones(P, device=dev)
+    deg2d[:n] = torch.where(g.degrees > 0, g.degrees, 1.0)
+    deg2d = deg2d.view(P // 128, 128)
+    new["padded step"] = dict(
+        kern=lambda: R.padded_step_cuda(x2d, ax2d, deg2d, 1.0 / 3.0),
+        plain=lambda: R.padded_step_plain(x2d, ax2d, deg2d, 1.0 / 3.0),
+        lib=lambda: x2d - (1.0 / 3.0) * (2.0 * x2d - 2.0 * ax2d / deg2d), symbol="padded_step_kernel",
+        bound=bound(16 * P, 6 * P),
+    )
+    for what, e in new.items():
+        e["err"] = held_bitwise(e["kern"], e["plain"], what)
+        e["ms"] = cuda_ms(e["kern"], 200)
+        e["plain_ms"] = cuda_ms(e["plain"], 3)
+        e["library_ms"] = cuda_ms(e["lib"], 200)
+        e["device_us"] = device_us_per_launch(lambda e=e: [e["kern"]() for _ in range(50)], e["symbol"])
+        extra = ""
+        if "k1_columns" in e:
+            e["k1_columns_ms"] = cuda_ms(e["k1_columns"], 200)
+            extra = f", {what[7:]} launches of K1 {e['k1_columns_ms']:.4f} ms"
+        print(
+            f"{what}: bitwise equal to its plain version; {e['ms']:.4f} ms, device {fmt_us(e['device_us'])} "
+            f"per launch, plain {e['plain_ms']:.3f} ms, library {e['library_ms']:.4f} ms{extra}, bound "
+            f"{e['bound'][0]:.5f} ms by {e['bound'][1]}"
+        )
+
+    # The Lanczos path: spectral_partition, f32 on the card plus the host
+    # f64 refinement, then the EIG file and one KL pass from it.
+    def spectral_run(solver):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = spectral_partition(lcc, SpectralConfig(solver=solver), device="cuda")
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    reset_counts()
+    lz, lz_s = spectral_run("lanczos")
+    lz_launches = {kern.symbol: kern.launches for kern in all_kernels}
+    lz_solve = lz.spectral_solve
+    check(K1_LAPLACIAN.launches > 0 and K1_SPMM.launches == 0 and K1.launches == 0,
+          f"the Lanczos path launched {lz_launches}")
+    check(lz_solve.refined is not None, "the f32 Lanczos run was not refined on the host")
+    lam2, resid, steps = lz_solve.refined
+    check(abs(lam2 - JAX_LCC_LAMBDA2) <= 1e-6 * JAX_LCC_LAMBDA2,
+          f"Lanczos lambda_2 {lam2!r}, not {JAX_LCC_LAMBDA2!r} to 1e-6")
+    check(resid <= 1e-5, f"the refined residual {resid} is above 1e-5")
+    check(tuple(lz.eig.balance()) == (ln // 2, ln // 2), f"the Lanczos split's balance is {lz.eig.balance()}")
+    print(
+        f"lanczos path: {lz_solve.iterations} restarts (JAX on the CPU: {JAX_LCC_RESTARTS}), lambda {lz_solve.eigenvalue!r} "
+        f"on the card, {lam2!r} after {steps} host f64 steps (residual {resid:.3g}; JAX {JAX_LCC_LAMBDA2!r}), "
+        f"balance {lz.eig.balance()}; e2e {lz_s:.3f} s, spans "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(lz.timings.items()))
+        + f"; K1's Laplacian {K1_LAPLACIAN.launches} launches; launches {lz_launches}"
+    )
+    report_device_busy("the lanczos run", lambda: spectral_run("lanczos"))
+    with tempfile.TemporaryDirectory() as tmp:
+        eig_path = os.path.join(tmp, "lcc.hgr_out.txt")
+        write_eig_file(eig_path, lz.eig)
+        eig_back = read_eig_file(eig_path)
+    check(np.array_equal(eig_back.sides, lz.eig.sides), "the EIG file's sides differ from the run's")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck = kl_partition(lcc, init=eig_back, kl_config=KLConfig(), device="cuda")
+    torch.cuda.synchronize()
+    ck_s = time.perf_counter() - t0
+    ckl = ck.kl
+    ck_launches = {kern.symbol: kern.launches for kern in all_kernels}
+    check(K2.launches == 1, f"the cEIG -> cKL pass launched {ck_launches}")
+    ck_drift = abs(ckl.final_cut - ckl.verified_cut) / ckl.final_cut
+    check(ck_drift <= 1e-5, f"cEIG -> cKL: cut drift {ck_drift:.3g} above 1e-5")
+    check(ckl.best_cut <= ckl.initial_cut, "cEIG -> cKL: best cut above the initial cut")
+    ck_recount = host_cut(lcc_kl_host, np.asarray(ckl.best_sides))
+    check(abs(ck_recount - ckl.best_cut) <= 1e-4 * ckl.best_cut,
+          f"cEIG -> cKL: best cut {ckl.best_cut} disagrees with the host f64 recount {ck_recount}")
+    # The f32 Lanczos vectors differ from the JAX run's in their last bits,
+    # so nodes next to the median may fall on the other side, and the pass
+    # takes another path: its cuts are held to 1 % of the JAX run's.
+    check(abs(ckl.initial_cut - JAX_LCC_KL_INITIAL) <= 1e-3 * JAX_LCC_KL_INITIAL,
+          f"cEIG -> cKL: initial cut {ckl.initial_cut}, JAX {JAX_LCC_KL_INITIAL}")
+    check(abs(ckl.best_cut - JAX_LCC_KL_BEST) <= 1e-2 * JAX_LCC_KL_BEST,
+          f"cEIG -> cKL: best cut {ckl.best_cut}, JAX {JAX_LCC_KL_BEST}")
+    print(
+        f"cEIG -> cKL: initial cut {ckl.initial_cut}, best {ckl.best_cut} after {ckl.iterations} swaps, final "
+        f"{ckl.final_cut}, verified {ckl.verified_cut} (drift {ck_drift:.3g}), host f64 recount "
+        f"{ck_recount:.4f} (JAX on the CPU: initial {JAX_LCC_KL_INITIAL}, best {JAX_LCC_KL_BEST} after "
+        f"{JAX_LCC_KL_SWAPS} swaps); e2e {ck_s:.3f} s; launches {ck_launches}"
+    )
+
+    # The LOBPCG path.
+    reset_counts()
+    lo, lo_s = spectral_run("lobpcg")
+    lo_launches = {kern.symbol: kern.launches for kern in all_kernels}
+    lo_solve = lo.spectral_solve
+    check(K1_SPMM.launches > 0 and K1_LAPLACIAN.launches == 0 and K1.launches == 0,
+          f"the LOBPCG path launched {lo_launches}")
+    check(lo_solve.refined is not None, "the f32 LOBPCG run was not refined on the host")
+    check(abs(lo.eig.eigenvalue - lam2) <= 1e-6 * lam2,
+          f"LOBPCG lambda_2 {lo.eig.eigenvalue!r} against Lanczos {lam2!r}")
+    print(
+        f"lobpcg path: {lo_solve.iterations} iterations (JAX on the CPU: {JAX_LCC_LOBPCG_ITERS}), lambda "
+        f"{lo_solve.eigenvalue!r} on the card, {lo.eig.eigenvalue!r} refined (residual {lo_solve.refined[1]:.3g}), "
+        f"balance {lo.eig.balance()}; e2e {lo_s:.3f} s, spans "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(lo.timings.items()))
+        + f"; launches {lo_launches}"
+    )
+    report_device_busy("the lobpcg run", lambda: spectral_run("lobpcg"))
+
+    # The momentum exit of the power solve on the component's KL graph.
+    mom_config = SpectralConfig(solver="power", convergence="momentum")
+
+    def momentum_run():
+        tracer = Tracer(dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with tracer.span("spectral"):
+            out = power_partition_fiedler(lk, mom_config)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    reset_counts()
+    (mo_lam, mo_med, mo_vals, mo_sides, mo_iters), mo_s = momentum_run()
+    mo_launches = {kern.symbol: kern.launches for kern in all_kernels}
+    check(K1_LAZY.launches > mo_iters and K6_AXPY.launches > 0 and K4.launches > 0,
+          f"the momentum path launched {mo_launches}")
+    mo_digest = hashlib.sha256(np.ascontiguousarray(mo_sides.astype(np.int8)).tobytes()).hexdigest()[:16]
+    check(mo_iters == JAX_LCC_MOMENTUM_ITERS, f"momentum: {mo_iters} iterations, JAX {JAX_LCC_MOMENTUM_ITERS}")
+    check(mo_digest == JAX_LCC_MOMENTUM_SIDES, f"momentum: the split's digest {mo_digest}, JAX {JAX_LCC_MOMENTUM_SIDES}")
+    check(abs(mo_med - JAX_LCC_MOMENTUM_MEDIAN) <= 1e-5 * abs(JAX_LCC_MOMENTUM_MEDIAN),
+          f"momentum: median {mo_med!r}, JAX {JAX_LCC_MOMENTUM_MEDIAN!r}")
+    (_, _, _, mo_sides2, _), mo_s2 = momentum_run()
+    check(np.array_equal(mo_sides2, mo_sides), "a repeated momentum run split otherwise")
+    print(
+        f"momentum path: {mo_iters} iterations, lambda {mo_lam!r}, median {mo_med!r} (JAX {JAX_LCC_MOMENTUM_MEDIAN!r}), "
+        f"{int(mo_sides.sum())} nodes on side 1, the JAX run's split; e2e {mo_s:.3f} s and {mo_s2:.3f} s; "
+        f"launches {mo_launches}"
+    )
+    report_device_busy("the momentum run", momentum_run)
+    print(f"lanczos/lobpcg/momentum phase: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [
         {
             "name": "K1 spmv_csr_f32",
@@ -1341,6 +1595,38 @@ def main() -> int:
             "library_ms": k6s_lib_ms,
             "device_us_per_launch": None if k6s_us is None else k6s_us[0],
         },
+    ]
+    def new_entry(name, what, source, replaces, launches, **more):
+        e = new[what]
+        return {
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound"][0], "bound_by": e["bound"][1], "library_ms": e["library_ms"],
+            "device_us_per_launch": None if e["device_us"] is None else e["device_us"][0], **more,
+        }
+
+    kernels += [
+        new_entry("K1 laplacian_f32, deg * x - A @ x", "laplacian", "eig_kl_tpu_torch/csrc/spmv_csr.cu",
+                  "eig_kl_tpu/ops/spmv_pallas.py:339 (with eig_kl_tpu/spectral/lanczos.py:60's epilogue)",
+                  lz_launches["laplacian_f32"], launches_lanczos_path=lz_launches),
+        new_entry("K1 spmm_csr_f32, deg * X - A @ X, k = 4", "spmm k=4", "eig_kl_tpu_torch/csrc/spmv_csr.cu",
+                  "eig_kl_tpu/ops/spmv_pallas.py:339 (vmapped by eig_kl_tpu/spectral/lobpcg_solver.py:51-56)",
+                  lo_launches["spmm_csr_f32"], k1_columns_ms=new["spmm k=4"]["k1_columns_ms"],
+                  launches_lobpcg_path=lo_launches),
+        new_entry("K1 spmm_csr_f32, deg * X - A @ X, k = 12", "spmm k=12", "eig_kl_tpu_torch/csrc/spmv_csr.cu",
+                  "eig_kl_tpu/ops/spmv_pallas.py:339 (vmapped by eig_kl_tpu/spectral/lobpcg_solver.py:51-56)",
+                  lo_launches["spmm_csr_f32"], k1_columns_ms=new["spmm k=12"]["k1_columns_ms"]),
+        new_entry("K1 lazy_walk_f32, 0.5 (w + dsinv * A @ (dsinv * w))", "lazy walk",
+                  "eig_kl_tpu_torch/csrc/spmv_csr.cu",
+                  "eig_kl_tpu/ops/spmv_pallas.py:339 (with eig_kl_tpu/spectral/power.py:305's epilogue)",
+                  mo_launches["lazy_walk_f32"], launches_momentum_path=mo_launches),
+        new_entry("K6 axpy_f32, a * x + y fused (the momentum exit's deflation)", "axpy",
+                  "eig_kl_tpu_torch/csrc/tree_sum.cu",
+                  "eig_kl_tpu/spectral/power.py:310 (w - jnp.vdot(q0, w) * q0, XLA ops, no Pallas kernel)",
+                  mo_launches["axpy_f32"]),
+        new_entry("K6 padded_step_f32, the v3 padded power step", "padded step", "eig_kl_tpu_torch/csrc/tree_sum.cu",
+                  "eig_kl_tpu/spectral/power.py:184 (x - inv_shift * norm_lap(x), XLA ops, no Pallas kernel)",
+                  v3_all["padded_step_f32"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

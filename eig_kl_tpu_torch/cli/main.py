@@ -3,7 +3,7 @@
 The subcommands, flags, output files and console blocks of
 ``eig_kl_tpu/cli/main.py``:
 
-* ``eig <file> --solver power``  == ``./cEIG`` with gKL2's power solver
+* ``eig <file> [--solver lanczos|lobpcg|power]`` == ``./cEIG`` (cEIG.cpp:138)
 * ``kl <file> [-EIG]``           == ``./cKL|./gKL``  (cKL.cpp:424, gKL.cu:672)
 * ``fused <file> [-EIG]``        == ``./gKL2``       (gKL2.cu:989)
 * ``generate <mult> -o FILE``    == ``circuit_generator.py`` (:71-84)
@@ -13,8 +13,8 @@ The subcommands, flags, output files and console blocks of
 CLI's ``--platform``.  ``--starts``, ``--perturb``, ``--passes``,
 ``--kicks`` and ``--kick-frac`` mean what they mean there; a multi-start
 run uses one card, whatever the host has.  Options whose code is not yet
-ported (``--sharded``, the lanczos/lobpcg solvers, ``--f64`` on the card)
-exit 1 with "not yet ported" and the ROADMAP item.  Output lands in
+ported (``--sharded``, ``--f64`` on the card) exit 1 with "not yet
+ported" and the ROADMAP item.  Output lands in
 ``pre_saved_EIG/`` and ``results/`` relative to the working directory.
 """
 
@@ -78,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
     _add_device(p_eig)
     p_eig.add_argument(
         "--solver", choices=["lanczos", "power", "lobpcg"], default="lanczos",
-        help="only 'power' is ported",
+        help="eigensolver: thick-restart Lanczos (cEIG's, the default), "
+        "LOBPCG, or gKL2's power iteration",
     )
     prec = p_eig.add_mutually_exclusive_group()
     prec.add_argument("--f32", action="store_true", help="force float32")
@@ -136,7 +137,7 @@ def build_parser() -> argparse.ArgumentParser:
     p_fused.add_argument(
         "--solver", choices=["auto", "power", "lanczos", "lobpcg"], default="auto",
         help="in-process eigensolver; 'auto' picks lanczos at <=256 nodes "
-        "and power above; only 'power' is ported",
+        "and power above",
     )
     p_fused.add_argument(
         "--power-iters", type=int, default=None,
@@ -156,19 +157,11 @@ class NotPorted(Exception):
     """A requested option whose code is not yet ported."""
 
 
-def _check_ported(args, fused: bool) -> None:
+def _check_ported(args) -> None:
     if getattr(args, "sharded", False):
         raise NotPorted("--sharded, the cross-card sharded_kl2 engine (ROADMAP.md A8b)")
     if args.f64 and args.device == "cuda":
         raise NotPorted("--f64 on the card (ROADMAP.md A9)")
-    if fused and args.eig_init:
-        from eig_kl_tpu_torch.io.hgr import peek_hgr_header
-        from eig_kl_tpu_torch.utils.config import SpectralConfig, resolve_solver
-
-        _, num_nodes = peek_hgr_header(args.input)
-        solver = resolve_solver(SpectralConfig(solver=args.solver), num_nodes).solver
-        if solver != "power":
-            raise NotPorted(f"the {solver} solver (ROADMAP.md A7)")
 
 
 def cmd_eig(args) -> int:
@@ -181,8 +174,6 @@ def cmd_eig(args) -> int:
     from eig_kl_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)
-    if args.solver != "power":
-        raise NotPorted(f"the {args.solver} solver (ROADMAP.md A7)")
     if args.f32:
         dtype = torch.float32
     elif args.f64:
@@ -190,7 +181,7 @@ def cmd_eig(args) -> int:
             raise NotPorted("--f64 on the card (ROADMAP.md A9)")
         dtype = torch.float64
     else:
-        dtype = None  # f32 on the card, f64 on the CPU
+        dtype = None  # f32 (+ the host f64 refinement) on the card, f64 on the CPU
     t0 = time.perf_counter()
     hg = read_hgr(args.input)
     print(f"Problem size: {hg.num_nets} nets, {hg.num_nodes} nodes, {hg.num_pins} pins")
@@ -246,7 +237,7 @@ def _run_kl(args, fused: bool) -> int:
     from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
     from eig_kl_tpu_torch.utils.device import resolve_device
 
-    _check_ported(args, fused)
+    _check_ported(args)
     resolve_device(args.device)
     dtype = torch.float64 if args.f64 else torch.float32
     t0 = time.perf_counter()
@@ -302,6 +293,9 @@ def _run_kl(args, fused: bool) -> int:
         print(f"  [{name}] {secs:.3f}s")
     if run.spectral_iterations is not None:
         print(f"Power iterations: {run.spectral_iterations}")
+    elif run.spectral_solve is not None:
+        what = {"lanczos": "Lanczos restarts", "lobpcg": "LOBPCG iterations"}
+        print(f"{what[run.spectral_solve.solver]}: {run.spectral_solve.iterations}")
     print(f"Device: {_device_name(args.device)}")
     print(f"Trajectory written to: {out}")
     return 0

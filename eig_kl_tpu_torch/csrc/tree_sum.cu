@@ -1,5 +1,10 @@
 // K6: the sum of a float32 vector or row-major matrix in XLA's CPU order,
-// in one launch; and the power step's scale by the norm.
+// in one launch; and three element-wise entry points of the power solve:
+// the step's scale by the norm, the padded step x - c * (2 x - 2 ax / deg)
+// of a v3 plan's (P/128, 128) state, and a * x + y with one rounding (the
+// momentum exit's deflation).  The last two are fused multiply-adds where
+// XLA's CPU fusion contracts a product into the add that takes it
+// (eig_kl_tpu/spectral/power.py:184, :309-310; ROADMAP.md C7).
 //
 // It replaces no Pallas kernel.  The JAX package leaves its norms and sums
 // to XLA: the power step's jnp.linalg.norm (eig_kl_tpu/spectral/power.py:185)
@@ -261,6 +266,34 @@ __global__ void scale_by_kernel(const float* __restrict__ y, const float* __rest
   }
 }
 
+// x - inv_shift * (2 x - 2 ax / deg), each operation rounded as the plain
+// version's PyTorch sequence does and the last one fused, as
+// csrc/spmv_csr.cu's power step does for a CSR row.
+__global__ void padded_step_kernel(const float* __restrict__ x, const float* __restrict__ ax,
+                                   const float* __restrict__ deg, float inv_shift,
+                                   float* __restrict__ y, int n) {
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    const float xi = x[i];
+    const float lap = __fsub_rn(__fmul_rn(2.0f, xi), __fdiv_rn(__fmul_rn(2.0f, ax[i]), deg[i]));
+    y[i] = __fmaf_rn(-inv_shift, lap, xi);
+  }
+}
+
+// out = a * x + y with one rounding; a is one value (a_scalar) or a vector.
+__global__ void axpy_kernel(const float* __restrict__ a, int a_scalar,
+                            const float* __restrict__ x, const float* __restrict__ y,
+                            float* __restrict__ out, int n) {
+  const float a0 = __ldg(a);
+  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
+    out[i] = __fmaf_rn(a_scalar ? a0 : a[i], x[i], y[i]);
+  }
+}
+
+int elementwise_blocks(int n) {
+  const int threads = 256;
+  return (n + threads - 1) / threads < 1056 ? (n + threads - 1) / threads : 1056;
+}
+
 }  // namespace
 
 // plan: host ints {num_rounds, final_count, then per round rows, cols,
@@ -300,6 +333,26 @@ extern "C" int scale_by_f32(const void* y, const void* nrm, void* x, int n, void
     const int blocks = (n + threads - 1) / threads < 1056 ? (n + threads - 1) / threads : 1056;
     scale_by_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(y), static_cast<const float*>(nrm), static_cast<float*>(x), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int padded_step_f32(const void* x, const void* ax, const void* deg, float inv_shift,
+                               void* y, int n, void* stream) {
+  if (n > 0) {
+    padded_step_kernel<<<elementwise_blocks(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(x), static_cast<const float*>(ax),
+        static_cast<const float*>(deg), inv_shift, static_cast<float*>(y), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int axpy_f32(const void* a, int a_scalar, const void* x, const void* y, void* out,
+                        int n, void* stream) {
+  if (n > 0) {
+    axpy_kernel<<<elementwise_blocks(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(a), a_scalar, static_cast<const float*>(x),
+        static_cast<const float*>(y), static_cast<float*>(out), n);
   }
   return static_cast<int>(cudaGetLastError());
 }

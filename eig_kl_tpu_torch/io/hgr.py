@@ -95,16 +95,6 @@ def _parse_tokens(text: str) -> Hypergraph:
     )
 
 
-def peek_hgr_header(path: str | os.PathLike) -> tuple[int, int]:
-    """Read ONLY the header line: ``(num_nets, num_nodes)``."""
-    with open(os.fspath(path), "r") as f:
-        for line in f:
-            fields = line.split()
-            if fields:
-                return int(fields[0]), int(fields[1])
-    raise ValueError(f"empty .hgr file: {path}")
-
-
 def read_hgr(path: str | os.PathLike, *, use_native: bool | None = None) -> Hypergraph:
     """Read a `.hgr` file.
 

@@ -1,7 +1,7 @@
 """End-to-end partitioning pipelines (the port of
 ``eig_kl_tpu/models/pipelines.py``).
 
-* :func:`spectral_partition`  == ``./cEIG <file>`` with the power solver
+* :func:`spectral_partition`  == ``./cEIG <file>``
 * :func:`kl_partition`        == ``./cKL|./gKL <file> [-EIG]``
 * :func:`fused_partition`     == ``./gKL2 <file> [-EIG]`` (gKL2.cu:989-1033)
 
@@ -9,8 +9,9 @@ Every entry point runs on the card unless the caller passes
 ``device="cpu"``.  Refinement goes through one engine
 (:mod:`eig_kl_tpu_torch.kl.megakernel`): one start or a batch of starts,
 one pass or many (``KLConfig.passes``), with kicks and
-``refresh_interval``.  The lanczos/lobpcg solvers raise
-``NotImplementedError`` naming their ROADMAP item.
+``refresh_interval``.  The spectral phase runs the power solver on the
+KL-weighted graph it shares with the refinement, or Lanczos / LOBPCG on
+the "eig"-weighted graph they build.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ from eig_kl_tpu_torch.kl.megakernel import fused_refine_mega, refine_mega
 from eig_kl_tpu_torch.kl.multipass import refine_ils, refine_multipass, resolved_passes
 from eig_kl_tpu_torch.kl.result import KLResult
 from eig_kl_tpu_torch.models.run import PartitionRunData as PartitionRun
-from eig_kl_tpu_torch.spectral.partition import check_solver, eig_partition
+from eig_kl_tpu_torch.spectral.partition import check_solver, eig_partition_solve
 from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
 from eig_kl_tpu_torch.utils.device import resolve_device
 from eig_kl_tpu_torch.utils.tracing import Tracer
@@ -106,17 +107,19 @@ def spectral_partition(
     dtype: torch.dtype | None = None,
     device: str | torch.device | None = None,
 ) -> PartitionRun:
-    """Spectral phase only (power solver).  ``dtype`` None = f32 on the
-    card, f64 on the CPU."""
+    """Spectral phase only (the cEIG executable), any solver.  ``dtype``
+    None = f32 on the card (with the host f64 refinement for lanczos and
+    lobpcg), f64 on the CPU."""
     dev = resolve_device(device)
     if dtype is None:
         dtype = torch.float32 if dev.type == "cuda" else torch.float64
     tracer = Tracer(dev)
     with tracer.span("spectral.total"):
-        eig, iters = eig_partition(hg, config, dtype=dtype, device=dev)
+        eig, solve = eig_partition_solve(hg, config, dtype=dtype, device=dev, tracer=tracer)
     return PartitionRun(
         circuit=hg.name, eig=eig, kl=None, timings=dict(tracer.spans),
-        spectral_iterations=iters,
+        spectral_iterations=solve.iterations if solve.solver == "power" else None,
+        spectral_solve=solve,
     )
 
 
@@ -197,10 +200,14 @@ def fused_partition(
     ``start_cuts`` holds each start's best cut.  With random init the
     starts are independent random splits.
 
-    One start, one pass, no refresh and no kicks take the one-launch
-    route (:func:`fused_refine_mega`: the split never leaves the device);
-    everything else runs the spectral phase on the shared graph and then
-    the refinement dispatch.
+    ``spectral_config.solver`` "auto" resolves up front (lanczos at 256
+    nodes or fewer).  The power solver shares the KL-weighted graph;
+    lanczos and lobpcg build the "eig"-weighted one
+    (``eig_kl_tpu/models/pipelines.py:196-240``).  With the power solver,
+    one start, one pass, no refresh and no kicks take the one-launch route
+    (:func:`fused_refine_mega`: the split never leaves the device);
+    everything else runs the spectral phase and then the refinement
+    dispatch.
     """
     dev = resolve_device(device)
     if use_eig:
@@ -209,9 +216,10 @@ def fused_partition(
     with tracer.span("graph.build"):
         g_host = clique_expand(hg, "kl")
         g = g_host.to_device(dev, dtype)
-    eig, iters, cuts = None, None, None
+    eig, iters, cuts, solve = None, None, None, None
     if (
         use_eig
+        and spectral_config.solver == "power"
         and starts == 1
         and kl_config.refresh_interval == 0
         and kl_config.kicks == 0
@@ -221,8 +229,13 @@ def fused_partition(
     else:
         with tracer.span("init"):
             if use_eig:
+                shared = g if spectral_config.solver == "power" else None
                 with tracer.span("spectral.total"):
-                    eig, iters = eig_partition(hg, spectral_config, dtype=dtype, graph=g)
+                    eig, solve = eig_partition_solve(
+                        hg, spectral_config, dtype=dtype, graph=shared, device=dev, tracer=tracer
+                    )
+                if solve.solver == "power":
+                    iters = solve.iterations
                 sides = eig.sides
             else:
                 sides = random_split(hg.num_nodes, seed)
@@ -242,4 +255,5 @@ def fused_partition(
         nnz=g_host.nnz,
         start_cuts=None if cuts is None else cuts.tolist(),
         spectral_iterations=iters,
+        spectral_solve=solve,
     )

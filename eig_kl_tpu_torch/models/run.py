@@ -1,5 +1,5 @@
 """Result bundle of an end-to-end run (the port's copy of
-``eig_kl_tpu/models/run.py``, plus the power iteration count)."""
+``eig_kl_tpu/models/run.py``, plus what the spectral solver reports)."""
 
 from __future__ import annotations
 
@@ -23,5 +23,9 @@ class PartitionRunData:
     #: per-start best cuts when the run was a multi-start (printed by
     #: the CLI as "Multi-start best cuts: ..."); None otherwise.
     start_cuts: list | None = None
-    #: power-iteration steps of the spectral phase; None without one.
+    #: power-iteration steps of the spectral phase; None without a power
+    #: solve.
     spectral_iterations: int | None = None
+    #: the spectral solver's report (spectral.partition.SpectralSolve);
+    #: None without a spectral phase or on the one-launch power route.
+    spectral_solve: object | None = None

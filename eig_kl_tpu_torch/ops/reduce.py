@@ -47,6 +47,10 @@ K6 = Kernel(
     [_P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P],
 )
 K6_SCALE = Kernel("tree_sum", "scale_by_f32", [_P, _P, _P, ctypes.c_int, _P])
+K6_AXPY = Kernel("tree_sum", "axpy_f32", [_P, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P])
+K6_STEP = Kernel(
+    "tree_sum", "padded_step_f32", [_P, _P, _P, ctypes.c_float, _P, ctypes.c_int, _P]
+)
 #: K6's mode: the values summed are v, v * v or v * w.
 _SUM, _SQUARE, _PRODUCT = 0, 1, 2
 _MAX_ROUNDS = 8  # csrc/tree_sum.cu:kMaxRounds
@@ -341,4 +345,76 @@ def fma_dot_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"fma_dot_cuda: two contiguous vectors of one length, got {tuple(x.shape)}, {tuple(y.shape)}")
     out = torch.empty((), dtype=torch.float32, device=x.device)
     K4(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+def axpy(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``a * x + y`` with one rounding in f32, as XLA's CPU fusion contracts
+    a product into the add that takes it (the momentum exit's deflation
+    ``w - c q0`` and the padded lazy walk).  ``a`` is a 0-d tensor or a
+    tensor of ``x``'s shape.  K6's axpy entry point for a tensor on the
+    card, :func:`axpy_plain` on the CPU."""
+    if x.device.type == "cpu":
+        return axpy_plain(a, x, y)
+    return axpy_cuda(a, x, y)
+
+
+def axpy_plain(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """:func:`axpy` in plain PyTorch (f64 keeps the rounded product)."""
+    if x.dtype != torch.float32:
+        return a * x + y
+    return fma_f32(a.expand_as(x), x, y)
+
+
+def axpy_cuda(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Launch K6's axpy entry point on the current stream: contiguous f32
+    tensors of one shape on one card, ``a`` 0-d or of that shape."""
+    ts = (a, x, y)
+    if x.device.type != "cuda" or any(t.device != x.device for t in ts):
+        raise ValueError("axpy_cuda needs a, x and y on one CUDA device")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"axpy_cuda is float32 only (ROADMAP.md A9); got {[t.dtype for t in ts]}")
+    scalar = a.dim() == 0
+    if y.shape != x.shape or not (scalar or a.shape == x.shape) or not all(t.is_contiguous() for t in ts):
+        raise ValueError(f"axpy_cuda: contiguous x, y of one shape and a 0-d or alike, got {[tuple(t.shape) for t in ts]}")
+    if x.numel() >= 2**31:
+        raise ValueError(f"axpy_cuda: {x.numel()} values do not fit its int32 indices")
+    out = torch.empty_like(x)
+    K6_AXPY(a.data_ptr(), int(scalar), x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    return out
+
+
+def padded_step(x: torch.Tensor, ax: torch.Tensor, deg: torch.Tensor, inv_shift: float) -> torch.Tensor:
+    """The power step on the padded ``(P/128, 128)`` state of a v3 plan, from
+    its SpMV ``ax``: ``x - inv_shift * (2 x - 2 ax / deg)``, the last
+    operation one fused multiply-add as XLA's CPU fusion contracts it
+    (``eig_kl_tpu/spectral/power.py:184``; ROADMAP.md C7).  K6's padded-step
+    entry point for a tensor on the card, :func:`padded_step_plain` on the
+    CPU."""
+    if x.device.type == "cpu":
+        return padded_step_plain(x, ax, deg, inv_shift)
+    return padded_step_cuda(x, ax, deg, inv_shift)
+
+
+def padded_step_plain(x: torch.Tensor, ax: torch.Tensor, deg: torch.Tensor, inv_shift: float) -> torch.Tensor:
+    """:func:`padded_step` in plain PyTorch."""
+    lap = 2.0 * x - 2.0 * ax / deg
+    c = torch.tensor(-np.float32(inv_shift), device=x.device)
+    return fma_f32(c, lap, x)
+
+
+def padded_step_cuda(x: torch.Tensor, ax: torch.Tensor, deg: torch.Tensor, inv_shift: float) -> torch.Tensor:
+    """Launch K6's padded-step entry point on the current stream: contiguous
+    f32 tensors of one shape on one card."""
+    ts = (x, ax, deg)
+    if x.device.type != "cuda" or any(t.device != x.device for t in ts):
+        raise ValueError("padded_step_cuda needs x, ax and deg on one CUDA device")
+    if any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"padded_step_cuda is float32 only; got {[t.dtype for t in ts]}")
+    if any(t.shape != x.shape or not t.is_contiguous() for t in ts) or x.numel() >= 2**31:
+        raise ValueError(f"padded_step_cuda: contiguous tensors of one shape, got {[tuple(t.shape) for t in ts]}")
+    out = torch.empty_like(x)
+    K6_STEP(x.data_ptr(), ax.data_ptr(), deg.data_ptr(), float(np.float32(inv_shift)), out.data_ptr(),
+            x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
     return out

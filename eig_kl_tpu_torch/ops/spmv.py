@@ -1,13 +1,16 @@
 """The SpMV ``y = A @ x``: kernel K1 (``csrc/spmv_csr.cu``), its plain
 version, and the dispatch between them and the v3 route
 (:mod:`eig_kl_tpu_torch.ops.spmv_v3`) for an f32 graph with a v3 plan;
-and K1's second entry point, the power step that ends in the SpMV
-(:func:`power_step`).
+and K1's other entry points, each an epilogue on K1's SpMV: the power
+step (:func:`power_step`), the "eig" Laplacian of Lanczos and LOBPCG
+(:func:`laplacian`), LOBPCG's blocked product (:func:`spmm`) and the
+momentum exit's lazy walk (:func:`lazy_walk`).
 
 Replaces the plan-based dispatch of ``eig_kl_tpu/ops/spmv_pallas.py``
 (``spmv_pallas``/``spmv_pallas_2d``) and the v1 and v2 Pallas kernels
 behind it.  The power solver runs one SpMV per step; the KL pass runs
-one for its initial ``A @ s`` and one for the final recount.
+one for its initial ``A @ s`` and one for the final recount; Lanczos one
+Laplacian per step, LOBPCG two blocked products per iteration.
 
 Summation order.  K1 and the plain version add each row in one fixed
 order: the order in which XLA's CPU backend adds the rows of the JAX
@@ -24,7 +27,10 @@ largest degree rounded up to a multiple of 8):
   ``(32 * ceil(W / 32) - W) // 2`` leading pad positions; each window
   adds its rounded products in order, and the window sums add in order.
 
-The ELL's padding entries add exact zeros and are skipped.  The f64
+The ELL's padding entries add exact zeros and are skipped.  The
+epilogues round as XLA's CPU fusion does: a product that feeds an add or
+a subtraction is one fused multiply-add with it (``deg * x - A x``,
+``w + dsinv * A(dsinv * w)``, ``x - c * lap``).  The f64
 plain version uses the same order with unfused multiply-adds (PyTorch
 has no exact f64 fused multiply-add); it is not bit-identical to XLA's.
 """
@@ -48,6 +54,17 @@ K1_STEP = Kernel(
     "spmv_csr", "power_step_f32",
     [_P, _P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, _P],
 )
+K1_LAPLACIAN = Kernel(
+    "spmv_csr", "laplacian_f32", [_P] * 6 + [ctypes.c_int, ctypes.c_int, _P]
+)
+K1_SPMM = Kernel(
+    "spmv_csr", "spmm_csr_f32", [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
+)
+K1_LAZY = Kernel(
+    "spmv_csr", "lazy_walk_f32", [_P] * 6 + [ctypes.c_int, ctypes.c_int, _P]
+)
+#: The most columns :func:`spmm` takes on the card (``csrc/spmv_csr.cu``).
+SPMM_MAX_COLUMNS = 16
 
 LANES = 8
 WINDOW = 32
@@ -92,26 +109,29 @@ def _accumulate(acc, rows, slot, step, values, fused_with=None):
 
 
 def spmv_plain(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` in plain PyTorch, in the graph's dtype, in K1's order."""
+    """``A @ x`` in plain PyTorch, in the graph's dtype, in K1's order; ``x``
+    a vector, or an ``(n, k)`` matrix whose columns are taken at once."""
     n, dt, dev = g.num_nodes, g.dtype, g.device
     rows = row_ids(g)
     pos = torch.arange(g.nnz, device=dev) - g.indptr[:-1].long()[rows]
     xv = x[g.indices.long()].to(dt)
+    extra = tuple(x.shape[1:])
+    data = g.data.view(-1, *(1,) * len(extra)).expand_as(xv)
     if g.row_width <= WINDOW:
-        lanes = torch.zeros(n, LANES, dtype=dt, device=dev)
+        lanes = torch.zeros(n, LANES, *extra, dtype=dt, device=dev)
         if dt == torch.float32:
-            _accumulate(lanes, rows, pos % LANES, pos // LANES, g.data, fused_with=xv)
+            _accumulate(lanes, rows, pos % LANES, pos // LANES, data, fused_with=xv)
         else:
-            _accumulate(lanes, rows, pos % LANES, pos // LANES, g.data * xv)
+            _accumulate(lanes, rows, pos % LANES, pos // LANES, data * xv)
         while lanes.shape[1] > 1:
             half = lanes.shape[1] // 2
             lanes = lanes[:, :half] + lanes[:, half:]
         return lanes[:, 0].contiguous()
     m = -(-g.row_width // WINDOW)
     shifted = pos + (m * WINDOW - g.row_width) // 2
-    windows = torch.zeros(n, m, dtype=dt, device=dev)
-    _accumulate(windows, rows, shifted // WINDOW, shifted % WINDOW, g.data * xv)
-    y = torch.zeros(n, dtype=dt, device=dev)
+    windows = torch.zeros(n, m, *extra, dtype=dt, device=dev)
+    _accumulate(windows, rows, shifted // WINDOW, shifted % WINDOW, data * xv)
+    y = torch.zeros(n, *extra, dtype=dt, device=dev)
     for j in range(m):
         y = y + windows[:, j]
     return y
@@ -192,5 +212,125 @@ def power_step_cuda(g: DeviceGraph, x: torch.Tensor, deg: torch.Tensor, inv_shif
         g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), x.data_ptr(), deg.data_ptr(),
         float(np.float32(inv_shift)), y.data_ptr(), g.num_nodes, g.row_width,
         torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return y
+
+
+def _check_vector(g: DeviceGraph, v: torch.Tensor, like: torch.Tensor, name: str) -> None:
+    if v.device != like.device or v.dtype != torch.float32 or v.shape != (g.num_nodes,) or not v.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous f32 ({g.num_nodes},) vector on x's card")
+
+
+def _fused_sub(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b - c`` as XLA's CPU fusion rounds it: one fused multiply-add in
+    f32, the rounded product in f64."""
+    if a.dtype != torch.float32:
+        return a * b - c
+    return fma_f32(a.expand_as(b), b, -c)
+
+
+def laplacian(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
+    """``L x = deg * x - A x`` (``L = D - A``, the clique-expansion Laplacian
+    built at cEIG.cpp:86-133; ``eig_kl_tpu/spectral/lanczos.py:57``): K1's
+    Laplacian entry point for a tensor on the card, :func:`laplacian_plain`
+    on the CPU.  The graph carries no v3 plan."""
+    if x.device.type == "cpu":
+        return laplacian_plain(g, x)
+    return laplacian_cuda(g, x)
+
+
+def laplacian_plain(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
+    """:func:`laplacian` in plain PyTorch, in the graph's dtype."""
+    return _fused_sub(g.degrees, x, spmv_plain(g, x))
+
+
+def laplacian_cuda(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
+    """Launch K1's Laplacian entry point on the current stream: the f32
+    graph and ``x`` (contiguous, ``(n,)``) on one card."""
+    _check_card(g, x, "laplacian_cuda")
+    _check_vector(g, g.degrees, x, "the graph's degrees")
+    y = torch.empty_like(x)
+    K1_LAPLACIAN(
+        g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), x.data_ptr(),
+        g.degrees.data_ptr(), y.data_ptr(), g.num_nodes, g.row_width,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    return y
+
+
+def spmm(g: DeviceGraph, X: torch.Tensor, *, laplacian: bool = False) -> torch.Tensor:
+    """``A @ X`` for ``X`` of shape ``(n, k)``, each column the SpMV of that
+    column (the JAX package's ``vmap`` of ``spmv``,
+    ``eig_kl_tpu/spectral/lobpcg_solver.py:51-56``); with ``laplacian``,
+    ``deg * X - A @ X``.  K1's blocked entry point for a tensor on the card
+    (``1 <= k <= 16``), :func:`spmm_plain` on the CPU."""
+    if X.device.type == "cpu":
+        return spmm_plain(g, X, laplacian=laplacian)
+    return spmm_cuda(g, X, laplacian=laplacian)
+
+
+def spmm_plain(g: DeviceGraph, X: torch.Tensor, *, laplacian: bool = False) -> torch.Tensor:
+    """:func:`spmm` in plain PyTorch, every column in K1's order."""
+    AX = spmv_plain(g, X)
+    if not laplacian:
+        return AX
+    return _fused_sub(g.degrees[:, None], X, AX)
+
+
+def spmm_cuda(g: DeviceGraph, X: torch.Tensor, *, laplacian: bool = False) -> torch.Tensor:
+    """Launch K1's blocked entry point on the current stream: the f32 graph
+    and a contiguous row-major ``(n, k)`` ``X``, ``1 <= k <= 16``, on one
+    card."""
+    n = g.num_nodes
+    if X.device.type != "cuda" or g.device != X.device:
+        raise ValueError("spmm_cuda needs X and the graph on one CUDA device")
+    if X.dtype != torch.float32 or g.dtype != torch.float32:
+        raise TypeError(f"the card's SpMM is float32 only (ROADMAP.md A9); got X {X.dtype}, graph {g.dtype}")
+    if X.dim() != 2 or X.shape[0] != n or not 1 <= X.shape[1] <= SPMM_MAX_COLUMNS or not X.is_contiguous():
+        raise ValueError(
+            f"X must be a contiguous (n, k) matrix with n = {n} and 1 <= k <= "
+            f"{SPMM_MAX_COLUMNS}, got {tuple(X.shape)}"
+        )
+    if laplacian:
+        _check_vector(g, g.degrees, X, "the graph's degrees")
+    Y = torch.empty_like(X)
+    K1_SPMM(
+        g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), X.data_ptr(),
+        g.degrees.data_ptr() if laplacian else None, Y.data_ptr(), n, X.shape[1], g.row_width,
+        torch.cuda.current_stream(X.device).cuda_stream,
+    )
+    return Y
+
+
+def lazy_walk(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor) -> torch.Tensor:
+    """The lazy walk ``(I + D^-1/2 A D^-1/2) / 2`` applied to ``w``:
+    ``0.5 * (w + dsinv * (A @ (dsinv * w)))``, the momentum exit's operator
+    (``eig_kl_tpu/spectral/power.py:297-305``).  K1's lazy-walk entry point
+    for a tensor on the card, :func:`lazy_walk_plain` on the CPU; the graph
+    carries no v3 plan."""
+    if w.device.type == "cpu":
+        return lazy_walk_plain(g, w, dsinv)
+    return lazy_walk_cuda(g, w, dsinv)
+
+
+def lazy_walk_plain(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor) -> torch.Tensor:
+    """:func:`lazy_walk` in plain PyTorch: the inner product rounded once,
+    ``w + dsinv * Ax`` one fused multiply-add in f32, the halving exact."""
+    ax = spmv_plain(g, (dsinv * w).to(g.dtype)).to(w.dtype)
+    if w.dtype != torch.float32:
+        return 0.5 * (w + dsinv * ax)
+    return 0.5 * fma_f32(dsinv, ax, w)
+
+
+def lazy_walk_cuda(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor) -> torch.Tensor:
+    """Launch K1's lazy-walk entry point on the current stream: the f32
+    graph, ``w`` and ``dsinv`` (contiguous, ``(n,)``) on one card."""
+    _check_card(g, w, "lazy_walk_cuda")
+    _check_vector(g, dsinv, w, "dsinv")
+    y = torch.empty_like(w)
+    K1_LAZY(
+        g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), w.data_ptr(),
+        dsinv.data_ptr(), y.data_ptr(), g.num_nodes, g.row_width,
+        torch.cuda.current_stream(w.device).cuda_stream,
     )
     return y

@@ -9,20 +9,28 @@ package's ``jax.random.uniform(PRNGKey(seed)) - 0.5``, reproduced bit
 for bit by :func:`eig_kl_tpu_torch.utils.threefry.uniform`.
 
 The steps run on the device; the exit tests run on the host, which reads
-one scalar per check (every ``check_interval`` steps for "sign", every
-step for "gkl2").  Norms and dot products add in the fixed order of
+one scalar per check (every ``check_interval`` steps for "sign" and
+"momentum", every step for "gkl2").  Norms and dot products add in the fixed order of
 :mod:`eig_kl_tpu_torch.ops.reduce`, which makes the iterate equal the JAX
 package's CPU iterate bit for bit.  On the card an f32 CSR step is three
 launches: K1's step entry point (``ops/spmv.py:power_step``), K6 for the
-norm with its root, and K6's scale.  The "momentum" exit is not yet
-ported.
+norm with its root, and K6's scale.
+
+The "momentum" exit (``power.py:263-391`` of the JAX package) runs a
+Chebyshev/Polyak recurrence on the symmetrized lazy walk
+``(I + D^-1/2 A D^-1/2) / 2``, K1's lazy-walk entry point on the card
+(``ops/spmv.py:lazy_walk``).  Its dots are XLA's vector dot, a chain of
+fused multiply-adds in index order (:func:`fma_dot`, K4 on the card), its
+deflation ``w - c q0`` one fused multiply-add per element (K6's axpy on
+the card), its norms K6.
 
 An f32 graph with a v3 plan iterates on zero-padded ``(P/128, 128)``
 state through the v3 SpMV, as the JAX package's plan branch does
 (``power.py:140-165``): 1 in the padding of the degrees, the norm over
 the padded state in XLA's order for a 2-D reduction, the Rayleigh
-quotient as XLA's vector dot over the padded state (K4 on the card).
-f64 ignores the plan.
+quotient as XLA's vector dot over the padded state (K4 on the card).  The
+padded step ``x - c * lap`` is one fused multiply-add, as on the CSR path
+(K6's padded step on the card, ROADMAP.md C7).  f64 ignores the plan.
 """
 
 from __future__ import annotations
@@ -34,15 +42,17 @@ import numpy as np
 import torch
 
 from eig_kl_tpu_torch.graph.csr import DeviceGraph
-from eig_kl_tpu_torch.ops.reduce import fma_dot, normalize, tree_dot, tree_norm, tree_norm_2d
+from eig_kl_tpu_torch.ops.reduce import (
+    axpy, fma_dot, normalize, padded_step, tree_dot, tree_norm, tree_norm_2d,
+)
 from eig_kl_tpu_torch.ops.select import upper_median
-from eig_kl_tpu_torch.ops.spmv import power_step, spmv
+from eig_kl_tpu_torch.ops.spmv import lazy_walk, power_step, spmv
 from eig_kl_tpu_torch.ops.spmv_v3 import spmv_v3_padded
 from eig_kl_tpu_torch.utils.config import SpectralConfig
 from eig_kl_tpu_torch.utils.threefry import uniform
 
-#: Exits the port implements; "momentum" is ROADMAP.md A7.
-CONVERGENCE_RULES = ("sign", "gkl2")
+#: The power solve's exit rules ("auto" resolves to one of the first two).
+CONVERGENCE_RULES = ("sign", "gkl2", "momentum")
 
 
 def resolve_convergence(convergence: str, dtype: torch.dtype) -> str:
@@ -50,10 +60,7 @@ def resolve_convergence(convergence: str, dtype: torch.dtype) -> str:
     if convergence == "auto":
         return "gkl2" if dtype == torch.float64 else "sign"
     if convergence not in CONVERGENCE_RULES:
-        raise NotImplementedError(
-            f"power convergence {convergence!r} is not yet ported to "
-            "eig_kl_tpu_torch (ROADMAP.md A7)"
-        )
+        raise ValueError(f"unknown power convergence {convergence!r}")
     return convergence
 
 
@@ -70,6 +77,12 @@ class PowerOperator:
     #: x -> (the next unit iterate, the norm it was divided by).
     step: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]]
     dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    #: the norm of a state.
+    norm: Callable[[torch.Tensor], torch.Tensor]
+    #: (w, dsinv as a state) -> 0.5 (w + dsinv A (dsinv w)), the lazy walk.
+    lazy: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    #: the degrees with 1 where a degree is 0, as a vector.
+    safe_deg: torch.Tensor
 
 
 def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype) -> PowerOperator:
@@ -101,14 +114,18 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype) -> PowerOpe
             # 1,024; in between, for row counts whose last block XLA
             # vectorizes, the norm (and so the iterate) can differ from the
             # JAX package's in the last bits (ops/reduce.py:tree_sum_2d).
-            y = x2d - inv_shift * norm_lap(x2d)
+            y = padded_step(x2d, spmv_v3_padded(g.plan, x2d), deg_used, inv_shift)
             nrm = tree_norm_2d(y)
             return normalize(y, nrm), nrm
 
         def dot(x, y):
             return fma_dot(x.reshape(-1), y.reshape(-1))
 
-        return PowerOperator(to_state, from_state, norm_lap, step, dot)
+        def lazy(w2d, dsinv2d):
+            ax = spmv_v3_padded(g.plan, dsinv2d * w2d)
+            return 0.5 * axpy(dsinv2d, ax, w2d)
+
+        return PowerOperator(to_state, from_state, norm_lap, step, dot, tree_norm_2d, lazy, safe_deg)
 
     g_csr = dataclasses.replace(g, plan=None)  # f64 ignores the plan
 
@@ -120,7 +137,10 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype) -> PowerOpe
         nrm = tree_norm(y)
         return normalize(y, nrm), nrm
 
-    return PowerOperator(lambda x: x, lambda x: x, norm_lap, step, tree_dot)
+    def lazy(w, dsinv):
+        return lazy_walk(g_csr, w, dsinv)
+
+    return PowerOperator(lambda x: x, lambda x: x, norm_lap, step, tree_dot, tree_norm, lazy, safe_deg)
 
 
 def _power_core(
@@ -179,6 +199,8 @@ def _power_core(
             split = new_split
             iteration += check_interval
         v = best_x if flips > best_flips else x
+    elif convergence == "momentum":
+        v, iteration = _momentum(op, x, n, dtype, check_interval, stable_checks, max_iters)
     else:  # "gkl2": the reference's rule (gKL2.cu:26-27, 370-377)
         norm, prev = nrm, torch.zeros((), dtype=dtype, device=g.device)
         while True:
@@ -191,6 +213,78 @@ def _power_core(
         v = x
     lam = op.dot(v, op.norm_lap(v))  # Rayleigh quotient
     return lam, from_state(v), iteration
+
+
+def _reciprocal(nrm: torch.Tensor) -> torch.Tensor:
+    """``1 / nrm`` where ``nrm > 0``, else 1."""
+    return torch.where(nrm > 0, 1.0 / torch.where(nrm > 0, nrm, 1.0), 1.0)
+
+
+def _momentum(op: PowerOperator, x0, n, dtype, check_interval, stable_checks, max_iters):
+    """The "momentum" exit from the first step's iterate ``x0``
+    (``eig_kl_tpu/spectral/power.py:263-391``): the recurrence
+    ``u_{k+1} = B u_k - beta u_{k-1}`` on the symmetric lazy walk
+    ``B = (I + D^-1/2 A D^-1/2) / 2``, the constant mode ``q0 ~ sqrt(deg)``
+    projected off both carries at every check, ``beta = (0.995 mu / 2)^2``
+    from the Rayleigh quotient ``mu`` of the deflated unit iterate, and the
+    sign exit's split-stability rule without its dip exit.  Returns the
+    unit iterate in the reference basis ``D^-1/2 w`` (as a state) and the
+    iteration count."""
+    flip_tol = 1e-3
+    edge = 0.995
+    to_state, from_state = op.to_state, op.from_state
+    # An f32 root taken in f64 and rounded once is the correctly rounded
+    # one (XLA's); PyTorch's f32 sqrt on the CPU is sometimes an ulp off.
+    dsq = torch.sqrt(op.safe_deg.double()).to(dtype)
+    dsinv = 1.0 / dsq
+    dsinv_st = to_state(dsinv)  # zero in a padded state's padding
+    q0 = dsq / tree_norm(dsq)  # the top (constant) mode of B
+
+    def deflate(w):
+        return axpy(-fma_dot(q0, w), q0, w)
+
+    def split_of_w(wv):
+        v = wv * dsinv
+        return upper_median(v, n) > v
+
+    w0 = deflate(from_state(x0) * dsq)  # the reference draw, in the B basis
+    nv0 = tree_norm(w0)
+    w0 = w0 / torch.where(nv0 > 0, nv0, 1.0)
+    x = to_state(w0)
+    xp = to_state(torch.zeros_like(w0))
+    beta = torch.zeros((), dtype=dtype, device=w0.device)
+    split = split_of_w(w0)
+    stable, iteration = 0, 1
+    while True:
+        # No dip exit: the constant mode is deflated at every check, and
+        # beta's adaptation re-excites bulk modes between checks, which a
+        # dip rule would misread.  Split stability or the cap decide.
+        past_min = iteration > 2 * check_interval
+        if (stable >= stable_checks and past_min) or iteration >= max_iters:
+            break
+        wp, w = xp, x
+        for _ in range(check_interval):
+            u = op.lazy(w, dsinv_st) - beta * wp
+            inv = _reciprocal(op.norm(u))
+            wp, w = w * inv, u * inv
+        # Deflate the constant mode from both carries (by linearity the
+        # projected pair still satisfies the recurrence).
+        wv = deflate(from_state(w))
+        inv = _reciprocal(tree_norm(wv))
+        wv, wpv = wv * inv, deflate(from_state(wp)) * inv
+        x = to_state(wv)
+        # One more lazy walk per check: the symmetric Rayleigh quotient of
+        # the deflated unit iterate, a lower bound on the Fiedler mode's mu.
+        mu = torch.clamp(fma_dot(wv, from_state(op.lazy(x, dsinv_st))), 0.05, 1.0 - 1e-7)
+        beta = torch.square(edge * mu) * 0.25
+        new_split = split_of_w(wv)
+        d = int((new_split != split).sum())
+        stable = stable + 1 if min(d, n - d) <= flip_tol * n else 0
+        xp, split = to_state(wpv), new_split
+        iteration += check_interval
+    v_flat = from_state(x) * dsinv
+    nvf = tree_norm(v_flat)
+    return to_state(v_flat / torch.where(nvf > 0, nvf, 1.0)), iteration
 
 
 def power_partition_fiedler(

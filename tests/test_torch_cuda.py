@@ -788,3 +788,143 @@ def test_power_step_on_the_card_launches_at_most_4_kernels(cuda):
     for _ in range(steps):
         x_cpu = op_cpu.step(x_cpu)[0]
     assert torch.equal(x.cpu().view(torch.int32), x_cpu.view(torch.int32))
+
+
+# ------------------------------------------------ K1's Laplacian, SpMM, walk
+
+
+def _eig_graphs(kind, device):
+    """The same "eig"-weighted f32 graph on the CPU and on the card."""
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+
+    g_host = clique_expand(_hypergraph(kind), "eig")
+    return g_host.to_device("cpu"), g_host.to_device(device)
+
+
+@pytest.mark.parametrize("kind", ["gen_0.02", "hub10", "hub44", "hub130"])
+def test_k1_epilogues_equal_plain_bitwise(cuda, kind):
+    """K1's Laplacian, blocked and lazy-walk entry points against their plain
+    versions on the card and on the CPU, bit for bit, and deterministic;
+    each column of the blocked product equals K1 on that column."""
+    import importlib
+
+    S = importlib.import_module("eig_kl_tpu_torch.ops.spmv")
+    g_cpu, g = _eig_graphs(kind, cuda)
+    rng = np.random.default_rng(2)
+    n = g.num_nodes
+    x = torch.as_tensor(rng.standard_normal(n).astype(np.float32))
+    x[::53] = -0.0
+    d = torch.as_tensor((1.0 / np.sqrt(rng.uniform(0.5, 9.0, n))).astype(np.float32))
+    before = (S.K1_LAPLACIAN.launches, S.K1_SPMM.launches, S.K1_LAZY.launches)
+    lap = S.laplacian(g, x.to(cuda))
+    assert torch.equal(lap, S.laplacian_cuda(g, x.to(cuda)))
+    assert torch.equal(lap, S.laplacian_plain(g, x.to(cuda)))
+    assert torch.equal(lap.cpu(), S.laplacian_plain(g_cpu, x))
+    walk = S.lazy_walk(g, x.to(cuda), d.to(cuda))
+    assert torch.equal(walk, S.lazy_walk_cuda(g, x.to(cuda), d.to(cuda)))
+    assert torch.equal(walk.cpu(), S.lazy_walk_plain(g_cpu, x, d))
+    spmm_launches = 0
+    for k in (1, 4, 12, 16):
+        X = torch.as_tensor(rng.standard_normal((n, k)).astype(np.float32))
+        for laplacian in (False, True):
+            Y = S.spmm(g, X.to(cuda), laplacian=laplacian)
+            assert torch.equal(Y, S.spmm_cuda(g, X.to(cuda), laplacian=laplacian))
+            assert torch.equal(Y.cpu(), S.spmm_plain(g_cpu, X, laplacian=laplacian))
+            spmm_launches += 2
+        for j in range(k):
+            assert torch.equal(S.spmm(g, X.to(cuda))[:, j], S.spmv_csr(g, X[:, j].contiguous().to(cuda)))
+            spmm_launches += 1
+        # A contiguous X that is not 16-byte aligned takes the kernel's
+        # column-at-a-time branch: the same bits.
+        store = torch.empty(n * k + 1, device=cuda)
+        X_odd = store[1:].view(n, k)
+        X_odd.copy_(X.to(cuda))
+        assert torch.equal(S.spmm(g, X_odd, laplacian=True).cpu(), S.spmm_plain(g_cpu, X, laplacian=True))
+        spmm_launches += 1
+    torch.cuda.synchronize()
+    after = (S.K1_LAPLACIAN.launches, S.K1_SPMM.launches, S.K1_LAZY.launches)
+    assert after == (before[0] + 2, before[1] + spmm_launches, before[2] + 2)
+
+
+def test_k1_spmm_checks_its_arguments(cuda):
+    from eig_kl_tpu_torch.ops.spmv import spmm_cuda
+
+    _, g = _eig_graphs("gen_0.02", cuda)
+    n = g.num_nodes
+    with pytest.raises(ValueError, match="1 <= k <= 16"):
+        spmm_cuda(g, torch.zeros(n, 17, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        spmm_cuda(g, torch.zeros(4, n, device=cuda).T)
+    with pytest.raises(TypeError, match="float32"):
+        spmm_cuda(g, torch.zeros(n, 4, dtype=torch.float64, device=cuda))
+
+
+def test_k6_axpy_and_padded_step_equal_plain_bitwise(cuda):
+    from eig_kl_tpu_torch.ops import reduce as R
+
+    rng = np.random.default_rng(4)
+    x, y, a = (torch.as_tensor(rng.standard_normal((1584, 128)).astype(np.float32)) for _ in range(3))
+    deg = torch.as_tensor(rng.uniform(0.5, 9.0, (1584, 128)).astype(np.float32))
+    c = torch.tensor(np.float32(-0.3712))
+    for aa in (c, a):
+        got = R.axpy(aa.to(cuda), x.to(cuda), y.to(cuda))
+        assert torch.equal(got, R.axpy_cuda(aa.to(cuda), x.to(cuda), y.to(cuda)))
+        assert torch.equal(got.cpu(), R.axpy_plain(aa, x, y))
+    for inv_shift in (0.5, 1.0 / 3.0):
+        got = R.padded_step(x.to(cuda), y.to(cuda), deg.to(cuda), inv_shift)
+        assert torch.equal(got.cpu(), R.padded_step_plain(x, y, deg, inv_shift))
+
+
+def test_momentum_on_the_card_equals_the_cpu_run(cuda):
+    """The momentum exit at f32 on gen 0.02x: the card's run (K1's lazy
+    walk, K4, K6 and its axpy) equals the CPU's plain run bit for bit."""
+    from eig_kl_tpu_torch.ops.reduce import K6_AXPY
+    from eig_kl_tpu_torch.ops.spmv import K1_LAZY
+    from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+
+    g_cpu, g = _graphs("gen_0.02", cuda)
+    cfg = SpectralConfig(solver="power", convergence="momentum", max_iterations=201)
+    before = (K1_LAZY.launches, K6_AXPY.launches)
+    card = power_partition_fiedler(g, cfg)
+    assert K1_LAZY.launches > before[0] and K6_AXPY.launches > before[1]
+    cpu = power_partition_fiedler(g_cpu, cfg)
+    assert card[4] == cpu[4] == 201
+    assert card[1] == cpu[1]
+    np.testing.assert_array_equal(card[2].view(np.int32), cpu[2].view(np.int32))
+    np.testing.assert_array_equal(card[3], cpu[3])
+
+
+@pytest.mark.parametrize("solver", ["lanczos", "lobpcg"])
+def test_other_solvers_on_the_card_equal_the_cpu_run(cuda, solver):
+    """Lanczos and LOBPCG at f32 with the host refinement, on the card and
+    on the CPU, on gen 0.02x's largest component: the f32 trajectories
+    part (cuBLAS and the CPU add in other orders), the refined lambda_2
+    agrees to 1e-6 relative."""
+    from eig_kl_tpu_torch.io.hgr import Hypergraph
+    from eig_kl_tpu_torch.ops.spmv import K1_LAPLACIAN, K1_SPMM
+    from eig_kl_tpu_torch.spectral.partition import eig_partition_solve
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csgraph
+
+    hg = _hypergraph("gen_0.02")
+    sizes = np.diff(hg.net_offsets)
+    first = np.repeat(hg.pins[hg.net_offsets[:-1]], sizes)
+    adj = sp.coo_matrix((np.ones(len(first)), (first, hg.pins)), shape=(hg.num_nodes,) * 2)
+    _, label = csgraph.connected_components(adj, directed=False)
+    keep = label == np.argmax(np.bincount(label))
+    nets = np.add.reduceat(keep[hg.pins].astype(np.int64), hg.net_offsets[:-1]) == sizes
+    pins = (np.cumsum(keep) - 1)[hg.pins[np.repeat(nets, sizes)]].astype(np.int32)
+    offsets = np.zeros(int(nets.sum()) + 1, np.int64)
+    np.cumsum(sizes[nets], out=offsets[1:])
+    lcc = Hypergraph(int(keep.sum()), int(nets.sum()), pins, offsets)
+    before = K1_LAPLACIAN.launches + K1_SPMM.launches
+    card, solve = eig_partition_solve(lcc, SpectralConfig(solver=solver), device="cuda")
+    assert K1_LAPLACIAN.launches + K1_SPMM.launches > before
+    cpu, _ = eig_partition_solve(lcc, SpectralConfig(solver=solver), device="cpu")
+    assert card.eigenvalue == pytest.approx(cpu.eigenvalue, rel=1e-6)
+    assert card.eigenvalue == pytest.approx(0.0973479036, rel=1e-6)
+    assert solve.refined is not None and solve.refined[1] <= 1e-5
+    assert sorted(card.balance()) == [1847, 1847]

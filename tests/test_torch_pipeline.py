@@ -143,14 +143,48 @@ def test_default_device_is_the_card(entry, monkeypatch):
         fn(read_hgr(GEN_002))
 
 
-def test_fused_rejects_what_is_not_ported():
-    from eig_kl_tpu_torch.io.hgr import read_hgr
+@pytest.mark.parametrize("solver", ["lanczos", "lobpcg"])
+def test_spectral_partition_other_solvers_match_jax(solver):
+    """``spectral_partition`` with Lanczos or LOBPCG (f64 on the CPU) on the
+    largest component of gen 0.02x, against the JAX package's."""
+    from eig_kl_tpu.models.pipelines import spectral_partition as jax_spectral
+    from eig_kl_tpu.utils.config import SpectralConfig as JaxSpec
+    from eig_kl_tpu_torch.models.pipelines import spectral_partition
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+    from test_torch_lanczos import circuit
+
+    hg, jhg = circuit("lcc")
+    ref = jax_spectral(jhg, JaxSpec(solver=solver), dtype=jnp.float64)
+    got = spectral_partition(hg, SpectralConfig(solver=solver), device="cpu")
+    assert got.eig.eigenvalue == pytest.approx(ref.eig.eigenvalue, abs=1e-10)
+    assert got.spectral_iterations is None and got.spectral_solve.solver == solver
+    assert got.spectral_solve.refined is None  # f64: no host refinement
+
+
+@pytest.mark.parametrize("solver", ["lanczos", "lobpcg"])
+def test_fused_partition_other_solvers_match_jax(solver):
+    """``fused_partition`` at f32 with Lanczos or LOBPCG (and the host
+    refinement): the spectral split of the "eig" graph, then KL on the KL
+    graph.  The f32 vectors differ in their last bits and may be negated,
+    so the split is compared up to the mirror and the cuts within 2 %."""
+    from eig_kl_tpu.models.pipelines import fused_partition as jax_fused
+    from eig_kl_tpu.utils.config import SpectralConfig as JaxSpec
     from eig_kl_tpu_torch.models.pipelines import fused_partition
     from eig_kl_tpu_torch.utils.config import SpectralConfig
+    from test_torch_lanczos import circuit
 
-    hg = read_hgr(GEN_002)
-    with pytest.raises(NotImplementedError, match="A7"):
-        fused_partition(hg, spectral_config=SpectralConfig(solver="lanczos"), device="cpu")
+    hg, jhg = circuit("lcc")
+    ref = jax_fused(jhg, spectral_config=JaxSpec(solver=solver), dtype=jnp.float32)
+    got = fused_partition(hg, spectral_config=SpectralConfig(solver=solver), device="cpu")
+    assert got.eig.eigenvalue == pytest.approx(ref.eig.eigenvalue, rel=1e-6)
+    sign = 1 if got.eig.values @ ref.eig.values >= 0 else -1
+    clear = np.abs(ref.eig.values - ref.eig.median) > 1e-9
+    sides = got.eig.sides if sign > 0 else 1 - got.eig.sides
+    np.testing.assert_array_equal(sides[clear], ref.eig.sides[clear])
+    assert got.kl.initial_cut == pytest.approx(ref.kl.initial_cut, rel=1e-4)
+    assert abs(got.kl.best_cut - ref.kl.best_cut) <= 0.02 * ref.kl.best_cut
+    assert abs(got.kl.final_cut - got.kl.verified_cut) <= 1e-5 * got.kl.final_cut
+    assert got.spectral_solve.solver == solver and got.spectral_iterations is None
 
 
 # ---------------------------------------------------------------- CLI
@@ -213,23 +247,63 @@ def test_cli_missing_file(workdir, capsys):
     assert "Error: file not found: nope.hgr" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize(
-    "flags, item",
-    [
-        (["--solver", "lanczos"], "A7"),
-    ],
-)
-def test_cli_not_yet_ported(workdir, capsys, flags, item):
-    assert _port_cli(["fused", GEN_002, "-EIG", "--device", "cpu", *flags]) == 1
-    err = capsys.readouterr().err
-    assert "not yet ported" in err and f"ROADMAP.md {item}" in err
+def _connected_circuit(path, num_nodes=200, num_nets=260):
+    """A connected random circuit of at most 256 nodes, written to ``path``
+    ("auto" resolves to Lanczos there)."""
+    from conftest import random_hypergraph
+    from eig_kl_tpu_torch.io.hgr import Hypergraph, write_hgr
+    from test_torch_lanczos import largest_component
+
+    hg = random_hypergraph(np.random.default_rng(8), num_nodes, num_nets, 5)
+    hg = largest_component(Hypergraph(hg.num_nodes, hg.num_nets, hg.pins, hg.net_offsets))
+    write_hgr(path, hg)
+    return hg
 
 
-def test_cli_auto_solver_on_a_tiny_circuit_is_not_ported(workdir, capsys):
-    """"auto" resolves to lanczos at 256 nodes or fewer."""
-    assert _port_cli(["generate", "0.001", "-o", "t.hgr", "--seed", "1"]) == 0
-    assert _port_cli(["fused", "t.hgr", "-EIG", "--device", "cpu"]) == 1
-    assert "lanczos solver (ROADMAP.md A7) is not yet ported" in capsys.readouterr().err
+def test_cli_eig_runs_lanczos_by_default(workdir, capsys):
+    """``eig`` with no ``--solver`` runs Lanczos (f64 on the CPU), and its
+    EIG file matches the JAX CLI's: lambda_2 within 1e-10, the split up to
+    the mirror."""
+    from eig_kl_tpu.cli.main import main as jax_cli
+    from eig_kl_tpu.io.eigfile import read_eig_file
+    from eig_kl_tpu_torch.io.hgr import write_hgr
+    from test_torch_lanczos import circuit
+
+    write_hgr("lcc.hgr", circuit("lcc")[0])
+    assert jax_cli(["eig", "lcc.hgr", "--platform", "cpu"]) == 0
+    ref = read_eig_file("pre_saved_EIG/lcc.hgr_out.txt")
+    os.remove("pre_saved_EIG/lcc.hgr_out.txt")
+    capsys.readouterr()
+    assert _port_cli(["eig", "lcc.hgr", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    got = read_eig_file("pre_saved_EIG/lcc.hgr_out.txt")
+    assert got.eigenvalue == pytest.approx(ref.eigenvalue, abs=1e-10)
+    assert f"lambda_2 = {got.eigenvalue:.12g}" in out and "balance  = 1847 / 1847" in out
+    mirrored = got.values @ ref.values < 0
+    clear = np.abs(ref.values - ref.median) > 1e-9
+    sides = 1 - got.sides if mirrored else got.sides
+    np.testing.assert_array_equal(sides[clear], ref.sides[clear])
+
+
+def test_cli_fused_auto_solver_on_a_tiny_circuit_runs_lanczos(workdir, capsys):
+    """``fused -EIG`` on a circuit of at most 256 nodes: "auto" resolves to
+    Lanczos (f32 plus the host refinement), as in the JAX CLI, whose
+    trajectory file it matches in length and best cut."""
+    from eig_kl_tpu.cli.main import main as jax_cli
+
+    hg = _connected_circuit("t.hgr")
+    assert hg.num_nodes <= 256
+    assert jax_cli(["fused", "t.hgr", "-EIG", "--platform", "cpu"]) == 0
+    out_file = "results/t.hgr_KL_CutSize_EIG_output.txt"
+    ref = _trajectory(out_file)
+    os.remove(out_file)
+    capsys.readouterr()
+    assert _port_cli(["fused", "t.hgr", "-EIG", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    got = _trajectory(out_file)
+    assert "Lanczos restarts:" in out and "Power iterations" not in out
+    assert got[0, 1] == pytest.approx(ref[0, 1], rel=1e-4)  # the spectral split's cut
+    assert got[:, 1].min() == pytest.approx(ref[:, 1].min(), rel=0.02)
 
 
 def test_cli_kl_sharded_is_not_ported(workdir, capsys):

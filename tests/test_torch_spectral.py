@@ -100,14 +100,33 @@ def test_power_f32_steps_are_bit_identical(gen002_graphs, steps):
     np.testing.assert_array_equal(v_t, v_j)
 
 
-def test_momentum_is_not_ported(gen002_graphs):
+def test_unknown_convergence_is_refused(gen002_graphs):
     from eig_kl_tpu_torch.spectral.power import _power_core
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
+    with pytest.raises(ValueError, match="unknown power convergence"):
         _power_core(
             gen002_graphs["float32"][1], shift=2.0, tolerance=1e-6, min_iters=100,
-            max_iters=1000, seed=42, dtype=torch.float32, convergence="momentum",
+            max_iters=1000, seed=42, dtype=torch.float32, convergence="chebyshev",
         )
+
+
+def test_power_partition_momentum_matches_jax(gen002_graphs):
+    """``power_partition_fiedler`` with ``convergence="momentum"`` at f32
+    against the JAX package's, capped at 201 steps: the same vector, median
+    and sides bit for bit."""
+    from eig_kl_tpu.spectral.power import power_partition_fiedler as jax_ppf
+    from eig_kl_tpu.utils.config import SpectralConfig as JaxConfig
+    from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+
+    g_jax, g = gen002_graphs["float32"]
+    cfg = dict(solver="power", convergence="momentum", max_iterations=201)
+    _, med_j, v_j, sides_j = jax_ppf(g_jax, JaxConfig(**cfg), dtype=jnp.float32)
+    _, med_t, v_t, sides_t, iters = power_partition_fiedler(g, SpectralConfig(**cfg))
+    assert iters == 201
+    np.testing.assert_array_equal(v_t.view(np.int32), np.asarray(v_j).view(np.int32))
+    assert med_t == med_j
+    np.testing.assert_array_equal(sides_t, sides_j)
 
 
 def test_eig_partition_matches_jax_f64():
@@ -134,13 +153,37 @@ def test_eig_partition_matches_jax_f64():
 
 
 @pytest.mark.parametrize("solver", ["lanczos", "lobpcg"])
-def test_other_solvers_are_not_ported(solver):
+def test_eig_partition_other_solvers_match_jax_f64(solver):
+    """``eig_partition`` with Lanczos or LOBPCG in f64 on the largest
+    component of gen 0.02x: lambda_2 within 1e-10, the split (up to the
+    mirror a negated vector gives) and the balance."""
+    from eig_kl_tpu.spectral.partition import eig_partition as jax_eig
+    from eig_kl_tpu.utils.config import SpectralConfig as JaxConfig
+    from eig_kl_tpu_torch.spectral.partition import eig_partition
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+    from test_torch_lanczos import circuit
+
+    hg, jhg = circuit("lcc")
+    ref = jax_eig(jhg, JaxConfig(solver=solver), dtype=jnp.float64)
+    got, iters = eig_partition(hg, SpectralConfig(solver=solver), dtype=torch.float64, device="cpu")
+    assert iters >= 1
+    assert got.eigenvalue == pytest.approx(ref.eigenvalue, abs=1e-10)
+    assert got.eigenvalue == pytest.approx(0.0973479036, abs=1e-9)
+    sign = 1 if got.values @ ref.values >= 0 else -1
+    np.testing.assert_allclose(sign * got.values, ref.values, atol=1e-7)
+    clear = np.abs(ref.values - ref.median) > 1e-9
+    sides = got.sides if sign > 0 else 1 - got.sides
+    np.testing.assert_array_equal(sides[clear], ref.sides[clear])
+    assert got.balance() == ref.balance() == (1847, 1847)
+
+
+def test_unknown_solver_is_refused():
     from eig_kl_tpu_torch.io.hgr import read_hgr
     from eig_kl_tpu_torch.spectral.partition import eig_partition
     from eig_kl_tpu_torch.utils.config import SpectralConfig
 
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A7"):
-        eig_partition(read_hgr(GEN_002), SpectralConfig(solver=solver), device="cpu")
+    with pytest.raises(ValueError, match="unknown spectral solver"):
+        eig_partition(read_hgr(GEN_002), SpectralConfig(solver="arpack"), device="cpu")
 
 
 def test_auto_solver_resolves_like_jax():

@@ -563,6 +563,60 @@ def test_fma_dot_runs_the_host_chain_for_cpu_tensors_only():
     assert K4.launches == before
 
 
+@pytest.mark.parametrize("shift", [2.0, 3.0])
+def test_v3_padded_power_steps_equal_the_jax_steps(shift):
+    """The v3-planned f32 power solve on the padded state against the JAX
+    package's (its v3 kernels in interpret mode), three steps, bit for
+    bit.  At shift 3.0 the step's ``x - inv_shift * lap`` rounds once as
+    XLA's fused multiply-add: rounding the product first (the port's padded
+    step before) moved about half of the values by an ulp or more
+    (ROADMAP.md C7)."""
+    from eig_kl_tpu.graph.csr import Graph as JaxGraph
+    from eig_kl_tpu.spectral.power import _power_core as jax_core
+    from eig_kl_tpu_torch.graph.csr import Graph
+    from eig_kl_tpu_torch.spectral.power import _power_core
+
+    g, jplan, plan = _plans("gen_0.02")
+    jdev = JaxGraph(g.num_nodes, g.indptr, g.indices, g.data).to_device()._replace(plan=jplan)
+    gd = dataclasses.replace(Graph.from_arrays(g.indptr, g.indices, g.data).to_device("cpu"), plan=plan)
+    kw = dict(shift=shift, tolerance=1e-6, min_iters=100, max_iters=3, seed=42, convergence="gkl2")
+    lam_j, v_j, it_j = jax_core(jdev, dtype="float32", **kw)
+    lam_t, v_t, it_t = _power_core(gd, dtype=torch.float32, **kw)
+    assert int(it_j) == it_t == 3
+    np.testing.assert_array_equal(_bits(v_t), _bits(v_j))
+    assert float(lam_t) == float(lam_j)
+
+
+def test_v3_padded_momentum_equals_the_jax_run():
+    """The momentum exit on the padded state of a v3 plan (the lazy walk
+    through the v3 SpMV, the deflation fused) against the JAX package's,
+    through its first check.  Not bit for bit: here the JAX package's dots
+    take a slice of the padded state as their operand, which XLA fuses
+    into the dot, and at this size such a dot adds in an order the port
+    does not reproduce (ROADMAP.md C9): some values differ in their last
+    bits.  So the sign exit's band: the same iterations, the vector to
+    1e-6, the split within 1 % of n."""
+    from eig_kl_tpu.graph.csr import Graph as JaxGraph
+    from eig_kl_tpu.spectral.power import _power_core as jax_core
+    from eig_kl_tpu_torch.graph.csr import Graph
+    from eig_kl_tpu_torch.spectral.power import _power_core
+
+    g, jplan, plan = _plans("gen_0.02")
+    jdev = JaxGraph(g.num_nodes, g.indptr, g.indices, g.data).to_device()._replace(plan=jplan)
+    gd = dataclasses.replace(Graph.from_arrays(g.indptr, g.indices, g.data).to_device("cpu"), plan=plan)
+    kw = dict(shift=2.0, tolerance=1e-6, min_iters=100, max_iters=6, seed=42, convergence="momentum",
+              check_interval=5)
+    _, v_j, it_j = jax_core(jdev, dtype="float32", **kw)
+    _, v_t, it_t = _power_core(gd, dtype=torch.float32, **kw)
+    assert int(it_j) == it_t == 6
+    v_j, v_t = np.asarray(v_j), v_t.numpy()
+    np.testing.assert_allclose(v_t, v_j, rtol=1e-6, atol=1e-6 * np.abs(v_j).max())
+    n = len(v_j)
+    split_j, split_t = np.sort(v_j)[n // 2] > v_j, np.sort(v_t)[n // 2] > v_t
+    d = int((split_j != split_t).sum())
+    assert min(d, n - d) <= 0.01 * n
+
+
 # ------------------------------------------------------------ the slice
 
 

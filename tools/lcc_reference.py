@@ -1,0 +1,115 @@
+"""The JAX package's numbers on the largest connected component of the
+generated circuit at 1.0x, seed 42 (184,406 nodes), on the CPU at f32:
+what ``chip_smoke.py``'s lanczos, lobpcg and momentum phases hold the
+port to on the card.
+
+Run from the repository root (a few minutes, some GiB of memory)::
+
+    JAX_PLATFORMS=cpu python3 tools/lcc_reference.py
+
+It prints, as JSON: the component's counts; ``eig_partition`` with
+Lanczos and with LOBPCG at f32 plus the host f64 refinement (lambda_2,
+balance, the solvers' own counts); one KL pass (``kl_partition``,
+``KLConfig()``, the ``kl -EIG`` command's) from the Lanczos split; and the
+momentum exit (``power_partition_fiedler``, ``convergence="momentum"``)
+on the component's KL-weighted graph, with a digest of its split and
+vector, beside the port's own run of it on the CPU (its kernels' plain
+versions).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import sys
+import time
+
+import jax.numpy as jnp
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from chip_smoke import MULTIPLIER, SEED, largest_component  # noqa: E402
+
+
+def digest(a) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def main() -> int:
+    import torch
+
+    from eig_kl_tpu.graph.expand import clique_expand as jax_expand
+    from eig_kl_tpu.io.hgr import Hypergraph as JaxHypergraph
+    from eig_kl_tpu.models.pipelines import kl_partition as jax_kl
+    from eig_kl_tpu.spectral.lanczos import lanczos_fiedler as jax_lanczos
+    from eig_kl_tpu.spectral.lobpcg_solver import lobpcg_fiedler as jax_lobpcg
+    from eig_kl_tpu.spectral.partition import eig_partition as jax_eig
+    from eig_kl_tpu.spectral.power import power_partition_fiedler as jax_ppf
+    import eig_kl_tpu.spectral.power as jax_power
+    from eig_kl_tpu.utils.config import KLConfig as JaxKL, SpectralConfig as JaxSpec
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.models.generator import CircuitGenerator
+    from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+
+    out = {}
+    hg = largest_component(CircuitGenerator(MULTIPLIER, SEED).generate())
+    jhg = JaxHypergraph(hg.num_nodes, hg.num_nets, hg.pins, hg.net_offsets, name=hg.name)
+    out["component"] = {"nodes": hg.num_nodes, "nets": hg.num_nets, "pins": int(len(hg.pins))}
+    g_eig = jax_expand(jhg, "eig", use_native=False)
+    g_dev = g_eig.to_device(dtype=jnp.float32)
+    for solver, fn in (("lanczos", jax_lanczos), ("lobpcg", jax_lobpcg)):
+        t0 = time.perf_counter()
+        res = fn(g_dev, JaxSpec(solver=solver), dtype=jnp.float32)
+        solve_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eig = jax_eig(jhg, JaxSpec(solver=solver), dtype=jnp.float32, host_graph=g_eig)
+        out[solver] = {
+            "solver_eigenvalue": float(res.eigenvalue),
+            "solver_residual": float(res.residual),
+            "count": int(res.restarts if solver == "lanczos" else res.iterations),
+            "solver_s": solve_s,
+            "eigenvalue": eig.eigenvalue,
+            "median": eig.median,
+            "balance": list(eig.balance()),
+            "eig_partition_s": time.perf_counter() - t0,
+        }
+        if solver == "lanczos":
+            lanczos_eig = eig
+    t0 = time.perf_counter()
+    run = jax_kl(jhg, init=lanczos_eig, kl_config=JaxKL(), dtype=jnp.float32)
+    kl = run.kl
+    out["kl_from_lanczos"] = {
+        "initial_cut": float(kl.initial_cut), "best_cut": float(kl.best_cut),
+        "final_cut": float(kl.final_cut), "verified_cut": float(kl.verified_cut),
+        "swaps": int(kl.iterations), "s": time.perf_counter() - t0,
+    }
+    g_kl = jax_expand(jhg, "kl", use_native=False)
+    cfg = dict(solver="power", convergence="momentum")
+    t0 = time.perf_counter()
+    lam, med, vals, sides = jax_ppf(g_kl.to_device(dtype=jnp.float32), JaxSpec(**cfg), dtype=jnp.float32)
+    jax_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p_lam, p_med, p_vals, p_sides, p_iters = power_partition_fiedler(
+        clique_expand(hg, "kl").to_device("cpu"), SpectralConfig(**cfg), dtype=torch.float32
+    )
+    out["momentum"] = {
+        "iterations": jax_power.last_iterations, "median": med, "eigenvalue": lam,
+        "side_1": int(np.asarray(sides).sum()), "sides_digest": digest(np.asarray(sides, np.int8)),
+        "values_digest": digest(np.asarray(vals, np.float32)), "s": jax_s,
+        "port_cpu": {
+            "iterations": p_iters, "median": p_med, "eigenvalue": p_lam,
+            "side_1": int(p_sides.sum()), "sides_digest": digest(p_sides.astype(np.int8)),
+            "values_digest": digest(p_vals.astype(np.float32)), "s": time.perf_counter() - t0,
+            "values_equal_bitwise": bool(np.array_equal(
+                np.asarray(vals, np.float32).view(np.int32), p_vals.astype(np.float32).view(np.int32))),
+        },
+    }
+    print(json.dumps(out, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
