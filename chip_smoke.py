@@ -17,7 +17,11 @@ spectral split), checks that each run went through its kernels and that
 its cuts are right, and prints one JSON line per the kernels and, last,
 ``{"ok": true, "device": ...}``.  The kernels: K1 (the CSR SpMV, and its
 power step entry point), K2, K3a/b/c, K4, K5 and K6 (the fixed-order sum
-of the norms and cuts, and the power step's scale).
+of the norms and cuts, and the power step's scale).  Then the Lanczos,
+LOBPCG and momentum paths on the circuit's largest component, and the
+f64 engine: every f64 kernel against its plain version, the f64 fused
+run, Lanczos and LOBPCG at spectral_partition's f64 default, the f64
+momentum exit and the f64 multi-start.
 Any failed check raises, so the script exits nonzero and prints no
 result; so does a machine without a CUDA card.
 """
@@ -66,7 +70,22 @@ JAX_LCC_LOBPCG_ITERS = 169
 JAX_LCC_KL_INITIAL, JAX_LCC_KL_BEST, JAX_LCC_KL_SWAPS = 55795.1953125, 40172.46875, 16579
 JAX_LCC_MOMENTUM_ITERS, JAX_LCC_MOMENTUM_MEDIAN = 726, 1.5583746062475257e-05
 JAX_LCC_MOMENTUM_SIDES = "1ea518686d1bcfa2"
+#: The JAX package's f64 runs on the CPU (tools/lcc_reference.py --x64):
+#: on the component, Lanczos and LOBPCG at f64 (no host refinement, the
+#: JAX package's rule off the TPU): restarts, lambda_2, iterations; the
+#: f64 momentum exit's iterations; fused_partition(use_eig=True,
+#: dtype=float64) on the whole circuit: power iterations (the gkl2 exit's
+#: cap), initial and best cut, swaps.
+JAX_F64_RESTARTS, JAX_F64_LAMBDA2 = 6, 0.047562230223799844
+JAX_F64_LOBPCG_ITERS, JAX_F64_LOBPCG_LAMBDA2 = 169, 0.047562230229031846
+JAX_F64_MOMENTUM_ITERS = 726
+JAX_F64_FUSED_ITERS, JAX_F64_FUSED_INITIAL, JAX_F64_FUSED_BEST, JAX_F64_FUSED_SWAPS = (
+    1000, 52345.97619047332, 40725.30952380652, 9039)
+F64_OPS_PER_S = 34e12  # H100 SXM f64 outside the tensor cores, NVIDIA data sheet
 GEN_002 = os.path.join(os.path.dirname(os.path.abspath(__file__)), "benchmarks", "data", "gen_0.02_42.hgr")
+#: The JAX package's f64 momentum split of that component, bit-packed
+#: (tools/lcc_reference.py --x64 writes it).
+MOMENTUM_F64_SIDES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools", "lcc_momentum_f64_sides.bin")
 
 
 def largest_component(hg):
@@ -146,7 +165,7 @@ def swaps_of(out) -> list[tuple[int, torch.Tensor]]:
 def k2_bound(g, starts) -> tuple[float, str, int, int]:
     """K2's least time for one launch over ``starts``, a list of
     ``(swaps, swapped nodes)`` per start: ``(ms, bound_by, bytes,
-    operations)``.
+    operations)``, in the graph's dtype.
 
     Bytes: the graph read once; per start sf0, a_s0 and the four
     parameters read once, and the final sf, the entries the pass wrote
@@ -157,12 +176,14 @@ def k2_bound(g, starts) -> tuple[float, str, int, int]:
     rows.
     """
     n, nnz = g.num_nodes, g.nnz
+    size = g.data.element_size()
     degrees = (g.indptr[1:] - g.indptr[:-1]).long()
-    n_bytes, n_ops = 4 * (g.indptr.numel() + 2 * nnz), 0
+    n_bytes, n_ops = 4 * g.indptr.numel() + (4 + size) * nnz, 0
     for swaps, swapped in starts:
-        n_bytes += 4 * (3 * n + 4 + 4 * (swaps + 1) + 8)
+        n_bytes += 3 * size * n + 2 * size + 8 + (2 * size + 8) * (swaps + 1) + 8 * size
         n_ops += swaps * 2 * -(-n // 128) + 2 * int(degrees[swapped.long()].sum())
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F32_OPS_PER_S
+    rate = F32_OPS_PER_S if size == 4 else F64_OPS_PER_S
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / rate
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations", n_bytes, n_ops
 
 
@@ -254,6 +275,7 @@ def main() -> int:
     from eig_kl_tpu_torch.io.hgr import read_hgr
     from eig_kl_tpu_torch.kl.megakernel import (
         K2,
+        K2_F64,
         K2_STARTS,
         _batch_init,
         k2_selection,
@@ -270,10 +292,15 @@ def main() -> int:
     from eig_kl_tpu_torch.ops import _build
     from eig_kl_tpu_torch.ops.spmv import (
         K1,
+        K1_F64,
         K1_LAPLACIAN,
+        K1_LAPLACIAN_F64,
         K1_LAZY,
+        K1_LAZY_F64,
         K1_SPMM,
+        K1_SPMM_F64,
         K1_STEP,
+        K1_STEP_F64,
         laplacian_cuda,
         laplacian_plain,
         lazy_walk_cuda,
@@ -289,7 +316,19 @@ def main() -> int:
     from eig_kl_tpu_torch.ops import spmv_v3 as V
     from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
     from eig_kl_tpu_torch.ops import reduce as R
-    from eig_kl_tpu_torch.ops.reduce import K4, K6, K6_AXPY, K6_SCALE, K6_STEP, fma_dot_cuda, fma_dot_plain
+    from eig_kl_tpu_torch.ops.reduce import (
+        K4,
+        K4_F64,
+        K6,
+        K6_AXPY,
+        K6_AXPY_F64,
+        K6_F64,
+        K6_SCALE,
+        K6_SCALE_F64,
+        K6_STEP,
+        fma_dot_cuda,
+        fma_dot_plain,
+    )
     from eig_kl_tpu_torch.spectral.power import _power_core, power_operator, power_partition_fiedler
     from eig_kl_tpu_torch.parallel.smega import (
         K5,
@@ -308,8 +347,11 @@ def main() -> int:
 
     dev = torch.device("cuda")
     card = card_line()
-    all_kernels = (K1, K1_STEP, K1_LAPLACIAN, K1_SPMM, K1_LAZY, K2, V.K3A, V.K3B, V.K3C, K4, K5, K6,
+    f32_kernels = (K1, K1_STEP, K1_LAPLACIAN, K1_SPMM, K1_LAZY, K2, V.K3A, V.K3B, V.K3C, K4, K5, K6,
                    K6_SCALE, K6_STEP, K6_AXPY)
+    f64_kernels = (K1_F64, K1_STEP_F64, K1_LAPLACIAN_F64, K1_SPMM_F64, K1_LAZY_F64, K2_F64, K4_F64,
+                   K6_F64, K6_SCALE_F64, K6_AXPY_F64)
+    all_kernels = f32_kernels + f64_kernels
 
     def reset_counts():
         for kern in all_kernels:
@@ -1285,11 +1327,12 @@ def main() -> int:
         )
 
     # The Lanczos path: spectral_partition, f32 on the card plus the host
-    # f64 refinement, then the EIG file and one KL pass from it.
-    def spectral_run(solver):
+    # f64 refinement (dtype=torch.float32, given: the default is f64), then
+    # the EIG file and one KL pass from it.
+    def spectral_run(solver, dtype=torch.float32):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        r = spectral_partition(lcc, SpectralConfig(solver=solver), device="cuda")
+        r = spectral_partition(lcc, SpectralConfig(solver=solver), dtype=dtype, device="cuda")
         torch.cuda.synchronize()
         return r, time.perf_counter() - t
 
@@ -1374,7 +1417,7 @@ def main() -> int:
         torch.cuda.synchronize()
         t = time.perf_counter()
         with tracer.span("spectral"):
-            out = power_partition_fiedler(lk, mom_config)
+            out = power_partition_fiedler(lk, mom_config, dtype=torch.float32)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t
 
@@ -1397,6 +1440,338 @@ def main() -> int:
     )
     report_device_busy("the momentum run", momentum_run)
     print(f"lanczos/lobpcg/momentum phase: {time.perf_counter() - t_phase:.1f} s")
+
+    # Phase 11: the f64 engine (ROADMAP.md A9): every f64 kernel against its
+    # plain version bit for bit at the main path's shapes, then each f64
+    # path through the user's entry points, its counts set to 0 just before
+    # it and read just after: fused_partition at f64 on the whole circuit,
+    # spectral_partition with Lanczos and LOBPCG at its default (f64, no
+    # host refinement) and the f64 momentum exit on the component, and the
+    # f64 multi-start.
+    t_phase = time.perf_counter()
+
+    def bits64(t):
+        return t.view(torch.int64)
+
+    def bound64(n_bytes, n_ops):
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, n_ops / F64_OPS_PER_S
+        return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+    def held64(kern, plain, what):
+        got, again, ref = kern(), kern(), plain()
+        check(got.dtype == torch.float64 and ref.dtype == torch.float64, f"{what} is not f64")
+        check(torch.equal(bits64(got), bits64(ref)), f"{what} is not bitwise equal to its plain version")
+        check(torch.equal(bits64(got), bits64(again)), f"two launches of {what} differ")
+        return float((got - ref).abs().max())
+
+    g64 = g_host.to_device(dev, torch.float64)
+    lg64 = clique_expand(lcc, "eig").to_device(dev, torch.float64)
+    lk64 = lcc_kl_host.to_device(dev, torch.float64)
+    x64 = (torch.rand(n, generator=gen, dtype=torch.float64) - 0.5).to(dev)
+    x64[::97] = -0.0
+    xl64 = (torch.rand(ln, generator=gen, dtype=torch.float64) - 0.5).to(dev)
+    xl64[::97] = -0.0
+    yl64 = (torch.rand(ln, generator=gen, dtype=torch.float64) - 0.5).to(dev)
+    deg64 = torch.where(g64.degrees > 0, g64.degrees, 1.0)
+    dl64 = 1.0 / torch.sqrt(torch.where(lk64.degrees > 0, lk64.degrees, 1.0))
+    a64 = torch.sparse_csr_tensor(g64.indptr.long(), g64.indices.long(), g64.data, size=(n, n))
+    al64 = torch.sparse_csr_tensor(lg64.indptr.long(), lg64.indices.long(), lg64.data, size=(ln, ln))
+    alk64 = torch.sparse_csr_tensor(lk64.indptr.long(), lk64.indices.long(), lk64.data, size=(ln, ln))
+    # Bytes: each input read once, each output written once (int32 CSR
+    # offsets and columns, f64 values); operations: two per stored entry
+    # and a few per row, at the card's f64 rate.
+    csr64 = 4 * (g64.indptr.numel() + nnz) + 8 * nnz
+    lcsr64 = 4 * (lg64.indptr.numel() + l_nnz) + 8 * l_nnz
+    f64 = {}
+    f64["K1 spmv_csr_f64"] = dict(
+        kern=lambda: spmv_csr(g64, x64), plain=lambda: spmv_plain(g64, x64), lib=lambda: a64 @ x64,
+        symbol="spmv_csr_kernel", bound=bound64(csr64 + 16 * n, 2 * nnz),
+        replaces="eig_kl_tpu/ops/spmv_pallas.py:339", source="eig_kl_tpu_torch/csrc/spmv_csr.cu")
+    f64["K1 power_step_f64"] = dict(
+        kern=lambda: power_step_cuda(g64, x64, deg64, 0.5), plain=lambda: power_step_plain(g64, x64, deg64, 0.5),
+        lib=None, symbol="power_step_kernel", bound=bound64(csr64 + 24 * n, 2 * nnz + 6 * n),
+        replaces="eig_kl_tpu/ops/spmv_pallas.py:339 (with the power step of eig_kl_tpu/spectral/power.py:184)",
+        source="eig_kl_tpu_torch/csrc/spmv_csr.cu")
+    held64(lambda: power_step_cuda(g64, x64, deg64, 1.0 / 3.0),
+           lambda: power_step_plain(g64, x64, deg64, 1.0 / 3.0), "K1's f64 step at shift 3")
+    f64["K1 laplacian_f64"] = dict(
+        kern=lambda: laplacian_cuda(lg64, xl64), plain=lambda: laplacian_plain(lg64, xl64),
+        lib=lambda: lg64.degrees * xl64 - al64 @ xl64, symbol="laplacian_kernel",
+        bound=bound64(lcsr64 + 24 * ln, 2 * l_nnz + 2 * ln),
+        replaces="eig_kl_tpu/ops/spmv_pallas.py:339 (with eig_kl_tpu/spectral/lanczos.py:60's epilogue)",
+        source="eig_kl_tpu_torch/csrc/spmv_csr.cu")
+    for k in (4, 12):
+        X64 = (torch.rand(ln, k, generator=gen, dtype=torch.float64) - 0.5).to(dev)
+        check(torch.equal(bits64(spmm_cuda(lg64, X64)),
+                          bits64(torch.stack([spmv_csr(lg64, X64[:, j].contiguous()) for j in range(k)], dim=1))),
+              f"a column of the f64 blocked product at k = {k} differs from K1 on that column")
+        f64[f"K1 spmm_csr_f64 k={k}"] = dict(
+            kern=lambda X=X64: spmm_cuda(lg64, X, laplacian=True),
+            plain=lambda X=X64: spmm_plain(lg64, X, laplacian=True),
+            lib=lambda X=X64: lg64.degrees[:, None] * X - torch.sparse.mm(al64, X), symbol="spmm",
+            bound=bound64(lcsr64 + 8 * ln + 16 * ln * k, (2 * l_nnz + 2 * ln) * k),
+            replaces="eig_kl_tpu/ops/spmv_pallas.py:339 (vmapped by eig_kl_tpu/spectral/lobpcg_solver.py:51-56)",
+            source="eig_kl_tpu_torch/csrc/spmv_csr.cu")
+    f64["K1 lazy_walk_f64"] = dict(
+        kern=lambda: lazy_walk_cuda(lk64, xl64, dl64), plain=lambda: lazy_walk_plain(lk64, xl64, dl64),
+        lib=lambda: 0.5 * (xl64 + dl64 * (alk64 @ (dl64 * xl64))), symbol="lazy_walk_kernel",
+        bound=bound64(4 * (lk64.indptr.numel() + l_nnz) + 8 * l_nnz + 24 * ln, 2 * l_nnz + 4 * ln),
+        replaces="eig_kl_tpu/ops/spmv_pallas.py:339 (with eig_kl_tpu/spectral/power.py:305's epilogue)",
+        source="eig_kl_tpu_torch/csrc/spmv_csr.cu")
+    w64 = (torch.rand(n, generator=gen, dtype=torch.float64) - 0.5).to(dev)
+    f64["K6 tree_sum_f64, the 1-D norm over n"] = dict(
+        kern=lambda: R.tree_sum_cuda(x64, square=True, root=True),
+        plain=lambda: R._root(R._products_plain(x64, x64, R.tree_sum_plain)),
+        lib=lambda: torch.linalg.vector_norm(x64), symbol="tree_sum_kernel", bound=bound64(8 * n + 8, 2 * n),
+        replaces="eig_kl_tpu/spectral/power.py:185 (jnp.linalg.norm) and eig_kl_tpu/ops/partition.py:88 (.sum()), XLA ops, no Pallas kernel",
+        source="eig_kl_tpu_torch/csrc/tree_sum.cu")
+    held64(lambda: R.tree_sum_cuda(x64), lambda: R.tree_sum_plain(x64), "K6's f64 sum")
+    held64(lambda: R.tree_sum_cuda(x64, w64), lambda: R._products_plain(x64, w64, R.tree_sum_plain), "K6's f64 dot")
+    short = x64[:20].contiguous()
+    held64(lambda: R.tree_sum_cuda(short, square=True, root=True),
+           lambda: R._root(R._products_plain(short, short, R.tree_sum_plain)), "K6's f64 norm of 20 values")
+    nrm64 = R.tree_norm(x64)
+    f64["K6 scale_by_f64"] = dict(
+        kern=lambda: R.normalize_cuda(x64, nrm64), plain=lambda: R.normalize_plain(x64, nrm64),
+        lib=lambda: x64 / nrm64, symbol="scale_by_kernel", bound=bound64(16 * n + 8, n),
+        replaces="eig_kl_tpu/spectral/power.py:187 (jnp.where(safe, y / nrm, y), XLA ops, no Pallas kernel)",
+        source="eig_kl_tpu_torch/csrc/tree_sum.cu")
+    c64 = torch.tensor(-0.37, dtype=torch.float64, device=dev)
+    f64["K6 axpy_f64"] = dict(
+        kern=lambda: R.axpy_cuda(c64, xl64, yl64), plain=lambda: R.axpy_plain(c64, xl64, yl64),
+        lib=lambda: torch.addcmul(yl64, c64, xl64), symbol="axpy_kernel", bound=bound64(24 * ln + 8, 2 * ln),
+        replaces="eig_kl_tpu/spectral/power.py:310 (w - jnp.vdot(q0, w) * q0, XLA ops, no Pallas kernel)",
+        source="eig_kl_tpu_torch/csrc/tree_sum.cu")
+    f64["K4 fma_dot_f64"] = dict(
+        kern=lambda: fma_dot_cuda(xl64, yl64), plain=lambda: fma_dot_plain(xl64, yl64),
+        lib=lambda: torch.dot(xl64, yl64), symbol="fma_dot_kernel", bound=bound64(16 * ln + 8, 2 * ln),
+        replaces="eig_kl_tpu/spectral/power.py:309, :336 (jnp.vdot, an XLA op, no Pallas kernel)",
+        source="eig_kl_tpu_torch/csrc/fma_dot.cu", plain_reps=1, reps=20)
+    for what, e in f64.items():
+        e["err"] = held64(e["kern"], e["plain"], what)
+        e["ms"] = cuda_ms(e["kern"], e.get("reps", 200))
+        e["plain_ms"] = cuda_ms(e["plain"], e.get("plain_reps", 3))
+        e["library_ms"] = None if e["lib"] is None else cuda_ms(e["lib"], 200)
+        e["device_us"] = device_us_per_launch(lambda e=e: [e["kern"]() for _ in range(20)], e["symbol"])
+        print(
+            f"{what}: bitwise equal to its plain version; {e['ms']:.4f} ms, device {fmt_us(e['device_us'])} "
+            f"per launch, plain {e['plain_ms']:.3f} ms, library "
+            + ("none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms")
+            + f", bound {e['bound'][0]:.5f} ms by {e['bound'][1]}"
+        )
+
+    # K2 at f64: one start from a seeded random split, capped at 3,000
+    # swaps (the plain pass's time), in each selection; four starts batched
+    # against the batched plain version; the flat scan against the cache on
+    # the smaller circuits (the f64 crossover).
+    s64 = sides_to_signs(sides, torch.float64)
+    as64 = spmv_csr(g64, s64)
+    cut64 = float(cut_size(g64, s64, as64))
+    cap64 = 3000
+    args64 = (g64, s64, as64, cut64, cap64, limit, 1e-6)
+    t0 = time.perf_counter()
+    out64_p = kl_pass_plain(*args64)
+    torch.cuda.synchronize()
+    k2_64_plain_ms = (time.perf_counter() - t0) * 1e3
+    out64_k = kl_pass_cuda(*args64)
+    check(int(out64_k.scalars[2]) == cap64, f"the f64 K2 pass ran {int(out64_k.scalars[2])} swaps, not {cap64}")
+    check_same_pass(out64_k, out64_p, "the f64 K2 against kl_pass_plain")
+    check(out64_k.log_cut.dtype == torch.float64, "the f64 K2's logs are not f64")
+    one64 = torch.tensor([cut64], dtype=torch.float64, device=dev)
+    cap64_t = torch.tensor([cap64], dtype=torch.int32, device=dev)
+    sel_args = (g64, s64[None], as64[None], one64, one64, cap64_t, torch.zeros_like(cap64_t), cap64 + 1, limit, 1e-6)
+    k2_64_sel_ms = {}
+    for sel in ("flat", "shared", "global"):
+        check_same_pass(kl_pass_batch_cuda(*sel_args, _cache=sel).start(0), out64_p,
+                        f"the f64 K2 with the {sel} selection against kl_pass_plain")
+        k2_64_sel_ms[sel] = cuda_ms(lambda sel=sel: kl_pass_batch_cuda(*sel_args, _cache=sel), 2)
+    k2_64_err = float((out64_k.log_cut - out64_p.log_cut).abs().max())
+    k2_64_ms = cuda_ms(lambda: kl_pass_cuda(*args64), 2)
+    k2_64_bound = k2_bound(g64, swaps_of(out64_k))
+    print(
+        f"K2 f64: {cap64} swaps from a random split, bitwise equal to kl_pass_plain in the flat, shared and "
+        f"global selections; {k2_64_ms:.3f} ms (the wrapper's {k2_selection(n, g64.row_width, torch.float64)}), "
+        + ", ".join(f"{sel} {t:.3f} ms ({1e3 * t / cap64:.3f} us/swap)" for sel, t in k2_64_sel_ms.items())
+        + f"; plain {k2_64_plain_ms:.1f} ms; bound {k2_64_bound[0]:.4f} ms by {k2_64_bound[1]}"
+    )
+    b64_s = sides_to_signs(b_sides, torch.float64)
+    b64_as, b64_cut0 = _batch_init(g64, b64_s)
+    b64_best0 = b64_cut0.clone()
+    b64_best0[3] = 1.0
+    b64_cap = torch.tensor([1500, 0, 1000, 500], dtype=torch.int32, device=dev)
+    b64_args = (g64, b64_s, b64_as, b64_cut0, b64_best0, b64_cap, b_term0, 1501, limit, 1e-6)
+    out64_b = kl_pass_batch_cuda(*b64_args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out64_bp = kl_pass_batch_plain(*b64_args)
+    torch.cuda.synchronize()
+    kb64_plain_ms = (time.perf_counter() - t0) * 1e3
+    check_same_pass(out64_b, out64_bp, "the batched f64 K2 against kl_pass_batch_plain")
+    check(out64_b.scalars[:, 2].long().tolist() == b64_cap.tolist(), "the batched f64 K2's swaps")
+    kb64_err = float((out64_b.log_cut - out64_bp.log_cut).abs().max())
+    kb64_ms = cuda_ms(lambda: kl_pass_batch_cuda(*b64_args), 3)
+    kb64_bound = k2_bound(g64, swaps_of(out64_b))
+    print(
+        f"K2 f64 batched: 4 starts, {out64_b.scalars[:, 2].long().tolist()} swaps, bitwise equal to the plain "
+        f"version; {kb64_ms:.3f} ms, plain {kb64_plain_ms:.1f} ms, bound {kb64_bound[0]:.4f} ms by {kb64_bound[1]}"
+    )
+    crossover64 = {}
+    for mult in (0.02, 0.05, 0.1):
+        c_g = crossover_graphs[mult].to_device(dev, torch.float64)
+        c_n = c_g.num_nodes
+        c_sides = torch.as_tensor(random_split(c_n, SEED)).to(dev)
+        c_s = sides_to_signs(c_sides, torch.float64)
+        c_as, c_cut = _batch_init(c_g, c_s[None])
+        c_n1 = int(c_sides.sum())
+        c_cap = torch.tensor([min(c_n1, c_n - c_n1)], dtype=torch.int32, device=dev)
+        c_args = (c_g, c_s[None], c_as, c_cut, c_cut, c_cap, torch.zeros_like(c_cap), int(c_cap) + 1,
+                  KLConfig().terminate_limit(c_n), 1e-6)
+        outs = {sel: kl_pass_batch_cuda(*c_args, _cache=sel) for sel in ("flat", "shared")}
+        check_same_pass(outs["flat"], outs["shared"], f"the f64 K2's two selections at gen {mult}x")
+        c_it = int(outs["flat"].scalars[0, 2])
+        times = {"flat": [], "shared": []}
+        for sel in ("flat", "shared", "shared", "flat"):
+            times[sel].append(cuda_ms(lambda sel=sel: kl_pass_batch_cuda(*c_args, _cache=sel), 5))
+        crossover64[c_n] = {sel: 1e3 * min(t) / c_it for sel, t in times.items()}
+        print(
+            f"K2 f64 at gen {mult}x ({c_n} nodes, {c_it} swaps, the two selections bitwise equal): flat scan "
+            f"{crossover64[c_n]['flat']:.3f} us/swap, row-max cache {crossover64[c_n]['shared']:.3f} us/swap; "
+            f"the wrapper takes {k2_selection(c_n, c_g.row_width, torch.float64)}"
+        )
+
+    def f32_launched():
+        return {kern.symbol: kern.launches for kern in f32_kernels if kern.launches}
+
+    # fused_partition at f64 on the whole circuit, through the user's entry
+    # point: the power solve's gkl2 exit (the f64 default), one KL pass.
+    def fused64_run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fused_partition(hg, use_eig=True, dtype=torch.float64, device="cuda")
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    reset_counts()
+    run64, run64_s = fused64_run()
+    fu64_launches = {kern.symbol: kern.launches for kern in all_kernels}
+    check(not f32_launched(), f"the f64 fused run launched f32 kernels: {f32_launched()}")
+    kl64, iters64 = run64.kl, run64.spectral_iterations
+    check(K1_F64.launches == 3 and K1_STEP_F64.launches == iters64 and K6_F64.launches == iters64 + 5
+          and K6_SCALE_F64.launches == iters64 and K2_F64.launches == 1,
+          f"the f64 fused run's launches: {fu64_launches} for {iters64} power steps")
+    check(abs(iters64 - JAX_F64_FUSED_ITERS) <= 25,
+          f"the f64 fused run: {iters64} power iterations, JAX {JAX_F64_FUSED_ITERS}")
+    check(kl64.best_cut <= kl64.initial_cut, "the f64 fused run: best cut above the initial cut")
+    check(kl64.best_cut <= 1.03 * JAX_F64_FUSED_BEST,
+          f"the f64 fused run: best cut {kl64.best_cut} above 1.03 x {JAX_F64_FUSED_BEST}")
+    drift64 = abs(kl64.final_cut - kl64.verified_cut) / kl64.final_cut
+    check(drift64 <= 1e-10, f"the f64 fused run: cut drift {drift64:.3g} above 1e-10")
+    recount64 = host_cut(g_host, np.asarray(kl64.best_sides))
+    check(abs(recount64 - kl64.best_cut) <= 1e-12 * kl64.best_cut,
+          f"the f64 fused run: best cut {kl64.best_cut!r} against the host recount {recount64!r}")
+    check(run64.eig.values.dtype == np.float64, "the f64 fused run's vector is not f64")
+    print(
+        f"fused f64 gen {MULTIPLIER}x: {iters64} power iterations (JAX f64 on the CPU {JAX_F64_FUSED_ITERS}), "
+        f"lambda {run64.eig.eigenvalue!r}, initial cut {kl64.initial_cut!r}, best cut {kl64.best_cut!r} after "
+        f"{kl64.iterations} swaps (JAX: initial {JAX_F64_FUSED_INITIAL}, best {JAX_F64_FUSED_BEST} after "
+        f"{JAX_F64_FUSED_SWAPS}), final {kl64.final_cut!r}, verified {kl64.verified_cut!r} (drift {drift64:.3g}), "
+        f"host f64 recount {recount64!r}; e2e {run64_s:.3f} s on {card}; spans "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(run64.timings.items()))
+    )
+    print(f"launches on the f64 fused path: {fu64_launches}")
+    report_device_busy("the f64 fused run", fused64_run)
+
+    # Lanczos and LOBPCG at spectral_partition's default: f64 on the card,
+    # no host refinement.
+    reset_counts()
+    lz64, lz64_s = spectral_run("lanczos", None)
+    lz64_launches = {kern.symbol: kern.launches for kern in all_kernels}
+    lz64_solve = lz64.spectral_solve
+    check(not f32_launched() and K1_LAPLACIAN_F64.launches > 0,
+          f"the f64 Lanczos path launched {lz64_launches}")
+    check(lz64_solve.refined is None, "the f64 Lanczos run was refined on the host")
+    check(abs(lz64.eig.eigenvalue - JAX_F64_LAMBDA2) <= 1e-10,
+          f"f64 Lanczos lambda_2 {lz64.eig.eigenvalue!r}, JAX {JAX_F64_LAMBDA2!r}")
+    check(tuple(lz64.eig.balance()) == (ln // 2, ln // 2), f"the f64 Lanczos split's balance {lz64.eig.balance()}")
+    print(
+        f"lanczos f64 path: {lz64_solve.iterations} restarts (JAX f64 on the CPU: {JAX_F64_RESTARTS}), lambda_2 "
+        f"{lz64.eig.eigenvalue!r} (JAX {JAX_F64_LAMBDA2!r}, |diff| {abs(lz64.eig.eigenvalue - JAX_F64_LAMBDA2):.3g}), "
+        f"residual {lz64_solve.residual:.3g}, balance {lz64.eig.balance()}; e2e {lz64_s:.3f} s, spans "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(lz64.timings.items()))
+        + f"; launches {lz64_launches}"
+    )
+    report_device_busy("the f64 lanczos run", lambda: spectral_run("lanczos", None))
+    reset_counts()
+    lo64, lo64_s = spectral_run("lobpcg", None)
+    lo64_launches = {kern.symbol: kern.launches for kern in all_kernels}
+    check(not f32_launched() and K1_SPMM_F64.launches > 0, f"the f64 LOBPCG path launched {lo64_launches}")
+    check(lo64.spectral_solve.refined is None, "the f64 LOBPCG run was refined on the host")
+    check(abs(lo64.eig.eigenvalue - lz64.eig.eigenvalue) <= 1e-8,
+          f"f64 LOBPCG lambda_2 {lo64.eig.eigenvalue!r} against Lanczos {lz64.eig.eigenvalue!r}")
+    print(
+        f"lobpcg f64 path: {lo64.spectral_solve.iterations} iterations (JAX f64 on the CPU: {JAX_F64_LOBPCG_ITERS}, "
+        f"lambda_2 {JAX_F64_LOBPCG_LAMBDA2!r}), lambda_2 {lo64.eig.eigenvalue!r}, balance {lo64.eig.balance()}; "
+        f"e2e {lo64_s:.3f} s, spans " + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(lo64.timings.items()))
+        + f"; launches {lo64_launches}"
+    )
+    report_device_busy("the f64 lobpcg run", lambda: spectral_run("lobpcg", None))
+
+    # The momentum exit at f64 on the component's KL graph, against the
+    # JAX package's f64 split.
+    def momentum64_run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = power_partition_fiedler(lk64, mom_config, dtype=torch.float64)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    reset_counts()
+    (m64_lam, m64_med, _, m64_sides, m64_iters), m64_s = momentum64_run()
+    m64_launches = {kern.symbol: kern.launches for kern in all_kernels}
+    check(not f32_launched() and K1_LAZY_F64.launches > m64_iters and K6_AXPY_F64.launches > 0
+          and K4_F64.launches > 0, f"the f64 momentum path launched {m64_launches}")
+    with open(MOMENTUM_F64_SIDES, "rb") as f:
+        jax_m64 = np.unpackbits(np.frombuffer(f.read(), np.uint8))[:ln].astype(np.int8)
+    m64_hamming = int((m64_sides != jax_m64).sum())
+    m64_hamming = min(m64_hamming, ln - m64_hamming)
+    check(m64_iters == JAX_F64_MOMENTUM_ITERS, f"f64 momentum: {m64_iters} iterations, JAX {JAX_F64_MOMENTUM_ITERS}")
+    check(m64_hamming <= 0.01 * ln, f"f64 momentum: the split is {m64_hamming} nodes from the JAX run's")
+    print(
+        f"momentum f64 path: {m64_iters} iterations (JAX {JAX_F64_MOMENTUM_ITERS}), lambda {m64_lam!r}, median "
+        f"{m64_med!r}, split {m64_hamming} nodes from the JAX run's; e2e {m64_s:.3f} s; launches {m64_launches}"
+    )
+    report_device_busy("the f64 momentum run", momentum64_run)
+
+    # The f64 multi-start through the user's entry point.
+    def multi64_run():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fused_partition(hg, use_eig=True, starts=STARTS, perturb=PERTURB, kl_config=multi_config,
+                            dtype=torch.float64, device="cuda")
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    reset_counts()
+    multi64, multi64_s = multi64_run()
+    mu64_launches = {kern.symbol: kern.launches for kern in all_kernels}
+    mu64_batched, mu64_single = K2_STARTS[STARTS], K2_STARTS[1]
+    mkl64 = multi64.kl
+    check(not f32_launched() and K2_F64.launches == mu64_batched + mu64_single and mu64_batched >= 2,
+          f"the f64 multi-start path launched {mu64_launches}, K2 by starts {dict(K2_STARTS)}")
+    check(mkl64.best_cut <= min(multi64.start_cuts) <= multi64.start_cuts[0] <= kl64.best_cut,
+          f"f64 multi-start: best {mkl64.best_cut}, per start {multi64.start_cuts}, one start {kl64.best_cut}")
+    mu64_drift = abs(mkl64.final_cut - mkl64.verified_cut) / mkl64.final_cut
+    check(mu64_drift <= 1e-10, f"f64 multi-start: cut drift {mu64_drift:.3g} above 1e-10")
+    mu64_recount = host_cut(g_host, np.asarray(mkl64.best_sides))
+    check(abs(mu64_recount - mkl64.best_cut) <= 1e-12 * mkl64.best_cut,
+          f"f64 multi-start: best cut {mkl64.best_cut!r} against the host recount {mu64_recount!r}")
+    print(
+        f"multi-start f64 gen {MULTIPLIER}x ({STARTS} starts, passes until converged, {KICKS} kicks): per-start "
+        f"best cuts {[round(c, 2) for c in multi64.start_cuts]}, {mu64_batched} batch passes, {mu64_single} kick "
+        f"passes, best cut {mkl64.best_cut!r} (one start: {kl64.best_cut!r}), drift {mu64_drift:.3g}, host "
+        f"recount {mu64_recount!r}; e2e {multi64_s:.3f} s on {card}; launches {mu64_launches}"
+    )
+    print(f"f64 phase: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = [
         {
@@ -1627,6 +2002,52 @@ def main() -> int:
         new_entry("K6 padded_step_f32, the v3 padded power step", "padded step", "eig_kl_tpu_torch/csrc/tree_sum.cu",
                   "eig_kl_tpu/spectral/power.py:184 (x - inv_shift * norm_lap(x), XLA ops, no Pallas kernel)",
                   v3_all["padded_step_f32"]),
+    ]
+    launches64 = {
+        "K1 spmv_csr_f64": fu64_launches["spmv_csr_f64"], "K1 power_step_f64": fu64_launches["power_step_f64"],
+        "K1 laplacian_f64": lz64_launches["laplacian_f64"], "K1 spmm_csr_f64 k=4": lo64_launches["spmm_csr_f64"],
+        "K1 spmm_csr_f64 k=12": lo64_launches["spmm_csr_f64"], "K1 lazy_walk_f64": m64_launches["lazy_walk_f64"],
+        "K6 tree_sum_f64, the 1-D norm over n": fu64_launches["tree_sum_f64"],
+        "K6 scale_by_f64": fu64_launches["scale_by_f64"], "K6 axpy_f64": m64_launches["axpy_f64"],
+        "K4 fma_dot_f64": m64_launches["fma_dot_f64"],
+    }
+    for what, e in f64.items():
+        kernels.append({
+            "name": what, "route": "cuda", "source": e["source"], "replaces": e["replaces"],
+            "launches": launches64[what], "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound"][0], "bound_by": e["bound"][1], "library_ms": e["library_ms"],
+            "device_us_per_launch": None if e["device_us"] is None else e["device_us"][0],
+        })
+    kernels += [
+        {
+            "name": "K2 kl_pass_f64, 3,000 swaps of one start",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/kl_pass.cu",
+            "replaces": "eig_kl_tpu/kl/megakernel.py:144 (at f64 the JAX package's XLA engine, eig_kl_tpu/kl/engine.py:206)",
+            "launches": fu64_launches["kl_pass_f64"],
+            "launches_multi_start": mu64_single,
+            "max_abs_err": k2_64_err,
+            "ms": k2_64_ms,
+            "plain_ms": k2_64_plain_ms,
+            "bound_ms": k2_64_bound[0],
+            "bound_by": k2_64_bound[1],
+            "library_ms": None,
+            "ms_by_selection": k2_64_sel_ms,
+            "us_per_swap_flat_and_cache_by_nodes": crossover64,
+        },
+        {
+            "name": "K2 kl_pass_f64, batched over starts",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/kl_pass.cu",
+            "replaces": "eig_kl_tpu/kl/megakernel.py:638 (at f64 eig_kl_tpu/parallel/multi_start.py:44)",
+            "launches": mu64_batched,
+            "max_abs_err": kb64_err,
+            "ms": kb64_ms,
+            "plain_ms": kb64_plain_ms,
+            "bound_ms": kb64_bound[0],
+            "bound_by": kb64_bound[1],
+            "library_ms": None,
+        },
     ]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,9 +12,11 @@ The subcommands, flags, output files and console blocks of
 ``--device {cuda,cpu}`` (default ``cuda``) takes the place of the JAX
 CLI's ``--platform``.  ``--starts``, ``--perturb``, ``--passes``,
 ``--kicks`` and ``--kick-frac`` mean what they mean there; a multi-start
-run uses one card, whatever the host has.  Options whose code is not yet
-ported (``--sharded``, ``--f64`` on the card) exit 1 with "not yet
-ported" and the ROADMAP item.  Output lands in
+run uses one card, whatever the host has.  ``--f64`` runs in f64 on the
+card and on the CPU, and ``eig`` computes in f64 unless given ``--f32``:
+the JAX package's precision rule off the TPU (:func:`eig_dtype`).  The
+one option whose code is not yet ported, ``--sharded``, exits 1 with "not
+yet ported" and the ROADMAP item.  Output lands in
 ``pre_saved_EIG/`` and ``results/`` relative to the working directory.
 """
 
@@ -46,9 +48,7 @@ def _add_common(p: argparse.ArgumentParser) -> None:
         help="initialize from pre_saved_EIG/<base>_out.txt (the reference -EIG flag)",
     )
     p.add_argument("--seed", type=int, default=0, help="random-init seed")
-    p.add_argument(
-        "--f64", action="store_true", help="run in float64 (CPU only for now)"
-    )
+    p.add_argument("--f64", action="store_true", help="run in float64")
     p.add_argument(
         "--passes", type=int, default=1,
         help="KL passes: each pass after the first restarts from the best "
@@ -85,7 +85,7 @@ def build_parser() -> argparse.ArgumentParser:
     prec.add_argument("--f32", action="store_true", help="force float32")
     prec.add_argument(
         "--f64", action="store_true",
-        help="force float64 (the default on the CPU; the card runs f32)",
+        help="force float64 (the default, on the card and on the CPU)",
     )
     p_eig.add_argument("--tol", type=float, default=1e-6)
 
@@ -160,13 +160,21 @@ class NotPorted(Exception):
 def _check_ported(args) -> None:
     if getattr(args, "sharded", False):
         raise NotPorted("--sharded, the cross-card sharded_kl2 engine (ROADMAP.md A8b)")
-    if args.f64 and args.device == "cuda":
-        raise NotPorted("--f64 on the card (ROADMAP.md A9)")
+
+
+def eig_dtype(args):
+    """The ``eig`` subcommand's precision for its parsed ``args``: f32
+    (with the host f64 refinement of lanczos and lobpcg) with ``--f32``,
+    else f64 (``--f64`` or no flag), whatever ``--device``.  The JAX package's rule is "pure f64 off-TPU (native
+    there), f32 device solve + f64 host refinement on TPU, where x64 is
+    software-emulated" (``eig_kl_tpu/cli/main.py:204-212``); the H100 runs
+    f64 natively, so it takes the off-TPU branch."""
+    import torch
+
+    return torch.float32 if args.f32 else torch.float64
 
 
 def cmd_eig(args) -> int:
-    import torch
-
     from eig_kl_tpu_torch.io.eigfile import eig_out_path, write_eig_file
     from eig_kl_tpu_torch.io.hgr import read_hgr
     from eig_kl_tpu_torch.models.pipelines import spectral_partition
@@ -174,14 +182,7 @@ def cmd_eig(args) -> int:
     from eig_kl_tpu_torch.utils.device import resolve_device
 
     resolve_device(args.device)
-    if args.f32:
-        dtype = torch.float32
-    elif args.f64:
-        if args.device == "cuda":
-            raise NotPorted("--f64 on the card (ROADMAP.md A9)")
-        dtype = torch.float64
-    else:
-        dtype = None  # f32 (+ the host f64 refinement) on the card, f64 on the CPU
+    dtype = eig_dtype(args)
     t0 = time.perf_counter()
     hg = read_hgr(args.input)
     print(f"Problem size: {hg.num_nets} nets, {hg.num_nodes} nodes, {hg.num_pins} pins")

@@ -1,5 +1,5 @@
 // K2: S independent KL passes in one launch, one persistent thread block
-// per start, in float32.
+// per start, in float32 (kl_pass_f32) or float64 (kl_pass_f64).
 //
 // Replaces eig_kl_tpu/kl/megakernel.py:_kernel (:144) in both its forms:
 // batched (launched by _run_batched, :602, the pallas_call at :638, a grid
@@ -9,7 +9,11 @@
 // logs and the termination rule.  Each start brings its own cut0, best0
 // (the best cut of earlier chunks of the same pass), cap and term0 (the
 // termination count carried in), so a pass can be re-entered after a
-// from-scratch refresh of A@s (megakernel.py:459-468, :1207).
+// from-scratch refresh of A@s (megakernel.py:459-468, :1207).  The f64
+// instantiation stands for the JAX package's f64 KL engine off the TPU,
+// the XLA while-loop pass of eig_kl_tpu/kl/engine.py:206 (refine) and its
+// vmap over starts (eig_kl_tpu/parallel/multi_start.py:44): the same
+// selection, updates and bookkeeping, in f64.
 //
 // Bound on this card: latency.  The swap chain is serial (each selection
 // reads the state the previous swap wrote), as the TPU kernel's single
@@ -27,15 +31,15 @@
 //   per-start parameters are read from device arrays, so a batch is
 //   launched without the host ever reading a cut.
 // * State: sf = side sign * free (0 = locked or padding) and a_s = A@s,
-//   both f32 in global memory, one stripe per start.  The node count is
+//   both of the pass's type in global memory, one stripe per start.  The node count is
 //   padded to a multiple of 128 with sf = 0: row r is nodes 128r..128r+127.
 // * Row-max cache (the TPU kernel's hierarchical selection,
 //   megakernel.py:265-351): per start and row, rm_l[r] and rm_r[r], the
 //   maximum of D = -(sf * a_s) over the row's nodes with sf > 0 and with
 //   sf < 0 (-inf if none).  It lives in dynamic shared memory (12.7 KB at
-//   gen 1.0x; the 227 KB opt-in holds about 3.5M nodes) or, for larger
-//   graphs, in a global-memory stripe per start, through the same
-//   pointers; the wrapper chooses from n (and, below K2_CACHE_MIN_NODES,
+//   gen 1.0x in f32, 25.8 KB in f64; the 227 KB opt-in holds about 3.5M
+//   nodes in f32 and 1.8M in f64) or, for larger graphs, in a
+//   global-memory stripe per start, through the same pointers; the wrapper chooses from n (and, below K2_CACHE_MIN_NODES,
 //   the flat scan, see below).  Beside it: one dirty bit per
 //   row and a list of dirty rows.  Each launch fills it from the sf and
 //   a_s it is given (one warp per row), so a re-entry needs nothing more.
@@ -47,7 +51,7 @@
 //   value lies in a row whose cached value equals it, so the first such
 //   node lies in the first such row, and is that row's first node with
 //   D == max.  The cache is computed with the lane search's expression,
-//   and fmaxf returns one of its arguments, so the equality is exact.  A
+//   and fmax returns one of its arguments, so the equality is exact.  A
 //   locked node has sf = 0 and is in no side's maximum, so once its row
 //   is refreshed it is never handed out; the loop stops before a side
 //   runs out (nf0, nf1), as before.
@@ -76,181 +80,78 @@
 //   (value, index) reductions give the first maximum.
 // * Every add and multiply is explicitly rounded (no FMA contraction), so
 //   the pass reproduces the plain PyTorch version's bits.
+// * The selection helpers (the tie rule, the cache's refresh, the marks and
+//   the row updates) are csrc/kl_common.cuh's, which K5 shares.  In f64 a
+//   lane's 4 nodes are two 16-byte loads (Hopper has no 32-byte load), the
+//   cache's maxima take 8 bytes, and its words per start are rounded up to
+//   an even count so that every start's maxima stay 8-byte aligned.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 
+#include "kl_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
-constexpr int kRow = 128;  // nodes per cached row
-constexpr unsigned kFull = 0xffffffffu;
-
-// (v2, i2) beats (v1, i1): a larger value, or an equal one at a lower index.
-__device__ __forceinline__ bool beats(float v2, int i2, float v1, int i1) {
-  return v2 > v1 || (v2 == v1 && i2 < i1);
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v2 = __shfl_down_sync(kFull, v, off);
-    const int i2 = __shfl_down_sync(kFull, i, off);
-    if (beats(v2, i2, v, i)) {
-      v = v2;
-      i = i2;
-    }
-  }
-}
-
-__device__ __forceinline__ int warp_sum(int c) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(kFull, c, off);
-  return c;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-// D = -(sf * a_s) of one node, the value both the cache and the lane
-// search compare.
-__device__ __forceinline__ float gain_d(float f, float a) { return -__fmul_rn(f, a); }
-
-// The flat scan's step: indices reach a thread in increasing order, so a
-// strict > keeps the first maximum of each side.
-__device__ __forceinline__ void consider(float f, float a, int idx, float& vl,
-                                         int& il, float& vr, int& ir) {
-  const float d = gain_d(f, a);
-  if (f > 0.0f) {
-    if (d > vl) {
-      vl = d;
-      il = idx;
-    }
-  } else if (f < 0.0f) {
-    if (d > vr) {
-      vr = d;
-      ir = idx;
-    }
-  }
-}
-
-// One start's row-max cache: in dynamic shared memory or in a global
-// stripe, laid out as rm_l[rows], rm_r[rows], dirty[ceil(rows / 32)],
-// list[list_cap] (4-byte words).
-struct Cache {
-  float* rm_l;
-  float* rm_r;
-  unsigned* dirty;
-  int* list;
-};
-
-// Both sides' maxima of row r, computed by one warp (lane k holds nodes
-// 128r + 4k .. 128r + 4k + 3) and written by lane 0.
-__device__ __forceinline__ void refresh_row(const float* sf, const float* as,
-                                            const Cache& c, int r, int lane) {
-  const float4 f = reinterpret_cast<const float4*>(sf)[r * (kRow / 4) + lane];
-  const float4 a = reinterpret_cast<const float4*>(as)[r * (kRow / 4) + lane];
-  const float fs[4] = {f.x, f.y, f.z, f.w};
-  const float as4[4] = {a.x, a.y, a.z, a.w};
-  const float neg_inf = __int_as_float(0xff800000);
-  float ml = neg_inf, mr = neg_inf;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float d = gain_d(fs[k], as4[k]);
-    if (fs[k] > 0.0f) ml = fmaxf(ml, d);
-    if (fs[k] < 0.0f) mr = fmaxf(mr, d);
-  }
-  ml = warp_max(ml);
-  mr = warp_max(mr);
-  if (lane == 0) {
-    c.rm_l[r] = ml;
-    c.rm_r[r] = mr;
-  }
-}
-
-// Marks row r dirty; the first to mark it appends it to the list.
-__device__ __forceinline__ void mark(const Cache& c, int r, int list_cap,
-                                     int* count) {
-  const unsigned bit = 1u << (r & 31);
-  if (atomicOr(&c.dirty[r >> 5], bit) & bit) return;
-  const int k = atomicAdd(count, 1);
-  if (k < list_cap) c.list[k] = r;
-}
-
-// Adds coef * w into a_s over one CSR row and, with the cache, marks the
-// rows it changed; the thread that meets b records w_ab (if wab is given).
-template <bool kCache>
-__device__ __forceinline__ void update_row(const int* indptr, const int* indices,
-                                           const float* data, float* as, int row,
-                                           float coef, int b, float* wab,
-                                           const Cache& c, int list_cap,
-                                           int* count) {
-  const int lo = indptr[row];
-  const int deg = indptr[row + 1] - lo;
-  for (int k = threadIdx.x; k < deg; k += kThreads) {
-    const int j = indices[lo + k];
-    const float w = data[lo + k];
-    as[j] = __fadd_rn(as[j], __fmul_rn(coef, w));
-    if (wab != nullptr && j == b) *wab = w;
-    if constexpr (kCache) mark(c, j / kRow, list_cap, count);
-  }
+// Words of one start's cache: both sides' maxima per row (T each), a dirty
+// bit per row, the list; even in f64 (each start's doubles 8-byte aligned).
+template <class T>
+__host__ __device__ __forceinline__ size_t cache_words(int rows, int list_cap) {
+  const size_t words = 2 * static_cast<size_t>(rows) * (sizeof(T) / 4) + (rows + 31) / 32 + list_cap;
+  return sizeof(T) == 8 ? words + (words & 1) : words;
 }
 
 // kCache: selection through the row-max cache; else the flat scan.
-template <bool kCache>
+template <class T, bool kCache>
 __global__ void __launch_bounds__(kThreads, 1)
     kl_pass_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                   const float* __restrict__ data, float* sf_all, float* as_all,
-                   int rows, int list_cap, unsigned* cache_global,
-                   const float* __restrict__ cut0s,
-                   const float* __restrict__ best0s, const int* __restrict__ caps,
-                   const int* __restrict__ term0s, int terminate_limit,
-                   float gain_eps, int log_len, float* __restrict__ log_cut_all,
-                   float* __restrict__ log_gain_all, int* __restrict__ log_a_all,
-                   int* __restrict__ log_b_all, float* __restrict__ out_all) {
+                   const T* __restrict__ data, T* sf_all, T* as_all, int rows, int list_cap,
+                   unsigned* cache_global, const T* __restrict__ cut0s,
+                   const T* __restrict__ best0s, const int* __restrict__ caps,
+                   const int* __restrict__ term0s, int terminate_limit, T gain_eps, int log_len,
+                   T* __restrict__ log_cut_all, T* __restrict__ log_gain_all,
+                   int* __restrict__ log_a_all, int* __restrict__ log_b_all,
+                   T* __restrict__ out_all) {
   // This block's start: its state stripe, its cache, its logs, its
   // parameters.
   const size_t start = blockIdx.x;
   const size_t n_pad = static_cast<size_t>(rows) * kRow;
-  float* sf = sf_all + start * n_pad;
-  float* as = as_all + start * n_pad;
+  T* sf = sf_all + start * n_pad;
+  T* as = as_all + start * n_pad;
   const int dirty_words = (rows + 31) / 32;
-  const size_t cache_words = 2 * static_cast<size_t>(rows) + dirty_words + list_cap;
-  extern __shared__ unsigned cache_shared[];
-  unsigned* cw = cache_global != nullptr ? cache_global + start * cache_words : cache_shared;
-  const Cache cache{reinterpret_cast<float*>(cw), reinterpret_cast<float*>(cw + rows),
-                    cw + 2 * rows, reinterpret_cast<int*>(cw + 2 * rows + dirty_words)};
-  float* log_cut = log_cut_all + start * log_len;
-  float* log_gain = log_gain_all + start * log_len;
+  const size_t value_words = 2 * static_cast<size_t>(rows) * (sizeof(T) / 4);
+  extern __shared__ __align__(16) unsigned cache_shared[];
+  unsigned* cw = cache_global != nullptr ? cache_global + start * cache_words<T>(rows, list_cap)
+                                         : cache_shared;
+  const Cache<T> cache{reinterpret_cast<T*>(cw), reinterpret_cast<T*>(cw) + rows,
+                       cw + value_words, reinterpret_cast<int*>(cw + value_words + dirty_words)};
+  T* log_cut = log_cut_all + start * log_len;
+  T* log_gain = log_gain_all + start * log_len;
   int* log_a = log_a_all + start * log_len;
   int* log_b = log_b_all + start * log_len;
-  float* out = out_all + start * 8;
-  const float cut0 = cut0s[start];
+  T* out = out_all + start * 8;
+  const T cut0 = cut0s[start];
   const int cap = caps[start];
 
-  __shared__ float red_v[2][kWarps];
+  __shared__ T red_v[2][kWarps];
   __shared__ int red_i[2][kWarps];
   __shared__ int cnt[2][kWarps];
   __shared__ int sh_sel[2], sh_go, sh_count;
-  __shared__ float sh_m[2], sh_wab;
+  __shared__ T sh_m[2], sh_wab;
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const float4* sf4 = reinterpret_cast<const float4*>(sf);
 
   // Free nodes per side at the start (padding has sf = 0), the cache
   // filled, no row dirty.
   int c0 = 0, c1 = 0;
   for (size_t q = tid; q < n_pad / 4; q += kThreads) {
-    const float4 f = sf4[q];
-    c0 += (f.x > 0.0f) + (f.y > 0.0f) + (f.z > 0.0f) + (f.w > 0.0f);
-    c1 += (f.x < 0.0f) + (f.y < 0.0f) + (f.z < 0.0f) + (f.w < 0.0f);
+    T f[4];
+    load4(sf, q, f);
+    c0 += (f[0] > T(0)) + (f[1] > T(0)) + (f[2] > T(0)) + (f[3] > T(0));
+    c1 += (f[0] < T(0)) + (f[1] < T(0)) + (f[2] < T(0)) + (f[3] < T(0));
   }
   c0 = warp_sum(c0);
   c1 = warp_sum(c1);
@@ -266,9 +167,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // The scalar state lives in thread 0's registers.
   int it = 0, term = 0, stop = 0, nf0 = 0, nf1 = 0;
-  float cut = cut0, comp = 0.0f, best = cut0;
+  T cut = cut0, comp = T(0), best = cut0;
   if (tid == 0) {
-    best = fminf(cut0, best0s[start]);
+    best = min_of(cut0, best0s[start]);
     term = term0s[start];
     log_cut[0] = cut0;
     for (int w = 0; w < kWarps; ++w) {
@@ -279,17 +180,16 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  const float neg_inf = __int_as_float(0xff800000);
   while (sh_go) {
     // Selection, 1: the first row holding each side's maximum (or, flat,
     // the first node).
     if (tid == 0) sh_count = 0;  // every thread read it before the last barrier
-    float vl = neg_inf, vr = neg_inf;
+    T vl = neg_inf<T>(), vr = neg_inf<T>();
     int il = INT_MAX, ir = INT_MAX;
     if constexpr (kCache) {
       for (int r = tid; r < rows; r += kThreads) {
-        const float ml = cache.rm_l[r];
-        const float mr = cache.rm_r[r];
+        const T ml = cache.rm_l[r];
+        const T mr = cache.rm_r[r];
         if (ml > vl) {
           vl = ml;
           il = r;
@@ -300,15 +200,13 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     } else {
-      const float4* as4 = reinterpret_cast<const float4*>(as);
 #pragma unroll 4
       for (int q = tid; q < rows * (kRow / 4); q += kThreads) {
-        const float4 f = sf4[q];
-        const float4 a = as4[q];
-        consider(f.x, a.x, 4 * q, vl, il, vr, ir);
-        consider(f.y, a.y, 4 * q + 1, vl, il, vr, ir);
-        consider(f.z, a.z, 4 * q + 2, vl, il, vr, ir);
-        consider(f.w, a.w, 4 * q + 3, vl, il, vr, ir);
+        T f[4], a[4];
+        load4(sf, q, f);
+        load4(as, q, a);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) consider(f[e], a[e], 4 * q + e, vl, il, vr, ir);
       }
     }
     warp_argmax(vl, il);
@@ -324,7 +222,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // Selection, 2: warp 0 for side 0, warp 1 for side 1; with the cache,
     // the first node of the winning row whose masked D equals the maximum.
     if (warp < 2) {
-      float v = red_v[warp][lane];
+      T v = red_v[warp][lane];
       int r = red_i[warp][lane];
       warp_argmax(v, r);
       v = __shfl_sync(kFull, v, 0);
@@ -334,19 +232,18 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lane == 0) {
           sh_sel[warp] = r;
           sh_m[warp] = v;
-          if (warp == 0) sh_wab = 0.0f;
+          if (warp == 0) sh_wab = T(0);
         }
       } else {
-        const float4 f = sf4[r * (kRow / 4) + lane];
-        const float4 a = reinterpret_cast<const float4*>(as)[r * (kRow / 4) + lane];
-        const float fs[4] = {f.x, f.y, f.z, f.w};
-        const float as4[4] = {a.x, a.y, a.z, a.w};
+        T fs[4], as4[4];
+        load4(sf, static_cast<size_t>(r) * (kRow / 4) + lane, fs);
+        load4(as, static_cast<size_t>(r) * (kRow / 4) + lane, as4);
         int first = 4;
-        float d_first = 0.0f;
+        T d_first = T(0);
 #pragma unroll
         for (int k = 3; k >= 0; --k) {
-          const float d = gain_d(fs[k], as4[k]);
-          if ((warp == 0 ? fs[k] > 0.0f : fs[k] < 0.0f) && d == v) {
+          const T d = gain_d(fs[k], as4[k]);
+          if ((warp == 0 ? fs[k] > T(0) : fs[k] < T(0)) && d == v) {
             first = k;
             d_first = d;
           }
@@ -355,11 +252,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (hit == 0u) __trap();  // the cache disagrees with the row
         const int src = __ffs(hit) - 1;
         const int k = __shfl_sync(kFull, first, src);
-        const float d = __shfl_sync(kFull, d_first, src);
+        const T d = __shfl_sync(kFull, d_first, src);
         if (lane == 0) {
           sh_sel[warp] = r * kRow + 4 * src + k;
           sh_m[warp] = d;
-          if (warp == 0) sh_wab = 0.0f;
+          if (warp == 0) sh_wab = T(0);
         }
       }
     }
@@ -369,28 +266,28 @@ __global__ void __launch_bounds__(kThreads, 1)
     // free, so sf holds their signs.
     const int a = sh_sel[0];
     const int b = sh_sel[1];
-    const float coef_a = __fmul_rn(-2.0f, sf[a]);
-    const float coef_b = __fmul_rn(-2.0f, sf[b]);
-    update_row<kCache>(indptr, indices, data, as, a, coef_a, b, &sh_wab, cache,
+    const T coef_a = mul_rn(T(-2), sf[a]);
+    const T coef_b = mul_rn(T(-2), sf[b]);
+    const int n_nodes = rows * kRow;
+    update_row<kCache>(indptr, indices, data, as, a, 0, n_nodes, coef_a, b, &sh_wab, cache,
                        list_cap, &sh_count);
     __syncthreads();
-    update_row<kCache>(indptr, indices, data, as, b, coef_b, b, nullptr, cache,
-                       list_cap, &sh_count);
+    update_row<kCache>(indptr, indices, data, as, b, 0, n_nodes, coef_b, b,
+                       static_cast<T*>(nullptr), cache, list_cap, &sh_count);
 
     if (tid == 0) {
-      sf[a] = 0.0f;
-      sf[b] = 0.0f;
+      sf[a] = T(0);
+      sf[b] = T(0);
       if constexpr (kCache) {
         mark(cache, a / kRow, list_cap, &sh_count);
         mark(cache, b / kRow, list_cap, &sh_count);
       }
-      const float gain =
-          __fsub_rn(__fadd_rn(sh_m[0], sh_m[1]), __fmul_rn(2.0f, sh_wab));
-      const float y = __fsub_rn(-gain, comp);
-      const float t = __fadd_rn(cut, y);
-      comp = __fsub_rn(__fsub_rn(t, cut), y);
+      const T gain = sub_rn(add_rn(sh_m[0], sh_m[1]), mul_rn(T(2), sh_wab));
+      const T y = sub_rn(-gain, comp);
+      const T t = add_rn(cut, y);
+      comp = sub_rn(sub_rn(t, cut), y);
       cut = t;
-      best = fminf(cut, best);
+      best = min_of(cut, best);
       ++it;
       log_cut[it] = cut;
       log_gain[it] = gain;
@@ -431,42 +328,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) {
     out[0] = cut;
     out[1] = best;
-    out[2] = static_cast<float>(it);
-    out[3] = static_cast<float>(term);
-    out[4] = static_cast<float>(nf0);
-    out[5] = static_cast<float>(nf1);
+    out[2] = static_cast<T>(it);
+    out[3] = static_cast<T>(term);
+    out[4] = static_cast<T>(nf0);
+    out[5] = static_cast<T>(nf1);
     out[6] = cut0;
-    out[7] = static_cast<float>(stop);
+    out[7] = static_cast<T>(stop);
   }
 }
 
-}  // namespace
-
-// sf and a_s hold num_starts stripes of n_padded floats (a multiple of
-// 128) and are updated in place; cut0, best0 (float) and cap, term0 (int)
-// hold one value per start; each log holds num_starts stripes of log_len
-// entries (log_len > every cap), of which a pass writes 0..iterations; out
-// receives 8 scalars per start, those of megakernel.py:486-494.  With
-// use_cache, the row cache takes 2 * rows + ceil(rows / 32) + list_cap
-// words per start (rows = n_padded / 128): in dynamic shared memory if
-// cache is null, else in num_starts stripes of that many words at cache.
-// Without, the flat scan runs and cache and list_cap are unused.
-extern "C" int kl_pass_f32(const void* indptr, const void* indices,
-                           const void* data, void* sf, void* as, int n_padded,
-                           int use_cache, int list_cap, void* cache, int num_starts,
-                           const void* cut0, const void* best0, const void* cap,
-                           const void* term0, int terminate_limit,
-                           float gain_eps, int log_len, void* log_cut,
-                           void* log_gain, void* log_a, void* log_b, void* out,
-                           void* stream) {
+template <class T>
+int kl_pass(const void* indptr, const void* indices, const void* data, void* sf, void* as,
+            int n_padded, int use_cache, int list_cap, void* cache, int num_starts,
+            const void* cut0, const void* best0, const void* cap, const void* term0,
+            int terminate_limit, T gain_eps, int log_len, void* log_cut, void* log_gain,
+            void* log_a, void* log_b, void* out, void* stream) {
   if (n_padded % kRow != 0 || n_padded < kRow || list_cap < 0 || num_starts < 1 ||
       log_len < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int rows = n_padded / kRow;
-  const size_t words = 2 * static_cast<size_t>(rows) + (rows + 31) / 32 + list_cap;
-  const size_t smem = use_cache && cache == nullptr ? 4 * words : 0;
-  auto kernel = use_cache ? kl_pass_kernel<true> : kl_pass_kernel<false>;
+  const size_t smem = use_cache && cache == nullptr ? 4 * cache_words<T>(rows, list_cap) : 0;
+  auto kernel = use_cache ? kl_pass_kernel<T, true> : kl_pass_kernel<T, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -474,14 +357,47 @@ extern "C" int kl_pass_f32(const void* indptr, const void* indices,
   }
   kernel<<<num_starts, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(indptr), static_cast<const int*>(indices),
-      static_cast<const float*>(data), static_cast<float*>(sf),
-      static_cast<float*>(as), rows, list_cap, static_cast<unsigned*>(cache),
-      static_cast<const float*>(cut0), static_cast<const float*>(best0),
-      static_cast<const int*>(cap), static_cast<const int*>(term0),
-      terminate_limit, gain_eps, log_len, static_cast<float*>(log_cut),
-      static_cast<float*>(log_gain), static_cast<int*>(log_a),
-      static_cast<int*>(log_b), static_cast<float*>(out));
+      static_cast<const T*>(data), static_cast<T*>(sf), static_cast<T*>(as), rows, list_cap,
+      static_cast<unsigned*>(cache), static_cast<const T*>(cut0), static_cast<const T*>(best0),
+      static_cast<const int*>(cap), static_cast<const int*>(term0), terminate_limit, gain_eps,
+      log_len, static_cast<T*>(log_cut), static_cast<T*>(log_gain), static_cast<int*>(log_a),
+      static_cast<int*>(log_b), static_cast<T*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// sf and a_s hold num_starts stripes of n_padded values (a multiple of 128)
+// and are updated in place; cut0, best0 (the pass's type) and cap, term0
+// (int) hold one value per start; each log holds num_starts stripes of
+// log_len entries (log_len > every cap), of which a pass writes
+// 0..iterations; out receives 8 scalars per start, those of
+// megakernel.py:486-494.  With use_cache, the row cache takes
+// kl/megakernel.py:k2_cache_words words per start (2 * rows maxima of the
+// pass's type, ceil(rows / 32) dirty words, list_cap, rounded up to even
+// in f64; rows = n_padded / 128): in dynamic shared memory if cache is
+// null, else in num_starts stripes of that many words at cache.  Without,
+// the flat scan runs and cache and list_cap are unused.
+extern "C" int kl_pass_f32(const void* indptr, const void* indices, const void* data, void* sf,
+                           void* as, int n_padded, int use_cache, int list_cap, void* cache,
+                           int num_starts, const void* cut0, const void* best0, const void* cap,
+                           const void* term0, int terminate_limit, float gain_eps, int log_len,
+                           void* log_cut, void* log_gain, void* log_a, void* log_b, void* out,
+                           void* stream) {
+  return kl_pass<float>(indptr, indices, data, sf, as, n_padded, use_cache, list_cap, cache,
+                        num_starts, cut0, best0, cap, term0, terminate_limit, gain_eps, log_len,
+                        log_cut, log_gain, log_a, log_b, out, stream);
+}
+
+extern "C" int kl_pass_f64(const void* indptr, const void* indices, const void* data, void* sf,
+                           void* as, int n_padded, int use_cache, int list_cap, void* cache,
+                           int num_starts, const void* cut0, const void* best0, const void* cap,
+                           const void* term0, int terminate_limit, double gain_eps, int log_len,
+                           void* log_cut, void* log_gain, void* log_a, void* log_b, void* out,
+                           void* stream) {
+  return kl_pass<double>(indptr, indices, data, sf, as, n_padded, use_cache, list_cap, cache,
+                         num_starts, cut0, best0, cap, term0, terminate_limit, gain_eps, log_len,
+                         log_cut, log_gain, log_a, log_b, out, stream);
 }
 
 extern "C" const char* kl_pass_error_string(int code) {

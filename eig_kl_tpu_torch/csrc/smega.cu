@@ -89,21 +89,23 @@
 //   alive until its peers' last reads.
 // * Every add and multiply is explicitly rounded (no FMA contraction), so
 //   the pass reproduces the plain PyTorch version's bits.
+// * The selection helpers (the tie rule, the flat scan's step, the cache's
+//   refresh, the marks and the row updates) are K2's, from
+//   csrc/kl_common.cuh, instantiated for f32: K5 stays f32, as the JAX
+//   package's smega kernel is (eig_kl_tpu/parallel/smega.py:107).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 
+#include "kl_common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxShards = 8;
-constexpr int kRow = 128;  // nodes per cached row
-constexpr unsigned kFull = 0xffffffffu;
 
 // The three layouts of the state and the selection.
 constexpr int kFlat = 0;
@@ -116,114 +118,6 @@ struct Candidate {
   float m_r;
   int b;
 };
-
-// (v2, i2) beats (v1, i1): a larger value, or an equal one at a lower index.
-__device__ __forceinline__ bool beats(float v2, int i2, float v1, int i1) {
-  return v2 > v1 || (v2 == v1 && i2 < i1);
-}
-
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float v2 = __shfl_down_sync(kFull, v, off);
-    const int i2 = __shfl_down_sync(kFull, i, off);
-    if (beats(v2, i2, v, i)) {
-      v = v2;
-      i = i2;
-    }
-  }
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-// D = -(sf * a_s) of one node, the value the scan, the cache and the lane
-// search compare.
-__device__ __forceinline__ float gain_d(float f, float a) { return -__fmul_rn(f, a); }
-
-// Indices reach a thread in increasing order, so a strict > keeps the first.
-__device__ __forceinline__ void consider(float f, float a, int idx, float& vl,
-                                         int& il, float& vr, int& ir) {
-  const float d = gain_d(f, a);
-  if (f > 0.0f) {
-    if (d > vl) {
-      vl = d;
-      il = idx;
-    }
-  } else if (f < 0.0f) {
-    if (d > vr) {
-      vr = d;
-      ir = idx;
-    }
-  }
-}
-
-// One shard's row-max cache in shared memory: rm_l[rows], rm_r[rows],
-// dirty[ceil(rows / 32)], list[rows] (4-byte words).
-struct Cache {
-  float* rm_l;
-  float* rm_r;
-  unsigned* dirty;
-  int* list;
-};
-
-// Both sides' maxima of local row r of the stripe (sfl, asl), computed by
-// one warp (lane k holds nodes 128r + 4k .. 128r + 4k + 3), written by
-// lane 0.
-__device__ __forceinline__ void refresh_row(const float* sfl, const float* asl,
-                                            const Cache& c, int r, int lane) {
-  const float4 f = reinterpret_cast<const float4*>(sfl)[r * (kRow / 4) + lane];
-  const float4 a = reinterpret_cast<const float4*>(asl)[r * (kRow / 4) + lane];
-  const float fs[4] = {f.x, f.y, f.z, f.w};
-  const float as4[4] = {a.x, a.y, a.z, a.w};
-  const float neg_inf = __int_as_float(0xff800000);
-  float ml = neg_inf, mr = neg_inf;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const float d = gain_d(fs[k], as4[k]);
-    if (fs[k] > 0.0f) ml = fmaxf(ml, d);
-    if (fs[k] < 0.0f) mr = fmaxf(mr, d);
-  }
-  ml = warp_max(ml);
-  mr = warp_max(mr);
-  if (lane == 0) {
-    c.rm_l[r] = ml;
-    c.rm_r[r] = mr;
-  }
-}
-
-// Marks local row r dirty; the first to mark it appends it to the list
-// (which has room for every row).
-__device__ __forceinline__ void mark(const Cache& c, int r, int* count) {
-  const unsigned bit = 1u << (r & 31);
-  if (atomicOr(&c.dirty[r >> 5], bit) & bit) return;
-  c.list[atomicAdd(count, 1)] = r;
-}
-
-// Adds coef * w into the stripe's a_s (asl, local offsets) over the entries
-// of one CSR row whose columns lie in the stripe [r0, r0 + n_local); with
-// the cache, marks their rows; where wab is given, the thread that meets
-// column b records its weight there.
-template <bool kCache>
-__device__ __forceinline__ void update_row(const int* indptr, const int* indices,
-                                           const float* data, float* asl, int row,
-                                           int r0, int n_local, float coef, int b,
-                                           float* wab, const Cache& c, int* count) {
-  const int lo = indptr[row];
-  const int deg = indptr[row + 1] - lo;
-  for (int k = threadIdx.x; k < deg; k += kThreads) {
-    const int j = indices[lo + k];
-    const int jl = j - r0;
-    if (static_cast<unsigned>(jl) >= static_cast<unsigned>(n_local)) continue;
-    const float w = data[lo + k];
-    asl[jl] = __fadd_rn(asl[jl], __fmul_rn(coef, w));
-    if (wab != nullptr && j == b) *wab = w;
-    if constexpr (kCache) mark(c, jl / kRow, count);
-  }
-}
 
 template <int kLayout>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -272,8 +166,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     asl = reinterpret_cast<float*>(as4s);
     cw = reinterpret_cast<unsigned*>(dyn + 2 * n4);
   }
-  const Cache cache{reinterpret_cast<float*>(cw), reinterpret_cast<float*>(cw + rows),
-                    cw + 2 * rows, reinterpret_cast<int*>(cw + 2 * rows + dirty_words)};
+  const Cache<float> cache{reinterpret_cast<float*>(cw), reinterpret_cast<float*>(cw + rows),
+                           cw + 2 * rows, reinterpret_cast<int*>(cw + 2 * rows + dirty_words)};
   if constexpr (kCache) {
     __syncthreads();  // the stripe is loaded
     for (int r = warp; r < rows; r += kWarps) refresh_row(sfl, asl, cache, r, lane);
@@ -420,18 +314,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     // Owner-computes: my entries of row a (s_a = +1), then of row b (s_b = -1).
     update_row<kCache>(indptr, indices, data, asl, a, r0, n_local, -2.0f, b,
-                       owner_b == me ? &sh_wab : nullptr, cache, &sh_count);
+                       owner_b == me ? &sh_wab : nullptr, cache, rows, &sh_count);
     __syncthreads();
-    update_row<kCache>(indptr, indices, data, asl, b, r0, n_local, 2.0f, b, nullptr,
-                       cache, &sh_count);
+    update_row<kCache>(indptr, indices, data, asl, b, r0, n_local, 2.0f, b,
+                       static_cast<float*>(nullptr), cache, rows, &sh_count);
     if (tid == 0) {
       if (owner_a == me) {
         sfl[a - r0] = 0.0f;
-        if constexpr (kCache) mark(cache, (a - r0) / kRow, &sh_count);
+        if constexpr (kCache) mark(cache, (a - r0) / kRow, rows, &sh_count);
       }
       if (owner_b == me) {
         sfl[b - r0] = 0.0f;
-        if constexpr (kCache) mark(cache, (b - r0) / kRow, &sh_count);
+        if constexpr (kCache) mark(cache, (b - r0) / kRow, rows, &sh_count);
         wab_slot = sh_wab;
       }
     }

@@ -1,14 +1,18 @@
-// K1: y = A @ x for the symmetric CSR adjacency, in float32; and four entry
-// points that end in it:
-// * power_step_f32:  y = x - inv_shift * (2 x - 2 (A @ x) / deg), the power
+// K1: y = A @ x for the symmetric CSR adjacency, in float32 and in float64
+// (spmv_csr_f32, spmv_csr_f64); and four entry points that end in it, each
+// in both types (the _f32 and _f64 symbols):
+// * power_step:  y = x - inv_shift * (2 x - 2 (A @ x) / deg), the power
 //   step (eig_kl_tpu/spectral/power.py:184);
-// * laplacian_f32:   y = deg * x - A @ x, the "eig" Laplacian of Lanczos and
+// * laplacian:   y = deg * x - A @ x, the "eig" Laplacian of Lanczos and
 //   LOBPCG (eig_kl_tpu/spectral/lanczos.py:57-60);
-// * spmm_csr_f32:    Y = A @ X (or deg * X - A @ X) for X of shape (n, k)
+// * spmm_csr:    Y = A @ X (or deg * X - A @ X) for X of shape (n, k)
 //   row-major, 1 <= k <= 16, LOBPCG's blocked product
 //   (eig_kl_tpu/spectral/lobpcg_solver.py:51-56, a vmap of the SpMV);
-// * lazy_walk_f32:   y = 0.5 * (w + dsinv * (A @ (dsinv * w))), the momentum
+// * lazy_walk:   y = 0.5 * (w + dsinv * (A @ (dsinv * w))), the momentum
 //   exit's lazy walk (eig_kl_tpu/spectral/power.py:297-305).
+// The f64 instantiations serve the JAX package's f64 paths off the TPU
+// (eig_kl_tpu/cli/main.py:204-212, the --f64 flag); the H100 runs f64
+// natively.
 //
 // Replaces the TPU SpMV kernels of eig_kl_tpu/ops/spmv_pallas.py: v1
 // (_spmv_kernel, :339), v2's gather pass (_gather_kernel, :1049) and v2's
@@ -19,7 +23,8 @@
 //
 // Bound on this card: bytes.  One call must read indptr, indices, data and
 // x and write y once, 11.3 MB at gen 1.0x (201,920 rows, 1,107,844 nnz), or
-// 3.4 us at 3.35 TB/s; its 2*nnz flops are negligible.  The power step
+// 3.4 us at 3.35 TB/s (f64: 17.3 MB, 5.2 us); its 2*nnz flops are
+// negligible.  The power step
 // also reads deg (0.8 MB more).  What limits it is the x gathers: each
 // fetches 4 bytes of a 32-byte sector from L2, at random on a circuit, and
 // on an H100 the gathers alone take about 10 us at gen 1.0x
@@ -35,7 +40,7 @@
 //   positions; each window adds its rounded products in order, and the
 //   window sums add in order.
 // So K1, the plain version (ops/spmv.py) and the JAX package's CPU SpMV
-// agree bit for bit, and so does every entry point's A @ x part (each
+// agree bit for bit in f32, and so does every entry point's A @ x part (each
 // column of spmm_csr_f32 is K1 on that column).  The epilogues round as
 // XLA's CPU fusion does, which contracts a product into the add or
 // subtraction that takes it: the power step's last operation x - c * lap,
@@ -43,7 +48,12 @@
 // one fused multiply-add (tests/test_torch_lanczos.py holds the plain
 // versions to XLA's bits).  The lazy walk's gather multiplies dsinv[j] *
 // w[j] with one rounding, as the element-wise product that XLA fuses into
-// its gather does.
+// its gather does.  In f64 the order is the same, and every product is
+// rounded before its add, as the plain version's f64 branch does (PyTorch
+// has no exact f64 fused multiply-add): the lanes of W <= 32 add rounded
+// products, and each epilogue rounds its product before the add.  Every
+// f64 operation is an explicit __d*_rn intrinsic (csrc/fp.cuh), so nvcc
+// contracts nothing and K1 equals the plain version bit for bit.
 //
 // Design: a warp per 32 consecutive rows, one lane per row, one writer per
 // row, no atomics.  The warp's rows span one contiguous range of the CSR
@@ -64,10 +74,18 @@
 // span 256 entries at a time (data, and the four gathered values of each
 // entry), and each lane carries its row's four sets of chains across the
 // chunks.  Any other k takes one column at a time through K1's walk.
+// In f64 a 16-byte gather carries two columns (Hopper has no 32-byte
+// load): the blocked walk takes k two columns at a time where k is even,
+// and the W <= 32 buffer holds the rounded products (8 bytes each, the
+// bytes of f32's data and gathered x), so shared memory per block is the
+// same in both types.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
+#include "fp.cuh"
 
 namespace {
 
@@ -80,40 +98,50 @@ constexpr int kChunk = 256;   // W > 32: the entries a warp buffers at a time
 constexpr int kPerLane = 8;    // loads in flight per lane
 constexpr int kStage = 32 * kPerLane;
 
-// Floats of shared memory per warp.
-__host__ __device__ __forceinline__ int buffer_floats(int row_width) {
-  return row_width <= kWindow ? 2 * kSpan : kChunk;
+// W <= 32 in f32: the lanes fuse each product into its add, so the buffer
+// holds the data and the gathered x apart; in f64 it holds the rounded
+// products.
+template <class T>
+constexpr bool kFusedLanes = std::is_same<T, float>::value;
+
+// Values of T in shared memory per warp (8 KB for W <= 32 in both types).
+template <class T>
+__host__ __device__ __forceinline__ int buffer_values(int row_width) {
+  return row_width <= kWindow ? (kFusedLanes<T> ? 2 * kSpan : kSpan) : kChunk;
 }
 
 // What a row sum gathers for column j of the matrix: x[j], X[j * k + c] or
 // dsinv[j] * w[j] (one rounding).
+template <class T>
 struct GatherX {
-  const float* __restrict__ x;
-  __device__ __forceinline__ float operator()(int j) const { return __ldg(x + j); }
+  const T* __restrict__ x;
+  __device__ __forceinline__ T operator()(int j) const { return __ldg(x + j); }
 };
+template <class T>
 struct GatherColumn {
-  const float* __restrict__ x;
+  const T* __restrict__ x;
   int k, c;
-  __device__ __forceinline__ float operator()(int j) const {
+  __device__ __forceinline__ T operator()(int j) const {
     return __ldg(x + static_cast<long long>(j) * k + c);
   }
 };
+template <class T>
 struct GatherScaled {
-  const float* __restrict__ w;
-  const float* __restrict__ s;
-  __device__ __forceinline__ float operator()(int j) const {
-    return __fmul_rn(__ldg(s + j), __ldg(w + j));
+  const T* __restrict__ w;
+  const T* __restrict__ s;
+  __device__ __forceinline__ T operator()(int j) const {
+    return mul_rn(__ldg(s + j), __ldg(w + j));
   }
 };
 
 // Row r0 + lane's sum in XLA's order on that lane, for the warp's rows
 // r0 .. r0 + 31 (rows at or past n count as empty).  `buf` is the warp's
-// buffer: 2 * kSpan floats for W <= 32, kChunk for W > 32.
-template <class Gather>
-__device__ __forceinline__ float row_sum(const int* __restrict__ indptr,
-                                         const int* __restrict__ indices,
-                                         const float* __restrict__ data, Gather gx,
-                                         float* buf, int r0, int n, int row_width) {
+// buffer of buffer_values<T>(row_width) values.
+template <class T, class Gather>
+__device__ __forceinline__ T row_sum(const int* __restrict__ indptr,
+                                     const int* __restrict__ indices,
+                                     const T* __restrict__ data, Gather gx, T* buf,
+                                     int r0, int n, int row_width) {
   // Every load below is unconditional, at an index clamped into range, and
   // a select drops what is out of range: a load under a branch makes the
   // lane wait for it before it issues the next one.
@@ -126,13 +154,13 @@ __device__ __forceinline__ float row_sum(const int* __restrict__ indptr,
   const int span_hi = __ldg(indptr + min(r0 + 32, n));
   if (row_width <= kWindow) {
     // The span holds at most 32 * W <= kSpan entries.
-    float* d = buf;
-    float* xv = buf + kSpan;
+    T* d = buf;           // f32: the data; f64: the rounded products
+    T* xv = buf + kSpan;  // f32 only: the gathered x
     const int len = min(span_hi - span_lo, kSpan);
     for (int base = 0; base < len; base += kStage) {
       int col[kPerLane];
-      float w[kPerLane];
-      float xg[kPerLane];
+      T w[kPerLane];
+      T xg[kPerLane];
 #pragma unroll
       for (int q = 0; q < kPerLane; ++q) {
         const int i = min(base + lane + 32 * q, len - 1);
@@ -145,50 +173,59 @@ __device__ __forceinline__ float row_sum(const int* __restrict__ indptr,
       for (int q = 0; q < kPerLane; ++q) {
         const int i = base + lane + 32 * q;
         if (i < len) {
-          d[i] = w[q];
-          xv[i] = xg[q];
+          if constexpr (kFusedLanes<T>) {
+            d[i] = w[q];
+            xv[i] = xg[q];
+          } else {
+            d[i] = mul_rn(w[q], xg[q]);
+          }
         }
       }
     }
     __syncwarp();
     const int b = lo - span_lo;
     const int deg = row < n ? min(hi - lo, kSpan - b) : 0;
-    float acc[kLanes];
+    T acc[kLanes];
 #pragma unroll
-    for (int q = 0; q < kLanes; ++q) acc[q] = 0.0f;
+    for (int q = 0; q < kLanes; ++q) acc[q] = T(0);
     for (int t0 = 0; t0 < deg; t0 += kLanes) {
 #pragma unroll
       for (int q = 0; q < kLanes; ++q) {
         const int t = min(b + t0 + q, kSpan - 1);
-        const float next = __fmaf_rn(d[t], xv[t], acc[q]);
+        T next;
+        if constexpr (kFusedLanes<T>) {
+          next = fma_rn(d[t], xv[t], acc[q]);
+        } else {
+          next = add_rn(acc[q], d[t]);
+        }
         acc[q] = t0 + q < deg ? next : acc[q];
       }
     }
-    return __fadd_rn(__fadd_rn(__fadd_rn(acc[0], acc[4]), __fadd_rn(acc[2], acc[6])),
-                     __fadd_rn(__fadd_rn(acc[1], acc[5]), __fadd_rn(acc[3], acc[7])));
+    return add_rn(add_rn(add_rn(acc[0], acc[4]), add_rn(acc[2], acc[6])),
+                  add_rn(add_rn(acc[1], acc[5]), add_rn(acc[3], acc[7])));
   }
   const int windows = (row_width + kWindow - 1) / kWindow;
   const int pad = (windows * kWindow - row_width) / 2;
-  float out = 0.0f;
-  float s = 0.0f;
+  T out = T(0);
+  T s = T(0);
   for (int c0 = span_lo; c0 < span_hi; c0 += kChunk) {
     const int len = min(kChunk, span_hi - c0);
     for (int base = 0; base < len; base += kStage) {
       int col[kPerLane];
-      float w[kPerLane];
+      T w[kPerLane];
 #pragma unroll
       for (int q = 0; q < kPerLane; ++q) {
         const int i = min(base + lane + 32 * q, len - 1);
         col[q] = __ldg(indices + c0 + i);
         w[q] = __ldg(data + c0 + i);
       }
-      float xg[kPerLane];
+      T xg[kPerLane];
 #pragma unroll
       for (int q = 0; q < kPerLane; ++q) xg[q] = gx(col[q]);
 #pragma unroll
       for (int q = 0; q < kPerLane; ++q) {
         const int i = base + lane + 32 * q;
-        if (i < len) buf[i] = __fmul_rn(w[q], xg[q]);
+        if (i < len) buf[i] = mul_rn(w[q], xg[q]);
       }
     }
     __syncwarp();
@@ -198,123 +235,132 @@ __device__ __forceinline__ float row_sum(const int* __restrict__ indptr,
       // +0, which changes nothing).  Then add this window's products.
       const int offset = (k - lo + pad) & (kWindow - 1);
       if (offset == 0) {
-        out = __fadd_rn(out, s);
-        s = 0.0f;
+        out = add_rn(out, s);
+        s = T(0);
       }
       const int end = min(ke, k + kWindow - offset);
 #pragma unroll 4
-      for (; k < end; ++k) s = __fadd_rn(s, buf[k - c0]);
+      for (; k < end; ++k) s = add_rn(s, buf[k - c0]);
     }
     __syncwarp();
   }
-  return __fadd_rn(out, s);
+  return add_rn(out, s);
 }
 
+// The warp's rows and its buffer in the block's dynamic shared memory.
+template <class T>
+__device__ __forceinline__ T* warp_buffer(int row_width, int& r0) {
+  extern __shared__ __align__(16) unsigned char shared_raw[];
+  const int warp = threadIdx.x >> 5;
+  r0 = (blockIdx.x * kWarps + warp) * 32;
+  return reinterpret_cast<T*>(shared_raw) + warp * buffer_values<T>(row_width);
+}
+
+template <class T>
 __global__ void __launch_bounds__(kThreads)
     spmv_csr_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                    const float* __restrict__ data, const float* __restrict__ x,
-                    float* __restrict__ y, int n, int row_width) {
-  extern __shared__ float buffers[];
-  const int warp = threadIdx.x >> 5;
-  const int r0 = (blockIdx.x * kWarps + warp) * 32;
+                    const T* __restrict__ data, const T* __restrict__ x,
+                    T* __restrict__ y, int n, int row_width) {
+  int r0;
+  T* buf = warp_buffer<T>(row_width, r0);
   if (r0 >= n) return;
-  float* buf = buffers + warp * buffer_floats(row_width);
-  const float s = row_sum(indptr, indices, data, GatherX{x}, buf, r0, n, row_width);
+  const T s = row_sum(indptr, indices, data, GatherX<T>{x}, buf, r0, n, row_width);
   const int row = r0 + (threadIdx.x & 31);
   if (row < n) y[row] = s;
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
     power_step_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                      const float* __restrict__ data, const float* __restrict__ x,
-                      const float* __restrict__ deg, float inv_shift,
-                      float* __restrict__ y, int n, int row_width) {
-  extern __shared__ float buffers[];
-  const int warp = threadIdx.x >> 5;
-  const int r0 = (blockIdx.x * kWarps + warp) * 32;
+                      const T* __restrict__ data, const T* __restrict__ x,
+                      const T* __restrict__ deg, T inv_shift,
+                      T* __restrict__ y, int n, int row_width) {
+  int r0;
+  T* buf = warp_buffer<T>(row_width, r0);
   if (r0 >= n) return;
-  float* buf = buffers + warp * buffer_floats(row_width);
   const int row = r0 + (threadIdx.x & 31);
-  const float xr = __ldg(x + min(row, n - 1));
-  const float dr = __ldg(deg + min(row, n - 1));
-  const float ax = row_sum(indptr, indices, data, GatherX{x}, buf, r0, n, row_width);
+  const T xr = __ldg(x + min(row, n - 1));
+  const T dr = __ldg(deg + min(row, n - 1));
+  const T ax = row_sum(indptr, indices, data, GatherX<T>{x}, buf, r0, n, row_width);
   if (row < n) {
-    const float lap = __fsub_rn(__fmul_rn(2.0f, xr), __fdiv_rn(__fmul_rn(2.0f, ax), dr));
-    y[row] = __fmaf_rn(-inv_shift, lap, xr);
+    const T lap = sub_rn(mul_rn(T(2), xr), div_rn(mul_rn(T(2), ax), dr));
+    y[row] = mul_add(-inv_shift, lap, xr);
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
     laplacian_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                     const float* __restrict__ data, const float* __restrict__ x,
-                     const float* __restrict__ deg, float* __restrict__ y, int n,
+                     const T* __restrict__ data, const T* __restrict__ x,
+                     const T* __restrict__ deg, T* __restrict__ y, int n,
                      int row_width) {
-  extern __shared__ float buffers[];
-  const int warp = threadIdx.x >> 5;
-  const int r0 = (blockIdx.x * kWarps + warp) * 32;
+  int r0;
+  T* buf = warp_buffer<T>(row_width, r0);
   if (r0 >= n) return;
-  float* buf = buffers + warp * buffer_floats(row_width);
   const int row = r0 + (threadIdx.x & 31);
-  const float xr = __ldg(x + min(row, n - 1));
-  const float dr = __ldg(deg + min(row, n - 1));
-  const float ax = row_sum(indptr, indices, data, GatherX{x}, buf, r0, n, row_width);
-  if (row < n) y[row] = __fmaf_rn(dr, xr, -ax);
+  const T xr = __ldg(x + min(row, n - 1));
+  const T dr = __ldg(deg + min(row, n - 1));
+  const T ax = row_sum(indptr, indices, data, GatherX<T>{x}, buf, r0, n, row_width);
+  if (row < n) y[row] = mul_add(dr, xr, -ax);
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
     spmm_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                const float* __restrict__ data, const float* __restrict__ x,
-                const float* __restrict__ deg, float* __restrict__ y, int n, int k,
+                const T* __restrict__ data, const T* __restrict__ x,
+                const T* __restrict__ deg, T* __restrict__ y, int n, int k,
                 int row_width) {
-  extern __shared__ float buffers[];
-  const int warp = threadIdx.x >> 5;
-  const int r0 = (blockIdx.x * kWarps + warp) * 32;
+  int r0;
+  T* buf = warp_buffer<T>(row_width, r0);
   if (r0 >= n) return;
-  float* buf = buffers + warp * buffer_floats(row_width);
   const int row = r0 + (threadIdx.x & 31);
   const long long base = static_cast<long long>(min(row, n - 1)) * k;
-  const float dr = deg != nullptr ? __ldg(deg + min(row, n - 1)) : 0.0f;
+  const T dr = deg != nullptr ? __ldg(deg + min(row, n - 1)) : T(0);
   for (int c = 0; c < k; ++c) {
-    const float ax = row_sum(indptr, indices, data, GatherColumn{x, k, c}, buf, r0, n, row_width);
-    if (row < n) y[base + c] = deg != nullptr ? __fmaf_rn(dr, __ldg(x + base + c), -ax) : ax;
+    const T ax = row_sum(indptr, indices, data, GatherColumn<T>{x, k, c}, buf, r0, n, row_width);
+    if (row < n) y[base + c] = deg != nullptr ? mul_add(dr, __ldg(x + base + c), -ax) : ax;
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
     lazy_walk_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                     const float* __restrict__ data, const float* __restrict__ w,
-                     const float* __restrict__ dsinv, float* __restrict__ y, int n,
+                     const T* __restrict__ data, const T* __restrict__ w,
+                     const T* __restrict__ dsinv, T* __restrict__ y, int n,
                      int row_width) {
-  extern __shared__ float buffers[];
-  const int warp = threadIdx.x >> 5;
-  const int r0 = (blockIdx.x * kWarps + warp) * 32;
+  int r0;
+  T* buf = warp_buffer<T>(row_width, r0);
   if (r0 >= n) return;
-  float* buf = buffers + warp * buffer_floats(row_width);
   const int row = r0 + (threadIdx.x & 31);
-  const float wr = __ldg(w + min(row, n - 1));
-  const float sr = __ldg(dsinv + min(row, n - 1));
-  const float ax = row_sum(indptr, indices, data, GatherScaled{w, dsinv}, buf, r0, n, row_width);
-  if (row < n) y[row] = __fmul_rn(0.5f, __fmaf_rn(sr, ax, wr));
+  const T wr = __ldg(w + min(row, n - 1));
+  const T sr = __ldg(dsinv + min(row, n - 1));
+  const T ax = row_sum(indptr, indices, data, GatherScaled<T>{w, dsinv}, buf, r0, n, row_width);
+  if (row < n) y[row] = mul_rn(T(0.5), mul_add(sr, ax, wr));
 }
 
-constexpr int kChunk4 = 256;              // entries staged at a time, four columns each
-constexpr int kBuffer4 = kChunk4 * 5;     // floats per warp: the data, then a float4 per entry
-constexpr int kPerLane4 = 4;
-constexpr int kStage4 = 32 * kPerLane4;
+// The blocked product's vector walk: V = 4 columns of f32 or 2 of f64 per
+// 16-byte gather.
+constexpr int kChunkV = 256;  // entries staged at a time, V columns each
+constexpr int kPerLaneV = 4;
+constexpr int kStageV = 32 * kPerLaneV;
 
-__device__ __forceinline__ float4 fadd4(float4 a, float4 b) {
-  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
-                     __fadd_rn(a.w, b.w));
-}
+// Values of T per warp: the data, then a vector per entry.
+template <class T>
+constexpr int kBufferV = kChunkV * (1 + Vec16<T>::kWidth);
 
-// Columns c0 .. c0 + 3 of A @ X for row r0 + lane, X row-major (n, k) with k
-// a multiple of 4 and X 16-byte aligned: each column added in row_sum's
-// (XLA's) order.  `buf` is the warp's kBuffer4 floats.
-__device__ __forceinline__ float4 row_sum4(const int* __restrict__ indptr,
-                                           const int* __restrict__ indices,
-                                           const float* __restrict__ data,
-                                           const float* __restrict__ x, int k, int c0,
-                                           float* buf, int r0, int n, int row_width) {
+// Columns c0 .. c0 + V - 1 of A @ X for row r0 + lane into out[], X
+// row-major (n, k) with k a multiple of V and X 16-byte aligned: each
+// column added in row_sum's (XLA's) order.  `buf` is the warp's
+// kBufferV<T> values.
+template <class T>
+__device__ __forceinline__ void row_sum_v(const int* __restrict__ indptr,
+                                          const int* __restrict__ indices,
+                                          const T* __restrict__ data,
+                                          const T* __restrict__ x, int k, int c0, T* buf,
+                                          int r0, int n, int row_width,
+                                          T (&out)[Vec16<T>::kWidth]) {
+  using V = typename Vec16<T>::type;
+  constexpr int kV = Vec16<T>::kWidth;
   const int lane = threadIdx.x & 31;
   const int row = r0 + lane;
   __syncwarp();  // the buffer's last reader (a call before this one) is done
@@ -322,33 +368,36 @@ __device__ __forceinline__ float4 row_sum4(const int* __restrict__ indptr,
   const int hi = row < n ? __ldg(indptr + min(row, n - 1) + 1) : lo;
   const int span_lo = __ldg(indptr + r0);
   const int span_hi = __ldg(indptr + min(r0 + 32, n));
-  float* d = buf;
-  float4* xv = reinterpret_cast<float4*>(buf + kChunk4);
+  T* d = buf;
+  V* xv = reinterpret_cast<V*>(buf + kChunkV);
   const bool lanes8 = row_width <= kWindow;
   const int windows = (row_width + kWindow - 1) / kWindow;
   const int pad = lanes8 ? 0 : (windows * kWindow - row_width) / 2;
   // W <= 32: the 8 lane chains; W > 32: acc[0] the window's sum, acc[1] the row's.
-  float4 acc[kLanes];
+  T acc[kLanes][kV];
 #pragma unroll
-  for (int q = 0; q < kLanes; ++q) acc[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  for (int c = span_lo; c < span_hi; c += kChunk4) {
-    const int len = min(kChunk4, span_hi - c);
-    for (int base = 0; base < len; base += kStage4) {
-      int col[kPerLane4];
-      float w[kPerLane4];
-      float4 xg[kPerLane4];
+  for (int q = 0; q < kLanes; ++q) {
 #pragma unroll
-      for (int q = 0; q < kPerLane4; ++q) {
+    for (int c = 0; c < kV; ++c) acc[q][c] = T(0);
+  }
+  for (int c = span_lo; c < span_hi; c += kChunkV) {
+    const int len = min(kChunkV, span_hi - c);
+    for (int base = 0; base < len; base += kStageV) {
+      int col[kPerLaneV];
+      T w[kPerLaneV];
+      V xg[kPerLaneV];
+#pragma unroll
+      for (int q = 0; q < kPerLaneV; ++q) {
         const int i = min(base + lane + 32 * q, len - 1);
         col[q] = __ldg(indices + c + i);
         w[q] = __ldg(data + c + i);
       }
 #pragma unroll
-      for (int q = 0; q < kPerLane4; ++q) {
-        xg[q] = __ldg(reinterpret_cast<const float4*>(x + static_cast<long long>(col[q]) * k + c0));
+      for (int q = 0; q < kPerLaneV; ++q) {
+        xg[q] = __ldg(reinterpret_cast<const V*>(x + static_cast<long long>(col[q]) * k + c0));
       }
 #pragma unroll
-      for (int q = 0; q < kPerLane4; ++q) {
+      for (int q = 0; q < kPerLaneV; ++q) {
         const int i = base + lane + 32 * q;
         if (i < len) {
           d[i] = w[q];
@@ -366,11 +415,11 @@ __device__ __forceinline__ float4 row_sum4(const int* __restrict__ indptr,
         for (int q = 0; q < kLanes; ++q) {
           const int p = p0 + q;
           const int t = min(max(lo + p, c), c + len - 1) - c;
-          const float wt = d[t];
-          const float4 xt = xv[t];
+          const T wt = d[t];
+          const V xt = xv[t];
           if (p >= pb && p < pe) {
-            acc[q] = make_float4(__fmaf_rn(wt, xt.x, acc[q].x), __fmaf_rn(wt, xt.y, acc[q].y),
-                                 __fmaf_rn(wt, xt.z, acc[q].z), __fmaf_rn(wt, xt.w, acc[q].w));
+#pragma unroll
+            for (int e = 0; e < kV; ++e) acc[q][e] = mul_add(wt, vec_at(xt, e), acc[q][e]);
           }
         }
       }
@@ -378,132 +427,200 @@ __device__ __forceinline__ float4 row_sum4(const int* __restrict__ indptr,
       for (int p = pb; p < pe;) {
         const int offset = (p + pad) & (kWindow - 1);
         if (offset == 0) {
-          acc[1] = fadd4(acc[1], acc[0]);
-          acc[0] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+          for (int e = 0; e < kV; ++e) {
+            acc[1][e] = add_rn(acc[1][e], acc[0][e]);
+            acc[0][e] = T(0);
+          }
         }
         const int end = min(pe, p + kWindow - offset);
         for (; p < end; ++p) {
-          const float wt = d[lo + p - c];
-          const float4 xt = xv[lo + p - c];
-          acc[0] = fadd4(acc[0], make_float4(__fmul_rn(wt, xt.x), __fmul_rn(wt, xt.y),
-                                             __fmul_rn(wt, xt.z), __fmul_rn(wt, xt.w)));
+          const T wt = d[lo + p - c];
+          const V xt = xv[lo + p - c];
+#pragma unroll
+          for (int e = 0; e < kV; ++e) acc[0][e] = add_rn(acc[0][e], mul_rn(wt, vec_at(xt, e)));
         }
       }
     }
     __syncwarp();
   }
-  if (!lanes8) return fadd4(acc[1], acc[0]);
-  return fadd4(fadd4(fadd4(acc[0], acc[4]), fadd4(acc[2], acc[6])),
-               fadd4(fadd4(acc[1], acc[5]), fadd4(acc[3], acc[7])));
+#pragma unroll
+  for (int e = 0; e < kV; ++e) {
+    out[e] = lanes8 ? add_rn(add_rn(add_rn(acc[0][e], acc[4][e]), add_rn(acc[2][e], acc[6][e])),
+                             add_rn(add_rn(acc[1][e], acc[5][e]), add_rn(acc[3][e], acc[7][e])))
+                    : add_rn(acc[1][e], acc[0][e]);
+  }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    spmm4_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                 const float* __restrict__ data, const float* __restrict__ x,
-                 const float* __restrict__ deg, float* __restrict__ y, int n, int k,
-                 int row_width) {
-  extern __shared__ float4 buffers4[];
+    spmm_v_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                  const T* __restrict__ data, const T* __restrict__ x,
+                  const T* __restrict__ deg, T* __restrict__ y, int n, int k,
+                  int row_width) {
+  using V = typename Vec16<T>::type;
+  constexpr int kV = Vec16<T>::kWidth;
+  extern __shared__ __align__(16) unsigned char shared_raw[];
   const int warp = threadIdx.x >> 5;
   const int r0 = (blockIdx.x * kWarps + warp) * 32;
   if (r0 >= n) return;
-  float* buf = reinterpret_cast<float*>(buffers4) + warp * kBuffer4;
+  T* buf = reinterpret_cast<T*>(shared_raw) + warp * kBufferV<T>;
   const int row = r0 + (threadIdx.x & 31);
   const long long base = static_cast<long long>(min(row, n - 1)) * k;
-  const float dr = deg != nullptr ? __ldg(deg + min(row, n - 1)) : 0.0f;
-  for (int c0 = 0; c0 < k; c0 += 4) {
-    const float4 ax = row_sum4(indptr, indices, data, x, k, c0, buf, r0, n, row_width);
+  const T dr = deg != nullptr ? __ldg(deg + min(row, n - 1)) : T(0);
+  for (int c0 = 0; c0 < k; c0 += kV) {
+    T ax[kV];
+    row_sum_v(indptr, indices, data, x, k, c0, buf, r0, n, row_width, ax);
     if (row < n) {
-      float4 out = ax;
       if (deg != nullptr) {
-        const float4 xr = __ldg(reinterpret_cast<const float4*>(x + base + c0));
-        out = make_float4(__fmaf_rn(dr, xr.x, -ax.x), __fmaf_rn(dr, xr.y, -ax.y),
-                          __fmaf_rn(dr, xr.z, -ax.z), __fmaf_rn(dr, xr.w, -ax.w));
+        const V xr = __ldg(reinterpret_cast<const V*>(x + base + c0));
+#pragma unroll
+        for (int e = 0; e < kV; ++e) ax[e] = mul_add(dr, vec_at(xr, e), -ax[e]);
       }
-      *reinterpret_cast<float4*>(y + base + c0) = out;
+      *reinterpret_cast<V*>(y + base + c0) = vec_of(ax);
     }
   }
 }
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
+template <class T>
 size_t shared_bytes(int row_width) {
-  return static_cast<size_t>(kWarps) * buffer_floats(row_width) * sizeof(float);
+  return static_cast<size_t>(kWarps) * buffer_values<T>(row_width) * sizeof(T);
+}
+
+template <class T>
+int spmv_csr(const void* indptr, const void* indices, const void* data, const void* x,
+             void* y, int n, int row_width, void* stream) {
+  if (n > 0) {
+    spmv_csr_kernel<T><<<blocks_for(n), kThreads, shared_bytes<T>(row_width),
+                         static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(indptr), static_cast<const int*>(indices),
+        static_cast<const T*>(data), static_cast<const T*>(x), static_cast<T*>(y), n,
+        row_width);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int power_step(const void* indptr, const void* indices, const void* data, const void* x,
+               const void* deg, T inv_shift, void* y, int n, int row_width, void* stream) {
+  if (n > 0) {
+    power_step_kernel<T><<<blocks_for(n), kThreads, shared_bytes<T>(row_width),
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(indptr), static_cast<const int*>(indices),
+        static_cast<const T*>(data), static_cast<const T*>(x), static_cast<const T*>(deg),
+        inv_shift, static_cast<T*>(y), n, row_width);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int laplacian(const void* indptr, const void* indices, const void* data, const void* x,
+              const void* deg, void* y, int n, int row_width, void* stream) {
+  if (n > 0) {
+    laplacian_kernel<T><<<blocks_for(n), kThreads, shared_bytes<T>(row_width),
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(indptr), static_cast<const int*>(indices),
+        static_cast<const T*>(data), static_cast<const T*>(x), static_cast<const T*>(deg),
+        static_cast<T*>(y), n, row_width);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int spmm_csr(const void* indptr, const void* indices, const void* data, const void* x,
+             const void* deg, void* y, int n, int k, int row_width, void* stream) {
+  if (k < 1 || k > 16) return static_cast<int>(cudaErrorInvalidValue);
+  const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0;
+  if (n > 0 && k % Vec16<T>::kWidth == 0 && aligned) {
+    spmm_v_kernel<T><<<blocks_for(n), kThreads, kWarps * kBufferV<T> * sizeof(T),
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(indptr), static_cast<const int*>(indices),
+        static_cast<const T*>(data), static_cast<const T*>(x), static_cast<const T*>(deg),
+        static_cast<T*>(y), n, k, row_width);
+  } else if (n > 0) {
+    spmm_kernel<T><<<blocks_for(n), kThreads, shared_bytes<T>(row_width),
+                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(indptr), static_cast<const int*>(indices),
+        static_cast<const T*>(data), static_cast<const T*>(x), static_cast<const T*>(deg),
+        static_cast<T*>(y), n, k, row_width);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int lazy_walk(const void* indptr, const void* indices, const void* data, const void* w,
+              const void* dsinv, void* y, int n, int row_width, void* stream) {
+  if (n > 0) {
+    lazy_walk_kernel<T><<<blocks_for(n), kThreads, shared_bytes<T>(row_width),
+                          static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(indptr), static_cast<const int*>(indices),
+        static_cast<const T*>(data), static_cast<const T*>(w), static_cast<const T*>(dsinv),
+        static_cast<T*>(y), n, row_width);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int spmv_csr_f32(const void* indptr, const void* indices,
-                            const void* data, const void* x, void* y, int n,
-                            int row_width, void* stream) {
-  if (n > 0) {
-    spmv_csr_kernel<<<blocks_for(n), kThreads, shared_bytes(row_width),
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr), static_cast<const int*>(indices),
-        static_cast<const float*>(data), static_cast<const float*>(x),
-        static_cast<float*>(y), n, row_width);
-  }
-  return static_cast<int>(cudaGetLastError());
+extern "C" int spmv_csr_f32(const void* indptr, const void* indices, const void* data,
+                            const void* x, void* y, int n, int row_width, void* stream) {
+  return spmv_csr<float>(indptr, indices, data, x, y, n, row_width, stream);
+}
+
+extern "C" int spmv_csr_f64(const void* indptr, const void* indices, const void* data,
+                            const void* x, void* y, int n, int row_width, void* stream) {
+  return spmv_csr<double>(indptr, indices, data, x, y, n, row_width, stream);
 }
 
 extern "C" int power_step_f32(const void* indptr, const void* indices, const void* data,
                               const void* x, const void* deg, float inv_shift, void* y,
                               int n, int row_width, void* stream) {
-  if (n > 0) {
-    power_step_kernel<<<blocks_for(n), kThreads, shared_bytes(row_width),
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr), static_cast<const int*>(indices),
-        static_cast<const float*>(data), static_cast<const float*>(x),
-        static_cast<const float*>(deg), inv_shift, static_cast<float*>(y), n, row_width);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return power_step<float>(indptr, indices, data, x, deg, inv_shift, y, n, row_width, stream);
+}
+
+extern "C" int power_step_f64(const void* indptr, const void* indices, const void* data,
+                              const void* x, const void* deg, double inv_shift, void* y,
+                              int n, int row_width, void* stream) {
+  return power_step<double>(indptr, indices, data, x, deg, inv_shift, y, n, row_width, stream);
 }
 
 extern "C" int laplacian_f32(const void* indptr, const void* indices, const void* data,
                              const void* x, const void* deg, void* y, int n, int row_width,
                              void* stream) {
-  if (n > 0) {
-    laplacian_kernel<<<blocks_for(n), kThreads, shared_bytes(row_width),
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr), static_cast<const int*>(indices),
-        static_cast<const float*>(data), static_cast<const float*>(x),
-        static_cast<const float*>(deg), static_cast<float*>(y), n, row_width);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return laplacian<float>(indptr, indices, data, x, deg, y, n, row_width, stream);
+}
+
+extern "C" int laplacian_f64(const void* indptr, const void* indices, const void* data,
+                             const void* x, const void* deg, void* y, int n, int row_width,
+                             void* stream) {
+  return laplacian<double>(indptr, indices, data, x, deg, y, n, row_width, stream);
 }
 
 // deg may be null: then Y = A @ X.
 extern "C" int spmm_csr_f32(const void* indptr, const void* indices, const void* data,
                             const void* x, const void* deg, void* y, int n, int k,
                             int row_width, void* stream) {
-  if (k < 1 || k > 16) return static_cast<int>(cudaErrorInvalidValue);
-  const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0;
-  if (n > 0 && k % 4 == 0 && aligned) {
-    spmm4_kernel<<<blocks_for(n), kThreads, kWarps * kBuffer4 * sizeof(float),
-                   static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr), static_cast<const int*>(indices),
-        static_cast<const float*>(data), static_cast<const float*>(x),
-        static_cast<const float*>(deg), static_cast<float*>(y), n, k, row_width);
-  } else if (n > 0) {
-    spmm_kernel<<<blocks_for(n), kThreads, shared_bytes(row_width),
-                  static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr), static_cast<const int*>(indices),
-        static_cast<const float*>(data), static_cast<const float*>(x),
-        static_cast<const float*>(deg), static_cast<float*>(y), n, k, row_width);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return spmm_csr<float>(indptr, indices, data, x, deg, y, n, k, row_width, stream);
+}
+
+extern "C" int spmm_csr_f64(const void* indptr, const void* indices, const void* data,
+                            const void* x, const void* deg, void* y, int n, int k,
+                            int row_width, void* stream) {
+  return spmm_csr<double>(indptr, indices, data, x, deg, y, n, k, row_width, stream);
 }
 
 extern "C" int lazy_walk_f32(const void* indptr, const void* indices, const void* data,
                              const void* w, const void* dsinv, void* y, int n, int row_width,
                              void* stream) {
-  if (n > 0) {
-    lazy_walk_kernel<<<blocks_for(n), kThreads, shared_bytes(row_width),
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr), static_cast<const int*>(indices),
-        static_cast<const float*>(data), static_cast<const float*>(w),
-        static_cast<const float*>(dsinv), static_cast<float*>(y), n, row_width);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return lazy_walk<float>(indptr, indices, data, w, dsinv, y, n, row_width, stream);
+}
+
+extern "C" int lazy_walk_f64(const void* indptr, const void* indices, const void* data,
+                             const void* w, const void* dsinv, void* y, int n, int row_width,
+                             void* stream) {
+  return lazy_walk<double>(indptr, indices, data, w, dsinv, y, n, row_width, stream);
 }
 
 extern "C" const char* spmv_csr_error_string(int code) {

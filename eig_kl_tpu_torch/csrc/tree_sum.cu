@@ -1,10 +1,14 @@
-// K6: the sum of a float32 vector or row-major matrix in XLA's CPU order,
-// in one launch; and three element-wise entry points of the power solve:
-// the step's scale by the norm, the padded step x - c * (2 x - 2 ax / deg)
-// of a v3 plan's (P/128, 128) state, and a * x + y with one rounding (the
-// momentum exit's deflation).  The last two are fused multiply-adds where
-// XLA's CPU fusion contracts a product into the add that takes it
-// (eig_kl_tpu/spectral/power.py:184, :309-310; ROADMAP.md C7).
+// K6: the sum of a float32 or float64 vector or row-major matrix in XLA's
+// CPU order, in one launch (tree_sum_f32, tree_sum_f64); and three
+// element-wise entry points of the power solve: the step's scale by the
+// norm (scale_by_f32/_f64), the padded step x - c * (2 x - 2 ax / deg) of a
+// v3 plan's (P/128, 128) state (padded_step_f32: a v3 plan is f32 only, as
+// the JAX package's is), and a * x + y (axpy_f32/_f64, the momentum exit's
+// deflation).  In f32 the last two are fused multiply-adds where XLA's CPU
+// fusion contracts a product into the add that takes it
+// (eig_kl_tpu/spectral/power.py:184, :309-310; ROADMAP.md C7); in f64
+// every product is rounded before its add, as the plain versions' f64
+// branches do (csrc/fp.cuh: mul_add), and the root is the f64 root.
 //
 // It replaces no Pallas kernel.  The JAX package leaves its norms and sums
 // to XLA: the power step's jnp.linalg.norm (eig_kl_tpu/spectral/power.py:185)
@@ -27,7 +31,8 @@
 // inputs behave as in the plain a + x chain.
 //
 // Bound on this card: bytes.  A sum must read its input once, 808 KB for
-// the 1-D norm at gen 1.0x (201,920 values), or 0.24 us at 3.35 TB/s.  Its
+// the 1-D norm at gen 1.0x (201,920 values), or 0.24 us at 3.35 TB/s
+// (f64: 1.6 MB, 0.48 us).  Its
 // real limit is latency: round 1's loads, the ticket, then each later
 // round's loads and chain in the last block (a 2-D window's chain is 1,024
 // dependent adds).
@@ -42,18 +47,26 @@
 // root in f64 if asked, writes the result and resets the ticket.  The
 // order of every add is fixed whichever block comes last, so the result is
 // deterministic.  The ticket belongs to one stream (the wrapper keeps one
-// per stream), and the scratch is allocated per call.
+// per stream), and the scratch is allocated per call.  An f64 block has 4
+// warps instead of 8, so that its tiles (33.8 KB) fit the 48 KB of static
+// shared memory as f32's 8 do.
 
 #include <cuda_runtime.h>
+
+#include "fp.cuh"
 
 namespace {
 
 constexpr int kWindow = 32;
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kTileStride = kWindow + 1;  // a padded tile row: no bank conflicts
 constexpr int kTile = kWindow * kTileStride;
 constexpr int kMaxRounds = 8;  // ops/reduce.py:_MAX_ROUNDS
+
+// Warps per block of the sum: 8 in f32, 4 in f64 (the same tile bytes).
+template <class T>
+constexpr int kWarps = 32 / static_cast<int>(sizeof(T));
+template <class T>
+constexpr int kThreads = 32 * kWarps<T>;
 
 enum Mode { kSum = 0, kSquare = 1, kProduct = 2 };
 
@@ -72,22 +85,24 @@ struct Plan {
 // Value i of round 1's input: v, or v*w rounded (w is v for a square).
 // Both loads are issued whatever the mode, so that no branch stands
 // between a lane's loads.
+template <class T>
 struct Input {
-  const float* __restrict__ v;
-  const float* __restrict__ w;
+  const T* __restrict__ v;
+  const T* __restrict__ w;
   int mode;
-  __device__ float operator()(int i) const {
-    const float a = __ldg(v + i);
-    const float b = __ldg(w + i);
-    return mode == kSum ? a : __fmul_rn(a, b);
+  __device__ T operator()(int i) const {
+    const T a = __ldg(v + i);
+    const T b = __ldg(w + i);
+    return mode == kSum ? a : mul_rn(a, b);
   }
 };
 
 // Value i of a later round's input: partial sums written by this launch,
 // read through L2 (not the non-coherent read-only path).
+template <class T>
 struct Partials {
-  const float* p;
-  __device__ float operator()(int i) const { return __ldcg(p + i); }
+  const T* p;
+  __device__ T operator()(int i) const { return __ldcg(p + i); }
 };
 
 // Windows of 32 consecutive values of n, after `lead` zeros: warp `warp` of
@@ -96,25 +111,25 @@ struct Partials {
 // all of them are in flight at once: each load is unconditional, at an
 // index clamped into the input, and a select drops the pad's values (a
 // load under a branch makes the lane wait for it before the next one).
-template <class Load>
-__device__ void vector_round(Load load, int n, int m, int lead, float* dst,
-                             float* tile, int warp, int warps, int lane) {
+template <class T, class Load>
+__device__ void vector_round(Load load, int n, int m, int lead, T* dst, T* tile, int warp,
+                             int warps, int lane) {
   for (int first = warp * kWindow; first < m; first += warps * kWindow) {
-    float val[kWindow];
+    T val[kWindow];
 #pragma unroll
     for (int k = 0; k < kWindow; ++k) {
       const int i = (first + k) * kWindow + lane - lead;  // window first+k, value `lane`
       const bool in = i >= 0 && i < n;
-      const float value = load(in ? i : 0);
-      val[k] = in ? value : 0.0f;
+      const T value = load(in ? i : 0);
+      val[k] = in ? value : T(0);
     }
 #pragma unroll
     for (int k = 0; k < kWindow; ++k) tile[k * kTileStride + lane] = val[k];
     __syncwarp();
     if (first + lane < m) {
-      float acc = 0.0f;
+      T acc = T(0);
 #pragma unroll
-      for (int e = 0; e < kWindow; ++e) acc = __fadd_rn(acc, tile[lane * kTileStride + e]);
+      for (int e = 0; e < kWindow; ++e) acc = add_rn(acc, tile[lane * kTileStride + e]);
       dst[first + lane] = acc;
     }
     __syncwarp();
@@ -128,19 +143,19 @@ __device__ void vector_round(Load load, int n, int m, int lead, float* dst,
 // The loads go to registers first, as in vector_round.  Only a window that
 // is not full stops early: the stop is a branch, which keeps the next
 // loads from being issued before this one's select.
-template <bool kFull, class Load>
+template <bool kFull, class T, class Load>
 __device__ __forceinline__ void stage_window(Load load, const Round& r, int row0, int col0,
-                                             int size, int lane, float* tile) {
+                                             int size, int lane, T* tile) {
   const int wb = kFull ? kWindow : max(r.wb, 1);  // a window of 0 columns has no value
   int a = kFull ? 0 : lane / wb;
   int b = kFull ? lane : lane % wb;
-  float val[kWindow];
+  T val[kWindow];
 #pragma unroll
   for (int k = 0; k < kWindow; ++k) {
     if (!kFull && 32 * k >= size) break;  // the same for every lane
     const bool in = row0 + a >= 0 && row0 + a < r.rows && col0 + b >= 0 && col0 + b < r.cols;
-    const float value = load(in ? (row0 + a) * r.cols + col0 + b : 0);
-    val[k] = in ? value : 0.0f;
+    const T value = load(in ? (row0 + a) * r.cols + col0 + b : 0);
+    val[k] = in ? value : T(0);
     a += kWindow / wb;
     b += kWindow % wb;
     if (b >= wb) {
@@ -158,10 +173,13 @@ __device__ __forceinline__ void stage_window(Load load, const Round& r, int row0
 // 2-D windows: warp `warp` of `warps` takes windows warp, warp + warps, ...
 // (row-major over the windows); lane 0 adds each in row-major order.  A
 // round with an axis longer than 32 has windows of 32 along it, so a
-// window holds 32 * k values (k <= 32): lane 0 reads them four at a time.
-template <class Load>
-__device__ void tile_round(Load load, const Round& r, float* dst, float* tile,
-                           int warp, int warps, int lane) {
+// window holds 32 * k values (k <= 32): lane 0 reads them 16 bytes at a
+// time.
+template <class T, class Load>
+__device__ void tile_round(Load load, const Round& r, T* dst, T* tile, int warp, int warps,
+                           int lane) {
+  using V = typename Vec16<T>::type;
+  constexpr int kV = Vec16<T>::kWidth;
   const int count = r.win_rows * r.win_cols;
   const int size = r.wa * r.wb;
   for (int w = warp; w < count; w += warps) {
@@ -174,12 +192,13 @@ __device__ void tile_round(Load load, const Round& r, float* dst, float* tile,
     }
     __syncwarp();
     if (lane == 0) {
-      const float4* quad = reinterpret_cast<const float4*>(tile);
-      float acc = 0.0f;
+      const V* vec = reinterpret_cast<const V*>(tile);
+      T acc = T(0);
 #pragma unroll 8
-      for (int e = 0; e < size / 4; ++e) {
-        const float4 q = quad[e];
-        acc = __fadd_rn(__fadd_rn(__fadd_rn(__fadd_rn(acc, q.x), q.y), q.z), q.w);
+      for (int e = 0; e < size / kV; ++e) {
+        const V q = vec[e];
+#pragma unroll
+        for (int c = 0; c < kV; ++c) acc = add_rn(acc, vec_at(q, c));
       }
       dst[w] = acc;
     }
@@ -187,30 +206,31 @@ __device__ void tile_round(Load load, const Round& r, float* dst, float* tile,
   }
 }
 
-template <class Load>
-__device__ void run_round(Load load, const Round& r, float* dst, float* tile,
-                          int warp, int warps, int lane) {
+template <class T, class Load>
+__device__ void run_round(Load load, const Round& r, T* dst, T* tile, int warp, int warps,
+                          int lane) {
   if (r.rows == 1 || r.cols == 1) {
-    vector_round(load, r.rows * r.cols, r.win_rows * r.win_cols, r.la + r.lb, dst,
-                 tile, warp, warps, lane);
+    vector_round(load, r.rows * r.cols, r.win_rows * r.win_cols, r.la + r.lb, dst, tile,
+                 warp, warps, lane);
   } else {
     tile_round(load, r, dst, tile, warp, warps, lane);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    tree_sum_kernel(const float* __restrict__ v, const float* __restrict__ w, int mode,
-                    Plan plan, float* scratch, int second, unsigned* ticket,
-                    float* __restrict__ out, int root) {
-  __shared__ __align__(16) float tiles[kWarps * kTile];
+template <class T>
+__global__ void __launch_bounds__(kThreads<T>)
+    tree_sum_kernel(const T* __restrict__ v, const T* __restrict__ w, int mode, Plan plan,
+                    T* scratch, int second, unsigned* ticket, T* __restrict__ out, int root) {
+  constexpr int kW = kWarps<T>;
+  __shared__ __align__(16) T tiles[kW * kTile];
   __shared__ bool last;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  float* tile = tiles + warp * kTile;
-  const Input input{v, w, mode};
+  T* tile = tiles + warp * kTile;
+  const Input<T> input{v, w, mode};
   if (plan.num_rounds > 0) {
-    run_round(input, plan.round[0], scratch, tile, blockIdx.x * kWarps + warp,
-              gridDim.x * kWarps, lane);
+    run_round(input, plan.round[0], scratch, tile, blockIdx.x * kW + warp, gridDim.x * kW,
+              lane);
     __threadfence();  // this block's window sums, before its ticket
   }
   __syncthreads();
@@ -218,51 +238,54 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
   if (!last) return;
   __threadfence();
-  float* src = scratch;
-  float* dst = scratch + second;
+  T* src = scratch;
+  T* dst = scratch + second;
   for (int k = 1; k < plan.num_rounds; ++k) {
     // A copy in registers: reading the round's fields at a run-time index
     // of the kernel's parameters, as each use would, is slow.
     const Round round = plan.round[k];
-    run_round(Partials{src}, round, dst, tile, warp, kWarps, lane);
+    run_round(Partials<T>{src}, round, dst, tile, warp, kW, lane);
     __syncthreads();
-    float* t = src;
+    T* t = src;
     src = dst;
     dst = t;
   }
   // What is left (at most 32 x 32 values) goes to shared memory at once,
   // then thread 0 adds it in order.
-  float* left = tiles;
-  float* right = tiles + kWindow * kWindow;
-  for (int i = threadIdx.x; i < plan.final_count; i += kThreads) {
+  T* left = tiles;
+  T* right = tiles + kWindow * kWindow;
+  for (int i = threadIdx.x; i < plan.final_count; i += kThreads<T>) {
     if (plan.num_rounds > 0) {
       left[i] = __ldcg(src + i);
     } else {
       left[i] = __ldg(v + i);
-      right[i] = mode == kSum ? 0.0f : __ldg((mode == kSquare ? v : w) + i);
+      right[i] = mode == kSum ? T(0) : __ldg((mode == kSquare ? v : w) + i);
     }
   }
   __syncthreads();
   if (threadIdx.x == 0) {
-    float acc = 0.0f;
+    T acc = T(0);
     if (plan.num_rounds == 0 && mode != kSum) {
-      for (int i = 0; i < plan.final_count; ++i) acc = __fmaf_rn(left[i], right[i], acc);
+      // No round taken: XLA fuses each product into its add in f32; f64
+      // rounds the product first (mul_add).
+      for (int i = 0; i < plan.final_count; ++i) acc = mul_add(left[i], right[i], acc);
     } else {
 #pragma unroll 8
-      for (int i = 0; i < plan.final_count; ++i) acc = __fadd_rn(acc, left[i]);
+      for (int i = 0; i < plan.final_count; ++i) acc = add_rn(acc, left[i]);
     }
-    *out = root ? __double2float_rn(__dsqrt_rn(static_cast<double>(acc))) : acc;
+    *out = root ? root_rn(acc) : acc;
     *ticket = 0u;
   }
 }
 
 // x = y / nrm where nrm > 0, else y: the power step's scale.
-__global__ void scale_by_kernel(const float* __restrict__ y, const float* __restrict__ nrm,
-                                float* __restrict__ x, int n) {
-  const float s = __ldg(nrm);
+template <class T>
+__global__ void scale_by_kernel(const T* __restrict__ y, const T* __restrict__ nrm,
+                                T* __restrict__ x, int n) {
+  const T s = __ldg(nrm);
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    const float yi = y[i];
-    x[i] = s > 0.0f ? __fdiv_rn(yi, s) : yi;
+    const T yi = y[i];
+    x[i] = s > T(0) ? div_rn(yi, s) : yi;
   }
 }
 
@@ -279,13 +302,14 @@ __global__ void padded_step_kernel(const float* __restrict__ x, const float* __r
   }
 }
 
-// out = a * x + y with one rounding; a is one value (a_scalar) or a vector.
-__global__ void axpy_kernel(const float* __restrict__ a, int a_scalar,
-                            const float* __restrict__ x, const float* __restrict__ y,
-                            float* __restrict__ out, int n) {
-  const float a0 = __ldg(a);
+// out = a * x + y, one rounding in f32, the rounded product then the add in
+// f64; a is one value (a_scalar) or a vector.
+template <class T>
+__global__ void axpy_kernel(const T* __restrict__ a, int a_scalar, const T* __restrict__ x,
+                            const T* __restrict__ y, T* __restrict__ out, int n) {
+  const T a0 = __ldg(a);
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += gridDim.x * blockDim.x) {
-    out[i] = __fmaf_rn(a_scalar ? a0 : a[i], x[i], y[i]);
+    out[i] = mul_add(a_scalar ? a0 : a[i], x[i], y[i]);
   }
 }
 
@@ -294,14 +318,12 @@ int elementwise_blocks(int n) {
   return (n + threads - 1) / threads < 1056 ? (n + threads - 1) / threads : 1056;
 }
 
-}  // namespace
-
 // plan: host ints {num_rounds, final_count, then per round rows, cols,
 // win_rows, win_cols, wa, wb, la, lb}; scratch holds round 1's sums from 0
 // and round 2's from `second`, later rounds alternating between the two.
-extern "C" int tree_sum_f32(const void* v, const void* w, int mode, const void* plan_host,
-                            void* scratch, int second, void* ticket, void* out, int root,
-                            void* stream) {
+template <class T>
+int tree_sum(const void* v, const void* w, int mode, const void* plan_host, void* scratch,
+             int second, void* ticket, void* out, int root, void* stream) {
   const int* p = static_cast<const int*>(plan_host);
   Plan plan;
   plan.num_rounds = p[0];
@@ -318,23 +340,54 @@ extern "C" int tree_sum_f32(const void* v, const void* w, int mode, const void* 
     const Round& r = plan.round[0];
     const int windows = r.win_rows * r.win_cols;
     const int warps = (r.rows == 1 || r.cols == 1) ? (windows + kWindow - 1) / kWindow : windows;
-    blocks = warps > kWarps ? (warps + kWarps - 1) / kWarps : 1;
+    blocks = warps > kWarps<T> ? (warps + kWarps<T> - 1) / kWarps<T> : 1;
   }
-  tree_sum_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(v), static_cast<const float*>(w), mode, plan,
-      static_cast<float*>(scratch), second, static_cast<unsigned*>(ticket),
-      static_cast<float*>(out), root);
+  tree_sum_kernel<T><<<blocks, kThreads<T>, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(v), static_cast<const T*>(w), mode, plan, static_cast<T*>(scratch),
+      second, static_cast<unsigned*>(ticket), static_cast<T*>(out), root);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int scale_by_f32(const void* y, const void* nrm, void* x, int n, void* stream) {
+template <class T>
+int scale_by(const void* y, const void* nrm, void* x, int n, void* stream) {
   if (n > 0) {
-    const int threads = 256;
-    const int blocks = (n + threads - 1) / threads < 1056 ? (n + threads - 1) / threads : 1056;
-    scale_by_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(y), static_cast<const float*>(nrm), static_cast<float*>(x), n);
+    scale_by_kernel<T><<<elementwise_blocks(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(y), static_cast<const T*>(nrm), static_cast<T*>(x), n);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int axpy(const void* a, int a_scalar, const void* x, const void* y, void* out, int n,
+         void* stream) {
+  if (n > 0) {
+    axpy_kernel<T><<<elementwise_blocks(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(a), a_scalar, static_cast<const T*>(x), static_cast<const T*>(y),
+        static_cast<T*>(out), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int tree_sum_f32(const void* v, const void* w, int mode, const void* plan_host,
+                            void* scratch, int second, void* ticket, void* out, int root,
+                            void* stream) {
+  return tree_sum<float>(v, w, mode, plan_host, scratch, second, ticket, out, root, stream);
+}
+
+extern "C" int tree_sum_f64(const void* v, const void* w, int mode, const void* plan_host,
+                            void* scratch, int second, void* ticket, void* out, int root,
+                            void* stream) {
+  return tree_sum<double>(v, w, mode, plan_host, scratch, second, ticket, out, root, stream);
+}
+
+extern "C" int scale_by_f32(const void* y, const void* nrm, void* x, int n, void* stream) {
+  return scale_by<float>(y, nrm, x, n, stream);
+}
+
+extern "C" int scale_by_f64(const void* y, const void* nrm, void* x, int n, void* stream) {
+  return scale_by<double>(y, nrm, x, n, stream);
 }
 
 extern "C" int padded_step_f32(const void* x, const void* ax, const void* deg, float inv_shift,
@@ -349,12 +402,12 @@ extern "C" int padded_step_f32(const void* x, const void* ax, const void* deg, f
 
 extern "C" int axpy_f32(const void* a, int a_scalar, const void* x, const void* y, void* out,
                         int n, void* stream) {
-  if (n > 0) {
-    axpy_kernel<<<elementwise_blocks(n), 256, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(a), a_scalar, static_cast<const float*>(x),
-        static_cast<const float*>(y), static_cast<float*>(out), n);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return axpy<float>(a, a_scalar, x, y, out, n, stream);
+}
+
+extern "C" int axpy_f64(const void* a, int a_scalar, const void* x, const void* y, void* out,
+                        int n, void* stream) {
+  return axpy<double>(a, a_scalar, x, y, out, n, stream);
 }
 
 extern "C" const char* tree_sum_error_string(int code) {

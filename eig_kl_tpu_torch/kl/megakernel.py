@@ -15,7 +15,10 @@ row updates of the cached ``a_s = A @ s``, the lock, the gain
 logs, and the termination rule (``floor(log2 n) + 5`` consecutive swaps
 with ``gain <= gain_eps``, cKL.cpp:303,382-386).  Each start has its own
 ``cut0``, ``best0``, ``cap`` and ``term0``, so a pass can leave the kernel
-and re-enter it (``refresh_interval``).  Around the pass: the initial
+and re-enter it (``refresh_interval``).  K2 has an f32 and an f64
+instantiation (``K2``, ``K2_F64``); the f64 pass stands for the JAX
+package's f64 engine off the TPU (``eig_kl_tpu/kl/engine.py:206``), to
+which its plain version is held (``tests/test_torch_kl.py``).  Around the pass: the initial
 ``A @ s`` and cut of every start, and afterwards the replay of the final
 and best partitions from the swap logs and the from-scratch recount
 (``megakernel.py:_finalize_batch``, ``:710``).
@@ -40,47 +43,56 @@ from eig_kl_tpu_torch.ops.spmv import spmv
 from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
 from eig_kl_tpu_torch.utils.tracing import Tracer
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-K2 = Kernel(
-    "kl_pass",
-    "kl_pass_f32",
-    [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I, _F, _I, _P, _P, _P, _P, _P, _P],
+_P, _I = ctypes.c_void_p, ctypes.c_int
+K2, K2_F64 = (
+    Kernel(
+        "kl_pass",
+        f"kl_pass_{suffix}",
+        [_P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _P, _P, _P, _P, _I, scalar, _I, _P, _P, _P, _P, _P, _P],
+    )
+    for suffix, scalar in (("f32", ctypes.c_float), ("f64", ctypes.c_double))
 )
-#: K2's launches by their number of starts (``K2.launches`` is the total):
-#: ``K2_STARTS[1]`` counts the single-start form, ``K2_STARTS[8]`` batches
-#: of 8.  Only :func:`kl_pass_batch_cuda` adds to it, one per launch.
+#: K2's launches (f32 and f64) by their number of starts (``K2.launches``
+#: plus ``K2_F64.launches`` is the total): ``K2_STARTS[1]`` counts the
+#: single-start form, ``K2_STARTS[8]`` batches of 8.  Only
+#: :func:`kl_pass_batch_cuda` adds to it, one per launch.
 K2_STARTS: collections.Counter = collections.Counter()
 
 ROW = 128  #: nodes per row of K2's row-max cache
 #: K2 selects through its row-max cache from this many nodes up, and by a
-#: flat scan below.  The crossover on the H100 (chip_smoke.py, PERF.md):
-#: gen 0.02x (4,038 nodes) 2.19 us per swap flat against 2.58 cached,
-#: gen 0.05x (10,096) 2.70 against 2.67, gen 0.1x (20,192) 3.67 against
-#: 2.76.
+#: flat scan below.  The crossover on the H100 (chip_smoke.py, PERF.md),
+#: in f32: gen 0.02x (4,038 nodes) 2.19 us per swap flat against 2.58
+#: cached, gen 0.05x (10,096) 2.70 against 2.67, gen 0.1x (20,192) 3.67
+#: against 2.76.  chip_smoke.py measures the f64 crossover beside it.
 K2_CACHE_MIN_NODES = 10_000
 #: Dynamic shared memory K2's cache may take: the H100's 227 KB opt-in
-#: per block less 1 KB for the kernel's own shared variables (under 800 B).
-K2_SHARED_CACHE_BYTES = 232_448 - 1024
+#: per block less 2 KB for the kernel's own shared variables (under 1.1
+#: KB in f64).
+K2_SHARED_CACHE_BYTES = 232_448 - 2048
 
 
-def k2_cache_words(n_padded: int, row_width: int) -> tuple[int, int]:
+def k2_cache_words(n_padded: int, row_width: int, dtype: torch.dtype = torch.float32) -> tuple[int, int]:
     """``(words, list_cap)`` of one start's row-max cache in K2 for
-    ``n_padded`` nodes (a multiple of :data:`ROW`): both sides' maxima per
-    row, a dirty bit per row, and a list of dirty rows with room for the
-    most one swap can touch (two rows of at most ``row_width`` entries,
-    plus the rows of a and b)."""
+    ``n_padded`` nodes (a multiple of :data:`ROW`), in 4-byte words: both
+    sides' maxima per row (one word each in f32, two in f64), a dirty bit
+    per row, and a list of dirty rows with room for the most one swap can
+    touch (two rows of at most ``row_width`` entries, plus the rows of a
+    and b); in f64 rounded up to an even count, so that every start's
+    maxima stay 8-byte aligned (``csrc/kl_pass.cu:cache_words``)."""
     rows = n_padded // ROW
     list_cap = min(rows, 2 * row_width + 2)
-    return 2 * rows + -(-rows // 32) + list_cap, list_cap
+    size = torch.empty((), dtype=dtype).element_size()
+    words = 2 * rows * (size // 4) + -(-rows // 32) + list_cap
+    return words + (words & 1 if size == 8 else 0), list_cap
 
 
-def k2_selection(num_nodes: int, row_width: int) -> str:
-    """How K2 selects for a graph of ``num_nodes``: "flat" below
-    :data:`K2_CACHE_MIN_NODES`, else "shared" while the cache fits
+def k2_selection(num_nodes: int, row_width: int, dtype: torch.dtype = torch.float32) -> str:
+    """How K2 selects for a graph of ``num_nodes`` in ``dtype``: "flat"
+    below :data:`K2_CACHE_MIN_NODES`, else "shared" while the cache fits
     :data:`K2_SHARED_CACHE_BYTES`, else "global"."""
     if num_nodes < K2_CACHE_MIN_NODES:
         return "flat"
-    words = k2_cache_words(-(-num_nodes // ROW) * ROW, row_width)[0]
+    words = k2_cache_words(-(-num_nodes // ROW) * ROW, row_width, dtype)[0]
     return "shared" if 4 * words <= K2_SHARED_CACHE_BYTES else "global"
 
 
@@ -244,15 +256,15 @@ def kl_pass_batch_cuda(
     _cache: str | None = None,
 ) -> PassOutput:
     """Launch K2 on the current stream: ``grid = (S,)``, one block of 1,024
-    threads runs the whole pass of one start.  Everything is f32 (``cap``
-    and ``term0`` int32) on one card; the per-start parameters are device
-    arrays, so nothing is read back before the launch.  Inputs are not
-    modified.
+    threads runs the whole pass of one start.  Everything is f32, or
+    everything f64 (``cap`` and ``term0`` int32), on one card; the
+    per-start parameters are device arrays, so nothing is read back before
+    the launch.  Inputs are not modified.
 
     From :data:`K2_CACHE_MIN_NODES` nodes up the selection goes through a
     per-start row-max cache, kept in the block's shared memory while it
-    fits :data:`K2_SHARED_CACHE_BYTES` (about 3.5M nodes), else in a
-    global-memory stripe per start; below, a flat scan.  ``_cache``
+    fits :data:`K2_SHARED_CACHE_BYTES` (about 3.5M nodes in f32, 1.8M in
+    f64), else in a global-memory stripe per start; below, a flat scan.  ``_cache``
     ("flat", "shared" or "global") forces one of the three, for tests and
     measurements."""
     n = g.num_nodes
@@ -261,11 +273,12 @@ def kl_pass_batch_cuda(
     tensors = {"sf0": sf0, "as0": as0, **per_start}
     if dev.type != "cuda" or g.device != dev or any(t.device != dev for t in tensors.values()):
         raise ValueError("the KL pass kernel needs its inputs and the graph on one CUDA device")
+    dtype = sf0.dtype
     floats = (sf0, as0, cut0, best0, g.data)
-    if any(t.dtype != torch.float32 for t in floats):
+    if dtype not in (torch.float32, torch.float64) or any(t.dtype != dtype for t in floats):
         raise TypeError(
-            "the card's KL pass is float32 only (an f64 engine on the card is "
-            "ROADMAP.md A9)"
+            "the card's KL pass takes sf0, as0, cut0, best0 and the graph all f32 or "
+            f"all f64; got {[t.dtype for t in floats]}"
         )
     if cap.dtype != torch.int32 or term0.dtype != torch.int32:
         raise TypeError("cap and term0 must be int32")
@@ -278,24 +291,24 @@ def kl_pass_batch_cuda(
     if log_len < 1:
         raise ValueError("log_len must be at least 1 (and above every cap)")
     padded = -(-n // ROW) * ROW  # whole cache rows; padding has sf = 0
-    words, list_cap = k2_cache_words(padded, g.row_width)
+    words, list_cap = k2_cache_words(padded, g.row_width, dtype)
     if _cache is None:
-        _cache = k2_selection(n, g.row_width)
+        _cache = k2_selection(n, g.row_width, dtype)
     if _cache not in ("flat", "shared", "global"):
         raise ValueError(f"_cache must be 'flat', 'shared' or 'global', not {_cache!r}")
     cache = None
     if _cache == "global":
         cache = torch.empty(num_starts, words, dtype=torch.int32, device=dev)
-    sf = torch.zeros(num_starts, padded, dtype=torch.float32, device=dev)
-    a_s = torch.zeros(num_starts, padded, dtype=torch.float32, device=dev)
+    sf = torch.zeros(num_starts, padded, dtype=dtype, device=dev)
+    a_s = torch.zeros(num_starts, padded, dtype=dtype, device=dev)
     sf[:, :n] = sf0
     a_s[:, :n] = as0
-    log_cut = torch.zeros(num_starts, log_len, dtype=torch.float32, device=dev)
+    log_cut = torch.zeros(num_starts, log_len, dtype=dtype, device=dev)
     log_gain = torch.zeros_like(log_cut)
     log_a = torch.zeros(num_starts, log_len, dtype=torch.int32, device=dev)
     log_b = torch.zeros_like(log_a)
-    scalars = torch.empty(num_starts, 8, dtype=torch.float32, device=dev)
-    K2(
+    scalars = torch.empty(num_starts, 8, dtype=dtype, device=dev)
+    (K2 if dtype == torch.float32 else K2_F64)(
         g.indptr.data_ptr(),
         g.indices.data_ptr(),
         g.data.data_ptr(),
@@ -345,7 +358,7 @@ def kl_pass_cuda(
     """One start through K2: the S = 1 case of :func:`kl_pass_batch_cuda`,
     with ``best0 = cut0`` and ``term0 = 0``; that wrapper checks the
     arguments."""
-    cut = torch.tensor([cut0], dtype=torch.float32, device=sf0.device)
+    cut = torch.tensor([cut0], dtype=sf0.dtype, device=sf0.device)
     caps = torch.tensor([cap], dtype=torch.int32, device=sf0.device)
     out = kl_pass_batch_cuda(
         g, sf0[None], as0[None], cut, cut, caps, torch.zeros_like(caps),

@@ -108,11 +108,13 @@ def spectral_partition(
     device: str | torch.device | None = None,
 ) -> PartitionRun:
     """Spectral phase only (the cEIG executable), any solver.  ``dtype``
-    None = f32 on the card (with the host f64 refinement for lanczos and
-    lobpcg), f64 on the CPU."""
+    None = f64 on the card and on the CPU, the JAX package's default
+    (``eig_kl_tpu/models/pipelines.py:87``) and its precision rule off the
+    TPU (``eig_kl_tpu/cli/main.py:204-212``); f32 adds the host f64
+    refinement for lanczos and lobpcg."""
     dev = resolve_device(device)
     if dtype is None:
-        dtype = torch.float32 if dev.type == "cuda" else torch.float64
+        dtype = torch.float64
     tracer = Tracer(dev)
     with tracer.span("spectral.total"):
         eig, solve = eig_partition_solve(hg, config, dtype=dtype, device=dev, tracer=tracer)

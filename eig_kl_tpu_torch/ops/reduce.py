@@ -20,9 +20,9 @@ squares, a dot) rounds each product before a window adds it; where no
 round is taken (at most 32 values per axis), XLA fuses each product
 into its add, a chain of fused multiply-adds in order, and so does this.
 
-K6 runs a whole sum in one launch for an f32 tensor on the card, the
-plain versions run it for a tensor on the CPU (f32 and f64); a failed
-build or launch raises.
+K6 runs a whole sum in one launch for an f32 or f64 tensor on the card
+(``K6``, ``K6_F64``), the plain versions run it for a tensor on the CPU;
+a failed build or launch raises.
 """
 
 from __future__ import annotations
@@ -30,7 +30,6 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-import struct
 from typing import NamedTuple
 
 import numpy as np
@@ -40,17 +39,35 @@ from eig_kl_tpu_torch.ops._build import Kernel
 from eig_kl_tpu_torch.ops.spmv import fma_f32
 
 _WINDOW = 32
-_P = ctypes.c_void_p
-K4 = Kernel("fma_dot", "fma_dot_f32", [_P] * 3 + [ctypes.c_int, _P])
-K6 = Kernel(
-    "tree_sum", "tree_sum_f32",
-    [_P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P, _P, ctypes.c_int, _P],
+_P, _I = ctypes.c_void_p, ctypes.c_int
+K4, K4_F64 = (Kernel("fma_dot", f"fma_dot_{t}", [_P] * 3 + [_I, _P]) for t in ("f32", "f64"))
+K6, K6_F64 = (
+    Kernel("tree_sum", f"tree_sum_{t}", [_P, _P, _I, _P, _P, _I, _P, _P, _I, _P])
+    for t in ("f32", "f64")
 )
-K6_SCALE = Kernel("tree_sum", "scale_by_f32", [_P, _P, _P, ctypes.c_int, _P])
-K6_AXPY = Kernel("tree_sum", "axpy_f32", [_P, ctypes.c_int, _P, _P, _P, ctypes.c_int, _P])
-K6_STEP = Kernel(
-    "tree_sum", "padded_step_f32", [_P, _P, _P, ctypes.c_float, _P, ctypes.c_int, _P]
+K6_SCALE, K6_SCALE_F64 = (
+    Kernel("tree_sum", f"scale_by_{t}", [_P, _P, _P, _I, _P]) for t in ("f32", "f64")
 )
+K6_AXPY, K6_AXPY_F64 = (
+    Kernel("tree_sum", f"axpy_{t}", [_P, _I, _P, _P, _P, _I, _P]) for t in ("f32", "f64")
+)
+#: A v3 plan's padded step: f32 only, as the JAX package's v3 plan is.
+K6_STEP = Kernel("tree_sum", "padded_step_f32", [_P, _P, _P, ctypes.c_float, _P, _I, _P])
+_F64 = {K4: K4_F64, K6: K6_F64, K6_SCALE: K6_SCALE_F64, K6_AXPY: K6_AXPY_F64}
+#: XLA's CPU vector dot rounds its first 8 products before adding them,
+#: then fuses each product into its add (:func:`fma_dot`).
+_DOT_UNFUSED = 8
+
+
+def _typed(kernel: Kernel, tensors, what: str) -> Kernel:
+    """``kernel``'s instantiation for the dtype of ``tensors`` (all f32 or
+    all f64)."""
+    dtypes = {t.dtype for t in tensors}
+    if dtypes == {torch.float32}:
+        return kernel
+    if dtypes == {torch.float64}:
+        return _F64[kernel]
+    raise TypeError(f"{what} takes f32 or f64 tensors of one dtype; got {[t.dtype for t in tensors]}")
 #: K6's mode: the values summed are v, v * v or v * w.
 _SUM, _SQUARE, _PRODUCT = 0, 1, 2
 _MAX_ROUNDS = 8  # csrc/tree_sum.cu:kMaxRounds
@@ -108,7 +125,9 @@ def tree_norm(x: torch.Tensor) -> torch.Tensor:
 
     An f32 root is taken in f64 and rounded once, which gives the
     correctly rounded f32 root on every device (PyTorch's f32 ``sqrt`` on
-    the CPU is sometimes an ulp off; XLA's is correctly rounded).
+    the CPU is sometimes an ulp off; XLA's is correctly rounded).  An f64
+    root is PyTorch's, which on the CPU is not always correctly rounded
+    either (ROADMAP.md C11); K6's is.
     """
     if x.device.type == "cpu":
         return _root(_products_plain(x, x, tree_sum_plain))
@@ -244,17 +263,13 @@ def tree_sum_cuda(
 ) -> torch.Tensor:
     """Launch K6 on the current stream: the sum of ``v`` (``v * v`` with
     ``square``, ``v * w`` with ``w``) in the order of :func:`tree_sum` for
-    a 1-D tensor or of :func:`tree_sum_2d` for a 2-D one, its f32 root taken
-    as in :func:`tree_norm` with ``root``.  Contiguous f32 tensors on one
-    card; returns a 0-d f32 tensor there."""
+    a 1-D tensor or of :func:`tree_sum_2d` for a 2-D one, its root taken as
+    in :func:`tree_norm` with ``root``.  Contiguous f32 or f64 tensors of
+    one dtype on one card; returns a 0-d tensor of that dtype there."""
     both = (v,) if w is None else (v, w)
     if v.device.type != "cuda" or any(t.device != v.device for t in both):
         raise ValueError("tree_sum_cuda needs its tensors on one CUDA device")
-    if any(t.dtype != torch.float32 for t in both):
-        raise TypeError(
-            "the card's fixed-order sum is float32 only (an f64 engine on the card "
-            f"is ROADMAP.md A9); got {[t.dtype for t in both]}"
-        )
+    kernel = _typed(K6, both, "tree_sum_cuda")
     if v.dim() not in (1, 2) or any(t.shape != v.shape or not t.is_contiguous() for t in both):
         raise ValueError(f"tree_sum_cuda: contiguous 1-D or 2-D tensors of one shape, got {[tuple(t.shape) for t in both]}")
     if v.numel() >= 2**31 - 2**16:
@@ -262,12 +277,12 @@ def tree_sum_cuda(
     plan, scratch_len, second = k6_plan(tuple(v.shape))
     mode = _PRODUCT if w is not None else _SQUARE if square else _SUM
     stream = torch.cuda.current_stream(v.device)
-    scratch = torch.empty(scratch_len, dtype=torch.float32, device=v.device)
-    out = torch.empty((), dtype=torch.float32, device=v.device)
+    scratch = torch.empty(scratch_len, dtype=v.dtype, device=v.device)
+    out = torch.empty((), dtype=v.dtype, device=v.device)
     # The kernel's loads are unconditional, at clamped indices: an empty
-    # input hands it the output's float to read and drop.
+    # input hands it the output's value to read and drop.
     src = both[0] if v.numel() else out
-    K6(
+    kernel(
         src.data_ptr(), (both[-1] if v.numel() else out).data_ptr(), mode, ctypes.addressof(plan),
         scratch.data_ptr(), second, _ticket(v.device, stream).data_ptr(), out.data_ptr(), int(root),
         stream.cuda_stream,
@@ -291,44 +306,74 @@ def normalize_plain(y: torch.Tensor, nrm: torch.Tensor) -> torch.Tensor:
 
 
 def normalize_cuda(y: torch.Tensor, nrm: torch.Tensor) -> torch.Tensor:
-    """Launch K6's scale entry point on the current stream: a contiguous f32
-    tensor and a 0-d f32 norm on one card."""
+    """Launch K6's scale entry point on the current stream: a contiguous
+    tensor and a 0-d norm, both f32 or both f64, on one card."""
     if y.device.type != "cuda" or nrm.device != y.device:
         raise ValueError("normalize_cuda needs y and nrm on one CUDA device")
-    if y.dtype != torch.float32 or nrm.dtype != torch.float32:
-        raise TypeError(f"normalize_cuda is float32 only (ROADMAP.md A9); got {y.dtype}, {nrm.dtype}")
+    kernel = _typed(K6_SCALE, (y, nrm), "normalize_cuda")
     if not y.is_contiguous() or nrm.dim() != 0 or y.numel() >= 2**31:
         raise ValueError(f"normalize_cuda: a contiguous tensor and a 0-d norm, got {tuple(y.shape)}, {tuple(nrm.shape)}")
     out = torch.empty_like(y)
-    K6_SCALE(y.data_ptr(), nrm.data_ptr(), out.data_ptr(), y.numel(), torch.cuda.current_stream(y.device).cuda_stream)
+    kernel(y.data_ptr(), nrm.data_ptr(), out.data_ptr(), y.numel(), torch.cuda.current_stream(y.device).cuda_stream)
     return out
 
 
 def fma_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``x . y`` for f32 vectors as XLA's CPU backend computes a vector dot
-    (``jnp.vdot``): one chain of fused multiply-adds in index order.
+    """``x . y`` for f32 or f64 vectors as XLA's CPU backend computes a
+    vector dot (``jnp.vdot``): from +0, the first 8 products rounded and
+    added in index order, then one chain of fused multiply-adds in index
+    order.  (Measured against ``jax.jit(jnp.vdot)`` in both types,
+    ``tests/test_torch_spmv_v3.py`` and ``tests/test_torch_f64.py``.)
 
     K4 (``csrc/fma_dot.cu``) runs the chain for tensors on the card,
-    :func:`fma_dot_plain` for tensors on the CPU.  Returns a 0-d f32
-    tensor on ``x``'s device.
+    :func:`fma_dot_plain` for tensors on the CPU.  Returns a 0-d tensor of
+    the inputs' dtype on ``x``'s device.
     """
     if x.device.type == "cpu":
         return fma_dot_plain(x, y)
     return fma_dot_cuda(x, y)
 
 
+def _fma_exact(a: float, b: float, c: float) -> float:
+    """``a * b + c`` for finite doubles, rounded once: the exact rational
+    (each double's ratio has a power-of-two denominator), then Python's
+    correctly rounded integer division."""
+    na, da = a.as_integer_ratio()
+    nb, db = b.as_integer_ratio()
+    nc, dc = c.as_integer_ratio()
+    return (na * nb * dc + nc * da * db) / (da * db * dc)
+
+
 def fma_dot_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The chain of :func:`fma_dot` on the host: each product is exact in
-    f64, and the f64 sum is rounded to odd (its TwoSum error decides the
-    last bit) before the rounding to f32, which makes each step the
-    correctly rounded ``fmaf`` (see ``ops/spmv.py:fma_f32``)."""
+    """The chain of :func:`fma_dot` on the host, in the inputs' dtype.
+
+    f32: each product is exact in f64; the first 8 are rounded to f32 and
+    added in f32; each later step forms the f64 sum rounded to odd (its
+    TwoSum error decides the last bit) before the rounding to f32, which
+    makes it the correctly rounded ``fmaf`` (see ``ops/spmv.py:fma_f32``).
+    f64: each later step is the exact rational ``a * b + acc`` rounded
+    once (Python 3.12 has no ``math.fma``); a non-finite input takes the
+    unfused chain, which gives the same infinities and NaNs.
+    """
+    if x.dtype == torch.float64 and y.dtype == torch.float64:
+        xs, ys = x.cpu().tolist(), y.cpu().tolist()
+        fused = _fma_exact if all(map(math.isfinite, xs + ys)) else lambda a, b, c: a * b + c
+        acc = 0.0
+        for i, (a, b) in enumerate(zip(xs, ys)):
+            acc = acc + a * b if i < _DOT_UNFUSED else fused(a, b, acc)
+        return torch.tensor(acc, dtype=torch.float64, device=x.device)
+    if x.dtype != torch.float32 or y.dtype != torch.float32:
+        raise TypeError(f"fma_dot takes two f32 or two f64 vectors; got {x.dtype} and {y.dtype}")
     prods = (x.double() * y.double()).cpu().tolist()
-    acc = 0.0
-    for p in prods:
+    acc = np.float32(0.0)
+    for p in prods[:_DOT_UNFUSED]:
+        acc = acc + np.float32(p)
+    acc = float(acc)
+    for p in prods[_DOT_UNFUSED:]:
         s = p + acc
         bp = s - acc
         err = (p - bp) + (acc - (s - bp))
-        if err != 0.0 and not struct.unpack("<q", struct.pack("<d", s))[0] & 1:
+        if err != 0.0 and not int(np.float64(s).view(np.int64)) & 1:
             s = math.nextafter(s, math.copysign(math.inf, err))
         acc = float(np.float32(s))
     return torch.tensor(acc, dtype=torch.float32, device=x.device)
@@ -336,22 +381,23 @@ def fma_dot_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def fma_dot_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Launch K4 on the current stream: the chain of :func:`fma_dot` for
-    two contiguous f32 vectors of one length on one card."""
+    two contiguous vectors of one length, both f32 or both f64, on one
+    card."""
     if x.device.type != "cuda" or y.device != x.device:
         raise ValueError("fma_dot_cuda: x and y must lie on one CUDA device")
-    if x.dtype != torch.float32 or y.dtype != torch.float32:
-        raise TypeError(f"fma_dot_cuda is float32 only; got {x.dtype} and {y.dtype}")
+    kernel = _typed(K4, (x, y), "fma_dot_cuda")
     if x.dim() != 1 or x.shape != y.shape or not (x.is_contiguous() and y.is_contiguous()):
         raise ValueError(f"fma_dot_cuda: two contiguous vectors of one length, got {tuple(x.shape)}, {tuple(y.shape)}")
-    out = torch.empty((), dtype=torch.float32, device=x.device)
-    K4(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+    out = torch.empty((), dtype=x.dtype, device=x.device)
+    kernel(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
 
 def axpy(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """``a * x + y`` with one rounding in f32, as XLA's CPU fusion contracts
     a product into the add that takes it (the momentum exit's deflation
-    ``w - c q0`` and the padded lazy walk).  ``a`` is a 0-d tensor or a
+    ``w - c q0`` and the padded lazy walk); in f64 the rounded product,
+    then the add.  ``a`` is a 0-d tensor or a
     tensor of ``x``'s shape.  K6's axpy entry point for a tensor on the
     card, :func:`axpy_plain` on the CPU."""
     if x.device.type == "cpu":
@@ -367,20 +413,20 @@ def axpy_plain(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tenso
 
 
 def axpy_cuda(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Launch K6's axpy entry point on the current stream: contiguous f32
-    tensors of one shape on one card, ``a`` 0-d or of that shape."""
+    """Launch K6's axpy entry point on the current stream: contiguous
+    tensors of one shape on one card, all f32 or all f64, ``a`` 0-d or of
+    that shape."""
     ts = (a, x, y)
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
         raise ValueError("axpy_cuda needs a, x and y on one CUDA device")
-    if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError(f"axpy_cuda is float32 only (ROADMAP.md A9); got {[t.dtype for t in ts]}")
+    kernel = _typed(K6_AXPY, ts, "axpy_cuda")
     scalar = a.dim() == 0
     if y.shape != x.shape or not (scalar or a.shape == x.shape) or not all(t.is_contiguous() for t in ts):
         raise ValueError(f"axpy_cuda: contiguous x, y of one shape and a 0-d or alike, got {[tuple(t.shape) for t in ts]}")
     if x.numel() >= 2**31:
         raise ValueError(f"axpy_cuda: {x.numel()} values do not fit its int32 indices")
     out = torch.empty_like(x)
-    K6_AXPY(a.data_ptr(), int(scalar), x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
+    kernel(a.data_ptr(), int(scalar), x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(),
             torch.cuda.current_stream(x.device).cuda_stream)
     return out
 
@@ -411,7 +457,10 @@ def padded_step_cuda(x: torch.Tensor, ax: torch.Tensor, deg: torch.Tensor, inv_s
     if x.device.type != "cuda" or any(t.device != x.device for t in ts):
         raise ValueError("padded_step_cuda needs x, ax and deg on one CUDA device")
     if any(t.dtype != torch.float32 for t in ts):
-        raise TypeError(f"padded_step_cuda is float32 only; got {[t.dtype for t in ts]}")
+        raise TypeError(
+            "padded_step_cuda is float32 only: a v3 plan is f32 only, as the JAX "
+            f"package's is (eig_kl_tpu/models/pipelines.py:128); got {[t.dtype for t in ts]}"
+        )
     if any(t.shape != x.shape or not t.is_contiguous() for t in ts) or x.numel() >= 2**31:
         raise ValueError(f"padded_step_cuda: contiguous tensors of one shape, got {[tuple(t.shape) for t in ts]}")
     out = torch.empty_like(x)

@@ -33,6 +33,11 @@ a subtraction is one fused multiply-add with it (``deg * x - A x``,
 ``w + dsinv * A(dsinv * w)``, ``x - c * lap``).  The f64
 plain version uses the same order with unfused multiply-adds (PyTorch
 has no exact f64 fused multiply-add); it is not bit-identical to XLA's.
+
+Every entry point has an f32 and an f64 kernel (``K1`` and ``K1_F64``,
+``K1_STEP`` and ``K1_STEP_F64``, ...), each with its own launch count;
+an f64 tensor on the card goes to the f64 kernel, which equals the f64
+plain version bit for bit.
 """
 
 from __future__ import annotations
@@ -46,23 +51,34 @@ from eig_kl_tpu_torch.graph.csr import DeviceGraph
 from eig_kl_tpu_torch.ops._build import Kernel
 from eig_kl_tpu_torch.ops.spmv_v3 import spmv_v3
 
-_P = ctypes.c_void_p
-K1 = Kernel(
-    "spmv_csr", "spmv_csr_f32", [_P, _P, _P, _P, _P, ctypes.c_int, ctypes.c_int, _P]
-)
-K1_STEP = Kernel(
-    "spmv_csr", "power_step_f32",
-    [_P, _P, _P, _P, _P, ctypes.c_float, _P, ctypes.c_int, ctypes.c_int, _P],
-)
-K1_LAPLACIAN = Kernel(
-    "spmv_csr", "laplacian_f32", [_P] * 6 + [ctypes.c_int, ctypes.c_int, _P]
-)
-K1_SPMM = Kernel(
-    "spmv_csr", "spmm_csr_f32", [_P] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P]
-)
-K1_LAZY = Kernel(
-    "spmv_csr", "lazy_walk_f32", [_P] * 6 + [ctypes.c_int, ctypes.c_int, _P]
-)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+def _pair(symbol: str, argtypes) -> tuple[Kernel, Kernel]:
+    """The f32 and f64 kernels of one entry point; ``argtypes`` maps a
+    scalar ctypes type to the argument list."""
+    return tuple(
+        Kernel("spmv_csr", f"{symbol}_{suffix}", argtypes(scalar))
+        for suffix, scalar in (("f32", ctypes.c_float), ("f64", ctypes.c_double))
+    )
+
+
+K1, K1_F64 = _pair("spmv_csr", lambda _: [_P] * 5 + [_I, _I, _P])
+K1_STEP, K1_STEP_F64 = _pair("power_step", lambda t: [_P] * 5 + [t, _P, _I, _I, _P])
+K1_LAPLACIAN, K1_LAPLACIAN_F64 = _pair("laplacian", lambda _: [_P] * 6 + [_I, _I, _P])
+K1_SPMM, K1_SPMM_F64 = _pair("spmm_csr", lambda _: [_P] * 6 + [_I, _I, _I, _P])
+K1_LAZY, K1_LAZY_F64 = _pair("lazy_walk", lambda _: [_P] * 6 + [_I, _I, _P])
+_F64 = {K1: K1_F64, K1_STEP: K1_STEP_F64, K1_LAPLACIAN: K1_LAPLACIAN_F64, K1_SPMM: K1_SPMM_F64,
+        K1_LAZY: K1_LAZY_F64}
+#: The dtypes K1 takes on the card.
+CARD_DTYPES = (torch.float32, torch.float64)
+
+
+def _typed(kernel: Kernel, dtype: torch.dtype) -> Kernel:
+    """``kernel``'s instantiation for ``dtype`` (f32 or f64)."""
+    return kernel if dtype == torch.float32 else _F64[kernel]
+
+
 #: The most columns :func:`spmm` takes on the card (``csrc/spmv_csr.cu``).
 SPMM_MAX_COLUMNS = 16
 
@@ -137,25 +153,29 @@ def spmv_plain(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def _check_dtype(g: DeviceGraph, x: torch.Tensor, what: str) -> None:
+    if x.dtype not in CARD_DTYPES or g.dtype != x.dtype:
+        raise TypeError(
+            f"{what}: the card's K1 takes an f32 or an f64 graph and x of the "
+            f"graph's dtype; got x {x.dtype}, graph {g.dtype}"
+        )
+
+
 def _check_card(g: DeviceGraph, x: torch.Tensor, what: str) -> None:
     n = g.num_nodes
     if x.device.type != "cuda" or g.device != x.device:
         raise ValueError(f"{what} needs x and the graph on one CUDA device")
-    if x.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError(
-            "the card's SpMV is float32 only (an f64 engine on the card is "
-            f"ROADMAP.md A9); got x {x.dtype}, graph {g.dtype}"
-        )
+    _check_dtype(g, x, what)
     if x.shape != (n,) or not x.is_contiguous():
         raise ValueError(f"x must be a contiguous ({n},) vector, got {tuple(x.shape)}")
 
 
 def spmv_csr(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
-    """Launch K1 on the current stream; ``x`` and the graph are f32 on the
-    card."""
+    """Launch K1 on the current stream; ``x`` and the graph are f32, or
+    both f64, on the card."""
     _check_card(g, x, "spmv_csr")
-    y = torch.empty(g.num_nodes, dtype=torch.float32, device=x.device)
-    K1(
+    y = torch.empty(g.num_nodes, dtype=x.dtype, device=x.device)
+    _typed(K1, x.dtype)(
         g.indptr.data_ptr(),
         g.indices.data_ptr(),
         g.data.data_ptr(),
@@ -202,23 +222,23 @@ def power_step_plain(g: DeviceGraph, x: torch.Tensor, deg: torch.Tensor, inv_shi
 
 
 def power_step_cuda(g: DeviceGraph, x: torch.Tensor, deg: torch.Tensor, inv_shift: float) -> torch.Tensor:
-    """Launch K1's step entry point on the current stream: the f32 graph,
-    ``x`` and ``deg`` (contiguous, ``(n,)``) on one card."""
+    """Launch K1's step entry point on the current stream: the graph, ``x``
+    and ``deg`` (contiguous, ``(n,)``), all f32 or all f64, on one card."""
     _check_card(g, x, "power_step_cuda")
-    if deg.device != x.device or deg.dtype != torch.float32 or deg.shape != x.shape or not deg.is_contiguous():
-        raise ValueError(f"deg must be a contiguous f32 ({g.num_nodes},) vector on x's card")
+    _check_vector(g, deg, x, "deg")
     y = torch.empty_like(x)
-    K1_STEP(
+    shift = float(np.float32(inv_shift)) if x.dtype == torch.float32 else float(inv_shift)
+    _typed(K1_STEP, x.dtype)(
         g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), x.data_ptr(), deg.data_ptr(),
-        float(np.float32(inv_shift)), y.data_ptr(), g.num_nodes, g.row_width,
+        shift, y.data_ptr(), g.num_nodes, g.row_width,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     return y
 
 
 def _check_vector(g: DeviceGraph, v: torch.Tensor, like: torch.Tensor, name: str) -> None:
-    if v.device != like.device or v.dtype != torch.float32 or v.shape != (g.num_nodes,) or not v.is_contiguous():
-        raise ValueError(f"{name} must be a contiguous f32 ({g.num_nodes},) vector on x's card")
+    if v.device != like.device or v.dtype != like.dtype or v.shape != (g.num_nodes,) or not v.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {like.dtype} ({g.num_nodes},) vector on x's card")
 
 
 def _fused_sub(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
@@ -245,12 +265,12 @@ def laplacian_plain(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
 
 
 def laplacian_cuda(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
-    """Launch K1's Laplacian entry point on the current stream: the f32
-    graph and ``x`` (contiguous, ``(n,)``) on one card."""
+    """Launch K1's Laplacian entry point on the current stream: the graph
+    and ``x`` (contiguous, ``(n,)``), both f32 or both f64, on one card."""
     _check_card(g, x, "laplacian_cuda")
     _check_vector(g, g.degrees, x, "the graph's degrees")
     y = torch.empty_like(x)
-    K1_LAPLACIAN(
+    _typed(K1_LAPLACIAN, x.dtype)(
         g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), x.data_ptr(),
         g.degrees.data_ptr(), y.data_ptr(), g.num_nodes, g.row_width,
         torch.cuda.current_stream(x.device).cuda_stream,
@@ -263,7 +283,8 @@ def spmm(g: DeviceGraph, X: torch.Tensor, *, laplacian: bool = False) -> torch.T
     column (the JAX package's ``vmap`` of ``spmv``,
     ``eig_kl_tpu/spectral/lobpcg_solver.py:51-56``); with ``laplacian``,
     ``deg * X - A @ X``.  K1's blocked entry point for a tensor on the card
-    (``1 <= k <= 16``), :func:`spmm_plain` on the CPU."""
+    (``1 <= k <= 16``; 16-byte gathers of 4 f32 or 2 f64 columns where k
+    is a multiple of that), :func:`spmm_plain` on the CPU."""
     if X.device.type == "cpu":
         return spmm_plain(g, X, laplacian=laplacian)
     return spmm_cuda(g, X, laplacian=laplacian)
@@ -278,14 +299,13 @@ def spmm_plain(g: DeviceGraph, X: torch.Tensor, *, laplacian: bool = False) -> t
 
 
 def spmm_cuda(g: DeviceGraph, X: torch.Tensor, *, laplacian: bool = False) -> torch.Tensor:
-    """Launch K1's blocked entry point on the current stream: the f32 graph
-    and a contiguous row-major ``(n, k)`` ``X``, ``1 <= k <= 16``, on one
-    card."""
+    """Launch K1's blocked entry point on the current stream: the graph and
+    a contiguous row-major ``(n, k)`` ``X``, ``1 <= k <= 16``, both f32 or
+    both f64, on one card."""
     n = g.num_nodes
     if X.device.type != "cuda" or g.device != X.device:
         raise ValueError("spmm_cuda needs X and the graph on one CUDA device")
-    if X.dtype != torch.float32 or g.dtype != torch.float32:
-        raise TypeError(f"the card's SpMM is float32 only (ROADMAP.md A9); got X {X.dtype}, graph {g.dtype}")
+    _check_dtype(g, X, "spmm_cuda")
     if X.dim() != 2 or X.shape[0] != n or not 1 <= X.shape[1] <= SPMM_MAX_COLUMNS or not X.is_contiguous():
         raise ValueError(
             f"X must be a contiguous (n, k) matrix with n = {n} and 1 <= k <= "
@@ -294,7 +314,7 @@ def spmm_cuda(g: DeviceGraph, X: torch.Tensor, *, laplacian: bool = False) -> to
     if laplacian:
         _check_vector(g, g.degrees, X, "the graph's degrees")
     Y = torch.empty_like(X)
-    K1_SPMM(
+    _typed(K1_SPMM, X.dtype)(
         g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), X.data_ptr(),
         g.degrees.data_ptr() if laplacian else None, Y.data_ptr(), n, X.shape[1], g.row_width,
         torch.cuda.current_stream(X.device).cuda_stream,
@@ -323,12 +343,13 @@ def lazy_walk_plain(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor) -> tor
 
 
 def lazy_walk_cuda(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor) -> torch.Tensor:
-    """Launch K1's lazy-walk entry point on the current stream: the f32
-    graph, ``w`` and ``dsinv`` (contiguous, ``(n,)``) on one card."""
+    """Launch K1's lazy-walk entry point on the current stream: the graph,
+    ``w`` and ``dsinv`` (contiguous, ``(n,)``), all f32 or all f64, on one
+    card."""
     _check_card(g, w, "lazy_walk_cuda")
     _check_vector(g, dsinv, w, "dsinv")
     y = torch.empty_like(w)
-    K1_LAZY(
+    _typed(K1_LAZY, w.dtype)(
         g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), w.data_ptr(),
         dsinv.data_ptr(), y.data_ptr(), g.num_nodes, g.row_width,
         torch.cuda.current_stream(w.device).cuda_stream,

@@ -30,7 +30,7 @@ have weight 0.
 
 The plan lives on the device as torch tensors.  On the CPU the plain
 versions run; a CUDA tensor always goes to the kernels, and a failed build
-or launch raises.  f32 only.
+or launch raises.  f32 only, on both (:data:`F32_ONLY`).
 """
 
 from __future__ import annotations
@@ -372,11 +372,23 @@ def reduce_v3_plain(plan: SpmvPlanV3, e: torch.Tensor) -> torch.Tensor:
 # --- kernels -------------------------------------------------------------------
 
 
+#: Why the v3 route refuses f64: the JAX package builds a v3 plan only on
+#: the TPU, where its KL engine and power solve run in f32.
+F32_ONLY = (
+    "the v3 SpMV is float32 only, as in the JAX package, which builds a v3 plan only "
+    "on the TPU, where it runs in f32 (eig_kl_tpu/models/pipelines.py:128, :192)"
+)
+
+
+def _check_f32(t: torch.Tensor, what: str) -> None:
+    if t.dtype != torch.float32:
+        raise TypeError(f"{F32_ONLY}; got {what} {t.dtype}")
+
+
 def _check(on: torch.Tensor, t: torch.Tensor, size: int, what: str) -> None:
     if t.device.type != "cuda" or on.device != t.device:
         raise ValueError(f"{what} and the plan must lie on one CUDA device")
-    if t.dtype != torch.float32:
-        raise TypeError(f"the v3 SpMV is float32 only; got {what} {t.dtype}")
+    _check_f32(t, what)
     if t.numel() != size or not t.is_contiguous():
         raise ValueError(f"{what} must be contiguous with {size} elements, got {tuple(t.shape)}")
 
@@ -434,7 +446,9 @@ def reduce_v3_cuda(plan: SpmvPlanV3, e: torch.Tensor) -> torch.Tensor:
 def spmv_v3_padded(plan: SpmvPlanV3, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` on padded state (P elements, any shape; the padding must
     be zero), of the same shape; the result's padding is zero.  The
-    kernels for a tensor on the card, the plain versions on the CPU."""
+    kernels for a tensor on the card, the plain versions on the CPU; f32
+    only on both."""
+    _check_f32(x, "x")
     flat = x.reshape(-1)
     if x.device.type == "cpu":
         e = benes_v3_plain(plan.masks, gather_v3_plain(plan, flat))
@@ -446,6 +460,7 @@ def spmv_v3_padded(plan: SpmvPlanV3, x: torch.Tensor) -> torch.Tensor:
 def spmv_v3(plan: SpmvPlanV3, x: torch.Tensor) -> torch.Tensor:
     """``A @ x`` for f32[n]: zero-padded to P, through the v3 kernels, cut
     back to n (``spmv_pallas`` with a v3 plan)."""
+    _check_f32(x, "x")
     n = x.shape[0]
     xp = torch.zeros(plan.padded_nodes, dtype=torch.float32, device=x.device)
     xp[:n] = x

@@ -280,11 +280,7 @@ def smega_pass_cuda(
     tensors = (sf0, as0, g.indptr, g.indices, g.data)
     if dev.type != "cuda" or any(x.device != dev for x in tensors):
         raise ValueError("the sharded KL pass needs its inputs and the graph on one CUDA device")
-    if any(x.dtype != torch.float32 for x in (sf0, as0, g.data)):
-        raise TypeError(
-            "the card's sharded KL pass is float32 only (an f64 engine on the card is "
-            "ROADMAP.md A9)"
-        )
+    _check_f32(sf0, as0, g.data)
     if g.indptr.dtype != torch.int32 or g.indices.dtype != torch.int32:
         raise TypeError("the graph's indptr and indices must be int32")
     if n_pad % (4 * n_shards) != 0 or n_pad < g.num_nodes or as0.shape != sf0.shape:
@@ -336,9 +332,21 @@ def smega_pass_cuda(
     return PassOutput(sf, log_cut, log_gain, log_a, log_b, scalars)
 
 
+def _check_f32(*tensors: torch.Tensor) -> None:
+    """K5 and its plain version take f32 only: the JAX package's smega
+    kernel is f32 only (its weights, ``eig_kl_tpu/parallel/smega.py:107``,
+    and its state), so an f64 sharded pass has no reference."""
+    if any(t.dtype != torch.float32 for t in tensors):
+        raise TypeError(
+            "the sharded KL pass is float32 only, as the JAX package's smega kernel is "
+            f"(eig_kl_tpu/parallel/smega.py:107); got {[t.dtype for t in tensors]}"
+        )
+
+
 def smega_pass(g, n_shards, sf0, as0, cut0, cap, nf0, nf1, log_len, terminate_limit, gain_eps) -> PassOutput:
     """One sharded pass: K5 for tensors on the card (or an error), the
-    plain version for tensors on the CPU."""
+    plain version for tensors on the CPU; f32 only on both."""
+    _check_f32(sf0, as0, g.data)
     fn = smega_pass_plain if sf0.device.type == "cpu" else smega_pass_cuda
     return fn(g, n_shards, sf0, as0, cut0, cap, nf0, nf1, log_len, terminate_limit, gain_eps)
 

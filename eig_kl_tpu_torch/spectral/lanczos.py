@@ -118,8 +118,9 @@ def lanczos_fiedler(
       g: DeviceGraph built with the "eig" weighting (2/k).
       config: tolerances; ``num_lanczos`` defaults to min(100, n//2) like
         Spectra's ncv (cEIG.cpp:195).
-      dtype: float64 (the CPU) for Spectra parity; float32 on the card,
-        with the host refinement of :func:`eig_partition`.
+      dtype: float64 (the default, on the card and on the CPU) for
+        Spectra parity; float32 with the host refinement of
+        :func:`eig_partition`.
     """
     n = g.num_nodes
     m = config.num_lanczos or min(100, max(n // 2, 2))

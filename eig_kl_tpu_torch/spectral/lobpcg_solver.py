@@ -105,8 +105,8 @@ def lobpcg_fiedler(
       g: DeviceGraph built with the "eig" weighting (2/k).
       config: ``max_iterations`` caps LOBPCG iterations; ``tolerance`` is
         the relative residual bound on the wanted pair.
-      dtype: f64 (the CPU) for golden parity; f32 on the card, with the
-        host refinement of :func:`eig_partition`.
+      dtype: f64 (the default, on the card and on the CPU) for golden
+        parity; f32 with the host refinement of :func:`eig_partition`.
     """
     k = 4 if g.num_nodes >= 32 else 2  # the wanted pair + guard vectors
     lam, vec, iters, resid = _lobpcg_core(

@@ -12,17 +12,19 @@ The steps run on the device; the exit tests run on the host, which reads
 one scalar per check (every ``check_interval`` steps for "sign" and
 "momentum", every step for "gkl2").  Norms and dot products add in the fixed order of
 :mod:`eig_kl_tpu_torch.ops.reduce`, which makes the iterate equal the JAX
-package's CPU iterate bit for bit.  On the card an f32 CSR step is three
-launches: K1's step entry point (``ops/spmv.py:power_step``), K6 for the
-norm with its root, and K6's scale.
+package's CPU iterate bit for bit (in f32; in f64 the port rounds each
+product on its own, where XLA fuses some).  On the card a CSR step is three
+launches, in f32 or in f64: K1's step entry point
+(``ops/spmv.py:power_step``), K6 for the norm with its root, and K6's
+scale.
 
 The "momentum" exit (``power.py:263-391`` of the JAX package) runs a
 Chebyshev/Polyak recurrence on the symmetrized lazy walk
 ``(I + D^-1/2 A D^-1/2) / 2``, K1's lazy-walk entry point on the card
-(``ops/spmv.py:lazy_walk``).  Its dots are XLA's vector dot, a chain of
-fused multiply-adds in index order (:func:`fma_dot`, K4 on the card), its
-deflation ``w - c q0`` one fused multiply-add per element (K6's axpy on
-the card), its norms K6.
+(``ops/spmv.py:lazy_walk``).  Its dots are XLA's vector dot in the
+iterate's dtype (:func:`fma_dot`, K4 on the card), its deflation ``w - c
+q0`` one fused multiply-add per element in f32 (K6's axpy on the card),
+its norms K6.
 
 An f32 graph with a v3 plan iterates on zero-padded ``(P/128, 128)``
 state through the v3 SpMV, as the JAX package's plan branch does
@@ -30,7 +32,8 @@ state through the v3 SpMV, as the JAX package's plan branch does
 the padded state in XLA's order for a 2-D reduction, the Rayleigh
 quotient as XLA's vector dot over the padded state (K4 on the card).  The
 padded step ``x - c * lap`` is one fused multiply-add, as on the CSR path
-(K6's padded step on the card, ROADMAP.md C7).  f64 ignores the plan.
+(K6's padded step on the card, ROADMAP.md C7).  f64 ignores the plan: the
+JAX package builds a v3 plan only on the TPU, where it runs in f32.
 """
 
 from __future__ import annotations

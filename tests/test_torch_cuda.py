@@ -77,6 +77,7 @@ def test_k1_equals_plain_bitwise_and_is_deterministic(cuda, kind):
 
 
 def test_k1_refuses_f64(cuda):
+    """An f64 x on an f32 graph: K1 takes both in one dtype."""
     from eig_kl_tpu_torch.ops.spmv import spmv
 
     g_host_dev = _graphs("gen_0.02", cuda)[1]
@@ -174,7 +175,7 @@ def test_fused_on_the_card_equals_the_cpu_run(cuda):
 
 def _batch_inputs(g, seeds=(), sides=None):
     """Signs, ``A @ s`` and cuts of one start per seeded random split (or
-    per row of ``sides``), on the graph's device."""
+    per row of ``sides``), on the graph's device, in its dtype."""
     from eig_kl_tpu_torch.kl.init import random_split
     from eig_kl_tpu_torch.kl.megakernel import _batch_init
     from eig_kl_tpu_torch.ops.partition import sides_to_signs
@@ -182,7 +183,7 @@ def _batch_inputs(g, seeds=(), sides=None):
     if sides is None:
         sides = np.stack([random_split(g.num_nodes, s) for s in seeds])
     sides = torch.as_tensor(sides).to(g.device)
-    s = sides_to_signs(sides, torch.float32)
+    s = sides_to_signs(sides, g.dtype)
     a_s, cut0 = _batch_init(g, s)
     return s, a_s, cut0
 
@@ -711,16 +712,20 @@ def test_k6_ticket_resets_between_launches_and_streams(cuda):
 
 
 def test_k6_refuses_f64_and_odd_tensors(cuda):
-    from eig_kl_tpu_torch.ops.reduce import K6, tree_norm, tree_sum_cuda
+    """An f64 vector beside an f32 one, or an f16 one: K6 takes f32 or f64
+    tensors of one dtype (its f64 runs are test_k6_f64_*)."""
+    from eig_kl_tpu_torch.ops.reduce import K6, K6_F64, tree_norm, tree_sum_cuda
 
-    before = K6.launches
-    with pytest.raises(TypeError, match="A9"):
-        tree_norm(torch.zeros(100, dtype=torch.float64, device=cuda))
+    before = K6.launches, K6_F64.launches
+    with pytest.raises(TypeError, match="f32 or f64"):
+        tree_sum_cuda(torch.zeros(100, device=cuda), torch.zeros(100, dtype=torch.float64, device=cuda))
+    with pytest.raises(TypeError, match="f32 or f64"):
+        tree_norm(torch.zeros(100, dtype=torch.float16, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         tree_sum_cuda(torch.zeros(64, 2, device=cuda).t())
     with pytest.raises(ValueError, match="contiguous"):
         tree_sum_cuda(torch.zeros(2, 2, 2, device=cuda))
-    assert K6.launches == before
+    assert (K6.launches, K6_F64.launches) == before
 
 
 def test_k6_scale_equals_plain_bitwise(cuda):
@@ -928,3 +933,299 @@ def test_other_solvers_on_the_card_equal_the_cpu_run(cuda, solver):
     assert card.eigenvalue == pytest.approx(0.0973479036, rel=1e-6)
     assert solve.refined is not None and solve.refined[1] <= 1e-5
     assert sorted(card.balance()) == [1847, 1847]
+
+
+# ------------------------------------------------------------- the f64 engine
+
+
+@pytest.mark.parametrize("kind", ["gen_0.02", "hub10", "hub44", "hub130", "hub1300"])
+def test_k1_f64_entry_points_equal_plain_bitwise(cuda, kind):
+    """K1's five f64 entry points against their plain versions on the card
+    and on the CPU, bit for bit: the SpMV and the power step (shift 2 and 3)
+    on the KL graph, the Laplacian, the blocked product (k = 1, 2, 4, 12,
+    16; two columns per 16-byte gather where k is even, one at a time for
+    odd k or an unaligned X) and the lazy walk on the "eig" graph; the f32
+    kernels launch nothing."""
+    import importlib
+
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+
+    S = importlib.import_module("eig_kl_tpu_torch.ops.spmv")
+    if kind == "hub1300":
+        g_kl = g_eig = _v3_graph("hub")
+    else:
+        hg = _hypergraph(kind)
+        g_kl, g_eig = clique_expand(hg, "kl"), clique_expand(hg, "eig")
+    f32 = [S.K1, S.K1_STEP, S.K1_LAPLACIAN, S.K1_SPMM, S.K1_LAZY]
+    f32_before = [k.launches for k in f32]
+    rng = np.random.default_rng(6)
+
+    def both(host):
+        return host.to_device("cpu", torch.float64), host.to_device(cuda, torch.float64)
+
+    def same(a, b):
+        assert a.dtype == b.dtype == torch.float64
+        assert torch.equal(a.cpu().view(torch.int64), b.cpu().view(torch.int64))
+
+    g_cpu, g = both(g_kl)
+    n = g.num_nodes
+    x = torch.as_tensor(rng.standard_normal(n))
+    x[::53] = -0.0
+    deg = torch.where(g_cpu.degrees > 0, g_cpu.degrees, 1.0)
+    same(S.spmv(g, x.to(cuda)), S.spmv_plain(g_cpu, x))
+    same(S.spmv(g, x.to(cuda)), S.spmv_plain(g, x.to(cuda)))
+    for inv in (0.5, 1.0 / 3.0):
+        y = S.power_step(g, x.to(cuda), deg.to(cuda), inv)
+        same(y, S.power_step_plain(g_cpu, x, deg, inv))
+        same(y, S.power_step_plain(g, x.to(cuda), deg.to(cuda), inv))
+    e_cpu, e = both(g_eig)
+    d = torch.as_tensor(1.0 / np.sqrt(rng.uniform(0.5, 9.0, n)))
+    same(S.laplacian(e, x.to(cuda)), S.laplacian_plain(e_cpu, x))
+    same(S.lazy_walk(e, x.to(cuda), d.to(cuda)), S.lazy_walk_plain(e_cpu, x, d))
+    for k in (1, 2, 4, 12, 16):
+        X = torch.as_tensor(rng.standard_normal((n, k)))
+        for laplacian in (False, True):
+            same(S.spmm(e, X.to(cuda), laplacian=laplacian), S.spmm_plain(e_cpu, X, laplacian=laplacian))
+        store = torch.empty(n * k + 1, dtype=torch.float64, device=cuda)
+        X_odd = store[1:].view(n, k)
+        X_odd.copy_(X.to(cuda))
+        same(S.spmm(e, X_odd, laplacian=True), S.spmm_plain(e_cpu, X, laplacian=True))
+    torch.cuda.synchronize()
+    assert [k.launches for k in f32] == f32_before
+    assert S.K1_F64.launches and S.K1_STEP_F64.launches and S.K1_SPMM_F64.launches
+
+
+@pytest.mark.parametrize("shape", K6_SHAPES)
+@pytest.mark.parametrize("mode", ["sum", "norm", "dot"])
+def test_k6_f64_equals_plain_bitwise(cuda, shape, mode):
+    """K6 at f64 (the sum, the norm with its f64 root, the dot) against the
+    plain versions on the card and on the CPU, +0 and -0 among the inputs,
+    equal over repeated launches."""
+    from eig_kl_tpu_torch.ops.reduce import K6, K6_F64, tree_sum_cuda
+
+    v, w = (t.double() * (1.0 + 2.0**-30) for t in _k6_inputs(shape, sum(shape)))
+    vc, wc = v.to(cuda), w.to(cuda)
+    kw = {"sum": {}, "norm": {"square": True, "root": True}, "dot": {}}[mode]
+    args = (vc, wc) if mode == "dot" else (vc,)
+    before = K6.launches, K6_F64.launches
+    outs = [tree_sum_cuda(*args, **kw) for _ in range(3)]
+    assert (K6.launches, K6_F64.launches) == (before[0], before[1] + 3)
+    ref_card, ref_cpu = _k6_plain(mode, vc, wc), _k6_plain(mode, v, w)
+    torch.cuda.synchronize()
+    bits = {int(o.cpu().view(torch.int64)) for o in outs}
+    assert bits == {int(ref_card.cpu().view(torch.int64))} == {int(ref_cpu.view(torch.int64))}
+
+
+def test_k6_f64_scale_and_axpy_equal_plain_bitwise(cuda):
+    from eig_kl_tpu_torch.ops import reduce as R
+
+    rng = np.random.default_rng(8)
+    x, y, a = (torch.as_tensor(rng.standard_normal(184_406)) for _ in range(3))
+    before = R.K6_SCALE.launches, R.K6_AXPY.launches
+    for nrm in (torch.tensor(3.25), torch.tensor(0.0), R.tree_norm(x)):
+        nrm = nrm.double()
+        assert torch.equal(R.normalize(x.to(cuda), nrm.to(cuda)).cpu(), R.normalize_plain(x, nrm))
+    for aa in (torch.tensor(-0.3712, dtype=torch.float64), a):
+        got = R.axpy(aa.to(cuda), x.to(cuda), y.to(cuda))
+        assert torch.equal(got.cpu().view(torch.int64), R.axpy_plain(aa, x, y).view(torch.int64))
+    assert (R.K6_SCALE.launches, R.K6_AXPY.launches) == before
+    assert R.K6_SCALE_F64.launches >= 3 and R.K6_AXPY_F64.launches >= 2
+
+
+@pytest.mark.parametrize("size", [0, 1, 7, 8, 9, 1023, 1024, 1025, 4038, 184_406])
+def test_k4_f64_equals_the_host_chain_bitwise(cuda, size):
+    """K4 at f64: the first 8 products rounded and added, then the fused
+    chain (XLA's vdot), equal to the host's exact chain."""
+    from eig_kl_tpu_torch.ops.reduce import K4, K4_F64, fma_dot, fma_dot_plain
+
+    rng = np.random.default_rng(size)
+    x = rng.standard_normal(size)
+    y = rng.standard_normal(size) * rng.uniform(0.1, 10.0, size)
+    x[::7], y[::11] = 0.0, -0.0
+    xc, yc = torch.as_tensor(x).to(cuda), torch.as_tensor(y).to(cuda)
+    before = K4.launches, K4_F64.launches
+    a, b = fma_dot(xc, yc), fma_dot(xc, yc)
+    assert (K4.launches, K4_F64.launches) == (before[0], before[1] + 2) and a.dtype == torch.float64
+    ref = fma_dot_plain(torch.as_tensor(x), torch.as_tensor(y))
+    assert a.cpu().view(torch.int64) == b.cpu().view(torch.int64) == ref.view(torch.int64)
+
+
+@pytest.mark.parametrize("case", list(K2_CASES))
+def test_k2_f64_equals_plain_bitwise(cuda, case):
+    """K2's f64 instantiation in every case of test_k2_equals_plain_bitwise:
+    the flat scan, the row-max cache in shared and in global memory, one
+    start and batches, ties and a side that runs out."""
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.kl.megakernel import K2, K2_F64, kl_pass, kl_pass_batch_cuda, kl_pass_batch_plain
+
+    kind, starts, split, cache, cap = K2_CASES[case]
+    g = clique_expand(_hypergraph(kind), "kl").to_device(cuda, torch.float64)
+    n = g.num_nodes
+    if split == "lopsided":
+        rng = np.random.default_rng(3)
+        sides = np.zeros((1, n), np.int8)
+        sides[0, rng.choice(n, n // 10, replace=False)] = 1
+        s, a_s, cut0 = _batch_inputs(g, sides=sides)
+        limit, caps = n, [n // 2]
+    else:
+        s, a_s, cut0 = _batch_inputs(g, list(range(5, 5 + starts)))
+        n1 = (s < 0).sum(dim=1).tolist()
+        limit, caps = 16, [min(k, n - k) if cap is None else cap for k in n1]
+    cap_t = torch.tensor(caps, dtype=torch.int32, device=cuda)
+    args = (g, s, a_s, cut0, cut0, cap_t, torch.zeros_like(cap_t), max(caps) + 1, limit, 1e-6)
+    before = K2.launches, K2_F64.launches
+    got = kl_pass_batch_cuda(*args, _cache=cache)
+    assert (K2.launches, K2_F64.launches) == (before[0], before[1] + 1)
+    ref = kl_pass_batch_plain(*args)
+    torch.cuda.synchronize()
+    assert got.log_cut.dtype == got.scalars.dtype == torch.float64
+    its = got.scalars[:, 2].long().tolist()
+    assert min(its) > 50
+    for name in ("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars"):
+        assert torch.equal(getattr(got, name), getattr(ref, name)), name
+    if starts == 1 and cache is None and split == "random":
+        one = kl_pass(g, s[0], a_s[0], float(cut0[0]), caps[0], limit, 1e-6)
+        for name in ("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars"):
+            assert torch.equal(getattr(one, name), getattr(got.start(0), name)), name
+
+
+def _f64_kernels():
+    """The f32 and the f64 kernels of K1, K2, K4 and K6, their counts set
+    to 0."""
+    import importlib
+
+    from eig_kl_tpu_torch.kl.megakernel import K2, K2_F64
+    from eig_kl_tpu_torch.ops import reduce as R
+
+    S = importlib.import_module("eig_kl_tpu_torch.ops.spmv")
+
+    f32 = (S.K1, S.K1_STEP, S.K1_LAPLACIAN, S.K1_SPMM, S.K1_LAZY, K2, R.K4, R.K6, R.K6_SCALE, R.K6_AXPY)
+    f64 = (S.K1_F64, S.K1_STEP_F64, S.K1_LAPLACIAN_F64, S.K1_SPMM_F64, S.K1_LAZY_F64, K2_F64, R.K4_F64,
+           R.K6_F64, R.K6_SCALE_F64, R.K6_AXPY_F64)
+    for k in f32 + f64:
+        k.launches = 0
+    return f32, f64
+
+
+def _f64_band(card, cpu):
+    """The f64 band between a card and a CPU run of the power solve: the
+    same values to rtol 1e-9 / atol 1e-12 and the same split of the nodes
+    that stand clear of the median.  Not the bits: PyTorch's f64 ``sqrt``
+    on the CPU is not always correctly rounded, K6's root on the card is
+    (ROADMAP.md C11)."""
+    np.testing.assert_allclose(card, cpu, rtol=1e-9, atol=1e-12)
+    med = np.sort(cpu)[len(cpu) // 2]
+    clear = np.abs(cpu - med) > 1e-12 * np.abs(cpu).max()
+    assert clear.sum() >= 300
+    np.testing.assert_array_equal((np.sort(card)[len(card) // 2] > card)[clear], (med > cpu)[clear])
+
+
+def test_f64_power_solve_on_the_card_against_the_cpu_run(cuda):
+    """The f64 power solve (the gkl2 exit, 1,000 steps) on gen 0.02x, on the
+    card through the f64 kernels alone and on the CPU: the same steps, the
+    f64 band (_f64_band)."""
+    from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+
+    g_cpu, g = (_graphs_host("gen_0.02").to_device(d, torch.float64) for d in ("cpu", cuda))
+    cfg = SpectralConfig(solver="power", convergence="gkl2")
+    f32, f64 = _f64_kernels()
+    card = power_partition_fiedler(g, cfg, dtype=torch.float64)
+    launches = {k.symbol: k.launches for k in f32 + f64}
+    cpu = power_partition_fiedler(g_cpu, cfg, dtype=torch.float64)
+    assert card[4] == cpu[4] == 1000
+    assert not any(k.launches for k in f32), launches
+    assert (launches["power_step_f64"], launches["tree_sum_f64"], launches["scale_by_f64"]) == (1000, 1001, 1000)
+    assert card[0] == pytest.approx(cpu[0], abs=1e-10)
+    _f64_band(card[2], cpu[2])
+
+
+def test_f64_kl_on_the_card_equals_the_cpu_run(cuda):
+    """One f64 KL pass from a seeded split, then passes until converged
+    and a kick, and 3 random starts batched: the card's bits are the CPU
+    path's (no root on this path), through the f64 kernels alone."""
+    from eig_kl_tpu_torch.io.hgr import read_hgr
+    from eig_kl_tpu_torch.kl.init import random_split
+    from eig_kl_tpu_torch.kl.megakernel import K2_STARTS
+    from eig_kl_tpu_torch.models.pipelines import fused_partition, kl_partition
+    from eig_kl_tpu_torch.utils.config import KLConfig
+
+    hg = read_hgr(GEN_002)
+    sides = random_split(hg.num_nodes, 7)
+    f32, f64 = _f64_kernels()
+    K2_STARTS.clear()
+    runs = []
+    for device in ("cuda", "cpu"):
+        one = kl_partition(hg, init=sides, dtype=torch.float64, device=device)
+        more = kl_partition(hg, init=sides, dtype=torch.float64, device=device,
+                            kl_config=KLConfig(passes=0, kicks=1))
+        multi = fused_partition(hg, use_eig=False, starts=3, dtype=torch.float64, device=device,
+                                kl_config=KLConfig(gain_eps=1e-6, passes=0, kicks=1))
+        runs.append((one.kl, more.kl, multi.kl, multi.start_cuts))
+        if device == "cuda":
+            assert not any(k.launches for k in f32) and K2_STARTS[3] >= 2
+    (c1, c2, c3, c_cuts), (p1, p2, p3, p_cuts) = runs
+    assert c_cuts == p_cuts
+    for card, cpu in ((c1, p1), (c2, p2), (c3, p3)):
+        for name in ("iterations", "initial_cut", "best_cut", "final_cut", "verified_cut"):
+            assert getattr(card, name) == getattr(cpu, name), name
+        np.testing.assert_array_equal(card.best_sides, cpu.best_sides)
+        np.testing.assert_array_equal(card.cut_trajectory, cpu.cut_trajectory)
+
+
+def test_momentum_f64_on_the_card_against_the_cpu_run(cuda):
+    """The momentum exit at f64 on gen 0.02x: the lazy walk, K4, K6 and its
+    axpy at f64 on the card, the CPU's plain run, the same steps and the
+    f64 band (_f64_band)."""
+    from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+
+    g_cpu, g = (_graphs_host("gen_0.02").to_device(d, torch.float64) for d in ("cpu", cuda))
+    cfg = SpectralConfig(solver="power", convergence="momentum", max_iterations=201)
+    f32, f64 = _f64_kernels()
+    card = power_partition_fiedler(g, cfg, dtype=torch.float64)
+    assert not any(k.launches for k in f32)
+    assert all(k.launches for k in f64 if k.symbol in ("lazy_walk_f64", "fma_dot_f64", "axpy_f64"))
+    cpu = power_partition_fiedler(g_cpu, cfg, dtype=torch.float64)
+    assert card[4] == cpu[4] == 201
+    _f64_band(card[2], cpu[2])
+
+
+def _graphs_host(kind):
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+
+    return clique_expand(_hypergraph(kind), "kl")
+
+
+@pytest.mark.parametrize("solver", ["lanczos", "lobpcg"])
+def test_other_solvers_f64_on_the_card(cuda, solver):
+    """Lanczos and LOBPCG at spectral_partition's default, f64 with no host
+    refinement, on the card and on the CPU, on gen 0.02x's largest
+    component: lambda_2 agrees to 1e-10 (cuBLAS and the CPU add the basis
+    products in other orders), through the f64 kernels alone."""
+    from eig_kl_tpu_torch.io.hgr import Hypergraph
+    from eig_kl_tpu_torch.models.pipelines import spectral_partition
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+
+    import scipy.sparse as sp
+    import scipy.sparse.csgraph as csgraph
+
+    hg = _hypergraph("gen_0.02")
+    sizes = np.diff(hg.net_offsets)
+    first = np.repeat(hg.pins[hg.net_offsets[:-1]], sizes)
+    adj = sp.coo_matrix((np.ones(len(first)), (first, hg.pins)), shape=(hg.num_nodes,) * 2)
+    _, label = csgraph.connected_components(adj, directed=False)
+    keep = label == np.argmax(np.bincount(label))
+    nets = np.add.reduceat(keep[hg.pins].astype(np.int64), hg.net_offsets[:-1]) == sizes
+    pins = (np.cumsum(keep) - 1)[hg.pins[np.repeat(nets, sizes)]].astype(np.int32)
+    offsets = np.zeros(int(nets.sum()) + 1, np.int64)
+    np.cumsum(sizes[nets], out=offsets[1:])
+    lcc = Hypergraph(int(keep.sum()), int(nets.sum()), pins, offsets)
+    f32, f64 = _f64_kernels()
+    card = spectral_partition(lcc, SpectralConfig(solver=solver))
+    assert not any(k.launches for k in f32)
+    cpu = spectral_partition(lcc, SpectralConfig(solver=solver), device="cpu")
+    assert card.spectral_solve.refined is None and cpu.spectral_solve.refined is None
+    assert card.eig.eigenvalue == pytest.approx(cpu.eig.eigenvalue, abs=1e-10)
+    assert card.eig.eigenvalue == pytest.approx(0.0973479036, rel=1e-8)
+    assert sorted(card.eig.balance()) == [1847, 1847]

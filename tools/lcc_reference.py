@@ -1,11 +1,12 @@
 """The JAX package's numbers on the largest connected component of the
-generated circuit at 1.0x, seed 42 (184,406 nodes), on the CPU at f32:
-what ``chip_smoke.py``'s lanczos, lobpcg and momentum phases hold the
-port to on the card.
+generated circuit at 1.0x, seed 42 (184,406 nodes), on the CPU at f32,
+or with ``--x64`` at f64: what ``chip_smoke.py``'s lanczos, lobpcg,
+momentum and f64 phases hold the port to on the card.
 
 Run from the repository root (a few minutes, some GiB of memory)::
 
     JAX_PLATFORMS=cpu python3 tools/lcc_reference.py
+    JAX_PLATFORMS=cpu python3 tools/lcc_reference.py --x64
 
 It prints, as JSON: the component's counts; ``eig_partition`` with
 Lanczos and with LOBPCG at f32 plus the host f64 refinement (lambda_2,
@@ -15,6 +16,16 @@ momentum exit (``power_partition_fiedler``, ``convergence="momentum"``)
 on the component's KL-weighted graph, with a digest of its split and
 vector, beside the port's own run of it on the CPU (its kernels' plain
 versions).
+
+With ``--x64`` (x64 enabled before anything is traced) it prints the f64
+numbers instead: Lanczos and LOBPCG on the component at f64 (no host
+refinement, the JAX package's rule off the TPU), the f64 momentum exit
+on its KL-weighted graph beside the port's own f64 run of it on the CPU
+(the split of the JAX run goes, bit-packed, to
+``tools/lcc_momentum_f64_sides.bin``, which ``chip_smoke.py`` measures
+the card's split against), and ``fused_partition(use_eig=True,
+dtype=float64)`` on the whole circuit (its power iterations, cuts and
+swaps).
 """
 
 from __future__ import annotations
@@ -28,13 +39,89 @@ import time
 import jax.numpy as jnp
 import numpy as np
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
-from chip_smoke import MULTIPLIER, SEED, largest_component  # noqa: E402
+from chip_smoke import MOMENTUM_F64_SIDES, MULTIPLIER, SEED, largest_component  # noqa: E402
 
 
 def digest(a) -> str:
     return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def main_x64(hg, jhg) -> dict:
+    """The f64 numbers (``--x64``)."""
+    from eig_kl_tpu.graph.expand import clique_expand as jax_expand
+    from eig_kl_tpu.io.hgr import Hypergraph as JaxHypergraph
+    from eig_kl_tpu.models.pipelines import fused_partition as jax_fused
+    from eig_kl_tpu.spectral.lanczos import lanczos_fiedler as jax_lanczos
+    from eig_kl_tpu.spectral.lobpcg_solver import lobpcg_fiedler as jax_lobpcg
+    from eig_kl_tpu.spectral.partition import eig_partition as jax_eig
+    from eig_kl_tpu.spectral.power import power_partition_fiedler as jax_ppf
+    import eig_kl_tpu.spectral.power as jax_power
+    from eig_kl_tpu.utils.config import SpectralConfig as JaxSpec
+    import torch
+
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.models.generator import CircuitGenerator
+    from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+
+    out = {}
+    g_eig = jax_expand(jhg, "eig", use_native=False)
+    g_dev = g_eig.to_device(dtype=jnp.float64)
+    for solver, fn in (("lanczos", jax_lanczos), ("lobpcg", jax_lobpcg)):
+        t0 = time.perf_counter()
+        res = fn(g_dev, JaxSpec(solver=solver), dtype=jnp.float64)
+        solve_s = time.perf_counter() - t0
+        eig = jax_eig(jhg, JaxSpec(solver=solver), dtype=jnp.float64, host_graph=g_eig)
+        out[solver] = {
+            "solver_eigenvalue": float(res.eigenvalue),
+            "solver_residual": float(res.residual),
+            "count": int(res.restarts if solver == "lanczos" else res.iterations),
+            "solver_s": solve_s,
+            "eigenvalue": eig.eigenvalue,
+            "median": eig.median,
+            "balance": list(eig.balance()),
+        }
+    g_kl = jax_expand(jhg, "kl", use_native=False)
+    t0 = time.perf_counter()
+    lam, med, vals, sides = jax_ppf(
+        g_kl.to_device(dtype=jnp.float64), JaxSpec(solver="power", convergence="momentum"),
+        dtype=jnp.float64,
+    )
+    jax_s = time.perf_counter() - t0
+    sides = np.asarray(sides, np.int8)
+    with open(MOMENTUM_F64_SIDES, "wb") as f:
+        f.write(np.packbits(sides).tobytes())
+    t0 = time.perf_counter()
+    p_lam, p_med, _, p_sides, p_iters = power_partition_fiedler(
+        clique_expand(hg, "kl").to_device("cpu", torch.float64),
+        SpectralConfig(solver="power", convergence="momentum"), dtype=torch.float64,
+    )
+    hamming = int((p_sides != sides).sum())
+    out["momentum"] = {
+        "iterations": jax_power.last_iterations, "median": med, "eigenvalue": lam,
+        "side_1": int(sides.sum()), "sides_digest": digest(sides), "s": jax_s,
+        "sides_file": os.path.relpath(MOMENTUM_F64_SIDES, ROOT),
+        "port_cpu": {
+            "iterations": p_iters, "median": p_med, "eigenvalue": p_lam,
+            "side_1": int(p_sides.sum()), "sides_digest": digest(p_sides.astype(np.int8)),
+            "hamming_to_jax": min(hamming, len(sides) - hamming), "s": time.perf_counter() - t0,
+        },
+    }
+    full = CircuitGenerator(MULTIPLIER, SEED).generate()
+    jfull = JaxHypergraph(full.num_nodes, full.num_nets, full.pins, full.net_offsets, name=full.name)
+    t0 = time.perf_counter()
+    run = jax_fused(jfull, use_eig=True, dtype=jnp.float64)
+    kl = run.kl
+    out["fused_f64_full"] = {
+        "power_iterations": jax_power.last_iterations,
+        "initial_cut": float(kl.initial_cut), "best_cut": float(kl.best_cut),
+        "final_cut": float(kl.final_cut), "verified_cut": float(kl.verified_cut),
+        "swaps": int(kl.iterations), "s": time.perf_counter() - t0,
+    }
+    return out
 
 
 def main() -> int:
@@ -58,6 +145,10 @@ def main() -> int:
     hg = largest_component(CircuitGenerator(MULTIPLIER, SEED).generate())
     jhg = JaxHypergraph(hg.num_nodes, hg.num_nets, hg.pins, hg.net_offsets, name=hg.name)
     out["component"] = {"nodes": hg.num_nodes, "nets": hg.num_nets, "pins": int(len(hg.pins))}
+    if "--x64" in sys.argv[1:]:
+        out.update(main_x64(hg, jhg))
+        print(json.dumps(out, indent=1))
+        return 0
     g_eig = jax_expand(jhg, "eig", use_native=False)
     g_dev = g_eig.to_device(dtype=jnp.float32)
     for solver, fn in (("lanczos", jax_lanczos), ("lobpcg", jax_lobpcg)):
@@ -112,4 +203,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if "--x64" in sys.argv[1:]:
+        import jax
+
+        jax.config.update("jax_enable_x64", True)
     sys.exit(main())
