@@ -16,8 +16,10 @@ plan attached), then the sharded KL pass (``smega_refine`` at 1, 2, 4 and
 spectral split), checks that each run went through its kernels and that
 its cuts are right, and prints one JSON line per the kernels and, last,
 ``{"ok": true, "device": ...}``.  The kernels: K1 (the CSR SpMV, and its
-power step entry point), K2, K3a/b/c, K4, K5 and K6 (the fixed-order sum
-of the norms and cuts, and the power step's scale).  Then the Lanczos,
+power step entry point), K2, K3a/b/c, K4 (XLA's vector dot, one to four
+dots per launch), K5 and K6 (the fixed-order sum of the norms and cuts,
+and the power step's scale).  Library calls that compute a kernel's
+function are timed by CUDA events and by their device time.  Then the Lanczos,
 LOBPCG and momentum paths on the circuit's largest component, and the
 f64 engine: every f64 kernel against its plain version, the f64 fused
 run, Lanczos and LOBPCG at spectral_partition's f64 default, the f64
@@ -147,7 +149,9 @@ def bits32(t: torch.Tensor) -> torch.Tensor:
 
 
 def fmt_us(us) -> str:
-    return "not measured (the profiler recorded no such kernel)" if us is None else f"{us[0]:.2f} us"
+    if us is None or us[0] is None:
+        return "not measured (the profiler recorded no such kernel)"
+    return f"{us[0]:.2f} us"
 
 
 def swaps_of(out) -> list[tuple[int, torch.Tensor]]:
@@ -240,6 +244,30 @@ def device_us_per_call(fn, calls: int) -> tuple[float, float] | None:
     if not kernels:
         return None
     return sum(e.time_range.elapsed_us() for e in kernels) / calls, len(kernels) / calls
+
+
+def library_device_us(fn, calls: int = 50) -> float | None:
+    """Device microseconds of all the kernels of one call of ``fn`` (a
+    library call), by the profiler over ``calls`` calls; None if it saw
+    none."""
+    us = device_us_per_call(lambda: [fn() for _ in range(calls)], calls)
+    return None if us is None else us[0]
+
+
+def k4_batches(xs, ys, plain_dots, what: str) -> dict:
+    """K4's batch at 1 to 4 pairs, each launch's dots bit for bit the host
+    chains ``plain_dots`` (computed once per pair); device us per launch of
+    one dot and of two (the momentum exit's paired deflation)."""
+    from eig_kl_tpu_torch.ops.reduce import fma_dot_batch_cuda
+
+    ref = torch.stack(plain_dots)
+    for count in range(1, len(xs) + 1):
+        got = fma_dot_batch_cuda(xs[:count], ys[:count])
+        check(torch.equal(got.cpu(), ref[:count].cpu()), f"{what}'s batch of {count} differs from the host chains")
+    one = device_us_per_launch(lambda: [fma_dot_batch_cuda(xs[:1], ys[:1]) for _ in range(10)], "fma_dot_batch")
+    two = device_us_per_launch(lambda: [fma_dot_batch_cuda(xs[:2], ys[:2]) for _ in range(10)], "fma_dot_batch")
+    return {"device_us_one_dot": None if one is None else one[0],
+            "device_us_two_dots": None if two is None else two[0]}
 
 
 def device_us_per_launch(fn, kernel: str, num_groups: int = 1) -> list[float] | None:
@@ -448,7 +476,7 @@ def main() -> int:
         plain_sum = R.tree_sum_plain if what == "1-D" else R.tree_sum_2d_plain
         cases = {
             "norm": (lambda v=v: R.tree_sum_cuda(v, square=True, root=True),
-                     lambda v=v, ps=plain_sum: R._root(R._products_plain(v, v, ps))),
+                     lambda v=v, ps=plain_sum: R.sqrt_rn(R._products_plain(v, v, ps))),
             "sum": (lambda v=v: R.tree_sum_cuda(v), lambda v=v, ps=plain_sum: ps(v)),
             "dot": (lambda v=v, w=w: R.tree_sum_cuda(v, w), lambda v=v, w=w, ps=plain_sum: R._products_plain(v, w, ps)),
         }
@@ -467,6 +495,7 @@ def main() -> int:
             "dot_ms": cuda_ms(cases["dot"][0], 200),
             "plain_ms": cuda_ms(norm_plain, 3),
             "library_ms": cuda_ms(lambda v=v: torch.linalg.vector_norm(v), 200),
+            "library_device_us": library_device_us(lambda v=v: torch.linalg.vector_norm(v)),
             "device_us": device_us_per_launch(lambda k=norm_kern: [k() for _ in range(50)], "tree_sum_kernel"),
             "bound_ms": 4 * numel / HBM_BYTES_PER_S * 1e3,
         }
@@ -476,7 +505,8 @@ def main() -> int:
             f"to the plain versions and over 3 launches; norm {k6[what]['ms']:.4f} ms (sum "
             f"{k6[what]['sum_ms']:.4f}, dot {k6[what]['dot_ms']:.4f}), device {fmt_us(k6[what]['device_us'])} "
             f"per launch, plain {k6[what]['plain_ms']:.3f} ms, torch.linalg.vector_norm (another order) "
-            f"{k6[what]['library_ms']:.4f} ms, bound {k6[what]['bound_ms']:.5f} ms ({4 * numel} bytes)"
+            f"{k6[what]['library_ms']:.4f} ms, device {fmt_us([k6[what]['library_device_us']])} per call, bound "
+            f"{k6[what]['bound_ms']:.5f} ms ({4 * numel} bytes)"
         )
     nrm = R.tree_norm(step_k)
     scaled = R.normalize_cuda(step_k, nrm)
@@ -486,11 +516,13 @@ def main() -> int:
     k6s_ms = cuda_ms(lambda: R.normalize_cuda(step_k, nrm), 200)
     k6s_plain_ms = cuda_ms(lambda: R.normalize_plain(step_k, nrm), 200)
     k6s_lib_ms = cuda_ms(lambda: step_k / nrm, 200)
+    k6s_lib_us = library_device_us(lambda: step_k / nrm)
     k6s_us = device_us_per_launch(lambda: [R.normalize_cuda(step_k, nrm) for _ in range(50)], "scale_by_kernel")
     k6s_bound_ms = 8 * n / HBM_BYTES_PER_S * 1e3
     print(
         f"K6 scale: bitwise equal to normalize_plain; {k6s_ms:.4f} ms, device {fmt_us(k6s_us)} per launch, "
-        f"plain {k6s_plain_ms:.4f} ms, y / nrm {k6s_lib_ms:.4f} ms, bound {k6s_bound_ms:.5f} ms ({8 * n} bytes)"
+        f"plain {k6s_plain_ms:.4f} ms, y / nrm {k6s_lib_ms:.4f} ms (device {fmt_us([k6s_lib_us])} per call), "
+        f"bound {k6s_bound_ms:.5f} ms ({8 * n} bytes)"
     )
 
     # Phase 4: K2 against kl_pass_plain from one seeded balanced split.
@@ -912,6 +944,11 @@ def main() -> int:
     k4_ms = cuda_ms(lambda: fma_dot_cuda(k4_x, k4_y), 20)
     k4_plain_ms = cuda_ms(lambda: fma_dot_plain(k4_x, k4_y), 3)
     k4_lib_ms = cuda_ms(lambda: torch.dot(k4_x, k4_y), 200)
+    k4_lib_us = library_device_us(lambda: torch.dot(k4_x, k4_y))
+    # K4's batch at 1 to 4 pairs of the padded state's length.
+    k4_xs = [k4_x] + [(torch.rand(P, generator=gen) - 0.5).to(dev) for _ in range(3)]
+    k4_ys = [k4_y] + [(torch.rand(P, generator=gen) - 0.5).to(dev) for _ in range(3)]
+    k4_batch = k4_batches(k4_xs, k4_ys, [k4] + [fma_dot_plain(a, b) for a, b in zip(k4_xs[1:], k4_ys[1:])], "K4")
     # Least bytes each kernel must move, each input read once and each
     # output written once.  K3a: cw8 (4C), col_local (2N), weights (4N),
     # x (4P) in, e (4N) out.  K3b, the whole network: e (4N) and one row
@@ -946,7 +983,9 @@ def main() -> int:
     print(
         f"K4 over P = {P}: {float(k4)!r} bitwise equal to the host chain and to a second launch; "
         f"{k4_ms:.4f} ms (plain {k4_plain_ms:.3f}, bound {k4_bound:.5f}, {k4_bytes} bytes), "
-        f"torch.dot {k4_lib_ms:.4f} ms"
+        f"torch.dot {k4_lib_ms:.4f} ms (device {fmt_us([k4_lib_us])} per call); batches of 1-4 pairs bitwise "
+        f"the host chains, device {fmt_us([k4_batch['device_us_one_dot']])} per launch of one dot, "
+        f"{fmt_us([k4_batch['device_us_two_dots']])} of two"
     )
 
     # The same SpMV under the profiler: each kernel's device time per
@@ -1315,6 +1354,7 @@ def main() -> int:
         e["ms"] = cuda_ms(e["kern"], 200)
         e["plain_ms"] = cuda_ms(e["plain"], 3)
         e["library_ms"] = cuda_ms(e["lib"], 200)
+        e["library_device_us"] = library_device_us(e["lib"])
         e["device_us"] = device_us_per_launch(lambda e=e: [e["kern"]() for _ in range(50)], e["symbol"])
         extra = ""
         if "k1_columns" in e:
@@ -1322,7 +1362,8 @@ def main() -> int:
             extra = f", {what[7:]} launches of K1 {e['k1_columns_ms']:.4f} ms"
         print(
             f"{what}: bitwise equal to its plain version; {e['ms']:.4f} ms, device {fmt_us(e['device_us'])} "
-            f"per launch, plain {e['plain_ms']:.3f} ms, library {e['library_ms']:.4f} ms{extra}, bound "
+            f"per launch, plain {e['plain_ms']:.3f} ms, library {e['library_ms']:.4f} ms (device "
+            f"{fmt_us([e['library_device_us']])} per call){extra}, bound "
             f"{e['bound'][0]:.5f} ms by {e['bound'][1]}"
         )
 
@@ -1426,6 +1467,10 @@ def main() -> int:
     mo_launches = {kern.symbol: kern.launches for kern in all_kernels}
     check(K1_LAZY.launches > mo_iters and K6_AXPY.launches > 0 and K4.launches > 0,
           f"the momentum path launched {mo_launches}")
+    # K4: the start's deflation, then per check one launch for the two
+    # deflation dots and one for the Rayleigh quotient.
+    mo_checks = (mo_iters - 1) // mom_config.check_interval
+    check(K4.launches == 1 + 2 * mo_checks, f"K4 launched {K4.launches} times for {mo_checks} momentum checks")
     mo_digest = hashlib.sha256(np.ascontiguousarray(mo_sides.astype(np.int8)).tobytes()).hexdigest()[:16]
     check(mo_iters == JAX_LCC_MOMENTUM_ITERS, f"momentum: {mo_iters} iterations, JAX {JAX_LCC_MOMENTUM_ITERS}")
     check(mo_digest == JAX_LCC_MOMENTUM_SIDES, f"momentum: the split's digest {mo_digest}, JAX {JAX_LCC_MOMENTUM_SIDES}")
@@ -1521,7 +1566,7 @@ def main() -> int:
     w64 = (torch.rand(n, generator=gen, dtype=torch.float64) - 0.5).to(dev)
     f64["K6 tree_sum_f64, the 1-D norm over n"] = dict(
         kern=lambda: R.tree_sum_cuda(x64, square=True, root=True),
-        plain=lambda: R._root(R._products_plain(x64, x64, R.tree_sum_plain)),
+        plain=lambda: R.sqrt_rn(R._products_plain(x64, x64, R.tree_sum_plain)),
         lib=lambda: torch.linalg.vector_norm(x64), symbol="tree_sum_kernel", bound=bound64(8 * n + 8, 2 * n),
         replaces="eig_kl_tpu/spectral/power.py:185 (jnp.linalg.norm) and eig_kl_tpu/ops/partition.py:88 (.sum()), XLA ops, no Pallas kernel",
         source="eig_kl_tpu_torch/csrc/tree_sum.cu")
@@ -1529,7 +1574,7 @@ def main() -> int:
     held64(lambda: R.tree_sum_cuda(x64, w64), lambda: R._products_plain(x64, w64, R.tree_sum_plain), "K6's f64 dot")
     short = x64[:20].contiguous()
     held64(lambda: R.tree_sum_cuda(short, square=True, root=True),
-           lambda: R._root(R._products_plain(short, short, R.tree_sum_plain)), "K6's f64 norm of 20 values")
+           lambda: R.sqrt_rn(R._products_plain(short, short, R.tree_sum_plain)), "K6's f64 norm of 20 values")
     nrm64 = R.tree_norm(x64)
     f64["K6 scale_by_f64"] = dict(
         kern=lambda: R.normalize_cuda(x64, nrm64), plain=lambda: R.normalize_plain(x64, nrm64),
@@ -1542,9 +1587,9 @@ def main() -> int:
         lib=lambda: torch.addcmul(yl64, c64, xl64), symbol="axpy_kernel", bound=bound64(24 * ln + 8, 2 * ln),
         replaces="eig_kl_tpu/spectral/power.py:310 (w - jnp.vdot(q0, w) * q0, XLA ops, no Pallas kernel)",
         source="eig_kl_tpu_torch/csrc/tree_sum.cu")
-    f64["K4 fma_dot_f64"] = dict(
+    f64["K4 fma_dot_batch_f64"] = dict(
         kern=lambda: fma_dot_cuda(xl64, yl64), plain=lambda: fma_dot_plain(xl64, yl64),
-        lib=lambda: torch.dot(xl64, yl64), symbol="fma_dot_kernel", bound=bound64(16 * ln + 8, 2 * ln),
+        lib=lambda: torch.dot(xl64, yl64), symbol="fma_dot_batch_kernel", bound=bound64(16 * ln + 8, 2 * ln),
         replaces="eig_kl_tpu/spectral/power.py:309, :336 (jnp.vdot, an XLA op, no Pallas kernel)",
         source="eig_kl_tpu_torch/csrc/fma_dot.cu", plain_reps=1, reps=20)
     for what, e in f64.items():
@@ -1552,13 +1597,21 @@ def main() -> int:
         e["ms"] = cuda_ms(e["kern"], e.get("reps", 200))
         e["plain_ms"] = cuda_ms(e["plain"], e.get("plain_reps", 3))
         e["library_ms"] = None if e["lib"] is None else cuda_ms(e["lib"], 200)
+        e["library_device_us"] = None if e["lib"] is None else library_device_us(e["lib"])
         e["device_us"] = device_us_per_launch(lambda e=e: [e["kern"]() for _ in range(20)], e["symbol"])
         print(
             f"{what}: bitwise equal to its plain version; {e['ms']:.4f} ms, device {fmt_us(e['device_us'])} "
             f"per launch, plain {e['plain_ms']:.3f} ms, library "
-            + ("none" if e["library_ms"] is None else f"{e['library_ms']:.4f} ms")
+            + ("none" if e["library_ms"] is None
+               else f"{e['library_ms']:.4f} ms (device {fmt_us([e['library_device_us']])} per call)")
             + f", bound {e['bound'][0]:.5f} ms by {e['bound'][1]}"
         )
+    # K4's f64 batch at 1 to 4 pairs of the component's length.
+    k4_xs64 = [xl64] + [(torch.rand(ln, generator=gen, dtype=torch.float64) - 0.5).to(dev) for _ in range(3)]
+    k4_ys64 = [yl64] + [(torch.rand(ln, generator=gen, dtype=torch.float64) - 0.5).to(dev) for _ in range(3)]
+    k4_batch64 = k4_batches(k4_xs64, k4_ys64, [fma_dot_plain(a, b) for a, b in zip(k4_xs64, k4_ys64)], "the f64 K4")
+    print(f"K4 f64: batches of 1-4 pairs bitwise the host chains; device {fmt_us([k4_batch64['device_us_one_dot']])} "
+          f"per launch of one dot, {fmt_us([k4_batch64['device_us_two_dots']])} of two")
 
     # K2 at f64: one start from a seeded random split, capped at 3,000
     # swaps (the plain pass's time), in each selection; four starts batched
@@ -1729,7 +1782,8 @@ def main() -> int:
     (m64_lam, m64_med, _, m64_sides, m64_iters), m64_s = momentum64_run()
     m64_launches = {kern.symbol: kern.launches for kern in all_kernels}
     check(not f32_launched() and K1_LAZY_F64.launches > m64_iters and K6_AXPY_F64.launches > 0
-          and K4_F64.launches > 0, f"the f64 momentum path launched {m64_launches}")
+          and K4_F64.launches == 1 + 2 * ((m64_iters - 1) // mom_config.check_interval),
+          f"the f64 momentum path launched {m64_launches}")
     with open(MOMENTUM_F64_SIDES, "rb") as f:
         jax_m64 = np.unpackbits(np.frombuffer(f.read(), np.uint8))[:ln].astype(np.int8)
     m64_hamming = int((m64_sides != jax_m64).sum())
@@ -1901,17 +1955,21 @@ def main() -> int:
             "library_ms": v3_lib_ms,
         },
         {
-            "name": "K4 fma_dot_f32",
+            "name": "K4 fma_dot_batch_f32",
             "route": "cuda",
             "source": "eig_kl_tpu_torch/csrc/fma_dot.cu",
             "replaces": "eig_kl_tpu/spectral/power.py:413 (jnp.vdot, an XLA op, no Pallas kernel)",
             "launches": k4_launches,
+            "launches_momentum": mo_launches["fma_dot_batch_f32"],
             "max_abs_err": k4_err,
             "ms": k4_ms,
             "plain_ms": k4_plain_ms,
             "bound_ms": k4_bound,
             "bound_by": "bytes",
             "library_ms": k4_lib_ms,
+            "library_device_us": k4_lib_us,
+            "device_us_per_launch": k4_batch["device_us_one_dot"],
+            "device_us_two_dots_per_launch": k4_batch["device_us_two_dots"],
         },
         {
             "name": "K5 smega_pass_f32, S = 8 in the wrapper's layout, the first 1,000 swaps of the main path's pass",
@@ -1951,6 +2009,8 @@ def main() -> int:
             "bound_ms": k6["1-D"]["bound_ms"],
             "bound_by": "bytes",
             "library_ms": k6["1-D"]["library_ms"],
+            "library_device_us": k6["1-D"]["library_device_us"],
+            "device_us_per_launch": None if k6["1-D"]["device_us"] is None else k6["1-D"]["device_us"][0],
             "by_shape": k6,
             "power_solve_launches": steps_launches,
         },
@@ -1968,6 +2028,7 @@ def main() -> int:
             "bound_ms": k6s_bound_ms,
             "bound_by": "bytes",
             "library_ms": k6s_lib_ms,
+            "library_device_us": k6s_lib_us,
             "device_us_per_launch": None if k6s_us is None else k6s_us[0],
         },
     ]
@@ -1977,6 +2038,7 @@ def main() -> int:
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launches, "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound"][0], "bound_by": e["bound"][1], "library_ms": e["library_ms"],
+            "library_device_us": e["library_device_us"],
             "device_us_per_launch": None if e["device_us"] is None else e["device_us"][0], **more,
         }
 
@@ -2009,14 +2071,16 @@ def main() -> int:
         "K1 spmm_csr_f64 k=12": lo64_launches["spmm_csr_f64"], "K1 lazy_walk_f64": m64_launches["lazy_walk_f64"],
         "K6 tree_sum_f64, the 1-D norm over n": fu64_launches["tree_sum_f64"],
         "K6 scale_by_f64": fu64_launches["scale_by_f64"], "K6 axpy_f64": m64_launches["axpy_f64"],
-        "K4 fma_dot_f64": m64_launches["fma_dot_f64"],
+        "K4 fma_dot_batch_f64": m64_launches["fma_dot_batch_f64"],
     }
     for what, e in f64.items():
         kernels.append({
             "name": what, "route": "cuda", "source": e["source"], "replaces": e["replaces"],
             "launches": launches64[what], "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
             "bound_ms": e["bound"][0], "bound_by": e["bound"][1], "library_ms": e["library_ms"],
+            "library_device_us": e["library_device_us"],
             "device_us_per_launch": None if e["device_us"] is None else e["device_us"][0],
+            **({"device_us_two_dots_per_launch": k4_batch64["device_us_two_dots"]} if what.startswith("K4") else {}),
         })
     kernels += [
         {

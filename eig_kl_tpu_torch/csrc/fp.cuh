@@ -78,4 +78,86 @@ __device__ __forceinline__ float4 vec_of(const float (&a)[4]) {
 }
 __device__ __forceinline__ double2 vec_of(const double (&a)[2]) { return make_double2(a[0], a[1]); }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes of shared memory into registers, as a volatile asm statement:
+// the compiler may neither drop it nor load the same bytes again later
+// instead of keeping them in registers (which it does to a plain load of
+// memory that nothing writes in between).
+__device__ __forceinline__ void load16(float4& v, const float4* p) {
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void load16(double2& v, const double2* p) {
+  asm volatile("ld.shared.v2.f64 {%0, %1}, [%2];" : "=d"(v.x), "=d"(v.y) : "r"(smem_addr(p)) : "memory");
+}
+
+// A chain over `count` values of one or two 16-byte-aligned arrays in
+// shared memory, in index order: acc = step(acc, a[i]) (kArrays = 1) or
+// step(acc, a[i], b[i]) (kArrays = 2); count is a multiple of kGroup, and
+// kGroup of 16 bytes' values.  The values come into registers a group at a
+// time, 16 bytes per load (load16), in two register buffers taken in
+// turns: the loads of the next group are spread between the steps of the
+// current one (one every kGroup / loads steps), so that only the step's
+// latency stands on the chain.  (Where they came as one run, the compiler
+// placed them after the current group's steps, and each group waited for
+// its loads.)  The arrays must be written before the call.  K4's fused
+// multiply-add chain and K6's add chains.
+template <int kGroup, int kArrays, class T, class Step>
+__device__ __forceinline__ T chain(const T* a, const T* b, int count, T acc, Step step) {
+  using V = typename Vec16<T>::type;
+  constexpr int kV = Vec16<T>::kWidth;
+  constexpr int kQ = kGroup / kV;        // 16-byte vectors per array and group
+  constexpr int kLoads = kArrays * kQ;   // loads per group
+  constexpr int kEvery = kGroup / kLoads;  // steps per load
+  static_assert(kGroup % kV == 0 && (kArrays == 1 || kArrays == 2) && kGroup % kLoads == 0,
+                "a group is whole vectors, its loads spread evenly");
+  const V* va = reinterpret_cast<const V*>(a);
+  const V* vb = reinterpret_cast<const V*>(b);
+  V a0[kQ], b0[kArrays == 2 ? kQ : 1], a1[kQ], b1[kArrays == 2 ? kQ : 1];
+  // Load l of group g: vector l / 2 of a (l even) or of b (l odd), or
+  // vector l of a.
+  auto load = [&](V* ra, V* rb, int g, int l) {
+    if constexpr (kArrays == 2) {
+      if (l % 2 == 0) {
+        load16(ra[l / 2], va + g / kV + l / 2);
+      } else {
+        load16(rb[l / 2], vb + g / kV + l / 2);
+      }
+    } else {
+      load16(ra[l], va + g / kV + l);
+    }
+  };
+  // The steps of the group in (ra, rb), with the loads of group `next`
+  // into (na, nb) between them.
+  auto run = [&](const V* ra, const V* rb, V* na, V* nb, int next) {
+#pragma unroll
+    for (int e = 0; e < kGroup; ++e) {
+      if (e % kEvery == 0) load(na, nb, next, e / kEvery);
+      if constexpr (kArrays == 2) {
+        acc = step(acc, vec_at(ra[e / kV], e % kV), vec_at(rb[e / kV], e % kV));
+      } else {
+        acc = step(acc, vec_at(ra[e / kV], e % kV));
+      }
+    }
+  };
+  if (count <= 0) return acc;
+  // The loads are unconditional (the last group is loaded again at the
+  // end), so that no branch stands between them and the steps.
+  const int last = count - kGroup;
+#pragma unroll
+  for (int l = 0; l < kLoads; ++l) load(a0, b0, 0, l);
+  for (int g = kGroup;; g += 2 * kGroup) {
+    run(a0, b0, a1, b1, min(g, last));
+    if (g >= count) break;
+    run(a1, b1, a0, b0, min(g + kGroup, last));
+    if (g + kGroup >= count) break;
+  }
+  return acc;
+}
+
 }  // namespace

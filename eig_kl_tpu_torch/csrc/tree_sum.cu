@@ -32,24 +32,43 @@
 //
 // Bound on this card: bytes.  A sum must read its input once, 808 KB for
 // the 1-D norm at gen 1.0x (201,920 values), or 0.24 us at 3.35 TB/s
-// (f64: 1.6 MB, 0.48 us).  Its
-// real limit is latency: round 1's loads, the ticket, then each later
-// round's loads and chain in the last block (a 2-D window's chain is 1,024
-// dependent adds).
+// (f64: 1.6 MB, 0.48 us).  Its real limit is latency: the loads, the
+// chains of dependent adds (a 2-D window is 1,024 of them), the ticket and
+// the L2 round trips of the rounds after it.
 //
-// Design: round 1 runs over the whole grid.  For windows of 32 values
-// (a vector), a warp loads 32 windows coalesced into a padded tile in
-// shared memory, and each lane adds one window from there.  For 2-D
-// windows (32 x 32 at gen 1.0x), a warp loads one window and lane 0 adds
-// it.  The window sums go to a scratch buffer.  The last block to finish
-// takes the ticket (__threadfence, then atomicAdd), runs the later rounds
-// with its own warps in the same way, adds what is left, takes the f32
-// root in f64 if asked, writes the result and resets the ticket.  The
-// order of every add is fixed whichever block comes last, so the result is
-// deterministic.  The ticket belongs to one stream (the wrapper keeps one
-// per stream), and the scratch is allocated per call.  An f64 block has 4
-// warps instead of 8, so that its tiles (33.8 KB) fit the 48 KB of static
-// shared memory as f32's 8 do.
+// Design.  The grid runs the first stage over the whole card.  A vector
+// round whose next round is a vector too (or the final chain) is folded
+// into it: the warp that makes window j of round r + 1 makes the 32 windows
+// of round r that it adds, round r's windows 32 j - lead(r + 1) on, a
+// window off either end being a pad window (all pad zeros, so its sum is
+// the +0 of round r + 1's pad).  Its lanes load value `lane` of each of the
+// 32 windows (coalesced), the warp writes them into its tile in shared
+// memory swizzled (a window's 16-byte chunk q at chunk q ^ (window & 7), so
+// that 8 lanes reading 16 bytes of 8 windows hit 8 different bank groups),
+// each lane adds one window in order from +0 (8 or 16 loads of 16 bytes,
+// then 32 adds), and lane 0 adds the 32 window sums in order through
+// fp.cuh's chain.  A 2-D round takes a warp per window (at gen 1.0x 32 x
+// 32 values): its lanes stage the window in the tile, and lane 0 adds it
+// in row-major order through fp.cuh's chain (16 bytes per load, the next
+// group's loads between the current group's adds).  Blocks have 1 to 8
+// warps (1 to 4 in f64): for a vector's folds as few as give every SM a
+// block (gen 1.0x's 1-D norm: 198 blocks of one warp, each making one of
+// round 2's 198 sums), for 2-D windows as many as spread the blocks over
+// the SMs once (the 2-D norm: 100 blocks of two warps), which leaves the
+// last block a warp for each of round 2's two windows.  The stage's sums go
+// to a scratch buffer; the last block to finish takes the ticket
+// (__threadfence, then atomicAdd), runs the later stages with its warps in
+// the same way (two vector rounds folded at a time, the last into the
+// final chain; a 2-D last round's sums into shared memory), adds what is
+// left through the chain, takes the f32 root in f64 if asked, writes the
+// result and resets the ticket.  At gen 1.0x the 1-D norm's last block
+// folds round 3 into the final chain, and the 2-D norm's runs round 2:
+// one L2 round trip after the ticket either way.  Where the grid's stage is
+// the whole sum (at most one vector round, or none), one block writes the
+// result and no ticket is taken.  The order of every add is fixed
+// whichever block comes last, so the result is deterministic.  The ticket
+// and the scratch belong to one stream (the wrapper keeps one of each per
+// stream).
 
 #include <cuda_runtime.h>
 
@@ -58,15 +77,16 @@
 namespace {
 
 constexpr int kWindow = 32;
-constexpr int kTileStride = kWindow + 1;  // a padded tile row: no bank conflicts
-constexpr int kTile = kWindow * kTileStride;
+constexpr int kTileValues = kWindow * kWindow;  // a warp's tile in shared memory
 constexpr int kMaxRounds = 8;  // ops/reduce.py:_MAX_ROUNDS
 
-// Warps per block of the sum: 8 in f32, 4 in f64 (the same tile bytes).
+// At most 8 warps per block in f32, 4 in f64: a tile each and one for the
+// final chain, 36 or 40 KB in all.
 template <class T>
-constexpr int kWarps = 32 / static_cast<int>(sizeof(T));
+constexpr int kMaxWarps = 32 / static_cast<int>(sizeof(T));
+// A chain's group: 16 bytes' loads of 128 bytes.
 template <class T>
-constexpr int kThreads = 32 * kWarps<T>;
+constexpr int kGroup = 128 / static_cast<int>(sizeof(T));
 
 enum Mode { kSum = 0, kSquare = 1, kProduct = 2 };
 
@@ -82,9 +102,11 @@ struct Plan {
   Round round[kMaxRounds];
 };
 
-// Value i of round 1's input: v, or v*w rounded (w is v for a square).
-// Both loads are issued whatever the mode, so that no branch stands
-// between a lane's loads.
+__host__ __device__ __forceinline__ bool is_vector(const Round& r) { return r.rows == 1 || r.cols == 1; }
+
+// Value i of the input: v, or v*w rounded (w is v for a square).  Both
+// loads are issued whatever the mode, so that no branch stands between a
+// lane's loads.
 template <class T>
 struct Input {
   const T* __restrict__ v;
@@ -97,41 +119,81 @@ struct Input {
   }
 };
 
-// Value i of a later round's input: partial sums written by this launch,
-// read through L2 (not the non-coherent read-only path).
+// Value i of a later stage's input: sums written by this launch, read
+// through L2 (not the non-coherent read-only path).
 template <class T>
 struct Partials {
   const T* p;
   __device__ T operator()(int i) const { return __ldcg(p + i); }
 };
 
-// Windows of 32 consecutive values of n, after `lead` zeros: warp `warp` of
-// `warps` takes the groups of 32 windows first, first + 32 * warps, ...
-// A lane's 32 loads go to registers first and to the tile after, so that
-// all of them are in flight at once: each load is unconditional, at an
-// index clamped into the input, and a select drops the pad's values (a
-// load under a branch makes the lane wait for it before the next one).
-template <class T, class Load>
-__device__ void vector_round(Load load, int n, int m, int lead, T* dst, T* tile, int warp,
-                             int warps, int lane) {
-  for (int first = warp * kWindow; first < m; first += warps * kWindow) {
+template <class T>
+struct ToScratch {
+  T* dst;
+  __device__ void operator()(int j, T acc) const { dst[j] = acc; }
+};
+
+template <class T>
+struct ToOut {
+  T* out;
+  int root;
+  __device__ void operator()(int, T acc) const { *out = root ? root_rn(acc) : acc; }
+};
+
+// acc + a, rounded: the step of an add chain.
+struct AddStep {
+  template <class T>
+  __device__ __forceinline__ T operator()(T acc, T a) const {
+    return add_rn(acc, a);
+  }
+};
+
+// Where value e of window `row` of a fold's tile lies: chunk e / kV of the
+// row at chunk (e / kV) ^ (row & 7).
+template <class T>
+__device__ __forceinline__ int swizzled(int row, int e) {
+  constexpr int kV = Vec16<T>::kWidth;
+  return row * kWindow + (((e / kV) ^ (row & 7)) * kV) + e % kV;
+}
+
+// Sums j = warp, warp + warps, ... of round B (m_b windows of 32 after
+// lead_b zeros) over the vector input of round A (n values, windows of 32
+// after lead_a zeros), each the 32 window sums of A that it adds, added
+// in order; store(j, sum).  A lane's 32 loads go to registers first and to
+// the tile after, so that all of them are in flight at once: each load is
+// unconditional, at an index clamped into the input, and a select drops
+// the pad's values (a load under a branch makes the lane wait for it
+// before the next one).
+template <class T, class Load, class Store>
+__device__ void fold_round(Load load, int n, int lead_a, int m_b, int lead_b, Store store, T* tile,
+                           int warp, int warps, int lane) {
+  using V = typename Vec16<T>::type;
+  constexpr int kV = Vec16<T>::kWidth;
+  for (int j = warp; j < m_b; j += warps) {
+    const int first = kWindow * j - lead_b;  // round A's window of lane 0's sum
     T val[kWindow];
 #pragma unroll
     for (int k = 0; k < kWindow; ++k) {
-      const int i = (first + k) * kWindow + lane - lead;  // window first+k, value `lane`
+      const int i = (first + k) * kWindow + lane - lead_a;  // window first+k, value `lane`
       const bool in = i >= 0 && i < n;
       const T value = load(in ? i : 0);
       val[k] = in ? value : T(0);
     }
 #pragma unroll
-    for (int k = 0; k < kWindow; ++k) tile[k * kTileStride + lane] = val[k];
+    for (int k = 0; k < kWindow; ++k) tile[swizzled<T>(k, lane)] = val[k];
     __syncwarp();
-    if (first + lane < m) {
-      T acc = T(0);
+    const V* row = reinterpret_cast<const V*>(tile + lane * kWindow);
+    V chunk[kWindow / kV];
 #pragma unroll
-      for (int e = 0; e < kWindow; ++e) acc = add_rn(acc, tile[lane * kTileStride + e]);
-      dst[first + lane] = acc;
-    }
+    for (int q = 0; q < kWindow / kV; ++q) load16(chunk[q], row + (q ^ (lane & 7)));
+    T s = T(0);
+#pragma unroll
+    for (int e = 0; e < kWindow; ++e) s = add_rn(s, vec_at(chunk[e / kV], e % kV));
+    // The 32 window sums, in order, by lane 0 from the tile's first row.
+    __syncwarp();
+    tile[lane] = s;
+    __syncwarp();
+    if (lane == 0) store(j, chain<kGroup<T>, 1>(tile, tile, kWindow, T(0), AddStep{}));
     __syncwarp();
   }
 }
@@ -140,7 +202,7 @@ __device__ void vector_round(Load load, int n, int m, int lead, T* dst, T* tile,
 // 32 k of the window, for k < size / 32, is row row0 + a, column col0 + b
 // of the input, where a and b step by 32 / wb rows and 32 % wb columns
 // from one k to the next (a full window, 32 x 32, has a = k, b = lane).
-// The loads go to registers first, as in vector_round.  Only a window that
+// The loads go to registers first, as in fold_round.  Only a window that
 // is not full stops early: the stop is a branch, which keeps the next
 // loads from being issued before this one's select.
 template <bool kFull, class T, class Load>
@@ -173,66 +235,93 @@ __device__ __forceinline__ void stage_window(Load load, const Round& r, int row0
 // 2-D windows: warp `warp` of `warps` takes windows warp, warp + warps, ...
 // (row-major over the windows); lane 0 adds each in row-major order.  A
 // round with an axis longer than 32 has windows of 32 along it, so a
-// window holds 32 * k values (k <= 32): lane 0 reads them 16 bytes at a
-// time.
+// window holds 32 * k values (k <= 32), whole groups of the chain.
 template <class T, class Load>
 __device__ void tile_round(Load load, const Round& r, T* dst, T* tile, int warp, int warps,
                            int lane) {
-  using V = typename Vec16<T>::type;
-  constexpr int kV = Vec16<T>::kWidth;
   const int count = r.win_rows * r.win_cols;
   const int size = r.wa * r.wb;
   for (int w = warp; w < count; w += warps) {
     const int row0 = (w / r.win_cols) * r.wa - r.la;
     const int col0 = (w % r.win_cols) * r.wb - r.lb;
-    if (size == kWindow * kWindow) {
+    // A full window's length is a constant, which the compiler schedules
+    // better.
+    if (size == kTileValues) {
       stage_window<true>(load, r, row0, col0, size, lane, tile);
+      __syncwarp();
+      if (lane == 0) dst[w] = chain<kGroup<T>, 1>(tile, tile, kTileValues, T(0), AddStep{});
     } else {
       stage_window<false>(load, r, row0, col0, size, lane, tile);
-    }
-    __syncwarp();
-    if (lane == 0) {
-      const V* vec = reinterpret_cast<const V*>(tile);
-      T acc = T(0);
-#pragma unroll 8
-      for (int e = 0; e < size / kV; ++e) {
-        const V q = vec[e];
-#pragma unroll
-        for (int c = 0; c < kV; ++c) acc = add_rn(acc, vec_at(q, c));
-      }
-      dst[w] = acc;
+      __syncwarp();
+      if (lane == 0) dst[w] = chain<kGroup<T>, 1>(tile, tile, size, T(0), AddStep{});
     }
     __syncwarp();
   }
 }
 
-template <class T, class Load>
-__device__ void run_round(Load load, const Round& r, T* dst, T* tile, int warp, int warps,
-                          int lane) {
-  if (r.rows == 1 || r.cols == 1) {
-    vector_round(load, r.rows * r.cols, r.win_rows * r.win_cols, r.la + r.lb, dst, tile,
-                 warp, warps, lane);
-  } else {
-    tile_round(load, r, dst, tile, warp, warps, lane);
+// The chain over the last `count` (<= 1,024) values, in order, by thread
+// 0, from `left` in shared memory, padded here to whole groups with -0,
+// which leaves any sum as it is.  `fused` (no round taken, a square or a
+// product): the values are pairs, left[i] * right[i] added by one fused
+// multiply-add in f32 (the rounded product, then the add, in f64:
+// mul_add), the pad -0 * +0.
+template <class T>
+__device__ void final_chain(T* left, T* right, int count, bool fused, ToOut<T> store) {
+  const int padded = (count + kGroup<T> - 1) / kGroup<T> * kGroup<T>;
+  for (int i = count + threadIdx.x; i < padded; i += blockDim.x) {
+    left[i] = -T(0);
+    if (fused) right[i] = T(0);
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const T acc = fused ? chain<kGroup<T>, 2>(left, right, padded, T(0),
+                                              [](T c, T a, T b) { return mul_add(a, b, c); })
+                        : chain<kGroup<T>, 1>(left, left, padded, T(0), AddStep{});
+    store(0, acc);
   }
 }
 
 template <class T>
-__global__ void __launch_bounds__(kThreads<T>)
+__global__ void __launch_bounds__(32 * kMaxWarps<T>)
     tree_sum_kernel(const T* __restrict__ v, const T* __restrict__ w, int mode, Plan plan,
                     T* scratch, int second, unsigned* ticket, T* __restrict__ out, int root) {
-  constexpr int kW = kWarps<T>;
-  __shared__ __align__(16) T tiles[kW * kTile];
+  extern __shared__ __align__(16) unsigned char shared_bytes[];
+  T* tiles = reinterpret_cast<T*>(shared_bytes);
   __shared__ bool last;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  T* tile = tiles + warp * kTile;
+  const int warps = blockDim.x >> 5;
+  T* tile = tiles + warp * kTileValues;
   const Input<T> input{v, w, mode};
-  if (plan.num_rounds > 0) {
-    run_round(input, plan.round[0], scratch, tile, blockIdx.x * kW + warp, gridDim.x * kW,
-              lane);
-    __threadfence();  // this block's window sums, before its ticket
+  const ToOut<T> to_out{out, root};
+  const int k = plan.num_rounds;
+  if (k == 0) {  // one block: the chain over the input
+    const bool fused = mode != kSum;
+    for (int i = threadIdx.x; i < plan.final_count; i += blockDim.x) {
+      tiles[i] = __ldg(v + i);
+      if (fused) tiles[kTileValues + i] = __ldg((mode == kSquare ? v : w) + i);
+    }
+    final_chain(tiles, tiles + kTileValues, plan.final_count, fused, to_out);
+    return;
   }
+  // The grid's stage: rounds 1 and 2 folded, round 1 folded into the final
+  // chain, or a 2-D round 1.  `next` is the first round left.
+  const Round r1 = plan.round[0];
+  int next = 1;
+  if (is_vector(r1)) {
+    const int n = r1.rows * r1.cols;
+    if (k == 1) {  // one block: the whole sum
+      fold_round(input, n, r1.la + r1.lb, 1, 0, to_out, tile, warp, warps, lane);
+      return;
+    }
+    const Round r2 = plan.round[1];
+    fold_round(input, n, r1.la + r1.lb, r2.win_rows * r2.win_cols, r2.la + r2.lb,
+               ToScratch<T>{scratch}, tile, blockIdx.x * warps + warp, gridDim.x * warps, lane);
+    next = 2;
+  } else {
+    tile_round(input, r1, scratch, tile, blockIdx.x * warps + warp, gridDim.x * warps, lane);
+  }
+  __threadfence();  // this block's sums, before its ticket
   __syncthreads();
   if (threadIdx.x == 0) last = atomicAdd(ticket, 1u) == gridDim.x - 1;
   __syncthreads();
@@ -240,40 +329,39 @@ __global__ void __launch_bounds__(kThreads<T>)
   __threadfence();
   T* src = scratch;
   T* dst = scratch + second;
-  for (int k = 1; k < plan.num_rounds; ++k) {
+  // What the final chain adds, in shared memory past the warps' tiles: a
+  // 2-D last round writes its sums there.
+  T* left = tiles + warps * kTileValues;
+  bool done = false, in_left = false;
+  while (next < k) {
     // A copy in registers: reading the round's fields at a run-time index
     // of the kernel's parameters, as each use would, is slow.
-    const Round round = plan.round[k];
-    run_round(Partials<T>{src}, round, dst, tile, warp, kW, lane);
-    __syncthreads();
+    const Round ra = plan.round[next];
+    if (!is_vector(ra)) {
+      in_left = next + 1 == k;
+      tile_round(Partials<T>{src}, ra, in_left ? left : dst, tile, warp, warps, lane);
+      next += 1;
+    } else if (next + 1 < k) {
+      const Round rb = plan.round[next + 1];
+      fold_round(Partials<T>{src}, ra.rows * ra.cols, ra.la + ra.lb, rb.win_rows * rb.win_cols,
+                 rb.la + rb.lb, ToScratch<T>{dst}, tile, warp, warps, lane);
+      next += 2;
+    } else {
+      fold_round(Partials<T>{src}, ra.rows * ra.cols, ra.la + ra.lb, 1, 0, to_out, tile, warp, warps,
+                 lane);
+      next += 1;
+      done = true;
+    }
+    __syncthreads();  // the stage's sums, before the next stage reads them
     T* t = src;
     src = dst;
     dst = t;
   }
-  // What is left (at most 32 x 32 values) goes to shared memory at once,
-  // then thread 0 adds it in order.
-  T* left = tiles;
-  T* right = tiles + kWindow * kWindow;
-  for (int i = threadIdx.x; i < plan.final_count; i += kThreads<T>) {
-    if (plan.num_rounds > 0) {
-      left[i] = __ldcg(src + i);
-    } else {
-      left[i] = __ldg(v + i);
-      right[i] = mode == kSum ? T(0) : __ldg((mode == kSquare ? v : w) + i);
-    }
+  if (!done) {
+    for (int i = threadIdx.x; i < plan.final_count && !in_left; i += blockDim.x) left[i] = __ldcg(src + i);
+    final_chain(left, left, plan.final_count, false, to_out);
   }
-  __syncthreads();
   if (threadIdx.x == 0) {
-    T acc = T(0);
-    if (plan.num_rounds == 0 && mode != kSum) {
-      // No round taken: XLA fuses each product into its add in f32; f64
-      // rounds the product first (mul_add).
-      for (int i = 0; i < plan.final_count; ++i) acc = mul_add(left[i], right[i], acc);
-    } else {
-#pragma unroll 8
-      for (int i = 0; i < plan.final_count; ++i) acc = add_rn(acc, left[i]);
-    }
-    *out = root ? root_rn(acc) : acc;
     *ticket = 0u;
   }
 }
@@ -318,9 +406,21 @@ int elementwise_blocks(int n) {
   return (n + threads - 1) / threads < 1056 ? (n + threads - 1) / threads : 1056;
 }
 
+int multiprocessors() {
+  static int count = 0;
+  if (count == 0) {
+    int device = 0, sms = 0;
+    cudaGetDevice(&device);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    count = sms > 0 ? sms : 1;
+  }
+  return count;
+}
+
 // plan: host ints {num_rounds, final_count, then per round rows, cols,
-// win_rows, win_cols, wa, wb, la, lb}; scratch holds round 1's sums from 0
-// and round 2's from `second`, later rounds alternating between the two.
+// win_rows, win_cols, wa, wb, la, lb}; scratch holds the grid's sums from 0
+// and the next stage's from `second`, later stages alternating between the
+// two (ops/reduce.py:k6_plan sizes it).
 template <class T>
 int tree_sum(const void* v, const void* w, int mode, const void* plan_host, void* scratch,
              int second, void* ticket, void* out, int root, void* stream) {
@@ -328,21 +428,38 @@ int tree_sum(const void* v, const void* w, int mode, const void* plan_host, void
   Plan plan;
   plan.num_rounds = p[0];
   plan.final_count = p[1];
-  if (plan.num_rounds < 0 || plan.num_rounds > kMaxRounds) {
+  if (plan.num_rounds < 0 || plan.num_rounds > kMaxRounds || plan.final_count > kTileValues) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (int k = 0; k < plan.num_rounds; ++k) {
     const int* q = p + 2 + 8 * k;
     plan.round[k] = Round{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7]};
   }
-  int blocks = 1;
+  // The grid's warps of work: round 2's windows (rounds 1 and 2 folded),
+  // round 1's (2-D), or one.  Warps per block: as few as give every SM a
+  // block of a vector's folds (each warp's loads fill its SM's memory
+  // pipe well enough); for 2-D windows, as many as spread the blocks over
+  // the SMs once (two warps of chains run side by side on one SM as fast
+  // as on two), which leaves the last block warps for a 2-D round 2's
+  // windows.
+  int work = 1;
+  bool vector_work = true;
   if (plan.num_rounds > 0) {
     const Round& r = plan.round[0];
-    const int windows = r.win_rows * r.win_cols;
-    const int warps = (r.rows == 1 || r.cols == 1) ? (windows + kWindow - 1) / kWindow : windows;
-    blocks = warps > kWarps<T> ? (warps + kWarps<T> - 1) / kWarps<T> : 1;
+    if (!is_vector(r)) {
+      work = r.win_rows * r.win_cols;
+      vector_work = false;
+    } else if (plan.num_rounds > 1) {
+      work = plan.round[1].win_rows * plan.round[1].win_cols;
+    }
   }
-  tree_sum_kernel<T><<<blocks, kThreads<T>, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int sms = multiprocessors();
+  const int wanted = vector_work ? work / sms : (work + sms - 1) / sms;
+  const int warps = max(1, min(kMaxWarps<T>, wanted));
+  const int blocks = (work + warps - 1) / warps;
+  // A tile per warp and one for the final chain's values.
+  const size_t shared = static_cast<size_t>(warps + 1) * kTileValues * sizeof(T);
+  tree_sum_kernel<T><<<blocks, 32 * warps, shared, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(v), static_cast<const T*>(w), mode, plan, static_cast<T*>(scratch),
       second, static_cast<unsigned*>(ticket), static_cast<T*>(out), root);
   return static_cast<int>(cudaGetLastError());

@@ -40,7 +40,7 @@ from eig_kl_tpu_torch.ops.spmv import fma_f32
 
 _WINDOW = 32
 _P, _I = ctypes.c_void_p, ctypes.c_int
-K4, K4_F64 = (Kernel("fma_dot", f"fma_dot_{t}", [_P] * 3 + [_I, _P]) for t in ("f32", "f64"))
+K4, K4_F64 = (Kernel("fma_dot", f"fma_dot_batch_{t}", [_P] * 3 + [_I, _I, _P]) for t in ("f32", "f64"))
 K6, K6_F64 = (
     Kernel("tree_sum", f"tree_sum_{t}", [_P, _P, _I, _P, _P, _I, _P, _P, _I, _P])
     for t in ("f32", "f64")
@@ -57,6 +57,8 @@ _F64 = {K4: K4_F64, K6: K6_F64, K6_SCALE: K6_SCALE_F64, K6_AXPY: K6_AXPY_F64}
 #: XLA's CPU vector dot rounds its first 8 products before adding them,
 #: then fuses each product into its add (:func:`fma_dot`).
 _DOT_UNFUSED = 8
+#: The dots one K4 launch runs (csrc/fma_dot.cu:kMaxPairs).
+K4_MAX_PAIRS = 4
 
 
 def _typed(kernel: Kernel, tensors, what: str) -> Kernel:
@@ -123,14 +125,11 @@ def tree_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 def tree_norm(x: torch.Tensor) -> torch.Tensor:
     """Euclidean norm with the squares summed by :func:`tree_sum`.
 
-    An f32 root is taken in f64 and rounded once, which gives the
-    correctly rounded f32 root on every device (PyTorch's f32 ``sqrt`` on
-    the CPU is sometimes an ulp off; XLA's is correctly rounded).  An f64
-    root is PyTorch's, which on the CPU is not always correctly rounded
-    either (ROADMAP.md C11); K6's is.
+    The root is :func:`sqrt_rn`'s, correctly rounded on every device as
+    XLA's and K6's are.
     """
     if x.device.type == "cpu":
-        return _root(_products_plain(x, x, tree_sum_plain))
+        return sqrt_rn(_products_plain(x, x, tree_sum_plain))
     return tree_sum_cuda(x, square=True, root=True)
 
 
@@ -165,10 +164,18 @@ def _products_plain(x: torch.Tensor, y: torch.Tensor, sum_plain) -> torch.Tensor
     return acc
 
 
-def _root(s: torch.Tensor) -> torch.Tensor:
-    if s.dtype == torch.float32:
-        return torch.sqrt(s.double()).float()
-    return torch.sqrt(s)
+def sqrt_rn(t: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root of an f32 or f64 tensor (a 0-d
+    one included), in its dtype on its device, as XLA's and K6's roots are.
+
+    PyTorch's ``sqrt`` on the CPU is not: its f32 root is an ulp off for
+    about 1 % of inputs, its f64 root for some (ROADMAP.md C2, C11).  On the
+    CPU the root is NumPy's, which is; on the card PyTorch's, which is.  An
+    f32 root is taken in f64 and rounded once, the correctly rounded f32
+    root."""
+    if t.device.type != "cpu":
+        return torch.sqrt(t.double()).to(t.dtype) if t.dtype == torch.float32 else torch.sqrt(t)
+    return torch.from_numpy(np.asarray(np.sqrt(t.double().numpy()))).to(t.dtype)
 
 
 def tree_sum_2d(v: torch.Tensor) -> torch.Tensor:
@@ -223,17 +230,20 @@ def tree_norm_2d(x: torch.Tensor) -> torch.Tensor:
     """Euclidean norm of the 2-D tensor ``x``, the squares summed by
     :func:`tree_sum_2d`; an f32 root is taken as in :func:`tree_norm`."""
     if x.device.type == "cpu":
-        return _root(_products_plain(x, x, tree_sum_2d_plain))
+        return sqrt_rn(_products_plain(x, x, tree_sum_2d_plain))
     return tree_sum_cuda(x, square=True, root=True)
 
 
 @functools.lru_cache(maxsize=None)
 def k6_plan(shape: tuple[int, ...]):
-    """K6's launch plan for a 1-D or 2-D shape: the host int array the C
-    entry point reads (the number of rounds, the values left after them,
-    then per round its input rows and columns, windows per axis, window
-    extents and lead pads, a 1-D shape taken as one row), the scratch it
-    needs and where its second half starts."""
+    """K6's launch plan for a 1-D or 2-D shape, built once per shape: the
+    host int array the C entry point reads (the number of rounds, the values
+    left after them, then per round its input rows and columns, windows per
+    axis, window extents and lead pads, a 1-D shape taken as one row), the
+    scratch it needs and where its second half starts.  The halves hold
+    round 1's and round 2's windows: the grid's sums take the first, the
+    next stage's the second, and the stages after alternate, each writing
+    fewer sums than the one before."""
     rounds = reduce_rounds(shape)
     if len(rounds) > _MAX_ROUNDS:
         raise ValueError(f"K6 takes at most {_MAX_ROUNDS} rounds; {shape} needs {len(rounds)}")
@@ -258,6 +268,20 @@ def _ticket(device: torch.device, stream) -> torch.Tensor:
     return _TICKETS[key]
 
 
+_SCRATCH: dict[tuple[int, int, torch.dtype], torch.Tensor] = {}
+
+
+def _scratch(device: torch.device, stream, dtype: torch.dtype, length: int) -> torch.Tensor:
+    """K6's scratch for one stream and dtype, grown to ``length`` values:
+    launches on one stream run in order, so they share it, as they share
+    the ticket."""
+    key = (device.index, stream.cuda_stream, dtype)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < length:
+        buf = _SCRATCH[key] = torch.empty(max(length, 1), dtype=dtype, device=device)
+    return buf
+
+
 def tree_sum_cuda(
     v: torch.Tensor, w: torch.Tensor | None = None, *, square: bool = False, root: bool = False
 ) -> torch.Tensor:
@@ -277,7 +301,7 @@ def tree_sum_cuda(
     plan, scratch_len, second = k6_plan(tuple(v.shape))
     mode = _PRODUCT if w is not None else _SQUARE if square else _SUM
     stream = torch.cuda.current_stream(v.device)
-    scratch = torch.empty(scratch_len, dtype=v.dtype, device=v.device)
+    scratch = _scratch(v.device, stream, v.dtype, scratch_len)
     out = torch.empty((), dtype=v.dtype, device=v.device)
     # The kernel's loads are unconditional, at clamped indices: an empty
     # input hands it the output's value to read and drop.
@@ -325,13 +349,22 @@ def fma_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     order.  (Measured against ``jax.jit(jnp.vdot)`` in both types,
     ``tests/test_torch_spmv_v3.py`` and ``tests/test_torch_f64.py``.)
 
-    K4 (``csrc/fma_dot.cu``) runs the chain for tensors on the card,
-    :func:`fma_dot_plain` for tensors on the CPU.  Returns a 0-d tensor of
+    The one-pair case of :func:`fma_dot_batch`.  Returns a 0-d tensor of
     the inputs' dtype on ``x``'s device.
     """
-    if x.device.type == "cpu":
-        return fma_dot_plain(x, y)
-    return fma_dot_cuda(x, y)
+    return fma_dot_batch((x,), (y,))[0]
+
+
+def fma_dot_batch(xs, ys) -> torch.Tensor:
+    """The dots ``xs[k] . ys[k]`` of :func:`fma_dot`, 1 to 4 pairs of
+    contiguous vectors of one length, dtype and device, as a tensor of
+    ``len(xs)`` values: one K4 launch (``csrc/fma_dot.cu``) for tensors on
+    the card, a chain each, :func:`fma_dot_plain` per pair for tensors on
+    the CPU.  Both devices take the same inputs."""
+    kernel = _k4_checked(xs, ys)
+    if xs[0].device.type == "cpu":
+        return torch.stack([fma_dot_plain(x, y) for x, y in zip(xs, ys)])
+    return _k4_launch(kernel, xs, ys)
 
 
 def _fma_exact(a: float, b: float, c: float) -> float:
@@ -379,18 +412,49 @@ def fma_dot_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.tensor(acc, dtype=torch.float32, device=x.device)
 
 
-def fma_dot_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """Launch K4 on the current stream: the chain of :func:`fma_dot` for
-    two contiguous vectors of one length, both f32 or both f64, on one
-    card."""
-    if x.device.type != "cuda" or y.device != x.device:
-        raise ValueError("fma_dot_cuda: x and y must lie on one CUDA device")
-    kernel = _typed(K4, (x, y), "fma_dot_cuda")
-    if x.dim() != 1 or x.shape != y.shape or not (x.is_contiguous() and y.is_contiguous()):
-        raise ValueError(f"fma_dot_cuda: two contiguous vectors of one length, got {tuple(x.shape)}, {tuple(y.shape)}")
-    out = torch.empty((), dtype=x.dtype, device=x.device)
-    kernel(x.data_ptr(), y.data_ptr(), out.data_ptr(), x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+def _k4_checked(xs, ys) -> Kernel:
+    """K4's instantiation for the pairs ``xs[k], ys[k]``, which must be
+    1 to 4 contiguous vectors of one length, f32 or f64, on one device."""
+    both = (*xs, *ys)
+    if not 1 <= len(xs) == len(ys) <= K4_MAX_PAIRS:
+        raise ValueError(f"K4 takes 1 to {K4_MAX_PAIRS} pairs of vectors, got {len(xs)} and {len(ys)}")
+    dev = xs[0].device
+    if any(t.device != dev for t in both):
+        raise ValueError(f"fma_dot: the vectors must lie on one CUDA card or all on the CPU, got "
+                         f"{[str(t.device) for t in both]}")
+    kernel = _typed(K4, both, "fma_dot")
+    n = xs[0].numel()
+    if any(t.dim() != 1 or t.numel() != n or not t.is_contiguous() for t in both):
+        raise ValueError(f"fma_dot: contiguous vectors of one length, got {[tuple(t.shape) for t in both]}")
+    if n >= 2**31:
+        raise ValueError(f"fma_dot: {n} values do not fit K4's int32 indices")
+    return kernel
+
+
+def _k4_launch(kernel: Kernel, xs, ys) -> torch.Tensor:
+    """Launch ``kernel`` (checked by :func:`_k4_checked`) on the current
+    stream for the pairs ``xs[k], ys[k]``: one value per pair."""
+    dev = xs[0].device
+    if dev.type != "cuda":
+        raise ValueError("fma_dot_batch_cuda: the vectors must lie on a CUDA device")
+    out = torch.empty(len(xs), dtype=xs[0].dtype, device=dev)
+    pointers = ctypes.c_void_p * len(xs)
+    kernel(pointers(*(t.data_ptr() for t in xs)), pointers(*(t.data_ptr() for t in ys)), out.data_ptr(),
+           len(xs), xs[0].numel(), torch.cuda.current_stream(dev).cuda_stream)
     return out
+
+
+def fma_dot_cuda(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Launch K4 on the current stream for one pair: :func:`fma_dot`'s
+    chain on the card, a 0-d tensor."""
+    return fma_dot_batch_cuda((x,), (y,))[0]
+
+
+def fma_dot_batch_cuda(xs, ys) -> torch.Tensor:
+    """Launch K4 once on the current stream for the pairs of
+    :func:`fma_dot_batch`, which must lie on one card: a tensor of their
+    :func:`fma_dot` chains, one block each."""
+    return _k4_launch(_k4_checked(xs, ys), xs, ys)
 
 
 def axpy(a: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

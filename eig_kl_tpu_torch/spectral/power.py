@@ -46,7 +46,7 @@ import torch
 
 from eig_kl_tpu_torch.graph.csr import DeviceGraph
 from eig_kl_tpu_torch.ops.reduce import (
-    axpy, fma_dot, normalize, padded_step, tree_dot, tree_norm, tree_norm_2d,
+    axpy, fma_dot, fma_dot_batch, normalize, padded_step, sqrt_rn, tree_dot, tree_norm, tree_norm_2d,
 )
 from eig_kl_tpu_torch.ops.select import upper_median
 from eig_kl_tpu_torch.ops.spmv import lazy_walk, power_step, spmv
@@ -236,9 +236,7 @@ def _momentum(op: PowerOperator, x0, n, dtype, check_interval, stable_checks, ma
     flip_tol = 1e-3
     edge = 0.995
     to_state, from_state = op.to_state, op.from_state
-    # An f32 root taken in f64 and rounded once is the correctly rounded
-    # one (XLA's); PyTorch's f32 sqrt on the CPU is sometimes an ulp off.
-    dsq = torch.sqrt(op.safe_deg.double()).to(dtype)
+    dsq = sqrt_rn(op.safe_deg)  # correctly rounded, as XLA's root
     dsinv = 1.0 / dsq
     dsinv_st = to_state(dsinv)  # zero in a padded state's padding
     q0 = dsq / tree_norm(dsq)  # the top (constant) mode of B
@@ -271,10 +269,13 @@ def _momentum(op: PowerOperator, x0, n, dtype, check_interval, stable_checks, ma
             inv = _reciprocal(op.norm(u))
             wp, w = w * inv, u * inv
         # Deflate the constant mode from both carries (by linearity the
-        # projected pair still satisfies the recurrence).
-        wv = deflate(from_state(w))
+        # projected pair still satisfies the recurrence): their two dots
+        # are one K4 launch on the card, each its own chain.
+        w_flat, wp_flat = from_state(w), from_state(wp)
+        c = fma_dot_batch((q0, q0), (w_flat, wp_flat))
+        wv = axpy(-c[0], q0, w_flat)
         inv = _reciprocal(tree_norm(wv))
-        wv, wpv = wv * inv, deflate(from_state(wp)) * inv
+        wv, wpv = wv * inv, axpy(-c[1], q0, wp_flat) * inv
         x = to_state(wv)
         # One more lazy walk per check: the symmetric Rayleigh quotient of
         # the deflated unit iterate, a lower bound on the Fiedler mode's mu.

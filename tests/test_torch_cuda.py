@@ -646,7 +646,7 @@ def _k6_plain(mode, v, w):
     if mode == "sum":
         return (R.tree_sum_plain if one_d else R.tree_sum_2d_plain)(v)
     if mode == "norm":
-        return R._root(R._products_plain(v, v, R.tree_sum_plain if one_d else R.tree_sum_2d_plain))
+        return R.sqrt_rn(R._products_plain(v, v, R.tree_sum_plain if one_d else R.tree_sum_2d_plain))
     return R._products_plain(v, w, R.tree_sum_plain if one_d else R.tree_sum_2d_plain)
 
 
@@ -1050,6 +1050,87 @@ def test_k4_f64_equals_the_host_chain_bitwise(cuda, size):
     assert a.cpu().view(torch.int64) == b.cpu().view(torch.int64) == ref.view(torch.int64)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("size", [0, 1, 7, 8, 9, 2047, 2048, 4097, 202_752])
+def test_k4_batch_equals_the_host_chain_bitwise(cuda, dtype, size):
+    """``fma_dot_batch`` at 1 to 4 pairs per launch: each dot bit for bit
+    the host chain (8 rounded products, then the fused chain), one launch
+    per batch.  The fourth pair starts 8 bytes after an aligned address, so
+    its copies are not the 16-byte ones."""
+    from eig_kl_tpu_torch.ops.reduce import K4, K4_F64, fma_dot_batch, fma_dot_plain
+
+    rng = np.random.default_rng(size + 7)
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    pairs = []
+    for k in range(4):
+        x = rng.standard_normal(size + 2)
+        y = rng.standard_normal(size + 2) * rng.uniform(0.1, 10.0, size + 2)
+        x[::7], y[::11] = 0.0, -0.0
+        lo = 2 if dtype == torch.float32 and k == 3 else 1 if k == 3 else 0
+        pairs.append((torch.as_tensor(x.astype(np_dtype)), torch.as_tensor(y.astype(np_dtype)), lo))
+    host = [fma_dot_plain(x[lo : lo + size], y[lo : lo + size]) for x, y, lo in pairs]
+    kern = K4 if dtype == torch.float32 else K4_F64
+    on_card = [(x.to(cuda)[lo : lo + size], y.to(cuda)[lo : lo + size]) for x, y, lo in pairs]
+    assert size == 0 or on_card[3][0].data_ptr() % 16 == 8
+    for count in range(1, 5):
+        before = kern.launches
+        got = fma_dot_batch([x for x, _ in on_card[:count]], [y for _, y in on_card[:count]])
+        assert kern.launches == before + 1 and got.shape == (count,) and got.dtype == dtype
+        assert torch.equal(got.cpu(), torch.stack(host[:count]))
+
+
+def test_k4_batch_refuses_what_it_cannot_run(cuda):
+    """Five pairs, vectors of two lengths or dtypes, a CPU tensor: refused,
+    no launch counted."""
+    from eig_kl_tpu_torch.ops.reduce import K4, K4_F64, fma_dot_batch_cuda
+
+    x = torch.zeros(100, device=cuda)
+    before = K4.launches, K4_F64.launches
+    with pytest.raises(ValueError, match="1 to 4 pairs"):
+        fma_dot_batch_cuda([x] * 5, [x] * 5)
+    with pytest.raises(ValueError, match="one length"):
+        fma_dot_batch_cuda([x, x[:50]], [x, x[:50]])
+    with pytest.raises(TypeError, match="f32 or f64"):
+        fma_dot_batch_cuda([x, x.double()], [x, x.double()])
+    with pytest.raises(ValueError, match="CUDA"):
+        fma_dot_batch_cuda([x, x.cpu()], [x, x.cpu()])
+    assert (K4.launches, K4_F64.launches) == before
+
+
+def test_k6_plan_and_scratch_are_kept_per_shape_and_stream(cuda):
+    """K6's plan is built once per shape; its scratch is one buffer per
+    stream and dtype, grown for a larger shape, so a launch allocates only
+    its output; shapes interleaved on two streams give the plain sums."""
+    from eig_kl_tpu_torch.ops import reduce as R
+
+    shapes = [(7,), (4038,), (1584, 128), (201_920,), (64_000, 10)]
+    assert all(R.k6_plan(s) is R.k6_plan(s) for s in shapes)
+    inputs = [_k6_inputs(s, k)[0] for k, s in enumerate(shapes)]
+    want = [int(_k6_plain("sum", v, v).view(torch.int32)) for v in inputs]
+    on_card = [v.to(cuda) for v in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for k, v in enumerate(on_card * 2):
+        with torch.cuda.stream(streams[k % 2]):
+            outs.append((k % len(shapes), R.tree_sum_cuda(v)))
+    torch.cuda.synchronize()
+    assert all(int(o.cpu().view(torch.int32)) == want[k] for k, o in outs)
+    keys = {(cuda.index or 0, s.cuda_stream, torch.float32) for s in streams}
+    assert keys <= set(R._SCRATCH) and len({R._SCRATCH[k].data_ptr() for k in keys}) == 2
+    need = max(R.k6_plan(s)[1] for s in shapes)
+    assert all(R._SCRATCH[k].numel() >= need for k in keys)
+    v = on_card[3]
+    R.tree_sum_cuda(v)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(cuda)
+    out = R.tree_sum_cuda(v)
+    after = torch.cuda.memory_allocated(cuda)
+    one = torch.empty((), device=cuda)
+    assert after - before == torch.cuda.memory_allocated(cuda) - after  # the output alone
+    del one
+    assert int(out.cpu().view(torch.int32)) == want[3]
+
+
 @pytest.mark.parametrize("case", list(K2_CASES))
 def test_k2_f64_equals_plain_bitwise(cuda, case):
     """K2's f64 instantiation in every case of test_k2_equals_plain_bitwise:
@@ -1107,23 +1188,18 @@ def _f64_kernels():
     return f32, f64
 
 
-def _f64_band(card, cpu):
-    """The f64 band between a card and a CPU run of the power solve: the
-    same values to rtol 1e-9 / atol 1e-12 and the same split of the nodes
-    that stand clear of the median.  Not the bits: PyTorch's f64 ``sqrt``
-    on the CPU is not always correctly rounded, K6's root on the card is
-    (ROADMAP.md C11)."""
-    np.testing.assert_allclose(card, cpu, rtol=1e-9, atol=1e-12)
-    med = np.sort(cpu)[len(cpu) // 2]
-    clear = np.abs(cpu - med) > 1e-12 * np.abs(cpu).max()
-    assert clear.sum() >= 300
-    np.testing.assert_array_equal((np.sort(card)[len(card) // 2] > card)[clear], (med > cpu)[clear])
+def _same_solve(card, cpu):
+    """Two runs of ``power_partition_fiedler`` bit for bit: the eigenvalue,
+    the median, the vector and the sides.  The f64 roots are correctly
+    rounded on both devices (``sqrt_rn``, ROADMAP.md C11)."""
+    assert card[0] == cpu[0] and card[1] == cpu[1] and card[4] == cpu[4]
+    np.testing.assert_array_equal(card[2].view(np.int64), cpu[2].view(np.int64))
+    np.testing.assert_array_equal(card[3], cpu[3])
 
 
 def test_f64_power_solve_on_the_card_against_the_cpu_run(cuda):
     """The f64 power solve (the gkl2 exit, 1,000 steps) on gen 0.02x, on the
-    card through the f64 kernels alone and on the CPU: the same steps, the
-    f64 band (_f64_band)."""
+    card through the f64 kernels alone and on the CPU: the same bits."""
     from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
     from eig_kl_tpu_torch.utils.config import SpectralConfig
 
@@ -1136,8 +1212,7 @@ def test_f64_power_solve_on_the_card_against_the_cpu_run(cuda):
     assert card[4] == cpu[4] == 1000
     assert not any(k.launches for k in f32), launches
     assert (launches["power_step_f64"], launches["tree_sum_f64"], launches["scale_by_f64"]) == (1000, 1001, 1000)
-    assert card[0] == pytest.approx(cpu[0], abs=1e-10)
-    _f64_band(card[2], cpu[2])
+    _same_solve(card, cpu)
 
 
 def test_f64_kl_on_the_card_equals_the_cpu_run(cuda):
@@ -1174,9 +1249,9 @@ def test_f64_kl_on_the_card_equals_the_cpu_run(cuda):
 
 
 def test_momentum_f64_on_the_card_against_the_cpu_run(cuda):
-    """The momentum exit at f64 on gen 0.02x: the lazy walk, K4, K6 and its
-    axpy at f64 on the card, the CPU's plain run, the same steps and the
-    f64 band (_f64_band)."""
+    """The momentum exit at f64 on gen 0.02x: the lazy walk, K4 (a check's
+    two deflation dots in one launch), K6 and its axpy at f64 on the card,
+    and the CPU's plain run: the same bits."""
     from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
     from eig_kl_tpu_torch.utils.config import SpectralConfig
 
@@ -1185,10 +1260,13 @@ def test_momentum_f64_on_the_card_against_the_cpu_run(cuda):
     f32, f64 = _f64_kernels()
     card = power_partition_fiedler(g, cfg, dtype=torch.float64)
     assert not any(k.launches for k in f32)
-    assert all(k.launches for k in f64 if k.symbol in ("lazy_walk_f64", "fma_dot_f64", "axpy_f64"))
+    assert all(k.launches for k in f64 if k.symbol in ("lazy_walk_f64", "fma_dot_batch_f64", "axpy_f64"))
+    # 201 steps are 8 checks: a dot for the start's deflation, then two
+    # launches per check (the paired deflation, the Rayleigh quotient).
+    assert next(k.launches for k in f64 if k.symbol == "fma_dot_batch_f64") == 1 + 2 * 8
     cpu = power_partition_fiedler(g_cpu, cfg, dtype=torch.float64)
     assert card[4] == cpu[4] == 201
-    _f64_band(card[2], cpu[2])
+    _same_solve(card, cpu)
 
 
 def _graphs_host(kind):

@@ -122,73 +122,67 @@ def test_k6_plan_at_gen_1x():
 
 
 # K6's layout, as csrc/tree_sum.cu runs it.
-_WARPS, _STRIDE = 8, 33
+_SMS, _MAX_WARPS, _V = 132, 8, 4  # the card's SMs; f32: 8 warps a block at most, 4 values per 16 bytes
 
 
-def _vector_round(load, n, m, lead, dst, warps, written):
-    """``vector_round``: warp ``warp`` of ``warps`` takes the groups of 32
-    windows at first = 32 warp, 32 (warp + warps), ...; lane ``lane``
-    stores value ``lane`` of window ``first + k`` at tile[k * 33 + lane],
-    then adds window ``first + lane`` from tile[lane * 33 + e]."""
-    for warp in range(warps):
-        firsts = np.arange(32 * warp, m, 32 * warps)
-        if not firsts.size:
-            continue
-        k = np.arange(32)[None, :, None]
-        lane = np.arange(32)[None, None, :]
-        i = (firsts[:, None, None] + k) * 32 + lane - lead
-        tile = np.zeros((firsts.size, 32 * _STRIDE), np.float32)
-        tile[:, (k * _STRIDE + lane).reshape(-1)] = np.where((i >= 0) & (i < n), load(np.clip(i, 0, max(n - 1, 0))), 0.0).reshape(firsts.size, -1)
-        acc = np.zeros((firsts.size, 32), np.float32)
-        for e in range(32):
-            acc = acc + tile[:, np.arange(32) * _STRIDE + e]
-        win = firsts[:, None] + np.arange(32)[None, :]
-        keep = win < m
-        dst[win[keep]] = acc[keep]
-        np.add.at(written, win[keep], 1)
+def _chain(values):
+    """Values added in order from +0 along the last axis, each add rounded
+    (f32)."""
+    acc = np.zeros(values.shape[:-1], np.float32)
+    for e in range(values.shape[-1]):
+        acc = acc + values[..., e]
+    return acc
 
 
-def _tile_round(load, r, dst, warps, written):
-    """``tile_round``: warp ``warp`` takes windows warp, warp + warps, ...;
-    value e of a window is row row0 + e / wb, column col0 + e % wb; lane 0
-    adds e = 0, 1, ... in order."""
+def _fold(load, n, lead_a, m_b, lead_b, written):
+    """``fold_round``: sum j of round B (lead_b) from round A's windows
+    32 j - lead_b + t, t < 32, over A's input of n values (lead_a).  The
+    load for window t lands in row t of the warp's tile, value ``lane`` at
+    chunk (lane / 4) ^ (t & 7); lane L adds row L, reading chunk q at
+    q ^ (L & 7); then the 32 lane sums are added in order.  Returns the
+    m_b sums."""
+    j = np.arange(m_b)[:, None, None]
+    k = np.arange(32)[None, :, None]
+    lane = np.arange(32)[None, None, :]
+    i = (32 * j - lead_b + k) * 32 + lane - lead_a
+    vals = np.where((i >= 0) & (i < n), load(np.clip(i, 0, max(n - 1, 0))), 0.0).astype(np.float32)
+    row, col = np.arange(32)[:, None], np.arange(32)[None, :]
+    tile = np.empty((m_b, 32 * 32), np.float32)
+    tile[:, (row * 32 + ((col // _V) ^ (row & 7)) * _V + col % _V).reshape(-1)] = vals.reshape(m_b, -1)
+    lane_sums = _chain(tile[:, row * 32 + ((col // _V) ^ (row & 7)) * _V + col % _V])
+    np.add.at(written, np.arange(m_b), 1)
+    return _chain(lane_sums)
+
+
+def _tile_round(load, r, dst, written):
+    """``tile_round``: a warp per 2-D window; value e of a window is row
+    row0 + e / wb, column col0 + e % wb; lane 0 adds e = 0, 1, ... in
+    order."""
     rows, cols, win_rows, win_cols, wa, wb, la, lb = r
-    for warp in range(warps):
-        w = np.arange(warp, win_rows * win_cols, warps)
-        if not w.size:
-            continue
-        e = np.arange(wa * wb)[None, :]
-        a = ((w // win_cols) * wa - la)[:, None] + e // wb
-        b = ((w % win_cols) * wb - lb)[:, None] + e % wb
-        ok = (a >= 0) & (a < rows) & (b >= 0) & (b < cols)
-        tile = np.where(ok, load(np.where(ok, a * cols + b, 0)), 0.0).astype(np.float32)
-        acc = np.zeros(w.size, np.float32)
-        for k in range(wa * wb):
-            acc = acc + tile[:, k]
-        dst[w] = acc
-        np.add.at(written, w, 1)
-
-
-def _run_round(load, r, dst, warps, written):
-    rows, cols, win_rows, win_cols, wa, wb, la, lb = r
-    if rows == 1 or cols == 1:
-        _vector_round(load, rows * cols, win_rows * win_cols, la + lb, dst, warps, written)
-    else:
-        _tile_round(load, r, dst, warps, written)
+    w = np.arange(win_rows * win_cols)
+    e = np.arange(wa * wb)[None, :]
+    a = ((w // win_cols) * wa - la)[:, None] + e // wb
+    b = ((w % win_cols) * wb - lb)[:, None] + e % wb
+    ok = (a >= 0) & (a < rows) & (b >= 0) & (b < cols)
+    dst[w] = _chain(np.where(ok, load(np.where(ok, a * cols + b, 0)), 0.0).astype(np.float32))
+    np.add.at(written, w, 1)
 
 
 def _k6_emulated(v, w, mode, root, plan=None):
-    """K6 on the host from ``k6_plan``'s ints (or ``plan``): round 1 over
-    the grid that ``tree_sum_f32`` launches (every window written exactly
-    once), then the last block's rounds over the scratch (round k's sums
-    at 0 or at ``second``, alternating), its final chain and the root."""
+    """K6 on the host from ``k6_plan``'s ints (or ``plan``), stage by stage
+    as ``tree_sum_kernel`` runs them: the grid folds rounds 1 and 2 of a
+    vector (round 1 into the final chain where it is the only round) or
+    runs a 2-D round 1, on blocks of 1 to 8 warps; the last block folds two
+    vector rounds at a time (the last into the final chain), runs a 2-D
+    round alone (the last one into shared memory), and chains what is left;
+    every sum written exactly once, into the scratch's two parts in turns."""
     from eig_kl_tpu_torch.ops.reduce import k6_plan
     from eig_kl_tpu_torch.ops.spmv import fma_f32
 
     words, scratch_len, second = plan or k6_plan(v.shape)
     words = list(words)
-    num_rounds, final_count = words[:2]
-    rounds = [words[2 + 8 * k : 10 + 8 * k] for k in range(num_rounds)]
+    k, final_count = words[:2]
+    rounds = [words[2 + 8 * r : 10 + 8 * r] for r in range(k)]
     flat_v, flat_w = v.reshape(-1), w.reshape(-1)
 
     def source(i):
@@ -196,35 +190,61 @@ def _k6_emulated(v, w, mode, root, plan=None):
             return flat_v[i]
         return np.float32(flat_v[i] * (flat_v[i] if mode == "square" else flat_w[i]))
 
-    scratch = np.full(scratch_len, np.nan, np.float32)
-    if num_rounds:
-        r = rounds[0]
-        windows = r[2] * r[3]
-        warps = math.ceil(windows / 32) if r[0] == 1 or r[1] == 1 else windows
-        blocks = math.ceil(warps / _WARPS) if warps > _WARPS else 1
-        written = np.zeros(windows, np.int64)
-        _run_round(source, r, scratch[:windows], blocks * _WARPS, written)
-        assert (written == 1).all()
-    src, dst = 0, second
-    for r in rounds[1:]:
-        windows = r[2] * r[3]
-        written = np.zeros(windows, np.int64)
-        out = scratch[dst : dst + windows]
-        _run_round(lambda i, s=scratch[src:].copy(): s[i], r, out, _WARPS, written)
-        assert (written == 1).all()
-        src, dst = dst, src
-    acc = torch.zeros((), dtype=torch.float32)
-    if num_rounds:
-        for x in scratch[src : src + final_count]:
-            acc = acc + torch.tensor(x)
-    else:
+    def vector(r):
+        return r[0] == 1 or r[1] == 1
+
+    def fold(load, ra, rb, written):
+        return _fold(load, ra[0] * ra[1], ra[6] + ra[7], rb[2] * rb[3] if rb else 1, rb[6] + rb[7] if rb else 0,
+                     written)
+
+    def finish(acc):
+        return np.float32(np.sqrt(np.float64(acc))) if root else np.float32(acc)
+
+    if k == 0:  # one warp: the chain over the input, products fused
+        acc = torch.zeros((), dtype=torch.float32)
         b = flat_v if mode == "square" else flat_w
         for i in range(final_count):
             a = torch.tensor(flat_v[i])
             acc = acc + a if mode == "sum" else fma_f32(a, torch.tensor(b[i]), acc)
-    if root:
-        return np.float32(np.sqrt(np.float64(acc)))
-    return acc.numpy()
+        return finish(acc.numpy())
+    scratch = np.full(scratch_len, np.nan, np.float32)
+    if vector(rounds[0]) and k == 1:
+        return finish(fold(source, rounds[0], None, np.zeros(1, np.int64))[0])
+    work = rounds[1][2] * rounds[1][3] if vector(rounds[0]) else rounds[0][2] * rounds[0][3]
+    warps = max(1, min(_MAX_WARPS, work // _SMS if vector(rounds[0]) else -(-work // _SMS)))
+    assert -(-work // warps) * warps >= work  # every sum has its warp
+    written = np.zeros(work, np.int64)
+    if vector(rounds[0]):
+        scratch[:work] = fold(source, rounds[0], rounds[1], written)
+        nxt = 2
+    else:
+        _tile_round(source, rounds[0], scratch[:work], written)
+        nxt = 1
+    assert (written == 1).all()
+    src, dst = 0, second
+    while nxt < k:
+        ra, load = rounds[nxt], lambda i, s=scratch[src:].copy(): s[i]
+        if vector(ra) and nxt + 1 == k:
+            return finish(fold(load, ra, None, np.zeros(1, np.int64))[0])
+        m = ra[2] * ra[3] if not vector(ra) else rounds[nxt + 1][2] * rounds[nxt + 1][3]
+        if nxt + 1 == k:  # a 2-D last round: its sums stay in shared memory
+            left = np.full(m, np.nan, np.float32)
+            written = np.zeros(m, np.int64)
+            _tile_round(load, ra, left, written)
+            assert (written == 1).all()
+            return finish(_chain(left[:final_count]))
+        out = scratch[dst : dst + m]
+        assert out.size == m, "the scratch is too short"
+        written = np.zeros(m, np.int64)
+        if vector(ra):
+            out[:] = fold(load, ra, rounds[nxt + 1], written)
+            nxt += 2
+        else:
+            _tile_round(load, ra, out, written)
+            nxt += 1
+        assert (written == 1).all()
+        src, dst = dst, src
+    return finish(_chain(scratch[src : src + final_count]))
 
 
 @pytest.mark.parametrize(
@@ -269,6 +289,25 @@ def test_k6_layout_emulation_sees_a_wrong_pad(shape, word):
     right = _k6_emulated(v, v, "sum", root=False)
     wrong = _k6_emulated(v, v, "sum", root=False, plan=(bad, scratch, second))
     assert _bits(right) != _bits(wrong)
+
+
+def test_f64_cpu_root_is_correctly_rounded():
+    """The CPU's f64 root (``sqrt_rn``, of a vector and of 0-d values, and
+    ``tree_norm`` of one value) equals ``math.sqrt`` bit for bit on 100,000
+    seeded values, on which PyTorch's ``sqrt`` misses (ROADMAP.md C11)."""
+    from eig_kl_tpu_torch.ops.reduce import sqrt_rn, tree_norm
+
+    rng = np.random.default_rng(11)
+    s = rng.random(100_000) * 10.0 ** rng.uniform(-3.0, 3.0, 100_000)
+    want = np.array([math.sqrt(x) for x in s])
+    squares = np.array([math.sqrt(x * x) for x in s])
+    assert (torch.sqrt(torch.as_tensor(s)).numpy() != want).any()
+    assert (torch.sqrt(torch.as_tensor(s * s)).numpy() != squares).any()
+    np.testing.assert_array_equal(sqrt_rn(torch.as_tensor(s)).numpy().view(np.int64), want.view(np.int64))
+    one = [float(sqrt_rn(torch.tensor(x, dtype=torch.float64))) for x in s[:5000]]
+    np.testing.assert_array_equal(np.array(one).view(np.int64), want[:5000].view(np.int64))
+    norms = np.array([float(tree_norm(torch.tensor([x], dtype=torch.float64))) for x in s])
+    np.testing.assert_array_equal(norms.view(np.int64), squares.view(np.int64))
 
 
 def test_sum_2d_of_one_row_is_the_1d_sum():
@@ -344,6 +383,32 @@ def test_cpu_tensors_take_the_plain_versions():
     with pytest.raises(ValueError, match="CUDA"):
         R.normalize_cuda(v, nrm)
     assert (R.K6.launches, R.K6_SCALE.launches, K1_STEP.launches) == counts
+    # K4's batch: one plain chain per pair on the CPU, refused by the kernel.
+    w = v.flip(0).contiguous()
+    dots = R.fma_dot_batch((v, w, v), (w, w, v))
+    assert dots.shape == (3,) and dots.dtype == torch.float32
+    assert _bits(dots).tolist() == [int(_bits(R.fma_dot_plain(a, b))) for a, b in ((v, w), (w, w), (v, v))]
+    k4 = R.K4.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        R.fma_dot_batch_cuda((v, w), (w, w))
+    assert R.K4.launches == k4
+
+
+@pytest.mark.parametrize(
+    "case, error, match",
+    [("five pairs", ValueError, "1 to 4 pairs"), ("two lengths", ValueError, "one length"),
+     ("strided", ValueError, "contiguous"), ("two dtypes", TypeError, "f32 or f64")],
+)
+def test_fma_dot_batch_on_the_cpu_refuses_what_k4_refuses(case, error, match):
+    """The CPU's plain chains take the inputs the card's K4 takes, no more
+    (tests/test_torch_cuda.py:test_k4_batch_refuses_what_it_cannot_run)."""
+    from eig_kl_tpu_torch.ops import reduce as R
+
+    x = torch.arange(20, dtype=torch.float32)
+    xs = {"five pairs": [x] * 5, "two lengths": [x, x[:10]], "strided": [x, torch.arange(40.0).view(20, 2)[:, 0]],
+          "two dtypes": [x, x.double()]}[case]
+    with pytest.raises(error, match=match):
+        R.fma_dot_batch(xs, xs)
 
 
 def test_power_step_cuda_refuses_cpu_tensors(gen002_f32):

@@ -1,0 +1,82 @@
+"""The one-start run's end-to-end time, for comparing two checkouts.
+
+Run on a machine with one CUDA card::
+
+    python3 tools/e2e_turns.py [--tree DIR] [--runs N]
+
+It imports ``eig_kl_tpu_torch`` from ``DIR`` (default: this repository),
+generates the circuit at 1.0x (seed 42) and runs ``fused_partition(hg,
+use_eig=True, device="cuda")``, the path ``chip_smoke.py`` calls the one
+start, once to warm up and then ``N`` times (default 5), each timed from a
+synchronised card to a synchronised card.  It also times the host's cost
+of a K6 norm, the wall time of 2,000 ``tree_norm`` calls on 201,920
+values up to one synchronisation at their end (the card runs each
+faster than the host launches it).  It prints one JSON object:
+the card, the tree, the seconds of each run with its spans, and the
+norm's microseconds per call.  To compare two checkouts, run it in turns
+from one command (A B B A A B), each process with its own ``--tree``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent),
+                        help="the checkout whose eig_kl_tpu_torch is timed")
+    parser.add_argument("--runs", type=int, default=5, help="timed runs after the warm-up")
+    args = parser.parse_args()
+    sys.path.insert(0, str(Path(args.tree).resolve()))
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("tools/e2e_turns.py needs a CUDA card")
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.models.generator import CircuitGenerator
+    from eig_kl_tpu_torch.models.pipelines import fused_partition
+    from eig_kl_tpu_torch.ops.reduce import tree_norm
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    hg = CircuitGenerator(1.0, 42).generate()
+    first = fused_partition(hg, use_eig=True, device="cuda")
+    runs = []
+    for _ in range(args.runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run = fused_partition(hg, use_eig=True, device="cuda")
+        torch.cuda.synchronize()
+        runs.append({"e2e_s": time.perf_counter() - t0, "spans_s": dict(sorted(run.timings.items()))})
+        if run.kl.best_cut != first.kl.best_cut:
+            raise AssertionError(f"a repeated run gave best cut {run.kl.best_cut}, not {first.kl.best_cut}")
+    n = clique_expand(hg, "kl").num_nodes
+    v = torch.rand(n, generator=torch.Generator().manual_seed(42)).to(dev)
+    for _ in range(100):
+        tree_norm(v)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(2000):
+        tree_norm(v)
+    torch.cuda.synchronize()
+    norm_us = (time.perf_counter() - t0) / 2000 * 1e6
+    print(json.dumps({
+        "card": card,
+        "tree": str(Path(args.tree).resolve()),
+        "iterations": first.spectral_iterations,
+        "best_cut": first.kl.best_cut,
+        "runs": runs,
+        "tree_norm_wall_us_per_call": norm_us,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
