@@ -58,6 +58,15 @@ SHARDS = (1, 2, 4, 8)  # the smega path's shard counts, one cluster of S blocks 
 MAIN_ITERS, MAIN_SWAPS, MAIN_BEST = 326, 8348, 39693.86
 MULTI_BEST = 39581.65
 V3_ITERS, V3_BEST = 351, 39709.99
+#: The CSR plan path (ROADMAP.md A10): the JAX package's v2 SpMV with its
+#: default bf16 intermediates, as K1's bf16i entry points; the quality A/B
+#: of PARITY.md:84-88 over these spectral seeds, in three cells.
+AB_SEEDS = (42, 43, 44, 45, 46)
+AB_CELLS = ("csr f32", "padded f32", "padded bf16i")
+#: The one-start run on gen 0.02x (4,038 nodes, below XLA's 4,096-value
+#: dot fusion): the JAX package's f32 CPU run's power iterations, swaps and
+#: best cut, which its mega cuts reach through K4's fused dot.
+GEN002_ITERS, GEN002_SWAPS, GEN002_BEST = 201, 357, 794.98
 #: The largest connected component of that circuit: nodes, nets, pins.
 LCC_COUNTS = (184406, 209370, 520304)
 #: The JAX package's runs on that component on the CPU at f32
@@ -65,8 +74,7 @@ LCC_COUNTS = (184406, 209370, 520304)
 #: restarts and lambda_2), LOBPCG's iterations, one KL pass (KLConfig())
 #: from the Lanczos split, and the momentum exit on the KL-weighted graph
 #: (its iterations, median and a digest of its split; the port's plain run
-#: on the CPU gives the same iterations and split, its vector differs in
-#: the last bits: ROADMAP.md C9).
+#: on the CPU gives the same iterations and split).
 JAX_LCC_RESTARTS, JAX_LCC_LAMBDA2 = 7, 0.04756223033233042
 JAX_LCC_LOBPCG_ITERS = 169
 JAX_LCC_KL_INITIAL, JAX_LCC_KL_BEST, JAX_LCC_KL_SWAPS = 55795.1953125, 40172.46875, 16579
@@ -257,7 +265,8 @@ def library_device_us(fn, calls: int = 50) -> float | None:
 def k4_batches(xs, ys, plain_dots, what: str) -> dict:
     """K4's batch at 1 to 4 pairs, each launch's dots bit for bit the host
     chains ``plain_dots`` (computed once per pair); device us per launch of
-    one dot and of two (the momentum exit's paired deflation)."""
+    one dot and of two (the momentum exit's paired deflation), and the
+    library's two ``torch.dot`` calls for the two."""
     from eig_kl_tpu_torch.ops.reduce import fma_dot_batch_cuda
 
     ref = torch.stack(plain_dots)
@@ -266,8 +275,13 @@ def k4_batches(xs, ys, plain_dots, what: str) -> dict:
         check(torch.equal(got.cpu(), ref[:count].cpu()), f"{what}'s batch of {count} differs from the host chains")
     one = device_us_per_launch(lambda: [fma_dot_batch_cuda(xs[:1], ys[:1]) for _ in range(10)], "fma_dot_batch")
     two = device_us_per_launch(lambda: [fma_dot_batch_cuda(xs[:2], ys[:2]) for _ in range(10)], "fma_dot_batch")
+
+    def two_dots():  # the library's counterpart of one launch of two dots
+        return torch.dot(xs[0], ys[0]), torch.dot(xs[1], ys[1])
+
     return {"device_us_one_dot": None if one is None else one[0],
-            "device_us_two_dots": None if two is None else two[0]}
+            "device_us_two_dots": None if two is None else two[0],
+            "library_ms_two_dots": cuda_ms(two_dots, 200), "library_device_us_two_dots": library_device_us(two_dots)}
 
 
 def device_us_per_launch(fn, kernel: str, num_groups: int = 1) -> list[float] | None:
@@ -298,7 +312,7 @@ def device_us_per_launch(fn, kernel: str, num_groups: int = 1) -> list[float] | 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
-    from eig_kl_tpu_torch.graph.csr import DeviceGraph
+    from eig_kl_tpu_torch.graph.csr import CsrPlan, DeviceGraph
     from eig_kl_tpu_torch.graph.expand import clique_expand
     from eig_kl_tpu_torch.io.hgr import read_hgr
     from eig_kl_tpu_torch.kl.megakernel import (
@@ -329,6 +343,14 @@ def main() -> int:
         K1_SPMM_F64,
         K1_STEP,
         K1_STEP_F64,
+        K1_BF16I,
+        K1_LAZY_BF16I,
+        K1_LAZY_PADDED,
+        K1_PADDED,
+        lazy_walk_padded_cuda,
+        lazy_walk_padded_plain,
+        spmv_padded_cuda,
+        spmv_padded_plain,
         laplacian_cuda,
         laplacian_plain,
         lazy_walk_cuda,
@@ -354,6 +376,7 @@ def main() -> int:
         K6_SCALE,
         K6_SCALE_F64,
         K6_STEP,
+        K4_FUSED,
         fma_dot_cuda,
         fma_dot_plain,
     )
@@ -376,7 +399,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     f32_kernels = (K1, K1_STEP, K1_LAPLACIAN, K1_SPMM, K1_LAZY, K2, V.K3A, V.K3B, V.K3C, K4, K5, K6,
-                   K6_SCALE, K6_STEP, K6_AXPY)
+                   K6_SCALE, K6_STEP, K6_AXPY, K1_PADDED, K1_BF16I, K1_LAZY_PADDED, K1_LAZY_BF16I, K4_FUSED)
     f64_kernels = (K1_F64, K1_STEP_F64, K1_LAPLACIAN_F64, K1_SPMM_F64, K1_LAZY_F64, K2_F64, K4_F64,
                    K6_F64, K6_SCALE_F64, K6_AXPY_F64)
     all_kernels = f32_kernels + f64_kernels
@@ -387,7 +410,7 @@ def main() -> int:
         K2_STARTS.clear()
 
     def v3_launched():
-        return [kern.symbol for kern in (V.K3A, V.K3B, V.K3C, K4) if kern.launches]
+        return [kern.symbol for kern in (V.K3A, V.K3B, V.K3C) if kern.launches]
     print(f"card: {card}")
 
     # Phase 1: build every kernel and the host library from the sources in
@@ -458,11 +481,17 @@ def main() -> int:
     k1s_ms = cuda_ms(lambda: power_step_cuda(g, x, deg, 0.5), 200)
     k1s_plain_ms = cuda_ms(lambda: power_step_plain(g, x, deg, 0.5), 5)
     k1s_us = device_us_per_launch(lambda: [power_step_cuda(g, x, deg, 0.5) for _ in range(50)], "power_step_kernel")
+
+    def k1s_lib():  # torch.sparse's A @ x and the step's epilogue
+        return x - 0.5 * (2.0 * x - 2.0 * (a_sparse @ x) / deg)
+
+    k1s_lib_ms, k1s_lib_us = cuda_ms(k1s_lib, 200), library_device_us(k1s_lib)
     k1s_bytes = k1_bytes + 4 * n  # and deg; k1_bytes reads x once already
     k1s_bound_ms = max(k1s_bytes / HBM_BYTES_PER_S, (2 * nnz + 6 * n) / F32_OPS_PER_S) * 1e3
     print(
         f"K1 step: bitwise equal to power_step_plain (shift 2 and 3); {k1s_ms:.4f} ms, device "
-        f"{fmt_us(k1s_us)} per launch, plain {k1s_plain_ms:.3f} ms, bound {k1s_bound_ms:.4f} ms ({k1s_bytes} bytes)"
+        f"{fmt_us(k1s_us)} per launch, plain {k1s_plain_ms:.3f} ms, torch.sparse and the epilogue {k1s_lib_ms:.4f} "
+        f"ms (device {fmt_us([k1s_lib_us])} per call), bound {k1s_bound_ms:.4f} ms ({k1s_bytes} bytes)"
     )
 
     # Phase 3b: K6 against its plain versions at the main path's shapes:
@@ -685,10 +714,12 @@ def main() -> int:
     iters = run.spectral_iterations
     # K1: the Rayleigh quotient's L x, the pass's A @ s and its recount;
     # K1's step, K6's norm and K6's scale once per power step; K6 also for
-    # the Rayleigh quotient and the two cuts' two sums.
+    # the two cuts' two sums; K4 for the Rayleigh quotient (XLA's vector
+    # dot above 4,096 values, ROADMAP.md C9).
     check(k1_launches == 3, f"K1 launched {k1_launches} times, not 3")
     check(K1_STEP.launches == iters, f"K1's step launched {K1_STEP.launches} times for {iters} power steps")
-    check(K6.launches == iters + 5, f"K6 launched {K6.launches} times for {iters} power steps")
+    check(K6.launches == iters + 4, f"K6 launched {K6.launches} times for {iters} power steps")
+    check(K4.launches == 1 and K4_FUSED.launches == 0, f"K4 launched {K4.launches} times, not once")
     check(K6_SCALE.launches == iters, f"K6's scale launched {K6_SCALE.launches} times for {iters} power steps")
     check(k2_launches == 1, f"K2 launched {k2_launches} times, not once")
     check(
@@ -1468,9 +1499,10 @@ def main() -> int:
     check(K1_LAZY.launches > mo_iters and K6_AXPY.launches > 0 and K4.launches > 0,
           f"the momentum path launched {mo_launches}")
     # K4: the start's deflation, then per check one launch for the two
-    # deflation dots and one for the Rayleigh quotient.
+    # deflation dots and one for the Rayleigh quotient; the final
+    # eigenvalue's quotient.
     mo_checks = (mo_iters - 1) // mom_config.check_interval
-    check(K4.launches == 1 + 2 * mo_checks, f"K4 launched {K4.launches} times for {mo_checks} momentum checks")
+    check(K4.launches == 2 + 2 * mo_checks, f"K4 launched {K4.launches} times for {mo_checks} momentum checks")
     mo_digest = hashlib.sha256(np.ascontiguousarray(mo_sides.astype(np.int8)).tobytes()).hexdigest()[:16]
     check(mo_iters == JAX_LCC_MOMENTUM_ITERS, f"momentum: {mo_iters} iterations, JAX {JAX_LCC_MOMENTUM_ITERS}")
     check(mo_digest == JAX_LCC_MOMENTUM_SIDES, f"momentum: the split's digest {mo_digest}, JAX {JAX_LCC_MOMENTUM_SIDES}")
@@ -1534,7 +1566,7 @@ def main() -> int:
         replaces="eig_kl_tpu/ops/spmv_pallas.py:339", source="eig_kl_tpu_torch/csrc/spmv_csr.cu")
     f64["K1 power_step_f64"] = dict(
         kern=lambda: power_step_cuda(g64, x64, deg64, 0.5), plain=lambda: power_step_plain(g64, x64, deg64, 0.5),
-        lib=None, symbol="power_step_kernel", bound=bound64(csr64 + 24 * n, 2 * nnz + 6 * n),
+        lib=lambda: x64 - 0.5 * (2.0 * x64 - 2.0 * (a64 @ x64) / deg64), symbol="power_step_kernel", bound=bound64(csr64 + 24 * n, 2 * nnz + 6 * n),
         replaces="eig_kl_tpu/ops/spmv_pallas.py:339 (with the power step of eig_kl_tpu/spectral/power.py:184)",
         source="eig_kl_tpu_torch/csrc/spmv_csr.cu")
     held64(lambda: power_step_cuda(g64, x64, deg64, 1.0 / 3.0),
@@ -1827,6 +1859,216 @@ def main() -> int:
     )
     print(f"f64 phase: {time.perf_counter() - t_phase:.1f} s")
 
+    # Phase 12: the CSR plan path (ROADMAP.md A10), the JAX package's plan
+    # path on its accelerator.  K1's padded entry points (the v2 kernels'
+    # bf16 intermediates, and f32) bit for bit against their plain versions
+    # at gen 1.0x's padded state; K4's fused dot and K6's vectorized last
+    # block at the sizes where XLA takes them (below 4,096 values, 33 to
+    # 1,024 rows); then, each path with the counts set to 0 just before it
+    # and read just after: the bf16-intermediate one-start run through
+    # fused_partition(with_plan=True), the quality A/B of PARITY.md:84-88
+    # over 5 spectral seeds in three cells, the momentum exit on the
+    # component's padded state (bf16i and f32), and the one-start run on
+    # gen 0.02x, whose cuts take K4's fused dot.
+    t_phase = time.perf_counter()
+    gp = g_host.to_device(dev, torch.float32, with_plan=True)
+    check(gp.plan == CsrPlan(P, "v2") and gp.plan.runs_bf16("bfloat16"), f"gen 1.0x's plan: {gp.plan}")
+    xs = torch.zeros(P, device=dev)
+    xs[:n] = (torch.rand(n, generator=gen) - 0.5).to(dev)
+    xs[: n : 89] = -0.0
+    xs2d = xs.view(P // 128, 128)
+    ds = torch.zeros(P, device=dev)
+    ds[:n] = torch.sqrt(torch.where(g.degrees > 0, g.degrees, 1.0).double()).float().reciprocal()
+    ds2d = ds.view(P // 128, 128)
+    a_g = torch.sparse_csr_tensor(g.indptr.long(), g.indices.long(), g.data, size=(n, n))
+    g_csr_bytes = 4 * (g.indptr.numel() + 2 * nnz)
+    xs_n, ds_n = xs[:n], ds[:n]
+    plan_k = {
+        "spmv bf16i": dict(
+            kern=lambda: spmv_padded_cuda(gp, xs2d, bf16=True), plain=lambda: spmv_padded_plain(gp, xs2d, bf16=True),
+            lib=None, symbol="spmv_padded_kernel", bound=bound(g_csr_bytes + 8 * P, 3 * nnz)),
+        "spmv padded f32": dict(
+            kern=lambda: spmv_padded_cuda(gp, xs2d, bf16=False), plain=lambda: spmv_padded_plain(gp, xs2d, bf16=False),
+            lib=lambda: a_g @ xs_n, symbol="spmv_padded_kernel", bound=bound(g_csr_bytes + 8 * P, 2 * nnz)),
+        "lazy walk bf16i": dict(
+            kern=lambda: lazy_walk_padded_cuda(gp, xs2d, ds2d, bf16=True),
+            plain=lambda: lazy_walk_padded_plain(gp, xs2d, ds2d, bf16=True),
+            lib=None, symbol="lazy_walk_padded_kernel", bound=bound(g_csr_bytes + 12 * P, 4 * nnz + 3 * P)),
+        "lazy walk padded f32": dict(
+            kern=lambda: lazy_walk_padded_cuda(gp, xs2d, ds2d, bf16=False),
+            plain=lambda: lazy_walk_padded_plain(gp, xs2d, ds2d, bf16=False),
+            lib=lambda: 0.5 * (xs_n + ds_n * (a_g @ (ds_n * xs_n))), symbol="lazy_walk_padded_kernel",
+            bound=bound(g_csr_bytes + 12 * P, 3 * nnz + 3 * P)),
+    }
+    for what, e in plan_k.items():
+        e["err"] = held_bitwise(e["kern"], e["plain"], what)
+        e["ms"] = cuda_ms(e["kern"], 200)
+        e["plain_ms"] = cuda_ms(e["plain"], 3)
+        e["library_ms"] = None if e["lib"] is None else cuda_ms(e["lib"], 200)
+        e["library_device_us"] = None if e["lib"] is None else library_device_us(e["lib"])
+        e["device_us"] = device_us_per_launch(lambda e=e: [e["kern"]() for _ in range(50)], e["symbol"])
+        print(
+            f"{what} on gen {MULTIPLIER}x's padded state (P = {P}): bitwise equal to its plain version; "
+            f"{e['ms']:.4f} ms, device {fmt_us(e['device_us'])} per launch, plain {e['plain_ms']:.3f} ms, "
+            + ("library none (no PyTorch call rounds each product to bf16)" if e["lib"] is None else
+               f"library {e['library_ms']:.4f} ms (device {fmt_us([e['library_device_us']])} per call)")
+            + f", bound {e['bound'][0]:.5f} ms by {e['bound'][1]}"
+        )
+    y_bf, y_f32 = plan_k["spmv bf16i"]["kern"](), plan_k["spmv padded f32"]["kern"]()
+    check(torch.equal(y_f32.view(-1)[:n], spmv_csr(g, xs_n)), "the padded f32 SpMV differs from K1 on its rows")
+    check(bool((bits32(y_bf.view(-1)[n:]) == 0).all()), "the bf16i SpMV's padding rows are not +0")
+    bf_rel = float(((y_bf - y_f32).abs().view(-1)[:n] / (a_g @ xs_n.abs()).clamp_min(1e-30)).max())
+    check(0 < bf_rel <= 2.0**-8, f"the bf16 rounding moved a row by {bf_rel:.3g} of its absolute sum")
+    print(f"bf16i against f32 on gen {MULTIPLIER}x: largest row change {bf_rel:.3g} of the row's absolute sum")
+
+    # K4's fused dot at gen 0.02x's length and the sizes around XLA's
+    # vector loop (remainders, the epilogue, the 4,096-value threshold),
+    # with -0, +0 and subnormal inputs, in both orders, against the plain
+    # versions.
+    fd_err = 0.0
+    for size in (0, 1, 7, 31, 32, 33, 160, 1000, 1031, 3694, 4038, 4095, 6000):
+        fa = (torch.rand(size, generator=gen) - 0.5)
+        fb = (torch.rand(size, generator=gen) - 0.5)
+        fa[::11], fb[::13], fa[5::17] = -0.0, 0.0, 1e-41
+        for order in R.FUSED_ORDERS:
+            got = R.fused_dot_batch_cuda((fa.to(dev), fb.to(dev)), (fb.to(dev), fa.to(dev)), order)
+            want = torch.stack([R.fused_dot_plain(fa, fb, order), R.fused_dot_plain(fb, fa, order)])
+            check(torch.equal(bits32(got.cpu()), bits32(want)), f"K4's fused dot ({order}, {size} values) "
+                  f"{got.tolist()} differs from its plain version {want.tolist()}")
+            fd_err = max(fd_err, float((got.cpu() - want).abs().max()))
+    n02 = 4038
+    fx, fy = (torch.rand(n02, generator=gen) - 0.5).to(dev), (torch.rand(n02, generator=gen) - 0.5).to(dev)
+    fd_ms = cuda_ms(lambda: R.fused_dot_batch_cuda((fx,), (fy,), "lanes"), 200)
+    fd_plain_ms = cuda_ms(lambda: R.fused_dot_plain(fx, fy, "lanes"), 3)
+    fd_lib_ms = cuda_ms(lambda: torch.dot(fx, fy), 200)
+    fd_lib_us = library_device_us(lambda: torch.dot(fx, fy))
+    fd_us = device_us_per_launch(lambda: [R.fused_dot_batch_cuda((fx,), (fy,), "lanes") for _ in range(50)],
+                                 "fused_dot_batch_kernel")
+    fd_chain_us = device_us_per_launch(lambda: [R.fused_dot_batch_cuda((fx,), (fy,), "chain") for _ in range(50)],
+                                       "fused_dot_batch_kernel")
+    fd_bound = bound(8 * n02, 2 * n02)
+    print(f"K4 fused dot: bitwise equal to its plain versions at 0-6,000 values in both orders; at {n02} values "
+          f"{fd_ms:.4f} ms, device {fmt_us(fd_us)} per launch (the chain order {fmt_us(fd_chain_us)}), plain "
+          f"{fd_plain_ms:.3f} ms, torch.dot "
+          f"{fd_lib_ms:.4f} ms (device {fmt_us([fd_lib_us])}), bound {fd_bound[0]:.6f} ms by {fd_bound[1]}")
+
+    # K6's last block across XLA's lanes: every (k, 4) last block.
+    for k in range(2, 33):
+        rows = 32 * k - 5
+        v2d = (torch.rand(rows, 128, generator=gen) - 0.5) * 3.0
+        got = R.tree_norm_2d(v2d.to(dev)).cpu()
+        want = R.tree_norm_2d(v2d)
+        check(torch.equal(bits32(got), bits32(want)), f"K6's 2-D norm over {rows} rows differs from its plain version")
+    print("K6's 2-D norm at every last block (k, 4), k = 2-32 (33-1,024 rows): bitwise equal to its plain version")
+
+    def plan_run(seed, inter, with_plan, circuit=hg):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        r = fused_partition(circuit, use_eig=True, device="cuda", with_plan=with_plan,
+                            spectral_config=SpectralConfig(solver="power", seed=seed, inter_dtype=inter))
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t
+
+    # The bf16-intermediate one-start run (the JAX package's default on its
+    # accelerator), through the user's entry point.
+    reset_counts()
+    bf_run, bf_s = plan_run(SEED, "bfloat16", True)
+    bf_launches = {kern.symbol: kern.launches for kern in all_kernels}
+    bkl, b_iters = bf_run.kl, bf_run.spectral_iterations
+    # Per power step K1's bf16i SpMV, K6's padded step, its 2-D norm and its
+    # scale; the Rayleigh quotient's SpMV once more; K1 (f32) for the pass's
+    # A @ s and its recount; K4 for the Rayleigh quotient.
+    check(K1_BF16I.launches == b_iters + 1 and K6_STEP.launches == b_iters and K6_SCALE.launches == b_iters
+          and K1_STEP.launches == 0 and K1.launches == 2 and K4.launches == 1 and K2.launches == 1,
+          f"the bf16i run launched {bf_launches} for {b_iters} power steps")
+    b_drift = abs(bkl.final_cut - bkl.verified_cut) / bkl.final_cut
+    b_recount = host_cut(g_host, np.asarray(bkl.best_sides))
+    check(b_drift <= 1e-5, f"bf16i run: cut drift {b_drift:.3g} above 1e-5")
+    check(bkl.best_cut <= bkl.initial_cut, "bf16i run: best cut above the initial cut")
+    check(bkl.best_cut <= 1.03 * JAX_CPU_BEST_CUT, f"bf16i run: best cut {bkl.best_cut} above 1.03 x {JAX_CPU_BEST_CUT}")
+    check(abs(b_recount - bkl.best_cut) <= 1e-4 * bkl.best_cut,
+          f"bf16i run: best cut {bkl.best_cut} disagrees with the host f64 recount {b_recount}")
+    print(
+        f"bf16i one-start run (fused_partition(with_plan=True), P = {P}): {b_iters} power iterations, initial cut "
+        f"{bkl.initial_cut}, best cut {bkl.best_cut} after {bkl.iterations} swaps, final {bkl.final_cut}, verified "
+        f"{bkl.verified_cut} (drift {b_drift:.3g}), host f64 recount {b_recount:.4f}; e2e {bf_s:.3f} s on {card}; "
+        f"launches {bf_launches}"
+    )
+
+    # The quality A/B (PARITY.md:84-88 on the TPU): the CSR f32 path (the
+    # default), the padded f32 path and the padded bf16i path, spectral
+    # seeds 42-46, the cells in turns within each seed.
+    ab = {cell: [] for cell in AB_CELLS}
+    ab_launches = {}
+    for seed in AB_SEEDS:
+        for cell in AB_CELLS:
+            reset_counts()
+            r, t = plan_run(seed, "float32" if "f32" in cell else "bfloat16", cell != "csr f32")
+            if seed == AB_SEEDS[0]:  # the kernels line's launches are seed 42's
+                ab_launches[cell] = {kern.symbol: kern.launches for kern in all_kernels if kern.launches}
+            ab[cell].append({"initial": r.kl.initial_cut, "best": r.kl.best_cut, "iterations": r.spectral_iterations,
+                             "swaps": r.kl.iterations, "e2e_s": t})
+            check(r.kl.best_cut <= r.kl.initial_cut, f"A/B {cell} seed {seed}: best cut above the initial cut")
+    ab_summary = {}
+    for cell, rows in ab.items():
+        col = {k: np.array([r[k] for r in rows], float) for k in rows[0]}
+        ab_summary[cell] = {k: [float(v.mean()), float(v.std(ddof=1))] for k, v in col.items()}
+        ab_summary[cell]["rows"] = rows
+    check(ab["csr f32"][0]["best"] == kl.best_cut and ab["padded bf16i"][0]["best"] == bkl.best_cut,
+          "the A/B's seed-42 cells differ from the one-start runs")
+    check("spmv_padded_f32" in ab_launches["padded f32"] and "spmv_bf16i_f32" in ab_launches["padded bf16i"]
+          and "power_step_f32" in ab_launches["csr f32"], f"the A/B cells launched {ab_launches}")
+    for cell, summ in ab_summary.items():
+        print(
+            f"A/B {cell}, seeds {AB_SEEDS[0]}-{AB_SEEDS[-1]}: initial cut {summ['initial'][0]:.2f} +- "
+            f"{summ['initial'][1]:.2f}, best cut {summ['best'][0]:.2f} +- {summ['best'][1]:.2f}, power iterations "
+            f"{summ['iterations'][0]:.1f} +- {summ['iterations'][1]:.1f}, e2e {summ['e2e_s'][0]:.4f} +- "
+            f"{summ['e2e_s'][1]:.4f} s; per seed {[(r['iterations'], round(r['best'], 2)) for r in summ['rows']]} on {card}"
+        )
+
+    # The momentum exit on the component's padded state: bf16i (the
+    # default inter_dtype) and f32, against the CSR f32 run of phase 10.
+    lkp = lcc_kl_host.to_device(dev, torch.float32, with_plan=True)
+    check(isinstance(lkp.plan, CsrPlan) and lkp.plan.kernel == "v2", f"the component's plan: {lkp.plan}")
+    mom_runs = {}
+    for inter in ("bfloat16", "float32"):
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = power_partition_fiedler(lkp, dataclasses.replace(mom_config, inter_dtype=inter), dtype=torch.float32)
+        torch.cuda.synchronize()
+        mom_runs[inter] = (out, time.perf_counter() - t, {kern.symbol: kern.launches for kern in all_kernels if kern.launches})
+        lazy_k = K1_LAZY_BF16I if inter == "bfloat16" else K1_LAZY_PADDED
+        check(lazy_k.launches > out[4] and K1_LAZY.launches == 0, f"momentum {inter} padded: {mom_runs[inter][2]}")
+    for inter, ((m_lam, m_med, m_vals, m_sides, m_iters), m_s, m_launch) in mom_runs.items():
+        ham = int((m_sides != mo_sides).sum())
+        ham = min(ham, ln - ham)
+        cos = float(abs(np.dot(m_vals, mo_vals)) / np.linalg.norm(m_vals) / np.linalg.norm(mo_vals))
+        check(ham <= 0.01 * ln and cos >= 1 - 1e-4,
+              f"momentum {inter} padded: split {ham} nodes, cos {cos} from the CSR f32 run")
+        mom_runs[inter] = dict(iterations=m_iters, hamming_to_csr_f32=ham, cos_to_csr_f32=cos, e2e_s=m_s,
+                               side_1=int(m_sides.sum()), launches=m_launch)
+        print(f"momentum on the component's padded state, {inter}: {m_iters} steps (CSR f32: {mo_iters}), "
+              f"split {ham} nodes from the CSR f32 run's, cos {cos:.9f}, e2e {m_s:.3f} s; launches {m_launch}")
+
+    # The one-start run on gen 0.02x: its cuts' dots are K4's fused dot.
+    hg02 = read_hgr(GEN_002)
+    reset_counts()
+    r02, r02_s = plan_run(SEED, "bfloat16", False, circuit=hg02)
+    r02_launches = {kern.symbol: kern.launches for kern in all_kernels if kern.launches}
+    check(K4_FUSED.launches == 3 and K4.launches == 0, f"gen 0.02x's one-start run launched {r02_launches}")
+    check((r02.spectral_iterations, r02.kl.iterations) == (GEN002_ITERS, GEN002_SWAPS)
+          and abs(r02.kl.best_cut - GEN002_BEST) < 0.005,
+          f"gen 0.02x: {r02.spectral_iterations} power iterations, {r02.kl.iterations} swaps, best "
+          f"{r02.kl.best_cut}, not {GEN002_ITERS}, {GEN002_SWAPS}, {GEN002_BEST}")
+    print(f"gen 0.02x one-start run: {r02.spectral_iterations} power iterations, {r02.kl.iterations} swaps, best cut "
+          f"{r02.kl.best_cut}, verified {r02.kl.verified_cut}; e2e {r02_s:.3f} s; launches {r02_launches}")
+    print(json.dumps({"plan_path": {
+        "card": card, "bf16i_one_start": {"iterations": b_iters, "initial": bkl.initial_cut, "best": bkl.best_cut,
+                                          "swaps": bkl.iterations, "e2e_s": bf_s},
+        "a_b": ab_summary, "momentum_padded": mom_runs}}))
+    print(f"plan phase: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [
         {
             "name": "K1 spmv_csr_f32",
@@ -1857,7 +2099,8 @@ def main() -> int:
             "plain_ms": k1s_plain_ms,
             "bound_ms": k1s_bound_ms,
             "bound_by": "bytes",
-            "library_ms": None,
+            "library_ms": k1s_lib_ms,
+            "library_device_us": k1s_lib_us,
             "device_us_per_launch": None if k1s_us is None else k1s_us[0],
         },
         {
@@ -1970,6 +2213,8 @@ def main() -> int:
             "library_device_us": k4_lib_us,
             "device_us_per_launch": k4_batch["device_us_one_dot"],
             "device_us_two_dots_per_launch": k4_batch["device_us_two_dots"],
+            "library_ms_two_dots": k4_batch["library_ms_two_dots"],
+            "library_device_us_two_dots": k4_batch["library_device_us_two_dots"],
         },
         {
             "name": "K5 smega_pass_f32, S = 8 in the wrapper's layout, the first 1,000 swaps of the main path's pass",
@@ -2065,6 +2310,46 @@ def main() -> int:
                   "eig_kl_tpu/spectral/power.py:184 (x - inv_shift * norm_lap(x), XLA ops, no Pallas kernel)",
                   v3_all["padded_step_f32"]),
     ]
+    plan_launches = {
+        "spmv bf16i": bf_launches["spmv_bf16i_f32"],
+        "spmv padded f32": ab_launches["padded f32"]["spmv_padded_f32"],
+        "lazy walk bf16i": mom_runs["bfloat16"]["launches"]["lazy_walk_bf16i_f32"],
+        "lazy walk padded f32": mom_runs["float32"]["launches"]["lazy_walk_padded_f32"],
+    }
+    plan_names = {
+        "spmv bf16i": ("K1 spmv_bf16i_f32, A @ x on the padded state, each product rounded to bf16",
+                       "eig_kl_tpu/ops/spmv_pallas.py:1049 (_gather_kernel's bf16 products, :1077) and :1118 "
+                       "(_reduce_kernel_mxu's f32 sums of them)"),
+        "spmv padded f32": ("K1 spmv_padded_f32, A @ x on the padded state",
+                            "eig_kl_tpu/ops/spmv_pallas.py:1049 and :1118 (v2 with inter_dtype float32)"),
+        "lazy walk bf16i": ("K1 lazy_walk_bf16i_f32, the lazy walk on the padded state, bf16 products",
+                            "eig_kl_tpu/ops/spmv_pallas.py:1049 and :1118 (with eig_kl_tpu/spectral/power.py:305's "
+                            "epilogue)"),
+        "lazy walk padded f32": ("K1 lazy_walk_padded_f32, the lazy walk on the padded state",
+                                 "eig_kl_tpu/ops/spmv_pallas.py:1049 and :1118 (inter_dtype float32, with "
+                                 "eig_kl_tpu/spectral/power.py:305's epilogue)"),
+    }
+    for what, e in plan_k.items():
+        name, replaces = plan_names[what]
+        kernels.append({
+            "name": name, "route": "cuda", "source": "eig_kl_tpu_torch/csrc/spmv_csr.cu", "replaces": replaces,
+            "launches": plan_launches[what], "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound"][0], "bound_by": e["bound"][1], "library_ms": e["library_ms"],
+            "library_device_us": e["library_device_us"],
+            "device_us_per_launch": None if e["device_us"] is None else e["device_us"][0],
+            **({"library_none_because": "no PyTorch call rounds each product to bf16 before the sum"}
+               if e["lib"] is None else {}),
+        })
+    kernels.append({
+        "name": "K4 fused_dot_batch_f32, a dot with its operands' producers fused (XLA's loop order), 4,038 values",
+        "route": "cuda", "source": "eig_kl_tpu_torch/csrc/fma_dot.cu",
+        "replaces": "eig_kl_tpu/kl/megakernel.py:754, :773 and eig_kl_tpu/spectral/power.py:309, :336 "
+                    "(jnp.vdot fused by XLA below 4,096 values, no Pallas kernel)",
+        "launches": r02_launches["fused_dot_batch_f32"], "max_abs_err": fd_err, "ms": fd_ms,
+        "plain_ms": fd_plain_ms, "bound_ms": fd_bound[0], "bound_by": fd_bound[1], "library_ms": fd_lib_ms,
+        "library_device_us": fd_lib_us, "device_us_per_launch": None if fd_us is None else fd_us[0],
+        "device_us_per_launch_chain_order": None if fd_chain_us is None else fd_chain_us[0],
+    })
     launches64 = {
         "K1 spmv_csr_f64": fu64_launches["spmv_csr_f64"], "K1 power_step_f64": fu64_launches["power_step_f64"],
         "K1 laplacian_f64": lz64_launches["laplacian_f64"], "K1 spmm_csr_f64 k=4": lo64_launches["spmm_csr_f64"],
@@ -2080,7 +2365,10 @@ def main() -> int:
             "bound_ms": e["bound"][0], "bound_by": e["bound"][1], "library_ms": e["library_ms"],
             "library_device_us": e["library_device_us"],
             "device_us_per_launch": None if e["device_us"] is None else e["device_us"][0],
-            **({"device_us_two_dots_per_launch": k4_batch64["device_us_two_dots"]} if what.startswith("K4") else {}),
+            **({"device_us_two_dots_per_launch": k4_batch64["device_us_two_dots"],
+                "library_ms_two_dots": k4_batch64["library_ms_two_dots"],
+                "library_device_us_two_dots": k4_batch64["library_device_us_two_dots"]}
+               if what.startswith("K4") else {}),
         })
     kernels += [
         {

@@ -35,6 +35,18 @@
 // step fma(-0, +0, acc) leaves every acc as it is (-0 included).  The
 // order of the adds is the index order whatever the tiling, so the result
 // equals the host's chain bit for bit.
+//
+// fused_dot_batch_f32: the dot XLA emits as a loop with an operand's
+// element-wise producer fused in (below 4,096 values; ops/reduce.py:
+// fused_dot_batch), in one of its two orders.  order 1, "chain": one chain
+// of fused multiply-adds from +0, no product rounded on its own (thread 0).
+// order 2, "lanes", LLVM's vectorized loop: lane k of a warp chains the
+// elements i = k (mod 32) of the whole groups of 32 from +0 (lane 0) or -0;
+// thread 0 adds the four 8-lane accumulators, ((a1 + a0) + a2) + a3, folds
+// the 8 lanes in halves, runs the vector epilogue of 8 or 4 lanes over the
+// rest (started from that sum in its lane 0) and the scalar steps after it.
+// At most 4,095 values, so the work is a few microseconds of dependent
+// steps; one warp per dot, grid = (count,).
 
 #include <cuda_runtime.h>
 
@@ -174,6 +186,61 @@ __global__ void __launch_bounds__(64)
   out[blockIdx.x] = acc;
 }
 
+// Lanes of an accumulator's fold in halves: l[i] + l[i + h].
+__device__ __forceinline__ float fold_lanes(float* a, int lanes) {
+  for (int h = lanes / 2; h >= 1; h /= 2) {
+    for (int j = 0; j < h; ++j) a[j] = add_rn(a[j], a[j + h]);
+  }
+  return a[0];
+}
+
+// The vector epilogue's lanes for r < 32 elements: 8 where r / 8 + r % 8
+// <= r / 4 + r % 4, else 4, none below 4 (ops/reduce.py:dot_epilogue_width).
+__device__ __forceinline__ int epilogue_width(int r) {
+  if (r >= 8 && r / 8 + r % 8 <= r / 4 + r % 4) return 8;
+  return r >= 4 ? 4 : 0;
+}
+
+__global__ void __launch_bounds__(32) fused_dot_batch_kernel(Pairs<float> pairs, float* __restrict__ out,
+                                                             int n, int order) {
+  const float* __restrict__ x = pairs.x[blockIdx.x];
+  const float* __restrict__ y = pairs.y[blockIdx.x];
+  const int lane = threadIdx.x;
+  if (order == 1) {
+    if (lane != 0) return;
+    float acc = 0.0f;
+    for (int i = 0; i < n; ++i) acc = fma_rn(__ldg(x + i), __ldg(y + i), acc);
+    out[blockIdx.x] = acc;
+    return;
+  }
+  __shared__ float lanes[32];
+  const int whole = n / 32 * 32;
+  float acc = lane == 0 ? 0.0f : -0.0f;
+  for (int i = lane; i < whole; i += 32) acc = fma_rn(__ldg(x + i), __ldg(y + i), acc);
+  lanes[lane] = acc;
+  __syncwarp();
+  if (lane != 0) return;
+  float v[8];
+  for (int j = 0; j < 8; ++j) {
+    v[j] = add_rn(lanes[8 + j], lanes[j]);
+    v[j] = add_rn(lanes[16 + j], v[j]);
+    v[j] = add_rn(lanes[24 + j], v[j]);
+  }
+  float total = fold_lanes(v, 8);
+  int i = whole;
+  const int width = epilogue_width(n - whole);
+  if (width > 0) {
+    float e[8];
+    for (int j = 0; j < width; ++j) e[j] = j == 0 ? total : -0.0f;
+    for (; n - i >= width; i += width) {
+      for (int j = 0; j < width; ++j) e[j] = fma_rn(__ldg(x + i + j), __ldg(y + i + j), e[j]);
+    }
+    total = fold_lanes(e, width);
+  }
+  for (; i < n; ++i) total = fma_rn(__ldg(x + i), __ldg(y + i), total);
+  out[blockIdx.x] = total;
+}
+
 // xs, ys: host arrays of `count` device pointers (1 <= count <= 4), each
 // vector n long; out: `count` values on the card.
 template <class T>
@@ -190,7 +257,27 @@ int fma_dot_batch(const void* const* xs, const void* const* ys, void* out, int c
   return static_cast<int>(cudaGetLastError());
 }
 
+int fused_dot_batch(const void* const* xs, const void* const* ys, void* out, int count, int n, int order,
+                    void* stream) {
+  if (count < 1 || count > kMaxPairs || n < 0 || (order != 1 && order != 2)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  Pairs<float> pairs{};
+  for (int k = 0; k < count; ++k) {
+    pairs.x[k] = static_cast<const float*>(xs[k]);
+    pairs.y[k] = static_cast<const float*>(ys[k]);
+  }
+  fused_dot_batch_kernel<<<count, 32, 0, static_cast<cudaStream_t>(stream)>>>(pairs, static_cast<float*>(out),
+                                                                               n, order);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int fused_dot_batch_f32(const void* const* xs, const void* const* ys, void* out, int count, int n,
+                                   int order, void* stream) {
+  return fused_dot_batch(xs, ys, out, count, n, order, stream);
+}
 
 extern "C" int fma_dot_batch_f32(const void* const* xs, const void* const* ys, void* out, int count,
                                  int n, void* stream) {

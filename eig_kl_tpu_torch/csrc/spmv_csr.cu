@@ -10,6 +10,17 @@
 //   (eig_kl_tpu/spectral/lobpcg_solver.py:51-56, a vmap of the SpMV);
 // * lazy_walk:   y = 0.5 * (w + dsinv * (A @ (dsinv * w))), the momentum
 //   exit's lazy walk (eig_kl_tpu/spectral/power.py:297-305).
+// Four more, f32 only, for the power solve on the zero-padded (P/128, 128)
+// state of a graph with a CSR plan (eig_kl_tpu/spectral/power.py:140-157,
+// :297-305; ops/spmv.py:spmv_padded): rows n .. P - 1 are empty, so y there
+// is +0 (the lazy walk's epilogue applied to that +0):
+// * spmv_padded_f32 / lazy_walk_padded_f32: K1's f32 sums on that state;
+// * spmv_bf16i_f32 / lazy_walk_bf16i_f32: the v2 kernels' default
+//   bf16-intermediate mode (_gather_kernel's (g * w).astype(bfloat16),
+//   spmv_pallas.py:1077, added in f32 by the reduce pass): each product
+//   rounded to f32 (never contracted into an add), then to bf16 with
+//   round to nearest even, and added in f32 in K1's row order with the
+//   lanes of W <= 32 adding rounded products, as f64 does.
 // The f64 instantiations serve the JAX package's f64 paths off the TPU
 // (eig_kl_tpu/cli/main.py:204-212, the --f64 flag); the H100 runs f64
 // natively.
@@ -80,6 +91,7 @@
 // bytes of f32's data and gathered x), so shared memory per block is the
 // same in both types.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -134,10 +146,28 @@ struct GatherScaled {
   }
 };
 
+// A product as the sum adds it: as it is, or (kBf16) rounded to bf16 with
+// round to nearest even and widened back.
+template <bool kBf16>
+__device__ __forceinline__ float rounded(float p) {
+  if constexpr (kBf16) {
+    return __bfloat162float(__float2bfloat16_rn(p));
+  } else {
+    return p;
+  }
+}
+template <bool kBf16>
+__device__ __forceinline__ double rounded(double p) {
+  static_assert(!kBf16, "the bf16 intermediates are f32 only");
+  return p;
+}
+
 // Row r0 + lane's sum in XLA's order on that lane, for the warp's rows
 // r0 .. r0 + 31 (rows at or past n count as empty).  `buf` is the warp's
-// buffer of buffer_values<T>(row_width) values.
-template <class T, class Gather>
+// buffer of buffer_values<T>(row_width) values.  kBf16: every product is
+// rounded (mul_rn, then to bf16) before its add, the lanes of W <= 32
+// adding the rounded products.
+template <class T, class Gather, bool kBf16 = false>
 __device__ __forceinline__ T row_sum(const int* __restrict__ indptr,
                                      const int* __restrict__ indices,
                                      const T* __restrict__ data, Gather gx, T* buf,
@@ -152,10 +182,11 @@ __device__ __forceinline__ T row_sum(const int* __restrict__ indptr,
   const int hi = row < n ? __ldg(indptr + min(row, n - 1) + 1) : lo;
   const int span_lo = __ldg(indptr + r0);
   const int span_hi = __ldg(indptr + min(r0 + 32, n));
+  constexpr bool kFused = kFusedLanes<T> && !kBf16;
   if (row_width <= kWindow) {
     // The span holds at most 32 * W <= kSpan entries.
-    T* d = buf;           // f32: the data; f64: the rounded products
-    T* xv = buf + kSpan;  // f32 only: the gathered x
+    T* d = buf;           // fused lanes: the data; else the rounded products
+    T* xv = buf + kSpan;  // fused lanes only: the gathered x
     const int len = min(span_hi - span_lo, kSpan);
     for (int base = 0; base < len; base += kStage) {
       int col[kPerLane];
@@ -173,11 +204,11 @@ __device__ __forceinline__ T row_sum(const int* __restrict__ indptr,
       for (int q = 0; q < kPerLane; ++q) {
         const int i = base + lane + 32 * q;
         if (i < len) {
-          if constexpr (kFusedLanes<T>) {
+          if constexpr (kFused) {
             d[i] = w[q];
             xv[i] = xg[q];
           } else {
-            d[i] = mul_rn(w[q], xg[q]);
+            d[i] = rounded<kBf16>(mul_rn(w[q], xg[q]));
           }
         }
       }
@@ -193,7 +224,7 @@ __device__ __forceinline__ T row_sum(const int* __restrict__ indptr,
       for (int q = 0; q < kLanes; ++q) {
         const int t = min(b + t0 + q, kSpan - 1);
         T next;
-        if constexpr (kFusedLanes<T>) {
+        if constexpr (kFused) {
           next = fma_rn(d[t], xv[t], acc[q]);
         } else {
           next = add_rn(acc[q], d[t]);
@@ -225,7 +256,7 @@ __device__ __forceinline__ T row_sum(const int* __restrict__ indptr,
 #pragma unroll
       for (int q = 0; q < kPerLane; ++q) {
         const int i = base + lane + 32 * q;
-        if (i < len) buf[i] = mul_rn(w[q], xg[q]);
+        if (i < len) buf[i] = rounded<kBf16>(mul_rn(w[q], xg[q]));
       }
     }
     __syncwarp();
@@ -336,6 +367,48 @@ __global__ void __launch_bounds__(kThreads)
   const T sr = __ldg(dsinv + min(row, n - 1));
   const T ax = row_sum(indptr, indices, data, GatherScaled<T>{w, dsinv}, buf, r0, n, row_width);
   if (row < n) y[row] = mul_rn(T(0.5), mul_add(sr, ax, wr));
+}
+
+// The padded state's SpMV (f32): rows 0 .. n - 1 as K1 (kBf16: with
+// rounded products), rows n .. rows - 1 +0.
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+    spmv_padded_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                       const float* __restrict__ data, const float* __restrict__ x,
+                       float* __restrict__ y, int n, int rows, int row_width) {
+  int r0;
+  float* buf = warp_buffer<float>(row_width, r0);
+  if (r0 >= rows) return;
+  const int row = r0 + (threadIdx.x & 31);
+  float s = 0.0f;
+  if (r0 < n) {  // whole warps: row_sum's __syncwarp sees every lane
+    s = row_sum<float, GatherX<float>, kBf16>(indptr, indices, data, GatherX<float>{x}, buf, r0, n,
+                                              row_width);
+  }
+  if (row < rows) y[row] = row < n ? s : 0.0f;
+}
+
+// The padded state's lazy walk (f32): 0.5 * (w + dsinv * ax) for every row
+// of the state, ax the sum above over dsinv[j] * w[j] (+0 past n).
+template <bool kBf16>
+__global__ void __launch_bounds__(kThreads)
+    lazy_walk_padded_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                            const float* __restrict__ data, const float* __restrict__ w,
+                            const float* __restrict__ dsinv, float* __restrict__ y, int n,
+                            int rows, int row_width) {
+  int r0;
+  float* buf = warp_buffer<float>(row_width, r0);
+  if (r0 >= rows) return;
+  const int row = r0 + (threadIdx.x & 31);
+  const float wr = __ldg(w + min(row, rows - 1));
+  const float sr = __ldg(dsinv + min(row, rows - 1));
+  float ax = 0.0f;
+  if (r0 < n) {
+    ax = row_sum<float, GatherScaled<float>, kBf16>(indptr, indices, data,
+                                                    GatherScaled<float>{w, dsinv}, buf, r0, n,
+                                                    row_width);
+  }
+  if (row < rows) y[row] = mul_rn(0.5f, mul_add(sr, row < n ? ax : 0.0f, wr));
 }
 
 // The blocked product's vector walk: V = 4 columns of f32 or 2 of f64 per
@@ -562,7 +635,58 @@ int lazy_walk(const void* indptr, const void* indices, const void* data, const v
   return static_cast<int>(cudaGetLastError());
 }
 
+// rows: the padded state's length P (>= n).
+template <bool kBf16>
+int spmv_padded(const void* indptr, const void* indices, const void* data, const void* x, void* y,
+                int n, int rows, int row_width, void* stream) {
+  if (rows < n) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 0) {
+    spmv_padded_kernel<kBf16><<<blocks_for(rows), kThreads, shared_bytes<float>(row_width),
+                                static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(indptr), static_cast<const int*>(indices),
+        static_cast<const float*>(data), static_cast<const float*>(x), static_cast<float*>(y), n, rows,
+        row_width);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kBf16>
+int lazy_walk_padded(const void* indptr, const void* indices, const void* data, const void* w,
+                     const void* dsinv, void* y, int n, int rows, int row_width, void* stream) {
+  if (rows < n) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows > 0) {
+    lazy_walk_padded_kernel<kBf16><<<blocks_for(rows), kThreads, shared_bytes<float>(row_width),
+                                     static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(indptr), static_cast<const int*>(indices),
+        static_cast<const float*>(data), static_cast<const float*>(w), static_cast<const float*>(dsinv),
+        static_cast<float*>(y), n, rows, row_width);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+extern "C" int spmv_padded_f32(const void* indptr, const void* indices, const void* data,
+                               const void* x, void* y, int n, int rows, int row_width, void* stream) {
+  return spmv_padded<false>(indptr, indices, data, x, y, n, rows, row_width, stream);
+}
+
+extern "C" int spmv_bf16i_f32(const void* indptr, const void* indices, const void* data,
+                              const void* x, void* y, int n, int rows, int row_width, void* stream) {
+  return spmv_padded<true>(indptr, indices, data, x, y, n, rows, row_width, stream);
+}
+
+extern "C" int lazy_walk_padded_f32(const void* indptr, const void* indices, const void* data,
+                                    const void* w, const void* dsinv, void* y, int n, int rows,
+                                    int row_width, void* stream) {
+  return lazy_walk_padded<false>(indptr, indices, data, w, dsinv, y, n, rows, row_width, stream);
+}
+
+extern "C" int lazy_walk_bf16i_f32(const void* indptr, const void* indices, const void* data,
+                                   const void* w, const void* dsinv, void* y, int n, int rows,
+                                   int row_width, void* stream) {
+  return lazy_walk_padded<true>(indptr, indices, data, w, dsinv, y, n, rows, row_width, stream);
+}
 
 extern "C" int spmv_csr_f32(const void* indptr, const void* indices, const void* data,
                             const void* x, void* y, int n, int row_width, void* stream) {

@@ -60,7 +60,9 @@
 // (__threadfence, then atomicAdd), runs the later stages with its warps in
 // the same way (two vector rounds folded at a time, the last into the
 // final chain; a 2-D last round's sums into shared memory), adds what is
-// left through the chain, takes the f32 root in f64 if asked, writes the
+// left through the chain (a 2-D order's last (k, 4) block across the
+// lanes of rows that XLA's vectorized loop takes for some k, thread 0
+// emulating them), takes the f32 root in f64 if asked, writes the
 // result and resets the ticket.  At gen 1.0x the 1-D norm's last block
 // folds round 3 into the final chain, and the 2-D norm's runs round 2:
 // one L2 round trip after the ticket either way.  Where the grid's stage is
@@ -99,6 +101,10 @@ struct Round {
 struct Plan {
   int num_rounds;
   int final_count;  // the values left after the rounds
+  // The last block's lanes (1: added in row-major order) and columns: a
+  // 2-D order's last (k, 4) block, which XLA's CPU loop adds across
+  // lanes of rows for some k (ops/reduce.py:last_block_lanes).
+  int final_lanes, final_cols;
   Round round[kMaxRounds];
 };
 
@@ -265,6 +271,32 @@ __device__ void tile_round(Load load, const Round& r, T* dst, T* tile, int warp,
 // product): the values are pairs, left[i] * right[i] added by one fused
 // multiply-add in f32 (the rounded product, then the add, in f64:
 // mul_add), the pad -0 * +0.
+// The last block of `count` values in `cols` columns, added across
+// `lanes` lanes by thread 0 as XLA's vector loop adds it: lane j, from +0
+// (the others from -0, which changes no sum), adds the values of rows j,
+// j + lanes, ... in order; the lanes fold in halves (l[i] + l[i + h]); the
+// rows past the last whole group of lanes add in row-major order.
+template <class T>
+__device__ void final_lanes(const T* left, int count, int lanes, int cols, ToOut<T> store) {
+  if (threadIdx.x != 0) return;
+  constexpr int kMaxLanes = 8;
+  T acc[kMaxLanes];
+  for (int j = 0; j < kMaxLanes; ++j) acc[j] = j == 0 ? T(0) : -T(0);
+  const int rows = count / cols;
+  const int whole = rows / lanes * lanes;
+  for (int i = 0; i < whole; i += lanes) {
+    for (int j = 0; j < lanes; ++j) {
+      for (int c = 0; c < cols; ++c) acc[j] = add_rn(acc[j], left[(i + j) * cols + c]);
+    }
+  }
+  for (int h = lanes / 2; h >= 1; h /= 2) {
+    for (int j = 0; j < h; ++j) acc[j] = add_rn(acc[j], acc[j + h]);
+  }
+  T sum = acc[0];
+  for (int i = whole * cols; i < count; ++i) sum = add_rn(sum, left[i]);
+  store(0, sum);
+}
+
 template <class T>
 __device__ void final_chain(T* left, T* right, int count, bool fused, ToOut<T> store) {
   const int padded = (count + kGroup<T> - 1) / kGroup<T> * kGroup<T>;
@@ -359,7 +391,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps<T>)
   }
   if (!done) {
     for (int i = threadIdx.x; i < plan.final_count && !in_left; i += blockDim.x) left[i] = __ldcg(src + i);
-    final_chain(left, left, plan.final_count, false, to_out);
+    if (plan.final_lanes > 1) {
+      __syncthreads();
+      final_lanes(left, plan.final_count, plan.final_lanes, plan.final_cols, to_out);
+    } else {
+      final_chain(left, left, plan.final_count, false, to_out);
+    }
   }
   if (threadIdx.x == 0) {
     *ticket = 0u;
@@ -418,7 +455,7 @@ int multiprocessors() {
 }
 
 // plan: host ints {num_rounds, final_count, then per round rows, cols,
-// win_rows, win_cols, wa, wb, la, lb}; scratch holds the grid's sums from 0
+// win_rows, win_cols, wa, wb, la, lb, then final_lanes, final_cols}; scratch holds the grid's sums from 0
 // and the next stage's from `second`, later stages alternating between the
 // two (ops/reduce.py:k6_plan sizes it).
 template <class T>
@@ -434,6 +471,12 @@ int tree_sum(const void* v, const void* w, int mode, const void* plan_host, void
   for (int k = 0; k < plan.num_rounds; ++k) {
     const int* q = p + 2 + 8 * k;
     plan.round[k] = Round{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7]};
+  }
+  plan.final_lanes = p[2 + 8 * plan.num_rounds];
+  plan.final_cols = p[3 + 8 * plan.num_rounds];
+  if (plan.final_lanes > 1 && (plan.final_lanes > 8 || (plan.final_lanes & (plan.final_lanes - 1)) != 0 ||
+                               plan.final_cols < 1 || plan.final_count % plan.final_cols != 0)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   // The grid's warps of work: round 2's windows (rounds 1 and 2 folded),
   // round 1's (2-D), or one.  Warps per block: as few as give every SM a

@@ -21,6 +21,44 @@ if TYPE_CHECKING:
     from eig_kl_tpu_torch.ops.spmv_v3 import SpmvPlanV3
 
 
+#: The JAX package's plan rule runs its v1 SpMV kernel at or below this many
+#: stored entries and its v2 kernels above (``ops/spmv_pallas.py:569``).
+V1_MAX_NNZ = 32_768
+#: Its plans pad the state to a multiple of this (``spmv_pallas.py:54``).
+PLAN_WINDOW = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class CsrPlan:
+    """The port's counterpart of the JAX package's v1 or v2 chunk plan
+    (``eig_kl_tpu/ops/spmv_pallas.py:plan_for_graph``), attached by
+    ``to_device(with_plan=True)``.  K1 reads the CSR arrays themselves and
+    needs no layout, so the plan holds only what the JAX plan decides for
+    the power solve: the padded length of its ``(P/128, 128)`` state, and
+    which TPU kernel would run, "v1" (at most :data:`V1_MAX_NNZ` entries) or
+    "v2".  Only v2 has the bf16-intermediate mode: a v1 plan ignores
+    ``inter_dtype`` (``spmv_pallas_2d`` ends in ``_spmv_call``), and so does
+    the port.  (v2 also falls back to f32 for a plan whose ``g1`` is not a
+    multiple of 2,048, ``spmv_pallas.py:474``; ``build_plan_v2`` never
+    builds one.)"""
+
+    padded_nodes: int
+    kernel: str
+
+    @classmethod
+    def for_graph(cls, num_nodes: int, nnz: int) -> "CsrPlan":
+        """The plan the JAX package's rule picks for a graph of this size."""
+        padded = -(-max(num_nodes, 1) // PLAN_WINDOW) * PLAN_WINDOW
+        return cls(padded, "v1" if nnz <= V1_MAX_NNZ else "v2")
+
+    def runs_bf16(self, inter_dtype: str) -> bool:
+        """Whether the power solve's matvec rounds its products to bf16
+        (``inter_dtype`` "bfloat16" on a v2 plan)."""
+        if inter_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"inter_dtype is 'float32' or 'bfloat16', got {inter_dtype!r}")
+        return inter_dtype == "bfloat16" and self.kernel == "v2"
+
+
 def ell_width(max_degree: int, pad_multiple: int = 8) -> int:
     """Row width of the JAX package's padded ELL (``Graph.to_device``)."""
     return max(-(-max_degree // pad_multiple) * pad_multiple, pad_multiple)
@@ -122,11 +160,14 @@ class Graph:
         )
 
     def to_device(
-        self, device: torch.device | str, dtype: torch.dtype = torch.float32
+        self, device: torch.device | str, dtype: torch.dtype = torch.float32, with_plan: bool = False
     ) -> "DeviceGraph":
         """Upload the CSR arrays.  Weights, weighted degrees and the total
         weight are derived in float64 on the host and rounded once to
-        ``dtype``, as the JAX package's ``Graph.to_device`` does."""
+        ``dtype``, as the JAX package's ``Graph.to_device`` does.
+        ``with_plan`` attaches the :class:`CsrPlan` the JAX package's rule
+        picks (its ``to_device(with_plan=True)``, ``graph/csr.py:228``): an
+        f32 power solve then iterates on the padded state."""
         if self.nnz >= 2**31:
             raise ValueError(f"nnz {self.nnz} does not fit int32 CSR offsets")
         np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
@@ -141,6 +182,7 @@ class Graph:
                 np.asarray(self.total_weight, dtype=np_dtype)
             ).to(device),
             row_width=ell_width(self.max_degree),
+            plan=CsrPlan.for_graph(self.num_nodes, self.nnz) if with_plan else None,
         )
 
 
@@ -157,9 +199,11 @@ class DeviceGraph:
       row_width: the JAX package's ELL width for this graph (the largest
         degree rounded up to a multiple of 8).  The SpMV's summation
         order follows it (:mod:`eig_kl_tpu_torch.ops.spmv`).
-      plan: a v3 SpMV plan of the same matrix, or None.  With a plan, an
-        f32 graph's SpMV and power solve take the v3 route (the JAX
-        package's ``DeviceGraph.plan``); attach one with
+      plan: the JAX package's ``DeviceGraph.plan``: None, a
+        :class:`CsrPlan` (``Graph.to_device(with_plan=True)``), or a v3 SpMV
+        plan of the same matrix.  With a plan an f32 power solve iterates
+        on the padded ``(P/128, 128)`` state (``spectral/power.py``); with a
+        v3 plan every f32 SpMV takes the v3 route.  Attach one with
         ``dataclasses.replace(g, plan=build_plan_v3_for_graph(host, dev))``.
     """
 
@@ -169,7 +213,7 @@ class DeviceGraph:
     degrees: torch.Tensor
     total_weight: torch.Tensor
     row_width: int
-    plan: "SpmvPlanV3 | None" = None
+    plan: "SpmvPlanV3 | CsrPlan | None" = None
 
     @property
     def num_nodes(self) -> int:

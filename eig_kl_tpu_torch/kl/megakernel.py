@@ -38,6 +38,7 @@ from eig_kl_tpu_torch.io.eigfile import EigResult
 from eig_kl_tpu_torch.kl.result import KLResult, best_iteration, replay_swaps
 from eig_kl_tpu_torch.ops._build import Kernel
 from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
+from eig_kl_tpu_torch.ops.reduce import FUSED_DOT_BYTES, K4_MAX_PAIRS, fused_dot_batch, tree_sum
 from eig_kl_tpu_torch.ops.select import upper_median
 from eig_kl_tpu_torch.ops.spmv import spmv
 from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
@@ -387,10 +388,29 @@ def _batch_init(g: DeviceGraph, s: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     """``A @ s`` and the from-scratch cut of every start of the sign stack
     ``s`` (float[S, n]), on the device: ``(a_s[S, n], cut[S])``.  Used for
     the initial state and for the final recount (megakernel.py:_batch_init,
-    ``:763``); each start is computed as a single start is."""
+    ``:763``); each start is computed as a single start is.
+
+    The cut is ``0.25 * (sum(deg) - s . A s)``, the JAX mega engine's form
+    (``megakernel.py:754``, ``:773``).  Below 4,096 nodes in f32 it adds as
+    that engine's program on the CPU does: ``wsum`` as ``jnp.sum`` adds it
+    (:func:`tree_sum`, ``:1034``), the dot as XLA's loop with the signs
+    fused in (:func:`fused_dot_batch`, "lanes"; K4, up to 4 starts per
+    launch; ROADMAP.md C5).  From 4,096 nodes XLA's CPU dot would be one
+    sequential chain, which at gen 1.0x moves the verified cut 6.2e-5 from
+    the tracked one, past the drift gate of 1e-5, so there, and in f64
+    (which the JAX mega engine does not run), the cut is :func:`cut_size`'s
+    fixed tree order until that conflict with the drift gate is settled
+    (ROADMAP.md C, open)."""
     a_s = torch.stack([spmv(g, row) for row in s])
-    cut = torch.stack([cut_size(g, row, a_row) for row, a_row in zip(s, a_s)])
-    return a_s, cut.to(g.dtype)
+    if g.dtype != torch.float32 or s.shape[1] * 4 >= FUSED_DOT_BYTES:
+        cut = torch.stack([cut_size(g, row, a_row) for row, a_row in zip(s, a_s)])
+        return a_s, cut.to(g.dtype)
+    rows, a_rows = s.unbind(), a_s.unbind()
+    dots = torch.cat([
+        fused_dot_batch(rows[k : k + K4_MAX_PAIRS], a_rows[k : k + K4_MAX_PAIRS], "lanes")
+        for k in range(0, len(rows), K4_MAX_PAIRS)
+    ])
+    return a_s, 0.25 * (tree_sum(g.degrees) - dots)
 
 
 def _caps(sides: torch.Tensor, config: KLConfig) -> list[int]:
@@ -650,6 +670,7 @@ def fused_refine_mega(
             convergence=spectral_config.convergence,
             check_interval=spectral_config.check_interval,
             stable_checks=spectral_config.stable_checks,
+            inter_dtype=spectral_config.inter_dtype,
         )
         med = upper_median(v)
         sides = (med > v).to(torch.int8)

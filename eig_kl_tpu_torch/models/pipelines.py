@@ -41,6 +41,18 @@ from eig_kl_tpu_torch.utils.device import resolve_device
 from eig_kl_tpu_torch.utils.tracing import Tracer
 
 
+def attaches_plan(device: torch.device) -> bool:
+    """Whether the pipelines attach a :class:`CsrPlan` on ``device`` by
+    default: the port's counterpart of the JAX package's rule,
+    ``with_plan=jax.default_backend() == "tpu"``
+    (``eig_kl_tpu/models/pipelines.py:128``, ``:192``).  No device attaches
+    one until the card's quality A/B decides it (ROADMAP.md A, item 3); a
+    caller asks for the plan path with ``fused_partition(...,
+    with_plan=True)`` or ``Graph.to_device(..., with_plan=True)``."""
+    # The JAX rule on the port reads: torch.device(device).type == "cuda".
+    return False
+
+
 def refine_backend(g: DeviceGraph, config: KLConfig, tracer: Tracer | None = None):
     """Single-pass refinement closure on the port's one engine."""
     return lambda sides: refine_mega(g, sides, config, tracer=tracer)
@@ -153,7 +165,7 @@ def kl_partition(
         g_host = clique_expand(hg, "kl")
         if shuffled_ties and init is None:
             g_host, shuffled_sides, perm = reference_shuffle_init(g_host, seed)
-        g = g_host.to_device(dev, dtype)
+        g = g_host.to_device(dev, dtype, with_plan=attaches_plan(dev))
     eig = init if isinstance(init, EigResult) else None
     with tracer.span("init"):
         if init is None:
@@ -186,6 +198,7 @@ def fused_partition(
     starts: int = 1,
     perturb: float = 0.05,
     device: str | torch.device | None = None,
+    with_plan: bool | None = None,
 ) -> PartitionRun:
     """Fused spectral + KL pipeline (the gKL2 executable).
 
@@ -210,14 +223,21 @@ def fused_partition(
     (:func:`fused_refine_mega`: the split never leaves the device);
     everything else runs the spectral phase and then the refinement
     dispatch.
+
+    ``with_plan`` (None: :func:`attaches_plan`) attaches a :class:`CsrPlan`:
+    the f32 power solve then iterates on the padded state, with bf16
+    intermediates where ``spectral_config.inter_dtype`` is "bfloat16" (the
+    default) and the plan is a v2 one (``CsrPlan.runs_bf16``).
     """
     dev = resolve_device(device)
+    if with_plan is None:
+        with_plan = attaches_plan(dev)
     if use_eig:
         spectral_config = check_solver(spectral_config, hg.num_nodes)
     tracer = Tracer(dev)
     with tracer.span("graph.build"):
         g_host = clique_expand(hg, "kl")
-        g = g_host.to_device(dev, dtype)
+        g = g_host.to_device(dev, dtype, with_plan=with_plan)
     eig, iters, cuts, solve = None, None, None, None
     if (
         use_eig

@@ -41,6 +41,9 @@ from eig_kl_tpu_torch.ops.spmv import fma_f32
 _WINDOW = 32
 _P, _I = ctypes.c_void_p, ctypes.c_int
 K4, K4_F64 = (Kernel("fma_dot", f"fma_dot_batch_{t}", [_P] * 3 + [_I, _I, _P]) for t in ("f32", "f64"))
+#: K4's entry point for a dot that XLA emits as a loop with its operands'
+#: producers fused in (:func:`fused_dot_batch`): f32 only.
+K4_FUSED = Kernel("fma_dot", "fused_dot_batch_f32", [_P] * 3 + [_I, _I, _I, _P])
 K6, K6_F64 = (
     Kernel("tree_sum", f"tree_sum_{t}", [_P, _P, _I, _P, _P, _I, _P, _P, _I, _P])
     for t in ("f32", "f64")
@@ -59,6 +62,15 @@ _F64 = {K4: K4_F64, K6: K6_F64, K6_SCALE: K6_SCALE_F64, K6_AXPY: K6_AXPY_F64}
 _DOT_UNFUSED = 8
 #: The dots one K4 launch runs (csrc/fma_dot.cu:kMaxPairs).
 K4_MAX_PAIRS = 4
+#: XLA's CPU backend fuses an element-wise producer (a slice of the padded
+#: state, a sign from a split, the lazy walk) into a vector dot only where
+#: the other operand holds fewer bytes than this (``kFusionThresholdBytes``
+#: of its instruction fusion); a larger dot calls its vector dot
+#: (:func:`fma_dot`).
+FUSED_DOT_BYTES = 16 * 1024
+#: The orders of a fused dot (:func:`fused_dot_batch`) by name, as K4's
+#: entry point numbers them.
+FUSED_ORDERS = {"chain": 1, "lanes": 2}
 
 
 def _typed(kernel: Kernel, tensors, what: str) -> Kernel:
@@ -185,25 +197,70 @@ def tree_sum_2d(v: torch.Tensor) -> torch.Tensor:
     windows of 32 after a centred zero pad (the smaller half in front), an
     axis of at most 32 is one window; each window adds its elements in
     row-major order; repeat until no axis is longer than 32, then add what
-    remains in row-major order.  K6 for a tensor on the card,
-    :func:`tree_sum_2d_plain` on the CPU.
+    remains in row-major order (or, for the last block, as below).  K6
+    for a tensor on the card, :func:`tree_sum_2d_plain` on the CPU.
 
-    Matched bit for bit where the last block is one row of windows
-    (``P <= 4,096``: gen 0.02x) or where the first round leaves more than
-    32 rows of windows (``P > 131,072``: gen 1.0x).  In between, the last
-    block is ``(k, 4)`` with 2 <= k <= 32, and XLA's final reduce is a
-    loop that LLVM vectorizes across the k rows for some k (on x86, k = 4:
-    a lane per row, then a shuffle tree of the lanes), which this does not
-    reproduce; for other k, such as 6 (P = 24,576), the loop stays scalar
-    in row-major order and is matched.  Unmatched sums differ in the last
-    bits only."""
+    Between 33 and 1,024 rows the last block is ``(k, 4)`` with 2 <= k <=
+    32, and XLA's final reduce is a loop over its k rows that LLVM
+    vectorizes across rows for some k (:func:`last_block_lanes`); the last
+    block is added in that order (ROADMAP.md C6).  Held bit for bit against
+    ``jnp.linalg.norm`` at every k and at gen 0.02x and 1.0x.  Above 1,024
+    rows a second round's ``(k, 4)`` windows come first: matched up to
+    3,072 rows (gen 1.0x: 1,584), and beyond for some row counts only
+    (the second round's loops vectorize in orders not derived).
+    """
     if v.device.type == "cpu":
         return tree_sum_2d_plain(v)
     return tree_sum_cuda(v)
 
 
+#: The 2-D order's last block of ``(k, 4)`` sums (33 to 1,024 rows of 128):
+#: XLA's CPU loop over its k rows, vectorized by LLVM for these k (read
+#: from the x86-64 code of ``jax.jit(jnp.linalg.norm)``, jax 0.9.0) into
+#: this many lanes, lane j adding the 4 sums of rows j, j + lanes, ... in
+#: order; for the other k the loop adds the block in row-major order.
+_LAST_BLOCK_LANES = {2: 2, 4: 4, 8: 8, 16: 8, 17: 8, 18: 8, 19: 8, 20: 4, 21: 4, 22: 4, 23: 4,
+                     24: 8, 25: 8, 26: 8, 27: 8, 28: 4, 29: 4, 30: 4, 31: 4, 32: 8}
+
+
+def last_block_lanes(shape: tuple[int, ...], dtype: torch.dtype = torch.float32) -> int:
+    """The lanes across which XLA adds the last block of an f32 2-D sum of
+    ``shape`` (1: in row-major order), by :data:`_LAST_BLOCK_LANES`.  A 1-D
+    sum, an f64 sum and a last block of other than 4 columns add in order
+    (f64's vector loop would take 4 lanes; not derived, as no f64 path sums
+    a 2-D state)."""
+    rounds = reduce_rounds(tuple(shape))
+    if len(shape) != 2 or dtype != torch.float32 or not rounds:
+        return 1
+    k, c = rounds[-1].windows
+    return _LAST_BLOCK_LANES.get(k, 1) if c == 4 else 1
+
+
+def _last_block_plain(v: torch.Tensor, lanes: int) -> torch.Tensor:
+    """The sum of the last block ``v`` (k rows) as XLA's vector loop adds
+    it: lane j from +0 (the other lanes from -0, which changes no sum)
+    adds the row's values of rows j, j + lanes, ... in order; the lanes
+    fold in halves, ``l[i] + l[i + h]``; the rows past the last whole
+    group of ``lanes`` add in row-major order."""
+    k = v.shape[0]
+    whole = k // lanes * lanes
+    acc = torch.full((lanes,), -0.0, dtype=v.dtype, device=v.device)
+    acc[0] = 0.0
+    for i in range(0, whole, lanes):
+        for col in v[i : i + lanes].unbind(1):
+            acc = acc + col
+    while acc.numel() > 1:
+        h = acc.numel() // 2
+        acc = acc[:h] + acc[h:]
+    acc = acc[0]
+    for x in v[whole:].reshape(-1).unbind():
+        acc = acc + x
+    return acc
+
+
 def tree_sum_2d_plain(v: torch.Tensor) -> torch.Tensor:
     """:func:`tree_sum_2d` in plain PyTorch."""
+    lanes = last_block_lanes(tuple(v.shape), v.dtype)
     while max(v.shape) > _WINDOW:
         spec = []
         for size in v.shape:
@@ -220,6 +277,8 @@ def tree_sum_2d_plain(v: torch.Tensor) -> torch.Tensor:
         for k in range(wa * wb):
             acc = acc + w[k]
         v = acc
+    if lanes > 1:
+        return _last_block_plain(v, lanes)
     acc = torch.zeros((), dtype=v.dtype, device=v.device)
     for x in v.reshape(-1).unbind():
         acc = acc + x
@@ -235,22 +294,25 @@ def tree_norm_2d(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def k6_plan(shape: tuple[int, ...]):
-    """K6's launch plan for a 1-D or 2-D shape, built once per shape: the
-    host int array the C entry point reads (the number of rounds, the values
-    left after them, then per round its input rows and columns, windows per
-    axis, window extents and lead pads, a 1-D shape taken as one row), the
-    scratch it needs and where its second half starts.  The halves hold
-    round 1's and round 2's windows: the grid's sums take the first, the
-    next stage's the second, and the stages after alternate, each writing
-    fewer sums than the one before."""
+def k6_plan(shape: tuple[int, ...], dtype: torch.dtype = torch.float32):
+    """K6's launch plan for a 1-D or 2-D shape, built once per shape and
+    dtype: the host int array the C entry point reads (the number of
+    rounds, the values left after them, then per round its input rows and
+    columns, windows per axis, window extents and lead pads, a 1-D shape
+    taken as one row; last the lanes of the last block and its columns,
+    :func:`last_block_lanes`), the scratch it needs and where its second
+    half starts.  The halves hold round 1's and round 2's windows: the
+    grid's sums take the first, the next stage's the second, and the
+    stages after alternate, each writing fewer sums than the one before."""
     rounds = reduce_rounds(shape)
     if len(rounds) > _MAX_ROUNDS:
         raise ValueError(f"K6 takes at most {_MAX_ROUNDS} rounds; {shape} needs {len(rounds)}")
-    words = [len(rounds), math.prod(rounds[-1].windows if rounds else shape)]
+    last = rounds[-1].windows if rounds else shape
+    words = [len(rounds), math.prod(last)]
     for r in rounds:
         for part, lead in ((r.shape, 1), (r.windows, 1), (r.window, 1), (r.pads, 0)):
             words.extend((lead, *part) if len(shape) == 1 else part)
+    words.extend((last_block_lanes(shape, dtype), last[-1] if last else 0))
     outs = [math.prod(r.windows) for r in rounds[:2]] + [0, 0]
     return (ctypes.c_int * len(words))(*words), outs[0] + outs[1], outs[0]
 
@@ -298,7 +360,7 @@ def tree_sum_cuda(
         raise ValueError(f"tree_sum_cuda: contiguous 1-D or 2-D tensors of one shape, got {[tuple(t.shape) for t in both]}")
     if v.numel() >= 2**31 - 2**16:
         raise ValueError(f"tree_sum_cuda: {v.numel()} values do not fit its int32 indices")
-    plan, scratch_len, second = k6_plan(tuple(v.shape))
+    plan, scratch_len, second = k6_plan(tuple(v.shape), v.dtype)
     mode = _PRODUCT if w is not None else _SQUARE if square else _SUM
     stream = torch.cuda.current_stream(v.device)
     scratch = _scratch(v.device, stream, v.dtype, scratch_len)
@@ -377,8 +439,10 @@ def _fma_exact(a: float, b: float, c: float) -> float:
     return (na * nb * dc + nc * da * db) / (da * db * dc)
 
 
-def fma_dot_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The chain of :func:`fma_dot` on the host, in the inputs' dtype.
+def fma_dot_plain(x: torch.Tensor, y: torch.Tensor, unfused: int = _DOT_UNFUSED) -> torch.Tensor:
+    """The chain of :func:`fma_dot` on the host, in the inputs' dtype: the
+    first ``unfused`` products rounded and added, then the fused chain
+    (``unfused=0``: :func:`fused_dot`'s "chain" order).
 
     f32: each product is exact in f64; the first 8 are rounded to f32 and
     added in f32; each later step forms the f64 sum rounded to odd (its
@@ -393,16 +457,16 @@ def fma_dot_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         fused = _fma_exact if all(map(math.isfinite, xs + ys)) else lambda a, b, c: a * b + c
         acc = 0.0
         for i, (a, b) in enumerate(zip(xs, ys)):
-            acc = acc + a * b if i < _DOT_UNFUSED else fused(a, b, acc)
+            acc = acc + a * b if i < unfused else fused(a, b, acc)
         return torch.tensor(acc, dtype=torch.float64, device=x.device)
     if x.dtype != torch.float32 or y.dtype != torch.float32:
         raise TypeError(f"fma_dot takes two f32 or two f64 vectors; got {x.dtype} and {y.dtype}")
     prods = (x.double() * y.double()).cpu().tolist()
     acc = np.float32(0.0)
-    for p in prods[:_DOT_UNFUSED]:
+    for p in prods[:unfused]:
         acc = acc + np.float32(p)
     acc = float(acc)
-    for p in prods[_DOT_UNFUSED:]:
+    for p in prods[unfused:]:
         s = p + acc
         bp = s - acc
         err = (p - bp) + (acc - (s - bp))
@@ -410,6 +474,146 @@ def fma_dot_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
             s = math.nextafter(s, math.copysign(math.inf, err))
         acc = float(np.float32(s))
     return torch.tensor(acc, dtype=torch.float32, device=x.device)
+
+
+def fused_dot(x: torch.Tensor, y: torch.Tensor, order: str) -> torch.Tensor:
+    """``x . y`` as XLA's CPU backend computes a vector dot into which it
+    fuses an operand's element-wise producer: the one-pair case of
+    :func:`fused_dot_batch`."""
+    return fused_dot_batch((x,), (y,), order)[0]
+
+
+def fused_dot_batch(xs, ys, order: str) -> torch.Tensor:
+    """The dots ``xs[k] . ys[k]`` (1 to 4 pairs, as :func:`fma_dot_batch`
+    takes them) of a ``jnp.vdot`` whose operand XLA computes inside the
+    dot's loop: a slice of the padded state, the signs of a split, or the
+    lazy walk with its row sums (ROADMAP.md C5, C9).
+
+    XLA fuses such a producer only into an f32 dot of fewer than
+    :data:`FUSED_DOT_BYTES` per operand (4,096 values); a larger dot, and
+    every f64 dot, is :func:`fma_dot_batch`.  The fused dot is a loop that
+    LLVM compiles in one of two orders (read from the x86-64 code of the
+    JAX package's programs, jax 0.9.0):
+
+    * ``"lanes"`` (a loop of element-wise operands, vectorized): 32 lanes,
+      lane ``k`` from +0 (``k = 0``) or -0 a chain of fused multiply-adds
+      over the elements ``i = k (mod 32)`` below ``32 * (n // 32)``; the
+      four 8-lane accumulators add as ``((a1 + a0) + a2) + a3``, their 8
+      lanes fold in halves (``l[i] + l[i + h]``); the rest of ``r = n % 32``
+      elements go through one vector epilogue of 8 or 4 lanes (8 where
+      ``r // 8 + r % 8 <= r // 4 + r % 4``), started from the sum in its
+      lane 0, folded the same way, and the last ``r`` mod its width
+      elements by scalar fused multiply-adds.  Matched from 160 values up;
+      below that LLVM unrolls the loop fully and reorders it.
+    * ``"chain"`` (the lazy walk's row sums fused in keep the loop scalar):
+      one chain of fused multiply-adds from +0 in index order, no product
+      rounded on its own (:func:`fma_dot_plain` with ``unfused=0``).
+
+    K4's fused entry point (``csrc/fma_dot.cu:fused_dot_batch_f32``) for
+    tensors on the card, the plain versions for tensors on the CPU.
+    """
+    if order not in FUSED_ORDERS:
+        raise ValueError(f"fused_dot: order is one of {sorted(FUSED_ORDERS)}, got {order!r}")
+    kernel = _k4_checked(xs, ys)
+    if kernel is not K4 or xs[0].numel() * xs[0].element_size() >= FUSED_DOT_BYTES:
+        return fma_dot_batch(xs, ys)
+    if xs[0].device.type == "cpu":
+        return torch.stack([fused_dot_plain(x, y, order) for x, y in zip(xs, ys)])
+    return _k4_fused_launch(xs, ys, order)
+
+
+def fused_dot_plain(x: torch.Tensor, y: torch.Tensor, order: str) -> torch.Tensor:
+    """The f32 dot in :func:`fused_dot_batch`'s ``order`` at any length, in
+    plain PyTorch (K4's fused entry point's plain version)."""
+    if order == "lanes":
+        return _lanes_dot_plain(x, y)
+    return fma_dot_plain(x, y, unfused=0)
+
+
+#: The lanes of XLA's vectorized dot loop: 4 accumulators of 8.
+_DOT_LANES, _DOT_VECTOR = 32, 8
+
+
+def _fold_lanes(acc: np.ndarray) -> np.float32:
+    """An accumulator's lanes folded in halves, ``l[i] + l[i + h]``."""
+    while acc.size > 1:
+        h = acc.size // 2
+        acc = acc[:h] + acc[h:]
+    return acc[0]
+
+
+def dot_epilogue_width(remainder: int) -> int:
+    """The vector epilogue's lanes for the ``remainder`` (< 32) elements
+    after the main loop of :func:`fused_dot_batch`'s "lanes" order: 8 or
+    4, or 0 (none) below 4."""
+    if remainder >= 8 and remainder // 8 + remainder % 8 <= remainder // 4 + remainder % 4:
+        return 8
+    return 4 if remainder >= 4 else 0
+
+
+def _fma_f32_np(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """``ops/spmv.py:fma_f32`` on NumPy arrays: the exact f64 product, the
+    f64 sum rounded to odd, then one rounding to f32."""
+    p = a.astype(np.float64) * b
+    c = c.astype(np.float64)
+    s = p + c
+    bp = s - c
+    err = (p - bp) + (c - (s - bp))
+    odd = (err != 0) & ((s.view(np.int64) & 1) == 0)
+    s = np.where(odd, np.nextafter(s, np.where(err > 0, np.inf, -np.inf)), s)
+    return s.astype(np.float32)
+
+
+def _lanes_dot_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The "lanes" order of :func:`fused_dot_batch` on the host (f32): one
+    32-lane step at a time, in NumPy, whose small-array operations cost a
+    fraction of PyTorch's."""
+    xs, ys = x.detach().cpu().numpy(), y.detach().cpu().numpy()
+    n = xs.size
+    main = n // _DOT_LANES * _DOT_LANES
+    acc = np.full(_DOT_LANES, -0.0, np.float32)
+    acc[0] = 0.0
+    for i in range(0, main, _DOT_LANES):
+        acc = _fma_f32_np(xs[i : i + _DOT_LANES], ys[i : i + _DOT_LANES], acc)
+    a = acc.reshape(-1, _DOT_VECTOR)
+    v = a[1] + a[0]
+    for u in range(2, a.shape[0]):
+        v = a[u] + v
+    total, i = _fold_lanes(v), main
+    width = dot_epilogue_width(n - main)
+    if width:
+        acc = np.full(width, -0.0, np.float32)
+        acc[0] = total
+        while n - i >= width:
+            acc = _fma_f32_np(xs[i : i + width], ys[i : i + width], acc)
+            i += width
+        total = _fold_lanes(acc)
+    for j in range(i, n):
+        total = _fma_f32_np(xs[j : j + 1], ys[j : j + 1], np.array([total], np.float32))[0]
+    return torch.tensor(np.float32(total), device=x.device)
+
+
+def _k4_fused_launch(xs, ys, order: str) -> torch.Tensor:
+    """Launch K4's fused entry point on the current stream for the pairs
+    of :func:`fused_dot_batch` (checked by :func:`_k4_checked`, f32)."""
+    dev = xs[0].device
+    if dev.type != "cuda":
+        raise ValueError("fused_dot_batch_cuda: the vectors must lie on a CUDA device")
+    out = torch.empty(len(xs), dtype=xs[0].dtype, device=dev)
+    pointers = ctypes.c_void_p * len(xs)
+    K4_FUSED(pointers(*(t.data_ptr() for t in xs)), pointers(*(t.data_ptr() for t in ys)), out.data_ptr(),
+             len(xs), xs[0].numel(), FUSED_ORDERS[order], torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def fused_dot_batch_cuda(xs, ys, order: str) -> torch.Tensor:
+    """Launch K4's fused entry point once for f32 pairs on one card, at any
+    length (:func:`fused_dot_batch` takes it below 4,096 values only)."""
+    if order not in FUSED_ORDERS:
+        raise ValueError(f"fused_dot: order is one of {sorted(FUSED_ORDERS)}, got {order!r}")
+    if _k4_checked(xs, ys) is not K4:
+        raise TypeError("fused_dot_batch_cuda is float32 only")
+    return _k4_fused_launch(xs, ys, order)
 
 
 def _k4_checked(xs, ys) -> Kernel:

@@ -49,7 +49,7 @@ import torch
 
 from eig_kl_tpu_torch.graph.csr import DeviceGraph
 from eig_kl_tpu_torch.ops._build import Kernel
-from eig_kl_tpu_torch.ops.spmv_v3 import spmv_v3
+from eig_kl_tpu_torch.ops.spmv_v3 import SpmvPlanV3, spmv_v3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -68,6 +68,12 @@ K1_STEP, K1_STEP_F64 = _pair("power_step", lambda t: [_P] * 5 + [t, _P, _I, _I, 
 K1_LAPLACIAN, K1_LAPLACIAN_F64 = _pair("laplacian", lambda _: [_P] * 6 + [_I, _I, _P])
 K1_SPMM, K1_SPMM_F64 = _pair("spmm_csr", lambda _: [_P] * 6 + [_I, _I, _I, _P])
 K1_LAZY, K1_LAZY_F64 = _pair("lazy_walk", lambda _: [_P] * 6 + [_I, _I, _P])
+#: The padded state's entry points (f32 only): K1's f32 sums, and the
+#: bf16-intermediate sums (:func:`spmv_padded`, :func:`lazy_walk_padded`).
+K1_PADDED, K1_BF16I = (Kernel("spmv_csr", sym, [_P] * 5 + [_I, _I, _I, _P]) for sym in ("spmv_padded_f32", "spmv_bf16i_f32"))
+K1_LAZY_PADDED, K1_LAZY_BF16I = (
+    Kernel("spmv_csr", sym, [_P] * 6 + [_I, _I, _I, _P]) for sym in ("lazy_walk_padded_f32", "lazy_walk_bf16i_f32")
+)
 _F64 = {K1: K1_F64, K1_STEP: K1_STEP_F64, K1_LAPLACIAN: K1_LAPLACIAN_F64, K1_SPMM: K1_SPMM_F64,
         K1_LAZY: K1_LAZY_F64}
 #: The dtypes K1 takes on the card.
@@ -124,21 +130,40 @@ def _accumulate(acc, rows, slot, step, values, fused_with=None):
     return acc
 
 
-def spmv_plain(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
+def bf16_round(p: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to bf16 with round to nearest even and widened
+    back to f32, as ``__float2bfloat16_rn`` does, subnormals and infinities
+    included (NaNs stay NaN): the bits plus ``0x7FFF`` plus the kept half's
+    last bit, the dropped half cleared.  Done on the bits, since a CPU's
+    vector conversion may flush subnormals."""
+    bits = p.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+    return torch.where(torch.isnan(p), p, bits.view(torch.float32).view(p.shape))
+
+
+def spmv_plain(g: DeviceGraph, x: torch.Tensor, *, bf16: bool = False) -> torch.Tensor:
     """``A @ x`` in plain PyTorch, in the graph's dtype, in K1's order; ``x``
-    a vector, or an ``(n, k)`` matrix whose columns are taken at once."""
+    a vector, or an ``(n, k)`` matrix whose columns are taken at once.
+    ``bf16`` (an f32 graph): every product rounded to f32, then to bf16
+    (:func:`bf16_round`), and added in f32 in that order, the lanes of
+    ``W <= 32`` adding rounded products."""
     n, dt, dev = g.num_nodes, g.dtype, g.device
     rows = row_ids(g)
     pos = torch.arange(g.nnz, device=dev) - g.indptr[:-1].long()[rows]
     xv = x[g.indices.long()].to(dt)
     extra = tuple(x.shape[1:])
     data = g.data.view(-1, *(1,) * len(extra)).expand_as(xv)
+    if bf16 and dt != torch.float32:
+        raise TypeError(f"spmv_plain: the bf16 intermediates take an f32 graph, got {dt}")
+    fused = dt == torch.float32 and not bf16
+    products = None if fused and g.row_width <= WINDOW else bf16_round(data * xv) if bf16 else data * xv
     if g.row_width <= WINDOW:
         lanes = torch.zeros(n, LANES, *extra, dtype=dt, device=dev)
-        if dt == torch.float32:
+        if fused:
             _accumulate(lanes, rows, pos % LANES, pos // LANES, data, fused_with=xv)
         else:
-            _accumulate(lanes, rows, pos % LANES, pos // LANES, data * xv)
+            _accumulate(lanes, rows, pos % LANES, pos // LANES, products)
         while lanes.shape[1] > 1:
             half = lanes.shape[1] // 2
             lanes = lanes[:, :half] + lanes[:, half:]
@@ -146,7 +171,7 @@ def spmv_plain(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
     m = -(-g.row_width // WINDOW)
     shifted = pos + (m * WINDOW - g.row_width) // 2
     windows = torch.zeros(n, m, *extra, dtype=dt, device=dev)
-    _accumulate(windows, rows, shifted // WINDOW, shifted % WINDOW, data * xv)
+    _accumulate(windows, rows, shifted // WINDOW, shifted % WINDOW, products)
     y = torch.zeros(n, *extra, dtype=dt, device=dev)
     for j in range(m):
         y = y + windows[:, j]
@@ -189,10 +214,11 @@ def spmv_csr(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x``: for an f32 graph with a v3 plan the v3 route, else K1;
-    the kernels for a tensor on the card, the plain versions for a tensor
-    on the CPU."""
-    if g.plan is not None and g.dtype == torch.float32:
+    """``A @ x``: for an f32 graph with a v3 plan the v3 route, else K1
+    (a CSR plan's matvecs outside the power solve are f32, as the JAX
+    package's ``spmv_pallas`` is); the kernels for a tensor on the card,
+    the plain versions for a tensor on the CPU."""
+    if isinstance(g.plan, SpmvPlanV3) and g.dtype == torch.float32:
         return spmv_v3(g.plan, x.to(torch.float32))
     if x.device.type == "cpu":
         return spmv_plain(g, x)
@@ -353,5 +379,85 @@ def lazy_walk_cuda(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor) -> torc
         g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), w.data_ptr(),
         dsinv.data_ptr(), y.data_ptr(), g.num_nodes, g.row_width,
         torch.cuda.current_stream(w.device).cuda_stream,
+    )
+    return y
+
+
+def spmv_padded(g: DeviceGraph, x2d: torch.Tensor, *, bf16: bool) -> torch.Tensor:
+    """``A @ x`` on the zero-padded ``(P/128, 128)`` state of an f32 graph
+    with a CSR plan (the JAX package's ``spmv_pallas_2d``, the power solve's
+    matvec, ``eig_kl_tpu/spectral/power.py:140-157``): rows past n are +0.
+    ``bf16``: the v2 kernels' bf16 intermediates, each product rounded to
+    bf16 before its add (:func:`spmv_plain`); else K1's f32 sums.  K1's
+    padded entry points for a tensor on the card (``spmv_bf16i_f32``,
+    ``spmv_padded_f32``), the plain version on the CPU."""
+    if x2d.device.type == "cpu":
+        return spmv_padded_plain(g, x2d, bf16=bf16)
+    return spmv_padded_cuda(g, x2d, bf16=bf16)
+
+
+def spmv_padded_plain(g: DeviceGraph, x2d: torch.Tensor, *, bf16: bool) -> torch.Tensor:
+    """:func:`spmv_padded` in plain PyTorch."""
+    n = g.num_nodes
+    y = torch.zeros_like(x2d)
+    y.view(-1)[:n] = spmv_plain(g, x2d.reshape(-1)[:n], bf16=bf16)
+    return y
+
+
+def _check_padded(g: DeviceGraph, ts, what: str) -> None:
+    x2d = ts[0]
+    if x2d.device.type != "cuda" or any(t.device != g.device for t in ts):
+        raise ValueError(f"{what} needs the state and the graph on one CUDA device")
+    if g.dtype != torch.float32 or any(t.dtype != torch.float32 for t in ts):
+        raise TypeError(f"{what} is float32 only, as the JAX package's plan path is; got "
+                        f"{[t.dtype for t in ts]}, graph {g.dtype}")
+    P = x2d.numel()
+    if (x2d.dim() != 2 or x2d.shape[1] != 128 or P < g.num_nodes
+            or any(t.shape != x2d.shape or not t.is_contiguous() for t in ts)):
+        raise ValueError(f"{what}: contiguous (P/128, 128) states with P >= n = {g.num_nodes}, got "
+                         f"{[tuple(t.shape) for t in ts]}")
+
+
+def spmv_padded_cuda(g: DeviceGraph, x2d: torch.Tensor, *, bf16: bool) -> torch.Tensor:
+    """Launch K1's padded entry point on the current stream (``bf16``:
+    ``spmv_bf16i_f32``, else ``spmv_padded_f32``): an f32 graph and a
+    contiguous ``(P/128, 128)`` f32 state on one card."""
+    _check_padded(g, (x2d,), "spmv_padded_cuda")
+    y = torch.empty_like(x2d)
+    (K1_BF16I if bf16 else K1_PADDED)(
+        g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), x2d.data_ptr(), y.data_ptr(),
+        g.num_nodes, x2d.numel(), g.row_width, torch.cuda.current_stream(x2d.device).cuda_stream,
+    )
+    return y
+
+
+def lazy_walk_padded(g: DeviceGraph, w2d: torch.Tensor, dsinv2d: torch.Tensor, *, bf16: bool) -> torch.Tensor:
+    """The lazy walk ``0.5 * (w + dsinv * A (dsinv * w))`` on the padded
+    state of an f32 graph with a CSR plan (``power.py:297-305``), through
+    :func:`spmv_padded`'s sums: the product ``dsinv * w`` rounded once, as
+    XLA computes it before the SpMV, ``w + dsinv * Ax`` one fused
+    multiply-add, the halving exact; every row of the state.  K1's padded
+    lazy-walk entry points for a tensor on the card
+    (``lazy_walk_bf16i_f32``, ``lazy_walk_padded_f32``), the plain version
+    on the CPU."""
+    if w2d.device.type == "cpu":
+        return lazy_walk_padded_plain(g, w2d, dsinv2d, bf16=bf16)
+    return lazy_walk_padded_cuda(g, w2d, dsinv2d, bf16=bf16)
+
+
+def lazy_walk_padded_plain(g: DeviceGraph, w2d: torch.Tensor, dsinv2d: torch.Tensor, *, bf16: bool) -> torch.Tensor:
+    """:func:`lazy_walk_padded` in plain PyTorch."""
+    ax = spmv_padded_plain(g, dsinv2d * w2d, bf16=bf16)
+    return 0.5 * fma_f32(dsinv2d, ax, w2d)
+
+
+def lazy_walk_padded_cuda(g: DeviceGraph, w2d: torch.Tensor, dsinv2d: torch.Tensor, *, bf16: bool) -> torch.Tensor:
+    """Launch K1's padded lazy-walk entry point on the current stream:
+    an f32 graph and contiguous ``(P/128, 128)`` f32 states on one card."""
+    _check_padded(g, (w2d, dsinv2d), "lazy_walk_padded_cuda")
+    y = torch.empty_like(w2d)
+    (K1_LAZY_BF16I if bf16 else K1_LAZY_PADDED)(
+        g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), w2d.data_ptr(), dsinv2d.data_ptr(),
+        y.data_ptr(), g.num_nodes, w2d.numel(), g.row_width, torch.cuda.current_stream(w2d.device).cuda_stream,
     )
     return y

@@ -93,8 +93,13 @@ class SpectralConfig:
         for f32, "gkl2" for f64.
       check_interval: power steps between sign-stability checks.
       stable_checks: consecutive unchanged checks required to stop.
-      inter_dtype: dtype of the TPU SpMV's streamed intermediates.  The
-        port's SpMV runs all-f32 and does not read it.
+      inter_dtype: dtype of the SpMV's intermediates in the f32 power
+        solve on a graph with a CSR plan (``Graph.to_device(with_plan=True)``,
+        the JAX package's plan path): "bfloat16" rounds every product to
+        bf16 before the f32 sum where the plan is a v2 one (the JAX
+        package's default on its accelerator, ``CsrPlan.runs_bf16``),
+        "float32" keeps K1's f32 sums.  Without a plan (the default on
+        every device) the port runs all-f32 and does not read it.
       host_refine: host f64 polish of lanczos/lobpcg pairs
         (:mod:`eig_kl_tpu_torch.spectral.refine`, to ``tolerance *
         1e-3``); None = on for f32 solves.

@@ -152,19 +152,24 @@ def test_fused_on_the_card_equals_the_cpu_run(cuda):
     from eig_kl_tpu_torch.io.hgr import read_hgr
     from eig_kl_tpu_torch.kl.megakernel import K2
     from eig_kl_tpu_torch.models.pipelines import fused_partition
-    from eig_kl_tpu_torch.ops.reduce import K6, K6_SCALE
+    from eig_kl_tpu_torch.ops.reduce import K4, K4_FUSED, K6, K6_SCALE
     from eig_kl_tpu_torch.ops.spmv import K1, K1_STEP
 
     hg = read_hgr(GEN_002)
     K1.launches = K1_STEP.launches = K2.launches = K6.launches = K6_SCALE.launches = 0
+    K4.launches = K4_FUSED.launches = 0
     card = fused_partition(hg)  # the default device is the card
     k1, k1_step, k2, k6, k6_scale = K1.launches, K1_STEP.launches, K2.launches, K6.launches, K6_SCALE.launches
+    k4, k4_fused = K4.launches, K4_FUSED.launches
     cpu = fused_partition(hg, device="cpu")
     assert card.spectral_iterations == cpu.spectral_iterations == 201
     # K1: the Rayleigh quotient's L x, the pass's A @ s and its recount;
-    # K6: a norm per step, the Rayleigh quotient's dot, the two cut sums.
+    # K6: a norm per step, the two cuts' degree sums; K4's fused dot: the
+    # Rayleigh quotient and the two cuts' dots (4,038 values, below XLA's
+    # 4,096-value fusion: ROADMAP.md C5, C9).
     iters = card.spectral_iterations
-    assert (k1, k1_step, k2, k6, k6_scale) == (3, iters, 1, iters + 1 + 4, iters)
+    assert (k1, k1_step, k2, k6, k6_scale) == (3, iters, 1, iters + 2, iters)
+    assert (k4, k4_fused) == (0, 3)
     np.testing.assert_array_equal(card.eig.sides, cpu.eig.sides)
     np.testing.assert_array_equal(card.eig.values, cpu.eig.values)
     for name in ("iterations", "initial_cut", "best_cut", "final_cut", "verified_cut"):
@@ -1307,3 +1312,159 @@ def test_other_solvers_f64_on_the_card(cuda, solver):
     assert card.eig.eigenvalue == pytest.approx(cpu.eig.eigenvalue, abs=1e-10)
     assert card.eig.eigenvalue == pytest.approx(0.0973479036, rel=1e-8)
     assert sorted(card.eig.balance()) == [1847, 1847]
+
+
+# ------------------------------------------ the CSR plan path (ROADMAP A10)
+
+
+def _plan_graph(kind):
+    """Host graphs for K1's padded entry points: gen 0.02x; hub44 (a row
+    of degree 43, rows wider than 32); "edges", 1,025 nodes (P - n =
+    1,023) with empty rows and rows of degree 1 whose products are +-0 and
+    subnormal; "full", 2,048 nodes (P - n = 0)."""
+    from eig_kl_tpu_torch.graph.csr import Graph
+
+    if kind in ("gen_0.02", "hub44"):
+        return _graphs_host(kind)
+    rng = np.random.default_rng(31)
+    n = 1025 if kind == "edges" else 2048
+    u, v = rng.integers(0, n, 4 * n), rng.integers(0, n, 4 * n)
+    if kind == "edges":
+        # Nodes 0-99 have no edge; 100-299 are joined in pairs (degree 1).
+        u, v = u[(u >= 300) & (v >= 300)], v[(u >= 300) & (v >= 300)]
+        u, v = np.concatenate([u, np.arange(100, 300, 2)]), np.concatenate([v, np.arange(101, 300, 2)])
+    keep = u != v
+    key = np.unique(np.minimum(u, v)[keep] * n + np.maximum(u, v)[keep])
+    w = rng.uniform(0.1, 1.0, key.size).astype(np.float32).astype(np.float64)
+    return Graph.from_upper_coo(n, key // n, key % n, w)
+
+
+def _padded_state(n, P, seed):
+    """A padded f32 state: seeded values with +0, -0 and subnormal (and
+    so subnormal products) entries, zero padding."""
+    x = np.zeros(P, np.float32)
+    x[:n] = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+    x[: n : 7] = 0.0
+    x[3 : n : 11] = -0.0
+    x[5 : n : 13] = 3e-39
+    return torch.as_tensor(x.reshape(P // 128, 128))
+
+
+@pytest.mark.parametrize("kind", ["gen_0.02", "hub44", "edges", "full"])
+@pytest.mark.parametrize("bf16", [True, False])
+def test_k1_padded_entry_points_equal_plain_bitwise(cuda, kind, bf16):
+    """K1's padded SpMV and lazy walk (``spmv_bf16i_f32`` and
+    ``lazy_walk_bf16i_f32`` with bf16 intermediates, ``spmv_padded_f32`` and
+    ``lazy_walk_padded_f32`` without) against their plain versions on the
+    CPU, bit for bit, padding rows +0 included; the f32 one's rows are K1's."""
+    from eig_kl_tpu_torch.graph.csr import CsrPlan
+    from eig_kl_tpu_torch.ops.spmv import (
+        K1_BF16I, K1_LAZY_BF16I, K1_LAZY_PADDED, K1_PADDED, lazy_walk_padded, spmv, spmv_padded,
+    )
+
+    host = _plan_graph(kind)
+    plan = CsrPlan.for_graph(host.num_nodes, host.nnz)
+    plan = CsrPlan(plan.padded_nodes, "v2")
+    g_cpu, g = (dataclasses.replace(host.to_device(d), plan=plan) for d in ("cpu", cuda))
+    n, P = host.num_nodes, plan.padded_nodes
+    assert kind != "edges" or P - n == 1023
+    assert kind != "full" or P == n
+    x = _padded_state(n, P, 1)
+    dsinv = torch.zeros(P)
+    dsinv[:n] = 1.0 / torch.sqrt(torch.where(g_cpu.degrees > 0, g_cpu.degrees, 1.0))
+    dsinv = dsinv.view(P // 128, 128)
+    kern, lazy_kern = (K1_BF16I, K1_LAZY_BF16I) if bf16 else (K1_PADDED, K1_LAZY_PADDED)
+    before = (kern.launches, lazy_kern.launches)
+    y = spmv_padded(g, x.to(cuda), bf16=bf16)
+    w = lazy_walk_padded(g, x.to(cuda), dsinv.to(cuda), bf16=bf16)
+    assert (kern.launches, lazy_kern.launches) == (before[0] + 1, before[1] + 1)
+    y_cpu = spmv_padded(g_cpu, x, bf16=bf16)
+    w_cpu = lazy_walk_padded(g_cpu, x, dsinv, bf16=bf16)
+    assert torch.equal(y.cpu().view(torch.int32), y_cpu.view(torch.int32))
+    assert torch.equal(w.cpu().view(torch.int32), w_cpu.view(torch.int32))
+    assert (y_cpu.view(-1)[n:].view(torch.int32) == 0).all()
+    if not bf16:
+        assert torch.equal(y.view(-1)[:n], spmv(dataclasses.replace(g, plan=None), x.view(-1)[:n].to(cuda)))
+
+
+def test_k1_padded_entry_points_refuse_what_they_cannot_run(cuda):
+    """f64, a state shorter than n, a state not of 128 columns, CPU
+    tensors: refused, no launch."""
+    from eig_kl_tpu_torch.graph.csr import CsrPlan
+    from eig_kl_tpu_torch.ops.spmv import K1_BF16I, spmv_padded_cuda
+
+    host = _plan_graph("gen_0.02")
+    g = dataclasses.replace(host.to_device(cuda), plan=CsrPlan(4096, "v2"))
+    before = K1_BF16I.launches
+    with pytest.raises(TypeError, match="float32"):
+        spmv_padded_cuda(g, torch.zeros(32, 128, dtype=torch.float64, device=cuda), bf16=True)
+    with pytest.raises(ValueError, match="P >= n"):
+        spmv_padded_cuda(g, torch.zeros(8, 128, device=cuda), bf16=True)
+    with pytest.raises(ValueError, match="P >= n"):
+        spmv_padded_cuda(g, torch.zeros(64, 64, device=cuda), bf16=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv_padded_cuda(g, torch.zeros(32, 128), bf16=True)
+    assert K1_BF16I.launches == before
+
+
+@pytest.mark.parametrize("order", ["lanes", "chain"])
+def test_k4_fused_dot_equals_plain(cuda, order):
+    """K4's fused entry point, 1 to 4 pairs per launch, at 0 to 6,000
+    values (remainders 0-31 of XLA's 32 lanes, the epilogues, the 4,096
+    threshold and past it), +-0 and subnormal inputs: bit for bit the plain
+    order; ``fused_dot`` routes below 4,096 values to it, above to K4."""
+    from eig_kl_tpu_torch.ops import reduce as R
+
+    rng = np.random.default_rng(17)
+    for size in list(range(0, 70)) + [127, 160, 1000, 1031, 3694, 4038, 4095, 4096, 6000]:
+        vals = []
+        for _ in range(4):
+            v = rng.standard_normal(size).astype(np.float32)
+            v[::9], v[1::13], v[2::17] = 0.0, -0.0, 1e-40
+            vals.append(torch.as_tensor(v))
+        for count in (1, 2, 4):
+            xs, ys = vals[:count], vals[::-1][:count]
+            got = R.fused_dot_batch_cuda([t.to(cuda) for t in xs], [t.to(cuda) for t in ys], order)
+            want = torch.stack([R.fused_dot_plain(a, b, order) for a, b in zip(xs, ys)])
+            assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32)), (size, count)
+    x, y = (torch.as_tensor(rng.standard_normal(4038).astype(np.float32)) for _ in range(2))
+    before = (R.K4_FUSED.launches, R.K4.launches)
+    assert torch.equal(R.fused_dot(x.to(cuda), y.to(cuda), order).cpu(), R.fused_dot(x, y, order))
+    big = torch.as_tensor(rng.standard_normal(5000).astype(np.float32))
+    assert torch.equal(R.fused_dot(big.to(cuda), big.to(cuda), order).cpu(), R.fma_dot_plain(big, big))
+    assert (R.K4_FUSED.launches, R.K4.launches) == (before[0] + 1, before[1] + 1)
+
+
+def test_k6_last_block_lanes_equal_plain(cuda):
+    """K6's 2-D norm and sum at every last block (k, 4), k = 2-32 (33 to
+    1,024 rows), whose lanes follow XLA's vectorized loop: bit for bit the
+    plain versions, -0 inputs included."""
+    from eig_kl_tpu_torch.ops import reduce as R
+
+    rng = np.random.default_rng(18)
+    for k in range(2, 33):
+        rows = 32 * k - int(rng.integers(0, 32))
+        v = (rng.standard_normal((rows, 128)) * 10.0 ** rng.uniform(-1, 1, (rows, 128))).astype(np.float32)
+        v[::5, ::7] = -0.0
+        t = torch.as_tensor(v)
+        assert torch.equal(R.tree_norm_2d(t.to(cuda)).cpu().view(torch.int32), R.tree_norm_2d(t).view(torch.int32)), k
+        assert torch.equal(R.tree_sum_2d(t.to(cuda)).cpu().view(torch.int32), R.tree_sum_2d(t).view(torch.int32)), k
+
+
+@pytest.mark.parametrize("inter", ["bfloat16", "float32"])
+def test_plan_power_solve_on_the_card_equals_the_cpu_run(cuda, inter):
+    """The f32 power solve on the padded state of a CSR plan (the momentum
+    exit, 60 steps, and the sign exit, 101 steps) on gen 0.02x's graph: the
+    card (K1's padded entry points, K6, K4) and the CPU (their plain
+    versions) give the same bits."""
+    from eig_kl_tpu_torch.graph.csr import CsrPlan
+    from eig_kl_tpu_torch.spectral.power import _power_core
+
+    host = _plan_graph("gen_0.02")
+    gs = [dataclasses.replace(host.to_device(d), plan=CsrPlan(4096, "v2")) for d in ("cpu", cuda)]
+    for conv, cap in (("momentum", 60), ("sign", 101)):
+        kw = dict(shift=2.0, tolerance=1e-6, min_iters=100, max_iters=cap, seed=42, dtype=torch.float32,
+                  convergence=conv, inter_dtype=inter)
+        (lam_c, v_c, it_c), (lam_g, v_g, it_g) = (_power_core(g, **kw) for g in gs)
+        assert it_c == it_g and float(lam_c) == float(lam_g)
+        assert torch.equal(v_g.cpu().view(torch.int32), v_c.view(torch.int32))

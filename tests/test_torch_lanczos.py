@@ -313,13 +313,13 @@ def test_momentum_f32_equals_jax_bitwise_on_gen002():
 
 
 def test_momentum_f32_on_the_component_within_the_band():
+    """The whole run on the component (3,694 nodes) to its exit, bit for
+    bit: the Rayleigh quotient's dot adds as XLA's loop with the lazy walk
+    fused in (one chain of fused multiply-adds, ``fused_dot`` "chain"), and
+    beta is ``mu * mu`` times XLA's folded constant (ROADMAP.md C9)."""
     (v_j, it_j), (v_t, it_t) = _momentum("lcc", 1000)
-    n = len(v_j)
-    assert abs(it_t - it_j) <= 25 and it_j < 1000
-    med_j, med_t = np.sort(v_j)[n // 2], np.sort(v_t)[n // 2]
-    d = int(((med_j > v_j) != (med_t > v_t)).sum())
-    assert min(d, n - d) <= 0.01 * n
-    assert _cos(v_t, v_j) >= 1 - 1e-4
+    assert it_t == it_j == 176
+    np.testing.assert_array_equal(_bits(v_t), _bits(v_j))
 
 
 def test_momentum_first_check_is_bitwise_on_the_component():

@@ -113,12 +113,16 @@ def test_k6_plan_at_gen_1x():
 
     words, scratch, second = k6_plan((201_920,))
     assert list(words) == [3, 7, 1, 201_920, 1, 6310, 1, 32, 0, 0, 1, 6310, 1, 198, 1, 32, 0, 13,
-                           1, 198, 1, 7, 1, 32, 0, 13]
+                           1, 198, 1, 7, 1, 32, 0, 13, 1, 7]
     assert (scratch, second) == (6310 + 198, 6310)
     words, scratch, second = k6_plan((1584, 128))
-    assert list(words) == [2, 2, 1584, 128, 50, 4, 32, 32, 8, 0, 50, 4, 2, 1, 32, 4, 7, 0]
+    assert list(words) == [2, 2, 1584, 128, 50, 4, 32, 32, 8, 0, 50, 4, 2, 1, 32, 4, 7, 0, 1, 1]
     assert (scratch, second) == (200 + 2, 200)
-    assert list(k6_plan((7,))[0]) == [0, 7] and k6_plan((7,))[1:] == (0, 0)
+    assert list(k6_plan((7,))[0]) == [0, 7, 1, 7] and k6_plan((7,))[1:] == (0, 0)
+    # The last block's lanes (XLA's vectorized loop): (128, 128) ends in a
+    # (4, 4) block over 4 lanes; in f64 it adds in order.
+    assert list(k6_plan((128, 128))[0])[-2:] == [4, 4]
+    assert list(k6_plan((128, 128), torch.float64)[0])[-2:] == [1, 4]
 
 
 # K6's layout, as csrc/tree_sum.cu runs it.
@@ -183,6 +187,7 @@ def _k6_emulated(v, w, mode, root, plan=None):
     words = list(words)
     k, final_count = words[:2]
     rounds = [words[2 + 8 * r : 10 + 8 * r] for r in range(k)]
+    lanes, cols = words[2 + 8 * k : 4 + 8 * k]
     flat_v, flat_w = v.reshape(-1), w.reshape(-1)
 
     def source(i):
@@ -232,7 +237,7 @@ def _k6_emulated(v, w, mode, root, plan=None):
             written = np.zeros(m, np.int64)
             _tile_round(load, ra, left, written)
             assert (written == 1).all()
-            return finish(_chain(left[:final_count]))
+            return finish(_last_block(left[:final_count], lanes, cols))
         out = scratch[dst : dst + m]
         assert out.size == m, "the scratch is too short"
         written = np.zeros(m, np.int64)
@@ -244,13 +249,35 @@ def _k6_emulated(v, w, mode, root, plan=None):
             nxt += 1
         assert (written == 1).all()
         src, dst = dst, src
-    return finish(_chain(scratch[src : src + final_count]))
+    return finish(_last_block(scratch[src : src + final_count], lanes, cols))
+
+
+def _last_block(values, lanes, cols):
+    """``final_lanes`` (lanes > 1): lane j from +0 (the others from -0)
+    adds the rows j, j + lanes, ... of the (k, cols) block in order, the
+    lanes fold in halves, the rows past the last whole group add in order;
+    else the chain."""
+    if lanes <= 1:
+        return _chain(values)
+    block = values.reshape(-1, cols)
+    whole = block.shape[0] // lanes * lanes
+    acc = np.array([0.0] + [-0.0] * (lanes - 1), np.float32)
+    for i in range(0, whole, lanes):
+        for c in range(cols):
+            acc = acc + block[i : i + lanes, c]
+    while acc.size > 1:
+        acc = acc[: acc.size // 2] + acc[acc.size // 2 :]
+    total = acc[0]
+    for x in block[whole:].reshape(-1):
+        total = np.float32(total + x)
+    return total
 
 
 @pytest.mark.parametrize(
     "shape",
     [(1,), (31,), (32,), (33,), (1025,), (4038,), (201_920,), (100_003,),
-     (32, 128), (192, 128), (1584, 128), (33, 70), (1, 1000), (1000, 1), (5, 7), (64_000, 10)],
+     (32, 128), (192, 128), (1584, 128), (33, 70), (1, 1000), (1000, 1), (5, 7), (64_000, 10),
+     (128, 128), (1000, 128), (600, 128)],
 )
 @pytest.mark.parametrize("mode", ["sum", "square", "product"])
 def test_k6_layout_emulated_equals_the_plain_sums(shape, mode):
@@ -452,3 +479,55 @@ def test_library_path_hashes_the_included_headers(tmp_path, monkeypatch):
     assert second != first and second.name.startswith("k-")
     (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n// a, changed\n')
     assert _build.library_path("k") not in (first, second)
+
+
+# ------------------------------------------- dots with a producer fused in
+
+
+@pytest.mark.parametrize("n", [160, 1000, 1031, 3694, 4038, 4095, 4096, 6000])
+def test_fused_dot_lanes_equals_xla(n):
+    """``fused_dot(x, y, "lanes")`` against ``jnp.vdot`` of an element-wise
+    producer and a slice of a padded state, as the JAX package's mega cut
+    and padded momentum dots take them (ROADMAP.md C5, C9): XLA fuses them
+    into one loop below 4,096 values, which LLVM vectorizes (32 lanes, an
+    8- or 4-lane epilogue, scalar steps); from 4,096 values up the dot is
+    XLA's vector dot (``fma_dot``).  Bit for bit, remainders 0, 7, 8, 15,
+    22, 31 and 30 among them."""
+    from eig_kl_tpu_torch.ops.reduce import fused_dot
+
+    P = -(-n // 128) * 128 + 128
+    dot = jax.jit(lambda a, b2d: jnp.vdot(a * 1.5, b2d.reshape(-1)[:n]))
+    rng = np.random.default_rng(n)
+    for _ in range(3):
+        a = _values(rng, n, zeros=True)
+        b = _values(rng, P, zeros=True)
+        want = dot(jnp.asarray(a), jnp.asarray(b.reshape(-1, 128)))
+        got = fused_dot(torch.as_tensor(a) * 1.5, torch.as_tensor(b[:n]), "lanes")
+        assert _bits(got) == _bits(want)
+
+
+def test_fused_dot_orders_and_where_they_apply():
+    """The "chain" order is one fused chain from +0 (``fma_dot_plain`` with
+    no rounded products); from 4,096 f32 values up, and in f64, both orders
+    are ``fma_dot``; the epilogue widths are those of the x86-64 code
+    (remainder 6 and 7: 4 lanes, 12 and 20: 4, 8, 16, 24, 28, 31: 8); an
+    unknown order is refused; K4's fused entry point refuses CPU tensors."""
+    from eig_kl_tpu_torch.ops import reduce as R
+
+    rng = np.random.default_rng(9)
+    x, y = (torch.as_tensor(_values(rng, 16)) for _ in range(2))
+    assert _bits(R.fused_dot(x, y, "chain")) == _bits(R.fma_dot_plain(x, y, unfused=0))
+    assert _bits(R.fused_dot(x, y, "chain")) != _bits(R.fma_dot(x, y))  # 8 products rounded there
+    x, y = (torch.as_tensor(_values(rng, 3000)) for _ in range(2))
+    assert _bits(R.fused_dot(x, y, "chain")) == _bits(R.fma_dot_plain(x, y, unfused=0))
+    big = torch.as_tensor(_values(rng, 4096))
+    for order in R.FUSED_ORDERS:
+        assert _bits(R.fused_dot(big, big.flip(0).contiguous(), order)) == _bits(R.fma_dot(big, big.flip(0).contiguous()))
+        assert R.fused_dot(x.double(), y.double(), order) == R.fma_dot(x.double(), y.double())
+    assert [R.dot_epilogue_width(r) for r in (0, 3, 4, 6, 7, 8, 12, 16, 20, 24, 28, 31)] == [0, 0, 4, 4, 4, 8, 4, 8, 4, 8, 8, 8]
+    with pytest.raises(ValueError, match="order"):
+        R.fused_dot(x, y, "tree")
+    k4 = R.K4_FUSED.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        R.fused_dot_batch_cuda((x,), (y,), "lanes")
+    assert R.K4_FUSED.launches == k4

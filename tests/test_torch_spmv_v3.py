@@ -532,22 +532,33 @@ def test_padded_dot_equals_jnp_vdot(P):
 
 def test_padded_norm_order_differs_where_xla_vectorizes_its_last_block():
     """Between 32 and 1,024 rows the last block is ``(k, 4)``; at k = 4
-    (128 rows) XLA's final reduce is vectorized across rows, an order
-    ``tree_sum_2d`` does not reproduce: some sums differ, in the last bits
-    only."""
-    from eig_kl_tpu_torch.ops.reduce import tree_norm_2d
+    (128 rows) XLA's final reduce is vectorized across rows, an order other
+    than row-major: ``tree_sum_2d`` takes it (ROADMAP.md C6), and the sums
+    equal XLA's on the same 40 seeded inputs, bit for bit."""
+    from eig_kl_tpu_torch.ops.reduce import last_block_lanes, tree_norm_2d
 
+    assert last_block_lanes((128, 128)) == 4
     rng = np.random.default_rng(128)
     norm = jax.jit(jnp.linalg.norm)
-    differ = 0
     for _ in range(40):
         x2d = (_state(128 * 128, 128 * 128, int(rng.integers(1 << 30))) * rng.uniform(
             0.1, 10.0, 128 * 128).astype(np.float32)).reshape(128, 128)
-        got = int(_bits(tree_norm_2d(torch.as_tensor(x2d))).reshape(-1)[0])
-        ref = int(_bits(norm(jnp.asarray(x2d))).reshape(-1)[0])
-        assert abs(got - ref) <= 2
-        differ += got != ref
-    assert differ > 0
+        assert _bits(tree_norm_2d(torch.as_tensor(x2d))) == _bits(norm(jnp.asarray(x2d)))
+
+
+@pytest.mark.parametrize("k", range(2, 33))
+def test_padded_norm_equals_xla_at_every_last_block(k):
+    """Every last block ``(k, 4)`` of 33 to 1,024 rows, vectorized by XLA
+    or not (``ops/reduce.py:_LAST_BLOCK_LANES``): the norm of two seeded
+    states of ``32 k - r`` rows equals ``jnp.linalg.norm``'s bits."""
+    from eig_kl_tpu_torch.ops.reduce import tree_norm_2d
+
+    rng = np.random.default_rng(1000 + k)
+    norm = jax.jit(jnp.linalg.norm)
+    for _ in range(2):
+        rows = 32 * k - int(rng.integers(0, 32))
+        x2d = (rng.standard_normal((rows, 128)) * rng.uniform(0.1, 10.0, (rows, 128))).astype(np.float32)
+        assert _bits(tree_norm_2d(torch.as_tensor(x2d))) == _bits(norm(jnp.asarray(x2d)))
 
 
 def test_fma_dot_runs_the_host_chain_for_cpu_tensors_only():
@@ -590,12 +601,10 @@ def test_v3_padded_power_steps_equal_the_jax_steps(shift):
 def test_v3_padded_momentum_equals_the_jax_run():
     """The momentum exit on the padded state of a v3 plan (the lazy walk
     through the v3 SpMV, the deflation fused) against the JAX package's,
-    through its first check.  Not bit for bit: here the JAX package's dots
-    take a slice of the padded state as their operand, which XLA fuses
-    into the dot, and at this size such a dot adds in an order the port
-    does not reproduce (ROADMAP.md C9): some values differ in their last
-    bits.  So the sign exit's band: the same iterations, the vector to
-    1e-6, the split within 1 % of n."""
+    through its first check, bit for bit.  The JAX package's dots take a
+    slice of the padded state as their operand, which XLA fuses into the
+    dot below 4,096 values: the port adds them in that loop's vectorized
+    order (``fused_dot``, "lanes"; ROADMAP.md C9)."""
     from eig_kl_tpu.graph.csr import Graph as JaxGraph
     from eig_kl_tpu.spectral.power import _power_core as jax_core
     from eig_kl_tpu_torch.graph.csr import Graph
@@ -609,12 +618,7 @@ def test_v3_padded_momentum_equals_the_jax_run():
     _, v_j, it_j = jax_core(jdev, dtype="float32", **kw)
     _, v_t, it_t = _power_core(gd, dtype=torch.float32, **kw)
     assert int(it_j) == it_t == 6
-    v_j, v_t = np.asarray(v_j), v_t.numpy()
-    np.testing.assert_allclose(v_t, v_j, rtol=1e-6, atol=1e-6 * np.abs(v_j).max())
-    n = len(v_j)
-    split_j, split_t = np.sort(v_j)[n // 2] > v_j, np.sort(v_t)[n // 2] > v_t
-    d = int((split_j != split_t).sum())
-    assert min(d, n - d) <= 0.01 * n
+    np.testing.assert_array_equal(_bits(v_t), _bits(v_j))
 
 
 # ------------------------------------------------------------ the slice
@@ -658,10 +662,34 @@ def test_v3_fused_equals_the_jax_run(v3_fused):
     np.testing.assert_array_equal(kl.gain_trajectory, jkl.gain_trajectory)
     np.testing.assert_array_equal(kl.sides, jkl.sides)
     np.testing.assert_array_equal(kl.best_sides, jkl.best_sides)
-    # The recount of the final partition adds s . (A s) in the port's tree
-    # order; the JAX package's mega path takes jnp.vdot (a chain of fused
-    # multiply-adds) and lands 2.4e-4 higher.
-    assert kl.verified_cut == pytest.approx(jkl.verified_cut, rel=1e-6)
+    # The recount of the final partition: 0.25 * (wsum - s . A s) with the
+    # dot in the order of XLA's loop with the signs fused in (ROADMAP.md
+    # C5; the tree order landed 2.4e-4 lower).
+    assert kl.verified_cut == jkl.verified_cut == 815.5191650390625
+
+
+def test_mega_cut_equals_the_jax_batch_init():
+    """The mega paths' from-scratch cut (``kl/megakernel.py:_batch_init``)
+    against the JAX package's ``_batch_init`` (v3 SpMV in interpret mode)
+    for 5 seeded states at once (two dot batches of K4's 4): ``A @ s`` and
+    ``0.25 * (wsum - s . A s)`` bit for bit, the dot in XLA's fused loop
+    order (ROADMAP.md C5)."""
+    from eig_kl_tpu.graph.csr import Graph as JaxGraph
+    from eig_kl_tpu.kl.megakernel import MegaGraph, _batch_init as jax_batch_init
+    from eig_kl_tpu_torch.graph.csr import Graph
+    from eig_kl_tpu_torch.kl.megakernel import _batch_init
+
+    g, jplan, plan = _plans("gen_0.02")
+    n, P = g.num_nodes, plan.padded_nodes
+    mg = MegaGraph(JaxGraph(g.num_nodes, g.indptr, g.indices, g.data), plan=jplan)
+    s = np.stack([_state(n, P, 40 + k) for k in range(5)])
+    a2d, cut = jax_batch_init(mg.spmv_plan, mg.weighted_degrees.sum(), jnp.asarray(s.reshape(5, -1, 128)),
+                              n=n, P=P, interp=True)
+    gd = dataclasses.replace(Graph.from_arrays(g.indptr, g.indices, g.data).to_device("cpu"), plan=plan)
+    st = torch.as_tensor(s[:, :n])
+    a_s, got = _batch_init(gd, st)
+    np.testing.assert_array_equal(_bits(a_s), _bits(np.asarray(a2d).reshape(5, -1)[:, :n]))
+    np.testing.assert_array_equal(_bits(got), _bits(cut))
 
 
 def test_v3_fused_differs_from_the_unplanned_run(v3_fused):

@@ -1,25 +1,32 @@
-"""The one-start run's end-to-end time, for comparing two checkouts.
+"""The one-start run's or the momentum exit's end-to-end time, for
+comparing two checkouts.
 
 Run on a machine with one CUDA card::
 
-    python3 tools/e2e_turns.py [--tree DIR] [--runs N]
+    python3 tools/e2e_turns.py [--tree DIR] [--runs N] [--path one_start|momentum]
 
-It imports ``eig_kl_tpu_torch`` from ``DIR`` (default: this repository),
-generates the circuit at 1.0x (seed 42) and runs ``fused_partition(hg,
-use_eig=True, device="cuda")``, the path ``chip_smoke.py`` calls the one
-start, once to warm up and then ``N`` times (default 5), each timed from a
-synchronised card to a synchronised card.  It also times the host's cost
-of a K6 norm, the wall time of 2,000 ``tree_norm`` calls on 201,920
-values up to one synchronisation at their end (the card runs each
-faster than the host launches it).  It prints one JSON object:
-the card, the tree, the seconds of each run with its spans, and the
-norm's microseconds per call.  To compare two checkouts, run it in turns
-from one command (A B B A A B), each process with its own ``--tree``.
+It imports ``eig_kl_tpu_torch`` from ``DIR`` (default: this repository)
+and generates the circuit at 1.0x (seed 42).  ``--path one_start`` (the
+default) runs ``fused_partition(hg, use_eig=True, device="cuda")``, the
+path ``chip_smoke.py`` calls the one start; ``--path momentum`` runs
+``power_partition_fiedler`` with the momentum exit, in f32, on the KL graph
+of the circuit's largest component (184,406 nodes), as ``chip_smoke.py``'s
+momentum phase does.  Each runs once to warm up and then ``N`` times
+(default 5), each timed from a synchronised card to a synchronised card.
+It also times the host's cost of a K6 norm, the wall time of 2,000
+``tree_norm`` calls on 201,920 values up to one synchronisation at their
+end (the card runs each faster than the host launches it).  It prints one
+JSON object: the card, the tree, the path, its iterations, cut and
+eigenvalue, the seconds of each run (with its spans for the one start),
+and the norm's microseconds per call.  To compare two checkouts, run it in
+turns from one command (A B B A A B), each process with its own
+``--tree``.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import subprocess
 import sys
@@ -27,11 +34,21 @@ import time
 from pathlib import Path
 
 
+def _largest_component(hg):
+    """``chip_smoke.py:largest_component``, loaded from this repository's
+    script (it imports the package of ``--tree`` when it runs)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.largest_component(hg)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent),
                         help="the checkout whose eig_kl_tpu_torch is timed")
     parser.add_argument("--runs", type=int, default=5, help="timed runs after the warm-up")
+    parser.add_argument("--path", choices=("one_start", "momentum"), default="one_start", help="the path timed")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
@@ -47,16 +64,42 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     dev = torch.device("cuda")
     hg = CircuitGenerator(1.0, 42).generate()
-    first = fused_partition(hg, use_eig=True, device="cuda")
+    if args.path == "one_start":
+        def run():
+            return fused_partition(hg, use_eig=True, device="cuda")
+
+        def figures(r):
+            return {"iterations": r.spectral_iterations, "best_cut": r.kl.best_cut,
+                    "eigenvalue": float(r.eig.eigenvalue)}
+
+        def spans(r):
+            return {"spans_s": dict(sorted(r.timings.items()))}
+    else:
+        from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
+        from eig_kl_tpu_torch.utils.config import SpectralConfig
+
+        lk = clique_expand(_largest_component(hg), "kl").to_device(dev, torch.float32)
+        config = SpectralConfig(solver="power", convergence="momentum")
+
+        def run():
+            return power_partition_fiedler(lk, config, dtype=torch.float32)
+
+        def figures(r):
+            return {"iterations": r[4], "side_1": int(r[3].sum()), "eigenvalue": float(r[0]), "median": float(r[1])}
+
+        def spans(r):
+            return {}
+
+    first = figures(run())
     runs = []
     for _ in range(args.runs):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        run = fused_partition(hg, use_eig=True, device="cuda")
+        r = run()
         torch.cuda.synchronize()
-        runs.append({"e2e_s": time.perf_counter() - t0, "spans_s": dict(sorted(run.timings.items()))})
-        if run.kl.best_cut != first.kl.best_cut:
-            raise AssertionError(f"a repeated run gave best cut {run.kl.best_cut}, not {first.kl.best_cut}")
+        runs.append({"e2e_s": time.perf_counter() - t0, **spans(r)})
+        if figures(r) != first:
+            raise AssertionError(f"a repeated run gave {figures(r)}, not {first}")
     n = clique_expand(hg, "kl").num_nodes
     v = torch.rand(n, generator=torch.Generator().manual_seed(42)).to(dev)
     for _ in range(100):
@@ -70,8 +113,8 @@ def main() -> int:
     print(json.dumps({
         "card": card,
         "tree": str(Path(args.tree).resolve()),
-        "iterations": first.spectral_iterations,
-        "best_cut": first.kl.best_cut,
+        "path": args.path,
+        **first,
         "runs": runs,
         "tree_norm_wall_us_per_call": norm_us,
     }))

@@ -17,6 +17,21 @@ on the component's KL-weighted graph, with a digest of its split and
 vector, beside the port's own run of it on the CPU (its kernels' plain
 versions).
 
+With ``--inter bf16`` it runs the JAX package's power solve with the v2
+SpMV's bf16 intermediates instead: ``_power_core`` (the momentum exit,
+seed 42, capped at ``BF16I_MAX_ITERS`` steps) on the largest connected
+component of ``benchmarks/data/gen_0.02_42.hgr`` (3,694 nodes; the whole
+0.02x circuit is disconnected, and its power iterate an arbitrary null
+vector), its graph carrying a ``build_plan_v2`` plan and its v2 kernels
+running in interpret mode, with ``inter_dtype="bfloat16"``.  It writes
+the iterations, eigenvalue, median and vector to ``BF16I_FIXTURE``, which
+``tests/test_torch_bf16i.py`` holds the port's plain bf16-intermediate
+solve to, and prints them beside the port's own CPU run and the plan's
+overflow tail (its entries are added in f32 by the JAX package, rounded
+by the port); about a minute::
+
+    JAX_PLATFORMS=cpu python3 tools/lcc_reference.py --inter bf16
+
 With ``--x64`` (x64 enabled before anything is traced) it prints the f64
 numbers instead: Lanczos and LOBPCG on the component at f64 (no host
 refinement, the JAX package's rule off the TPU), the f64 momentum exit
@@ -43,6 +58,69 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import MOMENTUM_F64_SIDES, MULTIPLIER, SEED, largest_component  # noqa: E402
+
+
+#: The bf16-intermediate solve's fixture (``--inter bf16``) and its cap.
+BF16I_FIXTURE = os.path.join(ROOT, "tools", "gen002_lcc_bf16i.npz")
+BF16I_MAX_ITERS = 300
+GEN002 = os.path.join(ROOT, "benchmarks", "data", "gen_0.02_42.hgr")
+
+
+def tail_entries(plan) -> int:
+    """The stored entries of a v2 plan's overflow tail (0 without one)."""
+    from eig_kl_tpu.ops.spmv_pallas import CooTail
+
+    if plan.tail is None:
+        return 0
+    if isinstance(plan.tail, CooTail):
+        return int(plan.tail.rows.shape[0])
+    return int((np.asarray(plan.tail.weights) != 0).sum())
+
+
+def main_bf16i() -> dict:
+    """The bf16-intermediate power solve on gen 0.02x's largest component
+    (``--inter bf16``)."""
+    import dataclasses
+
+    import torch
+
+    from eig_kl_tpu.graph.expand import clique_expand as jax_expand
+    from eig_kl_tpu.io.hgr import Hypergraph as JaxHypergraph
+    from eig_kl_tpu.ops.spmv_pallas import build_plan_v2
+    from eig_kl_tpu.spectral.power import _power_core as jax_core
+    from eig_kl_tpu_torch.graph.csr import CsrPlan, Graph
+    from eig_kl_tpu_torch.io.hgr import read_hgr
+    from eig_kl_tpu_torch.spectral.power import _power_core
+
+    hg = largest_component(read_hgr(GEN002, use_native=False))
+    g = jax_expand(JaxHypergraph(hg.num_nodes, hg.num_nets, hg.pins, hg.net_offsets), "kl", use_native=False)
+    n = g.num_nodes
+    rows = np.repeat(np.arange(n, dtype=np.int64), g.degrees)
+    plan = build_plan_v2(n, rows, g.indices.astype(np.int64), g.data.astype(np.float32))
+    kw = dict(shift=2.0, tolerance=1e-6, min_iters=100, max_iters=BF16I_MAX_ITERS, seed=42,
+              convergence="momentum", inter_dtype="bfloat16")
+    t0 = time.perf_counter()
+    lam, v, iters = jax_core(g.to_device()._replace(plan=plan), dtype="float32", **kw)
+    v = np.asarray(v, np.float32)
+    jax_s = time.perf_counter() - t0
+    med = float(np.sort(v)[n // 2])
+    np.savez(BF16I_FIXTURE, iterations=int(iters), eigenvalue=np.float32(lam), median=np.float32(med), values=v)
+    gd = dataclasses.replace(Graph.from_arrays(g.indptr, g.indices, g.data).to_device("cpu"),
+                             plan=CsrPlan(plan.padded_nodes, "v2"))
+    t0 = time.perf_counter()
+    p_lam, p_v, p_iters = _power_core(gd, dtype=torch.float32, **kw)
+    p_v = p_v.numpy()
+    d = int(((med > v) != (np.sort(p_v)[n // 2] > p_v)).sum())
+    return {
+        "component": {"nodes": n, "nnz": g.nnz, "P": plan.padded_nodes},
+        "v2_tail_entries": tail_entries(plan),
+        "jax": {"iterations": int(iters), "eigenvalue": float(lam), "median": med,
+                "side_1": int((med > v).sum()), "s": jax_s,
+                "fixture": os.path.relpath(BF16I_FIXTURE, ROOT)},
+        "port_cpu": {"iterations": p_iters, "eigenvalue": float(p_lam), "hamming_to_jax": min(d, n - d),
+                     "cos": float(p_v @ v / np.linalg.norm(p_v) / np.linalg.norm(v)),
+                     "s": time.perf_counter() - t0},
+    }
 
 
 def digest(a) -> str:
@@ -141,6 +219,9 @@ def main() -> int:
     from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
     from eig_kl_tpu_torch.utils.config import SpectralConfig
 
+    if sys.argv[1:3] == ["--inter", "bf16"]:
+        print(json.dumps(main_bf16i(), indent=1))
+        return 0
     out = {}
     hg = largest_component(CircuitGenerator(MULTIPLIER, SEED).generate())
     jhg = JaxHypergraph(hg.num_nodes, hg.num_nets, hg.pins, hg.net_offsets, name=hg.name)
