@@ -38,15 +38,25 @@
 //
 // fused_dot_batch_f32: the dot XLA emits as a loop with an operand's
 // element-wise producer fused in (below 4,096 values; ops/reduce.py:
-// fused_dot_batch), in one of its two orders.  order 1, "chain": one chain
-// of fused multiply-adds from +0, no product rounded on its own (thread 0).
-// order 2, "lanes", LLVM's vectorized loop: lane k of a warp chains the
-// elements i = k (mod 32) of the whole groups of 32 from +0 (lane 0) or -0;
-// thread 0 adds the four 8-lane accumulators, ((a1 + a0) + a2) + a3, folds
-// the 8 lanes in halves, runs the vector epilogue of 8 or 4 lanes over the
-// rest (started from that sum in its lane 0) and the scalar steps after it.
-// At most 4,095 values, so the work is a few microseconds of dependent
-// steps; one warp per dot, grid = (count,).
+// fused_dot_batch).  Up to chain_max values: one chain of fused
+// multiply-adds from +0, no product rounded on its own ("chain" at every
+// length).  Beyond, LLVM's vectorized loop, whose shape depends on the
+// producer fused in (ops/reduce.py:LANES_FORMS, passed as chain_max,
+// unrolled_max and flags): up to unrolled_max values unrolled fully and
+// reassociated (unrolled_lanes); beyond, lane k of a warp chains the
+// elements i = k (mod 32) of the whole groups of 32 from +0 (lane 0) or
+// -0; thread 0 adds the four 8-lane accumulators, ((a1 + a0) + a2) + a3,
+// folds the 8 lanes in halves, runs the vector epilogue of 8 or 4 lanes
+// over the rest (started from that sum in its lane 0) and the scalar steps
+// after it.  In a vectorized order one value is its product.  Bound:
+// latency.
+// fused_dot gives it at most 4,095 values of each vector, 32 KB in all, so
+// the block (256 threads, grid = (count,)) stages both in shared memory in
+// one coalesced pass of 16-byte loads, whose latencies overlap (a longer
+// dot: 4,096 values at a time), and the chains then read shared memory: the
+// "chain" through fp.cuh's chain (a group of 32 values ahead in registers,
+// so that only the fused multiply-add's latency stands on it: its floor is
+// n x 4.1 cycles), each lane chain eight steps' values at a time.
 
 #include <cuda_runtime.h>
 
@@ -194,29 +204,132 @@ __device__ __forceinline__ float fold_lanes(float* a, int lanes) {
   return a[0];
 }
 
-// The vector epilogue's lanes for r < 32 elements: 8 where r / 8 + r % 8
-// <= r / 4 + r % 4, else 4, none below 4 (ops/reduce.py:dot_epilogue_width).
-__device__ __forceinline__ int epilogue_width(int r) {
-  if (r >= 8 && r / 8 + r % 8 <= r / 4 + r % 4) return 8;
+// The vector epilogue's lanes for r < 32 elements: the width of fewer
+// steps r / w + r % w, on a tie 8 where `wide_ties`, else 4; none below 4
+// (ops/reduce.py:dot_epilogue_width).
+__device__ __forceinline__ int epilogue_width(int r, bool wide_ties) {
+  const int steps8 = r / 8 + r % 8, steps4 = r / 4 + r % 4;
+  if (r >= 8 && (steps8 < steps4 || (steps8 == steps4 && wide_ties))) return 8;
   return r >= 4 ? 4 : 0;
 }
 
-__global__ void __launch_bounds__(32) fused_dot_batch_kernel(Pairs<float> pairs, float* __restrict__ out,
-                                                             int n, int order) {
+// The bits of fused_dot_batch_f32's flags (ops/reduce.py:_k4_form_args).
+constexpr int kPairsAt6 = 1, kWideTies = 2, kVector = 4;
+
+constexpr int kFusedThreads = 256;
+constexpr int kFusedTile = 4096;  // values of each vector a block stages at a time
+
+// A vectorized order where LLVM unrolls the loop fully and reassociates it
+// (ops/reduce.py:unrolled_lanes_plan), by one thread from shared memory:
+// one 8-lane accumulator over the blocks of 8 in the plan's order, its
+// fold in halves, the epilogue of 2, 4 or 8 lanes and the scalar steps.
+__device__ float unrolled_lanes(const float* sx, const float* sy, int n, bool pairs_at_6) {
+  const int inter = 48 <= n && n < 64 ? 2 : 4;
+  const int trips = n / (8 * inter);
+  float acc[8];
+  for (int j = 0; j < 8; ++j) acc[j] = j == 0 ? 0.0f : -0.0f;
+  auto block = [&](int b) {
+    for (int j = 0; j < 8; ++j) acc[j] = fma_rn(sx[8 * b + j], sy[8 * b + j], acc[j]);
+  };
+  for (int t = 0; t < trips; ++t) block(inter * t);
+  for (int k = 1; k < inter; ++k) {
+    if (trips > 1) block(k + inter);
+    block(k);
+    for (int t = 2; t < trips; ++t) block(k + inter * t);
+  }
+  float total = fold_lanes(acc, 8);
+  int i = 8 * inter * trips;
+  const int r = n - i;
+  const bool pair = r == 2 || r == 3 || (pairs_at_6 && (r == 6 || r == 7));
+  const int width = pair ? 2 : r < 4 ? 0 : (r / 4) % 2 ? 4 : 8;
+  if (width > 0) {
+    float e[8];
+    for (int j = 0; j < width; ++j) e[j] = j == 0 ? total : -0.0f;
+    for (; n - i >= width; i += width) {
+      for (int j = 0; j < width; ++j) e[j] = fma_rn(sx[i + j], sy[i + j], e[j]);
+    }
+    total = fold_lanes(e, width);
+  }
+  for (; i < n; ++i) total = fma_rn(sx[i], sy[i], total);
+  return total;
+}
+
+// Values base .. base + len - 1 of x and y into sx, sy (len a multiple of
+// 32), by the whole block, 16 bytes a load where `vec`; past n, x = -0 and
+// y = +0, whose fused step fma(-0, +0, acc) leaves every acc as it is.
+__device__ __forceinline__ void stage_pair(const float* __restrict__ x, const float* __restrict__ y, int n,
+                                           int base, int len, bool vec, float* sx, float* sy) {
+  const int tid = threadIdx.x;
+  const int whole4 = vec ? max(0, min(len, n - base)) / 4 * 4 : 0;
+  for (int i = 4 * tid; i < whole4; i += 4 * kFusedThreads) {
+    *reinterpret_cast<float4*>(sx + i) = __ldg(reinterpret_cast<const float4*>(x + base + i));
+    *reinterpret_cast<float4*>(sy + i) = __ldg(reinterpret_cast<const float4*>(y + base + i));
+  }
+  for (int i = whole4 + tid; i < len; i += kFusedThreads) {
+    sx[i] = base + i < n ? __ldg(x + base + i) : -0.0f;
+    sy[i] = base + i < n ? __ldg(y + base + i) : 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(kFusedThreads)
+    fused_dot_batch_kernel(Pairs<float> pairs, float* __restrict__ out, int n, int chain_max,
+                           int unrolled_max, int flags) {
+  __shared__ __align__(16) float sx[kFusedTile];
+  __shared__ __align__(16) float sy[kFusedTile];
+  __shared__ float lanes[32];
   const float* __restrict__ x = pairs.x[blockIdx.x];
   const float* __restrict__ y = pairs.y[blockIdx.x];
-  const int lane = threadIdx.x;
-  if (order == 1) {
-    if (lane != 0) return;
-    float acc = 0.0f;
-    for (int i = 0; i < n; ++i) acc = fma_rn(__ldg(x + i), __ldg(y + i), acc);
-    out[blockIdx.x] = acc;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const bool vec = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
+  const int used = (n + 31) / 32 * 32;
+  const bool vector = n > chain_max;
+  const bool unrolled = vector && n <= unrolled_max;
+  const bool lanes_order = vector && !unrolled;
+  const int whole = n / 32 * 32;  // "lanes": the elements of the 32 lane chains
+  const auto fma_step = [](float c, float a, float b) { return fma_rn(a, b, c); };
+  float acc = lanes_order && lane != 0 ? -0.0f : 0.0f;
+  int base = 0;
+  // One tile at a time (one for every dot that fused_dot gives it): the
+  // whole block stages it, then thread 0 runs the chain from shared memory
+  // (a group of 32 values of each vector ahead in registers, so that each
+  // step waits only on the one before it), or each lane of warp 0 its
+  // "lanes" chain, eight steps' values loaded before their steps.
+  for (;; base += kFusedTile) {
+    const int len = min(kFusedTile, used - base);
+    stage_pair(x, y, n, base, max(len, 0), vec, sx, sy);
+    __syncthreads();
+    if (unrolled) {
+      if (tid == 0) acc = unrolled_lanes(sx, sy, n, flags & kPairsAt6);
+    } else if (!lanes_order) {
+      if (tid == 0 && len > 0) acc = chain<32, 2>(sx, sy, len, acc, fma_step);
+    } else if (tid < 32) {
+      const int end = min(len, whole - base);
+      int i = lane;
+      for (; i + 7 * 32 < end; i += 8 * 32) {
+        float a[8], b[8];
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          a[q] = sx[i + 32 * q];
+          b[q] = sy[i + 32 * q];
+        }
+#pragma unroll
+        for (int q = 0; q < 8; ++q) acc = fma_rn(a[q], b[q], acc);
+      }
+      for (; i < end; i += 32) acc = fma_rn(sx[i], sy[i], acc);
+    }
+    if (base + kFusedTile >= used) break;
+    __syncthreads();  // the tile's readers are done before the next staging
+  }
+  if ((flags & kVector) && n == 1) {  // a dot of one value is its product
+    if (tid == 0) out[blockIdx.x] = mul_rn(sx[0], sy[0]);
     return;
   }
-  __shared__ float lanes[32];
-  const int whole = n / 32 * 32;
-  float acc = lane == 0 ? 0.0f : -0.0f;
-  for (int i = lane; i < whole; i += 32) acc = fma_rn(__ldg(x + i), __ldg(y + i), acc);
+  if (!lanes_order) {
+    if (tid == 0) out[blockIdx.x] = acc;
+    return;
+  }
+  if (tid >= 32) return;
   lanes[lane] = acc;
   __syncwarp();
   if (lane != 0) return;
@@ -227,17 +340,19 @@ __global__ void __launch_bounds__(32) fused_dot_batch_kernel(Pairs<float> pairs,
     v[j] = add_rn(lanes[24 + j], v[j]);
   }
   float total = fold_lanes(v, 8);
+  // The rest, from the last tile (tiles are whole groups of 32, so it holds
+  // elements whole .. n - 1).
   int i = whole;
-  const int width = epilogue_width(n - whole);
+  const int width = epilogue_width(n - whole, flags & kWideTies);
   if (width > 0) {
     float e[8];
     for (int j = 0; j < width; ++j) e[j] = j == 0 ? total : -0.0f;
     for (; n - i >= width; i += width) {
-      for (int j = 0; j < width; ++j) e[j] = fma_rn(__ldg(x + i + j), __ldg(y + i + j), e[j]);
+      for (int j = 0; j < width; ++j) e[j] = fma_rn(sx[i - base + j], sy[i - base + j], e[j]);
     }
     total = fold_lanes(e, width);
   }
-  for (; i < n; ++i) total = fma_rn(__ldg(x + i), __ldg(y + i), total);
+  for (; i < n; ++i) total = fma_rn(sx[i - base], sy[i - base], total);
   out[blockIdx.x] = total;
 }
 
@@ -257,9 +372,9 @@ int fma_dot_batch(const void* const* xs, const void* const* ys, void* out, int c
   return static_cast<int>(cudaGetLastError());
 }
 
-int fused_dot_batch(const void* const* xs, const void* const* ys, void* out, int count, int n, int order,
-                    void* stream) {
-  if (count < 1 || count > kMaxPairs || n < 0 || (order != 1 && order != 2)) {
+int fused_dot_batch(const void* const* xs, const void* const* ys, void* out, int count, int n, int chain_max,
+                    int unrolled_max, int flags, void* stream) {
+  if (count < 1 || count > kMaxPairs || n < 0 || chain_max < 1 || unrolled_max < chain_max) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Pairs<float> pairs{};
@@ -267,16 +382,16 @@ int fused_dot_batch(const void* const* xs, const void* const* ys, void* out, int
     pairs.x[k] = static_cast<const float*>(xs[k]);
     pairs.y[k] = static_cast<const float*>(ys[k]);
   }
-  fused_dot_batch_kernel<<<count, 32, 0, static_cast<cudaStream_t>(stream)>>>(pairs, static_cast<float*>(out),
-                                                                               n, order);
+  fused_dot_batch_kernel<<<count, kFusedThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      pairs, static_cast<float*>(out), n, chain_max, unrolled_max, flags);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" int fused_dot_batch_f32(const void* const* xs, const void* const* ys, void* out, int count, int n,
-                                   int order, void* stream) {
-  return fused_dot_batch(xs, ys, out, count, n, order, stream);
+                                   int chain_max, int unrolled_max, int flags, void* stream) {
+  return fused_dot_batch(xs, ys, out, count, n, chain_max, unrolled_max, flags, stream);
 }
 
 extern "C" int fma_dot_batch_f32(const void* const* xs, const void* const* ys, void* out, int count,

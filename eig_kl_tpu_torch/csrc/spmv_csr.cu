@@ -9,7 +9,10 @@
 //   row-major, 1 <= k <= 16, LOBPCG's blocked product
 //   (eig_kl_tpu/spectral/lobpcg_solver.py:51-56, a vmap of the SpMV);
 // * lazy_walk:   y = 0.5 * (w + dsinv * (A @ (dsinv * w))), the momentum
-//   exit's lazy walk (eig_kl_tpu/spectral/power.py:297-305).
+//   exit's lazy walk (eig_kl_tpu/spectral/power.py:297-305); given w = u * c
+//   (c one value), the epilogue 0.5 * fma(u, c, dsinv * Ax): the momentum
+//   check's walk of its deflated iterate on a graph wider than 32, where
+//   XLA recomputes w in the epilogue's fusion and fuses that product.
 // Four more, f32 only, for the power solve on the zero-padded (P/128, 128)
 // state of a graph with a CSR plan (eig_kl_tpu/spectral/power.py:140-157,
 // :297-305; ops/spmv.py:spmv_padded): rows n .. P - 1 are empty, so y there
@@ -79,17 +82,16 @@
 // for W <= 32 it is one buffer of 1,024 entries; for W > 32 the warp takes
 // it 256 entries at a time and each lane carries its chain across them.
 // The blocked product takes X four columns at a time where k is a multiple
-// of 4: one 16-byte gather of X[j * k + c0 .. + 3] per entry fetches the
-// four values from one 32-byte sector, where K1 fetches a sector for one
-// value, so four columns cost about one K1 launch.  The warp stages its
-// span 256 entries at a time (data, and the four gathered values of each
-// entry), and each lane carries its row's four sets of chains across the
-// chunks.  Any other k takes one column at a time through K1's walk.
-// In f64 a 16-byte gather carries two columns (Hopper has no 32-byte
-// load): the blocked walk takes k two columns at a time where k is even,
-// and the W <= 32 buffer holds the rounded products (8 bytes each, the
-// bytes of f32's data and gathered x), so shared memory per block is the
-// same in both types.
+// of 4: the gather of X[j * k + c0 .. + 3] per entry fetches the four
+// values from one 32-byte sector (one 16-byte load in f32, two in f64:
+// Hopper has no 32-byte load), where K1 fetches a sector for one value,
+// so four columns cost about one K1 launch.  The warp stages its span 256
+// entries at a time (data, and the four gathered values of each entry),
+// and each lane carries its row's four sets of chains (32 accumulators)
+// across the chunks.  Any other k, or an X not 16-byte aligned, takes one
+// column at a time through K1's walk.  The W <= 32 buffer of f64 holds the rounded
+// products (8 bytes each, the bytes of f32's data and gathered x), so its
+// shared memory per block is the same in both types.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -357,8 +359,8 @@ template <class T>
 __global__ void __launch_bounds__(kThreads)
     lazy_walk_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
                      const T* __restrict__ data, const T* __restrict__ w,
-                     const T* __restrict__ dsinv, T* __restrict__ y, int n,
-                     int row_width) {
+                     const T* __restrict__ dsinv, const T* __restrict__ u,
+                     const T* __restrict__ c, T* __restrict__ y, int n, int row_width) {
   int r0;
   T* buf = warp_buffer<T>(row_width, r0);
   if (r0 >= n) return;
@@ -366,7 +368,13 @@ __global__ void __launch_bounds__(kThreads)
   const T wr = __ldg(w + min(row, n - 1));
   const T sr = __ldg(dsinv + min(row, n - 1));
   const T ax = row_sum(indptr, indices, data, GatherScaled<T>{w, dsinv}, buf, r0, n, row_width);
-  if (row < n) y[row] = mul_rn(T(0.5), mul_add(sr, ax, wr));
+  if (row >= n) return;
+  if (u != nullptr) {
+    // w = u * c, recomputed in the epilogue: its product is the one fused.
+    y[row] = mul_rn(T(0.5), mul_add(__ldg(u + row), __ldg(c), mul_rn(sr, ax)));
+  } else {
+    y[row] = mul_rn(T(0.5), mul_add(sr, ax, wr));
+  }
 }
 
 // The padded state's SpMV (f32): rows 0 .. n - 1 as K1 (kBf16: with
@@ -411,29 +419,31 @@ __global__ void __launch_bounds__(kThreads)
   if (row < rows) y[row] = mul_rn(0.5f, mul_add(sr, row < n ? ax : 0.0f, wr));
 }
 
-// The blocked product's vector walk: V = 4 columns of f32 or 2 of f64 per
-// 16-byte gather.
-constexpr int kChunkV = 256;  // entries staged at a time, V columns each
+// The blocked product's vector walk: kCols = 4 columns per walk of the
+// rows, gathered kCols / V 16-byte vectors at a time (V = 4 f32 or 2 f64
+// values): one load in f32, two loads of one 32-byte sector in f64.
+constexpr int kCols = 4;
+constexpr int kChunkV = 256;  // entries staged at a time, kCols columns each
 constexpr int kPerLaneV = 4;
 constexpr int kStageV = 32 * kPerLaneV;
 
-// Values of T per warp: the data, then a vector per entry.
-template <class T>
-constexpr int kBufferV = kChunkV * (1 + Vec16<T>::kWidth);
+// Values of T per warp: the data, then kCols values per entry.
+constexpr int kBufferV = kChunkV * (1 + kCols);
 
-// Columns c0 .. c0 + V - 1 of A @ X for row r0 + lane into out[], X
-// row-major (n, k) with k a multiple of V and X 16-byte aligned: each
+// Columns c0 .. c0 + kCols - 1 of A @ X for row r0 + lane into out[], X
+// row-major (n, k) with k a multiple of kCols and X 16-byte aligned: each
 // column added in row_sum's (XLA's) order.  `buf` is the warp's
-// kBufferV<T> values.
+// kBufferV values.
 template <class T>
 __device__ __forceinline__ void row_sum_v(const int* __restrict__ indptr,
                                           const int* __restrict__ indices,
                                           const T* __restrict__ data,
                                           const T* __restrict__ x, int k, int c0, T* buf,
-                                          int r0, int n, int row_width,
-                                          T (&out)[Vec16<T>::kWidth]) {
+                                          int r0, int n, int row_width, T (&out)[kCols]) {
   using V = typename Vec16<T>::type;
   constexpr int kV = Vec16<T>::kWidth;
+  constexpr int kQ = kCols / kV;  // 16-byte vectors per entry
+  static_assert(kCols % kV == 0, "whole 16-byte vectors per entry");
   const int lane = threadIdx.x & 31;
   const int row = r0 + lane;
   __syncwarp();  // the buffer's last reader (a call before this one) is done
@@ -447,18 +457,18 @@ __device__ __forceinline__ void row_sum_v(const int* __restrict__ indptr,
   const int windows = (row_width + kWindow - 1) / kWindow;
   const int pad = lanes8 ? 0 : (windows * kWindow - row_width) / 2;
   // W <= 32: the 8 lane chains; W > 32: acc[0] the window's sum, acc[1] the row's.
-  T acc[kLanes][kV];
+  T acc[kLanes][kCols];
 #pragma unroll
   for (int q = 0; q < kLanes; ++q) {
 #pragma unroll
-    for (int c = 0; c < kV; ++c) acc[q][c] = T(0);
+    for (int c = 0; c < kCols; ++c) acc[q][c] = T(0);
   }
   for (int c = span_lo; c < span_hi; c += kChunkV) {
     const int len = min(kChunkV, span_hi - c);
     for (int base = 0; base < len; base += kStageV) {
       int col[kPerLaneV];
       T w[kPerLaneV];
-      V xg[kPerLaneV];
+      V xg[kPerLaneV][kQ];
 #pragma unroll
       for (int q = 0; q < kPerLaneV; ++q) {
         const int i = min(base + lane + 32 * q, len - 1);
@@ -467,14 +477,17 @@ __device__ __forceinline__ void row_sum_v(const int* __restrict__ indptr,
       }
 #pragma unroll
       for (int q = 0; q < kPerLaneV; ++q) {
-        xg[q] = __ldg(reinterpret_cast<const V*>(x + static_cast<long long>(col[q]) * k + c0));
+        const V* src = reinterpret_cast<const V*>(x + static_cast<long long>(col[q]) * k + c0);
+#pragma unroll
+        for (int v = 0; v < kQ; ++v) xg[q][v] = __ldg(src + v);
       }
 #pragma unroll
       for (int q = 0; q < kPerLaneV; ++q) {
         const int i = base + lane + 32 * q;
         if (i < len) {
           d[i] = w[q];
-          xv[i] = xg[q];
+#pragma unroll
+          for (int v = 0; v < kQ; ++v) xv[i * kQ + v] = xg[q][v];
         }
       }
     }
@@ -489,10 +502,12 @@ __device__ __forceinline__ void row_sum_v(const int* __restrict__ indptr,
           const int p = p0 + q;
           const int t = min(max(lo + p, c), c + len - 1) - c;
           const T wt = d[t];
-          const V xt = xv[t];
+          V xt[kQ];
+#pragma unroll
+          for (int v = 0; v < kQ; ++v) xt[v] = xv[t * kQ + v];
           if (p >= pb && p < pe) {
 #pragma unroll
-            for (int e = 0; e < kV; ++e) acc[q][e] = mul_add(wt, vec_at(xt, e), acc[q][e]);
+            for (int e = 0; e < kCols; ++e) acc[q][e] = mul_add(wt, vec_at(xt[e / kV], e % kV), acc[q][e]);
           }
         }
       }
@@ -501,24 +516,27 @@ __device__ __forceinline__ void row_sum_v(const int* __restrict__ indptr,
         const int offset = (p + pad) & (kWindow - 1);
         if (offset == 0) {
 #pragma unroll
-          for (int e = 0; e < kV; ++e) {
+          for (int e = 0; e < kCols; ++e) {
             acc[1][e] = add_rn(acc[1][e], acc[0][e]);
             acc[0][e] = T(0);
           }
         }
         const int end = min(pe, p + kWindow - offset);
         for (; p < end; ++p) {
-          const T wt = d[lo + p - c];
-          const V xt = xv[lo + p - c];
+          const int t = lo + p - c;
+          const T wt = d[t];
+          V xt[kQ];
 #pragma unroll
-          for (int e = 0; e < kV; ++e) acc[0][e] = add_rn(acc[0][e], mul_rn(wt, vec_at(xt, e)));
+          for (int v = 0; v < kQ; ++v) xt[v] = xv[t * kQ + v];
+#pragma unroll
+          for (int e = 0; e < kCols; ++e) acc[0][e] = add_rn(acc[0][e], mul_rn(wt, vec_at(xt[e / kV], e % kV)));
         }
       }
     }
     __syncwarp();
   }
 #pragma unroll
-  for (int e = 0; e < kV; ++e) {
+  for (int e = 0; e < kCols; ++e) {
     out[e] = lanes8 ? add_rn(add_rn(add_rn(acc[0][e], acc[4][e]), add_rn(acc[2][e], acc[6][e])),
                              add_rn(add_rn(acc[1][e], acc[5][e]), add_rn(acc[3][e], acc[7][e])))
                     : add_rn(acc[1][e], acc[0][e]);
@@ -533,24 +551,32 @@ __global__ void __launch_bounds__(kThreads)
                   int row_width) {
   using V = typename Vec16<T>::type;
   constexpr int kV = Vec16<T>::kWidth;
+  constexpr int kQ = kCols / kV;
   extern __shared__ __align__(16) unsigned char shared_raw[];
   const int warp = threadIdx.x >> 5;
   const int r0 = (blockIdx.x * kWarps + warp) * 32;
   if (r0 >= n) return;
-  T* buf = reinterpret_cast<T*>(shared_raw) + warp * kBufferV<T>;
+  T* buf = reinterpret_cast<T*>(shared_raw) + warp * kBufferV;
   const int row = r0 + (threadIdx.x & 31);
   const long long base = static_cast<long long>(min(row, n - 1)) * k;
   const T dr = deg != nullptr ? __ldg(deg + min(row, n - 1)) : T(0);
-  for (int c0 = 0; c0 < k; c0 += kV) {
-    T ax[kV];
-    row_sum_v(indptr, indices, data, x, k, c0, buf, r0, n, row_width, ax);
+  for (int c0 = 0; c0 < k; c0 += kCols) {
+    T ax[kCols];
+    row_sum_v<T>(indptr, indices, data, x, k, c0, buf, r0, n, row_width, ax);
     if (row < n) {
-      if (deg != nullptr) {
-        const V xr = __ldg(reinterpret_cast<const V*>(x + base + c0));
 #pragma unroll
-        for (int e = 0; e < kV; ++e) ax[e] = mul_add(dr, vec_at(xr, e), -ax[e]);
+      for (int v = 0; v < kQ; ++v) {
+        T part[kV];
+        if (deg != nullptr) {
+          const V xr = __ldg(reinterpret_cast<const V*>(x + base + c0) + v);
+#pragma unroll
+          for (int e = 0; e < kV; ++e) part[e] = mul_add(dr, vec_at(xr, e), -ax[v * kV + e]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < kV; ++e) part[e] = ax[v * kV + e];
+        }
+        reinterpret_cast<V*>(y + base + c0)[v] = vec_of(part);
       }
-      *reinterpret_cast<V*>(y + base + c0) = vec_of(ax);
     }
   }
 }
@@ -606,12 +632,17 @@ int spmm_csr(const void* indptr, const void* indices, const void* data, const vo
              const void* deg, void* y, int n, int k, int row_width, void* stream) {
   if (k < 1 || k > 16) return static_cast<int>(cudaErrorInvalidValue);
   const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0;
-  if (n > 0 && k % Vec16<T>::kWidth == 0 && aligned) {
-    spmm_v_kernel<T><<<blocks_for(n), kThreads, kWarps * kBufferV<T> * sizeof(T),
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr), static_cast<const int*>(indices),
-        static_cast<const T*>(data), static_cast<const T*>(x), static_cast<const T*>(deg),
-        static_cast<T*>(y), n, k, row_width);
+  constexpr int kV = Vec16<T>::kWidth;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const auto* ip = static_cast<const int*>(indptr);
+  const auto* ix = static_cast<const int*>(indices);
+  const auto* dp = static_cast<const T*>(data);
+  const auto* xp = static_cast<const T*>(x);
+  const auto* gp = static_cast<const T*>(deg);
+  auto* yp = static_cast<T*>(y);
+  if (n > 0 && k % 4 == 0 && aligned) {
+    spmm_v_kernel<T><<<blocks_for(n), kThreads, kWarps * kBufferV * sizeof(T), s>>>(
+        ip, ix, dp, xp, gp, yp, n, k, row_width);
   } else if (n > 0) {
     spmm_kernel<T><<<blocks_for(n), kThreads, shared_bytes<T>(row_width),
                      static_cast<cudaStream_t>(stream)>>>(
@@ -624,13 +655,15 @@ int spmm_csr(const void* indptr, const void* indices, const void* data, const vo
 
 template <class T>
 int lazy_walk(const void* indptr, const void* indices, const void* data, const void* w,
-              const void* dsinv, void* y, int n, int row_width, void* stream) {
+              const void* dsinv, const void* u, const void* c, void* y, int n, int row_width,
+              void* stream) {
+  if ((u == nullptr) != (c == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     lazy_walk_kernel<T><<<blocks_for(n), kThreads, shared_bytes<T>(row_width),
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(indptr), static_cast<const int*>(indices),
         static_cast<const T*>(data), static_cast<const T*>(w), static_cast<const T*>(dsinv),
-        static_cast<T*>(y), n, row_width);
+        static_cast<const T*>(u), static_cast<const T*>(c), static_cast<T*>(y), n, row_width);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -735,16 +768,20 @@ extern "C" int spmm_csr_f64(const void* indptr, const void* indices, const void*
   return spmm_csr<double>(indptr, indices, data, x, deg, y, n, k, row_width, stream);
 }
 
+// u and c (both null, or both set): the epilogue 0.5 * (u * c + dsinv * Ax),
+// c one value, its product fused.
 extern "C" int lazy_walk_f32(const void* indptr, const void* indices, const void* data,
-                             const void* w, const void* dsinv, void* y, int n, int row_width,
-                             void* stream) {
-  return lazy_walk<float>(indptr, indices, data, w, dsinv, y, n, row_width, stream);
+                             const void* w, const void* dsinv, const void* u, const void* c,
+                             void* y, int n, int row_width, void* stream) {
+  return lazy_walk<float>(indptr, indices, data, w, dsinv, u, c, y, n, row_width, stream);
 }
 
+// u and c (both null, or both set): the epilogue 0.5 * (u * c + dsinv * Ax),
+// c one value, its product fused.
 extern "C" int lazy_walk_f64(const void* indptr, const void* indices, const void* data,
-                             const void* w, const void* dsinv, void* y, int n, int row_width,
-                             void* stream) {
-  return lazy_walk<double>(indptr, indices, data, w, dsinv, y, n, row_width, stream);
+                             const void* w, const void* dsinv, const void* u, const void* c,
+                             void* y, int n, int row_width, void* stream) {
+  return lazy_walk<double>(indptr, indices, data, w, dsinv, u, c, y, n, row_width, stream);
 }
 
 extern "C" const char* spmv_csr_error_string(int code) {

@@ -22,9 +22,10 @@
 // plan this kernel reads): each axis longer than 32 is cut into windows of
 // 32 after a centred zero pad (the smaller half in front), an axis of at
 // most 32 is one window.  Each window adds its values in row-major order
-// from +0, and the window sums are the next round's input.  Rounds repeat
-// until no axis is longer than 32; what is left is added in row-major
-// order.  A vector is one row.  A product (v*v or v*w) is rounded before
+// from +0 (an f32 (32, 4) window with no lead pad: across lanes of rows,
+// as XLA's vectorized loop adds it, window_lanes), and the window sums are
+// the next round's input.  Rounds repeat until no axis is longer than 32;
+// what is left is added in row-major order.  A vector is one row.  A product (v*v or v*w) is rounded before
 // its add.  Where no round is taken, XLA fuses each product into its add:
 // a chain of fused multiply-adds.  Each chain starts from +0, which no
 // +0 or -0 can turn into -0, so the pad's zeros change no bit and -0
@@ -238,18 +239,60 @@ __device__ __forceinline__ void stage_window(Load load, const Round& r, int row0
   }
 }
 
+// XLA's loop over a (32, 4) window of an f32 round over (rows, 4) rows
+// with no lead pad (rows = 0 or 31 mod 32): LLVM vectorizes it over the
+// window's rows, `lanes` lanes over the first `in_lanes` rows (8 over 32
+// for no pad, 4 over 28 for a pad of 1), lane j from +0 (the others from
+// -0) adding the 4 values of rows j, j + lanes, ... in order; the lanes
+// fold in halves, then the window's other real rows add in row-major
+// order (ops/reduce.py:window_lanes).  0 lanes: the row-major chain.
+__device__ __forceinline__ int window_lanes(const Round& r, bool f32, int& in_lanes) {
+  const int pad = r.win_rows * kWindow - r.rows;
+  if (!f32 || r.cols != 4 || r.wa != kWindow || r.wb != 4 || r.la != 0 || pad > 1) return 0;
+  in_lanes = pad == 0 ? 32 : 28;
+  return pad == 0 ? 8 : 4;
+}
+
+template <class T>
+__device__ T lanes_window(const T* tile, int lanes, int in_lanes, int real_rows) {
+  constexpr int kMaxLanes = 8;
+  T acc[kMaxLanes];
+  for (int j = 0; j < kMaxLanes; ++j) acc[j] = j == 0 ? T(0) : -T(0);
+  for (int i = 0; i < in_lanes; i += lanes) {
+    for (int j = 0; j < lanes; ++j) {
+      for (int c = 0; c < 4; ++c) acc[j] = add_rn(acc[j], tile[(i + j) * 4 + c]);
+    }
+  }
+  for (int h = lanes / 2; h >= 1; h /= 2) {
+    for (int j = 0; j < h; ++j) acc[j] = add_rn(acc[j], acc[j + h]);
+  }
+  T sum = acc[0];
+  for (int e = in_lanes * 4; e < real_rows * 4; ++e) sum = add_rn(sum, tile[e]);
+  return sum;
+}
+
 // 2-D windows: warp `warp` of `warps` takes windows warp, warp + warps, ...
-// (row-major over the windows); lane 0 adds each in row-major order.  A
-// round with an axis longer than 32 has windows of 32 along it, so a
-// window holds 32 * k values (k <= 32), whole groups of the chain.
+// (row-major over the windows); lane 0 adds each in row-major order, or
+// across lanes as window_lanes says.  A round with an axis longer than 32
+// has windows of 32 along it, so a window holds 32 * k values (k <= 32),
+// whole groups of the chain.
 template <class T, class Load>
 __device__ void tile_round(Load load, const Round& r, T* dst, T* tile, int warp, int warps,
                            int lane) {
   const int count = r.win_rows * r.win_cols;
   const int size = r.wa * r.wb;
+  int in_lanes = 0;
+  const int lanes = window_lanes(r, sizeof(T) == sizeof(float), in_lanes);
   for (int w = warp; w < count; w += warps) {
     const int row0 = (w / r.win_cols) * r.wa - r.la;
     const int col0 = (w % r.win_cols) * r.wb - r.lb;
+    if (lanes > 0) {
+      stage_window<false>(load, r, row0, col0, size, lane, tile);
+      __syncwarp();
+      if (lane == 0) dst[w] = lanes_window(tile, lanes, in_lanes, min(kWindow, r.rows - row0));
+      __syncwarp();
+      continue;
+    }
     // A full window's length is a constant, which the compiler schedules
     // better.
     if (size == kTileValues) {

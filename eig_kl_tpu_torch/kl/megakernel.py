@@ -384,7 +384,7 @@ def natural_cap(num_nodes: int, n1: int, config: KLConfig) -> int:
     return min(config.max_iterations, natural)
 
 
-def _batch_init(g: DeviceGraph, s: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _batch_init(g: DeviceGraph, s: torch.Tensor, form: str = "slice") -> tuple[torch.Tensor, torch.Tensor]:
     """``A @ s`` and the from-scratch cut of every start of the sign stack
     ``s`` (float[S, n]), on the device: ``(a_s[S, n], cut[S])``.  Used for
     the initial state and for the final recount (megakernel.py:_batch_init,
@@ -393,21 +393,23 @@ def _batch_init(g: DeviceGraph, s: torch.Tensor) -> tuple[torch.Tensor, torch.Te
     The cut is ``0.25 * (sum(deg) - s . A s)``, the JAX mega engine's form
     (``megakernel.py:754``, ``:773``).  Below 4,096 nodes in f32 it adds as
     that engine's program on the CPU does: ``wsum`` as ``jnp.sum`` adds it
-    (:func:`tree_sum`, ``:1034``), the dot as XLA's loop with the signs
-    fused in (:func:`fused_dot_batch`, "lanes"; K4, up to 4 starts per
-    launch; ROADMAP.md C5).  From 4,096 nodes XLA's CPU dot would be one
-    sequential chain, which at gen 1.0x moves the verified cut 6.2e-5 from
-    the tracked one, past the drift gate of 1e-5, so there, and in f64
-    (which the JAX mega engine does not run), the cut is :func:`cut_size`'s
-    fixed tree order until that conflict with the drift gate is settled
-    (ROADMAP.md C, open)."""
+    (:func:`tree_sum`, ``:1034``), the dot as XLA's loop with its signs
+    fused in (:func:`fused_dot_batch`; K4, up to 4 starts per launch;
+    ROADMAP.md C5): ``form`` "slice" where they are a slice of the padded
+    state (``_batch_init``, ``:773``), "signs" where they are ``1 - 2
+    fs`` of the replayed split (the single-pass verified cut, ``:754``).
+    From 4,096 nodes XLA's CPU dot would be one sequential chain, which at
+    gen 1.0x moves the verified cut 6.2e-5 from the tracked one, past the
+    drift gate of 1e-5; there, and in f64 (which the JAX mega engine does
+    not run), the cut is :func:`cut_size`'s fixed tree order, the order
+    that keeps the drift within the gate (ROADMAP.md C5, settled)."""
     a_s = torch.stack([spmv(g, row) for row in s])
     if g.dtype != torch.float32 or s.shape[1] * 4 >= FUSED_DOT_BYTES:
         cut = torch.stack([cut_size(g, row, a_row) for row, a_row in zip(s, a_s)])
         return a_s, cut.to(g.dtype)
     rows, a_rows = s.unbind(), a_s.unbind()
     dots = torch.cat([
-        fused_dot_batch(rows[k : k + K4_MAX_PAIRS], a_rows[k : k + K4_MAX_PAIRS], "lanes")
+        fused_dot_batch(rows[k : k + K4_MAX_PAIRS], a_rows[k : k + K4_MAX_PAIRS], form)
         for k in range(0, len(rows), K4_MAX_PAIRS)
     ])
     return a_s, 0.25 * (tree_sum(g.degrees) - dots)
@@ -463,7 +465,7 @@ def _refine_batch(
         best_it = torch.argmin(torch.where(in_run, out.log_cut, torch.inf), dim=1)  # first minimum
         final = _replay(sides, out, it)
         best = _replay(sides, out, best_it)
-        verified = _batch_init(g, sides_to_signs(final, g.dtype))[1]
+        verified = _batch_init(g, sides_to_signs(final, g.dtype), "signs")[1]
         sc, lc, lg, ver, fin_h, best_h = (
             x.cpu().numpy() for x in (out.scalars, out.log_cut, out.log_gain, verified, final, best)
         )

@@ -43,7 +43,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 K4, K4_F64 = (Kernel("fma_dot", f"fma_dot_batch_{t}", [_P] * 3 + [_I, _I, _P]) for t in ("f32", "f64"))
 #: K4's entry point for a dot that XLA emits as a loop with its operands'
 #: producers fused in (:func:`fused_dot_batch`): f32 only.
-K4_FUSED = Kernel("fma_dot", "fused_dot_batch_f32", [_P] * 3 + [_I, _I, _I, _P])
+K4_FUSED = Kernel("fma_dot", "fused_dot_batch_f32", [_P] * 3 + [_I] * 5 + [_P])
 K6, K6_F64 = (
     Kernel("tree_sum", f"tree_sum_{t}", [_P, _P, _I, _P, _P, _I, _P, _P, _I, _P])
     for t in ("f32", "f64")
@@ -68,9 +68,6 @@ K4_MAX_PAIRS = 4
 #: of its instruction fusion); a larger dot calls its vector dot
 #: (:func:`fma_dot`).
 FUSED_DOT_BYTES = 16 * 1024
-#: The orders of a fused dot (:func:`fused_dot_batch`) by name, as K4's
-#: entry point numbers them.
-FUSED_ORDERS = {"chain": 1, "lanes": 2}
 
 
 def _typed(kernel: Kernel, tensors, what: str) -> Kernel:
@@ -203,11 +200,11 @@ def tree_sum_2d(v: torch.Tensor) -> torch.Tensor:
     Between 33 and 1,024 rows the last block is ``(k, 4)`` with 2 <= k <=
     32, and XLA's final reduce is a loop over its k rows that LLVM
     vectorizes across rows for some k (:func:`last_block_lanes`); the last
-    block is added in that order (ROADMAP.md C6).  Held bit for bit against
-    ``jnp.linalg.norm`` at every k and at gen 0.02x and 1.0x.  Above 1,024
-    rows a second round's ``(k, 4)`` windows come first: matched up to
-    3,072 rows (gen 1.0x: 1,584), and beyond for some row counts only
-    (the second round's loops vectorize in orders not derived).
+    block is added in that order (ROADMAP.md C6).  Above 1,024 rows a
+    second round of ``(32, 4)`` windows comes first, each added in
+    :func:`window_lanes`' order, and the last block ``(k, 1)`` in order.
+    Held bit for bit against ``jnp.linalg.norm`` at every k of both rounds
+    (1 to 32,768 rows) and at gen 0.02x and 1.0x.
     """
     if v.device.type == "cpu":
         return tree_sum_2d_plain(v)
@@ -258,6 +255,49 @@ def _last_block_plain(v: torch.Tensor, lanes: int) -> torch.Tensor:
     return acc
 
 
+def window_lanes(shape: tuple[int, ...], dtype: torch.dtype = torch.float32):
+    """How XLA's CPU loop adds each ``(32, 4)`` window of an f32 2-D round
+    over ``shape = (rows, 4)`` (the second round of a padded state's norm,
+    above 1,024 rows of 128): ``(lanes, rows_in_lanes)``, or None for
+    row-major order.  Where the round's lead pad is 0 (``rows`` = 0 or 31
+    mod 32, a total pad of 0 or 1) LLVM vectorizes the loop over a window's
+    rows, its trip count known: 8 lanes over all 32 rows for a pad of 0, 4
+    lanes over the first 28 rows for a pad of 1 (31 rows in common), lane
+    j adding the 4 values of rows j, j + lanes, ... in order; the rest of
+    the window's rows add in row-major order after the lanes' fold (read
+    from the optimized IR of XLA's reduce-window, jax 0.9.0; ROADMAP.md
+    C6).  With a lead pad the loop keeps its bounds checks and is scalar.
+    Other widths and f64 are not derived (no path of the port sums them)."""
+    if len(shape) != 2 or dtype != torch.float32 or shape[1] != 4 or shape[0] <= _WINDOW:
+        return None
+    pad = -(-shape[0] // _WINDOW) * _WINDOW - shape[0]
+    return {0: (8, 32), 1: (4, 28)}.get(pad)
+
+
+def _windows_by_lanes(win: torch.Tensor, rows: int, lanes: int, in_lanes: int) -> torch.Tensor:
+    """The sums of the windows ``win`` ``(m, 32, c)`` of an input of
+    ``rows`` rows (lead pad 0) in :func:`window_lanes`' order: lane j from
+    +0 (the others from -0) adds rows j, j + lanes, ... below ``in_lanes``
+    column by column, the lanes fold in halves, then the window's other
+    real rows add in row-major order."""
+    m = win.shape[0]
+    acc = torch.full((m, lanes), -0.0, dtype=win.dtype, device=win.device)
+    acc[:, 0] = 0.0
+    for i in range(0, in_lanes, lanes):
+        for c in range(win.shape[2]):
+            acc = acc + win[:, i : i + lanes, c]
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    acc = acc[:, 0]
+    first = torch.arange(m, device=win.device) * _WINDOW
+    for r in range(in_lanes, _WINDOW):
+        real = first + r < rows
+        for c in range(win.shape[2]):
+            acc = torch.where(real, acc + win[:, r, c], acc)
+    return acc
+
+
 def tree_sum_2d_plain(v: torch.Tensor) -> torch.Tensor:
     """:func:`tree_sum_2d` in plain PyTorch."""
     lanes = last_block_lanes(tuple(v.shape), v.dtype)
@@ -270,8 +310,12 @@ def tree_sum_2d_plain(v: torch.Tensor) -> torch.Tensor:
             else:
                 spec.append((1, size, 0))
         (ma, wa, la), (mb, wb, lb) = spec
+        by_lanes = window_lanes(tuple(v.shape), v.dtype)
         w = torch.zeros(ma * wa, mb * wb, dtype=v.dtype, device=v.device)
         w[la : la + v.shape[0], lb : lb + v.shape[1]] = v
+        if by_lanes:
+            v = _windows_by_lanes(w.view(ma, wa, wb), v.shape[0], *by_lanes)[:, None]
+            continue
         w = w.view(ma, wa, mb, wb).permute(1, 3, 0, 2).reshape(wa * wb, ma, mb)
         acc = torch.zeros(ma, mb, dtype=v.dtype, device=v.device)
         for k in range(wa * wb):
@@ -495,16 +539,26 @@ def fused_dot_batch(xs, ys, order: str) -> torch.Tensor:
     LLVM compiles in one of two orders (read from the x86-64 code of the
     JAX package's programs, jax 0.9.0):
 
-    * ``"lanes"`` (a loop of element-wise operands, vectorized): 32 lanes,
-      lane ``k`` from +0 (``k = 0``) or -0 a chain of fused multiply-adds
-      over the elements ``i = k (mod 32)`` below ``32 * (n // 32)``; the
-      four 8-lane accumulators add as ``((a1 + a0) + a2) + a3``, their 8
-      lanes fold in halves (``l[i] + l[i + h]``); the rest of ``r = n % 32``
-      elements go through one vector epilogue of 8 or 4 lanes (8 where
-      ``r // 8 + r % 8 <= r // 4 + r % 4``), started from the sum in its
-      lane 0, folded the same way, and the last ``r`` mod its width
-      elements by scalar fused multiply-adds.  Matched from 160 values up;
-      below that LLVM unrolls the loop fully and reorders it.
+    * ``"lanes"``, ``"slice"`` and ``"signs"`` (a loop of element-wise
+      operands, vectorized): 32 lanes, lane ``k`` from +0 (``k = 0``) or
+      -0 a chain of fused multiply-adds over the elements ``i = k (mod
+      32)`` below ``32 * (n // 32)``; the four 8-lane accumulators add as
+      ``((a1 + a0) + a2) + a3``, their 8 lanes fold in halves (``l[i] +
+      l[i + h]``); the rest of ``r = n % 32`` elements go through one
+      vector epilogue of 8 or 4 lanes (:func:`dot_epilogue_width`),
+      started from the sum in its lane 0, folded the same way, and the
+      last ``r`` mod its width elements by scalar fused multiply-adds.
+      Shorter dots take the scalar chain or LLVM's fully unrolled,
+      reassociated vector loop (:func:`unrolled_lanes_plan`).  Where
+      these begin, and which epilogue wins a tie in steps, depends on the
+      producer fused in, read for four (:data:`LANES_FORMS`): "lanes" a
+      scaled vector with a slice (the padded state's Rayleigh quotient),
+      "slice" a bare slice (the mega engine's initial cut and the padded
+      deflation dots), "signs" the signs ``1 - 2 fs`` of a split (its
+      verified cut), "laplacian" the Laplacian ``2 v - 2 (A v) / deg``
+      with its row sums out of the loop (the CSR solve's final Rayleigh
+      quotient on a graph wider than 32).  A dot of one value is its
+      product.
     * ``"chain"`` (the lazy walk's row sums fused in keep the loop scalar):
       one chain of fused multiply-adds from +0 in index order, no product
       rounded on its own (:func:`fma_dot_plain` with ``unfused=0``).
@@ -512,8 +566,7 @@ def fused_dot_batch(xs, ys, order: str) -> torch.Tensor:
     K4's fused entry point (``csrc/fma_dot.cu:fused_dot_batch_f32``) for
     tensors on the card, the plain versions for tensors on the CPU.
     """
-    if order not in FUSED_ORDERS:
-        raise ValueError(f"fused_dot: order is one of {sorted(FUSED_ORDERS)}, got {order!r}")
+    _check_order(order)
     kernel = _k4_checked(xs, ys)
     if kernel is not K4 or xs[0].numel() * xs[0].element_size() >= FUSED_DOT_BYTES:
         return fma_dot_batch(xs, ys)
@@ -525,10 +578,51 @@ def fused_dot_batch(xs, ys, order: str) -> torch.Tensor:
 def fused_dot_plain(x: torch.Tensor, y: torch.Tensor, order: str) -> torch.Tensor:
     """The f32 dot in :func:`fused_dot_batch`'s ``order`` at any length, in
     plain PyTorch (K4's fused entry point's plain version)."""
-    if order == "lanes":
-        return _lanes_dot_plain(x, y)
-    return fma_dot_plain(x, y, unfused=0)
+    if order == "chain":
+        return fma_dot_plain(x, y, unfused=0)
+    form, n = LANES_FORMS[order], x.numel()
+    if n == 1:
+        return (x * y)[0]
+    if n <= form.chain_max:
+        return fma_dot_plain(x, y, unfused=0)
+    if n <= form.unrolled_max:
+        return _unrolled_lanes_plain(x, y, form.pairs_at_6)
+    return _lanes_dot_plain(x, y, form)
 
+
+class LanesForm(NamedTuple):
+    """Where a vectorized fused dot's order changes with its length, for
+    one fused producer (read from the x86-64 code of ``jax.jit`` of the
+    dot at 1 to 420 values, jax 0.9.0; ROADMAP.md C5, C9): the loop stays a
+    scalar chain up to ``chain_max`` values, is unrolled fully and
+    reassociated up to ``unrolled_max``, a vector loop beyond.
+    ``pairs_at_6``: the unrolled epilogue of 6 or 7 values takes 2 lanes
+    (else 4); ``wide_ties``: the vector loop's epilogue takes 8 lanes where
+    8 and 4 tie in steps (remainders 28 to 31; else 4).  K4 takes these
+    as arguments (:func:`_k4_form_args`)."""
+
+    chain_max: int
+    unrolled_max: int
+    pairs_at_6: bool
+    wide_ties: bool
+
+
+#: The producers read (:func:`fused_dot_batch`).  "laplacian" was read in
+#: its program, on graphs wider than 32, which have 34 nodes or more: its
+#: scalar loop below 34 values was not read.
+LANES_FORMS = {
+    "lanes": LanesForm(49, 128, True, True),
+    "slice": LanesForm(59, 128, True, True),
+    "signs": LanesForm(37, 351, False, False),
+    "laplacian": LanesForm(33, 191, False, False),
+}
+#: The orders of a fused dot (:func:`fused_dot_batch`) by name.
+FUSED_ORDERS = ("chain", *LANES_FORMS)
+
+
+def _check_order(order: str) -> None:
+    if order not in FUSED_ORDERS:
+        raise ValueError(f"fused_dot: order is one of {FUSED_ORDERS}, got {order!r}")
 
 #: The lanes of XLA's vectorized dot loop: 4 accumulators of 8.
 _DOT_LANES, _DOT_VECTOR = 32, 8
@@ -542,11 +636,13 @@ def _fold_lanes(acc: np.ndarray) -> np.float32:
     return acc[0]
 
 
-def dot_epilogue_width(remainder: int) -> int:
+def dot_epilogue_width(remainder: int, wide_ties: bool = True) -> int:
     """The vector epilogue's lanes for the ``remainder`` (< 32) elements
-    after the main loop of :func:`fused_dot_batch`'s "lanes" order: 8 or
-    4, or 0 (none) below 4."""
-    if remainder >= 8 and remainder // 8 + remainder % 8 <= remainder // 4 + remainder % 4:
+    after the main loop of :func:`fused_dot_batch`'s vectorized orders: 8
+    or 4, the one with fewer steps ``r // w + r % w`` (on a tie 8 where
+    ``wide_ties``, else 4), or 0 (none) below 4."""
+    steps8, steps4 = remainder // 8 + remainder % 8, remainder // 4 + remainder % 4
+    if remainder >= 8 and (steps8 < steps4 or (steps8 == steps4 and wide_ties)):
         return 8
     return 4 if remainder >= 4 else 0
 
@@ -564,23 +660,44 @@ def _fma_f32_np(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     return s.astype(np.float32)
 
 
-def _lanes_dot_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """The "lanes" order of :func:`fused_dot_batch` on the host (f32): one
-    32-lane step at a time, in NumPy, whose small-array operations cost a
-    fraction of PyTorch's."""
+def unrolled_lanes_plan(n: int, pairs_at_6: bool = True) -> tuple[list[int], int]:
+    """The order of a vectorized fused dot of ``n`` values that LLVM
+    unrolls fully and reassociates (:class:`LanesForm`): ``(blocks,
+    width)``.  One 8-lane accumulator (lane 0 from +0, the others from -0)
+    takes the blocks of 8 values in the order ``blocks`` (block b: values
+    8b .. 8b + 7), a lane fused multiply-adding its value of each; its
+    lanes fold in halves.  The loop it came from interleaved I = 2 (48 to
+    63 values) or 4 accumulators over the first ``nv = n // (8 I) * 8 I``
+    values: the first accumulator's blocks in order, then for each other
+    accumulator k its second block, its first, and the rest.  The
+    remaining ``r = n - nv`` values go through one vector epilogue of
+    ``width`` lanes (lane 0 from that sum, the others from -0): 2 lanes
+    for r = 2 or 3 (and 6 or 7 where ``pairs_at_6``), else from r = 4 on
+    4 lanes where ``r // 4`` is odd and 8 where it is even (none for r <
+    2); its lanes fold in halves, then scalar fused multiply-adds take the
+    rest."""
+    interleave = 2 if 48 <= n < 64 else 4
+    trips = n // (8 * interleave)
+    blocks = [interleave * t for t in range(trips)]
+    for k in range(1, interleave):
+        mine = [k + interleave * t for t in range(trips)]
+        blocks += mine[1:2] + mine[:1] + mine[2:]
+    r = n - 8 * interleave * trips
+    pairs = (2, 3, 6, 7) if pairs_at_6 else (2, 3)
+    width = 2 if r in pairs else 0 if r < 4 else 4 if r // 4 % 2 else 8
+    return blocks, width
+
+
+def _unrolled_lanes_plain(x: torch.Tensor, y: torch.Tensor, pairs_at_6: bool) -> torch.Tensor:
+    """The fully unrolled order (:func:`unrolled_lanes_plan`) on the host."""
     xs, ys = x.detach().cpu().numpy(), y.detach().cpu().numpy()
     n = xs.size
-    main = n // _DOT_LANES * _DOT_LANES
-    acc = np.full(_DOT_LANES, -0.0, np.float32)
+    blocks, width = unrolled_lanes_plan(n, pairs_at_6)
+    acc = np.full(_DOT_VECTOR, -0.0, np.float32)
     acc[0] = 0.0
-    for i in range(0, main, _DOT_LANES):
-        acc = _fma_f32_np(xs[i : i + _DOT_LANES], ys[i : i + _DOT_LANES], acc)
-    a = acc.reshape(-1, _DOT_VECTOR)
-    v = a[1] + a[0]
-    for u in range(2, a.shape[0]):
-        v = a[u] + v
-    total, i = _fold_lanes(v), main
-    width = dot_epilogue_width(n - main)
+    for b in blocks:
+        acc = _fma_f32_np(xs[8 * b : 8 * b + 8], ys[8 * b : 8 * b + 8], acc)
+    total, i = _fold_lanes(acc), 8 * len(blocks)
     if width:
         acc = np.full(width, -0.0, np.float32)
         acc[0] = total
@@ -593,6 +710,46 @@ def _lanes_dot_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return torch.tensor(np.float32(total), device=x.device)
 
 
+def _lanes_dot_plain(x: torch.Tensor, y: torch.Tensor, form: LanesForm) -> torch.Tensor:
+    """The vectorized loop's order of :func:`fused_dot_batch` for the
+    producer ``form`` on the host (f32): one 32-lane step at a time, in NumPy, whose small-array
+    operations cost a fraction of PyTorch's."""
+    xs, ys = x.detach().cpu().numpy(), y.detach().cpu().numpy()
+    n = xs.size
+    main = n // _DOT_LANES * _DOT_LANES
+    acc = np.full(_DOT_LANES, -0.0, np.float32)
+    acc[0] = 0.0
+    for i in range(0, main, _DOT_LANES):
+        acc = _fma_f32_np(xs[i : i + _DOT_LANES], ys[i : i + _DOT_LANES], acc)
+    a = acc.reshape(-1, _DOT_VECTOR)
+    v = a[1] + a[0]
+    for u in range(2, a.shape[0]):
+        v = a[u] + v
+    total, i = _fold_lanes(v), main
+    width = dot_epilogue_width(n - main, form.wide_ties)
+    if width:
+        acc = np.full(width, -0.0, np.float32)
+        acc[0] = total
+        while n - i >= width:
+            acc = _fma_f32_np(xs[i : i + width], ys[i : i + width], acc)
+            i += width
+        total = _fold_lanes(acc)
+    for j in range(i, n):
+        total = _fma_f32_np(xs[j : j + 1], ys[j : j + 1], np.array([total], np.float32))[0]
+    return torch.tensor(np.float32(total), device=x.device)
+
+
+def _k4_form_args(order: str) -> tuple[int, int, int]:
+    """K4's fused entry point's ``chain_max, unrolled_max, flags`` for
+    ``order``: a :class:`LanesForm`'s lengths, and its flags as bits
+    (``pairs_at_6`` 1, ``wide_ties`` 2, a vectorized order 4, whose dot
+    of one value is its product); "chain" is the chain at every length."""
+    if order == "chain":
+        return 2**31 - 1, 2**31 - 1, 0
+    form = LANES_FORMS[order]
+    return form.chain_max, form.unrolled_max, form.pairs_at_6 | form.wide_ties << 1 | 4
+
+
 def _k4_fused_launch(xs, ys, order: str) -> torch.Tensor:
     """Launch K4's fused entry point on the current stream for the pairs
     of :func:`fused_dot_batch` (checked by :func:`_k4_checked`, f32)."""
@@ -602,15 +759,14 @@ def _k4_fused_launch(xs, ys, order: str) -> torch.Tensor:
     out = torch.empty(len(xs), dtype=xs[0].dtype, device=dev)
     pointers = ctypes.c_void_p * len(xs)
     K4_FUSED(pointers(*(t.data_ptr() for t in xs)), pointers(*(t.data_ptr() for t in ys)), out.data_ptr(),
-             len(xs), xs[0].numel(), FUSED_ORDERS[order], torch.cuda.current_stream(dev).cuda_stream)
+             len(xs), xs[0].numel(), *_k4_form_args(order), torch.cuda.current_stream(dev).cuda_stream)
     return out
 
 
 def fused_dot_batch_cuda(xs, ys, order: str) -> torch.Tensor:
     """Launch K4's fused entry point once for f32 pairs on one card, at any
     length (:func:`fused_dot_batch` takes it below 4,096 values only)."""
-    if order not in FUSED_ORDERS:
-        raise ValueError(f"fused_dot: order is one of {sorted(FUSED_ORDERS)}, got {order!r}")
+    _check_order(order)
     if _k4_checked(xs, ys) is not K4:
         raise TypeError("fused_dot_batch_cuda is float32 only")
     return _k4_fused_launch(xs, ys, order)

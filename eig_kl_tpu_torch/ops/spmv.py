@@ -67,7 +67,7 @@ K1, K1_F64 = _pair("spmv_csr", lambda _: [_P] * 5 + [_I, _I, _P])
 K1_STEP, K1_STEP_F64 = _pair("power_step", lambda t: [_P] * 5 + [t, _P, _I, _I, _P])
 K1_LAPLACIAN, K1_LAPLACIAN_F64 = _pair("laplacian", lambda _: [_P] * 6 + [_I, _I, _P])
 K1_SPMM, K1_SPMM_F64 = _pair("spmm_csr", lambda _: [_P] * 6 + [_I, _I, _I, _P])
-K1_LAZY, K1_LAZY_F64 = _pair("lazy_walk", lambda _: [_P] * 6 + [_I, _I, _P])
+K1_LAZY, K1_LAZY_F64 = _pair("lazy_walk", lambda _: [_P] * 8 + [_I, _I, _P])
 #: The padded state's entry points (f32 only): K1's f32 sums, and the
 #: bf16-intermediate sums (:func:`spmv_padded`, :func:`lazy_walk_padded`).
 K1_PADDED, K1_BF16I = (Kernel("spmv_csr", sym, [_P] * 5 + [_I, _I, _I, _P]) for sym in ("spmv_padded_f32", "spmv_bf16i_f32"))
@@ -309,8 +309,9 @@ def spmm(g: DeviceGraph, X: torch.Tensor, *, laplacian: bool = False) -> torch.T
     column (the JAX package's ``vmap`` of ``spmv``,
     ``eig_kl_tpu/spectral/lobpcg_solver.py:51-56``); with ``laplacian``,
     ``deg * X - A @ X``.  K1's blocked entry point for a tensor on the card
-    (``1 <= k <= 16``; 16-byte gathers of 4 f32 or 2 f64 columns where k
-    is a multiple of that), :func:`spmm_plain` on the CPU."""
+    (``1 <= k <= 16``; four columns per walk of the rows where k is a
+    multiple of 4 and X 16-byte aligned, from one 32-byte sector of each
+    gathered row of X, else one), :func:`spmm_plain` on the CPU."""
     if X.device.type == "cpu":
         return spmm_plain(g, X, laplacian=laplacian)
     return spmm_cuda(g, X, laplacian=laplacian)
@@ -348,36 +349,57 @@ def spmm_cuda(g: DeviceGraph, X: torch.Tensor, *, laplacian: bool = False) -> to
     return Y
 
 
-def lazy_walk(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor) -> torch.Tensor:
+def lazy_walk(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=None) -> torch.Tensor:
     """The lazy walk ``(I + D^-1/2 A D^-1/2) / 2`` applied to ``w``:
     ``0.5 * (w + dsinv * (A @ (dsinv * w)))``, the momentum exit's operator
     (``eig_kl_tpu/spectral/power.py:297-305``).  K1's lazy-walk entry point
     for a tensor on the card, :func:`lazy_walk_plain` on the CPU; the graph
-    carries no v3 plan."""
+    carries no v3 plan.
+
+    ``scaled``: ``(u, c)``, ``c`` a 0-d tensor, with ``w = u * c`` rounded
+    once.  The epilogue is then ``0.5 * fma(u, c, dsinv * Ax)``, the
+    product ``dsinv * Ax`` rounded: the momentum check's walk of the
+    deflated iterate on a graph wider than 32, where XLA recomputes ``w``
+    inside the epilogue's fusion and contracts its product instead
+    (ROADMAP.md C9)."""
     if w.device.type == "cpu":
-        return lazy_walk_plain(g, w, dsinv)
-    return lazy_walk_cuda(g, w, dsinv)
+        return lazy_walk_plain(g, w, dsinv, scaled)
+    return lazy_walk_cuda(g, w, dsinv, scaled)
 
 
-def lazy_walk_plain(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor) -> torch.Tensor:
+def lazy_walk_plain(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=None) -> torch.Tensor:
     """:func:`lazy_walk` in plain PyTorch: the inner product rounded once,
-    ``w + dsinv * Ax`` one fused multiply-add in f32, the halving exact."""
+    ``w + dsinv * Ax`` one fused multiply-add in f32 (with ``scaled``,
+    ``u * c + round(dsinv * Ax)``), the halving exact."""
     ax = spmv_plain(g, (dsinv * w).to(g.dtype)).to(w.dtype)
+    if scaled is not None:
+        u, c = scaled
+        if w.dtype != torch.float32:
+            return 0.5 * (u * c + dsinv * ax)
+        return 0.5 * fma_f32(u, c.expand_as(u), dsinv * ax)
     if w.dtype != torch.float32:
         return 0.5 * (w + dsinv * ax)
     return 0.5 * fma_f32(dsinv, ax, w)
 
 
-def lazy_walk_cuda(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor) -> torch.Tensor:
+def lazy_walk_cuda(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=None) -> torch.Tensor:
     """Launch K1's lazy-walk entry point on the current stream: the graph,
     ``w`` and ``dsinv`` (contiguous, ``(n,)``), all f32 or all f64, on one
-    card."""
+    card; ``scaled`` as :func:`lazy_walk` takes it, ``u`` like ``w`` and
+    ``c`` 0-d, both on that card."""
     _check_card(g, w, "lazy_walk_cuda")
     _check_vector(g, dsinv, w, "dsinv")
+    u = c = None
+    if scaled is not None:
+        u, c = scaled
+        _check_vector(g, u, w, "u")
+        if c.device != w.device or c.dtype != w.dtype or c.dim() != 0:
+            raise ValueError(f"c must be a 0-d {w.dtype} tensor on w's card")
     y = torch.empty_like(w)
     _typed(K1_LAZY, w.dtype)(
         g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), w.data_ptr(),
-        dsinv.data_ptr(), y.data_ptr(), g.num_nodes, g.row_width,
+        dsinv.data_ptr(), None if u is None else u.data_ptr(), None if c is None else c.data_ptr(),
+        y.data_ptr(), g.num_nodes, g.row_width,
         torch.cuda.current_stream(w.device).cuda_stream,
     )
     return y

@@ -36,12 +36,16 @@ padding of the degrees, the norm over the padded state in XLA's order for
 a 2-D reduction, the padded step ``x - c * lap`` one fused multiply-add,
 as on the CSR path (K6's padded step on the card, ROADMAP.md C7).  Its
 dots take a slice of the padded state, which XLA fuses into the dot below
-4,096 values (``ops/reduce.py:fused_dot_batch``, "lanes").  f64 ignores
+4,096 values (``ops/reduce.py:fused_dot_batch``: "slice" for the
+deflation, "lanes" for the Rayleigh quotients).  f64 ignores
 the plan: the JAX package's plan branch is f32 only.  The dots of the CSR
 momentum exit are XLA's vector dot, except its Rayleigh quotient, into
 which XLA fuses the lazy walk below 4,096 values ("chain"), as it fuses the
-Laplacian into the final f32 Rayleigh quotient of the CSR solve.  (The f64
-solve's final quotient keeps the fixed-order sum.)
+Laplacian into the final f32 Rayleigh quotient of the CSR solve; on a graph
+wider than 32 the row sums stay out of both dots (the check's "lanes", the
+final quotient's "laplacian"), and the check's walk fuses the product of
+the deflated iterate's scaling (``ops/spmv.py:lazy_walk``, ``scaled``).  (The f64 solve's final quotient
+keeps the fixed-order sum.)
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from eig_kl_tpu_torch.ops.reduce import (
     tree_norm, tree_norm_2d,
 )
 from eig_kl_tpu_torch.ops.select import upper_median
-from eig_kl_tpu_torch.ops.spmv import lazy_walk, lazy_walk_padded, power_step, spmv, spmv_padded
+from eig_kl_tpu_torch.ops.spmv import WINDOW, lazy_walk, lazy_walk_padded, power_step, spmv, spmv_padded
 from eig_kl_tpu_torch.ops.spmv_v3 import spmv_v3_padded
 from eig_kl_tpu_torch.utils.config import SpectralConfig
 from eig_kl_tpu_torch.utils.threefry import uniform
@@ -93,6 +97,10 @@ class PowerOperator:
     norm: Callable[[torch.Tensor], torch.Tensor]
     #: (w, dsinv as a state) -> 0.5 (w + dsinv A (dsinv w)), the lazy walk.
     lazy: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    #: (w, u, c, dsinv as a state) -> the momentum check's Rayleigh quotient
+    #: ``w . lazy(w)`` of its deflated unit iterate ``w = u * c`` (a
+    #: vector), which XLA makes in the same program as the dot.
+    rayleigh: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
     #: the degrees with 1 where a degree is 0, as a vector.
     safe_deg: torch.Tensor
     #: whether the state is the padded one (a plan's).
@@ -149,7 +157,11 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
         def dot(x, y):
             return fused_dot(x.reshape(-1), y.reshape(-1), "lanes")
 
-        return PowerOperator(to_state, from_state, norm_lap, step, dot, tree_norm_2d, lazy, safe_deg, True)
+        def rayleigh(w, u, c, dsinv2d):
+            return fused_dot(w, from_state(lazy(to_state(w), dsinv2d)), "lanes")
+
+        return PowerOperator(to_state, from_state, norm_lap, step, dot, tree_norm_2d, lazy, rayleigh, safe_deg,
+                             True)
 
     g_csr = dataclasses.replace(g, plan=None)  # f64 ignores the plan
 
@@ -167,11 +179,24 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
     def dot(x, y):
         # The Rayleigh quotient jnp.vdot(v, norm_lap(v)): XLA fuses the
         # Laplacian, row sums included, into the f32 dot below 4,096
-        # values, a scalar chain of fused multiply-adds ("chain").
-        return fused_dot(x, y, "chain")
+        # values, a scalar chain of fused multiply-adds ("chain"); above
+        # 32 columns the row sums stay out of it, and the loop over the
+        # rest of the Laplacian is vectorized ("laplacian").
+        return fused_dot(x, y, "laplacian" if g.row_width > WINDOW else "chain")
+
+    def rayleigh(w, u, c, dsinv):
+        # jnp.vdot(w, opm_sym(w)) with w = u * c made in the same program.
+        # Up to 32 columns XLA fuses the walk, row sums included, into the
+        # dot below 4,096 values ("chain").  Above 32 the windowed row sums
+        # are a fusion of their own: the epilogue recomputes w and fuses
+        # its product (lazy_walk's scaled form), and the dot's loop takes
+        # element-wise operands ("lanes").
+        if g.row_width > WINDOW:
+            return fused_dot(w, lazy_walk(g_csr, w, dsinv, scaled=(u, c)), "lanes")
+        return fused_dot(w, lazy(w, dsinv), "chain")
 
     return PowerOperator(lambda x: x, lambda x: x, norm_lap, step, dot if dtype == torch.float32 else tree_dot,
-                         tree_norm, lazy, safe_deg)
+                         tree_norm, lazy, rayleigh, safe_deg)
 
 
 def _power_core(
@@ -253,6 +278,18 @@ def _reciprocal(nrm: torch.Tensor) -> torch.Tensor:
     return torch.where(nrm > 0, 1.0 / torch.where(nrm > 0, nrm, 1.0), 1.0)
 
 
+def momentum_beta(mu: torch.Tensor) -> torch.Tensor:
+    """The momentum exit's ``beta = (0.995 mu)^2 / 4`` as XLA computes it in
+    the iterate's dtype: it folds the constants into ``mu * mu`` times one
+    rounded constant (the programs' HLO: ``multiply(mu, mu) * 0.247506246``
+    in f32, ``* 0.24750625`` in f64; ROADMAP.md C9)."""
+    if mu.dtype == torch.float32:
+        scale = np.float32(np.float32(0.995) * np.float32(0.995)) * np.float32(0.25)
+    else:
+        scale = 0.995 * 0.995 * 0.25
+    return (mu * mu) * torch.tensor(scale, dtype=mu.dtype, device=mu.device)
+
+
 def _momentum(op: PowerOperator, x0, n, dtype, check_interval, stable_checks, max_iters):
     """The "momentum" exit from the first step's iterate ``x0``
     (``eig_kl_tpu/spectral/power.py:263-391``): the recurrence
@@ -264,7 +301,6 @@ def _momentum(op: PowerOperator, x0, n, dtype, check_interval, stable_checks, ma
     unit iterate in the reference basis ``D^-1/2 w`` (as a state) and the
     iteration count."""
     flip_tol = 1e-3
-    edge = 0.995
     to_state, from_state = op.to_state, op.from_state
     dsq = sqrt_rn(op.safe_deg)  # correctly rounded, as XLA's root
     dsinv = 1.0 / dsq
@@ -284,7 +320,6 @@ def _momentum(op: PowerOperator, x0, n, dtype, check_interval, stable_checks, ma
     x = to_state(w0)
     xp = to_state(torch.zeros_like(w0))
     beta = torch.zeros((), dtype=dtype, device=w0.device)
-    beta_scale = torch.tensor(np.float32(np.float32(edge) * np.float32(edge)) * np.float32(0.25), device=w0.device)
     split = split_of_w(w0)
     stable, iteration = 0, 1
     while True:
@@ -305,24 +340,17 @@ def _momentum(op: PowerOperator, x0, n, dtype, check_interval, stable_checks, ma
         # state XLA fuses the slice into them.
         w_flat, wp_flat = from_state(w), from_state(wp)
         if op.padded:
-            c = fused_dot_batch((q0, q0), (w_flat, wp_flat), "lanes")
+            c = fused_dot_batch((q0, q0), (w_flat, wp_flat), "slice")
         else:
             c = fma_dot_batch((q0, q0), (w_flat, wp_flat))
-        wv = axpy(-c[0], q0, w_flat)
-        inv = _reciprocal(tree_norm(wv))
-        wv, wpv = wv * inv, axpy(-c[1], q0, wp_flat) * inv
+        defl = axpy(-c[0], q0, w_flat)
+        inv = _reciprocal(tree_norm(defl))
+        wv, wpv = defl * inv, axpy(-c[1], q0, wp_flat) * inv
         x = to_state(wv)
         # One more lazy walk per check: the symmetric Rayleigh quotient of
         # the deflated unit iterate, a lower bound on the Fiedler mode's mu.
-        # XLA fuses the lazy walk (CSR) or the slice (padded) into the dot.
-        order = "lanes" if op.padded else "chain"
-        mu = torch.clamp(fused_dot(wv, from_state(op.lazy(x, dsinv_st)), order), 0.05, 1.0 - 1e-7)
-        if dtype == torch.float32:
-            # XLA folds (edge mu)^2 / 4 into mu * mu times one rounded
-            # constant (the f32 program's HLO: multiply(mu, mu) * 0.247506246).
-            beta = (mu * mu) * beta_scale
-        else:
-            beta = torch.square(edge * mu) * 0.25
+        mu = torch.clamp(op.rayleigh(wv, defl, inv, dsinv_st), 0.05, 1.0 - 1e-7)
+        beta = momentum_beta(mu)
         new_split = split_of_w(wv)
         d = int((new_split != split).sum())
         stable = stable + 1 if min(d, n - d) <= flip_tol * n else 0

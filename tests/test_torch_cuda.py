@@ -948,8 +948,8 @@ def test_k1_f64_entry_points_equal_plain_bitwise(cuda, kind):
     """K1's five f64 entry points against their plain versions on the card
     and on the CPU, bit for bit: the SpMV and the power step (shift 2 and 3)
     on the KL graph, the Laplacian, the blocked product (k = 1, 2, 4, 12,
-    16; two columns per 16-byte gather where k is even, one at a time for
-    odd k or an unaligned X) and the lazy walk on the "eig" graph; the f32
+    16; four columns per walk where k is a multiple of 4, one at a time
+    for other k or an unaligned X) and the lazy walk on the "eig" graph; the f32
     kernels launch nothing."""
     import importlib
 
@@ -1407,22 +1407,25 @@ def test_k1_padded_entry_points_refuse_what_they_cannot_run(cuda):
     assert K1_BF16I.launches == before
 
 
-@pytest.mark.parametrize("order", ["lanes", "chain"])
+@pytest.mark.parametrize("order", ["lanes", "slice", "signs", "laplacian", "chain"])
 def test_k4_fused_dot_equals_plain(cuda, order):
-    """K4's fused entry point, 1 to 4 pairs per launch, at 0 to 6,000
-    values (remainders 0-31 of XLA's 32 lanes, the epilogues, the 4,096
-    threshold and past it), +-0 and subnormal inputs: bit for bit the plain
-    order; ``fused_dot`` routes below 4,096 values to it, above to K4."""
+    """K4's fused entry point in each order, 1 to 4 pairs per launch, at 0
+    to 6,000 values (remainders 0-31 of XLA's 32 lanes, the epilogues and
+    their ties, the scalar and unrolled lengths of each producer's form,
+    the 4,096 threshold and past it, where the block stages a second tile),
+    +-0 and subnormal inputs: bit for bit the plain order; ``fused_dot``
+    routes below 4,096 values to it, above to K4."""
     from eig_kl_tpu_torch.ops import reduce as R
 
     rng = np.random.default_rng(17)
-    for size in list(range(0, 70)) + [127, 160, 1000, 1031, 3694, 4038, 4095, 4096, 6000]:
+    for size in list(range(0, 70)) + [127, 128, 129, 159, 160, 161, 191, 192, 221, 351, 352, 380, 1000, 1031, 3694,
+                                      4038, 4063, 4095, 4096, 6000]:
         vals = []
         for _ in range(4):
             v = rng.standard_normal(size).astype(np.float32)
             v[::9], v[1::13], v[2::17] = 0.0, -0.0, 1e-40
             vals.append(torch.as_tensor(v))
-        for count in (1, 2, 4):
+        for count in (1, 2, 3, 4):
             xs, ys = vals[:count], vals[::-1][:count]
             got = R.fused_dot_batch_cuda([t.to(cuda) for t in xs], [t.to(cuda) for t in ys], order)
             want = torch.stack([R.fused_dot_plain(a, b, order) for a, b in zip(xs, ys)])
@@ -1433,6 +1436,87 @@ def test_k4_fused_dot_equals_plain(cuda, order):
     big = torch.as_tensor(rng.standard_normal(5000).astype(np.float32))
     assert torch.equal(R.fused_dot(big.to(cuda), big.to(cuda), order).cpu(), R.fma_dot_plain(big, big))
     assert (R.K4_FUSED.launches, R.K4.launches) == (before[0] + 1, before[1] + 1)
+
+
+@pytest.mark.parametrize("kind", ["hub10", "hub30", "hub44"])
+def test_k1_f64_blocked_product_equals_plain_bitwise(cuda, kind):
+    """K1's f64 blocked product at k = 2, 4, 6, 8, 12 and 16 on graphs of
+    ELL width 24, 48 and 64, with and without the Laplacian's epilogue, on a
+    16-byte aligned X (four columns per walk where k is a multiple of 4,
+    a column at a time for k = 2 and 6) and an unaligned one (a column at
+    a time): bit for bit the plain version, and each column K1 on that
+    column."""
+    import importlib
+
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+
+    S = importlib.import_module("eig_kl_tpu_torch.ops.spmv")
+    host = clique_expand(_hypergraph(kind), "eig")
+    g_cpu, g = host.to_device("cpu", torch.float64), host.to_device(cuda, torch.float64)
+    assert g.row_width == {"hub10": 24, "hub30": 48, "hub44": 64}[kind]
+    rng = np.random.default_rng(21)
+    n = g.num_nodes
+    for k in (2, 4, 6, 8, 12, 16):
+        X = torch.as_tensor(rng.standard_normal((n, k)))
+        X[::37, :] = -0.0
+        store = torch.empty(n * k + 1, dtype=torch.float64, device=cuda)
+        X_odd = store[1:].view(n, k)
+        X_odd.copy_(X.to(cuda))
+        for laplacian in (False, True):
+            want = S.spmm_plain(g_cpu, X, laplacian=laplacian).view(torch.int64)
+            for Xc in (X.to(cuda), X_odd):
+                got = S.spmm(g, Xc, laplacian=laplacian)
+                assert torch.equal(got.cpu().view(torch.int64), want), (k, laplacian)
+        AX = S.spmm(g, X.to(cuda))
+        for j in range(k):
+            assert torch.equal(AX[:, j], S.spmv_csr(g, X[:, j].contiguous().to(cuda)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["hub10", "hub30"])
+def test_k1_lazy_walk_scaled_equals_plain_bitwise(cuda, kind, dtype):
+    """K1's lazy walk with its scaled epilogue ``0.5 * (u * c + dsinv *
+    Ax)`` (the momentum check's walk on a graph wider than 32; ELL width
+    24 and 48 here), ``w = u * c``: bit for bit the plain version; the
+    unscaled walk too."""
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.ops.spmv import K1_LAZY, K1_LAZY_F64, lazy_walk, lazy_walk_plain
+
+    host = clique_expand(_hypergraph(kind), "kl")
+    g_cpu, g = host.to_device("cpu", dtype), host.to_device(cuda, dtype)
+    rng = np.random.default_rng(22)
+    n = g.num_nodes
+    u = torch.as_tensor(rng.standard_normal(n)).to(dtype)
+    u[::41] = -0.0
+    c = torch.tensor(1.0 / float(np.linalg.norm(u.double().numpy())), dtype=dtype)
+    w = u * c
+    d = torch.as_tensor(1.0 / np.sqrt(rng.uniform(0.5, 9.0, n))).to(dtype)
+    kernel = K1_LAZY if dtype == torch.float32 else K1_LAZY_F64
+    before = kernel.launches
+    got = lazy_walk(g, w.to(cuda), d.to(cuda), scaled=(u.to(cuda), c.to(cuda)))
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    assert torch.equal(got.cpu().view(bits), lazy_walk_plain(g_cpu, w, d, scaled=(u, c)).view(bits))
+    got = lazy_walk(g, w.to(cuda), d.to(cuda))
+    assert torch.equal(got.cpu().view(bits), lazy_walk_plain(g_cpu, w, d).view(bits))
+    assert kernel.launches == before + 2
+
+
+def test_k6_second_round_lanes_equal_plain(cuda):
+    """K6's 2-D norm and sum above 1,024 rows of 128, whose second round's
+    (32, 4) windows XLA adds across 8 lanes of rows (no pad) or 4 (a pad of
+    1) and row by row otherwise: bit for bit the plain versions at every k
+    = 2-32 windows of that round, -0 inputs included."""
+    from eig_kl_tpu_torch.ops import reduce as R
+
+    rng = np.random.default_rng(19)
+    for k in range(2, 33):
+        for pad in (0, 1, int(rng.integers(2, 32))):
+            rows = 32 * (32 * k - pad) - int(rng.integers(0, 32))
+            v = (rng.standard_normal((rows, 128)) * 10.0 ** rng.uniform(-1, 1, (rows, 128))).astype(np.float32)
+            v[::5, ::7] = -0.0
+            t = torch.as_tensor(v)
+            for fn in (R.tree_norm_2d, R.tree_sum_2d):
+                assert torch.equal(fn(t.to(cuda)).cpu().view(torch.int32), fn(t).view(torch.int32)), (rows, fn)
 
 
 def test_k6_last_block_lanes_equal_plain(cuda):

@@ -161,14 +161,37 @@ def _fold(load, n, lead_a, m_b, lead_b, written):
 def _tile_round(load, r, dst, written):
     """``tile_round``: a warp per 2-D window; value e of a window is row
     row0 + e / wb, column col0 + e % wb; lane 0 adds e = 0, 1, ... in
-    order."""
+    order, or for a (32, 4) window with no lead pad across lanes of rows
+    (``window_lanes``: lane j from +0, the others from -0, adds rows j,
+    j + lanes, ... below ``in_lanes``, the lanes fold in halves, then the
+    window's other real rows in order)."""
+    from eig_kl_tpu_torch.ops.reduce import window_lanes
+
     rows, cols, win_rows, win_cols, wa, wb, la, lb = r
     w = np.arange(win_rows * win_cols)
     e = np.arange(wa * wb)[None, :]
     a = ((w // win_cols) * wa - la)[:, None] + e // wb
     b = ((w % win_cols) * wb - lb)[:, None] + e % wb
     ok = (a >= 0) & (a < rows) & (b >= 0) & (b < cols)
-    dst[w] = _chain(np.where(ok, load(np.where(ok, a * cols + b, 0)), 0.0).astype(np.float32))
+    tiles = np.where(ok, load(np.where(ok, a * cols + b, 0)), 0.0).astype(np.float32)
+    by_lanes = window_lanes((rows, cols)) if (wa, wb, la) == (32, 4, 0) else None
+    if by_lanes is None:
+        dst[w] = _chain(tiles)
+    else:
+        lanes, in_lanes = by_lanes
+        acc = np.full((w.size, lanes), -0.0, np.float32)
+        acc[:, 0] = 0.0
+        block = tiles.reshape(w.size, 32, 4)
+        for i in range(0, in_lanes, lanes):
+            for c in range(4):
+                acc = acc + block[:, i : i + lanes, c]
+        while acc.shape[1] > 1:
+            acc = acc[:, : acc.shape[1] // 2] + acc[:, acc.shape[1] // 2 :]
+        total = acc[:, 0]
+        for t in range(w.size):
+            for x in block[t, in_lanes : min(32, rows - 32 * t)].reshape(-1):
+                total[t] = np.float32(total[t] + x)
+        dst[w] = total
     np.add.at(written, w, 1)
 
 
@@ -277,7 +300,7 @@ def _last_block(values, lanes, cols):
     "shape",
     [(1,), (31,), (32,), (33,), (1025,), (4038,), (201_920,), (100_003,),
      (32, 128), (192, 128), (1584, 128), (33, 70), (1, 1000), (1000, 1), (5, 7), (64_000, 10),
-     (128, 128), (1000, 128), (600, 128)],
+     (128, 128), (1000, 128), (600, 128), (2048, 128), (2000, 128)],
 )
 @pytest.mark.parametrize("mode", ["sum", "square", "product"])
 def test_k6_layout_emulated_equals_the_plain_sums(shape, mode):

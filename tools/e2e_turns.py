@@ -3,7 +3,7 @@ comparing two checkouts.
 
 Run on a machine with one CUDA card::
 
-    python3 tools/e2e_turns.py [--tree DIR] [--runs N] [--path one_start|momentum]
+    python3 tools/e2e_turns.py [--tree DIR] [--runs N] [--path one_start|momentum|lobpcg_f64]
 
 It imports ``eig_kl_tpu_torch`` from ``DIR`` (default: this repository)
 and generates the circuit at 1.0x (seed 42).  ``--path one_start`` (the
@@ -11,7 +11,10 @@ default) runs ``fused_partition(hg, use_eig=True, device="cuda")``, the
 path ``chip_smoke.py`` calls the one start; ``--path momentum`` runs
 ``power_partition_fiedler`` with the momentum exit, in f32, on the KL graph
 of the circuit's largest component (184,406 nodes), as ``chip_smoke.py``'s
-momentum phase does.  Each runs once to warm up and then ``N`` times
+momentum phase does; ``--path lobpcg_f64`` runs ``spectral_partition``
+with LOBPCG at its f64 default on that component (its blocked products
+are K1's ``spmm_csr_f64``), as ``chip_smoke.py``'s f64 phase does.  Each
+runs once to warm up and then ``N`` times
 (default 5), each timed from a synchronised card to a synchronised card.
 It also times the host's cost of a K6 norm, the wall time of 2,000
 ``tree_norm`` calls on 201,920 values up to one synchronisation at their
@@ -48,7 +51,8 @@ def main() -> int:
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent),
                         help="the checkout whose eig_kl_tpu_torch is timed")
     parser.add_argument("--runs", type=int, default=5, help="timed runs after the warm-up")
-    parser.add_argument("--path", choices=("one_start", "momentum"), default="one_start", help="the path timed")
+    parser.add_argument("--path", choices=("one_start", "momentum", "lobpcg_f64"), default="one_start",
+                        help="the path timed")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
     import torch
@@ -71,6 +75,22 @@ def main() -> int:
         def figures(r):
             return {"iterations": r.spectral_iterations, "best_cut": r.kl.best_cut,
                     "eigenvalue": float(r.eig.eigenvalue)}
+
+        def spans(r):
+            return {"spans_s": dict(sorted(r.timings.items()))}
+    elif args.path == "lobpcg_f64":
+        from eig_kl_tpu_torch.models.pipelines import spectral_partition
+        from eig_kl_tpu_torch.utils.config import SpectralConfig
+
+        lcc = _largest_component(hg)
+        config = SpectralConfig(solver="lobpcg")
+
+        def run():
+            return spectral_partition(lcc, config, dtype=None, device="cuda")
+
+        def figures(r):
+            return {"iterations": r.spectral_solve.iterations, "eigenvalue": float(r.eig.eigenvalue),
+                    "side_1": int(r.eig.sides.sum())}
 
         def spans(r):
             return {"spans_s": dict(sorted(r.timings.items()))}
