@@ -23,7 +23,12 @@ function are timed by CUDA events and by their device time.  Then the Lanczos,
 LOBPCG and momentum paths on the circuit's largest component, and the
 f64 engine: every f64 kernel against its plain version, the f64 fused
 run, Lanczos and LOBPCG at spectral_partition's f64 default, the f64
-momentum exit and the f64 multi-start.
+momentum exit and the f64 multi-start.  K7 (the exact rank select of every
+median) is held against its plain version at the main path's sizes and
+timed beside ``torch.kthvalue``; last, the JAX mega engine's own path on
+gen 0.02x: K1's ``spmv_v1_f32`` (the v1 TPU SpMV's order) against its plain
+version, then ``fused_refine_mega`` called directly, held to the JAX
+package's interpret-mode bits.
 Any failed check raises, so the script exits nonzero and prints no
 result; so does a machine without a CUDA card.
 """
@@ -67,6 +72,12 @@ AB_CELLS = ("csr f32", "padded f32", "padded bf16i")
 #: dot fusion): the JAX package's f32 CPU run's power iterations, swaps and
 #: best cut, which its mega cuts reach through K4's fused dot.
 GEN002_ITERS, GEN002_SWAPS, GEN002_BEST = 201, 357, 794.98
+#: The JAX mega engine's fused_refine_mega on gen 0.02x in interpret mode on
+#: the CPU (its v1 plan; tests/test_torch_faults.py): power iterations,
+#: eigenvalue, initial, best cut, swaps, final and verified cut, nodes on
+#: side 1 of the split.
+JAX_MEGA_GEN002 = (201, 1.2118749618530273, 1041.8525390625, 788.5287475585938, 1362, 1003.1763305664062,
+                   1003.1761474609375, 1947)
 #: The largest connected component of that circuit: nodes, nets, pins.
 LCC_COUNTS = (184406, 209370, 520304)
 #: The JAX package's runs on that component on the CPU at f32
@@ -213,9 +224,11 @@ def check_same_pass(a, b, what: str) -> None:
         check(torch.equal(getattr(a, name), getattr(b, name)), f"{what}: {name} differs")
 
 
-def report_device_busy(what: str, fn) -> None:
+def report_device_busy(what: str, fn) -> list[str]:
     """Run ``fn`` once under the profiler and print the device's busy time,
-    its share of the wall time, and the kernels that took most of it."""
+    its share of the wall time, and the kernels that took most of it; return
+    the names of the kernels it ran (none where the profiler saw no device
+    time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -229,13 +242,14 @@ def report_device_busy(what: str, fn) -> None:
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us == 0:
         print(f"{what}: the profiler recorded no device time: device busy share not measured")
-        return
+        return []
     print(
         f"{what}, profiled: e2e {wall:.3f} s, device busy {busy_us / 1e6:.3f} s "
         f"({100 * busy_us / 1e6 / wall:.1f} %); top kernels by device time:"
     )
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:9.2f} ms {e.count:7d} x  {e.key[:90]}")
+    return [e.key for e in events]
 
 
 def device_us_per_call(fn, calls: int) -> tuple[float, float] | None:
@@ -364,6 +378,8 @@ def main() -> int:
         spmv_plain,
     )
     from eig_kl_tpu_torch.ops import spmv_v3 as V
+    from eig_kl_tpu_torch.ops.select import K7, K7_F64, kth_smallest_cuda, kth_smallest_plain
+    from eig_kl_tpu_torch.ops.spmv_plan import K1_V1, segment_ends, spmv_v1_cuda, spmv_v1_plain
     from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
     from eig_kl_tpu_torch.ops import reduce as R
     from eig_kl_tpu_torch.ops.reduce import (
@@ -399,9 +415,10 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     f32_kernels = (K1, K1_STEP, K1_LAPLACIAN, K1_SPMM, K1_LAZY, K2, V.K3A, V.K3B, V.K3C, K4, K5, K6,
-                   K6_SCALE, K6_STEP, K6_AXPY, K1_PADDED, K1_BF16I, K1_LAZY_PADDED, K1_LAZY_BF16I, K4_FUSED)
+                   K6_SCALE, K6_STEP, K6_AXPY, K1_PADDED, K1_BF16I, K1_LAZY_PADDED, K1_LAZY_BF16I, K4_FUSED,
+                   K1_V1, K7)
     f64_kernels = (K1_F64, K1_STEP_F64, K1_LAPLACIAN_F64, K1_SPMM_F64, K1_LAZY_F64, K2_F64, K4_F64,
-                   K6_F64, K6_SCALE_F64, K6_AXPY_F64)
+                   K6_F64, K6_SCALE_F64, K6_AXPY_F64, K7_F64)
     all_kernels = f32_kernels + f64_kernels
 
     def reset_counts():
@@ -722,6 +739,9 @@ def main() -> int:
     check(K4.launches == 1 and K4_FUSED.launches == 0, f"K4 launched {K4.launches} times, not once")
     check(K6_SCALE.launches == iters, f"K6's scale launched {K6_SCALE.launches} times for {iters} power steps")
     check(k2_launches == 1, f"K2 launched {k2_launches} times, not once")
+    # K7 for every median (the sign checks' and the split's); the pipelines
+    # take the ELL order of A @ s, not the v1 kernel's.
+    check(K7.launches > 0 and K1_V1.launches == 0, f"K7 launched {K7.launches} times, K1's v1 {K1_V1.launches}")
     check(
         (iters, kl.iterations) == (MAIN_ITERS, MAIN_SWAPS) and abs(kl.best_cut - MAIN_BEST) < 0.005,
         f"the one-start run: {iters} power iterations, {kl.iterations} swaps, best cut "
@@ -761,6 +781,42 @@ def main() -> int:
         f"({main_bytes} bytes, {main_ops} operations)"
     )
 
+    # Phase 5b: K7 (the exact rank select) against its plain version at the
+    # main path's sizes: gen 1.0x's n (the run's own Fiedler vector in f32),
+    # its largest component's and gen 0.02x's, in f32 and f64; device time
+    # per call beside torch.kthvalue's in this call.
+    k7 = {}
+    rng = np.random.default_rng(SEED)
+    for size in (n, LCC_COUNTS[0], 4038):
+        for dt in (torch.float32, torch.float64):
+            if size == n and dt == torch.float32:
+                vec = torch.as_tensor(np.asarray(run.eig.values, np.float32)).to(dev)
+            else:
+                vec = torch.as_tensor(rng.standard_normal(size)).to(dt).to(dev)
+            kb = torch.int32 if dt == torch.float32 else torch.int64
+            for rank in (0, size // 2, size - 1):
+                got = kth_smallest_cuda(vec, rank)
+                check(torch.equal(got.cpu().view(kb), kth_smallest_plain(vec.cpu(), rank).view(kb)),
+                      f"K7 differs from its plain version at n {size}, rank {rank}, {dt}")
+                check(float(got) == float(torch.sort(vec).values[rank]), f"K7 is not the sorted element ({size}, {rank})")
+            k = size // 2
+            size_b = vec.element_size()
+            tag = f"{size} {'f32' if dt == torch.float32 else 'f64'}"
+            k7[tag] = {
+                "ms": cuda_ms(lambda: kth_smallest_cuda(vec, k), 50),
+                "plain_ms": cuda_ms(lambda: kth_smallest_plain(vec, k), 2),
+                "library_ms": cuda_ms(lambda: torch.kthvalue(vec, k + 1), 20),
+                "device_us": device_us_per_launch(lambda: [kth_smallest_cuda(vec, k) for _ in range(20)], "kth_small"),
+                "library_device_us": library_device_us(lambda: torch.kthvalue(vec, k + 1), 10),
+                "bound_ms": (size * size_b + size_b) / HBM_BYTES_PER_S * 1e3,
+            }
+            e = k7[tag]
+            print(f"K7 at {tag}: bitwise equal to its plain version at ranks 0, n/2, n-1; {e['ms']:.4f} ms, device "
+                  f"{fmt_us(e['device_us'])} per launch; torch.kthvalue {e['library_ms']:.4f} ms, device "
+                  f"{fmt_us([e['library_device_us']])} per call; plain {e['plain_ms']:.3f} ms; bound "
+                  f"{e['bound_ms'] * 1e3:.3f} us")
+    print(f"K7 launches on the main path: {main_launches['kth_smallest_f32']}")
+
     # Phase 6: where the time goes.  Two more end-to-end runs for the
     # spread, then one under the profiler for the device's busy time by
     # kernel.  These runs are not the main path's and are not counted.
@@ -776,7 +832,11 @@ def main() -> int:
         f"e2e repeats: {', '.join(f'{t:.3f}' for t in repeats)} s; spans of the last: "
         + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(again.timings.items()))
     )
-    report_device_busy("the fused run", lambda: fused_partition(hg, use_eig=True, device="cuda"))
+    profiled = report_device_busy("the fused run", lambda: fused_partition(hg, use_eig=True, device="cuda"))
+    check(bool(profiled), "the profiler recorded no kernels on the main path")
+    check(not any("kthvalue" in name for name in profiled), "torch.kthvalue ran on the main path")
+    check(any("kth_small" in name for name in profiled), "the profile shows no K7 on the main path")
+    print("main path's profile: K7 present, no kthvalue kernel")
     # The power solve's device launches: 25 bare steps, then the whole
     # solve with its sign checks, each under the profiler.
     op = power_operator(g, 2.0, torch.float32)
@@ -2089,6 +2149,67 @@ def main() -> int:
         "a_b": ab_summary, "momentum_padded": mom_runs}}))
     print(f"plan phase: {time.perf_counter() - t_phase:.1f} s")
 
+    # Phase 13: the JAX mega engine's own path on gen 0.02x (22,416 stored
+    # entries, a v1 plan): K1's spmv_v1_f32 (the v1 TPU SpMV's order) held
+    # against its plain version, then fused_refine_mega called directly,
+    # which takes its starting A @ s and its recount from it and its median
+    # from K7, held to the JAX package's interpret-mode run of the same
+    # program (tests/test_torch_faults.py:test_fused_refine_mega_equals_jax_on_gen002).
+    t_phase = time.perf_counter()
+    host02 = clique_expand(hg02, "kl")
+    g02, g02c = host02.to_device(dev), host02.to_device("cpu")
+    lay, lay_c = g02.v1_layout, g02c.v1_layout
+    n02 = host02.num_nodes
+    rng = np.random.default_rng(SEED)
+    xv = rng.standard_normal(n02).astype(np.float32)
+    xv[::13] = -0.0
+    sv = np.where(rng.random(n02) < 0.5, -1.0, 1.0).astype(np.float32)
+    v1_err = 0.0
+    for vec in (xv, sv):
+        got = spmv_v1_cuda(lay, torch.as_tensor(vec).to(dev))
+        ref = spmv_v1_plain(lay_c, torch.as_tensor(vec))
+        check(torch.equal(bits32(got.cpu()), bits32(ref)), "spmv_v1_f32 is not bitwise equal to spmv_v1_plain")
+        check(torch.equal(got, spmv_v1_cuda(lay, torch.as_tensor(vec).to(dev))), "two spmv_v1_f32 launches differ")
+        v1_err = max(v1_err, float((got.cpu().double() - ref.double()).abs().max()))
+    x02 = torch.as_tensor(xv).to(dev)
+    a02 = torch.sparse_csr_tensor(g02.indptr.long(), g02.indices.long(), g02.data, size=(n02, n02))
+    chunks = lay.num_chunks
+    # Bytes: per chunk its int16 col_local and row_local, f32 weights, x
+    # base and place in win_chunks; win_ptr; x in and y out.  Operations:
+    # per slot its product and the scan's 9 adds, per segment end its add
+    # into the window.
+    v1_bytes = chunks * (512 * (2 + 2 + 4) + 4 + 4) + 4 * lay.win_ptr.numel() + 8 * n02
+    v1_ops = chunks * 512 * (1 + 9) + int(segment_ends(lay).sum())
+    v1 = {
+        "ms": cuda_ms(lambda: spmv_v1_cuda(lay, x02), 200),
+        "plain_ms": cuda_ms(lambda: spmv_v1_plain(lay, x02), 5),
+        "library_ms": cuda_ms(lambda: a02 @ x02, 200),
+        "device_us": device_us_per_launch(lambda: [spmv_v1_cuda(lay, x02) for _ in range(50)], "spmv_v1"),
+        "library_device_us": library_device_us(lambda: a02 @ x02),
+        "bound": (max(v1_bytes / HBM_BYTES_PER_S, v1_ops / F32_OPS_PER_S) * 1e3,
+                  "bytes" if v1_bytes / HBM_BYTES_PER_S >= v1_ops / F32_OPS_PER_S else "operations"),
+    }
+    print(f"K1 spmv_v1_f32 at gen 0.02x ({chunks} chunks in {lay.num_windows} windows): bitwise equal to "
+          f"spmv_v1_plain; {v1['ms']:.4f} ms, device {fmt_us(v1['device_us'])} per launch; plain "
+          f"{v1['plain_ms']:.3f} ms; torch.sparse {v1['library_ms']:.4f} ms (device "
+          f"{fmt_us([v1['library_device_us']])}); bound {v1['bound'][0] * 1e3:.3f} us by {v1['bound'][1]} "
+          f"({v1_bytes} bytes, {v1_ops} operations)")
+    reset_counts()
+    t0 = time.perf_counter()
+    e_mega, k_mega, it_mega = fused_refine_mega(g02, SpectralConfig(solver="power"), KLConfig(gain_eps=1e-6))
+    mega_s = time.perf_counter() - t0
+    mega_launches = {kern.symbol: kern.launches for kern in all_kernels if kern.launches}
+    check(K1_V1.launches == 2 and K7.launches > 0 and K2.launches == 1,
+          f"the mega engine's path on gen 0.02x launched {mega_launches}")
+    got_mega = (it_mega, e_mega.eigenvalue, k_mega.initial_cut, k_mega.best_cut, k_mega.iterations,
+                k_mega.final_cut, k_mega.verified_cut, int(e_mega.sides.sum()))
+    check(got_mega == JAX_MEGA_GEN002, f"the mega engine on gen 0.02x gave {got_mega}, not the JAX run's {JAX_MEGA_GEN002}")
+    print(f"mega engine on gen 0.02x (fused_refine_mega, spmv_order plan): {it_mega} power iterations, "
+          f"eigenvalue {e_mega.eigenvalue}, initial cut {k_mega.initial_cut}, best {k_mega.best_cut} after "
+          f"{k_mega.iterations} swaps, verified {k_mega.verified_cut}: the JAX package's interpret-mode run bit for "
+          f"bit; e2e {mega_s:.3f} s; launches {mega_launches}")
+    print(f"mega phase: {time.perf_counter() - t_phase:.1f} s")
+
     kernels = [
         {
             "name": "K1 spmv_csr_f32",
@@ -2421,6 +2542,33 @@ def main() -> int:
             "library_ms": None,
         },
     ]
+    kernels.append({
+        "name": "K1 spmv_v1_f32, A @ s in the v1 TPU SpMV's order (the mega engine's start and recount), gen 0.02x",
+        "route": "cuda", "source": "eig_kl_tpu_torch/csrc/spmv_csr.cu",
+        "replaces": "eig_kl_tpu/ops/spmv_pallas.py:339 (_spmv_kernel, pallas_call :428, through "
+                    "eig_kl_tpu/kl/megakernel.py:753, :770)",
+        "launches": mega_launches.get("spmv_v1_f32", 0), "launches_main_path": main_launches["spmv_v1_f32"],
+        "max_abs_err": v1_err, "ms": v1["ms"], "plain_ms": v1["plain_ms"], "bound_ms": v1["bound"][0],
+        "bound_by": v1["bound"][1], "library_ms": v1["library_ms"], "library_device_us": v1["library_device_us"],
+        "device_us_per_launch": None if v1["device_us"] is None else v1["device_us"][0],
+    })
+    for dt, symbol in (("f32", "kth_smallest_f32"), ("f64", "kth_smallest_f64")):
+        e = k7[f"{n} {dt}"]
+        kernels.append({
+            "name": f"K7 {symbol}, the exact rank select (the upper median), n = {n}",
+            "route": "cuda", "source": "eig_kl_tpu_torch/csrc/select.cu",
+            "replaces": "eig_kl_tpu/ops/select.py:118 (kth_smallest: _kth_key_bits :53, _kth_key_radix :68; "
+                        "XLA ops, no Pallas kernel)",
+            "launches": main_launches[symbol] if dt == "f32" else fu64_launches[symbol],
+            "launches_by_path": {"main": main_launches[symbol], "multi_start": m_launches[symbol],
+                                 "momentum": mo_launches[symbol], "f64_fused": fu64_launches[symbol],
+                                 "f64_momentum": m64_launches[symbol], "mega_gen002": mega_launches.get(symbol, 0)},
+            "max_abs_err": 0.0, "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+            "bound_by": "bytes", "library_ms": e["library_ms"], "library_device_us": e["library_device_us"],
+            "device_us_per_launch": None if e["device_us"] is None else e["device_us"][0],
+            "by_size": {tag: {**v, "device_us": None if v["device_us"] is None else v["device_us"][0]}
+                        for tag, v in k7.items() if tag.endswith(dt)},
+        })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -32,8 +32,10 @@
 // (_spmv_kernel, :339), v2's gather pass (_gather_kernel, :1049) and v2's
 // reduce pass (_reduce_kernel_mxu, :1118, and its variants :1080, :1207,
 // :1276).  Those are two TPU forms of one function; their chunk plans exist
-// only to work around the TPU's gather limits.  Hopper gathers x directly
-// from the CSR arrays, so this kernel takes no plan.
+// to work around the TPU's gather limits.  Hopper gathers x directly from
+// the CSR arrays, so these kernels take no plan.  One entry point,
+// spmv_v1_f32 (below), does take the v1 plan's layout: the JAX mega engine's
+// starting A @ s and recount add each row in the v1 kernel's own order.
 //
 // Bound on this card: bytes.  One call must read indptr, indices, data and
 // x and write y once, 11.3 MB at gen 1.0x (201,920 rows, 1,107,844 nnz), or
@@ -581,6 +583,59 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// spmv_v1_f32: y = A @ x in the order of the JAX package's v1 TPU SpMV
+// (eig_kl_tpu/ops/spmv_pallas.py:_spmv_kernel, :339), from its chunk layout
+// (ops/spmv_plan.py:build_v1_layout): one block of 512 threads per y window
+// of 1,024 rows walks that window's chunks in plan order, the window in
+// shared memory.  Per chunk, thread t holds slot t: its product
+// (x[col] + 0) * w, rounded; then the 9 rounds of the Hillis-Steele segmented
+// inclusive scan in shared memory, round k adding e[t - k] where slot t - k
+// holds the same row (0 otherwise); then the slot that ends its row's segment
+// (the next slot holds another row, or t = 511) adds its total into the
+// window's row.  A row ends once per chunk, so no two threads add into one
+// row.  No product is contracted into an add, as in the TPU kernel's
+// interpret-mode program on the CPU.
+constexpr int kV1Chunk = 512;
+constexpr int kV1Window = 1024;
+
+__global__ void __launch_bounds__(kV1Chunk)
+spmv_v1_kernel(const int* __restrict__ x_base, const short* __restrict__ col_local,
+               const short* __restrict__ row_local, const float* __restrict__ w,
+               const int* __restrict__ win_ptr, const int* __restrict__ win_chunks,
+               const float* __restrict__ x, float* __restrict__ y, int n) {
+  __shared__ float e_s[kV1Chunk];
+  __shared__ int r_s[kV1Chunk + 1];
+  __shared__ float y_s[kV1Window];
+  const int t = threadIdx.x;
+  const int win = blockIdx.x;
+  y_s[t] = 0.0f;
+  y_s[t + kV1Chunk] = 0.0f;
+  if (t == 0) r_s[kV1Chunk] = -1;  // slot 511 always ends its segment
+  for (int i = win_ptr[win]; i < win_ptr[win + 1]; ++i) {
+    const int c = win_chunks[i];
+    const long long slot = static_cast<long long>(c) * kV1Chunk + t;
+    const int cl = x_base[c] + col_local[slot];
+    const float g = __fadd_rn(cl < n ? x[cl] : 0.0f, 0.0f);
+    float e = __fmul_rn(g, w[slot]);
+    const int r = row_local[slot];
+    r_s[t] = r;
+    e_s[t] = e;
+    __syncthreads();
+    for (int k = 1; k < kV1Chunk; k <<= 1) {
+      const float add = (t >= k && r_s[t - k] == r) ? e_s[t - k] : 0.0f;
+      __syncthreads();
+      e = __fadd_rn(e, add);
+      e_s[t] = e;
+      __syncthreads();
+    }
+    if (r_s[t + 1] != r) y_s[r] = __fadd_rn(y_s[r], e);
+    __syncthreads();
+  }
+  const long long row = static_cast<long long>(win) * kV1Window + t;
+  if (row < n) y[row] = y_s[t];
+  if (row + kV1Chunk < n) y[row + kV1Chunk] = y_s[t + kV1Chunk];
+}
+
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 template <class T>
@@ -782,6 +837,20 @@ extern "C" int lazy_walk_f64(const void* indptr, const void* indices, const void
                              const void* w, const void* dsinv, const void* u, const void* c,
                              void* y, int n, int row_width, void* stream) {
   return lazy_walk<double>(indptr, indices, data, w, dsinv, u, c, y, n, row_width, stream);
+}
+
+// win_ptr/win_chunks: each y window's chunks in plan order; windows = P / 1024.
+extern "C" int spmv_v1_f32(const void* x_base, const void* col_local, const void* row_local,
+                           const void* w, const void* win_ptr, const void* win_chunks,
+                           const void* x, void* y, int n, int windows, void* stream) {
+  if (windows > 0) {
+    spmv_v1_kernel<<<windows, kV1Chunk, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(x_base), static_cast<const short*>(col_local),
+        static_cast<const short*>(row_local), static_cast<const float*>(w),
+        static_cast<const int*>(win_ptr), static_cast<const int*>(win_chunks),
+        static_cast<const float*>(x), static_cast<float*>(y), n);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* spmv_csr_error_string(int code) {

@@ -12,12 +12,14 @@ of the two swapped rows.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
 
 if TYPE_CHECKING:
+    from eig_kl_tpu_torch.ops.spmv_plan import V1Layout
     from eig_kl_tpu_torch.ops.spmv_v3 import SpmvPlanV3
 
 
@@ -32,11 +34,13 @@ PLAN_WINDOW = 1024
 class CsrPlan:
     """The port's counterpart of the JAX package's v1 or v2 chunk plan
     (``eig_kl_tpu/ops/spmv_pallas.py:plan_for_graph``), attached by
-    ``to_device(with_plan=True)``.  K1 reads the CSR arrays themselves and
-    needs no layout, so the plan holds only what the JAX plan decides for
-    the power solve: the padded length of its ``(P/128, 128)`` state, and
-    which TPU kernel would run, "v1" (at most :data:`V1_MAX_NNZ` entries) or
-    "v2".  Only v2 has the bf16-intermediate mode: a v1 plan ignores
+    ``to_device(with_plan=True)``.  It holds what the JAX plan decides for
+    the power solve, whose K1 reads the CSR arrays themselves: the padded
+    length of its ``(P/128, 128)`` state, and which TPU kernel would run,
+    "v1" (at most :data:`V1_MAX_NNZ` entries) or "v2".  :meth:`for_graph`
+    is the port's one copy of that rule; the v1 plan's chunk layout, which
+    decides the order of the mega engine's ``A @ s``, is kept by the graph
+    (:attr:`DeviceGraph.v1_layout`).  Only v2 has the bf16-intermediate mode: a v1 plan ignores
     ``inter_dtype`` (``spmv_pallas_2d`` ends in ``_spmv_call``), and so does
     the port.  (v2 also falls back to f32 for a plan whose ``g1`` is not a
     multiple of 2,048, ``spmv_pallas.py:474``; ``build_plan_v2`` never
@@ -230,6 +234,22 @@ class DeviceGraph:
     @property
     def dtype(self) -> torch.dtype:
         return self.data.dtype
+
+    @functools.cached_property
+    def v1_layout(self) -> "V1Layout | None":
+        """The chunk layout of the JAX package's v1 plan of this matrix
+        (:mod:`eig_kl_tpu_torch.ops.spmv_plan`), built on the host at the
+        first use and kept with the graph, as the JAX ``MegaGraph`` keeps
+        its ``spmv_plan``; None where that package's rule picks no v1 plan
+        (:meth:`CsrPlan.for_graph`), or for an f64 graph (the TPU kernel is
+        f32 only)."""
+        if self.dtype != torch.float32 or CsrPlan.for_graph(self.num_nodes, self.nnz).kernel != "v1":
+            return None
+        from eig_kl_tpu_torch.ops.spmv_plan import build_v1_layout
+
+        indptr = self.indptr.cpu().numpy().astype(np.int64)
+        rows = np.repeat(np.arange(self.num_nodes, dtype=np.int64), np.diff(indptr))
+        return build_v1_layout(self.num_nodes, rows, self.indices.cpu().numpy(), self.data.cpu().numpy(), self.device)
 
 
 def device_graph_from_jax(

@@ -41,6 +41,8 @@ from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
 from eig_kl_tpu_torch.ops.reduce import FUSED_DOT_BYTES, K4_MAX_PAIRS, fused_dot_batch, tree_sum
 from eig_kl_tpu_torch.ops.select import upper_median
 from eig_kl_tpu_torch.ops.spmv import spmv
+from eig_kl_tpu_torch.ops.spmv_plan import spmv_v1
+from eig_kl_tpu_torch.ops.spmv_v3 import SpmvPlanV3
 from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
 from eig_kl_tpu_torch.utils.tracing import Tracer
 
@@ -384,11 +386,41 @@ def natural_cap(num_nodes: int, n1: int, config: KLConfig) -> int:
     return min(config.max_iterations, natural)
 
 
-def _batch_init(g: DeviceGraph, s: torch.Tensor, form: str = "slice") -> tuple[torch.Tensor, torch.Tensor]:
+#: The orders of the mega paths' ``A @ s`` (:func:`mega_spmv`).
+SPMV_ORDERS = ("plan", "ell")
+
+
+def mega_spmv(g: DeviceGraph, spmv_order: str = "plan"):
+    """The ``A @ s`` of the mega paths, as a function of ``s``.
+
+    ``spmv_order`` "plan" is the JAX mega engine's: the TPU SpMV of its
+    plan (``megakernel.py:MegaGraph``, ``:133-137``), which for a graph
+    with a v1 layout (:attr:`DeviceGraph.v1_layout`: f32, at most
+    ``V1_MAX_NNZ`` stored entries) and no v3 plan is the v1 kernel
+    (:func:`~eig_kl_tpu_torch.ops.spmv_plan.spmv_v1`; K1's
+    ``spmv_v1_f32`` on the card).  Above that the plan is a v2 one, whose
+    order the port holds only to a bound (ROADMAP.md C): there, in f64 (which
+    the mega engine does not run), and for "ell", it is :func:`spmv` (K1 in
+    the ELL order of the JAX package's XLA engine, which the pipelines take
+    because the JAX package runs that engine off the TPU,
+    ``models/pipelines.py:_use_mega``; a v3 plan's route where the graph
+    has one)."""
+    if spmv_order not in SPMV_ORDERS:
+        raise ValueError(f"spmv_order is one of {SPMV_ORDERS}, got {spmv_order!r}")
+    if spmv_order == "plan" and not isinstance(g.plan, SpmvPlanV3) and g.v1_layout is not None:
+        layout = g.v1_layout
+        return lambda x: spmv_v1(layout, x)
+    return lambda x: spmv(g, x)
+
+
+def _batch_init(
+    g: DeviceGraph, s: torch.Tensor, form: str = "slice", matvec=None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """``A @ s`` and the from-scratch cut of every start of the sign stack
     ``s`` (float[S, n]), on the device: ``(a_s[S, n], cut[S])``.  Used for
     the initial state and for the final recount (megakernel.py:_batch_init,
-    ``:763``); each start is computed as a single start is.
+    ``:763``); each start is computed as a single start is, ``A @ s`` by
+    ``matvec`` (a :func:`mega_spmv`; by default the JAX mega engine's).
 
     The cut is ``0.25 * (sum(deg) - s . A s)``, the JAX mega engine's form
     (``megakernel.py:754``, ``:773``).  Below 4,096 nodes in f32 it adds as
@@ -396,14 +428,16 @@ def _batch_init(g: DeviceGraph, s: torch.Tensor, form: str = "slice") -> tuple[t
     (:func:`tree_sum`, ``:1034``), the dot as XLA's loop with its signs
     fused in (:func:`fused_dot_batch`; K4, up to 4 starts per launch;
     ROADMAP.md C5): ``form`` "slice" where they are a slice of the padded
-    state (``_batch_init``, ``:773``), "signs" where they are ``1 - 2
-    fs`` of the replayed split (the single-pass verified cut, ``:754``).
+    state (``_batch_init``, ``:773``), "recount" where they are ``1 - 2
+    fs`` of the replayed split (the verified cut, ``:754``, read in the
+    engine's own program: ``ops/reduce.py:LANES_FORMS``).
     From 4,096 nodes XLA's CPU dot would be one sequential chain, which at
     gen 1.0x moves the verified cut 6.2e-5 from the tracked one, past the
     drift gate of 1e-5; there, and in f64 (which the JAX mega engine does
     not run), the cut is :func:`cut_size`'s fixed tree order, the order
     that keeps the drift within the gate (ROADMAP.md C5, settled)."""
-    a_s = torch.stack([spmv(g, row) for row in s])
+    matvec = matvec or mega_spmv(g)
+    a_s = torch.stack([matvec(row) for row in s])
     if g.dtype != torch.float32 or s.shape[1] * 4 >= FUSED_DOT_BYTES:
         cut = torch.stack([cut_size(g, row, a_row) for row, a_row in zip(s, a_s)])
         return a_s, cut.to(g.dtype)
@@ -437,7 +471,7 @@ def _replay(sides0: torch.Tensor, out: PassOutput, upto: torch.Tensor) -> torch.
 
 
 def _refine_batch(
-    g: DeviceGraph, sides: torch.Tensor, config: KLConfig, tracer: Tracer
+    g: DeviceGraph, sides: torch.Tensor, config: KLConfig, tracer: Tracer, matvec
 ) -> list[KLResult]:
     """One pass of each start of ``sides`` (int8[S, n] on the graph's
     device) in one launch: the initial ``A @ s`` and cut of every start,
@@ -451,7 +485,7 @@ def _refine_batch(
     with tracer.span("kl.pass"):
         caps = _caps(sides, config)
         s = sides_to_signs(sides, g.dtype)
-        a_s, cut0 = _batch_init(g, s)
+        a_s, cut0 = _batch_init(g, s, matvec=matvec)
         cap_t = torch.tensor(caps, dtype=torch.int32, device=dev)
         out = kl_pass_batch(
             g, s, a_s, cut0, cut0, cap_t, torch.zeros_like(cap_t),
@@ -465,7 +499,7 @@ def _refine_batch(
         best_it = torch.argmin(torch.where(in_run, out.log_cut, torch.inf), dim=1)  # first minimum
         final = _replay(sides, out, it)
         best = _replay(sides, out, best_it)
-        verified = _batch_init(g, sides_to_signs(final, g.dtype), "signs")[1]
+        verified = _batch_init(g, sides_to_signs(final, g.dtype), "recount", matvec)[1]
         sc, lc, lg, ver, fin_h, best_h = (
             x.cpu().numpy() for x in (out.scalars, out.log_cut, out.log_gain, verified, final, best)
         )
@@ -489,7 +523,7 @@ def _refine_batch(
 
 
 def _refine_batch_refresh(
-    g: DeviceGraph, sides_batch: np.ndarray, config: KLConfig, tracer: Tracer
+    g: DeviceGraph, sides_batch: np.ndarray, config: KLConfig, tracer: Tracer, matvec
 ) -> list[KLResult]:
     """Chunked refinement of S starts: every ``refresh_interval`` swaps
     the kernel exits, the host replays each start's chunk of the log into
@@ -529,7 +563,7 @@ def _refine_batch_refresh(
             cap_chunk = np.where(stopped, 0, np.minimum(chunk, true_caps - it_total))
             signs = (1.0 - 2.0 * sides_cur.astype(np_dtype)).astype(np_dtype)
             s_dev = torch.as_tensor(signs).to(dev)
-            a_s, cut_dev = _batch_init(g, s_dev)
+            a_s, cut_dev = _batch_init(g, s_dev, matvec=matvec)
             sf_dev = torch.as_tensor(signs * free_mask).to(dev)
             best_arr = cut_dev if first else torch.as_tensor(best.astype(np_dtype)).to(dev)
             out = kl_pass_batch(
@@ -577,7 +611,7 @@ def _refine_batch_refresh(
     with tracer.span("kl.finalize"):
         # From-scratch recount of every final partition (gKL.cu:524-530).
         s_fin = torch.as_tensor(1.0 - 2.0 * sides_cur.astype(np_dtype)).to(dev)
-        verified = _batch_init(g, s_fin)[1].cpu().numpy()
+        verified = _batch_init(g, s_fin, matvec=matvec)[1].cpu().numpy()
         results = []
         for k in range(num_starts):
             iterations = int(it_total[k])
@@ -609,6 +643,7 @@ def refine_mega_batch(
     config: KLConfig = KLConfig(),
     *,
     tracer: Tracer | None = None,
+    spmv_order: str = "plan",
 ) -> list[KLResult]:
     """One KL pass of each of S starts in one kernel launch, on the
     graph's device; one host-side result per start, each equal to
@@ -619,14 +654,19 @@ def refine_mega_batch(
       config: ``refresh_interval > 0`` runs the chunked kernel re-entry of
         :func:`refine_mega`, batched.
       tracer: receives the spans "kl.pass" and "kl.finalize".
+      spmv_order: the order of the initial ``A @ s`` and of the recount
+        (:func:`mega_spmv`): "plan", the JAX mega engine's (its
+        ``refine_mega_batch``), or "ell", the JAX XLA engine's, which the
+        pipelines take.
     """
+    matvec = mega_spmv(g, spmv_order)
     sides_batch = np.asarray(sides_batch, dtype=np.int8)
     if sides_batch.ndim != 2 or sides_batch.shape[1] != g.num_nodes:
         raise ValueError(f"sides_batch must be (S, {g.num_nodes}), got {sides_batch.shape}")
     tracer = tracer or Tracer(g.device)
     if config.refresh_interval > 0:
-        return _refine_batch_refresh(g, sides_batch, config, tracer)
-    return _refine_batch(g, torch.as_tensor(sides_batch).to(g.device), config, tracer)
+        return _refine_batch_refresh(g, sides_batch, config, tracer, matvec)
+    return _refine_batch(g, torch.as_tensor(sides_batch).to(g.device), config, tracer, matvec)
 
 
 def refine_mega(
@@ -635,12 +675,16 @@ def refine_mega(
     config: KLConfig = KLConfig(),
     *,
     tracer: Tracer | None = None,
+    spmv_order: str = "plan",
 ) -> KLResult:
     """One KL pass from the int8[n] side labels ``sides``, on the graph's
     device; host-side result.  It is the S = 1 case of
     :func:`refine_mega_batch`, with and without ``refresh_interval``.
-    ``tracer`` receives the spans "kl.pass" and "kl.finalize"."""
-    return refine_mega_batch(g, np.asarray(sides, dtype=np.int8)[None], config, tracer=tracer)[0]
+    ``tracer`` receives the spans "kl.pass" and "kl.finalize";
+    ``spmv_order`` is :func:`refine_mega_batch`'s."""
+    return refine_mega_batch(
+        g, np.asarray(sides, dtype=np.int8)[None], config, tracer=tracer, spmv_order=spmv_order
+    )[0]
 
 
 def fused_refine_mega(
@@ -649,16 +693,21 @@ def fused_refine_mega(
     config: KLConfig = KLConfig(),
     *,
     tracer: Tracer | None = None,
+    spmv_order: str = "plan",
 ):
     """The whole gKL2 pipeline on the graph's device: power solve,
     "upper"-median split (gKL2.cu:403-414), one KL pass, finalization.
     The split stays on the device between the phases.  ``tracer``
-    receives the spans "spectral", "kl.pass" and "kl.finalize".
+    receives the spans "spectral", "kl.pass" and "kl.finalize";
+    ``spmv_order`` is :func:`refine_mega_batch`'s (the power solve runs
+    on the graph as it is, as the JAX ``_fused_full``'s does on its
+    device graph).
 
     Returns ``(EigResult, KLResult, power iterations)``.
     """
     from eig_kl_tpu_torch.spectral.power import _power_core
 
+    matvec = mega_spmv(g, spmv_order)
     tracer = tracer or Tracer(g.device)
     with tracer.span("spectral"):
         lam, v, iters = _power_core(
@@ -676,7 +725,7 @@ def fused_refine_mega(
         )
         med = upper_median(v)
         sides = (med > v).to(torch.int8)
-    kl = _refine_batch(g, sides[None], config, tracer)[0]
+    kl = _refine_batch(g, sides[None], config, tracer, matvec)[0]
     eig = EigResult(
         eigenvalue=float(lam),
         median=float(med),

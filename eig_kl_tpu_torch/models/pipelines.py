@@ -53,9 +53,16 @@ def attaches_plan(device: torch.device) -> bool:
     return False
 
 
+#: The order of the refinement's initial ``A @ s`` and recount on every
+#: pipeline: the JAX XLA engine's, which the JAX package's pipelines run
+#: off the TPU (``models/pipelines.py:_use_mega``), so that a pipeline's
+#: result is the JAX package's CPU result.
+PIPELINE_SPMV_ORDER = "ell"
+
+
 def refine_backend(g: DeviceGraph, config: KLConfig, tracer: Tracer | None = None):
     """Single-pass refinement closure on the port's one engine."""
-    return lambda sides: refine_mega(g, sides, config, tracer=tracer)
+    return lambda sides: refine_mega(g, sides, config, tracer=tracer, spmv_order=PIPELINE_SPMV_ORDER)
 
 
 def _refine_dispatch(
@@ -97,7 +104,8 @@ def _multi_start_dispatch(
     else:
         init_sides = None
     best, cuts = multi_start_refine_mega(
-        g, starts, config=config, base_seed=seed, init_sides=init_sides, tracer=tracer
+        g, starts, config=config, base_seed=seed, init_sides=init_sides, tracer=tracer,
+        spmv_order=PIPELINE_SPMV_ORDER,
     )
     if config.kicks > 0:
         best = refine_ils(
@@ -247,7 +255,9 @@ def fused_partition(
         and kl_config.kicks == 0
         and resolved_passes(kl_config) <= 1
     ):
-        eig, result, iters = fused_refine_mega(g, spectral_config, kl_config, tracer=tracer)
+        eig, result, iters = fused_refine_mega(
+            g, spectral_config, kl_config, tracer=tracer, spmv_order=PIPELINE_SPMV_ORDER
+        )
     else:
         with tracer.span("init"):
             if use_eig:

@@ -39,7 +39,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 HOST_FLAGS = ("-std=c++17", "-O3", "-fPIC", "-shared")
-KERNEL_SOURCES = ("spmv_csr", "kl_pass", "spmv_v3", "fma_dot", "smega", "tree_sum")
+KERNEL_SOURCES = ("spmv_csr", "kl_pass", "spmv_v3", "fma_dot", "smega", "tree_sum", "select")
 HOST_SOURCES = ("eigkl_native",)
 
 

@@ -609,12 +609,23 @@ class LanesForm(NamedTuple):
 
 #: The producers read (:func:`fused_dot_batch`).  "laplacian" was read in
 #: its program, on graphs wider than 32, which have 34 nodes or more: its
-#: scalar loop below 34 values was not read.
+#: scalar loop below 34 values was not read.  "recount" is the JAX mega
+#: engine's verified cut ``vdot(1 - 2 fs, A s)`` in its own program (the
+#: replayed split against the plan's SpMV, inside ``_finalize_batch``'s
+#: ``lax.map``, single start and batched alike), fitted at 34-3,000 values
+#: to the cuts that program returns; "signs" is the same dot in a
+#: standalone program.  "walk" is the momentum check's quotient
+#: ``vdot(w, opm_sym(w))`` on a graph wider than 32 (the walk's row sums a
+#: fusion of their own), fitted to whole JAX momentum runs on 34-319 nodes:
+#: unrolled from 34 values to 191, 8 lanes at a tie (639 values); its
+#: ``pairs_at_6`` was not told apart by the runs (ROADMAP.md C).
 LANES_FORMS = {
     "lanes": LanesForm(49, 128, True, True),
     "slice": LanesForm(59, 128, True, True),
     "signs": LanesForm(37, 351, False, False),
     "laplacian": LanesForm(33, 191, False, False),
+    "recount": LanesForm(37, 128, False, True),
+    "walk": LanesForm(33, 191, False, True),
 }
 #: The orders of a fused dot (:func:`fused_dot_batch`) by name.
 FUSED_ORDERS = ("chain", *LANES_FORMS)

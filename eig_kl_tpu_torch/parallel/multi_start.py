@@ -37,6 +37,7 @@ def multi_start_refine_mega(
     launch_chunk: int | None = None,
     init_sides: np.ndarray | None = None,
     tracer: Tracer | None = None,
+    spmv_order: str = "plan",
 ) -> tuple[KLResult, np.ndarray]:
     """Run ``num_starts`` refinements batched over the start axis; return
     ``(best KLResult, best cut per start)``.
@@ -59,6 +60,10 @@ def multi_start_refine_mega(
         perturbed spectral splits,
         :func:`eig_kl_tpu_torch.kl.init.perturb_split`).
       tracer: receives the spans "kl.pass" and "kl.finalize".
+      spmv_order: the order of each pass's initial ``A @ s`` and recount,
+        :func:`~eig_kl_tpu_torch.kl.megakernel.refine_mega_batch`'s: "plan"
+        (the JAX mega engine's) or "ell" (the JAX XLA engine's, which the
+        pipelines take).
     """
     if launch_chunk is None:
         launch_chunk = max(num_starts, 1)
@@ -66,7 +71,9 @@ def multi_start_refine_mega(
     def run_batch(batch: np.ndarray) -> list[KLResult]:
         out = []
         for s0 in range(0, len(batch), launch_chunk):
-            out += refine_mega_batch(g, batch[s0 : s0 + launch_chunk], config, tracer=tracer)
+            out += refine_mega_batch(
+                g, batch[s0 : s0 + launch_chunk], config, tracer=tracer, spmv_order=spmv_order
+            )
         return out
 
     if init_sides is None:

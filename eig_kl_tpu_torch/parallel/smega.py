@@ -375,7 +375,8 @@ def smega_refine(
 
     The trajectory equals the single-chip pass's at every shard count;
     ``initial_cut`` is the JAX engine's host float64 recount rounded to
-    f32, so the cut log may differ from :func:`refine_mega`'s by that
+    f32, so the cut log may differ from :func:`refine_mega`'s (with
+    ``spmv_order="ell"``: smega starts from the ELL row sums) by that
     start only.  ``plan`` (a :class:`SmegaPlan` for ``n_shards``) skips the
     host build and the upload on repeated calls on one graph; a plan for
     another shard count is refused.  ``align`` sets the per-shard node

@@ -42,8 +42,9 @@ the plan: the JAX package's plan branch is f32 only.  The dots of the CSR
 momentum exit are XLA's vector dot, except its Rayleigh quotient, into
 which XLA fuses the lazy walk below 4,096 values ("chain"), as it fuses the
 Laplacian into the final f32 Rayleigh quotient of the CSR solve; on a graph
-wider than 32 the row sums stay out of both dots (the check's "lanes", the
-final quotient's "laplacian"), and the check's walk fuses the product of
+wider than 32 the row sums stay out of both dots (the check's "walk", the
+final quotient's "laplacian"; the check's still parts from the JAX runs on
+some graphs, ROADMAP.md C), and the check's walk fuses the product of
 the deflated iterate's scaling (``ops/spmv.py:lazy_walk``, ``scaled``).  (The f64 solve's final quotient
 keeps the fixed-order sum.)
 """
@@ -190,9 +191,11 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
         # dot below 4,096 values ("chain").  Above 32 the windowed row sums
         # are a fusion of their own: the epilogue recomputes w and fuses
         # its product (lazy_walk's scaled form), and the dot's loop takes
-        # element-wise operands ("lanes").
+        # element-wise operands ("walk": the JAX runs on 34-319 nodes agree
+        # with it wherever they agree with "lanes", and at 10 lengths more;
+        # ROADMAP.md C).
         if g.row_width > WINDOW:
-            return fused_dot(w, lazy_walk(g_csr, w, dsinv, scaled=(u, c)), "lanes")
+            return fused_dot(w, lazy_walk(g_csr, w, dsinv, scaled=(u, c)), "walk")
         return fused_dot(w, lazy(w, dsinv), "chain")
 
     return PowerOperator(lambda x: x, lambda x: x, norm_lap, step, dot if dtype == torch.float32 else tree_dot,

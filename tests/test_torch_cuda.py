@@ -1552,3 +1552,119 @@ def test_plan_power_solve_on_the_card_equals_the_cpu_run(cuda, inter):
         (lam_c, v_c, it_c), (lam_g, v_g, it_g) = (_power_core(g, **kw) for g in gs)
         assert it_c == it_g and float(lam_c) == float(lam_g)
         assert torch.equal(v_g.cpu().view(torch.int32), v_c.view(torch.int32))
+
+
+def _v1_host(kind):
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.io.hgr import Hypergraph
+
+    if kind == "gen_0.02":
+        return clique_expand(_hypergraph("gen_0.02"), "kl")
+    rng = np.random.default_rng(7)  # 20,000 nodes, about 28,000 entries in 400 chunks
+    n, sizes = 20000, rng.integers(2, 4, size=7000)
+    nets = [rng.choice(n, k, replace=False) for k in sizes]
+    offs = np.zeros(len(nets) + 1, np.int64)
+    np.cumsum(sizes, out=offs[1:])
+    return clique_expand(Hypergraph(n, len(nets), np.concatenate(nets).astype(np.int32), offs), "kl")
+
+
+@pytest.mark.parametrize("kind", ["gen_0.02", "random"])
+def test_spmv_v1_equals_plain_bitwise(cuda, kind):
+    """K1's spmv_v1_f32 (the v1 TPU SpMV's order) against spmv_v1_plain, bit
+    for bit, on signs and on normal values with -0 among them; one launch
+    per call."""
+    from eig_kl_tpu_torch.ops.spmv_plan import K1_V1, spmv_v1_cuda, spmv_v1_plain
+
+    host = _v1_host(kind)
+    assert host.nnz <= 32_768
+    lay_c, lay_g = host.to_device("cpu").v1_layout, host.to_device(cuda).v1_layout
+    rng = np.random.default_rng(5)
+    n = host.num_nodes
+    x = rng.standard_normal(n).astype(np.float32)
+    x[::11] = -0.0
+    for v in (x, np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)):
+        before = K1_V1.launches
+        got = spmv_v1_cuda(lay_g, torch.as_tensor(v).to(cuda))
+        assert K1_V1.launches == before + 1
+        assert torch.equal(got.cpu().view(torch.int32), spmv_v1_plain(lay_c, torch.as_tensor(v)).view(torch.int32))
+
+
+def _select_vector(n, dtype, seed):
+    rng = np.random.default_rng(seed)
+    v = rng.standard_normal(n).astype(dtype)
+    v[rng.random(n) < 0.2] = v[0]  # ties
+    if n >= 16:
+        special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45 if dtype == np.float32 else 5e-324, 1.0, -1.0])
+        at = rng.choice(n, min(n // 8, 64), replace=False)
+        v[at] = rng.choice(special.astype(dtype), at.size)
+        neg_nan = np.array([0xFFC00001 if dtype == np.float32 else 0xFFF8000000000001],
+                           np.uint32 if dtype == np.float32 else np.uint64).view(dtype)
+        v[1] = neg_nan[0]
+    return v
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [1, 2, 37, 4038, 8192, 8193, 184406, 201920])
+def test_k7_equals_plain_bitwise(cuda, n, dtype):
+    """K7 against kth_smallest_plain bit for bit (NaN of both signs, +-0,
+    +-inf, subnormals and ties among the values): every rank of a small
+    vector, several of a large one; one launch per call, the result a 0-d
+    tensor on the card."""
+    from eig_kl_tpu_torch.ops.select import K7, K7_F64, kth_smallest_cuda, kth_smallest_plain
+
+    v = _select_vector(n, dtype, n)
+    t = torch.as_tensor(v)
+    tg = t.to(cuda)
+    ks = range(n) if n <= 64 else sorted({0, 1, n // 3, n // 2, n - 2, n - 1})
+    kern = K7 if dtype == np.float32 else K7_F64
+    bits = torch.int32 if dtype == np.float32 else torch.int64
+    for k in ks:
+        before = kern.launches
+        got = kth_smallest_cuda(tg, k)
+        assert kern.launches == before + 1 and got.dim() == 0 and got.device.type == "cuda"
+        assert torch.equal(got.cpu().view(bits), kth_smallest_plain(t, k).view(bits)), k
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [4038, 201920])
+def test_k7_heavy_ties_run_every_round(cuda, n, dtype):
+    """Values drawn from {-0.0, 0, 1, 2}: no bin of rank k ever holds one
+    key, so K7 runs all its rounds (4 in f32, 8 in f64) in both its forms;
+    bit for bit the plain version at several ranks."""
+    from eig_kl_tpu_torch.ops.select import kth_smallest_cuda, kth_smallest_plain
+
+    rng = np.random.default_rng(n)
+    v = np.array([-0.0, 0.0, 1.0, 2.0], dtype)[rng.integers(0, 4, n)]
+    t = torch.as_tensor(v)
+    bits = torch.int32 if dtype == np.float32 else torch.int64
+    for k in (0, n // 4, n // 2, n - 1):
+        got = kth_smallest_cuda(t.to(cuda), k)
+        assert torch.equal(got.cpu().view(bits), kth_smallest_plain(t, k).view(bits)), k
+
+
+def test_mega_engine_on_the_card_equals_the_cpu_run(cuda):
+    """fused_refine_mega on gen 0.02x (the JAX mega engine's order: K1's
+    spmv_v1_f32 for the starting A @ s and the recount, K7 for the median):
+    the card and the CPU give the same bits."""
+    from eig_kl_tpu_torch.kl.megakernel import fused_refine_mega
+    from eig_kl_tpu_torch.ops.select import K7
+    from eig_kl_tpu_torch.ops.spmv_plan import K1_V1
+    from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
+
+    host = _gen002_host()
+    runs = []
+    for dev in ("cpu", cuda):
+        v1, k7 = K1_V1.launches, K7.launches
+        runs.append(fused_refine_mega(host.to_device(dev), SpectralConfig(solver="power"), KLConfig(gain_eps=1e-6)))
+    assert K1_V1.launches == v1 + 2 and K7.launches > k7
+    (e_c, k_c, it_c), (e_g, k_g, it_g) = runs
+    assert it_c == it_g == 201 and e_c.eigenvalue == e_g.eigenvalue
+    assert (k_g.iterations, k_g.best_cut, k_g.verified_cut) == (k_c.iterations, k_c.best_cut, k_c.verified_cut)
+    np.testing.assert_array_equal(k_g.cut_trajectory, k_c.cut_trajectory)
+    np.testing.assert_array_equal(k_g.sides, k_c.sides)
+
+
+def _gen002_host():
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+
+    return clique_expand(_hypergraph("gen_0.02"), "kl")

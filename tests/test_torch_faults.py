@@ -24,6 +24,7 @@ on one thread.
 
 import contextlib
 import functools
+import pathlib
 
 import jax
 import jax.numpy as jnp
@@ -174,6 +175,26 @@ def test_final_rayleigh_quotient_above_32_columns_equals_xla(graph):
         with _one_thread():
             got = op.dot(torch.as_tensor(v), op.norm_lap(torch.as_tensor(v)))
         assert _bits(got) == _bits(rayleigh(g_jax, v))
+
+
+@pytest.mark.parametrize("n", [34, 46, 150])
+def test_small_momentum_above_32_columns_equals_jax_to_its_exit(n):
+    """The momentum exit on connected graphs of 34-150 nodes with a 34-pin
+    net (ELL width 40), to its exit: the check's quotient takes the "walk"
+    form, unrolled from 34 values to 191 ("lanes" kept 34 and 46 a chain
+    and 150 a vector loop, and the runs parted at the first check's beta)."""
+    from eig_kl_tpu.spectral.power import _power_core as jax_core
+    from eig_kl_tpu_torch.spectral.power import _power_core
+
+    g_jax, g = _graphs(_connected_with_wide_net(n, 34, n))
+    assert g.row_width == 40
+    kw = dict(shift=2.0, tolerance=1e-6, min_iters=100, max_iters=400, seed=42, convergence="momentum")
+    lam_j, v_j, it_j = jax_core(g_jax, dtype="float32", **kw)
+    with _one_thread():
+        lam_t, v_t, it_t = _power_core(g, dtype=torch.float32, **kw)
+    assert it_t == int(it_j)
+    np.testing.assert_array_equal(_bits(v_t.numpy()), _bits(v_j))
+    assert _bits(lam_t) == _bits(lam_j)
 
 
 def test_momentum_above_32_columns_equals_jax_to_its_exit():
@@ -378,3 +399,148 @@ def test_mega_cut_from_4096_nodes_keeps_the_tree_order():
             assert abs(cut - other) <= 0.5 * gamma * terms + u * (abs(cut) + abs(other))
     assert r.iterations == 300
     assert abs(r.final_cut - r.verified_cut) / r.final_cut <= 1e-5
+
+
+# ------------------------- the mega engine's A @ s: the v1 TPU SpMV's order
+
+GEN_002 = str(pathlib.Path(__file__).resolve().parent.parent / "benchmarks" / "data" / "gen_0.02_42.hgr")
+
+
+def _v1_graph(kind):
+    """A KL-weighted host graph (JAX package) of at most 32,768 stored
+    entries, whose plan is a v1 plan."""
+    from eig_kl_tpu.graph.expand import clique_expand
+    from eig_kl_tpu.io.hgr import read_hgr
+
+    if kind == "gen_0.02":
+        return clique_expand(read_hgr(GEN_002, use_native=False), "kl", use_native=False)
+    n, nets, pins, seed = kind
+    return clique_expand(random_hypergraph(np.random.default_rng(seed), n, nets, pins), "kl", use_native=False)
+
+
+@pytest.mark.parametrize(
+    "kind", ["gen_0.02", (158, 205, 5, 1000), (2000, 2600, 5, 5), (20000, 7000, 3, 7)],
+    ids=["gen_0.02", "158", "2000", "20000_nb8"],
+)
+def test_spmv_v1_plain_equals_the_v1_kernel(kind):
+    """The v1 layout is the JAX plan's chunk by chunk, and ``spmv_v1_plain``
+    equals ``spmv_pallas(plan_for_graph(g), x, interpret=True)`` with
+    ``==`` (the last graph has 400 chunks, which the kernel takes 8 per
+    grid step); the JAX engine's ``A @ s`` parts from K1's ELL order."""
+    from eig_kl_tpu.ops.spmv_pallas import SpmvPlan, plan_for_graph, spmv_pallas
+    from eig_kl_tpu_torch.graph.csr import Graph
+    from eig_kl_tpu_torch.ops.spmv import spmv_plain
+    from eig_kl_tpu_torch.ops.spmv_plan import segment_ends, spmv_v1_plain
+
+    gh = _v1_graph(kind)
+    assert gh.nnz <= 32_768
+    plan = plan_for_graph(gh)
+    assert isinstance(plan, SpmvPlan)
+    g = Graph.from_arrays(gh.indptr, gh.indices, gh.data).to_device("cpu")
+    lay = g.v1_layout
+    C = lay.num_chunks
+    assert lay.padded_nodes == plan.padded_nodes and C <= plan.num_chunks < C + 8
+    np.testing.assert_array_equal(lay.x_base.numpy(), 128 * np.asarray(plan.cw8[:C]))
+    np.testing.assert_array_equal(lay.col_local.numpy(), np.asarray(plan.col_local[:C]).reshape(C, -1))
+    np.testing.assert_array_equal(lay.row_local.numpy(), np.asarray(plan.row_local[:C]).reshape(C, -1))
+    np.testing.assert_array_equal(_bits(lay.weights), _bits(np.asarray(plan.weights[:C]).reshape(C, -1)))
+    # The segment ends are the plan's route_src, and the windows its rw8.
+    c_idx, p_idx = np.nonzero(segment_ends(lay).numpy())
+    route = np.full((C, 1024), -1, np.int64)
+    route[c_idx, lay.row_local.numpy()[c_idx, p_idx]] = p_idx
+    np.testing.assert_array_equal(route, np.asarray(plan.route_src[:C]).reshape(C, -1))
+    window = np.empty(C, np.int64)
+    ptr = lay.win_ptr.numpy()
+    window[lay.win_chunks.numpy()] = np.repeat(np.arange(len(ptr) - 1), np.diff(ptr))
+    np.testing.assert_array_equal(window, np.asarray(plan.rw8[:C]) // 8)
+    rng = np.random.default_rng(3)
+    n = gh.num_nodes
+    parted = 0
+    for x in (rng.standard_normal(n).astype(np.float32), np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)):
+        ref = np.asarray(spmv_pallas(plan, jnp.asarray(x), interpret=True))
+        with _one_thread():
+            got = spmv_v1_plain(lay, torch.as_tensor(x))
+            parted += int((_bits(spmv_plain(g, torch.as_tensor(x))) != _bits(ref)).sum())
+        np.testing.assert_array_equal(_bits(got), _bits(ref))
+    assert parted > 0
+
+
+def _mega_case(n, seed):
+    """The graph and split of a random hypergraph with nets of up to 5
+    pins (weights 1/2, 1/3, 1/4: not dyadic), the split drawn after it."""
+    from eig_kl_tpu.graph.expand import clique_expand
+    from eig_kl_tpu_torch.graph.csr import Graph
+
+    rng = np.random.default_rng(seed)
+    gh = clique_expand(random_hypergraph(rng, n, int(1.3 * n), 5), "kl", use_native=False)
+    sides = (rng.random(n) < 0.5).astype(np.int8)
+    return gh, Graph.from_arrays(gh.indptr, gh.indices, gh.data).to_device("cpu"), sides
+
+
+def _assert_same_run(got, ref):
+    assert got.iterations == ref.iterations
+    for name in ("initial_cut", "final_cut", "best_cut", "verified_cut"):
+        assert getattr(got, name) == getattr(ref, name), name
+    np.testing.assert_array_equal(got.sides, ref.sides)
+    np.testing.assert_array_equal(got.best_sides, ref.best_sides)
+    np.testing.assert_array_equal(_bits(got.cut_trajectory), _bits(ref.cut_trajectory))
+    np.testing.assert_array_equal(_bits(got.gain_trajectory), _bits(ref.gain_trajectory))
+
+
+@pytest.mark.parametrize("n, seed", [(158, 1000), (158, 1001), (300, 1000), (300, 1001)])
+def test_refine_mega_batch_equals_jax_on_non_dyadic_graphs(n, seed):
+    """The port's ``refine_mega_batch`` against the JAX package's in
+    interpret mode, bit for bit: the starting ``A @ s`` and the recount in
+    the v1 kernel's order, the verified cut's dot in its program's order
+    ("recount").  With K1's ELL order the two took other swaps from the
+    first (300 nodes) or the eleventh (158) swap on."""
+    from eig_kl_tpu.kl.megakernel import MegaGraph, refine_mega_batch as jax_batch
+    from eig_kl_tpu.utils.config import KLConfig as JaxKL
+    from eig_kl_tpu_torch.kl.megakernel import refine_mega_batch
+    from eig_kl_tpu_torch.utils.config import KLConfig
+
+    gh, g, sides = _mega_case(n, seed)
+    ref = jax_batch(MegaGraph(gh), sides[None], JaxKL(), interpret=True)[0]
+    with _one_thread():
+        got = refine_mega_batch(g, sides[None], KLConfig())[0]
+    _assert_same_run(got, ref)
+
+
+@pytest.mark.parametrize("n", [40, 70, 130])
+def test_single_start_recount_equals_jax(n):
+    """The single-start program (``refine_mega``) at lengths where the
+    recount's dot is unrolled (40, 70: two lanes only below 6 values left)
+    and a vector loop (130)."""
+    from eig_kl_tpu.kl.megakernel import MegaGraph, refine_mega as jax_refine
+    from eig_kl_tpu.utils.config import KLConfig as JaxKL
+    from eig_kl_tpu_torch.kl.megakernel import refine_mega
+    from eig_kl_tpu_torch.utils.config import KLConfig
+
+    gh, g, sides = _mega_case(n, 0)
+    ref = jax_refine(MegaGraph(gh), sides, JaxKL(), interpret=True)
+    with _one_thread():
+        got = refine_mega(g, sides, KLConfig())
+    _assert_same_run(got, ref)
+
+
+def test_fused_refine_mega_equals_jax_on_gen002():
+    """The whole gKL2 program on gen 0.02x (22,416 entries, a v1 plan):
+    the port's ``fused_refine_mega`` and the JAX package's in interpret
+    mode give the same power solve, split, 1,362 swaps and cuts."""
+    from eig_kl_tpu.kl.megakernel import MegaGraph, fused_refine_mega as jax_fused
+    from eig_kl_tpu.utils.config import KLConfig as JaxKL, SpectralConfig as JaxSpec
+    from eig_kl_tpu_torch.graph.csr import Graph
+    from eig_kl_tpu_torch.kl.megakernel import fused_refine_mega
+    from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
+
+    gh = _v1_graph("gen_0.02")
+    jdev = gh.to_device()
+    jeig, jkl = jax_fused(MegaGraph(gh, device_graph=jdev), jdev, JaxSpec(solver="power"),
+                          JaxKL(gain_eps=1e-6), interpret=True)
+    g = Graph.from_arrays(gh.indptr, gh.indices, gh.data).to_device("cpu")
+    with _one_thread():
+        eig, kl, iters = fused_refine_mega(g, SpectralConfig(solver="power"), KLConfig(gain_eps=1e-6))
+    assert iters == 201 and eig.eigenvalue == jeig.eigenvalue
+    np.testing.assert_array_equal(eig.sides, jeig.sides)
+    _assert_same_run(kl, jkl)
+    assert (kl.iterations, kl.best_cut, kl.verified_cut) == (1362, 788.5287475585938, 1003.1761474609375)

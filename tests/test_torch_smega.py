@@ -243,8 +243,9 @@ def test_initial_a_s_equals_the_xla_row_sum(gen002):
 def test_gen002_swaps_equal_across_shards_and_the_single_chip_pass(gen002):
     """From the f32 spectral split: the swap logs, gains and iterations are
     bitwise equal at 1, 2, 4 and 8 shards and equal the single-chip pass
-    (K2's plain version, and ``refine_mega`` around it).  The cut
-    trajectories start from different cut0s: smega's is the host f64
+    (K2's plain version, and ``refine_mega`` around it, from the ELL row
+    sums that smega starts from, smega.py:721: ``spmv_order="ell"``).  The
+    cut trajectories start from different cut0s: smega's is the host f64
     recount rounded to f32 (smega.py:885-891), refine_mega's the cut in
     the tree order of ``ops/reduce.py``.  After that both add the same
     gains, so they stay |cut0 - cut0'| apart up to the f32 rounding of the
@@ -262,7 +263,7 @@ def test_gen002_swaps_equal_across_shards_and_the_single_chip_pass(gen002):
     dg = g.to_device("cpu")
     s = sides_to_signs(torch.as_tensor(sides), torch.float32)
     a_s = spmv(dg, s)
-    mega = refine_mega(dg, sides, cfg)
+    mega = refine_mega(dg, sides, cfg, spmv_order="ell")
     single = kl_pass_plain(dg, s, a_s, mega.initial_cut, cap, limit, cfg.gain_eps)
     it = int(single.scalars[2])
     assert it == mega.iterations > 100
