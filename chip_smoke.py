@@ -26,9 +26,12 @@ run, Lanczos and LOBPCG at spectral_partition's f64 default, the f64
 momentum exit and the f64 multi-start.  K7 (the exact rank select of every
 median) is held against its plain version at the main path's sizes and
 timed beside ``torch.kthvalue``; last, the JAX mega engine's own path on
-gen 0.02x: K1's ``spmv_v1_f32`` (the v1 TPU SpMV's order) against its plain
-version, then ``fused_refine_mega`` called directly, held to the JAX
-package's interpret-mode bits.
+gen 0.02x and on gen 1.0x: K1's ``spmv_v1_f32`` and ``spmv_v2_f32`` (the v1
+and v2 TPU SpMVs' orders) against their plain versions, then
+``fused_refine_mega`` called directly, held to the JAX package's
+interpret-mode bits (gen 0.02x) and to the port's plain CPU run (gen 1.0x).
+The CSR plan path (``fused_partition(with_plan=True)``) takes the v2 order
+too, through ``spmv_v2_bf16i_f32`` and its lazy-walk forms.
 Any failed check raises, so the script exits nonzero and prints no
 result; so does a machine without a CUDA card.
 """
@@ -63,11 +66,20 @@ SHARDS = (1, 2, 4, 8)  # the smega path's shard counts, one cluster of S blocks 
 MAIN_ITERS, MAIN_SWAPS, MAIN_BEST = 326, 8348, 39693.86
 MULTI_BEST = 39581.65
 V3_ITERS, V3_BEST = 351, 39709.99
-#: The CSR plan path (ROADMAP.md A10): the JAX package's v2 SpMV with its
-#: default bf16 intermediates, as K1's bf16i entry points; the quality A/B
-#: of PARITY.md:84-88 over these spectral seeds, in three cells.
+#: The CSR plan path (ROADMAP.md A10): the JAX package's v2 SpMV in its own
+#: order with its default bf16 intermediates, as K1's spmv_v2_bf16i_f32; the
+#: quality A/B of PARITY.md:84-88 over these spectral seeds, in three cells.
 AB_SEEDS = (42, 43, 44, 45, 46)
 AB_CELLS = ("csr f32", "padded f32", "padded bf16i")
+#: gen 1.0x's v2 plan: its row block and bucket slot count, and its COO
+#: tail's entries (eig_kl_tpu/ops/spmv_pallas.py:build_plan_v2's search).
+V2_GEOMETRY, V2_COO_TAIL = (16384, 512), 125
+#: The port's plain runs on the CPU at gen 1.0x (tools/plan_order_reference.py),
+#: which the card's runs of the same paths must equal bit for bit: the plan
+#: path's bf16i one-start run (power iterations, swaps, initial, best and
+#: final cut), and fused_refine_mega called directly (as JAX_MEGA_GEN002).
+PLAN_BF16I = (126, 9575, 66307.84375, 39262.55859375, 39262.55859375)
+MEGA_GEN1 = (326, 2.089679718017578, 58810.609375, 39726.91796875, 8063, 39726.91796875, 39726.9140625, 97975)
 #: The one-start run on gen 0.02x (4,038 nodes, below XLA's 4,096-value
 #: dot fusion): the JAX package's f32 CPU run's power iterations, swaps and
 #: best cut, which its mega cuts reach through K4's fused dot.
@@ -328,13 +340,14 @@ def main() -> int:
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
     from eig_kl_tpu_torch.graph.csr import CsrPlan, DeviceGraph
     from eig_kl_tpu_torch.graph.expand import clique_expand
-    from eig_kl_tpu_torch.io.hgr import read_hgr
+    from eig_kl_tpu_torch.io.hgr import Hypergraph, read_hgr
     from eig_kl_tpu_torch.kl.megakernel import (
         K2,
         K2_F64,
         K2_STARTS,
         _batch_init,
         k2_selection,
+        mega_spmv,
         fused_refine_mega,
         kl_pass_batch_cuda,
         kl_pass_batch_plain,
@@ -344,7 +357,7 @@ def main() -> int:
     from eig_kl_tpu_torch.kl.init import perturb_split, random_split
     from eig_kl_tpu_torch.models.generator import CircuitGenerator
     from eig_kl_tpu_torch.io.eigfile import read_eig_file, write_eig_file
-    from eig_kl_tpu_torch.models.pipelines import fused_partition, kl_partition, spectral_partition
+    from eig_kl_tpu_torch.models.pipelines import PIPELINE_SPMV_ORDER, fused_partition, kl_partition, spectral_partition
     from eig_kl_tpu_torch.ops import _build
     from eig_kl_tpu_torch.ops.spmv import (
         K1,
@@ -357,14 +370,6 @@ def main() -> int:
         K1_SPMM_F64,
         K1_STEP,
         K1_STEP_F64,
-        K1_BF16I,
-        K1_LAZY_BF16I,
-        K1_LAZY_PADDED,
-        K1_PADDED,
-        lazy_walk_padded_cuda,
-        lazy_walk_padded_plain,
-        spmv_padded_cuda,
-        spmv_padded_plain,
         laplacian_cuda,
         laplacian_plain,
         lazy_walk_cuda,
@@ -379,7 +384,22 @@ def main() -> int:
     )
     from eig_kl_tpu_torch.ops import spmv_v3 as V
     from eig_kl_tpu_torch.ops.select import K7, K7_F64, kth_smallest_cuda, kth_smallest_plain
-    from eig_kl_tpu_torch.ops.spmv_plan import K1_V1, segment_ends, spmv_v1_cuda, spmv_v1_plain
+    from eig_kl_tpu_torch.ops.spmv_plan import (
+        K1_LAZY_V2,
+        K1_LAZY_V2_BF16I,
+        K1_V1,
+        K1_V2,
+        K1_V2_BF16I,
+        CooTail,
+        V1Layout,
+        V2Layout,
+        lazy_walk_v2_plain,
+        segment_ends,
+        spmv_v1_cuda,
+        spmv_v1_plain,
+        spmv_v2_cuda,
+        spmv_v2_plain,
+    )
     from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
     from eig_kl_tpu_torch.ops import reduce as R
     from eig_kl_tpu_torch.ops.reduce import (
@@ -415,7 +435,7 @@ def main() -> int:
     dev = torch.device("cuda")
     card = card_line()
     f32_kernels = (K1, K1_STEP, K1_LAPLACIAN, K1_SPMM, K1_LAZY, K2, V.K3A, V.K3B, V.K3C, K4, K5, K6,
-                   K6_SCALE, K6_STEP, K6_AXPY, K1_PADDED, K1_BF16I, K1_LAZY_PADDED, K1_LAZY_BF16I, K4_FUSED,
+                   K6_SCALE, K6_STEP, K6_AXPY, K1_V2, K1_V2_BF16I, K1_LAZY_V2, K1_LAZY_V2_BF16I, K4_FUSED,
                    K1_V1, K7)
     f64_kernels = (K1_F64, K1_STEP_F64, K1_LAPLACIAN_F64, K1_SPMM_F64, K1_LAZY_F64, K2_F64, K4_F64,
                    K6_F64, K6_SCALE_F64, K6_AXPY_F64, K7_F64)
@@ -936,7 +956,7 @@ def main() -> int:
         np.stack([base] + [perturb_split(base, 1 + i, PERTURB) for i in range(STARTS - 1)])
     ).to(dev)
     p_s = sides_to_signs(p_sides, torch.float32)
-    p_as, p_cut0 = _batch_init(g, p_s)
+    p_as, p_cut0 = _batch_init(g, p_s, matvec=mega_spmv(g, PIPELINE_SPMV_ORDER))  # the pipelines' order
     p_cap = torch.tensor(
         [min(c, n - c) for c in p_sides.sum(dim=1, dtype=torch.int64).tolist()],
         dtype=torch.int32, device=dev,
@@ -1940,19 +1960,25 @@ def main() -> int:
     print(f"f64 phase: {time.perf_counter() - t_phase:.1f} s")
 
     # Phase 12: the CSR plan path (ROADMAP.md A10), the JAX package's plan
-    # path on its accelerator.  K1's padded entry points (the v2 kernels'
-    # bf16 intermediates, and f32) bit for bit against their plain versions
-    # at gen 1.0x's padded state; K4's fused dot and K6's vectorized last
-    # block at the sizes where XLA takes them (below 4,096 values, 33 to
-    # 1,024 rows); then, each path with the counts set to 0 just before it
-    # and read just after: the bf16-intermediate one-start run through
-    # fused_partition(with_plan=True), the quality A/B of PARITY.md:84-88
-    # over 5 spectral seeds in three cells, the momentum exit on the
-    # component's padded state (bf16i and f32), and the one-start run on
-    # gen 0.02x, whose cuts take K4's fused dot.
+    # path on its accelerator, where every f32 SpMV takes its v2 plan's order
+    # (gen 1.0x: rblock 16,384, Q 512, a COO tail of 125 entries).  K1's
+    # spmv_v2_f32 entry points (bf16 and f32 products, the SpMV and its
+    # lazy-walk form) bit for bit against their plain versions at gen 1.0x's
+    # padded state; K4's fused dot and K6's vectorized last block at the
+    # sizes where XLA takes them (below 4,096 values, 33 to 1,024 rows);
+    # then, each path with the counts set to 0 just before it and read just
+    # after: the bf16-intermediate one-start run through
+    # fused_partition(with_plan=True), held to the port's plain run on the
+    # CPU (tools/plan_order_reference.py), the quality A/B of
+    # PARITY.md:84-88 over 5 spectral seeds in three cells, the momentum
+    # exit on the component's padded state (bf16i and f32), and the
+    # one-start run on gen 0.02x, whose cuts take K4's fused dot.
     t_phase = time.perf_counter()
     gp = g_host.to_device(dev, torch.float32, with_plan=True)
-    check(gp.plan == CsrPlan(P, "v2") and gp.plan.runs_bf16("bfloat16"), f"gen 1.0x's plan: {gp.plan}")
+    vlay = gp.plan.layout
+    check(gp.plan.kernel == "v2" and gp.plan.padded_nodes == P and gp.plan.runs_bf16("bfloat16")
+          and (vlay.rblock, vlay.quantum) == V2_GEOMETRY and isinstance(vlay.tail, CooTail)
+          and vlay.tail.num_entries == V2_COO_TAIL, f"gen 1.0x's plan: {vlay.rblock}, {vlay.quantum}, {vlay.tail}")
     xs = torch.zeros(P, device=dev)
     xs[:n] = (torch.rand(n, generator=gen) - 0.5).to(dev)
     xs[: n : 89] = -0.0
@@ -1961,24 +1987,33 @@ def main() -> int:
     ds[:n] = torch.sqrt(torch.where(g.degrees > 0, g.degrees, 1.0).double()).float().reciprocal()
     ds2d = ds.view(P // 128, 128)
     a_g = torch.sparse_csr_tensor(g.indptr.long(), g.indices.long(), g.data, size=(n, n))
-    g_csr_bytes = 4 * (g.indptr.numel() + 2 * nnz)
     xs_n, ds_n = xs[:n], ds[:n]
+    # Bytes: the kept entries' CSR arrays, the COO tail's (row, col, w)
+    # triplets (not the layout's 4 B per 32 rows that tell a warp where its
+    # rows' triplets start), x's n values gathered (its sectors counted once each: every
+    # value is read), y's P written; the lazy walk reads w and dsinv over
+    # the whole padded state for its gathers and its epilogue.  Operations:
+    # a product and an add per entry (bf16: one rounding more), the lazy
+    # walk's scaled gathers and its epilogue.
+    m_kept, m_tail = vlay.cols.numel(), vlay.tail.num_entries
+    v2_entries = 4 * (n + 1) + 8 * m_kept + 12 * m_tail
+    v2_bytes = v2_entries + 4 * n + 4 * P
     plan_k = {
-        "spmv bf16i": dict(
-            kern=lambda: spmv_padded_cuda(gp, xs2d, bf16=True), plain=lambda: spmv_padded_plain(gp, xs2d, bf16=True),
-            lib=None, symbol="spmv_padded_kernel", bound=bound(g_csr_bytes + 8 * P, 3 * nnz)),
-        "spmv padded f32": dict(
-            kern=lambda: spmv_padded_cuda(gp, xs2d, bf16=False), plain=lambda: spmv_padded_plain(gp, xs2d, bf16=False),
-            lib=lambda: a_g @ xs_n, symbol="spmv_padded_kernel", bound=bound(g_csr_bytes + 8 * P, 2 * nnz)),
-        "lazy walk bf16i": dict(
-            kern=lambda: lazy_walk_padded_cuda(gp, xs2d, ds2d, bf16=True),
-            plain=lambda: lazy_walk_padded_plain(gp, xs2d, ds2d, bf16=True),
-            lib=None, symbol="lazy_walk_padded_kernel", bound=bound(g_csr_bytes + 12 * P, 4 * nnz + 3 * P)),
-        "lazy walk padded f32": dict(
-            kern=lambda: lazy_walk_padded_cuda(gp, xs2d, ds2d, bf16=False),
-            plain=lambda: lazy_walk_padded_plain(gp, xs2d, ds2d, bf16=False),
-            lib=lambda: 0.5 * (xs_n + ds_n * (a_g @ (ds_n * xs_n))), symbol="lazy_walk_padded_kernel",
-            bound=bound(g_csr_bytes + 12 * P, 3 * nnz + 3 * P)),
+        "spmv v2 bf16i": dict(
+            kern=lambda: spmv_v2_cuda(vlay, xs2d, True), plain=lambda: spmv_v2_plain(vlay, xs2d, True),
+            lib=None, symbol="spmv_v2_kernel", bound=bound(v2_bytes, 3 * (m_kept + m_tail))),
+        "spmv v2 f32": dict(
+            kern=lambda: spmv_v2_cuda(vlay, xs2d), plain=lambda: spmv_v2_plain(vlay, xs2d),
+            lib=lambda: a_g @ xs_n, symbol="spmv_v2_kernel", bound=bound(v2_bytes, 2 * (m_kept + m_tail))),
+        "lazy walk v2 bf16i": dict(
+            kern=lambda: spmv_v2_cuda(vlay, xs2d, True, dsinv=ds2d),
+            plain=lambda: lazy_walk_v2_plain(vlay, xs2d, ds2d, True),
+            lib=None, symbol="spmv_v2_kernel", bound=bound(v2_entries + 12 * P, 4 * (m_kept + m_tail) + 3 * P)),
+        "lazy walk v2 f32": dict(
+            kern=lambda: spmv_v2_cuda(vlay, xs2d, False, dsinv=ds2d),
+            plain=lambda: lazy_walk_v2_plain(vlay, xs2d, ds2d, False),
+            lib=lambda: 0.5 * (xs_n + ds_n * (a_g @ (ds_n * xs_n))), symbol="spmv_v2_kernel",
+            bound=bound(v2_entries + 12 * P, 3 * (m_kept + m_tail) + 3 * P)),
     }
     for what, e in plan_k.items():
         e["err"] = held_bitwise(e["kern"], e["plain"], what)
@@ -1991,11 +2026,12 @@ def main() -> int:
             f"{what} on gen {MULTIPLIER}x's padded state (P = {P}): bitwise equal to its plain version; "
             f"{e['ms']:.4f} ms, device {fmt_us(e['device_us'])} per launch, plain {e['plain_ms']:.3f} ms, "
             + ("library none (no PyTorch call rounds each product to bf16)" if e["lib"] is None else
-               f"library {e['library_ms']:.4f} ms (device {fmt_us([e['library_device_us']])} per call)")
+               f"library {e['library_ms']:.4f} ms (device {fmt_us([e['library_device_us']])} per call, "
+               f"torch.sparse in its own order)")
             + f", bound {e['bound'][0]:.5f} ms by {e['bound'][1]}"
         )
-    y_bf, y_f32 = plan_k["spmv bf16i"]["kern"](), plan_k["spmv padded f32"]["kern"]()
-    check(torch.equal(y_f32.view(-1)[:n], spmv_csr(g, xs_n)), "the padded f32 SpMV differs from K1 on its rows")
+    y_bf, y_f32 = plan_k["spmv v2 bf16i"]["kern"](), plan_k["spmv v2 f32"]["kern"]()
+    check(torch.equal(y_f32.view(-1)[:n], spmv_v2_cuda(vlay, xs_n)), "the padded v2 SpMV differs from the flat one")
     check(bool((bits32(y_bf.view(-1)[n:]) == 0).all()), "the bf16i SpMV's padding rows are not +0")
     bf_rel = float(((y_bf - y_f32).abs().view(-1)[:n] / (a_g @ xs_n.abs()).clamp_min(1e-30)).max())
     check(0 < bf_rel <= 2.0**-8, f"the bf16 rounding moved a row by {bf_rel:.3g} of its absolute sum")
@@ -2006,7 +2042,7 @@ def main() -> int:
     # lengths, the 4,096-value threshold), with -0, +0 and subnormal
     # inputs, in every order, against the plain versions.
     fd_err = 0.0
-    for size in (0, 1, 7, 31, 32, 33, 45, 100, 160, 191, 192, 351, 380, 1000, 1031, 3694, 4038, 4095, 6000):
+    for size in (0, 1, 7, 31, 32, 33, 45, 100, 160, 191, 192, 223, 224, 351, 380, 1000, 1031, 3694, 4038, 4095, 6000):
         fa = (torch.rand(size, generator=gen) - 0.5)
         fb = (torch.rand(size, generator=gen) - 0.5)
         fa[::11], fb[::13], fa[5::17] = -0.0, 0.0, 1e-41
@@ -2055,12 +2091,17 @@ def main() -> int:
     bf_run, bf_s = plan_run(SEED, "bfloat16", True)
     bf_launches = {kern.symbol: kern.launches for kern in all_kernels}
     bkl, b_iters = bf_run.kl, bf_run.spectral_iterations
-    # Per power step K1's bf16i SpMV, K6's padded step, its 2-D norm and its
-    # scale; the Rayleigh quotient's SpMV once more; K1 (f32) for the pass's
-    # A @ s and its recount; K4 for the Rayleigh quotient.
-    check(K1_BF16I.launches == b_iters + 1 and K6_STEP.launches == b_iters and K6_SCALE.launches == b_iters
-          and K1_STEP.launches == 0 and K1.launches == 2 and K4.launches == 1 and K2.launches == 1,
+    # Per power step the v2 SpMV with bf16 products, K6's padded step, its
+    # 2-D norm and its scale; the Rayleigh quotient's SpMV once more; the v2
+    # SpMV in f32 for the pass's A @ s and its recount (the plan's order, as
+    # the JAX package's spmv takes it on a planned graph); K4 for the
+    # Rayleigh quotient.
+    check(K1_V2_BF16I.launches == b_iters + 1 and K6_STEP.launches == b_iters and K6_SCALE.launches == b_iters
+          and K1_STEP.launches == 0 and K1.launches == 0 and K1_V2.launches == 2 and K1_V1.launches == 0
+          and K4.launches == 1 and K2.launches == 1,
           f"the bf16i run launched {bf_launches} for {b_iters} power steps")
+    got_bf = (b_iters, bkl.iterations, bkl.initial_cut, bkl.best_cut, bkl.final_cut)
+    check(got_bf == PLAN_BF16I, f"the bf16i one-start run gave {got_bf}, not the CPU run's {PLAN_BF16I}")
     b_drift = abs(bkl.final_cut - bkl.verified_cut) / bkl.final_cut
     b_recount = host_cut(g_host, np.asarray(bkl.best_sides))
     check(b_drift <= 1e-5, f"bf16i run: cut drift {b_drift:.3g} above 1e-5")
@@ -2072,7 +2113,7 @@ def main() -> int:
         f"bf16i one-start run (fused_partition(with_plan=True), P = {P}): {b_iters} power iterations, initial cut "
         f"{bkl.initial_cut}, best cut {bkl.best_cut} after {bkl.iterations} swaps, final {bkl.final_cut}, verified "
         f"{bkl.verified_cut} (drift {b_drift:.3g}), host f64 recount {b_recount:.4f}; e2e {bf_s:.3f} s on {card}; "
-        f"launches {bf_launches}"
+        f"spans " + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(bf_run.timings.items())) + f"; launches {bf_launches}"
     )
 
     # The quality A/B (PARITY.md:84-88 on the TPU): the CSR f32 path (the
@@ -2096,8 +2137,9 @@ def main() -> int:
         ab_summary[cell]["rows"] = rows
     check(ab["csr f32"][0]["best"] == kl.best_cut and ab["padded bf16i"][0]["best"] == bkl.best_cut,
           "the A/B's seed-42 cells differ from the one-start runs")
-    check("spmv_padded_f32" in ab_launches["padded f32"] and "spmv_bf16i_f32" in ab_launches["padded bf16i"]
-          and "power_step_f32" in ab_launches["csr f32"], f"the A/B cells launched {ab_launches}")
+    check("spmv_v2_f32" in ab_launches["padded f32"] and "spmv_v2_bf16i_f32" in ab_launches["padded bf16i"]
+          and "spmv_v2_bf16i_f32" not in ab_launches["padded f32"] and "power_step_f32" in ab_launches["csr f32"]
+          and "spmv_v2_f32" not in ab_launches["csr f32"], f"the A/B cells launched {ab_launches}")
     for cell, summ in ab_summary.items():
         print(
             f"A/B {cell}, seeds {AB_SEEDS[0]}-{AB_SEEDS[-1]}: initial cut {summ['initial'][0]:.2f} +- "
@@ -2118,7 +2160,7 @@ def main() -> int:
         out = power_partition_fiedler(lkp, dataclasses.replace(mom_config, inter_dtype=inter), dtype=torch.float32)
         torch.cuda.synchronize()
         mom_runs[inter] = (out, time.perf_counter() - t, {kern.symbol: kern.launches for kern in all_kernels if kern.launches})
-        lazy_k = K1_LAZY_BF16I if inter == "bfloat16" else K1_LAZY_PADDED
+        lazy_k = K1_LAZY_V2_BF16I if inter == "bfloat16" else K1_LAZY_V2
         check(lazy_k.launches > out[4] and K1_LAZY.launches == 0, f"momentum {inter} padded: {mom_runs[inter][2]}")
     for inter, ((m_lam, m_med, m_vals, m_sides, m_iters), m_s, m_launch) in mom_runs.items():
         ham = int((m_sides != mo_sides).sum())
@@ -2149,16 +2191,20 @@ def main() -> int:
         "a_b": ab_summary, "momentum_padded": mom_runs}}))
     print(f"plan phase: {time.perf_counter() - t_phase:.1f} s")
 
-    # Phase 13: the JAX mega engine's own path on gen 0.02x (22,416 stored
-    # entries, a v1 plan): K1's spmv_v1_f32 (the v1 TPU SpMV's order) held
-    # against its plain version, then fused_refine_mega called directly,
-    # which takes its starting A @ s and its recount from it and its median
-    # from K7, held to the JAX package's interpret-mode run of the same
-    # program (tests/test_torch_faults.py:test_fused_refine_mega_equals_jax_on_gen002).
+    # Phase 13: the JAX mega engine's own path, called directly as a user
+    # would (fused_refine_mega), on gen 0.02x (22,416 stored entries, a v1
+    # plan) and on gen 1.0x (a v2 plan): K1's spmv_v1_f32 and spmv_v2_f32
+    # (the TPU SpMVs' orders) held against their plain versions on the CPU,
+    # then fused_refine_mega, which takes its starting A @ s and its recount
+    # from them and its median from K7, held on gen 0.02x to the JAX
+    # package's interpret-mode run of the same program
+    # (tests/test_torch_faults.py:test_fused_refine_mega_equals_jax_on_gen002)
+    # and on gen 1.0x to the port's plain run on the CPU
+    # (tools/plan_order_reference.py).
     t_phase = time.perf_counter()
     host02 = clique_expand(hg02, "kl")
     g02, g02c = host02.to_device(dev), host02.to_device("cpu")
-    lay, lay_c = g02.v1_layout, g02c.v1_layout
+    lay, lay_c = g02.plan_layout, g02c.plan_layout
     n02 = host02.num_nodes
     rng = np.random.default_rng(SEED)
     xv = rng.standard_normal(n02).astype(np.float32)
@@ -2166,11 +2212,14 @@ def main() -> int:
     sv = np.where(rng.random(n02) < 0.5, -1.0, 1.0).astype(np.float32)
     v1_err = 0.0
     for vec in (xv, sv):
-        got = spmv_v1_cuda(lay, torch.as_tensor(vec).to(dev))
-        ref = spmv_v1_plain(lay_c, torch.as_tensor(vec))
-        check(torch.equal(bits32(got.cpu()), bits32(ref)), "spmv_v1_f32 is not bitwise equal to spmv_v1_plain")
-        check(torch.equal(got, spmv_v1_cuda(lay, torch.as_tensor(vec).to(dev))), "two spmv_v1_f32 launches differ")
-        v1_err = max(v1_err, float((got.cpu().double() - ref.double()).abs().max()))
+        v2d = np.zeros(lay.padded_nodes, np.float32)
+        v2d[:n02] = vec
+        for t in (torch.as_tensor(vec), torch.as_tensor(v2d.reshape(-1, 128))):  # flat, and the padded state
+            got = spmv_v1_cuda(lay, t.to(dev))
+            ref = spmv_v1_plain(lay_c, t)
+            check(torch.equal(bits32(got.cpu()), bits32(ref)), "spmv_v1_f32 is not bitwise equal to spmv_v1_plain")
+            check(torch.equal(got, spmv_v1_cuda(lay, t.to(dev))), "two spmv_v1_f32 launches differ")
+            v1_err = max(v1_err, float((got.cpu().double() - ref.double()).abs().max()))
     x02 = torch.as_tensor(xv).to(dev)
     a02 = torch.sparse_csr_tensor(g02.indptr.long(), g02.indices.long(), g02.data, size=(n02, n02))
     chunks = lay.num_chunks
@@ -2194,6 +2243,55 @@ def main() -> int:
           f"{v1['plain_ms']:.3f} ms; torch.sparse {v1['library_ms']:.4f} ms (device "
           f"{fmt_us([v1['library_device_us']])}); bound {v1['bound'][0] * 1e3:.3f} us by {v1['bound'][1]} "
           f"({v1_bytes} bytes, {v1_ops} operations)")
+    # The CSR plan path on gen 0.02x (its v1 plan): spmv_v1_f32 on the
+    # padded state, per power step, held to the same run of the plain
+    # versions on the CPU.
+    x02p = torch.zeros(lay.padded_nodes, device=dev)
+    x02p[:n02] = x02
+    x02p = x02p.view(-1, 128)
+    v1["padded_device_us"] = device_us_per_launch(lambda: [spmv_v1_cuda(lay, x02p) for _ in range(50)], "spmv_v1")
+    reset_counts()
+    r02p, r02p_s = plan_run(SEED, "bfloat16", True, circuit=hg02)
+    r02p_launches = {kern.symbol: kern.launches for kern in all_kernels if kern.launches}
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        r02c = fused_partition(hg02, use_eig=True, device="cpu", with_plan=True,
+                               spectral_config=SpectralConfig(solver="power", seed=SEED))
+    finally:
+        torch.set_num_threads(threads)
+    got02, want02 = ((r.spectral_iterations, r.kl.iterations, r.kl.best_cut, r.kl.verified_cut) for r in (r02p, r02c))
+    check(got02 == want02 and K1_V1.launches == r02p.spectral_iterations + 3 and K1_V2.launches == 0
+          and K1_STEP.launches == 0, f"gen 0.02x's plan path gave {got02} (CPU {want02}), launches {r02p_launches}")
+    print(f"plan path on gen 0.02x (fused_partition(with_plan=True), a v1 plan): {r02p.spectral_iterations} power "
+          f"iterations, {r02p.kl.iterations} swaps, best cut {r02p.kl.best_cut}, verified {r02p.kl.verified_cut}: "
+          f"the plain CPU run's bits; spmv_v1_f32 on the padded state device {fmt_us(v1['padded_device_us'])} per "
+          f"launch; e2e {r02p_s:.3f} s; launches {r02p_launches}")
+
+    # The 6,000-node random graph (78,752 entries: a v2 plan with a v1 tail;
+    # tests/conftest.py:random_hypergraph(default_rng(21), 6000, 7800, 5)):
+    # spmv_v2_f32 after spmv_v1_f32 for the tail, against the plain version.
+    rng6 = np.random.default_rng(21)
+    sizes6 = rng6.integers(2, 6, size=7800)
+    pins6 = np.concatenate([rng6.choice(6000, size=k, replace=False) for k in sizes6]).astype(np.int32)
+    offs6 = np.zeros(7801, np.int64)
+    np.cumsum(sizes6, out=offs6[1:])
+    host6 = clique_expand(Hypergraph(6000, 7800, pins6, offs6), "kl")
+    lay6, lay6_c = host6.to_device(dev).plan_layout, host6.to_device("cpu").plan_layout
+    x6 = torch.as_tensor(rng6.standard_normal(6000).astype(np.float32))
+    got6 = spmv_v2_cuda(lay6, x6.to(dev))
+    check(isinstance(lay6.tail, V1Layout) and host6.nnz == 78_752
+          and torch.equal(bits32(got6.cpu()), bits32(spmv_v2_plain(lay6_c, x6))),
+          "spmv_v2_f32 on the 6,000-node graph differs from its plain version")
+    x6d = x6.to(dev)
+    v2_6000 = {
+        "ms": cuda_ms(lambda: spmv_v2_cuda(lay6, x6d), 200),
+        "device_us": device_us_per_launch(lambda: [spmv_v2_cuda(lay6, x6d) for _ in range(50)], "spmv_v2"),
+        "tail_device_us": device_us_per_launch(lambda: [spmv_v2_cuda(lay6, x6d) for _ in range(50)], "spmv_v1"),
+    }
+    print(f"K1 spmv_v2_f32 on the 6,000-node graph (78,752 entries, a v1 tail of {lay6.tail.num_chunks} chunks): "
+          f"bitwise equal to its plain version; {v2_6000['ms']:.4f} ms per SpMV by events, device "
+          f"{fmt_us(v2_6000['device_us'])} per launch and the tail's spmv_v1_f32 {fmt_us(v2_6000['tail_device_us'])}")
     reset_counts()
     t0 = time.perf_counter()
     e_mega, k_mega, it_mega = fused_refine_mega(g02, SpectralConfig(solver="power"), KLConfig(gain_eps=1e-6))
@@ -2208,6 +2306,37 @@ def main() -> int:
           f"eigenvalue {e_mega.eigenvalue}, initial cut {k_mega.initial_cut}, best {k_mega.best_cut} after "
           f"{k_mega.iterations} swaps, verified {k_mega.verified_cut}: the JAX package's interpret-mode run bit for "
           f"bit; e2e {mega_s:.3f} s; launches {mega_launches}")
+
+    # gen 1.0x: spmv_v2_f32 on the flat vector the mega engine gives it, on
+    # signs and on normal values, against its plain version on the CPU.
+    check(g.plan is None and isinstance(g.plan_layout, V2Layout), "gen 1.0x's mega layout is not a v2 one")
+    mlay, mlay_c = g.plan_layout, CsrPlan.for_graph(g_host.to_device("cpu")).layout
+    v2_err = 0.0
+    for vec in (xs_n.cpu(), sides_to_signs(torch.as_tensor(np.asarray(kl.sides)), torch.float32)):
+        got = spmv_v2_cuda(mlay, vec.to(dev))
+        with torch.no_grad():
+            ref = spmv_v2_plain(mlay_c, vec)
+        check(torch.equal(bits32(got.cpu()), bits32(ref)), "spmv_v2_f32 is not bitwise equal to spmv_v2_plain at gen 1.0x")
+        v2_err = max(v2_err, float((got.cpu().double() - ref.double()).abs().max()))
+    print(f"K1 spmv_v2_f32 on gen {MULTIPLIER}x's flat vectors (the mega engine's A @ s): bitwise equal to "
+          f"spmv_v2_plain on the CPU")
+    reset_counts()
+    t0 = time.perf_counter()
+    e_m1, k_m1, it_m1 = fused_refine_mega(g, SpectralConfig(solver="power"), KLConfig(gain_eps=1e-6))
+    torch.cuda.synchronize()
+    mega1_s = time.perf_counter() - t0
+    mega1_launches = {kern.symbol: kern.launches for kern in all_kernels if kern.launches}
+    check(K1_V2.launches == 2 and K1_V1.launches == 0 and K7.launches > 0 and K2.launches == 1,
+          f"the mega engine's path on gen 1.0x launched {mega1_launches}")
+    got_m1 = (it_m1, e_m1.eigenvalue, k_m1.initial_cut, k_m1.best_cut, k_m1.iterations, k_m1.final_cut,
+              k_m1.verified_cut, int(e_m1.sides.sum()))
+    check(got_m1 == MEGA_GEN1, f"the mega engine on gen 1.0x gave {got_m1}, not the CPU run's {MEGA_GEN1}")
+    m1_drift = abs(k_m1.final_cut - k_m1.verified_cut) / k_m1.final_cut
+    check(m1_drift <= 1e-5, f"the mega engine on gen 1.0x: cut drift {m1_drift:.3g} above 1e-5")
+    print(f"mega engine on gen {MULTIPLIER}x (fused_refine_mega, spmv_order plan, the v2 order): {it_m1} power "
+          f"iterations, eigenvalue {e_m1.eigenvalue}, initial cut {k_m1.initial_cut}, best {k_m1.best_cut} after "
+          f"{k_m1.iterations} swaps, final {k_m1.final_cut}, verified {k_m1.verified_cut} (drift {m1_drift:.3g}): "
+          f"the port's plain CPU run bit for bit; e2e {mega1_s:.3f} s on {card}; launches {mega1_launches}")
     print(f"mega phase: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = [
@@ -2452,23 +2581,22 @@ def main() -> int:
                   v3_all["padded_step_f32"]),
     ]
     plan_launches = {
-        "spmv bf16i": bf_launches["spmv_bf16i_f32"],
-        "spmv padded f32": ab_launches["padded f32"]["spmv_padded_f32"],
-        "lazy walk bf16i": mom_runs["bfloat16"]["launches"]["lazy_walk_bf16i_f32"],
-        "lazy walk padded f32": mom_runs["float32"]["launches"]["lazy_walk_padded_f32"],
+        "spmv v2 bf16i": bf_launches["spmv_v2_bf16i_f32"],
+        "spmv v2 f32": mega1_launches["spmv_v2_f32"],
+        "lazy walk v2 bf16i": mom_runs["bfloat16"]["launches"]["lazy_walk_v2_bf16i_f32"],
+        "lazy walk v2 f32": mom_runs["float32"]["launches"]["lazy_walk_v2_f32"],
     }
+    v2_pair = ("eig_kl_tpu/ops/spmv_pallas.py:1049 (_gather_kernel) and :1118 (_reduce_kernel_mxu), "
+               "in their own order")
     plan_names = {
-        "spmv bf16i": ("K1 spmv_bf16i_f32, A @ x on the padded state, each product rounded to bf16",
-                       "eig_kl_tpu/ops/spmv_pallas.py:1049 (_gather_kernel's bf16 products, :1077) and :1118 "
-                       "(_reduce_kernel_mxu's f32 sums of them)"),
-        "spmv padded f32": ("K1 spmv_padded_f32, A @ x on the padded state",
-                            "eig_kl_tpu/ops/spmv_pallas.py:1049 and :1118 (v2 with inter_dtype float32)"),
-        "lazy walk bf16i": ("K1 lazy_walk_bf16i_f32, the lazy walk on the padded state, bf16 products",
-                            "eig_kl_tpu/ops/spmv_pallas.py:1049 and :1118 (with eig_kl_tpu/spectral/power.py:305's "
-                            "epilogue)"),
-        "lazy walk padded f32": ("K1 lazy_walk_padded_f32, the lazy walk on the padded state",
-                                 "eig_kl_tpu/ops/spmv_pallas.py:1049 and :1118 (inter_dtype float32, with "
-                                 "eig_kl_tpu/spectral/power.py:305's epilogue)"),
+        "spmv v2 bf16i": ("K1 spmv_v2_bf16i_f32, A @ x in the v2 TPU SpMV's order, bf16 products, on the padded "
+                          "state (the plan path's power step)", f"{v2_pair}, inter_dtype bfloat16 (:1077)"),
+        "spmv v2 f32": ("K1 spmv_v2_f32, A @ x in the v2 TPU SpMV's order, f32 products (the mega engine's A @ s "
+                        "and recount above 32,768 entries; launches from fused_refine_mega on gen 1.0x)", v2_pair),
+        "lazy walk v2 bf16i": ("K1 lazy_walk_v2_bf16i_f32, the lazy walk through the v2 order, bf16 products",
+                               f"{v2_pair}, with eig_kl_tpu/spectral/power.py:305's epilogue"),
+        "lazy walk v2 f32": ("K1 lazy_walk_v2_f32, the lazy walk through the v2 order, f32 products",
+                             f"{v2_pair}, with eig_kl_tpu/spectral/power.py:305's epilogue"),
     }
     for what, e in plan_k.items():
         name, replaces = plan_names[what]
@@ -2480,6 +2608,10 @@ def main() -> int:
             "device_us_per_launch": None if e["device_us"] is None else e["device_us"][0],
             **({"library_none_because": "no PyTorch call rounds each product to bf16 before the sum"}
                if e["lib"] is None else {}),
+            **({"device_us_per_launch_6000_nodes": None if v2_6000["device_us"] is None else v2_6000["device_us"][0],
+                "tail_device_us_per_launch_6000_nodes":
+                    None if v2_6000["tail_device_us"] is None else v2_6000["tail_device_us"][0]}
+               if what == "spmv v2 f32" else {}),
         })
     kernels.append({
         "name": "K4 fused_dot_batch_f32, a dot with its operands' producers fused (XLA's loop order), 4,038 values",
@@ -2551,6 +2683,8 @@ def main() -> int:
         "max_abs_err": v1_err, "ms": v1["ms"], "plain_ms": v1["plain_ms"], "bound_ms": v1["bound"][0],
         "bound_by": v1["bound"][1], "library_ms": v1["library_ms"], "library_device_us": v1["library_device_us"],
         "device_us_per_launch": None if v1["device_us"] is None else v1["device_us"][0],
+        "device_us_per_launch_padded_state": None if v1["padded_device_us"] is None else v1["padded_device_us"][0],
+        "launches_plan_path_gen002": r02p_launches["spmv_v1_f32"],
     })
     for dt, symbol in (("f32", "kth_smallest_f32"), ("f64", "kth_smallest_f64")):
         e = k7[f"{n} {dt}"]

@@ -214,7 +214,7 @@ __device__ __forceinline__ int epilogue_width(int r, bool wide_ties) {
 }
 
 // The bits of fused_dot_batch_f32's flags (ops/reduce.py:_k4_form_args).
-constexpr int kPairsAt6 = 1, kWideTies = 2, kVector = 4;
+constexpr int kPairsAt6 = 1, kWideTies = 2, kVector = 4, kUnrolledTies = 8;
 
 constexpr int kFusedThreads = 256;
 constexpr int kFusedTile = 4096;  // values of each vector a block stages at a time
@@ -222,8 +222,9 @@ constexpr int kFusedTile = 4096;  // values of each vector a block stages at a t
 // A vectorized order where LLVM unrolls the loop fully and reassociates it
 // (ops/reduce.py:unrolled_lanes_plan), by one thread from shared memory:
 // one 8-lane accumulator over the blocks of 8 in the plan's order, its
-// fold in halves, the epilogue of 2, 4 or 8 lanes and the scalar steps.
-__device__ float unrolled_lanes(const float* sx, const float* sy, int n, bool pairs_at_6) {
+// fold in halves, the epilogue of 2, 4 or 8 lanes (8 at the tie of 28 to 31
+// values where `unrolled_ties`) and the scalar steps.
+__device__ float unrolled_lanes(const float* sx, const float* sy, int n, bool pairs_at_6, bool unrolled_ties) {
   const int inter = 48 <= n && n < 64 ? 2 : 4;
   const int trips = n / (8 * inter);
   float acc[8];
@@ -241,7 +242,7 @@ __device__ float unrolled_lanes(const float* sx, const float* sy, int n, bool pa
   int i = 8 * inter * trips;
   const int r = n - i;
   const bool pair = r == 2 || r == 3 || (pairs_at_6 && (r == 6 || r == 7));
-  const int width = pair ? 2 : r < 4 ? 0 : (r / 4) % 2 ? 4 : 8;
+  const int width = pair ? 2 : r < 4 ? 0 : (unrolled_ties && r >= 28) ? 8 : (r / 4) % 2 ? 4 : 8;
   if (width > 0) {
     float e[8];
     for (int j = 0; j < width; ++j) e[j] = j == 0 ? total : -0.0f;
@@ -300,7 +301,7 @@ __global__ void __launch_bounds__(kFusedThreads)
     stage_pair(x, y, n, base, max(len, 0), vec, sx, sy);
     __syncthreads();
     if (unrolled) {
-      if (tid == 0) acc = unrolled_lanes(sx, sy, n, flags & kPairsAt6);
+      if (tid == 0) acc = unrolled_lanes(sx, sy, n, flags & kPairsAt6, flags & kUnrolledTies);
     } else if (!lanes_order) {
       if (tid == 0 && len > 0) acc = chain<32, 2>(sx, sy, len, acc, fma_step);
     } else if (tid < 32) {

@@ -13,17 +13,18 @@
 //   (c one value), the epilogue 0.5 * fma(u, c, dsinv * Ax): the momentum
 //   check's walk of its deflated iterate on a graph wider than 32, where
 //   XLA recomputes w in the epilogue's fusion and fuses that product.
-// Four more, f32 only, for the power solve on the zero-padded (P/128, 128)
-// state of a graph with a CSR plan (eig_kl_tpu/spectral/power.py:140-157,
-// :297-305; ops/spmv.py:spmv_padded): rows n .. P - 1 are empty, so y there
-// is +0 (the lazy walk's epilogue applied to that +0):
-// * spmv_padded_f32 / lazy_walk_padded_f32: K1's f32 sums on that state;
-// * spmv_bf16i_f32 / lazy_walk_bf16i_f32: the v2 kernels' default
-//   bf16-intermediate mode (_gather_kernel's (g * w).astype(bfloat16),
-//   spmv_pallas.py:1077, added in f32 by the reduce pass): each product
-//   rounded to f32 (never contracted into an add), then to bf16 with
-//   round to nearest even, and added in f32 in K1's row order with the
-//   lanes of W <= 32 adding rounded products, as f64 does.
+// Two more, f32 only, take a TPU plan's layout (ops/spmv_plan.py) and add
+// each row in that kernel's own order, which the JAX package runs wherever
+// its f32 SpMV has a plan (the mega engine's starting A @ s and recount, and
+// every SpMV of a device graph that carries a plan: the KL engine's, the
+// power solve's on its zero-padded (P/128, 128) state):
+// * spmv_v1_f32: the v1 kernel's (_spmv_kernel, :339), at most 32,768
+//   stored entries, and v2's v1 tails;
+// * spmv_v2_f32: the v2 pair's (_gather_kernel, :1049, and the default
+//   reduce _reduce_kernel_mxu, :1118), above 32,768, with f32 or bf16
+//   products (the pair's default bf16-intermediate mode,
+//   (g * w).astype(bfloat16), :1077), and its lazy-walk form.
+// Both write a flat vector of n or the padded state, its padding +0.
 // The f64 instantiations serve the JAX package's f64 paths off the TPU
 // (eig_kl_tpu/cli/main.py:204-212, the --f64 flag); the H100 runs f64
 // natively.
@@ -33,9 +34,8 @@
 // reduce pass (_reduce_kernel_mxu, :1118, and its variants :1080, :1207,
 // :1276).  Those are two TPU forms of one function; their chunk plans exist
 // to work around the TPU's gather limits.  Hopper gathers x directly from
-// the CSR arrays, so these kernels take no plan.  One entry point,
-// spmv_v1_f32 (below), does take the v1 plan's layout: the JAX mega engine's
-// starting A @ s and recount add each row in the v1 kernel's own order.
+// the CSR arrays, so K1's XLA-ordered entry points take no plan; only
+// spmv_v1_f32 and spmv_v2_f32 (below) take a plan's layout, for its order.
 //
 // Bound on this card: bytes.  One call must read indptr, indices, data and
 // x and write y once, 11.3 MB at gen 1.0x (201,920 rows, 1,107,844 nnz), or
@@ -49,7 +49,12 @@
 // The order of the adds is XLA's CPU order for the JAX package's f32 ELL
 // SpMV, which depends on the ELL width W (the largest degree rounded up to
 // a multiple of 8):
-// * W <= 32: entry k of the row goes to lane k mod 8; each lane
+// * W = 8 or 16: one chain of fused multiply-adds over the row's entries
+//   in position order (LLVM unrolls the row's loop fully and keeps it a
+//   chain); the power solve's first step, which XLA fuses with the start
+//   vector's draw and does not unroll, takes the 8 lanes below instead
+//   (power_step's `lanes`);
+// * W = 24 or 32: entry k of the row goes to lane k mod 8; each lane
 //   accumulates with fused multiply-adds; the lanes combine as
 //   ((l0+l4) + (l2+l6)) + ((l1+l5) + (l3+l7)).
 // * W > 32: windows of 32 positions after (32*ceil(W/32) - W)/2 leading pad
@@ -78,7 +83,8 @@
 // memory: for W <= 32 the data and the gathered x apart (the lane FMAs
 // need both), for W > 32 the rounded products.  Then each lane walks its
 // own row in the buffer in XLA's order: for W <= 32 the 8 lane FMA chains
-// (entries l, l+8, l+16, l+24) and their fixed combine; for W > 32 one
+// (entries l, l+8, l+16, l+24) and their fixed combine, or for W <= 16 the
+// one chain (every entry into lane 0, no combine); for W > 32 one
 // chain per window, each window's sum added to the row's as the walk
 // enters the next window.  A warp's span holds at most 32 * W entries, so
 // for W <= 32 it is one buffer of 1,024 entries; for W > 32 the warp takes
@@ -105,7 +111,8 @@
 
 namespace {
 
-constexpr int kLanes = 8;  // XLA's FMA lanes for W <= 32
+constexpr int kLanes = 8;  // XLA's FMA lanes for W = 24 and 32
+constexpr int kChainWidth = 16;  // W <= 16: one chain, in position order
 constexpr int kWindow = 32;
 constexpr int kWarps = 4;  // warps per block
 constexpr int kThreads = 32 * kWarps;
@@ -150,32 +157,15 @@ struct GatherScaled {
   }
 };
 
-// A product as the sum adds it: as it is, or (kBf16) rounded to bf16 with
-// round to nearest even and widened back.
-template <bool kBf16>
-__device__ __forceinline__ float rounded(float p) {
-  if constexpr (kBf16) {
-    return __bfloat162float(__float2bfloat16_rn(p));
-  } else {
-    return p;
-  }
-}
-template <bool kBf16>
-__device__ __forceinline__ double rounded(double p) {
-  static_assert(!kBf16, "the bf16 intermediates are f32 only");
-  return p;
-}
-
 // Row r0 + lane's sum in XLA's order on that lane, for the warp's rows
 // r0 .. r0 + 31 (rows at or past n count as empty).  `buf` is the warp's
-// buffer of buffer_values<T>(row_width) values.  kBf16: every product is
-// rounded (mul_rn, then to bf16) before its add, the lanes of W <= 32
-// adding the rounded products.
-template <class T, class Gather, bool kBf16 = false>
+// buffer of buffer_values<T>(row_width) values.  `lanes`: the 8 lanes at
+// W <= 16 too, in place of the one chain.
+template <class T, class Gather>
 __device__ __forceinline__ T row_sum(const int* __restrict__ indptr,
                                      const int* __restrict__ indices,
                                      const T* __restrict__ data, Gather gx, T* buf,
-                                     int r0, int n, int row_width) {
+                                     int r0, int n, int row_width, bool lanes = false) {
   // Every load below is unconditional, at an index clamped into range, and
   // a select drops what is out of range: a load under a branch makes the
   // lane wait for it before it issues the next one.
@@ -186,7 +176,7 @@ __device__ __forceinline__ T row_sum(const int* __restrict__ indptr,
   const int hi = row < n ? __ldg(indptr + min(row, n - 1) + 1) : lo;
   const int span_lo = __ldg(indptr + r0);
   const int span_hi = __ldg(indptr + min(r0 + 32, n));
-  constexpr bool kFused = kFusedLanes<T> && !kBf16;
+  constexpr bool kFused = kFusedLanes<T>;
   if (row_width <= kWindow) {
     // The span holds at most 32 * W <= kSpan entries.
     T* d = buf;           // fused lanes: the data; else the rounded products
@@ -212,7 +202,7 @@ __device__ __forceinline__ T row_sum(const int* __restrict__ indptr,
             d[i] = w[q];
             xv[i] = xg[q];
           } else {
-            d[i] = rounded<kBf16>(mul_rn(w[q], xg[q]));
+            d[i] = mul_rn(w[q], xg[q]);
           }
         }
       }
@@ -220,6 +210,17 @@ __device__ __forceinline__ T row_sum(const int* __restrict__ indptr,
     __syncwarp();
     const int b = lo - span_lo;
     const int deg = row < n ? min(hi - lo, kSpan - b) : 0;
+    if (row_width <= kChainWidth && !lanes) {  // one chain in position order
+      T s = T(0);
+      for (int t = b; t < b + deg; ++t) {
+        if constexpr (kFused) {
+          s = fma_rn(d[t], xv[t], s);
+        } else {
+          s = add_rn(s, d[t]);
+        }
+      }
+      return s;
+    }
     T acc[kLanes];
 #pragma unroll
     for (int q = 0; q < kLanes; ++q) acc[q] = T(0);
@@ -260,7 +261,7 @@ __device__ __forceinline__ T row_sum(const int* __restrict__ indptr,
 #pragma unroll
       for (int q = 0; q < kPerLane; ++q) {
         const int i = base + lane + 32 * q;
-        if (i < len) buf[i] = rounded<kBf16>(mul_rn(w[q], xg[q]));
+        if (i < len) buf[i] = mul_rn(w[q], xg[q]);
       }
     }
     __syncwarp();
@@ -309,14 +310,14 @@ __global__ void __launch_bounds__(kThreads)
     power_step_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
                       const T* __restrict__ data, const T* __restrict__ x,
                       const T* __restrict__ deg, T inv_shift,
-                      T* __restrict__ y, int n, int row_width) {
+                      T* __restrict__ y, int n, int row_width, bool lanes) {
   int r0;
   T* buf = warp_buffer<T>(row_width, r0);
   if (r0 >= n) return;
   const int row = r0 + (threadIdx.x & 31);
   const T xr = __ldg(x + min(row, n - 1));
   const T dr = __ldg(deg + min(row, n - 1));
-  const T ax = row_sum(indptr, indices, data, GatherX<T>{x}, buf, r0, n, row_width);
+  const T ax = row_sum(indptr, indices, data, GatherX<T>{x}, buf, r0, n, row_width, lanes);
   if (row < n) {
     const T lap = sub_rn(mul_rn(T(2), xr), div_rn(mul_rn(T(2), ax), dr));
     y[row] = mul_add(-inv_shift, lap, xr);
@@ -379,48 +380,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The padded state's SpMV (f32): rows 0 .. n - 1 as K1 (kBf16: with
-// rounded products), rows n .. rows - 1 +0.
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-    spmv_padded_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                       const float* __restrict__ data, const float* __restrict__ x,
-                       float* __restrict__ y, int n, int rows, int row_width) {
-  int r0;
-  float* buf = warp_buffer<float>(row_width, r0);
-  if (r0 >= rows) return;
-  const int row = r0 + (threadIdx.x & 31);
-  float s = 0.0f;
-  if (r0 < n) {  // whole warps: row_sum's __syncwarp sees every lane
-    s = row_sum<float, GatherX<float>, kBf16>(indptr, indices, data, GatherX<float>{x}, buf, r0, n,
-                                              row_width);
-  }
-  if (row < rows) y[row] = row < n ? s : 0.0f;
-}
-
-// The padded state's lazy walk (f32): 0.5 * (w + dsinv * ax) for every row
-// of the state, ax the sum above over dsinv[j] * w[j] (+0 past n).
-template <bool kBf16>
-__global__ void __launch_bounds__(kThreads)
-    lazy_walk_padded_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                            const float* __restrict__ data, const float* __restrict__ w,
-                            const float* __restrict__ dsinv, float* __restrict__ y, int n,
-                            int rows, int row_width) {
-  int r0;
-  float* buf = warp_buffer<float>(row_width, r0);
-  if (r0 >= rows) return;
-  const int row = r0 + (threadIdx.x & 31);
-  const float wr = __ldg(w + min(row, rows - 1));
-  const float sr = __ldg(dsinv + min(row, rows - 1));
-  float ax = 0.0f;
-  if (r0 < n) {
-    ax = row_sum<float, GatherScaled<float>, kBf16>(indptr, indices, data,
-                                                    GatherScaled<float>{w, dsinv}, buf, r0, n,
-                                                    row_width);
-  }
-  if (row < rows) y[row] = mul_rn(0.5f, mul_add(sr, row < n ? ax : 0.0f, wr));
-}
-
 // The blocked product's vector walk: kCols = 4 columns per walk of the
 // rows, gathered kCols / V 16-byte vectors at a time (V = 4 f32 or 2 f64
 // values): one load in f32, two loads of one 32-byte sector in f64.
@@ -456,6 +415,7 @@ __device__ __forceinline__ void row_sum_v(const int* __restrict__ indptr,
   T* d = buf;
   V* xv = reinterpret_cast<V*>(buf + kChunkV);
   const bool lanes8 = row_width <= kWindow;
+  const bool chain = row_width <= kChainWidth;  // one chain in acc[0]
   const int windows = (row_width + kWindow - 1) / kWindow;
   const int pad = lanes8 ? 0 : (windows * kWindow - row_width) / 2;
   // W <= 32: the 8 lane chains; W > 32: acc[0] the window's sum, acc[1] the row's.
@@ -497,7 +457,17 @@ __device__ __forceinline__ void row_sum_v(const int* __restrict__ indptr,
     // This row's entries in the chunk, as positions in the row.
     const int pb = max(lo, c) - lo;
     const int pe = min(hi, c + len) - lo;
-    if (lanes8) {
+    if (chain) {
+      for (int p = pb; p < pe; ++p) {
+        const int t = lo + p - c;
+        const T wt = d[t];
+        V xt[kQ];
+#pragma unroll
+        for (int v = 0; v < kQ; ++v) xt[v] = xv[t * kQ + v];
+#pragma unroll
+        for (int e = 0; e < kCols; ++e) acc[0][e] = mul_add(wt, vec_at(xt[e / kV], e % kV), acc[0][e]);
+      }
+    } else if (lanes8) {
       for (int p0 = pb & ~(kLanes - 1); p0 < pe; p0 += kLanes) {
 #pragma unroll
         for (int q = 0; q < kLanes; ++q) {
@@ -539,9 +509,14 @@ __device__ __forceinline__ void row_sum_v(const int* __restrict__ indptr,
   }
 #pragma unroll
   for (int e = 0; e < kCols; ++e) {
-    out[e] = lanes8 ? add_rn(add_rn(add_rn(acc[0][e], acc[4][e]), add_rn(acc[2][e], acc[6][e])),
-                             add_rn(add_rn(acc[1][e], acc[5][e]), add_rn(acc[3][e], acc[7][e])))
-                    : add_rn(acc[1][e], acc[0][e]);
+    if (chain) {
+      out[e] = acc[0][e];
+    } else if (lanes8) {
+      out[e] = add_rn(add_rn(add_rn(acc[0][e], acc[4][e]), add_rn(acc[2][e], acc[6][e])),
+                      add_rn(add_rn(acc[1][e], acc[5][e]), add_rn(acc[3][e], acc[7][e])));
+    } else {
+      out[e] = add_rn(acc[1][e], acc[0][e]);
+    }
   }
 }
 
@@ -602,7 +577,7 @@ __global__ void __launch_bounds__(kV1Chunk)
 spmv_v1_kernel(const int* __restrict__ x_base, const short* __restrict__ col_local,
                const short* __restrict__ row_local, const float* __restrict__ w,
                const int* __restrict__ win_ptr, const int* __restrict__ win_chunks,
-               const float* __restrict__ x, float* __restrict__ y, int n) {
+               const float* __restrict__ x, float* __restrict__ y, int n, int rows) {
   __shared__ float e_s[kV1Chunk];
   __shared__ int r_s[kV1Chunk + 1];
   __shared__ float y_s[kV1Window];
@@ -632,8 +607,132 @@ spmv_v1_kernel(const int* __restrict__ x_base, const short* __restrict__ col_loc
     __syncthreads();
   }
   const long long row = static_cast<long long>(win) * kV1Window + t;
-  if (row < n) y[row] = y_s[t];
-  if (row + kV1Chunk < n) y[row + kV1Chunk] = y_s[t + kV1Chunk];
+  if (row < rows) y[row] = y_s[t];
+  if (row + kV1Chunk < rows) y[row + kV1Chunk] = y_s[t + kV1Chunk];
+}
+
+// spmv_v2_f32: y = A @ x in the order of the JAX package's v2 TPU SpMV
+// (_gather_kernel, :1049, then _reduce_kernel_mxu, :1118, then the tail),
+// from the port's layout of its plan (ops/spmv_plan.py:build_v2_layout): the
+// CSR arrays of the entries the plan's buckets keep, the shift that marks
+// where a row's partial restarts (a 512-slot sub-chunk of the reduce pass),
+// and the spill.  The reduce's one-hot dot adds a row's slots one after the
+// other from +0, in column order, and adds each sub-chunk's partial into y
+// in turn; then the tail adds in.  So a row is a walk over its kept entries
+// in CSR order with a partial that is added into the row's sum and restarts
+// from +0 wherever col >> shift changes, then the tail: a COO tail's
+// entries in column order, each y + round(w * x[col]), or (tail_y) the v1
+// tail's row, computed first by spmv_v1_f32.  The COO tail comes as
+// (row, col, w) triplets in CSR order, with where each warp's 32 rows start
+// among them (tail_warp): a warp reads its two bounds before its walk, then
+// its lanes walk the warp's triplets together, each adding those of its own
+// row, so the tail costs its own entries and one word per 32 rows.  Products are rounded to f32
+// (kBf16: then to bf16, round to nearest even), never contracted into an
+// add, as in the TPU kernels' interpret-mode program on the CPU.
+//
+// Design: K1's warp per 32 rows.  The warp's rows span one range of the
+// kept entries; its lanes stage that range 256 entries at a time into
+// shared memory, loads coalesced and 8 gathers of x in flight per lane:
+// each entry's rounded product and its sub-chunk (col >> shift).  Then each
+// lane walks its own row in the buffer, carrying its partial and its sum
+// across the stages.  kLazy: the lazy walk 0.5 * fma(dsinv, A (dsinv * w),
+// w), x being w, the gather dsinv[j] * w[j] with one rounding.  Rows n ..
+// rows - 1 (the padded state's padding) are empty.
+constexpr int kV2Chunk = kStage;  // entries a warp stages at a time
+
+template <bool kBf16>
+__device__ __forceinline__ float product(float w, float x) {
+  const float p = __fmul_rn(w, x);
+  if constexpr (kBf16) {
+    return __bfloat162float(__float2bfloat16_rn(p));
+  } else {
+    return p;
+  }
+}
+
+template <bool kBf16, bool kLazy>
+__global__ void __launch_bounds__(kThreads)
+spmv_v2_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
+               const float* __restrict__ w, int shift, const int* __restrict__ tail_warp,
+               const int* __restrict__ tail_rows, const int* __restrict__ tail_cols,
+               const float* __restrict__ tail_w, const float* __restrict__ tail_y,
+               const float* __restrict__ x,
+               const float* __restrict__ dsinv, float* __restrict__ y, int n, int rows) {
+  __shared__ float e_s[kWarps][kV2Chunk];
+  __shared__ int g_s[kWarps][kV2Chunk];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = (blockIdx.x * kWarps + warp) * 32;
+  if (r0 >= rows) return;
+  const int row = r0 + lane;
+  auto gather = [&](int j) {
+    if constexpr (kLazy) {
+      return __fmul_rn(__ldg(dsinv + j), __ldg(x + j));
+    } else {
+      return __ldg(x + j);
+    }
+  };
+  float sum = 0.0f;
+  if (r0 < n) {  // whole warps: the __syncwarp calls below see every lane
+    const int lo = __ldg(ptr + min(row, n - 1));
+    const int hi = row < n ? __ldg(ptr + min(row, n - 1) + 1) : lo;
+    const int span_lo = __ldg(ptr + r0);
+    const int span_hi = __ldg(ptr + min(r0 + 32, n));
+    const int t_lo = tail_warp != nullptr ? __ldg(tail_warp + (r0 >> 5)) : 0;
+    const int t_hi = tail_warp != nullptr ? __ldg(tail_warp + (r0 >> 5) + 1) : 0;
+    float part = 0.0f;
+    int group = -1;  // the first entry's flush adds +0 to +0
+    for (int c0 = span_lo; c0 < span_hi; c0 += kV2Chunk) {
+      const int len = min(kV2Chunk, span_hi - c0);
+      int col[kPerLane];
+      float wt[kPerLane];
+      float xg[kPerLane];
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q) {
+        const int i = min(lane + 32 * q, len - 1);
+        col[q] = __ldg(cols + c0 + i);
+        wt[q] = __ldg(w + c0 + i);
+      }
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q) xg[q] = gather(col[q]);
+#pragma unroll
+      for (int q = 0; q < kPerLane; ++q) {
+        const int i = lane + 32 * q;
+        if (i < len) {
+          e_s[warp][i] = product<kBf16>(wt[q], xg[q]);
+          g_s[warp][i] = col[q] >> shift;
+        }
+      }
+      __syncwarp();
+      const int ke = min(hi, c0 + len);
+      for (int k = max(lo, c0); k < ke; ++k) {
+        const int gk = g_s[warp][k - c0];
+        if (gk != group) {
+          sum = __fadd_rn(sum, part);
+          part = 0.0f;
+          group = gk;
+        }
+        part = __fadd_rn(part, e_s[warp][k - c0]);
+      }
+      __syncwarp();
+    }
+    sum = __fadd_rn(sum, part);
+    if (row < n && tail_y != nullptr) {
+      sum = __fadd_rn(sum, __ldg(tail_y + row));
+    } else {
+      for (int k = t_lo; k < t_hi; ++k) {
+        if (__ldg(tail_rows + k) == row) {
+          sum = __fadd_rn(sum, __fmul_rn(__ldg(tail_w + k), gather(__ldg(tail_cols + k))));
+        }
+      }
+    }
+  }
+  if (row >= rows) return;
+  if constexpr (kLazy) {
+    y[row] = __fmul_rn(0.5f, __fmaf_rn(__ldg(dsinv + row), sum, __ldg(x + row)));
+  } else {
+    y[row] = sum;
+  }
 }
 
 int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -658,13 +757,14 @@ int spmv_csr(const void* indptr, const void* indices, const void* data, const vo
 
 template <class T>
 int power_step(const void* indptr, const void* indices, const void* data, const void* x,
-               const void* deg, T inv_shift, void* y, int n, int row_width, void* stream) {
+               const void* deg, T inv_shift, void* y, int n, int row_width, int lanes,
+               void* stream) {
   if (n > 0) {
     power_step_kernel<T><<<blocks_for(n), kThreads, shared_bytes<T>(row_width),
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(indptr), static_cast<const int*>(indices),
         static_cast<const T*>(data), static_cast<const T*>(x), static_cast<const T*>(deg),
-        inv_shift, static_cast<T*>(y), n, row_width);
+        inv_shift, static_cast<T*>(y), n, row_width, lanes != 0);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -723,58 +823,7 @@ int lazy_walk(const void* indptr, const void* indices, const void* data, const v
   return static_cast<int>(cudaGetLastError());
 }
 
-// rows: the padded state's length P (>= n).
-template <bool kBf16>
-int spmv_padded(const void* indptr, const void* indices, const void* data, const void* x, void* y,
-                int n, int rows, int row_width, void* stream) {
-  if (rows < n) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows > 0) {
-    spmv_padded_kernel<kBf16><<<blocks_for(rows), kThreads, shared_bytes<float>(row_width),
-                                static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr), static_cast<const int*>(indices),
-        static_cast<const float*>(data), static_cast<const float*>(x), static_cast<float*>(y), n, rows,
-        row_width);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kBf16>
-int lazy_walk_padded(const void* indptr, const void* indices, const void* data, const void* w,
-                     const void* dsinv, void* y, int n, int rows, int row_width, void* stream) {
-  if (rows < n) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows > 0) {
-    lazy_walk_padded_kernel<kBf16><<<blocks_for(rows), kThreads, shared_bytes<float>(row_width),
-                                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr), static_cast<const int*>(indices),
-        static_cast<const float*>(data), static_cast<const float*>(w), static_cast<const float*>(dsinv),
-        static_cast<float*>(y), n, rows, row_width);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
-
-extern "C" int spmv_padded_f32(const void* indptr, const void* indices, const void* data,
-                               const void* x, void* y, int n, int rows, int row_width, void* stream) {
-  return spmv_padded<false>(indptr, indices, data, x, y, n, rows, row_width, stream);
-}
-
-extern "C" int spmv_bf16i_f32(const void* indptr, const void* indices, const void* data,
-                              const void* x, void* y, int n, int rows, int row_width, void* stream) {
-  return spmv_padded<true>(indptr, indices, data, x, y, n, rows, row_width, stream);
-}
-
-extern "C" int lazy_walk_padded_f32(const void* indptr, const void* indices, const void* data,
-                                    const void* w, const void* dsinv, void* y, int n, int rows,
-                                    int row_width, void* stream) {
-  return lazy_walk_padded<false>(indptr, indices, data, w, dsinv, y, n, rows, row_width, stream);
-}
-
-extern "C" int lazy_walk_bf16i_f32(const void* indptr, const void* indices, const void* data,
-                                   const void* w, const void* dsinv, void* y, int n, int rows,
-                                   int row_width, void* stream) {
-  return lazy_walk_padded<true>(indptr, indices, data, w, dsinv, y, n, rows, row_width, stream);
-}
 
 extern "C" int spmv_csr_f32(const void* indptr, const void* indices, const void* data,
                             const void* x, void* y, int n, int row_width, void* stream) {
@@ -786,16 +835,17 @@ extern "C" int spmv_csr_f64(const void* indptr, const void* indices, const void*
   return spmv_csr<double>(indptr, indices, data, x, y, n, row_width, stream);
 }
 
+// lanes: the row sums in the 8 lanes at W <= 16 too (the solve's first step).
 extern "C" int power_step_f32(const void* indptr, const void* indices, const void* data,
                               const void* x, const void* deg, float inv_shift, void* y,
-                              int n, int row_width, void* stream) {
-  return power_step<float>(indptr, indices, data, x, deg, inv_shift, y, n, row_width, stream);
+                              int n, int row_width, int lanes, void* stream) {
+  return power_step<float>(indptr, indices, data, x, deg, inv_shift, y, n, row_width, lanes, stream);
 }
 
 extern "C" int power_step_f64(const void* indptr, const void* indices, const void* data,
                               const void* x, const void* deg, double inv_shift, void* y,
-                              int n, int row_width, void* stream) {
-  return power_step<double>(indptr, indices, data, x, deg, inv_shift, y, n, row_width, stream);
+                              int n, int row_width, int lanes, void* stream) {
+  return power_step<double>(indptr, indices, data, x, deg, inv_shift, y, n, row_width, lanes, stream);
 }
 
 extern "C" int laplacian_f32(const void* indptr, const void* indices, const void* data,
@@ -839,18 +889,85 @@ extern "C" int lazy_walk_f64(const void* indptr, const void* indices, const void
   return lazy_walk<double>(indptr, indices, data, w, dsinv, u, c, y, n, row_width, stream);
 }
 
-// win_ptr/win_chunks: each y window's chunks in plan order; windows = P / 1024.
+// win_ptr/win_chunks: each y window's chunks in plan order; windows = P / 1024;
+// x holds n values (or the padded state), y gets rows (n, or P) values.
 extern "C" int spmv_v1_f32(const void* x_base, const void* col_local, const void* row_local,
                            const void* w, const void* win_ptr, const void* win_chunks,
-                           const void* x, void* y, int n, int windows, void* stream) {
+                           const void* x, void* y, int n, int rows, int windows, void* stream) {
+  if (rows < n || rows > windows * kV1Window) return static_cast<int>(cudaErrorInvalidValue);
   if (windows > 0) {
     spmv_v1_kernel<<<windows, kV1Chunk, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(x_base), static_cast<const short*>(col_local),
         static_cast<const short*>(row_local), static_cast<const float*>(w),
         static_cast<const int*>(win_ptr), static_cast<const int*>(win_chunks),
-        static_cast<const float*>(x), static_cast<float*>(y), n);
+        static_cast<const float*>(x), static_cast<float*>(y), n, rows);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+// The kept entries' CSR arrays (ptr, cols, w) and the restart shift; the
+// tail: a COO tail's triplets (tail_rows, tail_cols, tail_w) in CSR order
+// and tail_warp, where the triplets of rows 32 i .. 32 i + 31 start (i up
+// to ceil(n / 32)), or tail_y, the v1 tail's A @ x (at most one of the two,
+// or neither).  x (the lazy walk:
+// w) and y hold rows values (n, or the padded state's P).
+template <bool kBf16, bool kLazy>
+int spmv_v2(const void* ptr, const void* cols, const void* w, int shift, const void* tail_warp,
+            const void* tail_rows, const void* tail_cols, const void* tail_w, const void* tail_y, const void* x,
+            const void* dsinv, void* y, int n, int rows, void* stream) {
+  const bool coo = tail_warp != nullptr;
+  if (rows < n || (tail_y != nullptr && coo) || coo != (tail_rows != nullptr) ||
+      coo != (tail_cols != nullptr) || coo != (tail_w != nullptr) || (kLazy && dsinv == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (rows > 0) {
+    spmv_v2_kernel<kBf16, kLazy><<<blocks_for(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(ptr), static_cast<const int*>(cols), static_cast<const float*>(w), shift,
+        static_cast<const int*>(tail_warp), static_cast<const int*>(tail_rows),
+        static_cast<const int*>(tail_cols), static_cast<const float*>(tail_w),
+        static_cast<const float*>(tail_y), static_cast<const float*>(x),
+        static_cast<const float*>(dsinv), static_cast<float*>(y), n, rows);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// spmv_v2_f32 / spmv_v2_bf16i_f32: y = A @ x with f32 / bf16 products.
+extern "C" int spmv_v2_f32(const void* ptr, const void* cols, const void* w, int shift,
+                           const void* tail_warp, const void* tail_rows, const void* tail_cols,
+                           const void* tail_w, const void* tail_y, const void* x, void* y, int n, int rows,
+                           void* stream) {
+  return spmv_v2<false, false>(ptr, cols, w, shift, tail_warp, tail_rows, tail_cols, tail_w, tail_y, x,
+                               nullptr, y, n, rows, stream);
+}
+
+extern "C" int spmv_v2_bf16i_f32(const void* ptr, const void* cols, const void* w, int shift,
+                                 const void* tail_warp, const void* tail_rows, const void* tail_cols,
+                                 const void* tail_w, const void* tail_y, const void* x, void* y, int n,
+                                 int rows, void* stream) {
+  return spmv_v2<true, false>(ptr, cols, w, shift, tail_warp, tail_rows, tail_cols, tail_w, tail_y, x,
+                              nullptr, y, n, rows, stream);
+}
+
+// lazy_walk_v2_f32 / lazy_walk_v2_bf16i_f32: y = 0.5 * fma(dsinv, A (dsinv * w), w),
+// tail_y (if set) the v1 tail's A (dsinv * w).
+extern "C" int lazy_walk_v2_f32(const void* ptr, const void* cols, const void* w, int shift,
+                                const void* tail_warp, const void* tail_rows, const void* tail_cols,
+                                const void* tail_w, const void* tail_y, const void* state, const void* dsinv,
+                                void* y, int n, int rows, void* stream) {
+  return spmv_v2<false, true>(ptr, cols, w, shift, tail_warp, tail_rows, tail_cols, tail_w, tail_y, state,
+                              dsinv, y, n, rows, stream);
+}
+
+extern "C" int lazy_walk_v2_bf16i_f32(const void* ptr, const void* cols, const void* w, int shift,
+                                      const void* tail_warp, const void* tail_rows, const void* tail_cols,
+                                      const void* tail_w, const void* tail_y, const void* state,
+                                      const void* dsinv, void* y, int n, int rows, void* stream) {
+  return spmv_v2<true, true>(ptr, cols, w, shift, tail_warp, tail_rows, tail_cols, tail_w, tail_y, state,
+                             dsinv, y, n, rows, stream);
 }
 
 extern "C" const char* spmv_csr_error_string(int code) {

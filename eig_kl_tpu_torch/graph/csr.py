@@ -19,7 +19,7 @@ import numpy as np
 import torch
 
 if TYPE_CHECKING:
-    from eig_kl_tpu_torch.ops.spmv_plan import V1Layout
+    from eig_kl_tpu_torch.ops.spmv_plan import V1Layout, V2Layout
     from eig_kl_tpu_torch.ops.spmv_v3 import SpmvPlanV3
 
 
@@ -34,33 +34,71 @@ PLAN_WINDOW = 1024
 class CsrPlan:
     """The port's counterpart of the JAX package's v1 or v2 chunk plan
     (``eig_kl_tpu/ops/spmv_pallas.py:plan_for_graph``), attached by
-    ``to_device(with_plan=True)``.  It holds what the JAX plan decides for
-    the power solve, whose K1 reads the CSR arrays themselves: the padded
-    length of its ``(P/128, 128)`` state, and which TPU kernel would run,
-    "v1" (at most :data:`V1_MAX_NNZ` entries) or "v2".  :meth:`for_graph`
-    is the port's one copy of that rule; the v1 plan's chunk layout, which
-    decides the order of the mega engine's ``A @ s``, is kept by the graph
-    (:attr:`DeviceGraph.v1_layout`).  Only v2 has the bf16-intermediate mode: a v1 plan ignores
-    ``inter_dtype`` (``spmv_pallas_2d`` ends in ``_spmv_call``), and so does
-    the port.  (v2 also falls back to f32 for a plan whose ``g1`` is not a
-    multiple of 2,048, ``spmv_pallas.py:474``; ``build_plan_v2`` never
-    builds one.)"""
+    ``to_device(with_plan=True)``: the plan's layout
+    (:mod:`eig_kl_tpu_torch.ops.spmv_plan`), which holds what the plan
+    decides for the port, the padded length of the power solve's
+    ``(P/128, 128)`` state and the order in which its TPU kernel adds each
+    row.  A graph with a plan takes every f32 SpMV in that order, as the
+    JAX package's graph does (``ops/partition.py:spmv``): the KL engine's,
+    and the power solve's on the padded state.  :meth:`kernel_for` is the
+    port's one copy of the JAX rule for v1 or v2.  Only v2 has the
+    bf16-intermediate mode: a v1 plan ignores ``inter_dtype``
+    (``spmv_pallas_2d`` ends in ``_spmv_call``), and so does the port; v2
+    also falls back to f32 for a plan whose ``g1`` is not a multiple of
+    2,048 (``spmv_pallas.py:474``), which :meth:`runs_bf16` reads."""
 
-    padded_nodes: int
-    kernel: str
+    layout: "V1Layout | V2Layout"
+
+    @property
+    def padded_nodes(self) -> int:
+        return self.layout.padded_nodes
+
+    @property
+    def kernel(self) -> str:
+        """"v1" or "v2": the TPU kernel whose order the plan's SpMV takes."""
+        from eig_kl_tpu_torch.ops.spmv_plan import V1Layout
+
+        return "v1" if isinstance(self.layout, V1Layout) else "v2"
+
+    @staticmethod
+    def kernel_for(nnz: int) -> str:
+        """The kernel the JAX package's rule picks for a graph of ``nnz``
+        stored entries."""
+        return "v1" if nnz <= V1_MAX_NNZ else "v2"
 
     @classmethod
-    def for_graph(cls, num_nodes: int, nnz: int) -> "CsrPlan":
-        """The plan the JAX package's rule picks for a graph of this size."""
-        padded = -(-max(num_nodes, 1) // PLAN_WINDOW) * PLAN_WINDOW
-        return cls(padded, "v1" if nnz <= V1_MAX_NNZ else "v2")
+    def for_graph(cls, g: "DeviceGraph", kernel: str | None = None, **geometry) -> "CsrPlan":
+        """The plan of ``g``'s matrix (its weights in f32) on ``g``'s device:
+        the kernel of :meth:`kernel_for` unless ``kernel`` names one;
+        ``geometry`` (``rblock``, ``quantum``) pins a v2 plan's.  The CSR
+        arrays are read back to the host, where the plan is built."""
+        return cls.from_csr(g.indptr.cpu().numpy(), g.indices.cpu().numpy(), g.data.cpu().numpy(), g.device,
+                            kernel, **geometry)
+
+    @classmethod
+    def from_csr(cls, indptr: np.ndarray, indices: np.ndarray, data: np.ndarray, device: torch.device | str,
+                 kernel: str | None = None, **geometry) -> "CsrPlan":
+        """:meth:`for_graph` from the host's CSR arrays, the plan built on
+        the host and its layout uploaded to ``device``."""
+        from eig_kl_tpu_torch.ops.spmv_plan import build_v1_layout, build_v2_layout
+
+        n = len(indptr) - 1
+        kernel = kernel or cls.kernel_for(len(indices))
+        if kernel not in ("v1", "v2"):
+            raise ValueError(f"the plan kernel is 'v1' or 'v2', got {kernel!r}")
+        coo = (np.repeat(np.arange(n, dtype=np.int64), np.diff(np.asarray(indptr, np.int64))), indices,
+               np.asarray(data).astype(np.float32))
+        if kernel == "v1":
+            return cls(build_v1_layout(n, *coo, device))
+        return cls(build_v2_layout(n, *coo, device, **geometry))
 
     def runs_bf16(self, inter_dtype: str) -> bool:
         """Whether the power solve's matvec rounds its products to bf16
-        (``inter_dtype`` "bfloat16" on a v2 plan)."""
+        (``inter_dtype`` "bfloat16" on a v2 plan whose ``g1`` is a multiple
+        of 2,048)."""
         if inter_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"inter_dtype is 'float32' or 'bfloat16', got {inter_dtype!r}")
-        return inter_dtype == "bfloat16" and self.kernel == "v2"
+        return inter_dtype == "bfloat16" and self.kernel == "v2" and self.layout.g1 % 2048 == 0
 
 
 def ell_width(max_degree: int, pad_multiple: int = 8) -> int:
@@ -170,12 +208,13 @@ class Graph:
         weight are derived in float64 on the host and rounded once to
         ``dtype``, as the JAX package's ``Graph.to_device`` does.
         ``with_plan`` attaches the :class:`CsrPlan` the JAX package's rule
-        picks (its ``to_device(with_plan=True)``, ``graph/csr.py:228``): an
-        f32 power solve then iterates on the padded state."""
+        picks (its ``to_device(with_plan=True)``, ``graph/csr.py:228``): the
+        f32 SpMVs then take its order, and an f32 power solve iterates on
+        the padded state."""
         if self.nnz >= 2**31:
             raise ValueError(f"nnz {self.nnz} does not fit int32 CSR offsets")
         np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
-        return DeviceGraph(
+        g = DeviceGraph(
             indptr=torch.as_tensor(self.indptr.astype(np.int32)).to(device),
             indices=torch.as_tensor(self.indices.astype(np.int32)).to(device),
             data=torch.as_tensor(self.data.astype(np_dtype)).to(device),
@@ -186,8 +225,10 @@ class Graph:
                 np.asarray(self.total_weight, dtype=np_dtype)
             ).to(device),
             row_width=ell_width(self.max_degree),
-            plan=CsrPlan.for_graph(self.num_nodes, self.nnz) if with_plan else None,
         )
+        if not with_plan:
+            return g
+        return dataclasses.replace(g, plan=CsrPlan.from_csr(self.indptr, self.indices, self.data, device))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -206,9 +247,11 @@ class DeviceGraph:
       plan: the JAX package's ``DeviceGraph.plan``: None, a
         :class:`CsrPlan` (``Graph.to_device(with_plan=True)``), or a v3 SpMV
         plan of the same matrix.  With a plan an f32 power solve iterates
-        on the padded ``(P/128, 128)`` state (``spectral/power.py``); with a
-        v3 plan every f32 SpMV takes the v3 route.  Attach one with
-        ``dataclasses.replace(g, plan=build_plan_v3_for_graph(host, dev))``.
+        on the padded ``(P/128, 128)`` state (``spectral/power.py``), and
+        every f32 SpMV takes the plan's route: a CSR plan's TPU kernel order,
+        or the v3 route.  Attach one with ``dataclasses.replace(g,
+        plan=CsrPlan.for_graph(g))`` or ``dataclasses.replace(g,
+        plan=build_plan_v3_for_graph(host, dev))``.
     """
 
     indptr: torch.Tensor
@@ -236,20 +279,18 @@ class DeviceGraph:
         return self.data.dtype
 
     @functools.cached_property
-    def v1_layout(self) -> "V1Layout | None":
-        """The chunk layout of the JAX package's v1 plan of this matrix
-        (:mod:`eig_kl_tpu_torch.ops.spmv_plan`), built on the host at the
-        first use and kept with the graph, as the JAX ``MegaGraph`` keeps
-        its ``spmv_plan``; None where that package's rule picks no v1 plan
-        (:meth:`CsrPlan.for_graph`), or for an f64 graph (the TPU kernel is
-        f32 only)."""
-        if self.dtype != torch.float32 or CsrPlan.for_graph(self.num_nodes, self.nnz).kernel != "v1":
+    def plan_layout(self) -> "V1Layout | V2Layout | None":
+        """The layout of the JAX package's v1 or v2 plan of this matrix
+        (:mod:`eig_kl_tpu_torch.ops.spmv_plan`), whose order the mega
+        engine's ``A @ s`` takes: the attached :class:`CsrPlan`'s, else the
+        one the JAX rule picks (:meth:`CsrPlan.kernel_for`), built on the
+        host at the first use and kept with the graph, as the JAX
+        ``MegaGraph`` keeps its ``spmv_plan``; None for an f64 graph (the TPU
+        kernels are f32 only)."""
+        if self.dtype != torch.float32:
             return None
-        from eig_kl_tpu_torch.ops.spmv_plan import build_v1_layout
-
-        indptr = self.indptr.cpu().numpy().astype(np.int64)
-        rows = np.repeat(np.arange(self.num_nodes, dtype=np.int64), np.diff(indptr))
-        return build_v1_layout(self.num_nodes, rows, self.indices.cpu().numpy(), self.data.cpu().numpy(), self.device)
+        plan = self.plan if isinstance(self.plan, CsrPlan) else CsrPlan.for_graph(self)
+        return plan.layout
 
 
 def device_graph_from_jax(

@@ -41,7 +41,7 @@ from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
 from eig_kl_tpu_torch.ops.reduce import FUSED_DOT_BYTES, K4_MAX_PAIRS, fused_dot_batch, tree_sum
 from eig_kl_tpu_torch.ops.select import upper_median
 from eig_kl_tpu_torch.ops.spmv import spmv
-from eig_kl_tpu_torch.ops.spmv_plan import spmv_v1
+from eig_kl_tpu_torch.ops.spmv_plan import plan_spmv
 from eig_kl_tpu_torch.ops.spmv_v3 import SpmvPlanV3
 from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
 from eig_kl_tpu_torch.utils.tracing import Tracer
@@ -394,22 +394,21 @@ def mega_spmv(g: DeviceGraph, spmv_order: str = "plan"):
     """The ``A @ s`` of the mega paths, as a function of ``s``.
 
     ``spmv_order`` "plan" is the JAX mega engine's: the TPU SpMV of its
-    plan (``megakernel.py:MegaGraph``, ``:133-137``), which for a graph
-    with a v1 layout (:attr:`DeviceGraph.v1_layout`: f32, at most
-    ``V1_MAX_NNZ`` stored entries) and no v3 plan is the v1 kernel
-    (:func:`~eig_kl_tpu_torch.ops.spmv_plan.spmv_v1`; K1's
-    ``spmv_v1_f32`` on the card).  Above that the plan is a v2 one, whose
-    order the port holds only to a bound (ROADMAP.md C): there, in f64 (which
-    the mega engine does not run), and for "ell", it is :func:`spmv` (K1 in
-    the ELL order of the JAX package's XLA engine, which the pipelines take
-    because the JAX package runs that engine off the TPU,
-    ``models/pipelines.py:_use_mega``; a v3 plan's route where the graph
-    has one)."""
+    plan (``megakernel.py:MegaGraph``, ``:133-137``), which for an f32
+    graph with no v3 plan is the v1 kernel at most ``V1_MAX_NNZ`` stored
+    entries and the v2 pair above (:attr:`DeviceGraph.plan_layout`;
+    :func:`~eig_kl_tpu_torch.ops.spmv_plan.plan_spmv`, K1's ``spmv_v1_f32``
+    or ``spmv_v2_f32`` on the card).  In f64 (which the mega engine does
+    not run), with a v3 plan, and for "ell" it is :func:`spmv`: K1 in the
+    ELL order of the JAX package's XLA engine, which the pipelines take
+    because the JAX package runs that engine off the TPU
+    (``models/pipelines.py:_use_mega``), or the route of a plan the graph
+    carries, as that engine's ``spmv`` takes it."""
     if spmv_order not in SPMV_ORDERS:
         raise ValueError(f"spmv_order is one of {SPMV_ORDERS}, got {spmv_order!r}")
-    if spmv_order == "plan" and not isinstance(g.plan, SpmvPlanV3) and g.v1_layout is not None:
-        layout = g.v1_layout
-        return lambda x: spmv_v1(layout, x)
+    if spmv_order == "plan" and not isinstance(g.plan, SpmvPlanV3) and g.plan_layout is not None:
+        layout = g.plan_layout
+        return lambda x: plan_spmv(layout, x)
     return lambda x: spmv(g, x)
 
 

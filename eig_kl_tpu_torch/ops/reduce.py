@@ -586,7 +586,7 @@ def fused_dot_plain(x: torch.Tensor, y: torch.Tensor, order: str) -> torch.Tenso
     if n <= form.chain_max:
         return fma_dot_plain(x, y, unfused=0)
     if n <= form.unrolled_max:
-        return _unrolled_lanes_plain(x, y, form.pairs_at_6)
+        return _unrolled_lanes_plain(x, y, form)
     return _lanes_dot_plain(x, y, form)
 
 
@@ -598,13 +598,15 @@ class LanesForm(NamedTuple):
     reassociated up to ``unrolled_max``, a vector loop beyond.
     ``pairs_at_6``: the unrolled epilogue of 6 or 7 values takes 2 lanes
     (else 4); ``wide_ties``: the vector loop's epilogue takes 8 lanes where
-    8 and 4 tie in steps (remainders 28 to 31; else 4).  K4 takes these
-    as arguments (:func:`_k4_form_args`)."""
+    8 and 4 tie in steps (remainders 28 to 31; else 4); ``unrolled_ties``:
+    so does the unrolled epilogue.  K4 takes these as arguments
+    (:func:`_k4_form_args`)."""
 
     chain_max: int
     unrolled_max: int
     pairs_at_6: bool
     wide_ties: bool
+    unrolled_ties: bool = False
 
 
 #: The producers read (:func:`fused_dot_batch`).  "laplacian" was read in
@@ -616,16 +618,17 @@ class LanesForm(NamedTuple):
 #: to the cuts that program returns; "signs" is the same dot in a
 #: standalone program.  "walk" is the momentum check's quotient
 #: ``vdot(w, opm_sym(w))`` on a graph wider than 32 (the walk's row sums a
-#: fusion of their own), fitted to whole JAX momentum runs on 34-319 nodes:
-#: unrolled from 34 values to 191, 8 lanes at a tie (639 values); its
-#: ``pairs_at_6`` was not told apart by the runs (ROADMAP.md C).
+#: fusion of their own, its epilogue in the dot's loop), fitted to that
+#: quotient alone at 34-329 values, 8 draws each, and to whole JAX momentum
+#: runs: unrolled from 34 values to 223, 8 lanes at a tie in the unrolled
+#: epilogue and in the vector loop's (ROADMAP.md C).
 LANES_FORMS = {
     "lanes": LanesForm(49, 128, True, True),
     "slice": LanesForm(59, 128, True, True),
     "signs": LanesForm(37, 351, False, False),
     "laplacian": LanesForm(33, 191, False, False),
     "recount": LanesForm(37, 128, False, True),
-    "walk": LanesForm(33, 191, False, True),
+    "walk": LanesForm(33, 223, False, True, True),
 }
 #: The orders of a fused dot (:func:`fused_dot_batch`) by name.
 FUSED_ORDERS = ("chain", *LANES_FORMS)
@@ -671,7 +674,7 @@ def _fma_f32_np(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     return s.astype(np.float32)
 
 
-def unrolled_lanes_plan(n: int, pairs_at_6: bool = True) -> tuple[list[int], int]:
+def unrolled_lanes_plan(n: int, pairs_at_6: bool = True, unrolled_ties: bool = False) -> tuple[list[int], int]:
     """The order of a vectorized fused dot of ``n`` values that LLVM
     unrolls fully and reassociates (:class:`LanesForm`): ``(blocks,
     width)``.  One 8-lane accumulator (lane 0 from +0, the others from -0)
@@ -684,9 +687,9 @@ def unrolled_lanes_plan(n: int, pairs_at_6: bool = True) -> tuple[list[int], int
     remaining ``r = n - nv`` values go through one vector epilogue of
     ``width`` lanes (lane 0 from that sum, the others from -0): 2 lanes
     for r = 2 or 3 (and 6 or 7 where ``pairs_at_6``), else from r = 4 on
-    4 lanes where ``r // 4`` is odd and 8 where it is even (none for r <
-    2); its lanes fold in halves, then scalar fused multiply-adds take the
-    rest."""
+    4 lanes where ``r // 4`` is odd and 8 where it is even, and 8 at r =
+    28 to 31 where ``unrolled_ties`` (none for r < 2); its lanes fold in
+    halves, then scalar fused multiply-adds take the rest."""
     interleave = 2 if 48 <= n < 64 else 4
     trips = n // (8 * interleave)
     blocks = [interleave * t for t in range(trips)]
@@ -695,15 +698,15 @@ def unrolled_lanes_plan(n: int, pairs_at_6: bool = True) -> tuple[list[int], int
         blocks += mine[1:2] + mine[:1] + mine[2:]
     r = n - 8 * interleave * trips
     pairs = (2, 3, 6, 7) if pairs_at_6 else (2, 3)
-    width = 2 if r in pairs else 0 if r < 4 else 4 if r // 4 % 2 else 8
+    width = 2 if r in pairs else 0 if r < 4 else 8 if unrolled_ties and r >= 28 else 4 if r // 4 % 2 else 8
     return blocks, width
 
 
-def _unrolled_lanes_plain(x: torch.Tensor, y: torch.Tensor, pairs_at_6: bool) -> torch.Tensor:
+def _unrolled_lanes_plain(x: torch.Tensor, y: torch.Tensor, form: LanesForm) -> torch.Tensor:
     """The fully unrolled order (:func:`unrolled_lanes_plan`) on the host."""
     xs, ys = x.detach().cpu().numpy(), y.detach().cpu().numpy()
     n = xs.size
-    blocks, width = unrolled_lanes_plan(n, pairs_at_6)
+    blocks, width = unrolled_lanes_plan(n, form.pairs_at_6, form.unrolled_ties)
     acc = np.full(_DOT_VECTOR, -0.0, np.float32)
     acc[0] = 0.0
     for b in blocks:
@@ -754,11 +757,12 @@ def _k4_form_args(order: str) -> tuple[int, int, int]:
     """K4's fused entry point's ``chain_max, unrolled_max, flags`` for
     ``order``: a :class:`LanesForm`'s lengths, and its flags as bits
     (``pairs_at_6`` 1, ``wide_ties`` 2, a vectorized order 4, whose dot
-    of one value is its product); "chain" is the chain at every length."""
+    of one value is its product, ``unrolled_ties`` 8); "chain" is the chain
+    at every length."""
     if order == "chain":
         return 2**31 - 1, 2**31 - 1, 0
     form = LANES_FORMS[order]
-    return form.chain_max, form.unrolled_max, form.pairs_at_6 | form.wide_ties << 1 | 4
+    return form.chain_max, form.unrolled_max, form.pairs_at_6 | form.wide_ties << 1 | 4 | form.unrolled_ties << 3
 
 
 def _k4_fused_launch(xs, ys, order: str) -> torch.Tensor:

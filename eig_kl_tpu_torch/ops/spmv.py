@@ -1,16 +1,18 @@
 """The SpMV ``y = A @ x``: kernel K1 (``csrc/spmv_csr.cu``), its plain
-version, and the dispatch between them and the v3 route
-(:mod:`eig_kl_tpu_torch.ops.spmv_v3`) for an f32 graph with a v3 plan;
-and K1's other entry points, each an epilogue on K1's SpMV: the power
-step (:func:`power_step`), the "eig" Laplacian of Lanczos and LOBPCG
-(:func:`laplacian`), LOBPCG's blocked product (:func:`spmm`) and the
-momentum exit's lazy walk (:func:`lazy_walk`).
+version, and the dispatch between them and the plan routes for an f32
+graph with a plan (a :class:`~eig_kl_tpu_torch.graph.csr.CsrPlan`'s TPU
+kernel order, :mod:`eig_kl_tpu_torch.ops.spmv_plan`; the v3 route,
+:mod:`eig_kl_tpu_torch.ops.spmv_v3`); and K1's other entry points, each an
+epilogue on K1's SpMV: the power step (:func:`power_step`), the "eig"
+Laplacian of Lanczos and LOBPCG (:func:`laplacian`), LOBPCG's blocked
+product (:func:`spmm`) and the momentum exit's lazy walk
+(:func:`lazy_walk`).
 
-Replaces the plan-based dispatch of ``eig_kl_tpu/ops/spmv_pallas.py``
-(``spmv_pallas``/``spmv_pallas_2d``) and the v1 and v2 Pallas kernels
-behind it.  The power solver runs one SpMV per step; the KL pass runs
-one for its initial ``A @ s`` and one for the final recount; Lanczos one
-Laplacian per step, LOBPCG two blocked products per iteration.
+Replaces the XLA ELL SpMV of ``eig_kl_tpu/ops/partition.py:spmv``, which
+the JAX package runs for a graph without a plan.  The power solver runs
+one SpMV per step; the KL pass runs one for its initial ``A @ s`` and one
+for the final recount; Lanczos one Laplacian per step, LOBPCG two blocked
+products per iteration.
 
 Summation order.  K1 and the plain version add each row in one fixed
 order: the order in which XLA's CPU backend adds the rows of the JAX
@@ -19,10 +21,13 @@ the f32 result equals the JAX package's CPU result bit for bit.  That
 order depends on the ELL width ``W = DeviceGraph.row_width`` (the
 largest degree rounded up to a multiple of 8):
 
-* ``W <= 32``: the entries of a row go to 8 lanes by their position in
-  the row (position mod 8); each lane accumulates its entries in order
-  with fused multiply-adds (one rounding per entry); the 8 lane sums
-  combine as ``((l0+l4) + (l2+l6)) + ((l1+l5) + (l3+l7))``.
+* ``W = 8`` or ``16``: one chain of fused multiply-adds over the row's
+  entries in order (LLVM unrolls the row's loop fully and keeps it a
+  chain; :data:`CHAIN_WIDTH`).
+* ``W = 24`` or ``32``: the entries of a row go to 8 lanes by their
+  position in the row (position mod 8); each lane accumulates its entries
+  in order with fused multiply-adds (one rounding per entry); the 8 lane
+  sums combine as ``((l0+l4) + (l2+l6)) + ((l1+l5) + (l3+l7))``.
 * ``W > 32``: the row is cut into windows of 32 positions after
   ``(32 * ceil(W / 32) - W) // 2`` leading pad positions; each window
   adds its rounded products in order, and the window sums add in order.
@@ -47,8 +52,9 @@ import ctypes
 import numpy as np
 import torch
 
-from eig_kl_tpu_torch.graph.csr import DeviceGraph
+from eig_kl_tpu_torch.graph.csr import CsrPlan, DeviceGraph
 from eig_kl_tpu_torch.ops._build import Kernel
+from eig_kl_tpu_torch.ops.spmv_plan import plan_spmv
 from eig_kl_tpu_torch.ops.spmv_v3 import SpmvPlanV3, spmv_v3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -64,16 +70,10 @@ def _pair(symbol: str, argtypes) -> tuple[Kernel, Kernel]:
 
 
 K1, K1_F64 = _pair("spmv_csr", lambda _: [_P] * 5 + [_I, _I, _P])
-K1_STEP, K1_STEP_F64 = _pair("power_step", lambda t: [_P] * 5 + [t, _P, _I, _I, _P])
+K1_STEP, K1_STEP_F64 = _pair("power_step", lambda t: [_P] * 5 + [t, _P, _I, _I, _I, _P])
 K1_LAPLACIAN, K1_LAPLACIAN_F64 = _pair("laplacian", lambda _: [_P] * 6 + [_I, _I, _P])
 K1_SPMM, K1_SPMM_F64 = _pair("spmm_csr", lambda _: [_P] * 6 + [_I, _I, _I, _P])
 K1_LAZY, K1_LAZY_F64 = _pair("lazy_walk", lambda _: [_P] * 8 + [_I, _I, _P])
-#: The padded state's entry points (f32 only): K1's f32 sums, and the
-#: bf16-intermediate sums (:func:`spmv_padded`, :func:`lazy_walk_padded`).
-K1_PADDED, K1_BF16I = (Kernel("spmv_csr", sym, [_P] * 5 + [_I, _I, _I, _P]) for sym in ("spmv_padded_f32", "spmv_bf16i_f32"))
-K1_LAZY_PADDED, K1_LAZY_BF16I = (
-    Kernel("spmv_csr", sym, [_P] * 6 + [_I, _I, _I, _P]) for sym in ("lazy_walk_padded_f32", "lazy_walk_bf16i_f32")
-)
 _F64 = {K1: K1_F64, K1_STEP: K1_STEP_F64, K1_LAPLACIAN: K1_LAPLACIAN_F64, K1_SPMM: K1_SPMM_F64,
         K1_LAZY: K1_LAZY_F64}
 #: The dtypes K1 takes on the card.
@@ -90,6 +90,13 @@ SPMM_MAX_COLUMNS = 16
 
 LANES = 8
 WINDOW = 32
+#: The widest ELL rows that XLA adds in one chain (read from its x86-64
+#: code at widths 8, 16, 24 and 32: LLVM unrolls the row's loop of 8 or 16
+#: fully and keeps it a chain, and vectorizes 24 or 32 in 8 lanes;
+#: ROADMAP.md C).  One fusion keeps lanes at 16: the power solve's first
+#: step, whose loop body also draws the start vector (:func:`power_step`'s
+#: ``lanes``).
+CHAIN_WIDTH = 16
 
 
 def row_ids(g: DeviceGraph) -> torch.Tensor:
@@ -120,8 +127,10 @@ def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
 def _accumulate(acc, rows, slot, step, values, fused_with=None):
     """``acc[rows, slot] += values`` in increasing ``step`` order; with
     ``fused_with`` the add is ``fma(values, fused_with, acc)``."""
-    for j in range(int(step.max()) + 1 if step.numel() else 0):
-        sel = step == j
+    if not step.numel():
+        return acc
+    order = torch.argsort(step, stable=True)
+    for sel in torch.split(order, torch.bincount(step).tolist()):
         r, s = rows[sel], slot[sel]
         if fused_with is None:
             acc[r, s] = acc[r, s] + values[sel]
@@ -130,40 +139,26 @@ def _accumulate(acc, rows, slot, step, values, fused_with=None):
     return acc
 
 
-def bf16_round(p: torch.Tensor) -> torch.Tensor:
-    """f32 values rounded to bf16 with round to nearest even and widened
-    back to f32, as ``__float2bfloat16_rn`` does, subnormals and infinities
-    included (NaNs stay NaN): the bits plus ``0x7FFF`` plus the kept half's
-    last bit, the dropped half cleared.  Done on the bits, since a CPU's
-    vector conversion may flush subnormals."""
-    bits = p.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
-    bits = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
-    return torch.where(torch.isnan(p), p, bits.view(torch.float32).view(p.shape))
-
-
-def spmv_plain(g: DeviceGraph, x: torch.Tensor, *, bf16: bool = False) -> torch.Tensor:
+def spmv_plain(g: DeviceGraph, x: torch.Tensor, *, lanes: bool = False) -> torch.Tensor:
     """``A @ x`` in plain PyTorch, in the graph's dtype, in K1's order; ``x``
     a vector, or an ``(n, k)`` matrix whose columns are taken at once.
-    ``bf16`` (an f32 graph): every product rounded to f32, then to bf16
-    (:func:`bf16_round`), and added in f32 in that order, the lanes of
-    ``W <= 32`` adding rounded products."""
+    ``lanes``: the 8 lanes at widths 16 and below too (the order of
+    :data:`CHAIN_WIDTH`'s one exception)."""
     n, dt, dev = g.num_nodes, g.dtype, g.device
     rows = row_ids(g)
     pos = torch.arange(g.nnz, device=dev) - g.indptr[:-1].long()[rows]
     xv = x[g.indices.long()].to(dt)
     extra = tuple(x.shape[1:])
     data = g.data.view(-1, *(1,) * len(extra)).expand_as(xv)
-    if bf16 and dt != torch.float32:
-        raise TypeError(f"spmv_plain: the bf16 intermediates take an f32 graph, got {dt}")
-    fused = dt == torch.float32 and not bf16
-    products = None if fused and g.row_width <= WINDOW else bf16_round(data * xv) if bf16 else data * xv
+    fused = dt == torch.float32
+    products = None if fused and g.row_width <= WINDOW else data * xv
     if g.row_width <= WINDOW:
-        lanes = torch.zeros(n, LANES, *extra, dtype=dt, device=dev)
+        k = 1 if g.row_width <= CHAIN_WIDTH and not lanes else LANES
+        lanes = torch.zeros(n, k, *extra, dtype=dt, device=dev)
         if fused:
-            _accumulate(lanes, rows, pos % LANES, pos // LANES, data, fused_with=xv)
+            _accumulate(lanes, rows, pos % k, pos // k, data, fused_with=xv)
         else:
-            _accumulate(lanes, rows, pos % LANES, pos // LANES, products)
+            _accumulate(lanes, rows, pos % k, pos // k, products)
         while lanes.shape[1] > 1:
             half = lanes.shape[1] // 2
             lanes = lanes[:, :half] + lanes[:, half:]
@@ -214,10 +209,13 @@ def spmv_csr(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
 
 
 def spmv(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x``: for an f32 graph with a v3 plan the v3 route, else K1
-    (a CSR plan's matvecs outside the power solve are f32, as the JAX
-    package's ``spmv_pallas`` is); the kernels for a tensor on the card,
-    the plain versions for a tensor on the CPU."""
+    """``A @ x``, as the JAX package's ``ops/partition.py:spmv`` dispatches
+    it: for an f32 graph with a plan the plan's route (a :class:`CsrPlan`'s
+    TPU kernel order in f32, :func:`~eig_kl_tpu_torch.ops.spmv_plan.plan_spmv`;
+    a v3 plan's route), else K1; the kernels for a tensor on the card, the
+    plain versions for a tensor on the CPU."""
+    if isinstance(g.plan, CsrPlan) and g.dtype == torch.float32:
+        return plan_spmv(g.plan.layout, x.to(torch.float32))
     if isinstance(g.plan, SpmvPlanV3) and g.dtype == torch.float32:
         return spmv_v3(g.plan, x.to(torch.float32))
     if x.device.type == "cpu":
@@ -225,38 +223,45 @@ def spmv(g: DeviceGraph, x: torch.Tensor) -> torch.Tensor:
     return spmv_csr(g, x)
 
 
-def power_step(g: DeviceGraph, x: torch.Tensor, deg: torch.Tensor, inv_shift: float) -> torch.Tensor:
+def power_step(g: DeviceGraph, x: torch.Tensor, deg: torch.Tensor, inv_shift: float, *,
+               lanes: bool = False) -> torch.Tensor:
     """One shift-inverted power step before its norm (``power.py:119-124``
     of the JAX package): ``y = x - inv_shift * L x`` with ``L x = 2 x - 2
     (A @ x) / deg``.  K1's step entry point for a tensor on the card,
-    :func:`power_step_plain` on the CPU; the graph carries no v3 plan."""
+    :func:`power_step_plain` on the CPU; the graph carries no v3 plan.
+    ``lanes``: the row sums in 8 lanes at width 16 too, as in the solve's
+    first step (``power.py:190-191``: XLA fuses the start vector's draw into
+    it and does not unroll its rows; ROADMAP.md C)."""
     if x.device.type == "cpu":
-        return power_step_plain(g, x, deg, inv_shift)
-    return power_step_cuda(g, x, deg, inv_shift)
+        return power_step_plain(g, x, deg, inv_shift, lanes=lanes)
+    return power_step_cuda(g, x, deg, inv_shift, lanes=lanes)
 
 
-def power_step_plain(g: DeviceGraph, x: torch.Tensor, deg: torch.Tensor, inv_shift: float) -> torch.Tensor:
+def power_step_plain(g: DeviceGraph, x: torch.Tensor, deg: torch.Tensor, inv_shift: float, *,
+                     lanes: bool = False) -> torch.Tensor:
     """:func:`power_step` in plain PyTorch, each operation rounded on its
     own, except the last in f32: XLA's CPU fusion contracts ``x - c * lap``
     into one fused multiply-add, which changes no bit where ``c`` is a power
     of two (shift 2.0) and rounds once less elsewhere."""
-    lap = 2.0 * x - 2.0 * spmv_plain(g, x.to(g.dtype)).to(x.dtype) / deg
+    lap = 2.0 * x - 2.0 * spmv_plain(g, x.to(g.dtype), lanes=lanes).to(x.dtype) / deg
     if x.dtype != torch.float32:
         return x - inv_shift * lap
     c = torch.tensor(-np.float32(inv_shift), device=x.device)
     return fma_f32(c, lap, x)
 
 
-def power_step_cuda(g: DeviceGraph, x: torch.Tensor, deg: torch.Tensor, inv_shift: float) -> torch.Tensor:
+def power_step_cuda(g: DeviceGraph, x: torch.Tensor, deg: torch.Tensor, inv_shift: float, *,
+                    lanes: bool = False) -> torch.Tensor:
     """Launch K1's step entry point on the current stream: the graph, ``x``
-    and ``deg`` (contiguous, ``(n,)``), all f32 or all f64, on one card."""
+    and ``deg`` (contiguous, ``(n,)``), all f32 or all f64, on one card.
+    ``lanes`` is passed to the kernel as its own argument."""
     _check_card(g, x, "power_step_cuda")
     _check_vector(g, deg, x, "deg")
     y = torch.empty_like(x)
     shift = float(np.float32(inv_shift)) if x.dtype == torch.float32 else float(inv_shift)
     _typed(K1_STEP, x.dtype)(
         g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), x.data_ptr(), deg.data_ptr(),
-        shift, y.data_ptr(), g.num_nodes, g.row_width,
+        shift, y.data_ptr(), g.num_nodes, g.row_width, int(lanes),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     return y
@@ -359,9 +364,9 @@ def lazy_walk(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=None)
     ``scaled``: ``(u, c)``, ``c`` a 0-d tensor, with ``w = u * c`` rounded
     once.  The epilogue is then ``0.5 * fma(u, c, dsinv * Ax)``, the
     product ``dsinv * Ax`` rounded: the momentum check's walk of the
-    deflated iterate on a graph wider than 32, where XLA recomputes ``w``
-    inside the epilogue's fusion and contracts its product instead
-    (ROADMAP.md C9)."""
+    deflated iterate on a graph wider than 32 from 4,096 values, where XLA
+    recomputes ``w`` inside the epilogue's fusion and contracts its product
+    instead (ROADMAP.md C9)."""
     if w.device.type == "cpu":
         return lazy_walk_plain(g, w, dsinv, scaled)
     return lazy_walk_cuda(g, w, dsinv, scaled)
@@ -401,85 +406,5 @@ def lazy_walk_cuda(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=
         dsinv.data_ptr(), None if u is None else u.data_ptr(), None if c is None else c.data_ptr(),
         y.data_ptr(), g.num_nodes, g.row_width,
         torch.cuda.current_stream(w.device).cuda_stream,
-    )
-    return y
-
-
-def spmv_padded(g: DeviceGraph, x2d: torch.Tensor, *, bf16: bool) -> torch.Tensor:
-    """``A @ x`` on the zero-padded ``(P/128, 128)`` state of an f32 graph
-    with a CSR plan (the JAX package's ``spmv_pallas_2d``, the power solve's
-    matvec, ``eig_kl_tpu/spectral/power.py:140-157``): rows past n are +0.
-    ``bf16``: the v2 kernels' bf16 intermediates, each product rounded to
-    bf16 before its add (:func:`spmv_plain`); else K1's f32 sums.  K1's
-    padded entry points for a tensor on the card (``spmv_bf16i_f32``,
-    ``spmv_padded_f32``), the plain version on the CPU."""
-    if x2d.device.type == "cpu":
-        return spmv_padded_plain(g, x2d, bf16=bf16)
-    return spmv_padded_cuda(g, x2d, bf16=bf16)
-
-
-def spmv_padded_plain(g: DeviceGraph, x2d: torch.Tensor, *, bf16: bool) -> torch.Tensor:
-    """:func:`spmv_padded` in plain PyTorch."""
-    n = g.num_nodes
-    y = torch.zeros_like(x2d)
-    y.view(-1)[:n] = spmv_plain(g, x2d.reshape(-1)[:n], bf16=bf16)
-    return y
-
-
-def _check_padded(g: DeviceGraph, ts, what: str) -> None:
-    x2d = ts[0]
-    if x2d.device.type != "cuda" or any(t.device != g.device for t in ts):
-        raise ValueError(f"{what} needs the state and the graph on one CUDA device")
-    if g.dtype != torch.float32 or any(t.dtype != torch.float32 for t in ts):
-        raise TypeError(f"{what} is float32 only, as the JAX package's plan path is; got "
-                        f"{[t.dtype for t in ts]}, graph {g.dtype}")
-    P = x2d.numel()
-    if (x2d.dim() != 2 or x2d.shape[1] != 128 or P < g.num_nodes
-            or any(t.shape != x2d.shape or not t.is_contiguous() for t in ts)):
-        raise ValueError(f"{what}: contiguous (P/128, 128) states with P >= n = {g.num_nodes}, got "
-                         f"{[tuple(t.shape) for t in ts]}")
-
-
-def spmv_padded_cuda(g: DeviceGraph, x2d: torch.Tensor, *, bf16: bool) -> torch.Tensor:
-    """Launch K1's padded entry point on the current stream (``bf16``:
-    ``spmv_bf16i_f32``, else ``spmv_padded_f32``): an f32 graph and a
-    contiguous ``(P/128, 128)`` f32 state on one card."""
-    _check_padded(g, (x2d,), "spmv_padded_cuda")
-    y = torch.empty_like(x2d)
-    (K1_BF16I if bf16 else K1_PADDED)(
-        g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), x2d.data_ptr(), y.data_ptr(),
-        g.num_nodes, x2d.numel(), g.row_width, torch.cuda.current_stream(x2d.device).cuda_stream,
-    )
-    return y
-
-
-def lazy_walk_padded(g: DeviceGraph, w2d: torch.Tensor, dsinv2d: torch.Tensor, *, bf16: bool) -> torch.Tensor:
-    """The lazy walk ``0.5 * (w + dsinv * A (dsinv * w))`` on the padded
-    state of an f32 graph with a CSR plan (``power.py:297-305``), through
-    :func:`spmv_padded`'s sums: the product ``dsinv * w`` rounded once, as
-    XLA computes it before the SpMV, ``w + dsinv * Ax`` one fused
-    multiply-add, the halving exact; every row of the state.  K1's padded
-    lazy-walk entry points for a tensor on the card
-    (``lazy_walk_bf16i_f32``, ``lazy_walk_padded_f32``), the plain version
-    on the CPU."""
-    if w2d.device.type == "cpu":
-        return lazy_walk_padded_plain(g, w2d, dsinv2d, bf16=bf16)
-    return lazy_walk_padded_cuda(g, w2d, dsinv2d, bf16=bf16)
-
-
-def lazy_walk_padded_plain(g: DeviceGraph, w2d: torch.Tensor, dsinv2d: torch.Tensor, *, bf16: bool) -> torch.Tensor:
-    """:func:`lazy_walk_padded` in plain PyTorch."""
-    ax = spmv_padded_plain(g, dsinv2d * w2d, bf16=bf16)
-    return 0.5 * fma_f32(dsinv2d, ax, w2d)
-
-
-def lazy_walk_padded_cuda(g: DeviceGraph, w2d: torch.Tensor, dsinv2d: torch.Tensor, *, bf16: bool) -> torch.Tensor:
-    """Launch K1's padded lazy-walk entry point on the current stream:
-    an f32 graph and contiguous ``(P/128, 128)`` f32 states on one card."""
-    _check_padded(g, (w2d, dsinv2d), "lazy_walk_padded_cuda")
-    y = torch.empty_like(w2d)
-    (K1_LAZY_BF16I if bf16 else K1_LAZY_PADDED)(
-        g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), w2d.data_ptr(), dsinv2d.data_ptr(),
-        y.data_ptr(), g.num_nodes, w2d.numel(), g.row_width, torch.cuda.current_stream(w2d.device).cuda_stream,
     )
     return y

@@ -1,15 +1,20 @@
-"""The v1 TPU SpMV's own order: its chunk layout, its plain version, and
-K1's entry point ``spmv_v1_f32`` (``csrc/spmv_csr.cu``) that computes it
-on the card.
+"""The TPU SpMVs' own orders: the v1 and v2 plans' layouts, their plain
+versions, and K1's entry points ``spmv_v1_f32`` and ``spmv_v2_f32``
+(``csrc/spmv_csr.cu``) that compute them on the card.
 
-The JAX mega engine takes its initial ``A @ s`` and its recount from the
-TPU SpMV of its plan (``eig_kl_tpu/kl/megakernel.py:_batch_init``,
-``:763``, and ``_finalize_batch``, ``:753``), and at up to
-:data:`~eig_kl_tpu_torch.graph.csr.V1_MAX_NNZ` stored entries that plan is
-a v1 plan (``ops/spmv_pallas.py:plan_for_graph``, ``:569``).  The v1
-kernel (``_spmv_kernel``, ``:339``) does not add a row as XLA's ELL SpMV
-does (K1's order, :mod:`eig_kl_tpu_torch.ops.spmv`); its layout decides
-the order of the sums:
+Wherever the JAX package's f32 SpMV has a plan, it runs the TPU kernel of
+that plan: the mega engine's initial ``A @ s`` and recount
+(``eig_kl_tpu/kl/megakernel.py:_batch_init``, ``:763``, and
+``_finalize_batch``, ``:753``, with the plan of ``plan_for_graph``,
+``ops/spmv_pallas.py:556``), and every f32 SpMV of a device graph that
+carries a plan (``ops/partition.py:spmv``, ``:48-51``; the power solve's
+plan branch, ``spectral/power.py:140-165``, through ``spmv_pallas_2d``).
+At up to :data:`~eig_kl_tpu_torch.graph.csr.V1_MAX_NNZ` stored entries
+that plan is a v1 plan, above it a v2 plan.  Neither kernel adds a row as
+XLA's ELL SpMV does (K1's order, :mod:`eig_kl_tpu_torch.ops.spmv`); each
+plan's layout decides the order of its sums.
+
+**v1** (``_spmv_kernel``, ``:339``):
 
 * the entries, sorted by (column stripe of 1,024, aligned row window of
   1,024, row), fill 512-entry chunks, a new chunk at every 512 entries of
@@ -26,17 +31,55 @@ the order of the sums:
 
 The TPU plan also stores, per chunk, a 1,024-row ``route_src`` table of
 where each row's total lies; that is the slot that ends the row's segment,
-so the port derives it from ``row_local`` and keeps no table.  The
-kernel's arithmetic as it runs in interpret mode on the CPU was read from
-the program itself (no product is contracted into a scan add):
-:func:`spmv_v1_plain` equals ``spmv_pallas(plan_for_graph(g), x,
-interpret=True)`` bit for bit (``tests/test_torch_faults.py``).  The chunk
+so the port derives it from ``row_local`` and keeps no table.  The chunk
 axis's padding to a multiple of 8 (``_pad_v1_chunks``) adds exact zeros
-and is left out.  The JAX package also builds the plan natively
-(``native/eigkl_native.cpp``) and says the two builders give the same
-plan, so the port keeps this NumPy builder only.  A graph keeps its
-layout (:attr:`~eig_kl_tpu_torch.graph.csr.DeviceGraph.v1_layout`), as the
+and is left out.
+
+**v2** (``build_plan_v2``, ``:850``; ``_gather_kernel``, ``:1049``, and
+the default reduce ``_reduce_kernel_mxu``, ``:1118``):
+
+* a geometry search over the exact bucket histogram picks the row block
+  ``rblock`` and the slot count ``Q`` of a (column block of 1,024, row
+  block) bucket (``_search_v2_geometry``, ``:785``); each bucket keeps its
+  first ``Q`` entries in (row, column) order, and the rest spill into a
+  tail (``_build_tail``, ``:683``): a v1 plan of the spilled entries, or,
+  for a scattered spill, a COO tail in rank groups;
+* pass 1 forms every kept product ``x[col] * w`` in f32, rounded to bf16
+  where the intermediates are bf16;
+* pass 2 reduces each 512-slot sub-chunk of a row block by a one-hot
+  ``dot_general``, which adds a row's slots one after the other from +0
+  in slot order, and adds each sub-chunk's partial into ``y`` in turn; a
+  row's slots lie in column order, and a sub-chunk holds ``512 / Q``
+  column blocks, so a row is a walk over its kept entries in CSR order
+  whose partial restarts from +0 wherever ``col >> (19 - log2 Q)``
+  changes, each partial added into the row's sum;
+* then the tail: ``y + v1(tail)``, or the COO tail's rank groups, each
+  ``y[row] + round(w * x[col])``, a row's tail entries in column order.
+
+So the port keeps, for v2, the CSR arrays of the kept entries, the shift
+that marks a partial's restart, and the tail; not the TPU's slot grid.
+The TPU plan's other geometry (``n_cb``, ``n_rbp``, ``g1``, ``g2``) is kept
+too: the bf16 rule reads ``g1`` (:attr:`V2Layout.g1`).  The environment
+pins ``EIG_KL_TPU_RBLOCK`` / ``EIG_KL_TPU_QUANTUM`` are not copied (the
+builder takes ``rblock`` and ``quantum`` as arguments), and neither are
+the opt-in reduce variants (``EIG_KL_TPU_REDUCE_IMPL``): the default
+"mxu" reduce is the one ported.
+
+Each kernel's arithmetic as it runs in interpret mode on the CPU was read
+from the program itself (no product is contracted into an add):
+:func:`spmv_v1_plain` equals ``spmv_pallas`` of a v1 plan, and
+:func:`spmv_v2_plain` equals ``spmv_pallas`` and ``spmv_pallas_2d(...,
+inter_dtype=bfloat16)`` of a v2 plan, bit for bit
+(``tests/test_torch_faults.py``, ``tests/test_torch_plan_order.py``).  The
+JAX package also builds both plans natively (``native/eigkl_native.cpp``)
+and says the builders give the same plans, so the port keeps these NumPy
+builders only.  A graph keeps its layout
+(:attr:`~eig_kl_tpu_torch.graph.csr.DeviceGraph.plan_layout`), as the
 JAX ``MegaGraph`` keeps its plan.
+
+Every SpMV here takes a flat ``(n,)`` vector, or the zero-padded
+``(P/128, 128)`` state of the power solve, and returns the same shape
+(the padding +0).
 """
 
 from __future__ import annotations
@@ -53,10 +96,40 @@ from eig_kl_tpu_torch.ops._build import Kernel
 CHUNK = 512  #: entries per chunk (the TPU kernel's (4, 128) tile)
 SCAN_SHIFTS = (1, 2, 4, 8, 16, 32, 64, 128, 256)  #: the scan's rounds
 
+#: The v2 geometry search's row blocks and bucket slot counts
+#: (``_search_v2_geometry``), its bound on spilled entries and their cost
+#: in slots; a row block of the TPU plan holds at most 16,384 rows.
+V2_RBLOCKS = (512, 1024, 2048, 4096, 8192, 16384)
+V2_QUANTA = (4, 8, 16, 32, 64, 128, 256, 512)
+_SPILL_MAX = 40_000
+_SPILL_COST = 64
+#: The tail's rule (``_build_tail``): a v1 tail where the spill fills its
+#: chunks (at least 9 entries per chunk) or where a row spills more than
+#: 32 entries, else COO.
+_COO_ENTRIES_PER_CHUNK = 9
+_COO_MAX_GROUPS = 32
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``spmv_v1_f32(x_base, col_local, row_local, weights, win_ptr,
-#: win_chunks, x, y, n, windows, stream)``: one block per y window.
-K1_V1 = Kernel("spmv_csr", "spmv_v1_f32", [_P] * 8 + [_I, _I, _P])
+#: win_chunks, x, y, n, rows, windows, stream)``: one block per y window.
+K1_V1 = Kernel("spmv_csr", "spmv_v1_f32", [_P] * 8 + [_I, _I, _I, _P])
+#: The v2 order's entry points, a warp per 32 rows: ``spmv_v2_f32`` and
+#: ``spmv_v2_bf16i_f32`` (f32 and bf16 products) take ``(ptr, cols, w,
+#: shift, tail_warp, tail_rows, tail_cols, tail_w, tail_y, x, y, n, rows,
+#: stream)``; the lazy walk's ``lazy_walk_v2_f32`` and
+#: ``lazy_walk_v2_bf16i_f32`` take ``dsinv`` after ``x`` (then ``w``).
+K1_V2, K1_V2_BF16I = (Kernel("spmv_csr", sym, [_P] * 3 + [_I] + [_P] * 7 + [_I, _I, _P])
+                      for sym in ("spmv_v2_f32", "spmv_v2_bf16i_f32"))
+K1_LAZY_V2, K1_LAZY_V2_BF16I = (Kernel("spmv_csr", sym, [_P] * 3 + [_I] + [_P] * 8 + [_I, _I, _P])
+                                for sym in ("lazy_walk_v2_f32", "lazy_walk_v2_bf16i_f32"))
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _up(a, dtype, device):
+    return torch.as_tensor(np.ascontiguousarray(a).astype(dtype)).to(device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +138,7 @@ class V1Layout:
     inert padding.
 
     Attributes:
+      num_nodes: n.
       padded_nodes: n rounded up to a multiple of 1,024 (``P``).
       x_base: int32[C] each chunk's x window base (its column stripe
         times 1,024; the TPU plan's ``cw8`` times 128).
@@ -78,6 +152,7 @@ class V1Layout:
       win_chunks: int32[C] the chunks of each y window, in plan order.
     """
 
+    num_nodes: int
     padded_nodes: int
     x_base: torch.Tensor
     col_local: torch.Tensor
@@ -95,13 +170,9 @@ class V1Layout:
         return self.padded_nodes // PLAN_WINDOW
 
 
-def build_v1_layout(
-    n: int, rows: np.ndarray, cols: np.ndarray, weights: np.ndarray, device: torch.device | str
-) -> V1Layout:
-    """The v1 plan of the COO entries ``(rows, cols, weights)`` (in CSR
-    order: rows ascending, columns ascending within a row), as
-    ``eig_kl_tpu/ops/spmv_pallas.py:build_plan`` decides it."""
-    P = -(-max(n, 1) // PLAN_WINDOW) * PLAN_WINDOW
+def _v1_host(n: int, rows: np.ndarray, cols: np.ndarray, weights: np.ndarray) -> dict[str, np.ndarray]:
+    """The arrays of :class:`V1Layout` on the host, as NumPy."""
+    P = _round_up(max(n, 1), PLAN_WINDOW)
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     weights = np.asarray(weights, np.float32)
@@ -140,14 +211,210 @@ def build_v1_layout(
     window = y_base // PLAN_WINDOW
     win_ptr = np.zeros(P // PLAN_WINDOW + 1, np.int64)
     np.cumsum(np.bincount(window, minlength=P // PLAN_WINDOW), out=win_ptr[1:])
+    return dict(x_base=x_base, col_local=col_local, row_local=row_local, weights=w, win_ptr=win_ptr,
+                win_chunks=np.argsort(window, kind="stable"))
 
-    def up(a, dtype):
-        return torch.as_tensor(np.ascontiguousarray(a).astype(dtype)).to(device)
 
-    return V1Layout(
-        P, up(x_base, np.int32), up(col_local, np.int16), up(row_local, np.int16), up(w, np.float32),
-        up(win_ptr, np.int32), up(np.argsort(window, kind="stable"), np.int32),
+def _v1_upload(n: int, host: dict[str, np.ndarray], device: torch.device | str) -> V1Layout:
+    dtypes = dict(x_base=np.int32, col_local=np.int16, row_local=np.int16, weights=np.float32, win_ptr=np.int32,
+                  win_chunks=np.int32)
+    return V1Layout(n, _round_up(max(n, 1), PLAN_WINDOW),
+                    **{k: _up(v, dtypes[k], device) for k, v in host.items()})
+
+
+def build_v1_layout(
+    n: int, rows: np.ndarray, cols: np.ndarray, weights: np.ndarray, device: torch.device | str
+) -> V1Layout:
+    """The v1 plan of the COO entries ``(rows, cols, weights)`` (in CSR
+    order: rows ascending, columns ascending within a row), as
+    ``eig_kl_tpu/ops/spmv_pallas.py:build_plan`` decides it."""
+    return _v1_upload(n, _v1_host(n, rows, cols, weights), device)
+
+
+@dataclasses.dataclass(frozen=True)
+class CooTail:
+    """A v2 plan's scattered spill (the JAX package's ``CooTail``) as
+    ``(row, column, weight)`` triplets in CSR order: rows ascending, a row's
+    entries in column order, which is the order of the TPU plan's rank
+    groups (group ``k`` holds each row's ``k``-th spilled entry).
+    ``warp_ptr[i]`` is where the triplets of rows ``32 i`` on start
+    (int32[ceil(n / 32) + 1]): a warp of ``spmv_v2_f32`` finds its rows'
+    there."""
+
+    rows: torch.Tensor
+    cols: torch.Tensor
+    weights: torch.Tensor
+    warp_ptr: torch.Tensor
+
+    @property
+    def num_entries(self) -> int:
+        return int(self.cols.shape[0])
+
+    @property
+    def num_groups(self) -> int:
+        """The TPU plan's rank groups: the most entries one row spills."""
+        return int(torch.bincount(self.rows.long()).max()) if self.num_entries else 0
+
+
+@dataclasses.dataclass(frozen=True)
+class V2Layout:
+    """The v2 plan of one matrix, on one device, in the form its order needs
+    (module docstring).
+
+    Attributes:
+      num_nodes: n.
+      padded_nodes: ``P``, n rounded up to a multiple of 1,024.
+      rblock, quantum: the plan's row block and bucket slot count ``Q``.
+      n_cb, n_rbp, g1, g2: the TPU plan's slot grid: column blocks, row
+        blocks padded, pass-1 slots per column block, pass-2 slots per row
+        block.
+      ptr, cols, weights: the CSR arrays of the entries the buckets keep
+        (int32[n + 1], int32[m], float32[m]), columns ascending in a row.
+      shift: a row's partial restarts from +0 where ``col >> shift``
+        changes (one sub-chunk of 512 slots: ``19 - log2 Q``).
+      tail: the spill: a :class:`V1Layout`, a :class:`CooTail`, or None.
+    """
+
+    num_nodes: int
+    padded_nodes: int
+    rblock: int
+    quantum: int
+    n_cb: int
+    n_rbp: int
+    g1: int
+    g2: int
+    ptr: torch.Tensor
+    cols: torch.Tensor
+    weights: torch.Tensor
+    shift: int
+    tail: V1Layout | CooTail | None
+
+    @property
+    def num_subchunks(self) -> int:
+        """The TPU plan's pass-2 sub-chunks of 512 slots, before its padding
+        to whole grid steps."""
+        return self.n_rbp * self.g2 // CHUNK
+
+
+def search_v2_geometry(n: int, rows: np.ndarray, cols: np.ndarray) -> tuple[int, int]:
+    """``(rblock, Q)`` from the exact bucket histogram, as
+    ``eig_kl_tpu/ops/spmv_pallas.py:_search_v2_geometry`` picks them: the
+    fewest slots ``n_cb * n_rbp * Q`` plus 64 per spilled entry, with at
+    most 40,000 spilled; (512, 512) where every pair spills more."""
+    P = _round_up(max(n, 1), PLAN_WINDOW)
+    n_cb = P // PLAN_WINDOW
+    n_rb0 = P // 512
+    key = (np.asarray(cols) >> 10).astype(np.int32) * np.int32(n_rb0)
+    key += (np.asarray(rows) >> 9).astype(np.int32)
+    counts0 = np.bincount(key, minlength=n_cb * n_rb0).reshape(n_cb, n_rb0)
+    best = None  # (cost, rblock, Q)
+    for rb_cand in V2_RBLOCKS:
+        f = rb_cand // 512
+        n_rb = -(-n_rb0 // f)
+        counts = counts0
+        if f > 1:
+            pad = n_rb * f - n_rb0
+            if pad:
+                counts = np.pad(counts, ((0, 0), (0, pad)))
+            counts = counts.reshape(n_cb, n_rb, f).sum(axis=2)
+        occ_hist = np.bincount(counts.reshape(-1))
+        ks = np.arange(occ_hist.shape[0], dtype=np.int64)
+        for Q in V2_QUANTA:
+            spill = int((np.maximum(ks - Q, 0) * occ_hist).sum())
+            if spill > _SPILL_MAX:
+                continue
+            cost = n_cb * _round_up(n_rb, 2048 // Q) * Q + _SPILL_COST * spill
+            if best is None or cost < best[0]:
+                best = (cost, rb_cand, Q)
+    return (512, 512) if best is None else (best[1], best[2])
+
+
+def _csr_ptr(n: int, rows: np.ndarray) -> np.ndarray:
+    ptr = np.zeros(n + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=n), out=ptr[1:])
+    return ptr
+
+
+def build_v2_layout(
+    n: int, rows: np.ndarray, cols: np.ndarray, weights: np.ndarray, device: torch.device | str,
+    rblock: int | None = None, quantum: int | None = None,
+) -> V2Layout:
+    """The v2 plan of the COO entries ``(rows, cols, weights)`` (in CSR
+    order), as ``eig_kl_tpu/ops/spmv_pallas.py:build_plan_v2`` decides it
+    with ``use_native=False``: ``rblock`` and ``quantum`` pin the geometry
+    (the search's where None; ``Q`` from the mean bucket occupancy where
+    only ``rblock`` is pinned), and ``Q`` is a power of two, 4 to 512."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    weights = np.asarray(weights, np.float32)
+    nnz = rows.shape[0]
+    if nnz == 0:
+        raise ValueError("a v2 plan takes at least one stored entry")
+    if rblock is None:
+        rblock, q_auto = search_v2_geometry(n, rows, cols)
+        quantum = q_auto if quantum is None else quantum
+    if rblock % 128 or not 0 < rblock <= 16384:
+        raise ValueError(f"rblock is a multiple of 128 up to 16,384, got {rblock}")
+    P = _round_up(max(n, 1), PLAN_WINDOW)
+    n_cb = P // PLAN_WINDOW
+    n_rb = -(-P // rblock)
+    if quantum is not None and 4 <= quantum <= 512:
+        Q = quantum
+    else:
+        lam = max(nnz / (n_cb * n_rb), 1.0)
+        Q = 4
+        while Q < min(512, lam * 1.5):
+            Q *= 2
+    if Q & (Q - 1):
+        raise ValueError(f"the port's v2 order takes a power-of-two quantum, got {Q}")
+
+    bucket = cols // PLAN_WINDOW * n_rb + rows // rblock
+    # A bucket keeps its first Q entries in (row, column) order, which is
+    # the entries' CSR order; only the entries of buckets that hold more
+    # than Q need their rank, by a stable sort of those alone.
+    over = np.flatnonzero(np.bincount(bucket, minlength=n_cb * n_rb)[bucket] > Q)
+    keep = np.ones(nnz, bool)
+    if len(over):
+        order = np.argsort(bucket[over], kind="stable")
+        sorted_bucket = bucket[over[order]]
+        first = np.ones(len(over), bool)
+        first[1:] = sorted_bucket[1:] != sorted_bucket[:-1]
+        starts = np.flatnonzero(first)
+        rank = np.arange(len(over)) - np.repeat(starts, np.diff(starts, append=len(over)))
+        keep[over[order]] = rank < Q
+
+    n_rbp = _round_up(n_rb, 2048 // Q)
+    m_rows = rows[keep]
+    tail = None
+    if not keep.all():
+        # The tail's kind is decided on the host; only the kept one is
+        # uploaded.
+        tr, tc, tw = rows[~keep], cols[~keep], weights[~keep]
+        v1 = _v1_host(n, tr, tc, tw)
+        chunks = _round_up(max(len(v1["x_base"]), 1), 8)
+        if len(tr) >= _COO_ENTRIES_PER_CHUNK * chunks or np.bincount(tr).max() > _COO_MAX_GROUPS:
+            tail = _v1_upload(n, v1, device)
+        else:
+            warp_ptr = np.searchsorted(tr, 32 * np.arange(-(-n // 32) + 1))
+            tail = CooTail(_up(tr, np.int32, device), _up(tc, np.int32, device), _up(tw, np.float32, device),
+                           _up(warp_ptr, np.int32, device))
+    return V2Layout(
+        n, P, rblock, Q, n_cb, n_rbp, n_rbp * Q, _round_up(n_cb * Q, CHUNK),
+        _up(_csr_ptr(n, m_rows), np.int32, device), _up(cols[keep], np.int32, device),
+        _up(weights[keep], np.float32, device), 19 - (Q.bit_length() - 1), tail,
     )
+
+
+def bf16_round(p: torch.Tensor) -> torch.Tensor:
+    """f32 values rounded to bf16 with round to nearest even and widened
+    back to f32, as ``__float2bfloat16_rn`` does, subnormals and infinities
+    included (NaNs stay NaN): the bits plus ``0x7FFF`` plus the kept half's
+    last bit, the dropped half cleared.  Done on the bits, since a CPU's
+    vector conversion may flush subnormals."""
+    bits = p.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
+    return torch.where(torch.isnan(p), p, bits.view(torch.float32).view(p.shape))
 
 
 def segment_ends(layout: V1Layout) -> torch.Tensor:
@@ -160,10 +427,31 @@ def segment_ends(layout: V1Layout) -> torch.Tensor:
     return ends
 
 
+def _flat(layout, x: torch.Tensor) -> tuple[torch.Tensor, bool]:
+    """``x``'s first n values, and whether ``x`` is the padded state."""
+    n, P = layout.num_nodes, layout.padded_nodes
+    if x.dtype != torch.float32:
+        raise TypeError(f"the plan SpMVs are float32 only, got {x.dtype}")
+    if x.shape == (n,):
+        return x, False
+    if x.shape == (P // 128, 128):
+        return x.reshape(-1)[:n], True
+    raise ValueError(f"x is ({n},) or the padded ({P // 128}, 128) state, got {tuple(x.shape)}")
+
+
+def _shaped(layout, y: torch.Tensor, padded: bool) -> torch.Tensor:
+    if not padded:
+        return y
+    out = torch.zeros(layout.padded_nodes, dtype=y.dtype, device=y.device)
+    out[: layout.num_nodes] = y
+    return out.view(-1, 128)
+
+
 def spmv_v1_plain(layout: V1Layout, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` for the f32 vector ``x`` in the v1 kernel's order, in
-    plain PyTorch (module docstring)."""
-    n = x.shape[0]
+    """``A @ x`` in the v1 kernel's order, in plain PyTorch (module
+    docstring)."""
+    x, padded = _flat(layout, x)
+    n = layout.num_nodes
     xp = torch.zeros(layout.padded_nodes, dtype=torch.float32, device=x.device)
     xp[:n] = x
     col = layout.x_base.long()[:, None] + layout.col_local.long()
@@ -182,31 +470,163 @@ def spmv_v1_plain(layout: V1Layout, x: torch.Tensor) -> torch.Tensor:
     for r in range(int(counts.max()) if layout.num_chunks else 0):
         has = counts > r  # the r-th chunk of each window: the adds in plan order
         y[has] += out[chunks[ptr[:-1][has] + r]]
-    return y.reshape(-1)[:n]
+    return _shaped(layout, y.reshape(-1)[:n], padded)
+
+
+def _check_card(tensors, what: str) -> None:
+    dev = tensors[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"{what} needs its vectors and the layout on one CUDA device")
+    if any(not t.is_contiguous() for t in tensors):
+        raise ValueError(f"{what} takes contiguous tensors")
 
 
 def spmv_v1_cuda(layout: V1Layout, x: torch.Tensor) -> torch.Tensor:
     """Launch ``spmv_v1_f32`` on the current stream: one block per y
     window walks its chunks in plan order."""
-    if x.device.type != "cuda" or layout.col_local.device != x.device:
-        raise ValueError("spmv_v1_cuda needs x and the layout on one CUDA device")
-    if x.dtype != torch.float32 or x.dim() != 1 or not x.is_contiguous():
-        raise TypeError(f"spmv_v1_cuda takes a contiguous float32 vector, got {x.dtype} {tuple(x.shape)}")
-    n = x.shape[0]
-    if n > layout.padded_nodes or layout.padded_nodes - n >= PLAN_WINDOW:
-        raise ValueError(f"x has {n} values, the layout {layout.padded_nodes} padded nodes")
-    y = torch.empty(n, dtype=torch.float32, device=x.device)
+    _flat(layout, x)  # checks the dtype and the shape
+    _check_card((x, layout.col_local), "spmv_v1_cuda")
+    y = torch.empty_like(x)
     K1_V1(
         layout.x_base.data_ptr(), layout.col_local.data_ptr(), layout.row_local.data_ptr(),
         layout.weights.data_ptr(), layout.win_ptr.data_ptr(), layout.win_chunks.data_ptr(),
-        x.data_ptr(), y.data_ptr(), n, layout.num_windows,
+        x.data_ptr(), y.data_ptr(), layout.num_nodes, x.numel(), layout.num_windows,
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     return y
 
 
 def spmv_v1(layout: V1Layout, x: torch.Tensor) -> torch.Tensor:
-    """``A @ x`` in the v1 kernel's order: ``spmv_v1_f32`` for a vector on
+    """``A @ x`` in the v1 kernel's order: ``spmv_v1_f32`` for a tensor on
     the card, the plain version for one on the CPU."""
     fn = spmv_v1_plain if x.device.type == "cpu" else spmv_v1_cuda
     return fn(layout, x)
+
+
+def _walk_rows(n: int, ptr: torch.Tensor, e: torch.Tensor, y: torch.Tensor, restart=None) -> torch.Tensor:
+    """Each row's values ``e[ptr[r] .. ptr[r + 1]]`` added one after the
+    other: into ``y`` itself, or (``restart``: bool per value) into a
+    partial from +0, added into ``y`` where a value restarts it and after
+    the row's last."""
+    ptr = ptr.long()
+    deg = ptr[1:] - ptr[:-1]
+    order = torch.argsort(deg, descending=True, stable=True)
+    active = torch.bincount(deg, minlength=1).flip(0).cumsum(0).flip(0)  # rows with degree >= j
+    acc = y if restart is None else torch.zeros_like(y)
+    for j in range(int(deg.max()) if n else 0):
+        r = order[: int(active[j + 1])]
+        i = ptr[r] + j
+        if restart is not None and j:
+            f = r[restart[i]]
+            y[f] = y[f] + acc[f]
+            acc[f] = 0.0
+        acc[r] = acc[r] + e[i]
+    return acc if restart is None else y + acc
+
+
+def spmv_v2_plain(layout: V2Layout, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """``A @ x`` in the v2 kernels' order, in plain PyTorch (module
+    docstring): the kept products in f32 (``bf16``: rounded to bf16), each
+    row's partials in slot order from +0, each partial added into ``y``,
+    then the tail in f32."""
+    x, padded = _flat(layout, x)
+    n = layout.num_nodes
+    cols = layout.cols.long()
+    e = x[cols] * layout.weights
+    if bf16:
+        e = bf16_round(e)
+    grp = cols >> layout.shift
+    restart = torch.zeros_like(grp, dtype=torch.bool)
+    restart[1:] = grp[1:] != grp[:-1]
+    y = _walk_rows(n, layout.ptr, e, torch.zeros(n, dtype=torch.float32, device=x.device), restart)
+    tail = layout.tail
+    if isinstance(tail, V1Layout):
+        y = y + spmv_v1_plain(tail, x)
+    elif isinstance(tail, CooTail):
+        y = coo_tail_add(tail, y, x)
+    return _shaped(layout, y, padded)
+
+
+def coo_tail_add(tail: CooTail, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y + A_tail @ x`` for the vectors ``y`` and ``x`` of n values, as the
+    JAX package's ``_coo_tail_add`` (``spmv_pallas.py:662``) adds its rank
+    groups: each row's spilled entries in column order, each ``y[row] +
+    round(w * x[col])``."""
+    ptr = torch.zeros(y.shape[0] + 1, dtype=torch.int64, device=y.device)
+    ptr[1:] = torch.bincount(tail.rows.long(), minlength=y.shape[0]).cumsum(0)
+    return _walk_rows(y.shape[0], ptr, tail.weights * x[tail.cols.long()], y.clone())
+
+
+def spmv_v2_cuda(layout: V2Layout, x: torch.Tensor, bf16: bool = False, dsinv: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch ``spmv_v2_f32`` (``bf16``: ``spmv_v2_bf16i_f32``) on the
+    current stream, and for a v1 tail ``spmv_v1_f32`` first, whose result it
+    adds.  With ``dsinv`` (the shape of ``x``) the lazy walk ``0.5 *
+    fma(dsinv, A (dsinv * x), x)``: ``lazy_walk_v2_f32`` (or
+    ``lazy_walk_v2_bf16i_f32``)."""
+    flat, _ = _flat(layout, x)
+    ts = (x, layout.cols) if dsinv is None else (x, dsinv, layout.cols)
+    _check_card(ts, "spmv_v2_cuda")
+    if dsinv is not None and dsinv.shape != x.shape:
+        raise ValueError(f"dsinv has x's shape {tuple(x.shape)}, got {tuple(dsinv.shape)}")
+    tail = layout.tail
+    tail_y = coo = None
+    if isinstance(tail, V1Layout):
+        xs = flat if dsinv is None else _flat(layout, dsinv)[0] * flat
+        tail_y = spmv_v1_cuda(tail, xs.contiguous())
+    elif isinstance(tail, CooTail):
+        coo = tail
+    y = torch.empty_like(x)
+    args = [
+        layout.ptr.data_ptr(), layout.cols.data_ptr(), layout.weights.data_ptr(), layout.shift,
+        *((None,) * 4 if coo is None else (t.data_ptr() for t in (coo.warp_ptr, coo.rows, coo.cols, coo.weights))),
+        None if tail_y is None else tail_y.data_ptr(), x.data_ptr(),
+    ]
+    if dsinv is None:
+        kernel = K1_V2_BF16I if bf16 else K1_V2
+    else:
+        kernel = K1_LAZY_V2_BF16I if bf16 else K1_LAZY_V2
+        args.append(dsinv.data_ptr())
+    kernel(*args, y.data_ptr(), layout.num_nodes, x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+    return y
+
+
+def spmv_v2(layout: V2Layout, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """``A @ x`` in the v2 kernels' order: ``spmv_v2_f32`` for a tensor on
+    the card, the plain version for one on the CPU."""
+    fn = spmv_v2_plain if x.device.type == "cpu" else spmv_v2_cuda
+    return fn(layout, x, bf16)
+
+
+def plan_spmv(layout: V1Layout | V2Layout, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """``A @ x`` in the order of the plan's TPU kernel; ``bf16`` rounds a v2
+    plan's products (a v1 plan has no bf16 mode)."""
+    if isinstance(layout, V1Layout):
+        return spmv_v1(layout, x)
+    return spmv_v2(layout, x, bf16)
+
+
+def lazy_walk_v2_plain(layout: V2Layout, w: torch.Tensor, dsinv: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """The lazy-walk form of ``spmv_v2_f32`` in plain PyTorch: ``0.5 *
+    fma(dsinv, A (dsinv * w), w)``, the product ``dsinv * w`` rounded once,
+    the SpMV :func:`spmv_v2_plain`."""
+    from eig_kl_tpu_torch.ops.spmv import fma_f32
+
+    return 0.5 * fma_f32(dsinv, spmv_v2_plain(layout, dsinv * w, bf16), w)
+
+
+def plan_lazy_walk(layout: V1Layout | V2Layout, w: torch.Tensor, dsinv: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+    """The lazy walk ``0.5 * (w + dsinv * A (dsinv * w))`` through the plan's
+    SpMV (the JAX package's ``opm_sym`` on a planned graph,
+    ``eig_kl_tpu/spectral/power.py:297-305``): the product ``dsinv * w``
+    rounded once, ``w + dsinv * Ax`` one fused multiply-add, the halving
+    exact.  A v2 layout: ``spmv_v2_f32``'s lazy form on the card,
+    :func:`lazy_walk_v2_plain` on the CPU; a v1 layout: the scaled vector,
+    :func:`spmv_v1` and K6's axpy."""
+    if isinstance(layout, V2Layout):
+        if w.device.type == "cpu":
+            return lazy_walk_v2_plain(layout, w, dsinv, bf16)
+        return spmv_v2_cuda(layout, w, bf16, dsinv=dsinv)
+    from eig_kl_tpu_torch.ops.reduce import axpy
+
+    return 0.5 * axpy(dsinv, spmv_v1(layout, dsinv * w), w)
+

@@ -29,9 +29,11 @@ its norms K6.
 An f32 graph with a plan iterates on zero-padded ``(P/128, 128)`` state,
 as the JAX package's plan branch does (``power.py:140-165``): through the
 v3 SpMV with a v3 plan; with a CSR plan (``Graph.to_device(with_plan=True)``)
-through K1's padded entry points, whose products are rounded to bf16 where
-``inter_dtype`` is "bfloat16" and the plan is one the JAX package runs on
-its v2 kernels (``CsrPlan.runs_bf16``), and f32 otherwise.  1 in the
+through the SpMV in its TPU kernel's order (``ops/spmv_plan.py``: K1's
+``spmv_v1_f32`` for a v1 plan, ``spmv_v2_f32`` for a v2 one), whose products
+are rounded to bf16 where ``inter_dtype`` is "bfloat16" and the plan runs
+the v2 kernels' bf16 mode (``CsrPlan.runs_bf16``), and f32 otherwise, then
+K6's padded step, as on the v3 path.  1 in the
 padding of the degrees, the norm over the padded state in XLA's order for
 a 2-D reduction, the padded step ``x - c * lap`` one fused multiply-add,
 as on the CSR path (K6's padded step on the card, ROADMAP.md C7).  Its
@@ -44,8 +46,9 @@ which XLA fuses the lazy walk below 4,096 values ("chain"), as it fuses the
 Laplacian into the final f32 Rayleigh quotient of the CSR solve; on a graph
 wider than 32 the row sums stay out of both dots (the check's "walk", the
 final quotient's "laplacian"; the check's still parts from the JAX runs on
-some graphs, ROADMAP.md C), and the check's walk fuses the product of
-the deflated iterate's scaling (``ops/spmv.py:lazy_walk``, ``scaled``).  (The f64 solve's final quotient
+some graphs, ROADMAP.md C); from 4,096 values the check's walk, a fusion
+of its own, fuses the product of the deflated iterate's scaling
+(``ops/spmv.py:lazy_walk``, ``scaled``).  (The f64 solve's final quotient
 keeps the fixed-order sum.)
 """
 
@@ -59,11 +62,12 @@ import torch
 
 from eig_kl_tpu_torch.graph.csr import CsrPlan, DeviceGraph
 from eig_kl_tpu_torch.ops.reduce import (
-    axpy, fma_dot, fma_dot_batch, fused_dot, fused_dot_batch, normalize, padded_step, sqrt_rn, tree_dot,
-    tree_norm, tree_norm_2d,
+    FUSED_DOT_BYTES, axpy, fma_dot, fma_dot_batch, fused_dot, fused_dot_batch, normalize, padded_step, sqrt_rn,
+    tree_dot, tree_norm, tree_norm_2d,
 )
 from eig_kl_tpu_torch.ops.select import upper_median
-from eig_kl_tpu_torch.ops.spmv import WINDOW, lazy_walk, lazy_walk_padded, power_step, spmv, spmv_padded
+from eig_kl_tpu_torch.ops.spmv import WINDOW, lazy_walk, power_step, spmv
+from eig_kl_tpu_torch.ops.spmv_plan import plan_lazy_walk, plan_spmv
 from eig_kl_tpu_torch.ops.spmv_v3 import spmv_v3_padded
 from eig_kl_tpu_torch.utils.config import SpectralConfig
 from eig_kl_tpu_torch.utils.threefry import uniform
@@ -106,6 +110,10 @@ class PowerOperator:
     safe_deg: torch.Tensor
     #: whether the state is the padded one (a plan's).
     padded: bool = False
+    #: the solve's first step, where it differs from ``step``: on the CSR
+    #: path its row sums keep 8 lanes at width 16 (``power_step``'s
+    #: ``lanes``).
+    first_step: Callable[[torch.Tensor], tuple[torch.Tensor, torch.Tensor]] | None = None
 
 
 def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype: str = "float32") -> PowerOperator:
@@ -120,13 +128,13 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
     if g.plan is not None and dtype == torch.float32:
         P = g.plan.padded_nodes
         if isinstance(g.plan, CsrPlan):
-            bf16 = g.plan.runs_bf16(inter_dtype)
+            layout, bf16 = g.plan.layout, g.plan.runs_bf16(inter_dtype)
 
             def matvec(x2d):
-                return spmv_padded(g, x2d, bf16=bf16)
+                return plan_spmv(layout, x2d, bf16)
 
             def lazy(w2d, dsinv2d):
-                return lazy_walk_padded(g, w2d, dsinv2d, bf16=bf16)
+                return plan_lazy_walk(layout, w2d, dsinv2d, bf16)
         else:
 
             def matvec(x2d):
@@ -169,8 +177,8 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
     def norm_lap(x):
         return 2.0 * x - 2.0 * spmv(g_csr, x.to(g.dtype)).to(dtype) / safe_deg
 
-    def step(x):
-        y = power_step(g_csr, x, safe_deg, inv_shift)
+    def step(x, lanes=False):
+        y = power_step(g_csr, x, safe_deg, inv_shift, lanes=lanes)
         nrm = tree_norm(y)
         return normalize(y, nrm), nrm
 
@@ -189,17 +197,22 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
         # jnp.vdot(w, opm_sym(w)) with w = u * c made in the same program.
         # Up to 32 columns XLA fuses the walk, row sums included, into the
         # dot below 4,096 values ("chain").  Above 32 the windowed row sums
-        # are a fusion of their own: the epilogue recomputes w and fuses
-        # its product (lazy_walk's scaled form), and the dot's loop takes
-        # element-wise operands ("walk": the JAX runs on 34-319 nodes agree
-        # with it wherever they agree with "lanes", and at 10 lengths more;
+        # are a fusion of their own.  Below 4,096 values the walk's
+        # epilogue is fused into the dot's loop, which also reads w: LLVM
+        # contracts the product dsinv * Ax into the add (the lazy walk's
+        # own epilogue), and the loop's order is "walk".  From 4,096 the
+        # dot is XLA's vector dot and the walk a fusion of its own, which
+        # recomputes w and contracts its product (lazy_walk's scaled form;
         # ROADMAP.md C).
-        if g.row_width > WINDOW:
-            return fused_dot(w, lazy_walk(g_csr, w, dsinv, scaled=(u, c)), "walk")
-        return fused_dot(w, lazy(w, dsinv), "chain")
+        if g.row_width <= WINDOW:
+            return fused_dot(w, lazy(w, dsinv), "chain")
+        if w.numel() * w.element_size() < FUSED_DOT_BYTES:
+            return fused_dot(w, lazy(w, dsinv), "walk")
+        return fused_dot(w, lazy_walk(g_csr, w, dsinv, scaled=(u, c)), "walk")
 
     return PowerOperator(lambda x: x, lambda x: x, norm_lap, step, dot if dtype == torch.float32 else tree_dot,
-                         tree_norm, lazy, rayleigh, safe_deg)
+                         tree_norm, lazy, rayleigh, safe_deg,
+                         first_step=lambda x: step(x, lanes=True))
 
 
 def _power_core(
@@ -226,7 +239,7 @@ def _power_core(
 
     np_dtype = torch.empty(0, dtype=dtype).numpy().dtype
     x0 = uniform(seed, n, np_dtype) - np_dtype.type(0.5)
-    x, nrm = step(op.to_state(torch.as_tensor(x0).to(g.device)))
+    x, nrm = (op.first_step or step)(op.to_state(torch.as_tensor(x0).to(g.device)))
     iteration = 1
 
     if convergence == "sign":

@@ -33,6 +33,16 @@ def _hypergraph(kind):
 
     if kind == "gen_0.02":
         return read_hgr(GEN_002)
+    if kind in ("w8", "w16"):
+        # Rows of at most 6 or 10 entries (ELL width 8 or 16, where XLA adds a
+        # row in one chain): windows of 4 or 6 consecutive nodes, 70 % of
+        # them, over all but the last 50 nodes (rows of degree 0).
+        rng = np.random.default_rng(13)
+        n, k = 3000, 4 if kind == "w8" else 6
+        nets = [np.arange(i, i + k) for i in range(n - 50 - k) if rng.random() < 0.7]
+        offs = np.zeros(len(nets) + 1, np.int64)
+        np.cumsum([k] * len(nets), out=offs[1:])
+        return Hypergraph(n, len(nets), np.concatenate(nets).astype(np.int32), offs)
     if kind == "dyadic":
         # KL weights 1/(k-1) in {1, 1/2, 1/4, 1/8}: exact sums, many ties.
         rng = np.random.default_rng(12)
@@ -744,14 +754,15 @@ def test_k6_scale_equals_plain_bitwise(cuda):
     assert K6_SCALE.launches == before + 3
 
 
-@pytest.mark.parametrize("kind", ["gen_0.02", "hub10", "hub44", "hub130", "hub1300"])
+@pytest.mark.parametrize("kind", ["w8", "w16", "gen_0.02", "hub10", "hub44", "hub130", "hub1300"])
 def test_k1_and_its_step_equal_plain_bitwise(cuda, kind):
     """K1 against spmv_plain, and K1's power step entry point against
     power_step_plain (on the card and on the CPU) at shift 2.0 and 3.0,
-    for W <= 32 (gen 0.02x, hub10), W > 32 (hub44: two windows), a row of
-    more than 64 entries (hub130; it and gen 0.02x have rows of degree 0)
-    and one of 1,300 (its warp's span crosses K1's buffers of 1,024
-    entries)."""
+    for W <= 16 (w8, w16: one chain; the step also with ``lanes``, the
+    solve's first step), W <= 32 (gen 0.02x, hub10: 8 lanes), W > 32
+    (hub44: two windows), a row of more than 64 entries (hub130; it, w8,
+    w16 and gen 0.02x have rows of degree 0) and one of 1,300 (its warp's
+    span crosses K1's buffers of 1,024 entries)."""
     from eig_kl_tpu_torch.ops.spmv import K1, K1_STEP, power_step, power_step_plain, spmv_csr, spmv_plain
 
     if kind == "hub1300":
@@ -761,16 +772,18 @@ def test_k1_and_its_step_equal_plain_bitwise(cuda, kind):
     else:
         g_cpu, g = _graphs(kind, cuda)
         assert kind in ("hub10", "hub44") or bool((g_cpu.degrees == 0).any())
+    assert g.row_width == {"w8": 8, "w16": 16}.get(kind, g.row_width)
     x = torch.as_tensor(np.random.default_rng(2).standard_normal(g.num_nodes).astype(np.float32))
     deg = torch.where(g_cpu.degrees > 0, g_cpu.degrees, 1.0)
     before = (K1_STEP.launches, K1.launches)
-    for inv in (0.5, 1.0 / 3.0):
-        y = power_step(g, x.to(cuda), deg.to(cuda), inv)
-        assert torch.equal(y.view(torch.int32), power_step_plain(g, x.to(cuda), deg.to(cuda), inv).view(torch.int32))
-        assert torch.equal(y.cpu().view(torch.int32), power_step_plain(g_cpu, x, deg, inv).view(torch.int32))
+    for inv, lanes in ((0.5, False), (1.0 / 3.0, False), (0.5, True)):
+        y = power_step(g, x.to(cuda), deg.to(cuda), inv, lanes=lanes)
+        want = power_step_plain(g_cpu, x, deg, inv, lanes=lanes)
+        assert torch.equal(y.view(torch.int32), power_step_plain(g, x.to(cuda), deg.to(cuda), inv, lanes=lanes).view(torch.int32))
+        assert torch.equal(y.cpu().view(torch.int32), want.view(torch.int32))
     ax = spmv_csr(g, x.to(cuda))
     assert torch.equal(ax.cpu().view(torch.int32), spmv_plain(g_cpu, x).view(torch.int32))
-    assert (K1_STEP.launches, K1.launches) == (before[0] + 2, before[1] + 1)
+    assert (K1_STEP.launches, K1.launches) == (before[0] + 3, before[1] + 1)
 
 
 def test_power_step_on_the_card_launches_at_most_4_kernels(cuda):
@@ -811,7 +824,7 @@ def _eig_graphs(kind, device):
     return g_host.to_device("cpu"), g_host.to_device(device)
 
 
-@pytest.mark.parametrize("kind", ["gen_0.02", "hub10", "hub44", "hub130"])
+@pytest.mark.parametrize("kind", ["w8", "w16", "gen_0.02", "hub10", "hub44", "hub130"])
 def test_k1_epilogues_equal_plain_bitwise(cuda, kind):
     """K1's Laplacian, blocked and lazy-walk entry points against their plain
     versions on the card and on the CPU, bit for bit, and deterministic;
@@ -943,7 +956,7 @@ def test_other_solvers_on_the_card_equal_the_cpu_run(cuda, solver):
 # ------------------------------------------------------------- the f64 engine
 
 
-@pytest.mark.parametrize("kind", ["gen_0.02", "hub10", "hub44", "hub130", "hub1300"])
+@pytest.mark.parametrize("kind", ["w8", "w16", "gen_0.02", "hub10", "hub44", "hub130", "hub1300"])
 def test_k1_f64_entry_points_equal_plain_bitwise(cuda, kind):
     """K1's five f64 entry points against their plain versions on the card
     and on the CPU, bit for bit: the SpMV and the power step (shift 2 and 3)
@@ -1318,15 +1331,29 @@ def test_other_solvers_f64_on_the_card(cuda, solver):
 
 
 def _plan_graph(kind):
-    """Host graphs for K1's padded entry points: gen 0.02x; hub44 (a row
+    """Host graphs for K1's plan entry points: gen 0.02x; hub44 (a row
     of degree 43, rows wider than 32); "edges", 1,025 nodes (P - n =
     1,023) with empty rows and rows of degree 1 whose products are +-0 and
-    subnormal; "full", 2,048 nodes (P - n = 0)."""
+    subnormal; "full", 2,048 nodes (P - n = 0); "6000", the random graph of
+    ``tests/test_torch_plan_order.py`` (78,752 entries); "sparse", its
+    30,000-node graph (81,072 entries); gen 1.0x (a COO tail)."""
     from eig_kl_tpu_torch.graph.csr import Graph
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.io.hgr import Hypergraph
+    from eig_kl_tpu_torch.models.generator import CircuitGenerator
 
     if kind in ("gen_0.02", "hub44"):
         return _graphs_host(kind)
-    rng = np.random.default_rng(31)
+    if kind == "gen_1.0":
+        return clique_expand(CircuitGenerator(1.0, 42).generate(), "kl")
+    rng = np.random.default_rng({"6000": 21, "sparse": 8}.get(kind, 31))
+    if kind in ("6000", "sparse"):  # tests/conftest.py:random_hypergraph(rng, n, nets, max_net)
+        n, nets, max_net = (6000, 7800, 5) if kind == "6000" else (30000, 12000, 4)
+        sizes = rng.integers(2, max_net + 1, size=nets)
+        pins = np.concatenate([rng.choice(n, size=k, replace=False) for k in sizes]).astype(np.int32)
+        offs = np.zeros(nets + 1, np.int64)
+        np.cumsum(sizes, out=offs[1:])
+        return clique_expand(Hypergraph(n, nets, pins, offs), "kl")
     n = 1025 if kind == "edges" else 2048
     u, v = rng.integers(0, n, 4 * n), rng.integers(0, n, 4 * n)
     if kind == "edges":
@@ -1350,61 +1377,74 @@ def _padded_state(n, P, seed):
     return torch.as_tensor(x.reshape(P // 128, 128))
 
 
-@pytest.mark.parametrize("kind", ["gen_0.02", "hub44", "edges", "full"])
+@pytest.mark.parametrize("kind, rblock, quantum", [
+    ("gen_0.02", None, None), ("hub44", None, None), ("edges", None, None), ("full", None, None),
+    ("6000", 512, None), ("6000", 4096, None), ("6000", 16384, None), ("sparse", 512, 64), ("gen_1.0", None, None),
+])
 @pytest.mark.parametrize("bf16", [True, False])
-def test_k1_padded_entry_points_equal_plain_bitwise(cuda, kind, bf16):
-    """K1's padded SpMV and lazy walk (``spmv_bf16i_f32`` and
-    ``lazy_walk_bf16i_f32`` with bf16 intermediates, ``spmv_padded_f32`` and
-    ``lazy_walk_padded_f32`` without) against their plain versions on the
-    CPU, bit for bit, padding rows +0 included; the f32 one's rows are K1's."""
+def test_spmv_v2_equals_plain_bitwise(cuda, kind, rblock, quantum, bf16):
+    """K1's ``spmv_v2_f32`` (the v2 TPU SpMV's order), with bf16 or f32
+    products, on a flat vector, on the padded state and in its lazy-walk
+    form, against ``spmv_v2_plain`` and ``plan_lazy_walk``'s plain version
+    on the CPU, bit for bit, padding rows +0 included; one launch per call,
+    and one ``spmv_v1_f32`` launch first where the plan has a v1 tail (gen
+    0.02x and the 6,000-node graph; the COO tails, gen 1.0x's 125 entries
+    and the sparse graph's 38 at row block 512 and Q 64, up to 7 in one
+    warp's rows and 2 in a row, are in the launch)."""
     from eig_kl_tpu_torch.graph.csr import CsrPlan
-    from eig_kl_tpu_torch.ops.spmv import (
-        K1_BF16I, K1_LAZY_BF16I, K1_LAZY_PADDED, K1_PADDED, lazy_walk_padded, spmv, spmv_padded,
+    from eig_kl_tpu_torch.ops.spmv_plan import (
+        K1_LAZY_V2, K1_LAZY_V2_BF16I, K1_V1, K1_V2, K1_V2_BF16I, CooTail, V1Layout, lazy_walk_v2_plain,
+        plan_lazy_walk, spmv_v2, spmv_v2_plain,
     )
 
     host = _plan_graph(kind)
-    plan = CsrPlan.for_graph(host.num_nodes, host.nnz)
-    plan = CsrPlan(plan.padded_nodes, "v2")
-    g_cpu, g = (dataclasses.replace(host.to_device(d), plan=plan) for d in ("cpu", cuda))
-    n, P = host.num_nodes, plan.padded_nodes
+    geometry = {k: v for k, v in (("rblock", rblock), ("quantum", quantum)) if v is not None}
+    lay_c, lay = (CsrPlan.for_graph(host.to_device(d), kernel="v2", **geometry).layout for d in ("cpu", cuda))
+    n, P = host.num_nodes, lay.padded_nodes
     assert kind != "edges" or P - n == 1023
     assert kind != "full" or P == n
+    assert kind != "sparse" or (isinstance(lay.tail, CooTail) and (lay.tail.num_entries, lay.tail.num_groups) == (38, 2))
     x = _padded_state(n, P, 1)
     dsinv = torch.zeros(P)
-    dsinv[:n] = 1.0 / torch.sqrt(torch.where(g_cpu.degrees > 0, g_cpu.degrees, 1.0))
+    degrees = torch.as_tensor(host.weighted_degrees.astype(np.float32))
+    dsinv[:n] = 1.0 / torch.sqrt(torch.where(degrees > 0, degrees, 1.0))
     dsinv = dsinv.view(P // 128, 128)
-    kern, lazy_kern = (K1_BF16I, K1_LAZY_BF16I) if bf16 else (K1_PADDED, K1_LAZY_PADDED)
-    before = (kern.launches, lazy_kern.launches)
-    y = spmv_padded(g, x.to(cuda), bf16=bf16)
-    w = lazy_walk_padded(g, x.to(cuda), dsinv.to(cuda), bf16=bf16)
-    assert (kern.launches, lazy_kern.launches) == (before[0] + 1, before[1] + 1)
-    y_cpu = spmv_padded(g_cpu, x, bf16=bf16)
-    w_cpu = lazy_walk_padded(g_cpu, x, dsinv, bf16=bf16)
-    assert torch.equal(y.cpu().view(torch.int32), y_cpu.view(torch.int32))
-    assert torch.equal(w.cpu().view(torch.int32), w_cpu.view(torch.int32))
-    assert (y_cpu.view(-1)[n:].view(torch.int32) == 0).all()
-    if not bf16:
-        assert torch.equal(y.view(-1)[:n], spmv(dataclasses.replace(g, plan=None), x.view(-1)[:n].to(cuda)))
+    v1_tail = int(isinstance(lay.tail, V1Layout))
+    kern, lazy_kern = (K1_V2_BF16I, K1_LAZY_V2_BF16I) if bf16 else (K1_V2, K1_LAZY_V2)
+    before = (kern.launches, lazy_kern.launches, K1_V1.launches)
+    got = [spmv_v2(lay, x.view(-1)[:n].contiguous().to(cuda), bf16), spmv_v2(lay, x.to(cuda), bf16),
+           plan_lazy_walk(lay, x.to(cuda), dsinv.to(cuda), bf16)]
+    assert (kern.launches, lazy_kern.launches, K1_V1.launches) == (
+        before[0] + 2, before[1] + 1, before[2] + 3 * v1_tail)
+    want = [spmv_v2_plain(lay_c, x.view(-1)[:n].contiguous(), bf16), spmv_v2_plain(lay_c, x, bf16),
+            lazy_walk_v2_plain(lay_c, x, dsinv, bf16)]
+    assert torch.equal(want[2], plan_lazy_walk(lay_c, x, dsinv, bf16))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    assert (want[1].view(-1)[n:].view(torch.int32) == 0).all()
+    assert torch.equal(want[1].view(-1)[:n], want[0])
 
 
-def test_k1_padded_entry_points_refuse_what_they_cannot_run(cuda):
-    """f64, a state shorter than n, a state not of 128 columns, CPU
-    tensors: refused, no launch."""
+def test_spmv_v2_refuses_what_it_cannot_run(cuda):
+    """f64, a state shorter than n or not of 128 columns, CPU tensors and a
+    layout on another device: refused, no launch."""
     from eig_kl_tpu_torch.graph.csr import CsrPlan
-    from eig_kl_tpu_torch.ops.spmv import K1_BF16I, spmv_padded_cuda
+    from eig_kl_tpu_torch.ops.spmv_plan import K1_V2, K1_V2_BF16I, spmv_v2_cuda
 
     host = _plan_graph("gen_0.02")
-    g = dataclasses.replace(host.to_device(cuda), plan=CsrPlan(4096, "v2"))
-    before = K1_BF16I.launches
+    lay = CsrPlan.for_graph(host.to_device(cuda), kernel="v2").layout
+    lay_c = CsrPlan.for_graph(host.to_device("cpu"), kernel="v2").layout
+    before = K1_V2.launches + K1_V2_BF16I.launches
     with pytest.raises(TypeError, match="float32"):
-        spmv_padded_cuda(g, torch.zeros(32, 128, dtype=torch.float64, device=cuda), bf16=True)
-    with pytest.raises(ValueError, match="P >= n"):
-        spmv_padded_cuda(g, torch.zeros(8, 128, device=cuda), bf16=True)
-    with pytest.raises(ValueError, match="P >= n"):
-        spmv_padded_cuda(g, torch.zeros(64, 64, device=cuda), bf16=True)
+        spmv_v2_cuda(lay, torch.zeros(32, 128, dtype=torch.float64, device=cuda), True)
+    for shape in ((8, 128), (64, 64)):
+        with pytest.raises(ValueError, match="padded"):
+            spmv_v2_cuda(lay, torch.zeros(*shape, device=cuda))
     with pytest.raises(ValueError, match="CUDA"):
-        spmv_padded_cuda(g, torch.zeros(32, 128), bf16=True)
-    assert K1_BF16I.launches == before
+        spmv_v2_cuda(lay, torch.zeros(32, 128))
+    with pytest.raises(ValueError, match="CUDA"):
+        spmv_v2_cuda(lay_c, torch.zeros(32, 128, device=cuda))
+    assert K1_V2.launches + K1_V2_BF16I.launches == before
 
 
 @pytest.mark.parametrize("order", ["lanes", "slice", "signs", "laplacian", "chain"])
@@ -1537,15 +1577,16 @@ def test_k6_last_block_lanes_equal_plain(cuda):
 
 @pytest.mark.parametrize("inter", ["bfloat16", "float32"])
 def test_plan_power_solve_on_the_card_equals_the_cpu_run(cuda, inter):
-    """The f32 power solve on the padded state of a CSR plan (the momentum
-    exit, 60 steps, and the sign exit, 101 steps) on gen 0.02x's graph: the
-    card (K1's padded entry points, K6, K4) and the CPU (their plain
-    versions) give the same bits."""
+    """The f32 power solve on the padded state of a CSR plan (a v2 plan
+    forced on gen 0.02x's graph; the momentum exit, 60 steps, and the sign
+    exit, 101 steps): the card (``spmv_v1_f32`` for its tail,
+    ``spmv_v2_f32``, K6, K4) and the CPU (their plain versions) give the
+    same bits."""
     from eig_kl_tpu_torch.graph.csr import CsrPlan
     from eig_kl_tpu_torch.spectral.power import _power_core
 
     host = _plan_graph("gen_0.02")
-    gs = [dataclasses.replace(host.to_device(d), plan=CsrPlan(4096, "v2")) for d in ("cpu", cuda)]
+    gs = [dataclasses.replace(g, plan=CsrPlan.for_graph(g, kernel="v2")) for g in (host.to_device(d) for d in ("cpu", cuda))]
     for conv, cap in (("momentum", 60), ("sign", 101)):
         kw = dict(shift=2.0, tolerance=1e-6, min_iters=100, max_iters=cap, seed=42, dtype=torch.float32,
                   convergence=conv, inter_dtype=inter)
@@ -1571,22 +1612,28 @@ def _v1_host(kind):
 @pytest.mark.parametrize("kind", ["gen_0.02", "random"])
 def test_spmv_v1_equals_plain_bitwise(cuda, kind):
     """K1's spmv_v1_f32 (the v1 TPU SpMV's order) against spmv_v1_plain, bit
-    for bit, on signs and on normal values with -0 among them; one launch
-    per call."""
+    for bit, on signs and on normal values with -0 among them, as a flat
+    vector and as the padded state of the plan path (its padding +0); one
+    launch per call."""
     from eig_kl_tpu_torch.ops.spmv_plan import K1_V1, spmv_v1_cuda, spmv_v1_plain
 
     host = _v1_host(kind)
     assert host.nnz <= 32_768
-    lay_c, lay_g = host.to_device("cpu").v1_layout, host.to_device(cuda).v1_layout
+    lay_c, lay_g = host.to_device("cpu").plan_layout, host.to_device(cuda).plan_layout
     rng = np.random.default_rng(5)
-    n = host.num_nodes
+    n, P = host.num_nodes, lay_c.padded_nodes
     x = rng.standard_normal(n).astype(np.float32)
     x[::11] = -0.0
     for v in (x, np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)):
-        before = K1_V1.launches
-        got = spmv_v1_cuda(lay_g, torch.as_tensor(v).to(cuda))
-        assert K1_V1.launches == before + 1
-        assert torch.equal(got.cpu().view(torch.int32), spmv_v1_plain(lay_c, torch.as_tensor(v)).view(torch.int32))
+        v2d = np.zeros(P, np.float32)
+        v2d[:n] = v
+        for t in (torch.as_tensor(v), torch.as_tensor(v2d.reshape(-1, 128))):
+            before = K1_V1.launches
+            got = spmv_v1_cuda(lay_g, t.to(cuda))
+            assert K1_V1.launches == before + 1
+            want = spmv_v1_plain(lay_c, t)
+            assert got.shape == t.shape and torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+        assert (want.view(-1)[n:].view(torch.int32) == 0).all()
 
 
 def _select_vector(n, dtype, seed):

@@ -177,12 +177,15 @@ def test_final_rayleigh_quotient_above_32_columns_equals_xla(graph):
         assert _bits(got) == _bits(rayleigh(g_jax, v))
 
 
-@pytest.mark.parametrize("n", [34, 46, 150])
+@pytest.mark.parametrize("n", [34, 46, 60, 150, 222])
 def test_small_momentum_above_32_columns_equals_jax_to_its_exit(n):
-    """The momentum exit on connected graphs of 34-150 nodes with a 34-pin
+    """The momentum exit on connected graphs of 34-222 nodes with a 34-pin
     net (ELL width 40), to its exit: the check's quotient takes the "walk"
-    form, unrolled from 34 values to 191 ("lanes" kept 34 and 46 a chain
-    and 150 a vector loop, and the runs parted at the first check's beta)."""
+    form, unrolled from 34 values to 223 with 8 lanes at the epilogue's tie
+    (222: 30 values left), over the walk whose epilogue contracts ``dsinv *
+    Ax`` ("lanes" kept 34 and 46 a chain and 150 a vector loop, and the
+    runs parted at the first check's beta; 60 parted at step 51 with the
+    walk's scaled form)."""
     from eig_kl_tpu.spectral.power import _power_core as jax_core
     from eig_kl_tpu_torch.spectral.power import _power_core
 
@@ -195,6 +198,65 @@ def test_small_momentum_above_32_columns_equals_jax_to_its_exit(n):
     assert it_t == int(it_j)
     np.testing.assert_array_equal(_bits(v_t.numpy()), _bits(v_j))
     assert _bits(lam_t) == _bits(lam_j)
+
+
+@pytest.mark.parametrize("n, width", [(64, 64), (150, 72)])
+def test_momentum_at_widths_64_and_72_equals_jax_to_its_exit(n, width):
+    """The momentum exit on connected graphs with a 60-pin net (ELL width
+    64, whose row windows of 32 have no lead pad, and 72), to its exit:
+    every iterate bit, the iteration count and the eigenvalue (both parted
+    with the walk's scaled form in the check's quotient)."""
+    from eig_kl_tpu.spectral.power import _power_core as jax_core
+    from eig_kl_tpu_torch.spectral.power import _power_core
+
+    g_jax, g = _graphs(_connected_with_wide_net(n, 60, n))
+    assert g.row_width == width
+    kw = dict(shift=2.0, tolerance=1e-6, min_iters=100, max_iters=400, seed=42, convergence="momentum")
+    lam_j, v_j, it_j = jax_core(g_jax, dtype="float32", **kw)
+    with _one_thread():
+        lam_t, v_t, it_t = _power_core(g, dtype=torch.float32, **kw)
+    assert it_t == int(it_j)
+    np.testing.assert_array_equal(_bits(v_t.numpy()), _bits(v_j))
+    assert _bits(lam_t) == _bits(lam_j)
+
+
+@pytest.mark.parametrize("n", [92, 127, 191, 219, 223, 224])
+def test_momentum_check_quotient_below_4096_values_equals_xla(n):
+    """The check's quotient ``jnp.vdot(w, opm_sym(w))`` of the deflated
+    unit iterate (``eig_kl_tpu/spectral/power.py:356-358``) in a program of
+    its own, on connected graphs of ELL width 40 or 48 whose length leaves
+    28-31 values to the unrolled loop's epilogue (92, 127, 191, 223: 8
+    lanes at the tie), ends the unrolled loop (219, 223) or starts the
+    vector loop (224): below 4,096 values the walk's epilogue is fused into
+    the dot's loop and contracts ``dsinv * Ax`` (the lazy walk's own
+    epilogue), the dot's order is "walk"; on 8 draws of the iterate."""
+    from eig_kl_tpu.ops.partition import spmv as jax_spmv
+    from eig_kl_tpu_torch.ops.reduce import axpy, fma_dot, tree_norm
+    from eig_kl_tpu_torch.spectral.power import _reciprocal, power_operator
+
+    g_jax, g = _graphs(_connected_with_wide_net(n, 34, n))
+    assert g.row_width > 32
+    deg = np.asarray(g_jax.degrees)
+    d = (1.0 / np.sqrt(np.where(deg > 0, deg, 1.0))).astype(np.float32)
+    q0 = np.sqrt(np.where(deg > 0, deg, 1.0)).astype(np.float32)
+    q0 = (q0 / np.float32(np.linalg.norm(q0.astype(np.float64)))).astype(np.float32)
+
+    @jax.jit
+    def quotient(g, w, d, q0):
+        u = w - jnp.vdot(q0, w) * q0
+        nv = jnp.linalg.norm(u)
+        wv = u * jnp.where(nv > 0, 1.0 / jnp.where(nv > 0, nv, 1.0), 1.0)
+        return jnp.vdot(wv, 0.5 * (wv + d * jax_spmv(g, d * wv)))
+
+    op = power_operator(g, 2.0, torch.float32)
+    T = torch.as_tensor
+    for seed in range(8):
+        w = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
+        with _one_thread():
+            u = axpy(-fma_dot(T(q0), T(w)), T(q0), T(w))
+            c = _reciprocal(tree_norm(u))
+            mu = op.rayleigh(u * c, u, c, T(d))
+        assert _bits(mu) == _bits(quotient(g_jax, w, d, q0)), seed
 
 
 def test_momentum_above_32_columns_equals_jax_to_its_exit():
@@ -357,6 +419,66 @@ def test_momentum_beta_equals_xla(dtype):
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
+# ------------------------------- rows of ELL width 8 and 16: one chain
+
+
+@pytest.mark.parametrize("n, wide, width", [(13, 2, 8), (72, 2, 16), (1000, 2, 16), (300, 18, 24), (300, 22, 32)])
+def test_row_sums_by_width_equal_xla(n, wide, width):
+    """XLA adds a row of ELL width 8 or 16 as one chain of fused
+    multiply-adds in position order (LLVM unrolls its loop fully), and rows
+    of width 24 and 32 in K1's 8 lanes: the SpMV, the Laplacian, the lazy
+    walk, the blocked product (4 columns) and the power step against the
+    JAX package's expressions under ``jax.jit``, bit for bit.  With 8 lanes
+    at widths 8 and 16 each parted on some rows."""
+    from eig_kl_tpu.ops.partition import spmv as jax_spmv
+    from eig_kl_tpu_torch.ops.spmv import (
+        laplacian_plain, lazy_walk_plain, power_step_plain, spmm_plain, spmv_plain,
+    )
+
+    g_jax, g = _graphs(_connected_with_wide_net(n, wide, n))
+    assert g.row_width == width
+    rng = np.random.default_rng(n)
+    x = rng.standard_normal(n).astype(np.float32)
+    X = rng.standard_normal((n, 4)).astype(np.float32)
+    deg = np.asarray(g_jax.degrees)
+    sd = np.where(deg > 0, deg, 1.0).astype(np.float32)
+    d = (1.0 / np.sqrt(sd)).astype(np.float32)
+    T = torch.as_tensor
+    refs = jax.jit(lambda g, x, X, d, sd: (
+        jax_spmv(g, x), g.degrees * x - jax_spmv(g, x), 0.5 * (x + d * jax_spmv(g, d * x)),
+        jax.vmap(lambda c: jax_spmv(g, c), in_axes=1, out_axes=1)(X),
+        x - 0.5 * (2.0 * x - 2.0 * jax_spmv(g, x) / sd),
+    ))(g_jax, x, X, d, sd)
+    with _one_thread():
+        gots = (spmv_plain(g, T(x)), laplacian_plain(g, T(x)), lazy_walk_plain(g, T(x), T(d)),
+                spmm_plain(g, T(X)), power_step_plain(g, T(x), T(sd), 0.5))
+    for got, ref in zip(gots, refs):
+        np.testing.assert_array_equal(_bits(got), _bits(ref))
+
+
+@pytest.mark.parametrize("n, convergence", [(13, "sign"), (13, "momentum"), (300, "sign"), (300, "momentum")])
+def test_power_solve_at_widths_8_and_16_equals_jax(n, convergence):
+    """The f32 power solve on connected graphs of ELL width 8 (13 nodes)
+    and 16 (300 nodes), sign and momentum exits, against the JAX package's
+    ``_power_core``: the iterations, the iterate and the eigenvalue bit for
+    bit.  The solve's first step keeps 8 lanes at width 16 (XLA fuses the
+    start vector's draw into its loop and does not unroll the rows); the
+    loop's steps, the lazy walks and the final quotient take the chain.
+    With 8 lanes everywhere all four parted."""
+    from eig_kl_tpu.spectral.power import _power_core as jax_core
+    from eig_kl_tpu_torch.spectral.power import _power_core
+
+    g_jax, g = _graphs(_connected_with_wide_net(n, 2, n))
+    assert g.row_width <= 16
+    kw = dict(shift=2.0, tolerance=1e-6, min_iters=100, max_iters=400, seed=42, convergence=convergence)
+    lam_j, v_j, it_j = jax_core(g_jax, dtype="float32", **kw)
+    with _one_thread():
+        lam_t, v_t, it_t = _power_core(g, dtype=torch.float32, **kw)
+    assert it_t == int(it_j)
+    np.testing.assert_array_equal(_bits(v_t.numpy()), _bits(v_j))
+    assert _bits(lam_t) == _bits(lam_j)
+
+
 # ----------------------------------- C5 from 4,096 nodes: settled, tree order
 
 
@@ -367,35 +489,36 @@ def test_mega_cut_from_4096_nodes_keeps_the_tree_order():
     whose dot XLA adds as one sequential chain there; the drift stays within
     the gate of 1e-5.
 
-    The bound: both forms take the same ``A s`` (K1's order is XLA's) and
-    the same ``wsum`` (``jnp.sum``'s order); they differ in the dot's order.
+    The bound: both forms take the same ``A s`` (the mega engine's, in its
+    plan's order: this graph's 66,000-odd entries make a v2 plan) and the
+    same ``wsum`` (``jnp.sum``'s order); they differ in the dot's order.
     Any order of n products and n - 1 adds leaves each term with at most n
     roundings, so each dot lies within ``gamma_n * S`` of the exact one,
     ``gamma_n = n u / (1 - n u)``, ``u = 2^-24``, ``S = sum |s_i (A s)_i|``;
     the two within ``2 gamma_n S``, and after ``0.25 * (wsum - dot)`` (the
     subtraction rounded once in each, the quarter exact) the cuts within
     ``0.5 gamma_n S + u (|cut_tree| + |cut_jax|)``."""
-    from eig_kl_tpu.ops.partition import spmv as jax_spmv
-    from eig_kl_tpu_torch.kl.megakernel import refine_mega
+    from eig_kl_tpu_torch.kl.megakernel import mega_spmv, refine_mega
     from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
-    from eig_kl_tpu_torch.ops.spmv import spmv_plain
+    from eig_kl_tpu_torch.ops.spmv_plan import V2Layout
     from eig_kl_tpu_torch.utils.config import KLConfig
 
     rng = np.random.default_rng(11)
     g_jax, g = _graphs(random_hypergraph(rng, 4800, 6000, 5))
     n = g.num_nodes
-    assert n >= 4096
+    assert n >= 4096 and isinstance(g.plan_layout, V2Layout)
     sides = (rng.random(n) < 0.5).astype(np.int8)
     with _one_thread():
         r = refine_mega(g, sides, KLConfig(gain_eps=1e-6, max_iterations=300))
-        jax_cut = jax.jit(lambda g, s: 0.25 * (jnp.sum(g.degrees) - jnp.vdot(s, jax_spmv(g, s))))
+        jax_cut = jax.jit(lambda g, s, a_s: 0.25 * (jnp.sum(g.degrees) - jnp.vdot(s, a_s)))
         u = 2.0**-24
         gamma = n * u / (1 - n * u)
         for cut, labels in ((r.initial_cut, sides), (r.verified_cut, r.sides)):
             s = sides_to_signs(torch.as_tensor(labels), torch.float32)
-            assert cut == float(cut_size(g, s))
-            terms = float(torch.sum(torch.abs(s.double() * spmv_plain(g, s).double())))
-            other = float(jax_cut(g_jax, s.numpy()))
+            a_s = mega_spmv(g)(s)
+            assert cut == float(cut_size(g, s, a_s))
+            terms = float(torch.sum(torch.abs(s.double() * a_s.double())))
+            other = float(jax_cut(g_jax, s.numpy(), a_s.numpy()))
             assert abs(cut - other) <= 0.5 * gamma * terms + u * (abs(cut) + abs(other))
     assert r.iterations == 300
     assert abs(r.final_cut - r.verified_cut) / r.final_cut <= 1e-5
@@ -437,7 +560,7 @@ def test_spmv_v1_plain_equals_the_v1_kernel(kind):
     plan = plan_for_graph(gh)
     assert isinstance(plan, SpmvPlan)
     g = Graph.from_arrays(gh.indptr, gh.indices, gh.data).to_device("cpu")
-    lay = g.v1_layout
+    lay = g.plan_layout
     C = lay.num_chunks
     assert lay.padded_nodes == plan.padded_nodes and C <= plan.num_chunks < C + 8
     np.testing.assert_array_equal(lay.x_base.numpy(), 128 * np.asarray(plan.cw8[:C]))

@@ -26,9 +26,9 @@ vector), its graph carrying a ``build_plan_v2`` plan and its v2 kernels
 running in interpret mode, with ``inter_dtype="bfloat16"``.  It writes
 the iterations, eigenvalue, median and vector to ``BF16I_FIXTURE``, which
 ``tests/test_torch_bf16i.py`` holds the port's plain bf16-intermediate
-solve to, and prints them beside the port's own CPU run and the plan's
-overflow tail (its entries are added in f32 by the JAX package, rounded
-by the port); about a minute::
+solve to, and prints them beside the port's own CPU run (the v2 order:
+the same bits) and the plan's overflow tail (its entries added in f32 by
+both); about a minute::
 
     JAX_PLATFORMS=cpu python3 tools/lcc_reference.py --inter bf16
 
@@ -105,8 +105,8 @@ def main_bf16i() -> dict:
     jax_s = time.perf_counter() - t0
     med = float(np.sort(v)[n // 2])
     np.savez(BF16I_FIXTURE, iterations=int(iters), eigenvalue=np.float32(lam), median=np.float32(med), values=v)
-    gd = dataclasses.replace(Graph.from_arrays(g.indptr, g.indices, g.data).to_device("cpu"),
-                             plan=CsrPlan(plan.padded_nodes, "v2"))
+    base = Graph.from_arrays(g.indptr, g.indices, g.data).to_device("cpu")
+    gd = dataclasses.replace(base, plan=CsrPlan.for_graph(base, kernel="v2"))
     t0 = time.perf_counter()
     p_lam, p_v, p_iters = _power_core(gd, dtype=torch.float32, **kw)
     p_v = p_v.numpy()
