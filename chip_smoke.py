@@ -31,13 +31,18 @@ and v2 TPU SpMVs' orders) against their plain versions, then
 ``fused_refine_mega`` called directly, held to the JAX package's
 interpret-mode bits (gen 0.02x) and to the port's plain CPU run (gen 1.0x).
 The CSR plan path (``fused_partition(with_plan=True)``) takes the v2 order
-too, through ``spmv_v2_bf16i_f32`` and its lazy-walk forms.
+too, through ``spmv_v2_bf16i_f32`` and its lazy-walk forms; last, the v2
+SpMV's other forms that the environment picks there, as in the JAX package
+(``EIG_KL_TPU_BF16_W=1``: bf16 weights; ``EIG_KL_TPU_REDUCE_IMPL``: the
+"mxu2" and "vpu" reduce orders): each entry point against its plain
+version, then the paths that take them.
 Any failed check raises, so the script exits nonzero and prints no
 result; so does a machine without a CUDA card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -70,7 +75,10 @@ V3_ITERS, V3_BEST = 351, 39709.99
 #: order with its default bf16 intermediates, as K1's spmv_v2_bf16i_f32; the
 #: quality A/B of PARITY.md:84-88 over these spectral seeds, in three cells.
 AB_SEEDS = (42, 43, 44, 45, 46)
-AB_CELLS = ("csr f32", "padded f32", "padded bf16i")
+AB_CELLS = ("csr f32", "padded f32", "padded bf16i", "padded bf16i bf16w")
+#: The environment of each A/B cell: the fourth streams the plan's weights in
+#: bf16 (EIG_KL_TPU_BF16_W=1, the JAX package's opt-in).
+AB_KNOBS = {"padded bf16i bf16w": {"EIG_KL_TPU_BF16_W": "1"}}
 #: gen 1.0x's v2 plan: its row block and bucket slot count, and its COO
 #: tail's entries (eig_kl_tpu/ops/spmv_pallas.py:build_plan_v2's search).
 V2_GEOMETRY, V2_COO_TAIL = (16384, 512), 125
@@ -79,6 +87,17 @@ V2_GEOMETRY, V2_COO_TAIL = (16384, 512), 125
 #: path's bf16i one-start run (power iterations, swaps, initial, best and
 #: final cut), and fused_refine_mega called directly (as JAX_MEGA_GEN002).
 PLAN_BF16I = (126, 9575, 66307.84375, 39262.55859375, 39262.55859375)
+#: The same run under the v2 SpMV's other forms (tools/plan_order_reference.py
+#: --forms): with bf16 weights (EIG_KL_TPU_BF16_W=1), in the "vpu" reduce's
+#: order (EIG_KL_TPU_REDUCE_IMPL=vpu; with bf16 products it moves no bit
+#: here), under both, and the padded f32 one start under "vpu".
+PLAN_BF16I_BF16W = (151, 11689, 73263.25, 41917.87890625, 41917.87890625)
+PLAN_BF16I_VPU = PLAN_BF16I
+PLAN_BF16I_BF16W_VPU = PLAN_BF16I_BF16W
+PLAN_F32_VPU = (351, 8081, 58764.71875, 39722.375, 39722.375)
+BF16W = {"EIG_KL_TPU_BF16_W": "1"}
+VPU = {"EIG_KL_TPU_REDUCE_IMPL": "vpu"}
+MXU2 = {"EIG_KL_TPU_REDUCE_IMPL": "mxu2"}
 MEGA_GEN1 = (326, 2.089679718017578, 58810.609375, 39726.91796875, 8063, 39726.91796875, 39726.9140625, 97975)
 #: The one-start run on gen 0.02x (4,038 nodes, below XLA's 4,096-value
 #: dot fusion): the JAX package's f32 CPU run's power iterations, swaps and
@@ -145,6 +164,26 @@ def largest_component(hg):
     offsets = np.zeros(int(nets.sum()) + 1, np.int64)
     np.cumsum(sizes[nets], out=offsets[1:])
     return Hypergraph(int(keep.sum()), int(nets.sum()), pins, offsets, name="lcc.hgr")
+
+
+@contextlib.contextmanager
+def knobs(env: dict):
+    """The environment with ``env`` set (a value of None unset), as a user
+    sets the JAX package's knobs; restored after."""
+    saved = {k: os.environ.get(k) for k in env}
+    try:
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def card_line() -> str:
@@ -390,6 +429,7 @@ def main() -> int:
         K1_V1,
         K1_V2,
         K1_V2_BF16I,
+        K1_V2_FORMS,
         CooTail,
         V1Layout,
         V2Layout,
@@ -399,6 +439,9 @@ def main() -> int:
         spmv_v1_plain,
         spmv_v2_cuda,
         spmv_v2_plain,
+        to_bf16,
+        v2_kernel,
+        v2_order,
     )
     from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
     from eig_kl_tpu_torch.ops import reduce as R
@@ -436,7 +479,8 @@ def main() -> int:
     card = card_line()
     f32_kernels = (K1, K1_STEP, K1_LAPLACIAN, K1_SPMM, K1_LAZY, K2, V.K3A, V.K3B, V.K3C, K4, K5, K6,
                    K6_SCALE, K6_STEP, K6_AXPY, K1_V2, K1_V2_BF16I, K1_LAZY_V2, K1_LAZY_V2_BF16I, K4_FUSED,
-                   K1_V1, K7)
+                   K1_V1, K7) + tuple(k for k in K1_V2_FORMS.values() if k not in (K1_V2, K1_V2_BF16I, K1_LAZY_V2,
+                                                                                  K1_LAZY_V2_BF16I))
     f64_kernels = (K1_F64, K1_STEP_F64, K1_LAPLACIAN_F64, K1_SPMM_F64, K1_LAZY_F64, K2_F64, K4_F64,
                    K6_F64, K6_SCALE_F64, K6_AXPY_F64, K7_F64)
     all_kernels = f32_kernels + f64_kernels
@@ -2124,7 +2168,8 @@ def main() -> int:
     for seed in AB_SEEDS:
         for cell in AB_CELLS:
             reset_counts()
-            r, t = plan_run(seed, "float32" if "f32" in cell else "bfloat16", cell != "csr f32")
+            with knobs(AB_KNOBS.get(cell, {})):
+                r, t = plan_run(seed, "float32" if "f32" in cell else "bfloat16", cell != "csr f32")
             if seed == AB_SEEDS[0]:  # the kernels line's launches are seed 42's
                 ab_launches[cell] = {kern.symbol: kern.launches for kern in all_kernels if kern.launches}
             ab[cell].append({"initial": r.kl.initial_cut, "best": r.kl.best_cut, "iterations": r.spectral_iterations,
@@ -2139,7 +2184,11 @@ def main() -> int:
           "the A/B's seed-42 cells differ from the one-start runs")
     check("spmv_v2_f32" in ab_launches["padded f32"] and "spmv_v2_bf16i_f32" in ab_launches["padded bf16i"]
           and "spmv_v2_bf16i_f32" not in ab_launches["padded f32"] and "power_step_f32" in ab_launches["csr f32"]
-          and "spmv_v2_f32" not in ab_launches["csr f32"], f"the A/B cells launched {ab_launches}")
+          and "spmv_v2_f32" not in ab_launches["csr f32"]
+          and "spmv_v2_bf16w_f32" in ab_launches["padded bf16i bf16w"]
+          and "spmv_v2_bf16i_f32" not in ab_launches["padded bf16i bf16w"], f"the A/B cells launched {ab_launches}")
+    check(ab["padded bf16i bf16w"][0]["best"] == PLAN_BF16I_BF16W[3],
+          f"the A/B's seed-42 bf16-weight cell gave {ab['padded bf16i bf16w'][0]['best']}, not {PLAN_BF16I_BF16W[3]}")
     for cell, summ in ab_summary.items():
         print(
             f"A/B {cell}, seeds {AB_SEEDS[0]}-{AB_SEEDS[-1]}: initial cut {summ['initial'][0]:.2f} +- "
@@ -2338,6 +2387,230 @@ def main() -> int:
           f"{k_m1.iterations} swaps, final {k_m1.final_cut}, verified {k_m1.verified_cut} (drift {m1_drift:.3g}): "
           f"the port's plain CPU run bit for bit; e2e {mega1_s:.3f} s on {card}; launches {mega1_launches}")
     print(f"mega phase: {time.perf_counter() - t_phase:.1f} s")
+
+    # Phase 14: the v2 SpMV's other forms, which the power solve's plan branch
+    # takes where the environment asks for them, as the JAX package's does:
+    # bf16 weights (EIG_KL_TPU_BF16_W=1, with bf16 products) and the orders
+    # of the opt-in reduce kernels (EIG_KL_TPU_REDUCE_IMPL: "vpu", and "mxu2"
+    # at row blocks up to 2,048; "mxuv", and "mxu2" at gen 1.0x's 16,384,
+    # take the default's order and entry point).  Every entry point bit for
+    # bit against its plain version and timed: the vpu and bf16-weight forms
+    # at gen 1.0x's padded state, the mxu2 forms on the 6,000-node graph at
+    # row block 512 (4 partials; and checked at 2,048, 2 partials).  Then
+    # each path with the counts set to 0 just before it and read just after:
+    # the bf16i one start at gen 1.0x under bf16 weights, under "vpu" and
+    # under both, and the padded f32 one start under "vpu", each held to the
+    # port's plain CPU run (tools/plan_order_reference.py --forms); the
+    # momentum exit on the component's padded state under each; and on the
+    # 6,000-node graph (its plan's row block is 512) the one start in f32,
+    # with bf16 products and with bf16 weights under "mxu2", each held to the
+    # same run of the plain versions on the CPU, and its momentum exits.
+    t_phase = time.perf_counter()
+    forms = {}
+
+    def form_bound(lay, products, order, lazy):
+        # Bytes: as the default forms' (phase 12), with 2 B per weight for
+        # bf16 weights and each kept entry's 2 B slot for the mxu2 and vpu
+        # orders; a v1 tail's chunks (col, row, weight, their base and
+        # window) read by spmv_v1_f32.  Operations: a product and an add per
+        # entry, one rounding more with bf16 products, the lazy walk's scaled
+        # gather and its epilogue.
+        nn, pp, m = lay.num_nodes, lay.padded_nodes, lay.cols.numel()
+        tail = lay.tail
+        if isinstance(tail, CooTail):
+            t_bytes, t_m = 12 * tail.num_entries, tail.num_entries
+        elif isinstance(tail, V1Layout):
+            t_bytes = tail.num_chunks * (512 * 8 + 8) + 4 * tail.win_ptr.numel()
+            t_m = int((tail.weights != 0).sum())
+        else:
+            t_bytes = t_m = 0
+        entries = 4 * (nn + 1) + m * (6 if products == "bf16w" else 8) + (0 if order == "mxu" else 2 * m) + t_bytes
+        per = 2 + (products != "f32") + lazy
+        if lazy:
+            return bound(entries + 12 * pp, per * (m + t_m) + 3 * pp)
+        return bound(entries + 4 * nn + 4 * pp, per * (m + t_m))
+
+    def form_check(lay, x2d, d2d, reduce, products, lazy, lib=None, timed=True):
+        bf16, bf16w = products != "f32", products == "bf16w"
+        kern = v2_kernel(lay, bf16, reduce, bf16w, lazy)
+        kw = dict(reduce=reduce, bf16_weights=bf16w)
+        if lazy:
+            def run():
+                return spmv_v2_cuda(lay, x2d, bf16, dsinv=d2d, **kw)
+
+            def plain():
+                return lazy_walk_v2_plain(lay, x2d, d2d, bf16, **kw)
+        else:
+            def run():
+                return spmv_v2_cuda(lay, x2d, bf16, **kw)
+
+            def plain():
+                return spmv_v2_plain(lay, x2d, bf16, **kw)
+        err = held_bitwise(run, plain, f"{kern.symbol} (row block {lay.rblock})")
+        if not timed:
+            return
+        order = v2_order(lay, reduce)[0]
+        # Beside it, on the same layout and state, the default order's form
+        # (f32 weights where the form is the default order with bf16
+        # weights).
+        base_w = bf16w and order != "mxu"
+        base_d = d2d if lazy else None
+        base_us = device_us_per_launch(
+            lambda: [spmv_v2_cuda(lay, x2d, bf16, dsinv=base_d, bf16_weights=base_w) for _ in range(50)],
+            "spmv_v2_kernel")
+        e = forms[kern.symbol] = dict(
+            err=err, ms=cuda_ms(run, 200), plain_ms=cuda_ms(plain, 3),
+            library_ms=None if lib is None else cuda_ms(lib, 200),
+            library_device_us=None if lib is None else library_device_us(lib),
+            device_us=device_us_per_launch(lambda: [run() for _ in range(50)], "spmv_v2_kernel"),
+            bound=form_bound(lay, products, order, lazy), rblock=lay.rblock, nodes=lay.num_nodes,
+            base_device_us=None if base_us is None else base_us[0],
+        )
+        print(f"K1 {kern.symbol} at row block {lay.rblock} ({lay.num_nodes} nodes, padded state): bitwise equal to "
+              f"its plain version; {e['ms']:.4f} ms, device {fmt_us(e['device_us'])} per launch, plain "
+              f"{e['plain_ms']:.3f} ms, " + ("library none (no PyTorch call rounds each product or weight to bf16)"
+                                             if lib is None else f"library {e['library_ms']:.4f} ms (device "
+                                             f"{fmt_us([e['library_device_us']])})")
+              + f", bound {e['bound'][0]:.5f} ms by {e['bound'][1]}; the default's order on the same layout "
+              f"{fmt_us(base_us)}")
+
+    vlay_w = dataclasses.replace(vlay, weights_bf16=to_bf16(vlay.weights))
+    lib_spmv = lambda: a_g @ xs_n  # noqa: E731
+    lib_lazy = lambda: 0.5 * (xs_n + ds_n * (a_g @ (ds_n * xs_n)))  # noqa: E731
+    for lazy in (False, True):
+        form_check(vlay_w, xs2d, ds2d, "mxu", "bf16w", lazy)
+        for products in ("f32", "bf16i", "bf16w"):
+            form_check(vlay_w, xs2d, ds2d, "vpu", products, lazy,
+                       lib=(lib_lazy if lazy else lib_spmv) if products == "f32" else None)
+    check(v2_kernel(vlay, False, "mxu2") is K1_V2 and v2_kernel(vlay, True, "mxuv", lazy=True) is K1_LAZY_V2_BF16I,
+          "at row block 16,384 mxu2 and mxuv do not take the default's entry point")
+    hg6 = Hypergraph(6000, 7800, pins6, offs6)
+    g6d = host6.to_device(dev)
+    a6 = torch.sparse_csr_tensor(g6d.indptr.long(), g6d.indices.long(), g6d.data, size=(6000, 6000))
+    for rb6 in (512, 2048):
+        lay6r = CsrPlan.for_graph(g6d, kernel="v2", rblock=rb6, bf16_weights=True).layout
+        p6 = lay6r.padded_nodes
+        x6p = torch.zeros(p6, device=dev)
+        x6p[:6000] = x6d
+        x6p[:6000:89] = -0.0
+        d6p = torch.zeros(p6, device=dev)
+        deg6 = torch.as_tensor(host6.weighted_degrees.astype(np.float32)).to(dev)
+        d6p[:6000] = torch.sqrt(torch.where(deg6 > 0, deg6, 1.0).double()).float().reciprocal()
+        x6n, d6n = x6p[:6000], d6p[:6000]
+        for lazy in (False, True):
+            for products in ("f32", "bf16i", "bf16w"):
+                lib = None
+                if products == "f32":
+                    lib = (lambda: 0.5 * (x6n + d6n * (a6 @ (d6n * x6n)))) if lazy else (lambda: a6 @ x6n)
+                form_check(lay6r, x6p.view(-1, 128), d6p.view(-1, 128), "mxu2", products, lazy, lib=lib,
+                           timed=rb6 == 512)
+        check(v2_order(lay6r, "mxu2") == ("mxu2", 4 if rb6 == 512 else 2), f"mxu2 at row block {rb6}")
+
+    def path(env, fn):
+        with knobs(env):
+            reset_counts()
+            out = fn()
+            launched = {kern.symbol: kern.launches for kern in all_kernels if kern.launches}
+        return out, launched
+
+    form_paths = {}
+    form_launches = {}
+    power_kernels = {"spmv_v2_f32", "spmv_v2_bf16i_f32"} | {k.symbol for k in K1_V2_FORMS.values() if not
+                                                             k.symbol.startswith("lazy")}
+    for tag, env, inter, sym, want in (
+        ("bf16 weights", BF16W, "bfloat16", "spmv_v2_bf16w_f32", PLAN_BF16I_BF16W),
+        ("vpu", VPU, "bfloat16", "spmv_v2_vpu_bf16i_f32", PLAN_BF16I_VPU),
+        ("vpu, bf16 weights", {**VPU, **BF16W}, "bfloat16", "spmv_v2_vpu_bf16w_f32", PLAN_BF16I_BF16W_VPU),
+        ("vpu, f32 products", VPU, "float32", "spmv_v2_vpu_f32", PLAN_F32_VPU),
+    ):
+        (r, r_s), launched = path(env, lambda inter=inter: plan_run(SEED, inter, True))
+        rk = r.kl
+        got = (r.spectral_iterations, rk.iterations, rk.initial_cut, rk.best_cut, rk.final_cut)
+        # The power steps and the final quotient through the form, the KL
+        # pass's A @ s and recount through the default's f32 form (the JAX
+        # package's spmv ignores the knobs).
+        others = {k: v for k, v in launched.items() if k in power_kernels and k not in (sym, "spmv_v2_f32")}
+        check(launched.get(sym, 0) == r.spectral_iterations + 1 and launched.get("spmv_v2_f32", 0) == 2 and not others,
+              f"the one start ({tag}) launched {launched}")
+        check(got == want, f"the one start ({tag}) gave {got}, not the CPU run's {want}")
+        drift = abs(rk.final_cut - rk.verified_cut) / rk.final_cut
+        recount = host_cut(g_host, np.asarray(rk.best_sides))
+        check(drift <= 1e-5 and rk.best_cut <= rk.initial_cut and abs(recount - rk.best_cut) <= 1e-4 * rk.best_cut,
+              f"the one start ({tag}): drift {drift:.3g}, best {rk.best_cut}, initial {rk.initial_cut}, recount {recount}")
+        form_paths[f"one start, {tag}"] = {"iterations": r.spectral_iterations, "swaps": rk.iterations,
+                                           "initial": rk.initial_cut, "best": rk.best_cut, "e2e_s": r_s}
+        form_launches[sym] = launched[sym]
+        print(f"plan path one start at gen {MULTIPLIER}x, {tag} ({inter}): {r.spectral_iterations} power iterations, "
+              f"initial cut {rk.initial_cut}, best {rk.best_cut} after {rk.iterations} swaps, final {rk.final_cut}, "
+              f"verified {rk.verified_cut}: the port's plain CPU run bit for bit; e2e {r_s:.3f} s; launches {launched}")
+    with knobs(BF16W):
+        lkp_w = lcc_kl_host.to_device(dev, torch.float32, with_plan=True)
+    check(lkp_w.plan.layout.weights_bf16 is not None and lkp.plan.layout.weights_bf16 is None,
+          "the component's plans: bf16 weights kept where the knob is not set, or not kept where it is")
+
+    def momentum_form(graph, inter):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = power_partition_fiedler(graph, dataclasses.replace(mom_config, inter_dtype=inter), dtype=torch.float32)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    for tag, graph, env, inter, sym in (
+        ("bf16 weights", lkp_w, {}, "bfloat16", "lazy_walk_v2_bf16w_f32"),
+        ("vpu", lkp, VPU, "bfloat16", "lazy_walk_v2_vpu_bf16i_f32"),
+        ("vpu, bf16 weights", lkp_w, VPU, "bfloat16", "lazy_walk_v2_vpu_bf16w_f32"),
+        ("vpu, f32 products", lkp, VPU, "float32", "lazy_walk_v2_vpu_f32"),
+    ):
+        ((m_lam, m_med, m_vals, m_sides, m_iters), m_s), launched = path(env, lambda g_=graph, i_=inter: momentum_form(g_, i_))
+        check(launched.get(sym, 0) > m_iters and np.isfinite(m_vals).all() and np.isfinite(m_lam),
+              f"the momentum exit ({tag}) launched {launched}")
+        ham = int((m_sides != mo_sides).sum())
+        ham = min(ham, ln - ham)
+        cos = float(abs(np.dot(m_vals, mo_vals)) / np.linalg.norm(m_vals) / np.linalg.norm(mo_vals))
+        form_paths[f"momentum, {tag}"] = {"iterations": m_iters, "hamming_to_csr_f32": ham, "cos_to_csr_f32": cos,
+                                          "e2e_s": m_s}
+        form_launches[sym] = launched[sym]
+        print(f"momentum on the component's padded state, {tag} ({inter}): {m_iters} steps, split {ham} nodes from "
+              f"the CSR f32 run's, cos {cos:.9f}, e2e {m_s:.3f} s; launches {launched}")
+    del lkp_w
+
+    threads = torch.get_num_threads()
+    for tag, env, inter, sym in (
+        ("mxu2, f32 products", {**MXU2, "EIG_KL_TPU_BF16_W": None}, "float32", "spmv_v2_mxu2_f32"),
+        ("mxu2", {**MXU2, "EIG_KL_TPU_BF16_W": None}, "bfloat16", "spmv_v2_mxu2_bf16i_f32"),
+        ("mxu2, bf16 weights", {**MXU2, **BF16W}, "bfloat16", "spmv_v2_mxu2_bf16w_f32"),
+    ):
+        (r, r_s), launched = path(env, lambda inter=inter: plan_run(SEED, inter, True, circuit=hg6))
+        torch.set_num_threads(1)
+        try:
+            with knobs(env):
+                rc = fused_partition(hg6, use_eig=True, device="cpu", with_plan=True,
+                                     spectral_config=SpectralConfig(solver="power", seed=SEED, inter_dtype=inter))
+        finally:
+            torch.set_num_threads(threads)
+        got6, want6 = ((x.spectral_iterations, x.kl.iterations, x.kl.best_cut, x.kl.verified_cut) for x in (r, rc))
+        check(got6 == want6 and launched.get(sym, 0) == r.spectral_iterations + 1,
+              f"the 6,000-node one start ({tag}) gave {got6} (CPU {want6}), launches {launched}")
+        form_paths[f"6,000 nodes one start, {tag}"] = {"iterations": r.spectral_iterations, "swaps": r.kl.iterations,
+                                                       "best": r.kl.best_cut, "e2e_s": r_s}
+        form_launches[sym] = launched[sym]
+        print(f"plan path one start on the 6,000-node graph, {tag} ({inter}): {r.spectral_iterations} power "
+              f"iterations, {r.kl.iterations} swaps, best cut {r.kl.best_cut}, verified {r.kl.verified_cut}: the "
+              f"plain CPU run's bits; e2e {r_s:.3f} s; launches {launched}")
+        lsym = sym.replace("spmv", "lazy_walk")
+        with knobs(env):
+            g6p = host6.to_device(dev, torch.float32, with_plan=True)
+        check(g6p.plan.layout.rblock == 512, f"the 6,000-node plan's row block {g6p.plan.layout.rblock}")
+        ((m_lam, _, m_vals, _, m_iters), m_s), launched = path(env, lambda: momentum_form(g6p, inter))
+        check(launched.get(lsym, 0) > m_iters and np.isfinite(m_vals).all(),
+              f"the 6,000-node momentum exit ({tag}) launched {launched}")
+        form_paths[f"6,000 nodes momentum, {tag}"] = {"iterations": m_iters, "e2e_s": m_s}
+        form_launches[lsym] = launched[lsym]
+        print(f"momentum on the 6,000-node graph's padded state, {tag}: {m_iters} steps, e2e {m_s:.3f} s; "
+              f"launches {launched}")
+    check(set(form_launches) == set(forms), f"paths launched {sorted(form_launches)}, timed {sorted(forms)}")
+    print(json.dumps({"v2_forms": {"card": card, "paths": form_paths}}))
+    print(f"forms phase: {time.perf_counter() - t_phase:.1f} s")
 
     kernels = [
         {
@@ -2686,6 +2959,31 @@ def main() -> int:
         "device_us_per_launch_padded_state": None if v1["padded_device_us"] is None else v1["padded_device_us"][0],
         "launches_plan_path_gen002": r02p_launches["spmv_v1_f32"],
     })
+    form_replaces = {
+        "mxu": "eig_kl_tpu/ops/spmv_pallas.py:1049 (_gather_kernel with bf16 weights, EIG_KL_TPU_BF16_W: :109, "
+               ":477-482) and :1118 (_reduce_kernel_mxu), in their own order",
+        "mxu2": "eig_kl_tpu/ops/spmv_pallas.py:1049 (_gather_kernel) and :1276 (_reduce_kernel_mxu2, "
+                "EIG_KL_TPU_REDUCE_IMPL=mxu2), in their own order",
+        "vpu": "eig_kl_tpu/ops/spmv_pallas.py:1049 (_gather_kernel) and :1080 (_reduce_kernel, "
+               "EIG_KL_TPU_REDUCE_IMPL=vpu), in their own order",
+    }
+    for sym, e in forms.items():
+        order = "mxu2" if "_mxu2" in sym else "vpu" if "_vpu" in sym else "mxu"
+        kernels.append({
+            "name": f"K1 {sym}, {'the lazy walk' if sym.startswith('lazy') else 'A @ x'} in the v2 order of its "
+                    f"form, at row block {e['rblock']} ({e['nodes']} nodes, padded state); launches from the "
+                    f"plan path under its knobs",
+            "route": "cuda", "source": "eig_kl_tpu_torch/csrc/spmv_csr.cu",
+            "replaces": form_replaces[order]
+            + (", with eig_kl_tpu/spectral/power.py:305's epilogue" if sym.startswith("lazy") else ""),
+            "launches": form_launches[sym], "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound"][0], "bound_by": e["bound"][1], "library_ms": e["library_ms"],
+            "library_device_us": e["library_device_us"],
+            "device_us_per_launch": None if e["device_us"] is None else e["device_us"][0],
+            "default_order_device_us_same_layout": e["base_device_us"],
+            **({"library_none_because": "no PyTorch call rounds each product (or weight) to bf16 before the sum"}
+               if e["library_ms"] is None else {}),
+        })
     for dt, symbol in (("f32", "kth_smallest_f32"), ("f64", "kth_smallest_f64")):
         e = k7[f"{n} {dt}"]
         kernels.append({

@@ -630,15 +630,32 @@ spmv_v1_kernel(const int* __restrict__ x_base, const short* __restrict__ col_loc
 // (kBf16: then to bf16, round to nearest even), never contracted into an
 // add, as in the TPU kernels' interpret-mode program on the CPU.
 //
+// The opt-in reduce kernels (EIG_KL_TPU_REDUCE_IMPL) add a sub-chunk's
+// slots in another order, which needs each kept entry's slot in its
+// sub-chunk (slot, 0-511):
+//  * kReduce == kV2Lanes, _reduce_kernel_mxu2 (:1276) at row blocks up to
+//    2,048: its factored dot keeps `lanes` (4 or 2) interleaved partials,
+//    slot s adding into partial s % lanes from +0, and adds them pairwise,
+//    (p0 + p1) + (p2 + p3) or p0 + p1 (from 2,176 rows on, its order is
+//    the default's and the wrapper sends it there);
+//  * kReduce == kV2Blocks, _reduce_kernel (:1080, "vpu"): its sum over the
+//    512 slots adds each 32 slots from +0, then those block sums one after
+//    the other.
+// TW is the weights' type: float, or __nv_bfloat16 (EIG_KL_TPU_BF16_W, the
+// plan's weights_bf16, read only with bf16 products: the product
+// round(x * float(w)) in f32, then to bf16).
+//
 // Design: K1's warp per 32 rows.  The warp's rows span one range of the
 // kept entries; its lanes stage that range 256 entries at a time into
 // shared memory, loads coalesced and 8 gathers of x in flight per lane:
-// each entry's rounded product and its sub-chunk (col >> shift).  Then each
-// lane walks its own row in the buffer, carrying its partial and its sum
-// across the stages.  kLazy: the lazy walk 0.5 * fma(dsinv, A (dsinv * w),
-// w), x being w, the gather dsinv[j] * w[j] with one rounding.  Rows n ..
-// rows - 1 (the padded state's padding) are empty.
+// each entry's rounded product and its sub-chunk (col >> shift; with the
+// slot in the low 9 bits where the order reads it).  Then each lane walks
+// its own row in the buffer, carrying its partials and its sum across the
+// stages.  kLazy: the lazy walk 0.5 * fma(dsinv, A (dsinv * w), w), x being
+// w, the gather dsinv[j] * w[j] with one rounding.  Rows n .. rows - 1 (the
+// padded state's padding) are empty.
 constexpr int kV2Chunk = kStage;  // entries a warp stages at a time
+constexpr int kV2Seq = 0, kV2Lanes = 1, kV2Blocks = 2;  // the reduce's orders
 
 template <bool kBf16>
 __device__ __forceinline__ float product(float w, float x) {
@@ -650,14 +667,20 @@ __device__ __forceinline__ float product(float w, float x) {
   }
 }
 
-template <bool kBf16, bool kLazy>
+__device__ __forceinline__ float weight(const float* w) { return __ldg(w); }
+__device__ __forceinline__ float weight(const __nv_bfloat16* w) { return __bfloat162float(__ldg(w)); }
+
+template <bool kBf16, bool kLazy, int kReduce, class TW>
 __global__ void __launch_bounds__(kThreads)
 spmv_v2_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
-               const float* __restrict__ w, int shift, const int* __restrict__ tail_warp,
+               const TW* __restrict__ w, const short* __restrict__ slot, int shift, int lanes,
+               const int* __restrict__ tail_warp,
                const int* __restrict__ tail_rows, const int* __restrict__ tail_cols,
                const float* __restrict__ tail_w, const float* __restrict__ tail_y,
                const float* __restrict__ x,
                const float* __restrict__ dsinv, float* __restrict__ y, int n, int rows) {
+  static_assert(kBf16 || std::is_same_v<TW, float>, "bf16 weights come with bf16 products");
+  constexpr int kSlotBits = kReduce == kV2Seq ? 0 : 9;
   __shared__ float e_s[kWarps][kV2Chunk];
   __shared__ int g_s[kWarps][kV2Chunk];
   const int warp = threadIdx.x >> 5;
@@ -680,18 +703,37 @@ spmv_v2_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
     const int span_hi = __ldg(ptr + min(r0 + 32, n));
     const int t_lo = tail_warp != nullptr ? __ldg(tail_warp + (r0 >> 5)) : 0;
     const int t_hi = tail_warp != nullptr ? __ldg(tail_warp + (r0 >> 5) + 1) : 0;
-    float part = 0.0f;
+    // The partials of the current sub-chunk: part (kV2Lanes: p0 .. p3, one
+    // per slot % lanes; kV2Blocks: the block sums so far, blk the current
+    // 32-slot block's).
+    float part = 0.0f, p1 = 0.0f, p2 = 0.0f, p3 = 0.0f, blk = 0.0f;
     int group = -1;  // the first entry's flush adds +0 to +0
+    int block = -1;
+    auto flush = [&]() {
+      if constexpr (kReduce == kV2Lanes) {
+        const float pair = __fadd_rn(part, p1);
+        sum = __fadd_rn(sum, lanes == 4 ? __fadd_rn(pair, __fadd_rn(p2, p3)) : pair);
+        p1 = p2 = p3 = 0.0f;
+      } else if constexpr (kReduce == kV2Blocks) {
+        sum = __fadd_rn(sum, __fadd_rn(part, blk));
+        blk = 0.0f;
+      } else {
+        sum = __fadd_rn(sum, part);
+      }
+      part = 0.0f;
+    };
     for (int c0 = span_lo; c0 < span_hi; c0 += kV2Chunk) {
       const int len = min(kV2Chunk, span_hi - c0);
       int col[kPerLane];
+      int sl[kPerLane];
       float wt[kPerLane];
       float xg[kPerLane];
 #pragma unroll
       for (int q = 0; q < kPerLane; ++q) {
         const int i = min(lane + 32 * q, len - 1);
         col[q] = __ldg(cols + c0 + i);
-        wt[q] = __ldg(w + c0 + i);
+        wt[q] = weight(w + c0 + i);
+        if constexpr (kReduce != kV2Seq) sl[q] = __ldg(slot + c0 + i);
       }
 #pragma unroll
       for (int q = 0; q < kPerLane; ++q) xg[q] = gather(col[q]);
@@ -700,23 +742,44 @@ spmv_v2_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
         const int i = lane + 32 * q;
         if (i < len) {
           e_s[warp][i] = product<kBf16>(wt[q], xg[q]);
-          g_s[warp][i] = col[q] >> shift;
+          int key = col[q] >> shift;
+          if constexpr (kReduce != kV2Seq) key = (key << kSlotBits) | sl[q];
+          g_s[warp][i] = key;
         }
       }
       __syncwarp();
       const int ke = min(hi, c0 + len);
       for (int k = max(lo, c0); k < ke; ++k) {
-        const int gk = g_s[warp][k - c0];
+        const int gs = g_s[warp][k - c0];
+        const int gk = gs >> kSlotBits;
+        const float e = e_s[warp][k - c0];
         if (gk != group) {
-          sum = __fadd_rn(sum, part);
-          part = 0.0f;
+          flush();
           group = gk;
+          block = -1;
         }
-        part = __fadd_rn(part, e_s[warp][k - c0]);
+        if constexpr (kReduce == kV2Lanes) {
+          switch (gs & (lanes - 1)) {
+            case 0: part = __fadd_rn(part, e); break;
+            case 1: p1 = __fadd_rn(p1, e); break;
+            case 2: p2 = __fadd_rn(p2, e); break;
+            default: p3 = __fadd_rn(p3, e); break;
+          }
+        } else if constexpr (kReduce == kV2Blocks) {
+          const int b = (gs & 511) >> 5;
+          if (b != block) {
+            part = __fadd_rn(part, blk);
+            blk = 0.0f;
+            block = b;
+          }
+          blk = __fadd_rn(blk, e);
+        } else {
+          part = __fadd_rn(part, e);
+        }
       }
       __syncwarp();
     }
-    sum = __fadd_rn(sum, part);
+    flush();
     if (row < n && tail_y != nullptr) {
       sum = __fadd_rn(sum, __ldg(tail_y + row));
     } else {
@@ -907,27 +970,32 @@ extern "C" int spmv_v1_f32(const void* x_base, const void* col_local, const void
 
 namespace {
 
-// The kept entries' CSR arrays (ptr, cols, w) and the restart shift; the
-// tail: a COO tail's triplets (tail_rows, tail_cols, tail_w) in CSR order
-// and tail_warp, where the triplets of rows 32 i .. 32 i + 31 start (i up
-// to ceil(n / 32)), or tail_y, the v1 tail's A @ x (at most one of the two,
-// or neither).  x (the lazy walk:
-// w) and y hold rows values (n, or the padded state's P).
-template <bool kBf16, bool kLazy>
-int spmv_v2(const void* ptr, const void* cols, const void* w, int shift, const void* tail_warp,
-            const void* tail_rows, const void* tail_cols, const void* tail_w, const void* tail_y, const void* x,
-            const void* dsinv, void* y, int n, int rows, void* stream) {
+// The kept entries' CSR arrays (ptr, cols, w: float, or bf16 for the bf16w
+// forms), their slots in their sub-chunks (slot, int16; read by the mxu2
+// and vpu forms only, null for the others), the restart shift and the mxu2
+// forms' lanes (2 or 4); the tail: a COO tail's triplets (tail_rows,
+// tail_cols, tail_w) in CSR order and tail_warp, where the triplets of rows
+// 32 i .. 32 i + 31 start (i up to ceil(n / 32)), or tail_y, the v1 tail's
+// A @ x (at most one of the two, or neither).  x (the lazy walk: w) and y
+// hold rows values (n, or the padded state's P); dsinv (the lazy walk's,
+// null for the SpMV) as many.
+template <bool kBf16, bool kLazy, int kReduce, class TW>
+int spmv_v2(const void* ptr, const void* cols, const void* w, const void* slot, int shift, int lanes,
+            const void* tail_warp, const void* tail_rows, const void* tail_cols, const void* tail_w,
+            const void* tail_y, const void* x, const void* dsinv, void* y, int n, int rows, void* stream) {
   const bool coo = tail_warp != nullptr;
   if (rows < n || (tail_y != nullptr && coo) || coo != (tail_rows != nullptr) ||
-      coo != (tail_cols != nullptr) || coo != (tail_w != nullptr) || (kLazy && dsinv == nullptr)) {
+      coo != (tail_cols != nullptr) || coo != (tail_w != nullptr) || kLazy != (dsinv != nullptr) ||
+      (kReduce == kV2Seq) != (slot == nullptr) || (kReduce == kV2Lanes) != (lanes == 2 || lanes == 4) ||
+      (kReduce != kV2Lanes && lanes != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (rows > 0) {
-    spmv_v2_kernel<kBf16, kLazy><<<blocks_for(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(ptr), static_cast<const int*>(cols), static_cast<const float*>(w), shift,
-        static_cast<const int*>(tail_warp), static_cast<const int*>(tail_rows),
-        static_cast<const int*>(tail_cols), static_cast<const float*>(tail_w),
-        static_cast<const float*>(tail_y), static_cast<const float*>(x),
+    spmv_v2_kernel<kBf16, kLazy, kReduce, TW><<<blocks_for(rows), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(ptr), static_cast<const int*>(cols), static_cast<const TW*>(w),
+        static_cast<const short*>(slot), shift, lanes, static_cast<const int*>(tail_warp),
+        static_cast<const int*>(tail_rows), static_cast<const int*>(tail_cols),
+        static_cast<const float*>(tail_w), static_cast<const float*>(tail_y), static_cast<const float*>(x),
         static_cast<const float*>(dsinv), static_cast<float*>(y), n, rows);
   }
   return static_cast<int>(cudaGetLastError());
@@ -935,40 +1003,33 @@ int spmv_v2(const void* ptr, const void* cols, const void* w, int shift, const v
 
 }  // namespace
 
-// spmv_v2_f32 / spmv_v2_bf16i_f32: y = A @ x with f32 / bf16 products.
-extern "C" int spmv_v2_f32(const void* ptr, const void* cols, const void* w, int shift,
-                           const void* tail_warp, const void* tail_rows, const void* tail_cols,
-                           const void* tail_w, const void* tail_y, const void* x, void* y, int n, int rows,
-                           void* stream) {
-  return spmv_v2<false, false>(ptr, cols, w, shift, tail_warp, tail_rows, tail_cols, tail_w, tail_y, x,
-                               nullptr, y, n, rows, stream);
-}
-
-extern "C" int spmv_v2_bf16i_f32(const void* ptr, const void* cols, const void* w, int shift,
-                                 const void* tail_warp, const void* tail_rows, const void* tail_cols,
-                                 const void* tail_w, const void* tail_y, const void* x, void* y, int n,
-                                 int rows, void* stream) {
-  return spmv_v2<true, false>(ptr, cols, w, shift, tail_warp, tail_rows, tail_cols, tail_w, tail_y, x,
-                              nullptr, y, n, rows, stream);
-}
-
-// lazy_walk_v2_f32 / lazy_walk_v2_bf16i_f32: y = 0.5 * fma(dsinv, A (dsinv * w), w),
+// The v2 entry points, each (ptr, cols, w, slot, shift, lanes, tail_warp,
+// tail_rows, tail_cols, tail_w, tail_y, x, dsinv, y, n, rows, stream):
+// spmv_v2[_mxu2 | _vpu][_bf16i | _bf16w]_f32, y = A @ x with f32 products,
+// bf16 products, or bf16 products of bf16 weights, in the order of the
+// default reduce, of _reduce_kernel_mxu2 or of _reduce_kernel (dsinv null);
+// lazy_walk_v2..._f32 the same with y = 0.5 * fma(dsinv, A (dsinv * w), w),
 // tail_y (if set) the v1 tail's A (dsinv * w).
-extern "C" int lazy_walk_v2_f32(const void* ptr, const void* cols, const void* w, int shift,
-                                const void* tail_warp, const void* tail_rows, const void* tail_cols,
-                                const void* tail_w, const void* tail_y, const void* state, const void* dsinv,
-                                void* y, int n, int rows, void* stream) {
-  return spmv_v2<false, true>(ptr, cols, w, shift, tail_warp, tail_rows, tail_cols, tail_w, tail_y, state,
-                              dsinv, y, n, rows, stream);
-}
+#define V2_ENTRY(NAME, BF16, LAZY, REDUCE, TW)                                                          \
+  extern "C" int NAME(const void* ptr, const void* cols, const void* w, const void* slot, int shift,    \
+                      int lanes, const void* tail_warp, const void* tail_rows, const void* tail_cols,   \
+                      const void* tail_w, const void* tail_y, const void* x, const void* dsinv, void* y, \
+                      int n, int rows, void* stream) {                                                  \
+    return spmv_v2<BF16, LAZY, REDUCE, TW>(ptr, cols, w, slot, shift, lanes, tail_warp, tail_rows,       \
+                                           tail_cols, tail_w, tail_y, x, dsinv, y, n, rows, stream);     \
+  }
 
-extern "C" int lazy_walk_v2_bf16i_f32(const void* ptr, const void* cols, const void* w, int shift,
-                                      const void* tail_warp, const void* tail_rows, const void* tail_cols,
-                                      const void* tail_w, const void* tail_y, const void* state,
-                                      const void* dsinv, void* y, int n, int rows, void* stream) {
-  return spmv_v2<true, true>(ptr, cols, w, shift, tail_warp, tail_rows, tail_cols, tail_w, tail_y, state,
-                             dsinv, y, n, rows, stream);
-}
+#define V2_FORMS(SPMV, LAZY_WALK, REDUCE)                                        \
+  V2_ENTRY(SPMV##_f32, false, false, REDUCE, float)                              \
+  V2_ENTRY(SPMV##_bf16i_f32, true, false, REDUCE, float)                         \
+  V2_ENTRY(SPMV##_bf16w_f32, true, false, REDUCE, __nv_bfloat16)                 \
+  V2_ENTRY(LAZY_WALK##_f32, false, true, REDUCE, float)                          \
+  V2_ENTRY(LAZY_WALK##_bf16i_f32, true, true, REDUCE, float)                     \
+  V2_ENTRY(LAZY_WALK##_bf16w_f32, true, true, REDUCE, __nv_bfloat16)
+
+V2_FORMS(spmv_v2, lazy_walk_v2, kV2Seq)
+V2_FORMS(spmv_v2_mxu2, lazy_walk_v2_mxu2, kV2Lanes)
+V2_FORMS(spmv_v2_vpu, lazy_walk_v2_vpu, kV2Blocks)
 
 extern "C" const char* spmv_csr_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

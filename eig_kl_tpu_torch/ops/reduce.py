@@ -556,9 +556,9 @@ def fused_dot_batch(xs, ys, order: str) -> torch.Tensor:
       "slice" a bare slice (the mega engine's initial cut and the padded
       deflation dots), "signs" the signs ``1 - 2 fs`` of a split (its
       verified cut), "laplacian" the Laplacian ``2 v - 2 (A v) / deg``
-      with its row sums out of the loop (the CSR solve's final Rayleigh
-      quotient on a graph wider than 32).  A dot of one value is its
-      product.
+      with its row sums out of the loop and the degrees an operand (the
+      CSR solve's final Rayleigh quotient on a graph wider than 32).  A dot
+      of one value is its product.
     * ``"chain"`` (the lazy walk's row sums fused in keep the loop scalar):
       one chain of fused multiply-adds from +0 in index order, no product
       rounded on its own (:func:`fma_dot_plain` with ``unfused=0``).
@@ -611,7 +611,12 @@ class LanesForm(NamedTuple):
 
 #: The producers read (:func:`fused_dot_batch`).  "laplacian" was read in
 #: its program, on graphs wider than 32, which have 34 nodes or more: its
-#: scalar loop below 34 values was not read.  "recount" is the JAX mega
+#: scalar loop below 34 values was not read.  In the solves' programs the
+#: safe degrees are an operand of its loop (a fusion of their own, which the
+#: steps read too): the loop unrolls to 223 values, with no 8-lane tie,
+#: fitted at 34-418 values, 4 draws each, and to the sign and momentum exits
+#: at 195-223 values (ROADMAP.md C9; with the degrees' select in the loop,
+#: as in a program of the quotient alone, it unrolls only to 191).  "recount" is the JAX mega
 #: engine's verified cut ``vdot(1 - 2 fs, A s)`` in its own program (the
 #: replayed split against the plan's SpMV, inside ``_finalize_batch``'s
 #: ``lax.map``, single start and batched alike), fitted at 34-3,000 values
@@ -621,14 +626,18 @@ class LanesForm(NamedTuple):
 #: fusion of their own, its epilogue in the dot's loop), fitted to that
 #: quotient alone at 34-329 values, 8 draws each, and to whole JAX momentum
 #: runs: unrolled from 34 values to 223, 8 lanes at a tie in the unrolled
-#: epilogue and in the vector loop's (ROADMAP.md C).
+#: epilogue and in the vector loop's (ROADMAP.md C).  Both were read on
+#: graphs of two row windows (33-64 columns); with three (65-96; read at 72)
+#: each loop reads one window more, and LLVM unrolls both only to 191 values
+#: with no 8-lane tie: "windows3", fitted to both quotients at 62-329 values.
 LANES_FORMS = {
     "lanes": LanesForm(49, 128, True, True),
     "slice": LanesForm(59, 128, True, True),
     "signs": LanesForm(37, 351, False, False),
-    "laplacian": LanesForm(33, 191, False, False),
+    "laplacian": LanesForm(33, 223, False, False),
     "recount": LanesForm(37, 128, False, True),
     "walk": LanesForm(33, 223, False, True, True),
+    "windows3": LanesForm(33, 191, False, False),
 }
 #: The orders of a fused dot (:func:`fused_dot_batch`) by name.
 FUSED_ORDERS = ("chain", *LANES_FORMS)

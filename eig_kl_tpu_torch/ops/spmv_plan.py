@@ -60,10 +60,37 @@ So the port keeps, for v2, the CSR arrays of the kept entries, the shift
 that marks a partial's restart, and the tail; not the TPU's slot grid.
 The TPU plan's other geometry (``n_cb``, ``n_rbp``, ``g1``, ``g2``) is kept
 too: the bf16 rule reads ``g1`` (:attr:`V2Layout.g1`).  The environment
-pins ``EIG_KL_TPU_RBLOCK`` / ``EIG_KL_TPU_QUANTUM`` are not copied (the
-builder takes ``rblock`` and ``quantum`` as arguments), and neither are
-the opt-in reduce variants (``EIG_KL_TPU_REDUCE_IMPL``): the default
-"mxu" reduce is the one ported.
+pins ``EIG_KL_TPU_RBLOCK`` / ``EIG_KL_TPU_QUANTUM`` are not copied
+(:func:`build_v2_layout` takes ``rblock`` and ``quantum`` as arguments).
+
+The v2 SpMV's other forms, which only the power solve's plan branch reads
+(``spmv_pallas_2d``, ``:444``; ``spmv_pallas`` and so the mega engine and
+``ops/partition.py:spmv`` ignore them):
+
+* ``EIG_KL_TPU_REDUCE_IMPL`` (``:83-97``, ``:1470-1480``) picks the reduce
+  kernel, in f32 and with bf16 products alike (:func:`reduce_impl_from_env`).
+  "mxuv" (``_reduce_kernel_mxuv``, ``:1207``) is the default's dot with
+  its one-hot built otherwise: the same order.  "mxu2"
+  (``_reduce_kernel_mxu2``, ``:1276``) contracts ``(H A, 512) x (B,
+  512)^T`` (``H = rblock / 128``); XLA's CPU dot at ``B`` <= 16 keeps 4
+  interleaved partials over the 512 slots (slot ``s`` adds into partial ``s
+  % 4`` from +0) and adds them ``(p0 + p1) + (p2 + p3)``, at ``B`` = 32 two,
+  ``p0 + p1``, and from ``B`` = 64 (``H`` >= 17) adds in slot order as the
+  default does (:func:`mxu2_lanes`).  "vpu" (``_reduce_kernel``, ``:1080``,
+  any other value) sums the ``(512, 128)`` one-hot products over the slots,
+  which XLA adds 32 slots at a time from +0, then those block sums one after
+  the other.  Both orders need each kept entry's slot in its sub-chunk
+  (:attr:`V2Layout.slots`).  Read from the dot's and the sum's programs run
+  alone on every ``H`` (the one-hot's zeros pass through the adds), and held
+  by ``tests/test_torch_v2_forms.py`` against ``spmv_pallas_2d`` at row
+  blocks 512-4,096.  ``EIG_KL_TPU_REDUCE_DOT`` and
+  ``EIG_KL_TPU_REDUCE_ROWWISE`` change no bit there, and are not read.
+* ``EIG_KL_TPU_BF16_W=1`` (``:109-123``) makes a v2 plan keep its weights
+  rounded to bf16 too (:attr:`V2Layout.weights_bf16`, read by
+  :func:`build_v2_layout` as ``build_plan_v2`` reads it, ``:930``,
+  ``:1024``); the pass-1 products read them only where they are bf16
+  (``:477-482``): ``round_bf16(x * w_bf16)``, the product in f32 first.
+  The tail keeps its f32 weights.
 
 Each kernel's arithmetic as it runs in interpret mode on the CPU was read
 from the program itself (no product is contracted into an add):
@@ -86,6 +113,8 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
+import os
 
 import numpy as np
 import torch
@@ -113,15 +142,64 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``spmv_v1_f32(x_base, col_local, row_local, weights, win_ptr,
 #: win_chunks, x, y, n, rows, windows, stream)``: one block per y window.
 K1_V1 = Kernel("spmv_csr", "spmv_v1_f32", [_P] * 8 + [_I, _I, _I, _P])
-#: The v2 order's entry points, a warp per 32 rows: ``spmv_v2_f32`` and
-#: ``spmv_v2_bf16i_f32`` (f32 and bf16 products) take ``(ptr, cols, w,
-#: shift, tail_warp, tail_rows, tail_cols, tail_w, tail_y, x, y, n, rows,
-#: stream)``; the lazy walk's ``lazy_walk_v2_f32`` and
-#: ``lazy_walk_v2_bf16i_f32`` take ``dsinv`` after ``x`` (then ``w``).
-K1_V2, K1_V2_BF16I = (Kernel("spmv_csr", sym, [_P] * 3 + [_I] + [_P] * 7 + [_I, _I, _P])
-                      for sym in ("spmv_v2_f32", "spmv_v2_bf16i_f32"))
-K1_LAZY_V2, K1_LAZY_V2_BF16I = (Kernel("spmv_csr", sym, [_P] * 3 + [_I] + [_P] * 8 + [_I, _I, _P])
-                                for sym in ("lazy_walk_v2_f32", "lazy_walk_v2_bf16i_f32"))
+#: The v2 order's entry points, a warp per 32 rows, by (reduce order,
+#: products, lazy walk): reduce order "mxu" (the default's, and "mxuv"'s),
+#: "mxu2" or "vpu"; products "f32", "bf16i" (bf16) or "bf16w" (bf16, of the
+#: bf16 weights).  ``spmv_v2[_mxu2 | _vpu][_bf16i | _bf16w]_f32`` and
+#: ``lazy_walk_v2...`` each take ``(ptr, cols, w, slot, shift, lanes,
+#: tail_warp, tail_rows, tail_cols, tail_w, tail_y, x, dsinv, y, n, rows,
+#: stream)``.
+V2_ORDERS = ("mxu", "mxu2", "vpu")
+V2_PRODUCTS = ("f32", "bf16i", "bf16w")
+K1_V2_FORMS = {
+    (order, prod, lazy): Kernel(
+        "spmv_csr",
+        f"{'lazy_walk' if lazy else 'spmv'}_v2{'' if order == 'mxu' else '_' + order}"
+        f"{'' if prod == 'f32' else '_' + prod}_f32",
+        [_P] * 4 + [_I, _I] + [_P] * 8 + [_I, _I, _P])
+    for order in V2_ORDERS for prod in V2_PRODUCTS for lazy in (False, True)
+}
+K1_V2, K1_V2_BF16I = K1_V2_FORMS["mxu", "f32", False], K1_V2_FORMS["mxu", "bf16i", False]
+K1_LAZY_V2, K1_LAZY_V2_BF16I = K1_V2_FORMS["mxu", "f32", True], K1_V2_FORMS["mxu", "bf16i", True]
+#: ``EIG_KL_TPU_REDUCE_IMPL``'s names (``_spmv_v2_call``, ``:1470-1480``).
+V2_REDUCES = ("mxu", "mxuv", "mxu2", "vpu")
+
+
+def reduce_impl_from_env() -> str:
+    """``EIG_KL_TPU_REDUCE_IMPL`` as the JAX package's v2 SpMV takes it:
+    "mxu" where unset, "mxuv" and "mxu2" as named, any other value
+    "vpu" (the ``else`` of ``:1479``)."""
+    impl = os.environ.get("EIG_KL_TPU_REDUCE_IMPL", "mxu")
+    return impl if impl in ("mxu", "mxuv", "mxu2") else "vpu"
+
+
+def bf16_weights_from_env() -> bool:
+    """``EIG_KL_TPU_BF16_W=1``: a v2 plan keeps bf16 weights
+    (``_bf16_w_enabled``, ``:109``)."""
+    return os.environ.get("EIG_KL_TPU_BF16_W") == "1"
+
+
+def mxu2_lanes(rblock: int) -> int:
+    """The interleaved partials of ``_reduce_kernel_mxu2``'s dot at a row
+    block (module docstring): its lane factor ``B`` as the kernel picks it
+    (``:1312-1316``), then 4 partials at ``B`` <= 16, 2 at 32, and 1 (the
+    default's slot order) from 64."""
+    H = rblock // 128
+    B = min((8, 16, 32, 64, 128), key=lambda b: 2 * H * (128 // b) + 2 * b)
+    return 4 if B <= 16 else 2 if B == 32 else 1
+
+
+def v2_order(layout: "V2Layout", reduce: str = "mxu") -> tuple[str, int]:
+    """``(order, lanes)``: the order of adds in a sub-chunk that ``reduce``
+    (one of :data:`V2_REDUCES`) takes on ``layout``: "mxu" (slot order;
+    "mxuv", and "mxu2" from 2,176 rows per block), "mxu2" with 2 or 4
+    lanes, or "vpu"."""
+    if reduce not in V2_REDUCES:
+        raise ValueError(f"the v2 reduce is one of {V2_REDUCES}, got {reduce!r}")
+    if reduce == "vpu":
+        return "vpu", 0
+    lanes = mxu2_lanes(layout.rblock) if reduce == "mxu2" else 1
+    return ("mxu", 0) if lanes == 1 else ("mxu2", lanes)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -273,6 +351,9 @@ class V2Layout:
       shift: a row's partial restarts from +0 where ``col >> shift``
         changes (one sub-chunk of 512 slots: ``19 - log2 Q``).
       tail: the spill: a :class:`V1Layout`, a :class:`CooTail`, or None.
+      weights_bf16: with bf16 weights (``EIG_KL_TPU_BF16_W``) the kept
+        entries' weights rounded to bf16 (round to nearest even, bfloat16[m]),
+        else None.
     """
 
     num_nodes: int
@@ -288,6 +369,28 @@ class V2Layout:
     weights: torch.Tensor
     shift: int
     tail: V1Layout | CooTail | None
+    weights_bf16: torch.Tensor | None = None
+
+    @functools.cached_property
+    def slots(self) -> torch.Tensor:
+        """int16[m]: each kept entry's slot in its pass-2 sub-chunk of 512
+        (0-511), which the "mxu2" and "vpu" orders read: a bucket's entries
+        take its ``Q`` slots in (row, column) order, and a row block's
+        buckets lie in column-block order, so an entry's place in its row
+        block's slots is ``(col >> 10) * Q`` plus its rank in its bucket.
+        Made on first use, on the host, and kept on the layout's device."""
+        ptr = self.ptr.cpu().numpy().astype(np.int64)
+        cols = self.cols.cpu().numpy().astype(np.int64)
+        rows = np.repeat(np.arange(self.num_nodes, dtype=np.int64), np.diff(ptr))
+        n_rb = -(-self.padded_nodes // self.rblock)
+        bucket = cols // PLAN_WINDOW * n_rb + rows // self.rblock
+        order = np.argsort(bucket, kind="stable")  # CSR order is (row, column) order in a bucket
+        first = np.ones(len(order), bool)
+        first[1:] = bucket[order[1:]] != bucket[order[:-1]]
+        starts = np.flatnonzero(first)
+        rank = np.empty(len(order), np.int64)
+        rank[order] = np.arange(len(order)) - np.repeat(starts, np.diff(starts, append=len(order)))
+        return _up((cols // PLAN_WINDOW * self.quantum + rank) % CHUNK, np.int16, self.ptr.device)
 
     @property
     def num_subchunks(self) -> int:
@@ -337,13 +440,15 @@ def _csr_ptr(n: int, rows: np.ndarray) -> np.ndarray:
 
 def build_v2_layout(
     n: int, rows: np.ndarray, cols: np.ndarray, weights: np.ndarray, device: torch.device | str,
-    rblock: int | None = None, quantum: int | None = None,
+    rblock: int | None = None, quantum: int | None = None, bf16_weights: bool | None = None,
 ) -> V2Layout:
     """The v2 plan of the COO entries ``(rows, cols, weights)`` (in CSR
     order), as ``eig_kl_tpu/ops/spmv_pallas.py:build_plan_v2`` decides it
     with ``use_native=False``: ``rblock`` and ``quantum`` pin the geometry
     (the search's where None; ``Q`` from the mean bucket occupancy where
-    only ``rblock`` is pinned), and ``Q`` is a power of two, 4 to 512."""
+    only ``rblock`` is pinned), and ``Q`` is a power of two, 4 to 512.
+    ``bf16_weights`` keeps the weights in bf16 too
+    (:attr:`V2Layout.weights_bf16`); None reads ``EIG_KL_TPU_BF16_W``."""
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
     weights = np.asarray(weights, np.float32)
@@ -398,10 +503,14 @@ def build_v2_layout(
             warp_ptr = np.searchsorted(tr, 32 * np.arange(-(-n // 32) + 1))
             tail = CooTail(_up(tr, np.int32, device), _up(tc, np.int32, device), _up(tw, np.float32, device),
                            _up(warp_ptr, np.int32, device))
+    if bf16_weights is None:
+        bf16_weights = bf16_weights_from_env()
+    kept_w = _up(weights[keep], np.float32, device)
     return V2Layout(
         n, P, rblock, Q, n_cb, n_rbp, n_rbp * Q, _round_up(n_cb * Q, CHUNK),
         _up(_csr_ptr(n, m_rows), np.int32, device), _up(cols[keep], np.int32, device),
-        _up(weights[keep], np.float32, device), 19 - (Q.bit_length() - 1), tail,
+        kept_w, 19 - (Q.bit_length() - 1), tail,
+        to_bf16(kept_w) if bf16_weights else None,
     )
 
 
@@ -415,6 +524,12 @@ def bf16_round(p: torch.Tensor) -> torch.Tensor:
     bits = (bits + 0x7FFF + ((bits >> 16) & 1)) & 0xFFFF0000
     bits = torch.where(bits >= 2**31, bits - 2**32, bits).to(torch.int32)
     return torch.where(torch.isnan(p), p, bits.view(torch.float32).view(p.shape))
+
+
+def to_bf16(p: torch.Tensor) -> torch.Tensor:
+    """:func:`bf16_round` of f32 values as a bfloat16 tensor, made from the
+    rounded bits (2 bytes each)."""
+    return (bf16_round(p).view(torch.int32) >> 16).to(torch.int16).view(torch.bfloat16)
 
 
 def segment_ends(layout: V1Layout) -> torch.Tensor:
@@ -503,42 +618,88 @@ def spmv_v1(layout: V1Layout, x: torch.Tensor) -> torch.Tensor:
     return fn(layout, x)
 
 
-def _walk_rows(n: int, ptr: torch.Tensor, e: torch.Tensor, y: torch.Tensor, restart=None) -> torch.Tensor:
+def _walk_rows(n: int, ptr: torch.Tensor, e: torch.Tensor, y: torch.Tensor, restart=None, slots=None,
+               lanes: int = 1) -> torch.Tensor:
     """Each row's values ``e[ptr[r] .. ptr[r + 1]]`` added one after the
     other: into ``y`` itself, or (``restart``: bool per value) into a
     partial from +0, added into ``y`` where a value restarts it and after
-    the row's last."""
+    the row's last.  With ``slots`` (each value's slot in its sub-chunk) the
+    partial is the opt-in reduces' (module docstring): ``lanes`` (2 or 4)
+    interleaved partials by slot, added pairwise ("mxu2"), or with ``lanes``
+    0 the sums of 32-slot blocks added one after the other ("vpu")."""
     ptr = ptr.long()
     deg = ptr[1:] - ptr[:-1]
     order = torch.argsort(deg, descending=True, stable=True)
     active = torch.bincount(deg, minlength=1).flip(0).cumsum(0).flip(0)  # rows with degree >= j
-    acc = y if restart is None else torch.zeros_like(y)
+    acc = y if restart is None else torch.zeros(max(lanes, 1), *y.shape, dtype=y.dtype, device=y.device)
+    blk = torch.zeros_like(y) if slots is not None and lanes == 0 else None
+
+    def flush(f):
+        if blk is not None:
+            part = acc[0, f] + blk[f]
+            blk[f] = 0.0
+        elif lanes == 4:
+            part = (acc[0, f] + acc[1, f]) + (acc[2, f] + acc[3, f])
+        elif lanes == 2:
+            part = acc[0, f] + acc[1, f]
+        else:
+            part = acc[0, f]
+        y[f] = y[f] + part
+        acc[:, f] = 0.0
+
     for j in range(int(deg.max()) if n else 0):
         r = order[: int(active[j + 1])]
         i = ptr[r] + j
-        if restart is not None and j:
-            f = r[restart[i]]
-            y[f] = y[f] + acc[f]
-            acc[f] = 0.0
-        acc[r] = acc[r] + e[i]
-    return acc if restart is None else y + acc
+        if restart is None:
+            acc[r] = acc[r] + e[i]
+            continue
+        if j:
+            flush(r[restart[i]])
+            if blk is not None:  # a new 32-slot block within the sub-chunk
+                b = r[(slots[i] >> 5 != slots[i - 1] >> 5) & ~restart[i]]
+                acc[0, b] = acc[0, b] + blk[b]
+                blk[b] = 0.0
+        if blk is not None:
+            blk[r] = blk[r] + e[i]
+        else:
+            lane = slots[i] % lanes if slots is not None else 0
+            acc[lane, r] = acc[lane, r] + e[i]
+    if restart is None:
+        return acc
+    flush(torch.arange(n, device=y.device))
+    return y
 
 
-def spmv_v2_plain(layout: V2Layout, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+def _v2_form(layout: V2Layout, bf16: bool, reduce: str, bf16_weights: bool) -> tuple[str, int, str]:
+    """``(order, lanes, products)`` of a v2 SpMV call (:func:`v2_order`;
+    products "f32", "bf16i" or "bf16w"), its arguments checked."""
+    order, lanes = v2_order(layout, reduce)
+    if bf16_weights and not bf16:
+        raise ValueError("bf16 weights are read only with bf16 products (spmv_pallas.py:477-482)")
+    if bf16_weights and layout.weights_bf16 is None:
+        raise ValueError("the layout keeps no bf16 weights (build it with bf16_weights=True)")
+    return order, lanes, "bf16w" if bf16_weights else "bf16i" if bf16 else "f32"
+
+
+def spmv_v2_plain(layout: V2Layout, x: torch.Tensor, bf16: bool = False, reduce: str = "mxu",
+                  bf16_weights: bool = False) -> torch.Tensor:
     """``A @ x`` in the v2 kernels' order, in plain PyTorch (module
-    docstring): the kept products in f32 (``bf16``: rounded to bf16), each
-    row's partials in slot order from +0, each partial added into ``y``,
-    then the tail in f32."""
+    docstring): the kept products in f32 (``bf16``: rounded to bf16;
+    ``bf16_weights``: of the bf16 weights), each row's partials in the order
+    of ``reduce`` (:data:`V2_REDUCES`; "mxu": in slot order from +0), each
+    partial added into ``y``, then the tail in f32."""
+    order, lanes, _ = _v2_form(layout, bf16, reduce, bf16_weights)
     x, padded = _flat(layout, x)
     n = layout.num_nodes
     cols = layout.cols.long()
-    e = x[cols] * layout.weights
+    e = x[cols] * (layout.weights_bf16.float() if bf16_weights else layout.weights)
     if bf16:
         e = bf16_round(e)
     grp = cols >> layout.shift
     restart = torch.zeros_like(grp, dtype=torch.bool)
     restart[1:] = grp[1:] != grp[:-1]
-    y = _walk_rows(n, layout.ptr, e, torch.zeros(n, dtype=torch.float32, device=x.device), restart)
+    slots = None if order == "mxu" else layout.slots.long()
+    y = _walk_rows(n, layout.ptr, e, torch.zeros(n, dtype=torch.float32, device=x.device), restart, slots, lanes)
     tail = layout.tail
     if isinstance(tail, V1Layout):
         y = y + spmv_v1_plain(tail, x)
@@ -557,17 +718,31 @@ def coo_tail_add(tail: CooTail, y: torch.Tensor, x: torch.Tensor) -> torch.Tenso
     return _walk_rows(y.shape[0], ptr, tail.weights * x[tail.cols.long()], y.clone())
 
 
-def spmv_v2_cuda(layout: V2Layout, x: torch.Tensor, bf16: bool = False, dsinv: torch.Tensor | None = None) -> torch.Tensor:
-    """Launch ``spmv_v2_f32`` (``bf16``: ``spmv_v2_bf16i_f32``) on the
+def v2_kernel(layout: V2Layout, bf16: bool = False, reduce: str = "mxu", bf16_weights: bool = False,
+              lazy: bool = False) -> Kernel:
+    """The entry point that :func:`spmv_v2_cuda` launches for these
+    arguments (:data:`K1_V2_FORMS`)."""
+    order, _, products = _v2_form(layout, bf16, reduce, bf16_weights)
+    return K1_V2_FORMS[order, products, lazy]
+
+
+def spmv_v2_cuda(layout: V2Layout, x: torch.Tensor, bf16: bool = False, dsinv: torch.Tensor | None = None,
+                 reduce: str = "mxu", bf16_weights: bool = False) -> torch.Tensor:
+    """Launch ``spmv_v2_f32`` (``bf16``: ``spmv_v2_bf16i_f32``;
+    ``bf16_weights``: ``spmv_v2_bf16w_f32``; the "mxu2" and "vpu" orders:
+    ``spmv_v2_mxu2...`` and ``spmv_v2_vpu...``, :func:`v2_kernel`) on the
     current stream, and for a v1 tail ``spmv_v1_f32`` first, whose result it
     adds.  With ``dsinv`` (the shape of ``x``) the lazy walk ``0.5 *
-    fma(dsinv, A (dsinv * x), x)``: ``lazy_walk_v2_f32`` (or
-    ``lazy_walk_v2_bf16i_f32``)."""
+    fma(dsinv, A (dsinv * x), x)``: ``lazy_walk_v2...``.  "mxuv", and "mxu2"
+    where its order is the default's, launch the default's form."""
+    order, lanes, _ = _v2_form(layout, bf16, reduce, bf16_weights)
+    kernel = v2_kernel(layout, bf16, reduce, bf16_weights, dsinv is not None)
     flat, _ = _flat(layout, x)
     ts = (x, layout.cols) if dsinv is None else (x, dsinv, layout.cols)
     _check_card(ts, "spmv_v2_cuda")
     if dsinv is not None and dsinv.shape != x.shape:
         raise ValueError(f"dsinv has x's shape {tuple(x.shape)}, got {tuple(dsinv.shape)}")
+    slots = None if order == "mxu" else layout.slots
     tail = layout.tail
     tail_y = coo = None
     if isinstance(tail, V1Layout):
@@ -576,57 +751,62 @@ def spmv_v2_cuda(layout: V2Layout, x: torch.Tensor, bf16: bool = False, dsinv: t
     elif isinstance(tail, CooTail):
         coo = tail
     y = torch.empty_like(x)
-    args = [
-        layout.ptr.data_ptr(), layout.cols.data_ptr(), layout.weights.data_ptr(), layout.shift,
+    kernel(
+        layout.ptr.data_ptr(), layout.cols.data_ptr(),
+        (layout.weights_bf16 if bf16_weights else layout.weights).data_ptr(),
+        None if slots is None else slots.data_ptr(), layout.shift, lanes,
         *((None,) * 4 if coo is None else (t.data_ptr() for t in (coo.warp_ptr, coo.rows, coo.cols, coo.weights))),
-        None if tail_y is None else tail_y.data_ptr(), x.data_ptr(),
-    ]
-    if dsinv is None:
-        kernel = K1_V2_BF16I if bf16 else K1_V2
-    else:
-        kernel = K1_LAZY_V2_BF16I if bf16 else K1_LAZY_V2
-        args.append(dsinv.data_ptr())
-    kernel(*args, y.data_ptr(), layout.num_nodes, x.numel(), torch.cuda.current_stream(x.device).cuda_stream)
+        None if tail_y is None else tail_y.data_ptr(), x.data_ptr(), None if dsinv is None else dsinv.data_ptr(),
+        y.data_ptr(), layout.num_nodes, x.numel(), torch.cuda.current_stream(x.device).cuda_stream,
+    )
     return y
 
 
-def spmv_v2(layout: V2Layout, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
-    """``A @ x`` in the v2 kernels' order: ``spmv_v2_f32`` for a tensor on
-    the card, the plain version for one on the CPU."""
-    fn = spmv_v2_plain if x.device.type == "cpu" else spmv_v2_cuda
-    return fn(layout, x, bf16)
+def spmv_v2(layout: V2Layout, x: torch.Tensor, bf16: bool = False, reduce: str = "mxu",
+            bf16_weights: bool = False) -> torch.Tensor:
+    """``A @ x`` in the v2 kernels' order: ``spmv_v2_f32`` (or the form of
+    :func:`v2_kernel`) for a tensor on the card, the plain version for one
+    on the CPU."""
+    if x.device.type == "cpu":
+        return spmv_v2_plain(layout, x, bf16, reduce, bf16_weights)
+    return spmv_v2_cuda(layout, x, bf16, reduce=reduce, bf16_weights=bf16_weights)
 
 
-def plan_spmv(layout: V1Layout | V2Layout, x: torch.Tensor, bf16: bool = False) -> torch.Tensor:
-    """``A @ x`` in the order of the plan's TPU kernel; ``bf16`` rounds a v2
-    plan's products (a v1 plan has no bf16 mode)."""
+def plan_spmv(layout: V1Layout | V2Layout, x: torch.Tensor, bf16: bool = False, reduce: str = "mxu",
+              bf16_weights: bool = False) -> torch.Tensor:
+    """``A @ x`` in the order of the plan's TPU kernel; for a v2 plan ``bf16``
+    rounds the products, ``reduce`` picks the reduce kernel's order and
+    ``bf16_weights`` reads the bf16 weights (a v1 plan has none of these, and
+    ignores them, as ``spmv_pallas_2d`` does)."""
     if isinstance(layout, V1Layout):
         return spmv_v1(layout, x)
-    return spmv_v2(layout, x, bf16)
+    return spmv_v2(layout, x, bf16, reduce, bf16_weights)
 
 
-def lazy_walk_v2_plain(layout: V2Layout, w: torch.Tensor, dsinv: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+def lazy_walk_v2_plain(layout: V2Layout, w: torch.Tensor, dsinv: torch.Tensor, bf16: bool = False,
+                       reduce: str = "mxu", bf16_weights: bool = False) -> torch.Tensor:
     """The lazy-walk form of ``spmv_v2_f32`` in plain PyTorch: ``0.5 *
     fma(dsinv, A (dsinv * w), w)``, the product ``dsinv * w`` rounded once,
     the SpMV :func:`spmv_v2_plain`."""
     from eig_kl_tpu_torch.ops.spmv import fma_f32
 
-    return 0.5 * fma_f32(dsinv, spmv_v2_plain(layout, dsinv * w, bf16), w)
+    return 0.5 * fma_f32(dsinv, spmv_v2_plain(layout, dsinv * w, bf16, reduce, bf16_weights), w)
 
 
-def plan_lazy_walk(layout: V1Layout | V2Layout, w: torch.Tensor, dsinv: torch.Tensor, bf16: bool = False) -> torch.Tensor:
+def plan_lazy_walk(layout: V1Layout | V2Layout, w: torch.Tensor, dsinv: torch.Tensor, bf16: bool = False,
+                   reduce: str = "mxu", bf16_weights: bool = False) -> torch.Tensor:
     """The lazy walk ``0.5 * (w + dsinv * A (dsinv * w))`` through the plan's
     SpMV (the JAX package's ``opm_sym`` on a planned graph,
     ``eig_kl_tpu/spectral/power.py:297-305``): the product ``dsinv * w``
     rounded once, ``w + dsinv * Ax`` one fused multiply-add, the halving
-    exact.  A v2 layout: ``spmv_v2_f32``'s lazy form on the card,
-    :func:`lazy_walk_v2_plain` on the CPU; a v1 layout: the scaled vector,
-    :func:`spmv_v1` and K6's axpy."""
+    exact.  A v2 layout: ``spmv_v2_f32``'s lazy form on the card (the form
+    of :func:`v2_kernel`), :func:`lazy_walk_v2_plain` on the CPU; a v1
+    layout: the scaled vector, :func:`spmv_v1` and K6's axpy (``bf16``,
+    ``reduce`` and ``bf16_weights`` ignored)."""
     if isinstance(layout, V2Layout):
         if w.device.type == "cpu":
-            return lazy_walk_v2_plain(layout, w, dsinv, bf16)
-        return spmv_v2_cuda(layout, w, bf16, dsinv=dsinv)
+            return lazy_walk_v2_plain(layout, w, dsinv, bf16, reduce, bf16_weights)
+        return spmv_v2_cuda(layout, w, bf16, dsinv=dsinv, reduce=reduce, bf16_weights=bf16_weights)
     from eig_kl_tpu_torch.ops.reduce import axpy
 
     return 0.5 * axpy(dsinv, spmv_v1(layout, dsinv * w), w)
-

@@ -33,7 +33,11 @@ through the SpMV in its TPU kernel's order (``ops/spmv_plan.py``: K1's
 ``spmv_v1_f32`` for a v1 plan, ``spmv_v2_f32`` for a v2 one), whose products
 are rounded to bf16 where ``inter_dtype`` is "bfloat16" and the plan runs
 the v2 kernels' bf16 mode (``CsrPlan.runs_bf16``), and f32 otherwise, then
-K6's padded step, as on the v3 path.  1 in the
+K6's padded step, as on the v3 path.  A v2 plan's SpMV takes the reduce
+order that ``EIG_KL_TPU_REDUCE_IMPL`` names and, with bf16 products, the
+plan's bf16 weights where it keeps them (``EIG_KL_TPU_BF16_W``), read when
+the operator is made, as the JAX solve reads them where it traces its
+SpMV.  1 in the
 padding of the degrees, the norm over the padded state in XLA's order for
 a 2-D reduction, the padded step ``x - c * lap`` one fused multiply-add,
 as on the CSR path (K6's padded step on the card, ROADMAP.md C7).  Its
@@ -67,7 +71,7 @@ from eig_kl_tpu_torch.ops.reduce import (
 )
 from eig_kl_tpu_torch.ops.select import upper_median
 from eig_kl_tpu_torch.ops.spmv import WINDOW, lazy_walk, power_step, spmv
-from eig_kl_tpu_torch.ops.spmv_plan import plan_lazy_walk, plan_spmv
+from eig_kl_tpu_torch.ops.spmv_plan import plan_lazy_walk, plan_spmv, reduce_impl_from_env
 from eig_kl_tpu_torch.ops.spmv_v3 import spmv_v3_padded
 from eig_kl_tpu_torch.utils.config import SpectralConfig
 from eig_kl_tpu_torch.utils.threefry import uniform
@@ -128,13 +132,16 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
     if g.plan is not None and dtype == torch.float32:
         P = g.plan.padded_nodes
         if isinstance(g.plan, CsrPlan):
+            # The JAX solve reads the reduce kernel and the bf16 weights where
+            # it traces spmv_pallas_2d: here.
             layout, bf16 = g.plan.layout, g.plan.runs_bf16(inter_dtype)
+            form = dict(reduce=reduce_impl_from_env(), bf16_weights=bf16 and layout.weights_bf16 is not None)
 
             def matvec(x2d):
-                return plan_spmv(layout, x2d, bf16)
+                return plan_spmv(layout, x2d, bf16, **form)
 
             def lazy(w2d, dsinv2d):
-                return plan_lazy_walk(layout, w2d, dsinv2d, bf16)
+                return plan_lazy_walk(layout, w2d, dsinv2d, bf16, **form)
         else:
 
             def matvec(x2d):
@@ -190,8 +197,12 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
         # Laplacian, row sums included, into the f32 dot below 4,096
         # values, a scalar chain of fused multiply-adds ("chain"); above
         # 32 columns the row sums stay out of it, and the loop over the
-        # rest of the Laplacian is vectorized ("laplacian").
-        return fused_dot(x, y, "laplacian" if g.row_width > WINDOW else "chain")
+        # rest of the Laplacian, the safe degrees an operand, is vectorized
+        # ("laplacian"; from three row windows, a longer loop body, LLVM
+        # unrolls less: "windows3").
+        if g.row_width <= WINDOW:
+            return fused_dot(x, y, "chain")
+        return fused_dot(x, y, "laplacian" if g.row_width <= 2 * WINDOW else "windows3")
 
     def rayleigh(w, u, c, dsinv):
         # jnp.vdot(w, opm_sym(w)) with w = u * c made in the same program.
@@ -203,12 +214,13 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
         # own epilogue), and the loop's order is "walk".  From 4,096 the
         # dot is XLA's vector dot and the walk a fusion of its own, which
         # recomputes w and contracts its product (lazy_walk's scaled form;
-        # ROADMAP.md C).
+        # ROADMAP.md C).  From three row windows the loop is "windows3".
         if g.row_width <= WINDOW:
             return fused_dot(w, lazy(w, dsinv), "chain")
+        order = "walk" if g.row_width <= 2 * WINDOW else "windows3"
         if w.numel() * w.element_size() < FUSED_DOT_BYTES:
-            return fused_dot(w, lazy(w, dsinv), "walk")
-        return fused_dot(w, lazy_walk(g_csr, w, dsinv, scaled=(u, c)), "walk")
+            return fused_dot(w, lazy(w, dsinv), order)
+        return fused_dot(w, lazy_walk(g_csr, w, dsinv, scaled=(u, c)), order)
 
     return PowerOperator(lambda x: x, lambda x: x, norm_lap, step, dot if dtype == torch.float32 else tree_dot,
                          tree_norm, lazy, rayleigh, safe_deg,

@@ -1447,7 +1447,70 @@ def test_spmv_v2_refuses_what_it_cannot_run(cuda):
     assert K1_V2.launches + K1_V2_BF16I.launches == before
 
 
-@pytest.mark.parametrize("order", ["lanes", "slice", "signs", "laplacian", "chain"])
+_V2_LAYOUTS = {}
+
+
+def _v2_layouts(kind, rblock, device):
+    """(the CPU layout, the card's) of a v2 plan with bf16 weights kept,
+    built once per graph and row block."""
+    from eig_kl_tpu_torch.graph.csr import CsrPlan
+
+    key = (kind, rblock)
+    if key not in _V2_LAYOUTS:
+        host = _plan_graph(kind)
+        geometry = {"bf16_weights": True, **({} if rblock is None else {"rblock": rblock})}
+        _V2_LAYOUTS[key] = host, tuple(CsrPlan.for_graph(host.to_device(d), kernel="v2", **geometry).layout
+                                       for d in ("cpu", device))
+    return _V2_LAYOUTS[key]
+
+
+@pytest.mark.parametrize("kind, rblock", [("6000", 512), ("6000", 2048), ("gen_1.0", None)])
+@pytest.mark.parametrize("reduce, products", [
+    ("mxu", "bf16w"), ("mxu2", "f32"), ("mxu2", "bf16i"), ("mxu2", "bf16w"), ("vpu", "f32"), ("vpu", "bf16i"),
+    ("vpu", "bf16w"),
+])
+def test_spmv_v2_forms_equal_plain_bitwise(cuda, kind, rblock, reduce, products):
+    """K1's other v2 forms: the orders of the opt-in reduces "mxu2" (4
+    interleaved partials at row block 512, 2 at 2,048, the default's order
+    and entry point at gen 1.0x's 16,384) and "vpu" (32-slot blocks), with
+    f32 products, bf16 products and bf16 products of bf16 weights, and the
+    default's order with bf16 weights: on a flat vector, on the padded state
+    and in the lazy-walk form, against their plain versions on the CPU bit
+    for bit; each call launches the entry point of ``v2_kernel`` once."""
+    from eig_kl_tpu_torch.ops.spmv_plan import (
+        K1_V2, K1_V2_BF16I, lazy_walk_v2_plain, plan_lazy_walk, spmv_v2, spmv_v2_plain, v2_kernel,
+    )
+
+    host, (lay_c, lay) = _v2_layouts(kind, rblock, cuda)
+    n, P = host.num_nodes, lay.padded_nodes
+    bf16, bf16w = products != "f32", products == "bf16w"
+    form = dict(reduce=reduce, bf16_weights=bf16w)
+    kern, lazy_kern = (v2_kernel(lay, bf16, reduce, bf16w, lazy) for lazy in (False, True))
+    if reduce == "mxu2" and kind == "gen_1.0":
+        assert kern is {"f32": K1_V2, "bf16i": K1_V2_BF16I}.get(products, kern) and "mxu2" not in kern.symbol
+    else:
+        suffix = ("" if reduce == "mxu" else f"_{reduce}") + ("" if products == "f32" else f"_{products}") + "_f32"
+        assert (kern.symbol, lazy_kern.symbol) == (f"spmv_v2{suffix}", f"lazy_walk_v2{suffix}")
+    x = _padded_state(n, P, 2)
+    dsinv = torch.zeros(P)
+    degrees = torch.as_tensor(host.weighted_degrees.astype(np.float32))
+    dsinv[:n] = 1.0 / torch.sqrt(torch.where(degrees > 0, degrees, 1.0))
+    dsinv = dsinv.view(P // 128, 128)
+    before = (kern.launches, lazy_kern.launches)
+    got = [spmv_v2(lay, x.view(-1)[:n].contiguous().to(cuda), bf16, **form), spmv_v2(lay, x.to(cuda), bf16, **form),
+           plan_lazy_walk(lay, x.to(cuda), dsinv.to(cuda), bf16, **form)]
+    assert (kern.launches, lazy_kern.launches) == (before[0] + 2, before[1] + 1)
+    want = [spmv_v2_plain(lay_c, x.view(-1)[:n].contiguous(), bf16, **form), spmv_v2_plain(lay_c, x, bf16, **form),
+            lazy_walk_v2_plain(lay_c, x, dsinv, bf16, **form)]
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    assert (want[1].view(-1)[n:].view(torch.int32) == 0).all()
+    # Where the form's order or weights part from the default's, some row does.
+    if bf16w or (products == "f32" and (reduce == "vpu" or kind != "gen_1.0")):
+        assert not torch.equal(spmv_v2_plain(lay_c, x, bf16).view(torch.int32), want[1].view(torch.int32))
+
+
+@pytest.mark.parametrize("order", ["lanes", "slice", "signs", "laplacian", "windows3", "chain"])
 def test_k4_fused_dot_equals_plain(cuda, order):
     """K4's fused entry point in each order, 1 to 4 pairs per launch, at 0
     to 6,000 values (remainders 0-31 of XLA's 32 lanes, the epilogues and

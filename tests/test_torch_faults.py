@@ -144,9 +144,10 @@ _WIDE_GRAPHS = {f"width {w}": functools.partial(_with_wide_net, 700, wide, wide)
                                                                                                 (40, 56)]}
 #: Lengths at each edge of the "laplacian" form: the first a graph wider
 #: than 32 can have, the unrolled epilogue of 6 or 7 (4 lanes), the last
-#: unrolled and the first vector loop, its ties (4 lanes), a remainder of 7.
+#: unrolled and the first vector loop, its ties (4 lanes), a remainder of 7;
+#: 195-223 unrolled where the degrees are an operand.
 _WIDE_GRAPHS.update({f"{n} nodes": functools.partial(_connected_with_wide_net, n, 34, n)
-                     for n in (34, 39, 55, 70, 135, 191, 192, 221, 252, 263)})
+                     for n in (34, 39, 55, 70, 135, 191, 192, 195, 221, 223, 224, 252, 263)})
 
 
 @pytest.mark.parametrize("graph", _WIDE_GRAPHS)
@@ -155,8 +156,10 @@ def test_final_rayleigh_quotient_above_32_columns_equals_xla(graph):
     (``eig_kl_tpu/spectral/power.py:413``) on a graph wider than 32: the
     Laplacian's row sums are a fusion of their own and the rest of it is
     fused into the dot's vectorized loop, whose order is the "laplacian"
-    form (``ops/reduce.py:LANES_FORMS``: unrolled up to 191 values, 4
-    lanes at a tie), on four seeded iterates."""
+    form (``ops/reduce.py:LANES_FORMS``: unrolled up to 223 values, 4
+    lanes at a tie), on four seeded iterates.  As in the solve's program,
+    the safe degrees come into the quotient's loop made (the steps read
+    them too): with their select in the loop it unrolls only to 191."""
     from eig_kl_tpu.ops.partition import spmv as jax_spmv
     from eig_kl_tpu_torch.spectral.power import power_operator
 
@@ -164,17 +167,45 @@ def test_final_rayleigh_quotient_above_32_columns_equals_xla(graph):
     assert g.row_width > 32
 
     @jax.jit
-    def rayleigh(g, v):
-        safe_deg = jnp.where(g.degrees > 0, g.degrees, 1.0).astype(jnp.float32)
+    def rayleigh(g, v, safe_deg):
         return jnp.vdot(v, 2.0 * v - 2.0 * jax_spmv(g, v) / safe_deg)
 
+    deg = np.asarray(g_jax.degrees)
+    safe_deg = np.where(deg > 0, deg, 1.0).astype(np.float32)
     op = power_operator(g, 2.0, torch.float32)
     rng = np.random.default_rng(g.num_nodes)
     for _ in range(4):
         v = rng.standard_normal(g.num_nodes, dtype=np.float32)
         with _one_thread():
             got = op.dot(torch.as_tensor(v), op.norm_lap(torch.as_tensor(v)))
-        assert _bits(got) == _bits(rayleigh(g_jax, v))
+        assert _bits(got) == _bits(rayleigh(g_jax, v, safe_deg))
+
+
+@pytest.mark.parametrize("n, wide, width, convergence", [
+    (195, 34, 48, "momentum"), (200, 34, 48, "sign"), (223, 34, 48, "sign"), (200, 60, 72, "momentum"),
+])
+def test_final_quotient_at_192_to_223_values_equals_jax(n, wide, width, convergence):
+    """The sign and momentum exits on connected graphs of 192-223 nodes
+    wider than 32, to their exit: every iterate bit, the iteration count
+    and the eigenvalue.  At ELL width 48 (two row windows) the final
+    quotient takes the "laplacian" form unrolled to 223 values (its loop
+    reads the safe degrees made before it; with a vector loop from 192 the
+    eigenvalue parted while every iterate bit held); at width 72 (three
+    windows) both quotients take "windows3", unrolled to 191 with no 8-lane
+    tie (with the check's "walk" the momentum iterate parted from step 27;
+    ROADMAP.md C9)."""
+    from eig_kl_tpu.spectral.power import _power_core as jax_core
+    from eig_kl_tpu_torch.spectral.power import _power_core
+
+    g_jax, g = _graphs(_connected_with_wide_net(n, wide, n))
+    assert g.row_width == width
+    kw = dict(shift=2.0, tolerance=1e-6, min_iters=100, max_iters=400, seed=42, convergence=convergence)
+    lam_j, v_j, it_j = jax_core(g_jax, dtype="float32", **kw)
+    with _one_thread():
+        lam_t, v_t, it_t = _power_core(g, dtype=torch.float32, **kw)
+    assert it_t == int(it_j)
+    np.testing.assert_array_equal(_bits(v_t.numpy()), _bits(v_j))
+    assert _bits(lam_t) == _bits(lam_j)
 
 
 @pytest.mark.parametrize("n", [34, 46, 60, 150, 222])

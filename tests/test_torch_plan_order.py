@@ -248,25 +248,43 @@ def test_refine_mega_batch_equals_jax_above_32768_entries():
         assert abs(got.verified_cut - ref.verified_cut) <= bound
 
 
-@pytest.mark.parametrize("kind, inter", [("v2", "bfloat16"), ("v2", "float32"), ("v1", "float32")])
-def test_plan_path_sign_exit_equals_jax(kind, inter):
+@pytest.mark.parametrize("kind, inter, knob", [
+    ("v2", "bfloat16", None), ("v2", "float32", None), ("v1", "float32", None),
+    ("v2", "bfloat16", ("EIG_KL_TPU_BF16_W", "1")), ("v2", "float32", ("EIG_KL_TPU_REDUCE_IMPL", "mxu2")),
+    ("v2", "float32", ("EIG_KL_TPU_REDUCE_IMPL", "vpu")),
+])
+def test_plan_path_sign_exit_equals_jax(monkeypatch, kind, inter, knob):
     """The CSR plan path's power solve (the sign exit, seed 42, 400 steps
     at most) on gen 0.02x's largest component (3,694 nodes, 22,380 entries)
     with a v2 plan (its search's geometry and a v1 tail of 7,501 entries)
     or its rule's v1 plan, against the JAX package's ``_power_core`` on
     the same plan with its kernels in interpret mode: the iterations, the
     eigenvalue and every value of the iterate bit for bit (bf16 products:
-    401 steps, lambda 1.3969650899525732e-04; f32: 201 steps)."""
+    401 steps, lambda 1.3969650899525732e-04; f32: 201 steps).  Also under
+    the v2 SpMV's other forms, set as a user sets them: bf16 weights
+    (``EIG_KL_TPU_BF16_W=1``) and, in f32 (with bf16 products their orders
+    move no bit here), the reduce kernels "mxu2" (4 partials at this plan's
+    row block of 512) and "vpu" (``EIG_KL_TPU_REDUCE_IMPL``), each of which
+    parted from the default's run; the JAX solve reads them when it traces
+    its SpMV (here a new function under a new ``jax.jit``: ``jax.jit`` of
+    the same function shares its traces, which would reuse a program
+    traced under another setting)."""
     from test_torch_lanczos import largest_component
 
     from eig_kl_tpu.graph.expand import clique_expand as jax_expand
     from eig_kl_tpu.io.hgr import Hypergraph as JaxHypergraph
     from eig_kl_tpu.ops.spmv_pallas import build_plan, build_plan_v2
-    from eig_kl_tpu.spectral.power import _power_core as jax_core
+    from eig_kl_tpu.spectral import power as jax_power
     from eig_kl_tpu_torch.graph.csr import CsrPlan, Graph
     from eig_kl_tpu_torch.io.hgr import read_hgr
     from eig_kl_tpu_torch.spectral.power import _power_core
 
+    for name in ("EIG_KL_TPU_BF16_W", "EIG_KL_TPU_REDUCE_IMPL"):
+        monkeypatch.delenv(name, raising=False)
+    if knob is not None:
+        monkeypatch.setenv(*knob)
+    jax_core = jax_power._power_core if knob is None else jax.jit(
+        lambda *a, **k: jax_power._power_core_impl(*a, **k), static_argnames=jax_power._POWER_STATICS)
     hg = largest_component(read_hgr(GEN_002, use_native=False))
     gh = jax_expand(JaxHypergraph(hg.num_nodes, hg.num_nets, hg.pins, hg.net_offsets), "kl", use_native=False)
     plan = (build_plan_v2 if kind == "v2" else build_plan)(gh.num_nodes, *_coo(gh))
@@ -278,8 +296,10 @@ def test_plan_path_sign_exit_equals_jax(kind, inter):
     assert gd.plan.runs_bf16(inter) == (inter == "bfloat16")
     with _one_thread():
         lam, v, it = _power_core(gd, dtype=torch.float32, **kw)
-    assert it == int(it_j) == {"bfloat16": 401, "float32": 201}[inter]
+    assert it == int(it_j)
     assert _bits(float(lam)) == _bits(lam_j)
     np.testing.assert_array_equal(_bits(v.numpy()), _bits(v_j))
-    if inter == "bfloat16":
+    if knob is None:
+        assert it == {"bfloat16": 401, "float32": 201}[inter]
+    if inter == "bfloat16" and knob is None:
         assert float(lam) == 1.3969650899525732e-04
