@@ -42,6 +42,7 @@ result; so does a machine without a CUDA card.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import dataclasses
 import hashlib
@@ -374,6 +375,17 @@ def device_us_per_launch(fn, kernel: str, num_groups: int = 1) -> list[float] | 
     return [sum(e.time_range.elapsed_us() for e in group) / len(group) for group in per]
 
 
+def turns(designs: dict, kernel: str, calls: int = 50) -> dict[str, list[float | None]]:
+    """Device microseconds per launch of each design's kernel (names that
+    contain ``kernel``), timed in turns: the designs in order, then in
+    reverse (new, earlier, earlier, new), ``calls`` calls each time."""
+    out = {name: [] for name in designs}
+    for name in list(designs) + list(designs)[::-1]:
+        us = device_us_per_launch(lambda fn=designs[name]: [fn() for _ in range(calls)], kernel)
+        out[name].append(None if us is None else us[0])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs a CUDA card; none is available")
@@ -474,6 +486,7 @@ def main() -> int:
     )
     from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
     from eig_kl_tpu_torch.utils.tracing import Tracer
+    import tools.v1_mxu2_turns as turn_designs
 
     dev = torch.device("cuda")
     card = card_line()
@@ -496,9 +509,15 @@ def main() -> int:
 
     # Phase 1: build every kernel and the host library from the sources in
     # the checkout, one compiler per source, all at once.
+    # The other designs of spmv_v1_f32 and the mxu2 forms, timed beside them
+    # in phases 13 and 14, build alongside (tools/v1_mxu2_turns.py).
     t0 = time.perf_counter()
-    logs = _build.build(_build.KERNEL_SOURCES + _build.HOST_SOURCES)
-    print(f"kernel build: {time.perf_counter() - t0:.2f} s ({', '.join(logs) or 'cached'})")
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        earlier = pool.submit(turn_designs.build)
+        logs = _build.build(_build.KERNEL_SOURCES + _build.HOST_SOURCES)
+        turn_libs = earlier.result()
+    print(f"kernel build: {time.perf_counter() - t0:.2f} s ({', '.join(logs) or 'cached'}; the earlier designs "
+          f"{', '.join(turn_libs)})")
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -2106,9 +2125,12 @@ def main() -> int:
                                  "fused_dot_batch_kernel")
     fd_chain_us = device_us_per_launch(lambda: [R.fused_dot_batch_cuda((fx,), (fy,), "chain") for _ in range(50)],
                                        "fused_dot_batch_kernel")
+    fd_rows_us = device_us_per_launch(lambda: [R.fused_dot_batch_cuda((fx,), (fy,), "rows") for _ in range(50)],
+                                      "fused_dot_batch_kernel")
     fd_bound = bound(8 * n02, 2 * n02)
     print(f"K4 fused dot: bitwise equal to its plain versions at 0-6,000 values in every order; at {n02} values "
-          f"{fd_ms:.4f} ms, device {fmt_us(fd_us)} per launch (the chain order {fmt_us(fd_chain_us)}), plain "
+          f"{fd_ms:.4f} ms, device {fmt_us(fd_us)} per launch (the chain order {fmt_us(fd_chain_us)}, the rows order "
+          f"{fmt_us(fd_rows_us)}), plain "
           f"{fd_plain_ms:.3f} ms, torch.dot "
           f"{fd_lib_ms:.4f} ms (device {fmt_us([fd_lib_us])}), bound {fd_bound[0]:.6f} ms by {fd_bound[1]}")
 
@@ -2292,6 +2314,20 @@ def main() -> int:
           f"{v1['plain_ms']:.3f} ms; torch.sparse {v1['library_ms']:.4f} ms (device "
           f"{fmt_us([v1['library_device_us']])}); bound {v1['bound'][0] * 1e3:.3f} us by {v1['bound'][1]} "
           f"({v1_bytes} bytes, {v1_ops} operations)")
+    # The earlier design (a block per y window walking its chunks) beside it, in
+    # turns, on the same layout and x; its bits are the same.
+    def v1_earlier(lay_, x_):
+        y_ = torch.empty_like(x_)
+        turn_designs.v1_earlier(turn_libs["v1"], lay_, x_, y_)
+        return y_
+
+    check(torch.equal(bits32(v1_earlier(lay, x02)), bits32(spmv_v1_cuda(lay, x02))),
+          "the earlier spmv_v1_f32 design gives other bits than the kernel's")
+    v1["turns_device_us"] = turns({"new": lambda: spmv_v1_cuda(lay, x02), "earlier": lambda: v1_earlier(lay, x02)},
+                                  "spmv_v1")
+    print(f"K1 spmv_v1_f32 at gen 0.02x in turns (new, earlier, earlier, new): new "
+          f"{fmt_us(v1['turns_device_us']['new'])}, the earlier design {fmt_us(v1['turns_device_us']['earlier'])} per "
+          f"launch")
     # The CSR plan path on gen 0.02x (its v1 plan): spmv_v1_f32 on the
     # padded state, per power step, held to the same run of the plain
     # versions on the CPU.
@@ -2341,6 +2377,20 @@ def main() -> int:
     print(f"K1 spmv_v2_f32 on the 6,000-node graph (78,752 entries, a v1 tail of {lay6.tail.num_chunks} chunks): "
           f"bitwise equal to its plain version; {v2_6000['ms']:.4f} ms per SpMV by events, device "
           f"{fmt_us(v2_6000['device_us'])} per launch and the tail's spmv_v1_f32 {fmt_us(v2_6000['tail_device_us'])}")
+    tail6 = lay6.tail
+    check(torch.equal(bits32(v1_earlier(tail6, x6d)), bits32(spmv_v1_cuda(tail6, x6d))),
+          "the earlier spmv_v1_f32 design gives other bits on the 6,000-node graph's tail")
+    v1_tail_bytes = tail6.num_chunks * (512 * 8 + 8) + 4 * tail6.win_ptr.numel() + 8 * 6000
+    v1_tail_ops = tail6.num_chunks * 512 * 10 + int(segment_ends(tail6).sum())
+    v1["tail"] = {
+        "chunks": tail6.num_chunks, "windows": tail6.num_windows,
+        "turns_device_us": turns({"new": lambda: spmv_v1_cuda(tail6, x6d),
+                                  "earlier": lambda: v1_earlier(tail6, x6d)}, "spmv_v1"),
+        "bound_ms": max(v1_tail_bytes / HBM_BYTES_PER_S, v1_tail_ops / F32_OPS_PER_S) * 1e3,
+    }
+    print(f"K1 spmv_v1_f32 as the 6,000-node graph's v1 tail ({tail6.num_chunks} chunks in {tail6.num_windows} "
+          f"windows) in turns: new {fmt_us(v1['tail']['turns_device_us']['new'])}, the earlier design "
+          f"{fmt_us(v1['tail']['turns_device_us']['earlier'])} per launch; bound {v1['tail']['bound_ms'] * 1e3:.4f} us")
     reset_counts()
     t0 = time.perf_counter()
     e_mega, k_mega, it_mega = fused_refine_mega(g02, SpectralConfig(solver="power"), KLConfig(gain_eps=1e-6))
@@ -2462,17 +2512,32 @@ def main() -> int:
             err=err, ms=cuda_ms(run, 200), plain_ms=cuda_ms(plain, 3),
             library_ms=None if lib is None else cuda_ms(lib, 200),
             library_device_us=None if lib is None else library_device_us(lib),
-            device_us=device_us_per_launch(lambda: [run() for _ in range(50)], "spmv_v2_kernel"),
+            device_us=device_us_per_launch(lambda: [run() for _ in range(50)], "spmv_v2"),
             bound=form_bound(lay, products, order, lazy), rblock=lay.rblock, nodes=lay.num_nodes,
             base_device_us=None if base_us is None else base_us[0],
         )
+        if order == "mxu2":
+            # The earlier design (a lane per row, a switch on the slot class) and
+            # the group design (a thread per partial) beside the kernel, in
+            # turns, on the same layout and state; each gives its bits.
+            designs, ref = {"new": run}, bits32(run())
+            for variant in turn_designs.MXU2_VARIANTS:
+                with turn_designs.swapped(kern, turn_libs[variant], variant):
+                    check(torch.equal(bits32(run()), ref), f"the {variant} design of {kern.symbol} gives other bits")
+
+                def other(variant=variant):
+                    with turn_designs.swapped(kern, turn_libs[variant], variant):
+                        return run()
+                designs[variant] = other
+            e["turns_device_us"] = turns(designs, "spmv_v2")
         print(f"K1 {kern.symbol} at row block {lay.rblock} ({lay.num_nodes} nodes, padded state): bitwise equal to "
               f"its plain version; {e['ms']:.4f} ms, device {fmt_us(e['device_us'])} per launch, plain "
               f"{e['plain_ms']:.3f} ms, " + ("library none (no PyTorch call rounds each product or weight to bf16)"
                                              if lib is None else f"library {e['library_ms']:.4f} ms (device "
                                              f"{fmt_us([e['library_device_us']])})")
               + f", bound {e['bound'][0]:.5f} ms by {e['bound'][1]}; the default's order on the same layout "
-              f"{fmt_us(base_us)}")
+              f"{fmt_us(base_us)}" + ("; in turns " + ", ".join(f"{k} {fmt_us(v)}" for k, v in e["turns_device_us"].items())
+                                      if "turns_device_us" in e else ""))
 
     vlay_w = dataclasses.replace(vlay, weights_bf16=to_bf16(vlay.weights))
     lib_spmv = lambda: a_g @ xs_n  # noqa: E731
@@ -2515,6 +2580,7 @@ def main() -> int:
 
     form_paths = {}
     form_launches = {}
+    v1_tail_launches = {}
     power_kernels = {"spmv_v2_f32", "spmv_v2_bf16i_f32"} | {k.symbol for k in K1_V2_FORMS.values() if not
                                                              k.symbol.startswith("lazy")}
     for tag, env, inter, sym, want in (
@@ -2593,6 +2659,7 @@ def main() -> int:
               f"the 6,000-node one start ({tag}) gave {got6} (CPU {want6}), launches {launched}")
         form_paths[f"6,000 nodes one start, {tag}"] = {"iterations": r.spectral_iterations, "swaps": r.kl.iterations,
                                                        "best": r.kl.best_cut, "e2e_s": r_s}
+        v1_tail_launches[f"6000_one_start_{tag}"] = launched.get("spmv_v1_f32", 0)
         form_launches[sym] = launched[sym]
         print(f"plan path one start on the 6,000-node graph, {tag} ({inter}): {r.spectral_iterations} power "
               f"iterations, {r.kl.iterations} swaps, best cut {r.kl.best_cut}, verified {r.kl.verified_cut}: the "
@@ -2605,6 +2672,7 @@ def main() -> int:
         check(launched.get(lsym, 0) > m_iters and np.isfinite(m_vals).all(),
               f"the 6,000-node momentum exit ({tag}) launched {launched}")
         form_paths[f"6,000 nodes momentum, {tag}"] = {"iterations": m_iters, "e2e_s": m_s}
+        v1_tail_launches[f"6000_momentum_{tag}"] = launched.get("spmv_v1_f32", 0)
         form_launches[lsym] = launched[lsym]
         print(f"momentum on the 6,000-node graph's padded state, {tag}: {m_iters} steps, e2e {m_s:.3f} s; "
               f"launches {launched}")
@@ -2895,6 +2963,7 @@ def main() -> int:
         "plain_ms": fd_plain_ms, "bound_ms": fd_bound[0], "bound_by": fd_bound[1], "library_ms": fd_lib_ms,
         "library_device_us": fd_lib_us, "device_us_per_launch": None if fd_us is None else fd_us[0],
         "device_us_per_launch_chain_order": None if fd_chain_us is None else fd_chain_us[0],
+        "device_us_per_launch_rows_order": None if fd_rows_us is None else fd_rows_us[0],
     })
     launches64 = {
         "K1 spmv_csr_f64": fu64_launches["spmv_csr_f64"], "K1 power_step_f64": fu64_launches["power_step_f64"],
@@ -2958,6 +3027,9 @@ def main() -> int:
         "device_us_per_launch": None if v1["device_us"] is None else v1["device_us"][0],
         "device_us_per_launch_padded_state": None if v1["padded_device_us"] is None else v1["padded_device_us"][0],
         "launches_plan_path_gen002": r02p_launches["spmv_v1_f32"],
+        "launches_by_path": {"mega_gen002": mega_launches.get("spmv_v1_f32", 0),
+                             "plan_path_gen002": r02p_launches["spmv_v1_f32"], **v1_tail_launches},
+        "turns_device_us": v1["turns_device_us"], "tail_6000": v1["tail"],
     })
     form_replaces = {
         "mxu": "eig_kl_tpu/ops/spmv_pallas.py:1049 (_gather_kernel with bf16 weights, EIG_KL_TPU_BF16_W: :109, "
@@ -2981,6 +3053,7 @@ def main() -> int:
             "library_device_us": e["library_device_us"],
             "device_us_per_launch": None if e["device_us"] is None else e["device_us"][0],
             "default_order_device_us_same_layout": e["base_device_us"],
+            **({"turns_device_us": e["turns_device_us"]} if "turns_device_us" in e else {}),
             **({"library_none_because": "no PyTorch call rounds each product (or weight) to bf16 before the sum"}
                if e["library_ms"] is None else {}),
         })

@@ -40,8 +40,11 @@
 // element-wise producer fused in (below 4,096 values; ops/reduce.py:
 // fused_dot_batch).  Up to chain_max values: one chain of fused
 // multiply-adds from +0, no product rounded on its own ("chain" at every
-// length).  Beyond, LLVM's vectorized loop, whose shape depends on the
-// producer fused in (ops/reduce.py:LANES_FORMS, passed as chain_max,
+// length).  The "rows" order (flag kRows, a graph of ELL width 8): 4 or 8
+// lane chains (rows_dot_lanes) over n / lanes * lanes elements, lane 0 from
+// +0 and the others from -0, folded in halves, then the scalar chain.
+// Beyond, LLVM's vectorized loop, whose shape depends on the producer fused
+// in (ops/reduce.py:LANES_FORMS, passed as chain_max,
 // unrolled_max and flags): up to unrolled_max values unrolled fully and
 // reassociated (unrolled_lanes); beyond, lane k of a warp chains the
 // elements i = k (mod 32) of the whole groups of 32 from +0 (lane 0) or
@@ -214,7 +217,16 @@ __device__ __forceinline__ int epilogue_width(int r, bool wide_ties) {
 }
 
 // The bits of fused_dot_batch_f32's flags (ops/reduce.py:_k4_form_args).
-constexpr int kPairsAt6 = 1, kWideTies = 2, kVector = 4, kUnrolledTies = 8;
+constexpr int kPairsAt6 = 1, kWideTies = 2, kVector = 4, kUnrolledTies = 8, kRows = 16;
+
+// The "rows" order's lanes for n values, 0 for one scalar chain
+// (ops/reduce.py:rows_dot_lanes): the vector loop LLVM gives the quotients
+// of a graph of ELL width 8, vectorized across rows.
+__device__ __forceinline__ int rows_dot_lanes(int n) {
+  if (n == 4 || n == 8) return n;
+  if (n < 16) return 0;
+  return (n % 8 < 4 || n >= 84) ? 8 : 4;
+}
 
 constexpr int kFusedThreads = 256;
 constexpr int kFusedTile = 4096;  // values of each vector a block stages at a time
@@ -284,18 +296,21 @@ __global__ void __launch_bounds__(kFusedThreads)
   const int lane = tid & 31;
   const bool vec = ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) & 15) == 0;
   const int used = (n + 31) / 32 * 32;
-  const bool vector = n > chain_max;
-  const bool unrolled = vector && n <= unrolled_max;
+  const bool rows = flags & kRows;
+  const int stride = rows ? rows_dot_lanes(n) : 32;  // the lane chains of a vectorized loop
+  const bool vector = rows ? stride > 0 : n > chain_max;
+  const bool unrolled = !rows && vector && n <= unrolled_max;
   const bool lanes_order = vector && !unrolled;
-  const int whole = n / 32 * 32;  // "lanes": the elements of the 32 lane chains
+  const int whole = lanes_order ? n / stride * stride : 0;  // the elements of the lane chains
   const auto fma_step = [](float c, float a, float b) { return fma_rn(a, b, c); };
   float acc = lanes_order && lane != 0 ? -0.0f : 0.0f;
   int base = 0;
   // One tile at a time (one for every dot that fused_dot gives it): the
   // whole block stages it, then thread 0 runs the chain from shared memory
   // (a group of 32 values of each vector ahead in registers, so that each
-  // step waits only on the one before it), or each lane of warp 0 its
-  // "lanes" chain, eight steps' values loaded before their steps.
+  // step waits only on the one before it), or each of the first `stride`
+  // lanes of warp 0 its lane chain, eight steps' values loaded before their
+  // steps.
   for (;; base += kFusedTile) {
     const int len = min(kFusedTile, used - base);
     stage_pair(x, y, n, base, max(len, 0), vec, sx, sy);
@@ -304,20 +319,20 @@ __global__ void __launch_bounds__(kFusedThreads)
       if (tid == 0) acc = unrolled_lanes(sx, sy, n, flags & kPairsAt6, flags & kUnrolledTies);
     } else if (!lanes_order) {
       if (tid == 0 && len > 0) acc = chain<32, 2>(sx, sy, len, acc, fma_step);
-    } else if (tid < 32) {
+    } else if (tid < stride) {
       const int end = min(len, whole - base);
       int i = lane;
-      for (; i + 7 * 32 < end; i += 8 * 32) {
+      for (; i + 7 * stride < end; i += 8 * stride) {
         float a[8], b[8];
 #pragma unroll
         for (int q = 0; q < 8; ++q) {
-          a[q] = sx[i + 32 * q];
-          b[q] = sy[i + 32 * q];
+          a[q] = sx[i + stride * q];
+          b[q] = sy[i + stride * q];
         }
 #pragma unroll
         for (int q = 0; q < 8; ++q) acc = fma_rn(a[q], b[q], acc);
       }
-      for (; i < end; i += 32) acc = fma_rn(sx[i], sy[i], acc);
+      for (; i < end; i += stride) acc = fma_rn(sx[i], sy[i], acc);
     }
     if (base + kFusedTile >= used) break;
     __syncthreads();  // the tile's readers are done before the next staging
@@ -335,16 +350,22 @@ __global__ void __launch_bounds__(kFusedThreads)
   __syncwarp();
   if (lane != 0) return;
   float v[8];
-  for (int j = 0; j < 8; ++j) {
-    v[j] = add_rn(lanes[8 + j], lanes[j]);
-    v[j] = add_rn(lanes[16 + j], v[j]);
-    v[j] = add_rn(lanes[24 + j], v[j]);
+  float total;
+  if (rows) {  // the lanes folded in halves, then the scalar rest
+    for (int j = 0; j < stride; ++j) v[j] = lanes[j];
+    total = fold_lanes(v, stride);
+  } else {
+    for (int j = 0; j < 8; ++j) {
+      v[j] = add_rn(lanes[8 + j], lanes[j]);
+      v[j] = add_rn(lanes[16 + j], v[j]);
+      v[j] = add_rn(lanes[24 + j], v[j]);
+    }
+    total = fold_lanes(v, 8);
   }
-  float total = fold_lanes(v, 8);
   // The rest, from the last tile (tiles are whole groups of 32, so it holds
   // elements whole .. n - 1).
   int i = whole;
-  const int width = epilogue_width(n - whole, flags & kWideTies);
+  const int width = rows ? 0 : epilogue_width(n - whole, flags & kWideTies);
   if (width > 0) {
     float e[8];
     for (int j = 0; j < width; ++j) e[j] = j == 0 ? total : -0.0f;

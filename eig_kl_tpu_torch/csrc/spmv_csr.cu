@@ -108,6 +108,7 @@
 #include <type_traits>
 
 #include "fp.cuh"
+#include "seg_scan.cuh"
 
 namespace {
 
@@ -560,55 +561,118 @@ __global__ void __launch_bounds__(kThreads)
 
 // spmv_v1_f32: y = A @ x in the order of the JAX package's v1 TPU SpMV
 // (eig_kl_tpu/ops/spmv_pallas.py:_spmv_kernel, :339), from its chunk layout
-// (ops/spmv_plan.py:build_v1_layout): one block of 512 threads per y window
-// of 1,024 rows walks that window's chunks in plan order, the window in
-// shared memory.  Per chunk, thread t holds slot t: its product
-// (x[col] + 0) * w, rounded; then the 9 rounds of the Hillis-Steele segmented
-// inclusive scan in shared memory, round k adding e[t - k] where slot t - k
-// holds the same row (0 otherwise); then the slot that ends its row's segment
-// (the next slot holds another row, or t = 511) adds its total into the
-// window's row.  A row ends once per chunk, so no two threads add into one
-// row.  No product is contracted into an add, as in the TPU kernel's
-// interpret-mode program on the CPU.
-constexpr int kV1Chunk = 512;
+// (ops/spmv_plan.py:build_v1_layout).  Per chunk of 512 slots, slot t's
+// product (x[col] + 0) * w, rounded; then the TPU kernel's segmented
+// Hillis-Steele scan (seg_scan.cuh), round k adding e[t - k] where slot
+// t - k holds the same row (+0 otherwise); then the slot that ends its
+// row's segment (the next slot holds another row, or t = 511) holds the
+// row's total in that chunk.  A y window of 1,024 rows adds its chunks'
+// totals in plan order, from +0: y = ((+0 + t1) + t2) + ... over the
+// chunks where the row ends (a chunk where it does not adds +0, which moves
+// no bit: y is never -0).  A window's chunks are sorted by column stripe,
+// so one row ends in several of them.  No product is contracted into an
+// add, as in the TPU kernel's interpret-mode program on the CPU.
+//
+// Design: one block of 512 threads per chunk, all chunks in flight (block
+// b takes the b-th chunk in plan order).  The scan's steps 1..16 run in
+// registers within each warp, steps 32..256 in shared memory: 5 block
+// barriers per chunk.  The block spreads its totals into the window's
+// 1,024 rows in shared memory (+0 where no segment ends; one writer per
+// row, as a row ends once per chunk) and writes them to the scratch row of
+// its plan position.  Then it takes its window's ticket (__threadfence,
+// atomicAdd); the last of the window's blocks to arrive adds the window's
+// scratch rows in plan order, two rows per thread, writes y and resets the
+// ticket.  A window of one chunk writes y from shared memory and takes no
+// ticket.  Blocks below the window count also write +0 into an empty
+// window's rows.  The order of every add is fixed whichever block comes
+// last, so y is deterministic.  The scratch and the tickets belong to one
+// stream.
+constexpr int kV1Chunk = seg_scan::kChunk;
 constexpr int kV1Window = 1024;
+
+// Slot `pos` of chunk c: (x[col] + 0) * w, rounded (x is +0 past n).
+__device__ __forceinline__ float v1_product(const int* __restrict__ x_base, const short* __restrict__ col_local,
+                                            const float* __restrict__ w, const float* __restrict__ x, int n,
+                                            int c, int pos) {
+  const long long slot = static_cast<long long>(c) * kV1Chunk + pos;
+  const int cl = __ldg(x_base + c) + __ldg(col_local + slot);
+  return __fmul_rn(__fadd_rn(cl < n ? __ldg(x + cl) : 0.0f, 0.0f), __ldg(w + slot));
+}
 
 __global__ void __launch_bounds__(kV1Chunk)
 spmv_v1_kernel(const int* __restrict__ x_base, const short* __restrict__ col_local,
                const short* __restrict__ row_local, const float* __restrict__ w,
                const int* __restrict__ win_ptr, const int* __restrict__ win_chunks,
-               const float* __restrict__ x, float* __restrict__ y, int n, int rows) {
-  __shared__ float e_s[kV1Chunk];
-  __shared__ int r_s[kV1Chunk + 1];
+               const float* __restrict__ x, float* __restrict__ y, float* __restrict__ scratch,
+               int* __restrict__ tickets, int n, int rows, int windows, int chunks) {
+  __shared__ float buf[2][kV1Chunk];
+  __shared__ short rl[kV1Chunk];
   __shared__ float y_s[kV1Window];
+  __shared__ bool last;
   const int t = threadIdx.x;
-  const int win = blockIdx.x;
+  const int b = blockIdx.x;
+  if (b < windows && __ldg(win_ptr + b) == __ldg(win_ptr + b + 1)) {
+    for (int q = t; q < kV1Window; q += kV1Chunk) {
+      const long long row = static_cast<long long>(b) * kV1Window + q;
+      if (row < rows) y[row] = 0.0f;
+    }
+  }
+  if (b >= chunks) return;  // uniform per block
+  const int c = __ldg(win_chunks + b);
+  const long long base = static_cast<long long>(c) * kV1Chunk;
+  const int r = __ldg(row_local + base + t);
+  const float e = v1_product(x_base, col_local, w, x, n, c, t);
+  const float e_lo = t >= 32 ? v1_product(x_base, col_local, w, x, n, c, t - 32) : 0.0f;
+  const int r_lo = t >= 32 ? __ldg(row_local + base + t - 32) : -1;
+  // The window of plan position b: win_ptr[win] <= b < win_ptr[win + 1].
+  int win = 0;
+  for (int hi = windows; hi - win > 1;) {
+    const int mid = (win + hi) / 2;
+    if (__ldg(win_ptr + mid) <= b) {
+      win = mid;
+    } else {
+      hi = mid;
+    }
+  }
+  const int first = __ldg(win_ptr + win);
+  const int count = __ldg(win_ptr + win + 1) - first;
+  const float v0 = seg_scan::warp_scan_steps(e, e_lo, r, r_lo, t & 31);
   y_s[t] = 0.0f;
   y_s[t + kV1Chunk] = 0.0f;
-  if (t == 0) r_s[kV1Chunk] = -1;  // slot 511 always ends its segment
-  for (int i = win_ptr[win]; i < win_ptr[win + 1]; ++i) {
-    const int c = win_chunks[i];
-    const long long slot = static_cast<long long>(c) * kV1Chunk + t;
-    const int cl = x_base[c] + col_local[slot];
-    const float g = __fadd_rn(cl < n ? x[cl] : 0.0f, 0.0f);
-    float e = __fmul_rn(g, w[slot]);
-    const int r = row_local[slot];
-    r_s[t] = r;
-    e_s[t] = e;
-    __syncthreads();
-    for (int k = 1; k < kV1Chunk; k <<= 1) {
-      const float add = (t >= k && r_s[t - k] == r) ? e_s[t - k] : 0.0f;
-      __syncthreads();
-      e = __fadd_rn(e, add);
-      e_s[t] = e;
-      __syncthreads();
+  const float* v = seg_scan::block_scan_steps(v0, r, buf, rl);
+  if (t == kV1Chunk - 1 || rl[t + 1] != r) y_s[r] = v[t];
+  __syncthreads();
+  const long long row0 = static_cast<long long>(win) * kV1Window;
+  if (count == 1) {
+    for (int q = t; q < kV1Window; q += kV1Chunk) {
+      if (row0 + q < rows) y[row0 + q] = __fadd_rn(0.0f, y_s[q]);
     }
-    if (r_s[t + 1] != r) y_s[r] = __fadd_rn(y_s[r], e);
-    __syncthreads();
+    return;
   }
-  const long long row = static_cast<long long>(win) * kV1Window + t;
-  if (row < rows) y[row] = y_s[t];
-  if (row + kV1Chunk < rows) y[row + kV1Chunk] = y_s[t + kV1Chunk];
+  float* out = scratch + static_cast<long long>(b) * kV1Window;
+  out[t] = y_s[t];
+  out[t + kV1Chunk] = y_s[t + kV1Chunk];
+  __threadfence();
+  __syncthreads();
+  if (t == 0) last = atomicAdd(tickets + win, 1) == count - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int q = t; q < kV1Window; q += kV1Chunk) {
+    float acc = 0.0f;
+    const float* col = scratch + static_cast<long long>(first) * kV1Window + q;
+    int i = 0;
+    for (; i + 4 <= count; i += 4) {
+      float part[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) part[k] = __ldcg(col + static_cast<long long>(i + k) * kV1Window);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) acc = __fadd_rn(acc, part[k]);
+    }
+    for (; i < count; ++i) acc = __fadd_rn(acc, __ldcg(col + static_cast<long long>(i) * kV1Window));
+    if (row0 + q < rows) y[row0 + q] = acc;
+  }
+  if (t == 0) tickets[win] = 0;
 }
 
 // spmv_v2_f32: y = A @ x in the order of the JAX package's v2 TPU SpMV
@@ -651,9 +715,12 @@ spmv_v1_kernel(const int* __restrict__ x_base, const short* __restrict__ col_loc
 // each entry's rounded product and its sub-chunk (col >> shift; with the
 // slot in the low 9 bits where the order reads it).  Then each lane walks
 // its own row in the buffer, carrying its partials and its sum across the
-// stages.  kLazy: the lazy walk 0.5 * fma(dsinv, A (dsinv * w), w), x being
-// w, the gather dsinv[j] * w[j] with one rounding.  Rows n .. rows - 1 (the
-// padded state's padding) are empty.
+// stages; the mxu2 order adds each entry into every partial, +0 into those
+// of the other slot classes, so the lanes of a warp never diverge on a
+// class (a switch on it took 1.8 times as long on the card).  kLazy: the
+// lazy walk 0.5 * fma(dsinv, A (dsinv * w), w), x being w, the gather
+// dsinv[j] * w[j] with one rounding.  Rows n .. rows - 1 (the padded
+// state's padding) are empty.
 constexpr int kV2Chunk = kStage;  // entries a warp stages at a time
 constexpr int kV2Seq = 0, kV2Lanes = 1, kV2Blocks = 2;  // the reduce's orders
 
@@ -759,12 +826,13 @@ spmv_v2_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
           block = -1;
         }
         if constexpr (kReduce == kV2Lanes) {
-          switch (gs & (lanes - 1)) {
-            case 0: part = __fadd_rn(part, e); break;
-            case 1: p1 = __fadd_rn(p1, e); break;
-            case 2: p2 = __fadd_rn(p2, e); break;
-            default: p3 = __fadd_rn(p3, e); break;
-          }
+          // Each partial adds e or +0: a partial from +0 is never -0, so
+          // the +0 adds move no bit, and no lane branches on the class.
+          const int cls = gs & (lanes - 1);
+          part = __fadd_rn(part, cls == 0 ? e : 0.0f);
+          p1 = __fadd_rn(p1, cls == 1 ? e : 0.0f);
+          p2 = __fadd_rn(p2, cls == 2 ? e : 0.0f);
+          p3 = __fadd_rn(p3, cls == 3 ? e : 0.0f);
         } else if constexpr (kReduce == kV2Blocks) {
           const int b = (gs & 511) >> 5;
           if (b != block) {
@@ -952,18 +1020,22 @@ extern "C" int lazy_walk_f64(const void* indptr, const void* indices, const void
   return lazy_walk<double>(indptr, indices, data, w, dsinv, u, c, y, n, row_width, stream);
 }
 
-// win_ptr/win_chunks: each y window's chunks in plan order; windows = P / 1024;
-// x holds n values (or the padded state), y gets rows (n, or P) values.
+// win_ptr/win_chunks: each y window's chunks in plan order (chunks in all);
+// windows = P / 1024; x holds n values (or the padded state), y gets rows
+// (n, or P) values; scratch holds chunks * 1,024 floats and tickets
+// windows ints, zero (each launch leaves them zero), both the stream's own.
 extern "C" int spmv_v1_f32(const void* x_base, const void* col_local, const void* row_local,
                            const void* w, const void* win_ptr, const void* win_chunks,
-                           const void* x, void* y, int n, int rows, int windows, void* stream) {
-  if (rows < n || rows > windows * kV1Window) return static_cast<int>(cudaErrorInvalidValue);
+                           const void* x, void* y, void* scratch, void* tickets, int n, int rows,
+                           int windows, int chunks, void* stream) {
+  if (rows < n || rows > windows * kV1Window || chunks < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (windows > 0) {
-    spmv_v1_kernel<<<windows, kV1Chunk, 0, static_cast<cudaStream_t>(stream)>>>(
+    spmv_v1_kernel<<<max(windows, chunks), kV1Chunk, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(x_base), static_cast<const short*>(col_local),
         static_cast<const short*>(row_local), static_cast<const float*>(w),
         static_cast<const int*>(win_ptr), static_cast<const int*>(win_chunks),
-        static_cast<const float*>(x), static_cast<float*>(y), n, rows);
+        static_cast<const float*>(x), static_cast<float*>(y), static_cast<float*>(scratch),
+        static_cast<int*>(tickets), n, rows, windows, chunks);
   }
   return static_cast<int>(cudaGetLastError());
 }

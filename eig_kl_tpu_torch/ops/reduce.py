@@ -562,6 +562,10 @@ def fused_dot_batch(xs, ys, order: str) -> torch.Tensor:
     * ``"chain"`` (the lazy walk's row sums fused in keep the loop scalar):
       one chain of fused multiply-adds from +0 in index order, no product
       rounded on its own (:func:`fma_dot_plain` with ``unfused=0``).
+    * ``"rows"`` (a graph of ELL width 8: the row sums of the Laplacian or
+      of the lazy walk fused in, the loop vectorized across rows): a chain
+      in :func:`rows_dot_lanes` lanes, folded, then a scalar chain over
+      the rest (:func:`rows_dot_plain`).
 
     K4's fused entry point (``csrc/fma_dot.cu:fused_dot_batch_f32``) for
     tensors on the card, the plain versions for tensors on the CPU.
@@ -580,6 +584,8 @@ def fused_dot_plain(x: torch.Tensor, y: torch.Tensor, order: str) -> torch.Tenso
     plain PyTorch (K4's fused entry point's plain version)."""
     if order == "chain":
         return fma_dot_plain(x, y, unfused=0)
+    if order == "rows":
+        return rows_dot_plain(x, y)
     form, n = LANES_FORMS[order], x.numel()
     if n == 1:
         return (x * y)[0]
@@ -640,7 +646,7 @@ LANES_FORMS = {
     "windows3": LanesForm(33, 191, False, False),
 }
 #: The orders of a fused dot (:func:`fused_dot_batch`) by name.
-FUSED_ORDERS = ("chain", *LANES_FORMS)
+FUSED_ORDERS = ("chain", "rows", *LANES_FORMS)
 
 
 def _check_order(order: str) -> None:
@@ -762,14 +768,63 @@ def _lanes_dot_plain(x: torch.Tensor, y: torch.Tensor, form: LanesForm) -> torch
     return torch.tensor(np.float32(total), device=x.device)
 
 
+def rows_dot_lanes(n: int) -> int:
+    """The lanes of the "rows" order's vector loop for a dot of ``n``
+    values (0: one scalar chain).  Read from the optimised LLVM IR and the
+    x86-64 code of the JAX package's f32 power solve on graphs of ELL width
+    8 at every length from 1 to 420 and at 173 lengths up to 4,095 (jax
+    0.9.0; both quotients, the check's and the final one, alike): LLVM's
+    loop vectorizer weighs the vector loop's cost over the known trip count
+    against the scalar remainder's.  Below 16 values (its tiny-trip-count
+    rule) the loop stays scalar, but for one vector trip of 4 or 8; from 16
+    on it takes 8 lanes where ``n % 8 < 4`` and 4 lanes otherwise, until
+    the 8-lane loop's saving outweighs the longer scalar rest, from 84
+    values on (8 lanes at every length)."""
+    if n in (4, 8):
+        return n
+    if n < 16:
+        return 0
+    return 8 if n % 8 < 4 or n >= 84 else 4
+
+
+def rows_dot_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The "rows" order (:func:`fused_dot_batch`) on the host, f32: lane j
+    of ``rows_dot_lanes(n)`` lanes, from +0 (j = 0) or -0, chains the fused
+    multiply-adds of the values ``i = j (mod lanes)`` below ``n // lanes *
+    lanes``; the lanes fold in halves (``l[i] + l[i + h]``: LLVM's
+    ``vector.reduce.fadd`` on x86-64, an extract of the upper half and an
+    add, down to one lane); then a scalar chain of fused multiply-adds over
+    the rest.  With no lanes, one chain from +0; a dot of one value is its
+    product (XLA emits no loop for it)."""
+    xs, ys = x.detach().cpu().numpy(), y.detach().cpu().numpy()
+    n = xs.size
+    if n == 1:
+        return (x * y)[0]
+    lanes = rows_dot_lanes(n)
+    if not lanes:
+        return fma_dot_plain(x, y, unfused=0)
+    acc = np.full(lanes, -0.0, np.float32)
+    acc[0] = 0.0
+    main = n // lanes * lanes
+    for i in range(0, main, lanes):
+        acc = _fma_f32_np(xs[i : i + lanes], ys[i : i + lanes], acc)
+    total = _fold_lanes(acc)
+    for j in range(main, n):
+        total = _fma_f32_np(xs[j : j + 1], ys[j : j + 1], np.array([total], np.float32))[0]
+    return torch.tensor(np.float32(total), device=x.device)
+
+
 def _k4_form_args(order: str) -> tuple[int, int, int]:
     """K4's fused entry point's ``chain_max, unrolled_max, flags`` for
     ``order``: a :class:`LanesForm`'s lengths, and its flags as bits
     (``pairs_at_6`` 1, ``wide_ties`` 2, a vectorized order 4, whose dot
-    of one value is its product, ``unrolled_ties`` 8); "chain" is the chain
-    at every length."""
+    of one value is its product, ``unrolled_ties`` 8, the "rows" order 16,
+    whose lengths K4 takes from :func:`rows_dot_lanes`); "chain" is the
+    chain at every length."""
     if order == "chain":
         return 2**31 - 1, 2**31 - 1, 0
+    if order == "rows":
+        return 2**31 - 1, 2**31 - 1, 4 | 16
     form = LANES_FORMS[order]
     return form.chain_max, form.unrolled_max, form.pairs_at_6 | form.wide_ties << 1 | 4 | form.unrolled_ties << 3
 

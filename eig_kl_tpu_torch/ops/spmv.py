@@ -95,7 +95,7 @@ WINDOW = 32
 #: fully and keeps it a chain, and vectorizes 24 or 32 in 8 lanes;
 #: ROADMAP.md C).  One fusion keeps lanes at 16: the power solve's first
 #: step, whose loop body also draws the start vector (:func:`power_step`'s
-#: ``lanes``).
+#: ``lanes``); at 8 that step is a chain too (read at 4 to 55 nodes).
 CHAIN_WIDTH = 16
 
 

@@ -140,8 +140,9 @@ _COO_MAX_GROUPS = 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 #: ``spmv_v1_f32(x_base, col_local, row_local, weights, win_ptr,
-#: win_chunks, x, y, n, rows, windows, stream)``: one block per y window.
-K1_V1 = Kernel("spmv_csr", "spmv_v1_f32", [_P] * 8 + [_I, _I, _I, _P])
+#: win_chunks, x, y, scratch, tickets, n, rows, windows, chunks, stream)``:
+#: one block per chunk.
+K1_V1 = Kernel("spmv_csr", "spmv_v1_f32", [_P] * 10 + [_I] * 4 + [_P])
 #: The v2 order's entry points, a warp per 32 rows, by (reduce order,
 #: products, lazy walk): reduce order "mxu" (the default's, and "mxuv"'s),
 #: "mxu2" or "vpu"; products "f32", "bf16i" (bf16) or "bf16w" (bf16, of the
@@ -596,17 +597,37 @@ def _check_card(tensors, what: str) -> None:
         raise ValueError(f"{what} takes contiguous tensors")
 
 
+_V1_TICKETS: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _v1_tickets(device: torch.device, stream, windows: int) -> torch.Tensor:
+    """``spmv_v1_f32``'s ticket counters for one stream, one per y window,
+    grown to ``windows``: zero between launches (the last block of each
+    window resets its own), so launches on one stream share them and
+    launches on two streams never do."""
+    key = (device.index, stream.cuda_stream)
+    if key not in _V1_TICKETS or _V1_TICKETS[key].numel() < windows:
+        _V1_TICKETS[key] = torch.zeros(max(windows, 1), dtype=torch.int32, device=device)
+    return _V1_TICKETS[key]
+
+
 def spmv_v1_cuda(layout: V1Layout, x: torch.Tensor) -> torch.Tensor:
-    """Launch ``spmv_v1_f32`` on the current stream: one block per y
-    window walks its chunks in plan order."""
+    """Launch ``spmv_v1_f32`` on the current stream: one block per chunk,
+    and the last of a window's blocks adds the window's chunk totals in plan
+    order (through the stream's tickets and its scratch, K6's)."""
+    from eig_kl_tpu_torch.ops.reduce import _scratch  # reduce imports this module
+
     _flat(layout, x)  # checks the dtype and the shape
     _check_card((x, layout.col_local), "spmv_v1_cuda")
     y = torch.empty_like(x)
+    stream = torch.cuda.current_stream(x.device)
+    scratch = _scratch(x.device, stream, torch.float32, layout.num_chunks * PLAN_WINDOW)
+    tickets = _v1_tickets(x.device, stream, layout.num_windows)
     K1_V1(
         layout.x_base.data_ptr(), layout.col_local.data_ptr(), layout.row_local.data_ptr(),
         layout.weights.data_ptr(), layout.win_ptr.data_ptr(), layout.win_chunks.data_ptr(),
-        x.data_ptr(), y.data_ptr(), layout.num_nodes, x.numel(), layout.num_windows,
-        torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), y.data_ptr(), scratch.data_ptr(), tickets.data_ptr(),
+        layout.num_nodes, x.numel(), layout.num_windows, layout.num_chunks, stream.cuda_stream,
     )
     return y
 

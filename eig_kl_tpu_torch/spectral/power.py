@@ -199,9 +199,10 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
         # 32 columns the row sums stay out of it, and the loop over the
         # rest of the Laplacian, the safe degrees an operand, is vectorized
         # ("laplacian"; from three row windows, a longer loop body, LLVM
-        # unrolls less: "windows3").
+        # unrolls less: "windows3").  At ELL width 8 LLVM vectorizes the
+        # chain's loop across rows ("rows").
         if g.row_width <= WINDOW:
-            return fused_dot(x, y, "chain")
+            return fused_dot(x, y, "rows" if g.row_width == 8 else "chain")
         return fused_dot(x, y, "laplacian" if g.row_width <= 2 * WINDOW else "windows3")
 
     def rayleigh(w, u, c, dsinv):
@@ -214,9 +215,10 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
         # own epilogue), and the loop's order is "walk".  From 4,096 the
         # dot is XLA's vector dot and the walk a fusion of its own, which
         # recomputes w and contracts its product (lazy_walk's scaled form;
-        # ROADMAP.md C).  From three row windows the loop is "windows3".
+        # ROADMAP.md C).  From three row windows the loop is "windows3"; at
+        # ELL width 8 it is "rows", as for the final quotient.
         if g.row_width <= WINDOW:
-            return fused_dot(w, lazy(w, dsinv), "chain")
+            return fused_dot(w, lazy(w, dsinv), "rows" if g.row_width == 8 else "chain")
         order = "walk" if g.row_width <= 2 * WINDOW else "windows3"
         if w.numel() * w.element_size() < FUSED_DOT_BYTES:
             return fused_dot(w, lazy(w, dsinv), order)
@@ -224,7 +226,7 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
 
     return PowerOperator(lambda x: x, lambda x: x, norm_lap, step, dot if dtype == torch.float32 else tree_dot,
                          tree_norm, lazy, rayleigh, safe_deg,
-                         first_step=lambda x: step(x, lanes=True))
+                         first_step=lambda x: step(x, lanes=g.row_width == 16))
 
 
 def _power_core(

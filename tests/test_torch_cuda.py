@@ -1354,8 +1354,21 @@ def _plan_graph(kind):
         offs = np.zeros(nets + 1, np.int64)
         np.cumsum(sizes, out=offs[1:])
         return clique_expand(Hypergraph(n, nets, pins, offs), "kl")
-    n = 1025 if kind == "edges" else 2048
-    u, v = rng.integers(0, n, 4 * n), rng.integers(0, n, 4 * n)
+    if kind == "hubs":
+        # 16,384 nodes: random edges among nodes 3 on, and three hubs whose
+        # rows cross every sub-chunk: node 0 with one entry per column block
+        # (the first row of its row block: rank 0 in each bucket, so one slot
+        # class), node 1 with 40 per block, node 2 with 3.
+        n = 16384
+        u, v = rng.integers(3, n, 3 * n), rng.integers(3, n, 3 * n)
+        cb = np.arange(16) * 1024
+        hub_u = np.concatenate([np.zeros(16, int), np.ones(640, int), np.full(48, 2)])
+        hub_v = np.concatenate([cb + 517, (cb[:, None] + rng.choice(np.arange(3, 1024), 40, replace=False)).ravel(),
+                                (cb[:, None] + np.array([5, 300, 901])).ravel()])
+        u, v = np.concatenate([u, hub_u]), np.concatenate([v, hub_v])
+    else:
+        n = 1025 if kind == "edges" else 2048
+        u, v = rng.integers(0, n, 4 * n), rng.integers(0, n, 4 * n)
     if kind == "edges":
         # Nodes 0-99 have no edge; 100-299 are joined in pairs (degree 1).
         u, v = u[(u >= 300) & (v >= 300)], v[(u >= 300) & (v >= 300)]
@@ -1464,7 +1477,8 @@ def _v2_layouts(kind, rblock, device):
     return _V2_LAYOUTS[key]
 
 
-@pytest.mark.parametrize("kind, rblock", [("6000", 512), ("6000", 2048), ("gen_1.0", None)])
+@pytest.mark.parametrize("kind, rblock", [("6000", 512), ("6000", 2048), ("hubs", 512), ("hubs", 2048),
+                                          ("gen_1.0", None)])
 @pytest.mark.parametrize("reduce, products", [
     ("mxu", "bf16w"), ("mxu2", "f32"), ("mxu2", "bf16i"), ("mxu2", "bf16w"), ("vpu", "f32"), ("vpu", "bf16i"),
     ("vpu", "bf16w"),
@@ -1472,7 +1486,9 @@ def _v2_layouts(kind, rblock, device):
 def test_spmv_v2_forms_equal_plain_bitwise(cuda, kind, rblock, reduce, products):
     """K1's other v2 forms: the orders of the opt-in reduces "mxu2" (4
     interleaved partials at row block 512, 2 at 2,048, the default's order
-    and entry point at gen 1.0x's 16,384) and "vpu" (32-slot blocks), with
+    and entry point at gen 1.0x's 16,384; "hubs": rows over every sub-chunk
+    with uneven slot classes, one of them with a single class) and "vpu"
+    (32-slot blocks), with
     f32 products, bf16 products and bf16 products of bf16 weights, and the
     default's order with bf16 weights: on a flat vector, on the padded state
     and in the lazy-walk form, against their plain versions on the CPU bit
@@ -1510,7 +1526,7 @@ def test_spmv_v2_forms_equal_plain_bitwise(cuda, kind, rblock, reduce, products)
         assert not torch.equal(spmv_v2_plain(lay_c, x, bf16).view(torch.int32), want[1].view(torch.int32))
 
 
-@pytest.mark.parametrize("order", ["lanes", "slice", "signs", "laplacian", "windows3", "chain"])
+@pytest.mark.parametrize("order", ["lanes", "slice", "signs", "laplacian", "windows3", "chain", "rows"])
 def test_k4_fused_dot_equals_plain(cuda, order):
     """K4's fused entry point in each order, 1 to 4 pairs per launch, at 0
     to 6,000 values (remainders 0-31 of XLA's 32 lanes, the epilogues and
@@ -1672,21 +1688,28 @@ def _v1_host(kind):
     return clique_expand(Hypergraph(n, len(nets), np.concatenate(nets).astype(np.int32), offs), "kl")
 
 
-@pytest.mark.parametrize("kind", ["gen_0.02", "random"])
+@pytest.mark.parametrize("kind", ["gen_0.02", "random", "crafted", "6000_tail"])
 def test_spmv_v1_equals_plain_bitwise(cuda, kind):
     """K1's spmv_v1_f32 (the v1 TPU SpMV's order) against spmv_v1_plain, bit
-    for bit, on signs and on normal values with -0 among them, as a flat
-    vector and as the padded state of the plan path (its padding +0); one
-    launch per call."""
+    for bit, on signs and on normal values with -0 and +0 among them, as a
+    flat vector and as the padded state of the plan path (its padding +0);
+    one launch per call.  "crafted" and "6000_tail" are
+    tests/test_torch_v1_chunks.py's: a row of 1,800 entries that ends in
+    every one of its window's six chunks (segments of 512 slots), a row of
+    200 in one chunk, a one-chunk window whose row's products are all -0,
+    an empty window; and the v1 tail of the 6,000-node graph's v2 plan."""
     from eig_kl_tpu_torch.ops.spmv_plan import K1_V1, spmv_v1_cuda, spmv_v1_plain
+    from test_torch_v1_chunks import v1_layout, v1_vector
 
-    host = _v1_host(kind)
-    assert host.nnz <= 32_768
-    lay_c, lay_g = host.to_device("cpu").plan_layout, host.to_device(cuda).plan_layout
+    if kind in ("gen_0.02", "random"):
+        host = _v1_host(kind)
+        assert host.nnz <= 32_768
+        lay_c, lay_g = host.to_device("cpu").plan_layout, host.to_device(cuda).plan_layout
+    else:
+        lay_c, lay_g = v1_layout(kind, "cpu"), v1_layout(kind, cuda)
     rng = np.random.default_rng(5)
-    n, P = host.num_nodes, lay_c.padded_nodes
-    x = rng.standard_normal(n).astype(np.float32)
-    x[::11] = -0.0
+    n, P = lay_c.num_nodes, lay_c.padded_nodes
+    x = v1_vector(lay_c, 5).numpy()
     for v in (x, np.where(rng.random(n) < 0.5, -1.0, 1.0).astype(np.float32)):
         v2d = np.zeros(P, np.float32)
         v2d[:n] = v

@@ -510,6 +510,32 @@ def test_power_solve_at_widths_8_and_16_equals_jax(n, convergence):
     assert _bits(lam_t) == _bits(lam_j)
 
 
+@pytest.mark.parametrize("n", [4, 16, 19, 55])
+def test_momentum_at_width_8_equals_jax_to_its_exit(n):
+    """The momentum exit on connected graphs of ELL width 8 (a path through
+    the nodes and random 3-pin nets), to its exit: every iterate bit, the
+    iteration count and the final quotient.  XLA fuses the row sums into
+    both quotients' loops, which LLVM vectorizes across rows in 4 or 8
+    lanes ("rows", read from the x86-64 code at every length to 420 and at
+    173 up to 4,095: ``ops/reduce.py:rows_dot_lanes``), and the first step's
+    row sums stay a chain at width 8 (its 8 lanes are width 16's).  With the
+    "chain" quotients and 8 lanes in the first step all four parted (at 4
+    nodes from the second check, at 16 at the first check's final quotient);
+    with the "rows" quotients alone 55 still parted, at the first step."""
+    from eig_kl_tpu.spectral.power import _power_core as jax_core
+    from eig_kl_tpu_torch.spectral.power import _power_core
+
+    g_jax, g = _graphs(_connected_with_wide_net(n, 2, n))
+    assert g.row_width == 8
+    kw = dict(shift=2.0, tolerance=1e-6, min_iters=100, max_iters=400, seed=42, convergence="momentum")
+    lam_j, v_j, it_j = jax_core(g_jax, dtype="float32", **kw)
+    with _one_thread():
+        lam_t, v_t, it_t = _power_core(g, dtype=torch.float32, **kw)
+    assert it_t == int(it_j)
+    np.testing.assert_array_equal(_bits(v_t.numpy()), _bits(v_j))
+    assert _bits(lam_t) == _bits(lam_j)
+
+
 # ----------------------------------- C5 from 4,096 nodes: settled, tree order
 
 
