@@ -35,7 +35,14 @@ too, through ``spmv_v2_bf16i_f32`` and its lazy-walk forms; last, the v2
 SpMV's other forms that the environment picks there, as in the JAX package
 (``EIG_KL_TPU_BF16_W=1``: bf16 weights; ``EIG_KL_TPU_REDUCE_IMPL``: the
 "mxu2" and "vpu" reduce orders): each entry point against its plain
-version, then the paths that take them.
+version, then the paths that take them.  Last, the engines across ranks
+(``eig_kl_tpu_torch/parallel``): ``sharded_refine_oc``, the dp-sharded
+multi-start and the sharded power iteration at one rank over NCCL in this
+process and at two ranks on the same card over gloo in two processes,
+held to K2's swaps, to the one-card multi-start and to the JAX package's
+runs (``tools/sharded_reference.py``); and the fused CLI with
+``EIG_KL_TPU_PROFILE_DIR`` set, whose Chrome trace must name K1's power
+step and K2.
 Any failed check raises, so the script exits nonzero and prints no
 result; so does a machine without a CUDA card.
 """
@@ -45,6 +52,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import dataclasses
+import datetime
 import hashlib
 import json
 import os
@@ -384,6 +392,319 @@ def turns(designs: dict, kernel: str, calls: int = 50) -> dict[str, list[float |
         us = device_us_per_launch(lambda fn=designs[name]: [fn() for _ in range(calls)], kernel)
         out[name].append(None if us is None else us[0])
     return out
+
+
+#: The sharded phase (ROADMAP.md A8b): its two ranks share the one card over
+#: gloo, which carries their collectives through the host (NCCL refuses two
+#: ranks on one device); its one-rank runs take NCCL.  The ranks are killed
+#: at the deadline.  The JAX package's sharded power ("gkl2") on this
+#: circuit on the CPU (tools/sharded_reference.py): iterations, lambda and
+#: the vector's digest on 1 and 2 devices, and its single-chip solve's
+#: lambda and digest, which the port's one- and two-rank runs and its
+#: one-card gkl2 exit equal bit for bit.  Their own spread (lambda 4.6e-5
+#: relative and the vector 1.2e-6 apart between 1 and 2 devices, 5.8e-4 and
+#: 1.1e-5 to the single chip) is the rounding of their norms.
+SHARDED_DEADLINE_S = 300
+JAX_SHARDED_POWER = {1: (1000, 2.0929136276245117, "fae28b91cf9e09c0"),
+                     2: (1000, 2.0928163528442383, "87aea64dc2f0bece")}
+JAX_SINGLE_POWER = (2.091707706451416, "438b197f19182959")
+
+
+def port_kernels() -> list:
+    """Every kernel wrapper of the port, each once."""
+    import importlib
+
+    from eig_kl_tpu_torch.ops import _build, spmv_plan
+
+    found = {}
+    for name in ("kl.megakernel", "ops.reduce", "ops.select", "ops.spmv", "ops.spmv_plan", "ops.spmv_v3",
+                 "parallel.smega"):
+        mod = importlib.import_module(f"eig_kl_tpu_torch.{name}")
+        for v in list(vars(mod).values()) + list(spmv_plan.K1_V2_FORMS.values()):
+            if isinstance(v, _build.Kernel):
+                found[id(v)] = v
+    return list(found.values())
+
+
+def vector_digest(v) -> str:
+    """The first 16 hex digits of the SHA-256 of an f32 vector's bytes."""
+    return hashlib.sha256(np.ascontiguousarray(np.asarray(v, dtype=np.float32)).tobytes()).hexdigest()[:16]
+
+
+def _kl_fields(r) -> dict:
+    return {f.name: getattr(r, f.name) for f in dataclasses.fields(r)}
+
+
+def sharded_runs(g_host, sides, init_sides, dev) -> dict:
+    """One rank's runs of the sharded path, each with the kernel counts set
+    to 0 just before it and read just after: sharded_refine_oc over every
+    rank of the group, multi_start_refine_mega_sharded with the starts
+    split over them, sharded_power_fiedler ("gkl2") over them."""
+    from eig_kl_tpu_torch.kl.megakernel import K2_STARTS
+    from eig_kl_tpu_torch.parallel import sharded_kl, sharded_power
+    from eig_kl_tpu_torch.parallel.mesh import make_mesh, world_size
+    from eig_kl_tpu_torch.parallel.multi_start import multi_start_refine_mega_sharded
+    from eig_kl_tpu_torch.parallel.sharded_kl2 import sharded_refine_oc
+    from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
+    from eig_kl_tpu_torch.utils.tracing import Tracer
+
+    kernels = port_kernels()
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    def counted(fn):
+        for kern in kernels:
+            kern.launches = 0
+        K2_STARTS.clear()
+        sync()
+        t0 = time.perf_counter()
+        r = fn()
+        sync()
+        secs = time.perf_counter() - t0
+        return r, secs, {kern.symbol: kern.launches for kern in kernels if kern.launches}, dict(K2_STARTS)
+
+    ranks = world_size()
+    config = KLConfig(gain_eps=1e-6)
+    mesh = make_mesh(device=dev)
+    tracer = Tracer(dev)
+    r, secs, launched, _ = counted(lambda: sharded_refine_oc(g_host, sides, mesh, config, tracer=tracer))
+    out = {"ranks": ranks, "oc": {"result": _kl_fields(r), "swaps": sharded_kl.last_swaps, "seconds": secs,
+                                  "pass_seconds": tracer.spans["kl.pass"], "launches": launched}}
+    g_dev = g_host.to_device(mesh.device, torch.float32)
+    g_dev.plan_layout  # the mega engine's layout, built once per graph, outside the clock
+    dp_mesh = make_mesh(dp=ranks, device=dev)
+    (best, cuts), secs, launched, k2_starts = counted(lambda: multi_start_refine_mega_sharded(
+        g_dev, len(init_sides), mesh=dp_mesh, config=config, init_sides=init_sides))
+    out["multi"] = {"best": _kl_fields(best), "cuts": cuts, "seconds": secs, "launches": launched,
+                    "k2_starts": k2_starts}
+    cfg = SpectralConfig(solver="power", convergence="gkl2")
+    (lam, v), secs, launched, _ = counted(lambda: sharded_power.sharded_power_fiedler(g_host, mesh, cfg))
+    out["power"] = {"lam": float(lam), "v": v.cpu().numpy(), "iterations": sharded_power.last_iterations,
+                    "seconds": secs, "launches": launched}
+    return out
+
+
+def sharded_rank(rank: int, world: int, tmp: str) -> None:
+    """A rank of the sharded phase's two: set up, wait for the parent's
+    signal, join the gloo group, run :func:`sharded_runs`, write the result."""
+    import pickle
+
+    import torch.distributed as dist
+
+    from eig_kl_tpu_torch.graph.csr import Graph
+
+    with open(os.path.join(tmp, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    dev = torch.device(inp["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.zeros(1, device=dev)
+    g_host = Graph.from_arrays(inp["indptr"], inp["indices"], inp["data"])
+    t0 = time.monotonic()
+    while not os.path.exists(os.path.join(tmp, "go")):
+        if time.monotonic() - t0 > SHARDED_DEADLINE_S:
+            raise SystemExit("no signal from the parent")
+        time.sleep(0.05)
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), world), rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=60))
+    try:
+        out = sharded_runs(g_host, inp["sides"], inp["init_sides"], dev)
+    except Exception:  # noqa: BLE001 -- the parent reports it
+        import traceback
+
+        out = {"error": traceback.format_exc()}
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+    dist.destroy_process_group()
+
+
+def _same_kl(a: dict, b: dict, what: str, fields=None) -> None:
+    for name, va in a.items():
+        if fields is None or name in fields:
+            same = np.array_equal(va, b[name]) if isinstance(va, np.ndarray) else va == b[name]
+            check(same, f"{what}: {name} differs")
+
+
+def sharded_phase(dev, hg, g_host, sides, k2_pass, card, expect_swaps=None, power_ref=None) -> dict:
+    """The engines across ranks on gen 1.0x, from the one start's spectral
+    split: one rank in this process over NCCL, two ranks in two processes
+    on the same card over gloo.  ``k2_pass`` is K2's one-start pass from
+    that split; ``expect_swaps`` its recorded swap count; ``power_ref`` the
+    JAX sharded power's (iterations, lambda, vector digest) by rank count."""
+    import pickle
+
+    from eig_kl_tpu_torch.cli.main import main as cli_main
+    from eig_kl_tpu_torch.io.hgr import write_hgr
+    from eig_kl_tpu_torch.kl.init import perturb_split
+    from eig_kl_tpu_torch.parallel.mesh import release_default_group
+    from eig_kl_tpu_torch.parallel.multi_start import multi_start_refine_mega
+    from eig_kl_tpu_torch.spectral.power import _power_core
+    from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    n = g_host.num_nodes
+    sides = np.asarray(sides, dtype=np.int8)
+    init_sides = np.stack([sides] + [perturb_split(sides, 1 + i, PERTURB) for i in range(STARTS - 1)])
+    tmp_dir = tempfile.TemporaryDirectory(prefix="eigkl_sharded_")  # removed at the end, or at exit
+    tmp = tmp_dir.name
+    with open(os.path.join(tmp, "inputs.pkl"), "wb") as f:
+        pickle.dump({"indptr": g_host.indptr, "indices": g_host.indices, "data": g_host.data, "sides": sides,
+                     "init_sides": init_sides, "device": str(torch.device(dev.type, 0) if on_card else dev)}, f)
+    root = os.path.dirname(os.path.abspath(__file__))
+    code = "import sys; sys.path.insert(0, {!r}); import chip_smoke; chip_smoke.sharded_rank({}, 2, {!r})"
+    env = dict(os.environ, LOCAL_RANK="0", OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, "-c", code.format(root, r, tmp)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        one = sharded_runs(g_host, sides, init_sides, dev)
+        release_default_group()
+        with open(os.path.join(tmp, "go"), "w"):
+            pass
+        logs = []
+        for p in procs:
+            try:
+                logs.append(p.communicate(timeout=max(SHARDED_DEADLINE_S - (time.perf_counter() - t_phase), 1))[0])
+            except subprocess.TimeoutExpired:
+                p.kill()
+                logs.append(p.communicate()[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    two = []
+    for r in range(2):
+        path = os.path.join(tmp, f"rank{r}.pkl")
+        check(os.path.exists(path), "a rank of the two-rank run wrote no result:\n"
+              + b"\n".join(logs).decode(errors="replace")[-3000:])
+        with open(path, "rb") as f:
+            two.append(pickle.load(f))
+        check("error" not in two[-1], f"rank {r} of the two-rank run failed:\n{two[-1].get('error')}")
+    check(one["ranks"] == 1 and all(t["ranks"] == 2 for t in two), "the runs had other rank counts")
+
+    # sharded_refine_oc: K2's swaps and gains at one rank and at two.
+    it = int(k2_pass.scalars[2])
+    k2_a, k2_b = (x[1 : it + 1].cpu().numpy() for x in (k2_pass.log_a, k2_pass.log_b))
+    k2_gain = k2_pass.log_gain[1 : it + 1].cpu().numpy()
+    oc = one["oc"]
+    res = oc["result"]
+    check(res["iterations"] == it and (expect_swaps is None or it == expect_swaps),
+          f"sharded_refine_oc at one rank: {res['iterations']} swaps, K2 {it}")
+    check(np.array_equal(oc["swaps"][0], k2_a) and np.array_equal(oc["swaps"][1], k2_b),
+          "sharded_refine_oc at one rank swapped other nodes than K2")
+    check(np.array_equal(res["gain_trajectory"][1:], k2_gain), "sharded_refine_oc's gains differ from K2's")
+    # The JAX engines track the cut as cut - gain, uncompensated: at one
+    # rank the best cut is the JAX CPU pipeline's (its XLA engine's), not
+    # K2's compensated one, and the drift is the uncompensated sum's.
+    recount = host_cut(g_host, res["best_sides"])
+    oc_drift = abs(res["final_cut"] - res["verified_cut"]) / res["final_cut"]
+    check(not on_card or (recount <= 1.03 * JAX_CPU_BEST_CUT and abs(res["best_cut"] - JAX_CPU_BEST_CUT) < 0.005),
+          f"sharded_refine_oc: best cut {res['best_cut']} (JAX CPU {JAX_CPU_BEST_CUT}), its partition's host "
+          f"recount {recount}, above 1.03 x {JAX_CPU_BEST_CUT}")
+    for r, t in enumerate(two):
+        check(np.array_equal(t["oc"]["swaps"][0], k2_a) and np.array_equal(t["oc"]["swaps"][1], k2_b)
+              and np.array_equal(t["oc"]["result"]["gain_trajectory"][1:], k2_gain),
+              f"sharded_refine_oc at two ranks (rank {r}) swapped other nodes or gained otherwise than at one")
+        _same_kl(t["oc"]["result"], two[0]["oc"]["result"], f"sharded_refine_oc, rank {r} against rank 0")
+    if on_card:
+        want = {"spmv_csr_f32": 2, "tree_sum_f32": 2, "fma_dot_batch_f32": 2}
+        for t in [one] + two:
+            check(t["oc"]["launches"] == want, f"sharded_refine_oc launched {t['oc']['launches']}, not {want}")
+
+    # multi_start_refine_mega_sharded at dp = 1 and 2 against the one-card run.
+    g_dev = g_host.to_device(dev, torch.float32)
+    ref_best, ref_cuts = multi_start_refine_mega(g_dev, STARTS, config=KLConfig(gain_eps=1e-6),
+                                                 init_sides=init_sides, spmv_order="plan")
+    for what, t in (("dp = 1", one), ("dp = 2, rank 0", two[0]), ("dp = 2, rank 1", two[1])):
+        m = t["multi"]
+        check(np.array_equal(m["cuts"], ref_cuts), f"the sharded multi-start at {what}: best cuts per start differ")
+        _same_kl(m["best"], _kl_fields(ref_best), f"the sharded multi-start at {what}")
+        per_rank = STARTS // t["ranks"]
+        check(not on_card or (m["k2_starts"] == {per_rank: 1} and m["launches"].get("kl_pass_f32") == 1),
+              f"the sharded multi-start at {what} launched K2 {m['k2_starts']}, {m['launches']}")
+
+    # sharded_power_fiedler: each rank count equal to the JAX package's run
+    # at that count, and the one-card gkl2 exit to the JAX single chip's
+    # (tools/sharded_reference.py); their spread is theirs.
+    lam1, v1 = _power_core(g_dev, shift=2.0, tolerance=1e-6, min_iters=100, max_iters=1000, seed=42,
+                           dtype=torch.float32, convergence="gkl2")[:2]
+    lam1, v1 = float(lam1), v1.cpu().numpy()
+    for t in (one, two[0]):
+        got = (t["power"]["iterations"], t["power"]["lam"], vector_digest(t["power"]["v"]))
+        check(power_ref is None or got == power_ref[t["ranks"]],
+              f"sharded_power_fiedler at {t['ranks']} ranks gave {got}, not the JAX run's "
+              f"{power_ref and power_ref[t['ranks']]}")
+    check(power_ref is None or (lam1, vector_digest(v1)) == JAX_SINGLE_POWER,
+          f"the one-card gkl2 exit gave {lam1}, {vector_digest(v1)}, not the JAX run's {JAX_SINGLE_POWER}")
+    check(two[0]["power"]["iterations"] == two[1]["power"]["iterations"] and
+          np.array_equal(two[0]["power"]["v"], two[1]["power"]["v"]), "the two ranks' power runs differ")
+    pw = one["power"]
+    power_spread = {
+        what: {"lambda_rel": abs(pw["lam"] - lam) / abs(lam), "vector_max_abs": float(np.abs(pw["v"] - v).max())}
+        for what, lam, v in (("one rank to two", two[0]["power"]["lam"], two[0]["power"]["v"]),
+                             ("one rank to the one-card gkl2 exit", lam1, v1))
+    }
+
+    # The fused CLI under EIG_KL_TPU_PROFILE_DIR: one Chrome trace naming
+    # K1's power step and K2.
+    cwd = os.getcwd()
+    write_hgr(os.path.join(tmp, "gen.hgr"), hg)
+    prof_dir = os.path.join(tmp, "profile")
+    t0 = time.perf_counter()
+    try:
+        os.chdir(tmp)
+        with knobs({"EIG_KL_TPU_PROFILE_DIR": prof_dir}), contextlib.redirect_stdout(open(os.devnull, "w")):
+            rc = cli_main(["fused", "gen.hgr", "-EIG", "--device", dev.type])
+    finally:
+        os.chdir(cwd)
+    cli_s = time.perf_counter() - t0
+    traces = os.listdir(prof_dir) if os.path.isdir(prof_dir) else []
+    check(rc == 0 and len(traces) == 1, f"the profiled fused CLI: rc {rc}, traces {traces}")
+    with open(os.path.join(prof_dir, traces[0])) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    named = {k: any(k in s for s in names) for k in ("power_step_kernel", "kl_pass_kernel")}
+    check(not on_card or all(named.values()), f"the profiled fused CLI's trace names {named}")
+    trace_mb = os.path.getsize(os.path.join(prof_dir, traces[0])) / 2**20
+
+    summary = {
+        "card": card,
+        "oc": {f"{t['ranks']} rank{'s' * (t['ranks'] > 1)}": {
+            "swaps": t["oc"]["result"]["iterations"], "e2e_s": t["oc"]["seconds"],
+            "us_per_swap": 1e6 * t["oc"]["pass_seconds"] / max(t["oc"]["result"]["iterations"], 1),
+            "best_cut": t["oc"]["result"]["best_cut"], "verified_cut": t["oc"]["result"]["verified_cut"],
+            "launches": t["oc"]["launches"]} for t in (one, two[0])},
+        "multi_start": {f"dp {t['ranks']}": {"starts": STARTS, "e2e_s": t["multi"]["seconds"],
+                                             "best_cut": t["multi"]["best"]["best_cut"],
+                                             "k2_launches_by_starts": t["multi"]["k2_starts"],
+                                             "launches": t["multi"]["launches"]} for t in (one, two[0])},
+        "power_gkl2": {f"{t['ranks']} rank{'s' * (t['ranks'] > 1)}": {
+            "iterations": t["power"]["iterations"], "lambda": t["power"]["lam"], "seconds": t["power"]["seconds"],
+            "launches": t["power"]["launches"]} for t in (one, two[0])},
+        "power_gkl2_one_card": {"lambda": lam1},
+        "power_spread": power_spread,
+        "oc_best_recount": recount, "oc_drift": oc_drift,
+        "profiled_cli": {"seconds": cli_s, "trace_mib": trace_mb, "kernels_named": named},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    for key, t in summary["oc"].items():
+        print(f"sharded_refine_oc at {key} on gen {MULTIPLIER}x: {t['swaps']} swaps (= K2's, swap for swap and "
+              f"gain for gain), best cut {t['best_cut']}, e2e {t['e2e_s']:.3f} s, {t['us_per_swap']:.1f} us per "
+              f"swap; launches {t['launches']}")
+    print(f"sharded_refine_oc's best partition: host f64 recount {recount:.4f} (JAX CPU {JAX_CPU_BEST_CUT}); "
+          f"drift of the uncompensated cut {oc_drift:.3g}")
+    for key, t in summary["multi_start"].items():
+        print(f"multi_start_refine_mega_sharded at {key}, {STARTS} starts: per-start cuts and the best start equal "
+              f"multi_start_refine_mega(spmv_order='plan'); best {t['best_cut']}, e2e {t['e2e_s']:.3f} s; K2 "
+              f"launches by starts {t['k2_launches_by_starts']}")
+    for key, t in summary["power_gkl2"].items():
+        print(f"sharded_power_fiedler (gkl2) at {key}: {t['iterations']} iterations, lambda {t['lambda']}, "
+              f"{t['seconds']:.3f} s")
+    print(f"the one-card gkl2 exit: lambda {lam1}; spread {power_spread}; the profiled fused CLI: {cli_s:.2f} s, one trace of "
+          f"{trace_mb:.1f} MiB naming {named}")
+    print(f"sharded phase: {summary['phase_s']:.1f} s")
+    tmp_dir.cleanup()
+    return summary
 
 
 def main() -> int:
@@ -2680,6 +3001,15 @@ def main() -> int:
     print(json.dumps({"v2_forms": {"card": card, "paths": form_paths}}))
     print(f"forms phase: {time.perf_counter() - t_phase:.1f} s")
 
+    # Phase 15: the engines across ranks (ROADMAP.md A8b) from the one
+    # start's spectral split: sharded_refine_oc against K2's pass (phase 9),
+    # the dp-sharded multi-start against the one-card one, the sharded power
+    # iteration, at one rank over NCCL and two ranks on this card over gloo;
+    # then the fused CLI under EIG_KL_TPU_PROFILE_DIR.
+    sharded = sharded_phase(dev, hg, g_host, sm_sides, k2_main, card, expect_swaps=MAIN_SWAPS,
+                            power_ref=JAX_SHARDED_POWER)
+    print(json.dumps({"sharded": sharded}))
+
     kernels = [
         {
             "name": "K1 spmv_csr_f32",
@@ -2688,6 +3018,7 @@ def main() -> int:
             "replaces": "eig_kl_tpu/ops/spmv_pallas.py:339",
             "launches": k1_launches,
             "launches_multi_start": m_k1,
+            "launches_sharded_one_rank": sharded["oc"]["1 rank"]["launches"].get("spmv_csr_f32", 0),
             "max_abs_err": k1_err,
             "ms": k1_ms,
             "plain_ms": k1_plain_ms,
@@ -2740,6 +3071,7 @@ def main() -> int:
             "source": "eig_kl_tpu_torch/csrc/kl_pass.cu",
             "replaces": "eig_kl_tpu/kl/megakernel.py:638",
             "launches": m_batched,
+            "launches_sharded_multi_start": {k: v["k2_launches_by_starts"] for k, v in sharded["multi_start"].items()},
             "max_abs_err": kb_err,
             "ms": kb_ms,
             "plain_ms": kb_plain_ms,

@@ -11,13 +11,22 @@ The subcommands, flags, output files and console blocks of
 
 ``--device {cuda,cpu}`` (default ``cuda``) takes the place of the JAX
 CLI's ``--platform``.  ``--starts``, ``--perturb``, ``--passes``,
-``--kicks`` and ``--kick-frac`` mean what they mean there; a multi-start
-run uses one card, whatever the host has.  ``--f64`` runs in f64 on the
-card and on the CPU, and ``eig`` computes in f64 unless given ``--f32``:
-the JAX package's precision rule off the TPU (:func:`eig_dtype`).  The
-one option whose code is not yet ported, ``--sharded``, exits 1 with "not
-yet ported" and the ROADMAP item.  Output lands in
-``pre_saved_EIG/`` and ``results/`` relative to the working directory.
+``--kicks`` and ``--kick-frac`` mean what they mean there.  Under several
+ranks (``torchrun --nproc-per-node N -m eig_kl_tpu_torch ...``, one
+process per card), ``kl --starts S`` on the card in f32 with ``S``
+divisible by the rank count splits the starts over the ranks
+(:func:`~eig_kl_tpu_torch.parallel.multi_start.multi_start_refine_mega_sharded`,
+the JAX CLI's rule with ranks for chips); otherwise a multi-start run
+takes one card per process.  ``kl --sharded`` splits the nodes over every
+rank (the owner-computes engine, one rank in a plain ``python -m``).
+Rank 0 alone prints and writes the output files.  ``--f64`` runs in f64
+on the card and on the CPU, and ``eig`` computes in f64 unless given
+``--f32``: the JAX package's precision rule off the TPU
+(:func:`eig_dtype`).  With ``EIG_KL_TPU_PROFILE_DIR`` set, ``kl`` and
+``fused`` record their pipeline with ``torch.profiler`` into one Chrome
+trace there (:func:`~eig_kl_tpu_torch.utils.tracing.maybe_profile`).
+Output lands in ``pre_saved_EIG/`` and ``results/`` relative to the
+working directory.
 """
 
 from __future__ import annotations
@@ -107,7 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
         "each start's spectral init",
     )
     p_kl.add_argument(
-        "--sharded", action="store_true", help="multi-device KL (not yet ported)"
+        "--sharded", action="store_true",
+        help="node-sharded KL over the ranks of the process group (one rank without torchrun)",
     )
     p_kl.add_argument(
         "--table", action="store_true",
@@ -151,15 +161,6 @@ def build_parser() -> argparse.ArgumentParser:
 
     sub.add_parser("info", help="print the CUDA devices (printGPUInfo analog)")
     return ap
-
-
-class NotPorted(Exception):
-    """A requested option whose code is not yet ported."""
-
-
-def _check_ported(args) -> None:
-    if getattr(args, "sharded", False):
-        raise NotPorted("--sharded, the cross-card sharded_kl2 engine (ROADMAP.md A8b)")
 
 
 def eig_dtype(args):
@@ -207,24 +208,68 @@ def _kl_multi_start(args, hg, kl_config, dtype):
     """``kl --starts N``: random splits from ``--seed``, or with ``-EIG``
     the split of the EIG file (start 0) and balanced jitters of it, all
     starts in one batched launch per pass, then the kicks around the
-    winner (the JAX CLI's multi-start branch, ``cli/main.py:354-436``)."""
+    winner (the JAX CLI's multi-start branch, ``cli/main.py:354-436``).
+    On the card in f32 under several ranks, with N divisible by their
+    count, the starts are split over the ranks (``:380-393``)."""
+    import torch
+
     from eig_kl_tpu_torch.graph.expand import clique_expand
     from eig_kl_tpu_torch.io.eigfile import eig_out_path
     from eig_kl_tpu_torch.kl.init import split_from_eig
     from eig_kl_tpu_torch.models.pipelines import PartitionRun, _multi_start_dispatch
-    from eig_kl_tpu_torch.utils.device import resolve_device
+    from eig_kl_tpu_torch.parallel.mesh import make_mesh, rank_device, world_size
 
+    ranks = world_size()
+    mesh = None
+    if args.device == "cuda" and dtype == torch.float32 and ranks > 1 and args.starts % ranks == 0:
+        mesh = make_mesh(dp=ranks, device=args.device)
     g_host = clique_expand(hg, "kl")
-    g = g_host.to_device(resolve_device(args.device), dtype)
+    g = g_host.to_device(mesh.device if mesh else rank_device(args.device), dtype)
     base = split_from_eig(eig_out_path(args.input)) if args.eig_init else None
     best, cuts = _multi_start_dispatch(
         g, base, kl_config, starts=args.starts, perturb=args.perturb,
-        seed=args.seed, perturb_base=args.eig_init,
+        seed=args.seed, perturb_base=args.eig_init, mesh=mesh,
     )
     return PartitionRun(
         circuit=hg.name, eig=None, kl=best, timings={}, nnz=g_host.nnz,
         start_cuts=cuts.tolist(),
     )
+
+
+def _kl_sharded(args, hg, kl_config, dtype):
+    """``kl --sharded``: the owner-computes engine over every rank, from
+    the EIG file's split, the reference's shuffled order
+    (``--shuffled-ties``, mapped back to the node ids) or a random split,
+    with passes or kicks around it (the JAX CLI's ``cli/main.py:437-492``)."""
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.io.eigfile import eig_out_path
+    from eig_kl_tpu_torch.kl.init import random_split, reference_shuffle_init, split_from_eig
+    from eig_kl_tpu_torch.kl.multipass import refine_ils, refine_multipass
+    from eig_kl_tpu_torch.models.pipelines import PartitionRun, unshuffle
+    from eig_kl_tpu_torch.parallel.mesh import make_mesh
+    from eig_kl_tpu_torch.parallel.sharded_kl2 import sharded_refine_oc
+
+    g_host = clique_expand(hg, "kl")
+    perm = None
+    if args.eig_init:
+        sides = split_from_eig(eig_out_path(args.input))
+    elif args.shuffled_ties:
+        g_host, sides, perm = reference_shuffle_init(g_host, args.seed)
+    else:
+        sides = random_split(hg.num_nodes, args.seed)
+    mesh = make_mesh(device=args.device)
+
+    def backend(s):
+        return sharded_refine_oc(g_host, s, mesh, kl_config, dtype=dtype)
+
+    if kl_config.kicks > 0:
+        res = refine_ils(backend, sides, kl_config, kicks=kl_config.kicks,
+                         kick_frac=kl_config.kick_frac, seed=args.seed)
+    else:
+        res = refine_multipass(backend, sides, kl_config)
+    if perm is not None:
+        res = unshuffle(res, perm)
+    return PartitionRun(circuit=hg.name, eig=None, kl=res, timings={}, nnz=g_host.nnz)
 
 
 def _run_kl(args, fused: bool) -> int:
@@ -234,71 +279,82 @@ def _run_kl(args, fused: bool) -> int:
     from eig_kl_tpu_torch.io.eigfile import eig_out_path
     from eig_kl_tpu_torch.io.hgr import read_hgr
     from eig_kl_tpu_torch.models.pipelines import fused_partition, kl_partition
+    from eig_kl_tpu_torch.parallel.mesh import rank
     from eig_kl_tpu_torch.utils import logging as rlog
     from eig_kl_tpu_torch.utils.config import KLConfig, SpectralConfig
     from eig_kl_tpu_torch.utils.device import resolve_device
+    from eig_kl_tpu_torch.utils.tracing import maybe_profile
 
-    _check_ported(args)
     resolve_device(args.device)
+    lead = rank() == 0
+
+    def say(*parts):
+        if lead:
+            print(*parts)
+
     dtype = torch.float64 if args.f64 else torch.float32
     t0 = time.perf_counter()
     hg = read_hgr(args.input)
-    print(f"Circuit: {hg.num_nets} nets, {hg.num_nodes} nodes, {hg.num_pins} pins")
+    say(f"Circuit: {hg.num_nets} nets, {hg.num_nodes} nodes, {hg.num_pins} pins")
     kl_config = KLConfig(
         gain_eps=getattr(args, "gain_eps", 1e-6),
         passes=args.passes,
         kicks=args.kicks,
         kick_frac=args.kick_frac,
     )
-    if fused:
-        spec_kwargs = {}
-        if args.power_iters is not None:
-            spec_kwargs["max_iterations"] = args.power_iters
-        run = fused_partition(
-            hg,
-            use_eig=args.eig_init,
-            spectral_config=SpectralConfig(solver=args.solver, **spec_kwargs),
-            kl_config=kl_config,
-            seed=args.seed,
-            dtype=dtype,
-            starts=args.starts,
-            perturb=args.perturb,
-            device=args.device,
-        )
-    elif args.starts > 1:
-        run = _kl_multi_start(args, hg, kl_config, dtype)
-    else:
-        run = kl_partition(
-            hg,
-            init=eig_out_path(args.input) if args.eig_init else None,
-            kl_config=kl_config,
-            seed=args.seed,
-            dtype=dtype,
-            shuffled_ties=args.shuffled_ties,
-            device=args.device,
-        )
+    with maybe_profile():
+        if fused:
+            spec_kwargs = {}
+            if args.power_iters is not None:
+                spec_kwargs["max_iterations"] = args.power_iters
+            run = fused_partition(
+                hg,
+                use_eig=args.eig_init,
+                spectral_config=SpectralConfig(solver=args.solver, **spec_kwargs),
+                kl_config=kl_config,
+                seed=args.seed,
+                dtype=dtype,
+                starts=args.starts,
+                perturb=args.perturb,
+                device=args.device,
+            )
+        elif args.starts > 1:
+            run = _kl_multi_start(args, hg, kl_config, dtype)
+        elif args.sharded:
+            run = _kl_sharded(args, hg, kl_config, dtype)
+        else:
+            run = kl_partition(
+                hg,
+                init=eig_out_path(args.input) if args.eig_init else None,
+                kl_config=kl_config,
+                seed=args.seed,
+                dtype=dtype,
+                shuffled_ties=args.shuffled_ties,
+                device=args.device,
+            )
     runtime = time.perf_counter() - t0
     out = rlog.kl_results_path(args.input, args.eig_init)
-    rlog.write_kl_trajectory(out, run.kl)
+    if lead:
+        rlog.write_kl_trajectory(out, run.kl)
     if run.start_cuts is not None:
-        print(
+        say(
             "Multi-start best cuts: "
             f"{np.sort(np.asarray(run.start_cuts))[:8].round(2).tolist()} ..."
         )
     if run.nnz is not None:
-        print(rlog.format_matrix_stats(hg.num_nodes, run.nnz))
+        say(rlog.format_matrix_stats(hg.num_nodes, run.nnz))
     if getattr(args, "table", False):
-        print(rlog.format_iteration_table(run.kl, kl_seconds=run.timings.get("kl.pass")))
-    print(rlog.format_final_results(run.kl, runtime))
+        say(rlog.format_iteration_table(run.kl, kl_seconds=run.timings.get("kl.pass")))
+    say(rlog.format_final_results(run.kl, runtime))
     for name, secs in sorted(run.timings.items()):
-        print(f"  [{name}] {secs:.3f}s")
+        say(f"  [{name}] {secs:.3f}s")
     if run.spectral_iterations is not None:
-        print(f"Power iterations: {run.spectral_iterations}")
+        say(f"Power iterations: {run.spectral_iterations}")
     elif run.spectral_solve is not None:
         what = {"lanczos": "Lanczos restarts", "lobpcg": "LOBPCG iterations"}
-        print(f"{what[run.spectral_solve.solver]}: {run.spectral_solve.iterations}")
-    print(f"Device: {_device_name(args.device)}")
-    print(f"Trajectory written to: {out}")
+        say(f"{what[run.spectral_solve.solver]}: {run.spectral_solve.iterations}")
+    say(f"Device: {_device_name(args.device)}")
+    say(f"Trajectory written to: {out}")
     return 0
 
 
@@ -325,7 +381,10 @@ def cmd_generate(args) -> int:
 def cmd_info() -> int:
     import torch
 
+    from eig_kl_tpu_torch.parallel.mesh import world_size
+
     print("================= Device Info ===================")
+    print(f"Ranks: {world_size()}")
     if not torch.cuda.is_available():
         print("No CUDA device (run with --device cpu)")
         return 0
@@ -340,6 +399,8 @@ def cmd_info() -> int:
 
 
 def main(argv: list[str] | None = None) -> int:
+    from eig_kl_tpu_torch.parallel.mesh import release_default_group
+
     args = build_parser().parse_args(argv)
     try:
         if args.command == "eig":
@@ -355,12 +416,11 @@ def main(argv: list[str] | None = None) -> int:
     except FileNotFoundError as e:
         print(f"Error: file not found: {e.filename}", file=sys.stderr)
         return 1
-    except NotPorted as e:
-        print(f"Error: {e} is not yet ported to eig_kl_tpu_torch", file=sys.stderr)
-        return 1
     except (ValueError, OSError, RuntimeError) as e:
         print(f"Error: {e}", file=sys.stderr)
         return 1
+    finally:
+        release_default_group()
     return 1
 
 

@@ -17,6 +17,7 @@ the "eig"-weighted graph they build.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -84,6 +85,7 @@ def _multi_start_dispatch(
     g: DeviceGraph, sides, config: KLConfig, *,
     starts: int, perturb: float, seed: int, perturb_base: bool,
     tracer: Tracer | None = None,
+    mesh=None,
 ):
     """Batched multi-start; returns ``(best KLResult, best cut per start)``.
 
@@ -92,9 +94,13 @@ def _multi_start_dispatch(
     (spectral-seeded multi-start).  ``perturb_base=False``: independent
     random splits from ``seed``.  With ``config.kicks > 0`` the winning
     start, already converged, enters the iterated local search as its
-    incumbent.
+    incumbent.  With a ``mesh`` the starts are split over its ``"dp"``
+    ranks (:func:`~eig_kl_tpu_torch.parallel.multi_start.multi_start_refine_mega_sharded`).
     """
-    from eig_kl_tpu_torch.parallel.multi_start import multi_start_refine_mega
+    from eig_kl_tpu_torch.parallel.multi_start import (
+        multi_start_refine_mega,
+        multi_start_refine_mega_sharded,
+    )
 
     if perturb_base:
         base = np.asarray(sides, dtype=np.int8)
@@ -103,7 +109,9 @@ def _multi_start_dispatch(
         )
     else:
         init_sides = None
-    best, cuts = multi_start_refine_mega(
+    run = (multi_start_refine_mega if mesh is None
+           else functools.partial(multi_start_refine_mega_sharded, mesh=mesh))
+    best, cuts = run(
         g, starts, config=config, base_seed=seed, init_sides=init_sides, tracer=tracer,
         spmv_order=PIPELINE_SPMV_ORDER,
     )
@@ -143,6 +151,17 @@ def spectral_partition(
         spectral_iterations=solve.iterations if solve.solver == "power" else None,
         spectral_solve=solve,
     )
+
+
+def unshuffle(result: KLResult, perm: np.ndarray) -> KLResult:
+    """A result on the graph relabelled by
+    :func:`~eig_kl_tpu_torch.kl.init.reference_shuffle_init`, with its
+    partitions mapped back to the original node ids."""
+    mapped = np.empty(len(perm), dtype=np.int8)
+    mapped[perm] = result.sides
+    mapped_best = np.empty(len(perm), dtype=np.int8)
+    mapped_best[perm] = result.best_sides
+    return dataclasses.replace(result, sides=mapped, best_sides=mapped_best)
 
 
 def kl_partition(
@@ -185,11 +204,7 @@ def kl_partition(
     with tracer.span("kl.refine"):
         result = _refine_dispatch(g, sides, kl_config, seed, tracer)
     if perm is not None:
-        mapped = np.empty(len(perm), dtype=np.int8)
-        mapped[perm] = result.sides
-        mapped_best = np.empty(len(perm), dtype=np.int8)
-        mapped_best[perm] = result.best_sides
-        result = dataclasses.replace(result, sides=mapped, best_sides=mapped_best)
+        result = unshuffle(result, perm)
     return PartitionRun(
         circuit=hg.name, eig=eig, kl=result, timings=dict(tracer.spans), nnz=g_host.nnz
     )

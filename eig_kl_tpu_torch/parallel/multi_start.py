@@ -10,12 +10,16 @@ blocks of one K2 launch, one persistent block per start
 The JAX package also has a ``vmap`` of its XLA engine over starts
 (``multi_start_refine``, ``:44``, with ``kl/engine.py``) for backends
 without the mega-kernel.  The port has one engine, whose plain version
-plays that part on the CPU, so there is no separate counterpart.  The
-start axis sharded over several devices
-(``multi_start_refine_mega_sharded``, ``:275``) is ROADMAP.md A8b.
+plays that part on the CPU, so there is no separate counterpart.
+
+:func:`multi_start_refine_mega_sharded` (``:275``) splits the starts over
+the ``"dp"`` ranks of a mesh: each rank runs its share in one K2 launch
+per pass, and the results are gathered on every rank.
 """
 
 from __future__ import annotations
+
+import warnings
 
 import numpy as np
 
@@ -24,6 +28,7 @@ from eig_kl_tpu_torch.kl.init import random_split
 from eig_kl_tpu_torch.kl.megakernel import refine_mega_batch
 from eig_kl_tpu_torch.kl.multipass import refine_multipass_batch, resolved_passes
 from eig_kl_tpu_torch.kl.result import KLResult
+from eig_kl_tpu_torch.parallel.mesh import Mesh
 from eig_kl_tpu_torch.utils.config import KLConfig
 from eig_kl_tpu_torch.utils.tracing import Tracer
 
@@ -76,16 +81,22 @@ def multi_start_refine_mega(
             )
         return out
 
+    return _run_starts(run_batch, _init_batch(g.num_nodes, num_starts, base_seed, init_sides), config)
+
+
+def _init_batch(n: int, num_starts: int, base_seed: int, init_sides) -> np.ndarray:
+    """``init_sides``, or start ``i`` = ``random_split(n, base_seed + i)``."""
     if init_sides is None:
-        init_batch = np.stack(
-            [random_split(g.num_nodes, base_seed + i) for i in range(num_starts)]
-        )
-    else:
-        init_batch = np.asarray(init_sides, dtype=np.int8)
-        if len(init_batch) != num_starts:
-            raise ValueError(
-                f"init_sides has {len(init_batch)} starts, expected {num_starts}"
-            )
+        return np.stack([random_split(n, base_seed + i) for i in range(num_starts)])
+    init_batch = np.asarray(init_sides, dtype=np.int8)
+    if len(init_batch) != num_starts:
+        raise ValueError(f"init_sides has {len(init_batch)} starts, expected {num_starts}")
+    return init_batch
+
+
+def _run_starts(run_batch, init_batch: np.ndarray, config: KLConfig) -> tuple[KLResult, np.ndarray]:
+    """One pass of every start, or passes until none improves, then the
+    best start by ``argmin`` of the best cuts."""
     if resolved_passes(config) > 1:
         results = refine_multipass_batch(run_batch, init_batch, config)
     else:
@@ -93,3 +104,53 @@ def multi_start_refine_mega(
     cuts = np.asarray([r.best_cut for r in results])
     best = results[int(np.argmin(cuts))]
     return best, cuts
+
+
+def multi_start_refine_mega_sharded(
+    g: DeviceGraph,
+    num_starts: int,
+    *,
+    mesh: Mesh,
+    config: KLConfig = KLConfig(),
+    base_seed: int = 0,
+    init_sides: np.ndarray | None = None,
+    tracer: Tracer | None = None,
+    spmv_order: str = "plan",
+) -> tuple[KLResult, np.ndarray]:
+    """:func:`multi_start_refine_mega` with the starts split over the
+    mesh's ``"dp"`` ranks: rank ``k`` runs starts ``[k * S/dp, (k + 1) *
+    S/dp)`` through :func:`refine_mega_batch` (one K2 launch per pass),
+    then every rank gathers every start's result, in start order, and
+    takes the best.  Every rank of the mesh calls it with the same
+    arguments, ``g`` on its own device, and gets the same result, each
+    start's equal to the one-card run's.
+
+    ``num_starts`` must be divisible by the ``"dp"`` size.  With
+    ``config.refresh_interval > 0`` each rank runs every start itself
+    (:func:`multi_start_refine_mega`), with a warning, as the JAX function
+    falls back to one chip.  ``spmv_order`` is :func:`refine_mega_batch`'s:
+    "plan" (the JAX function's, its mega engine) by default.
+    """
+    dp_axis = mesh.axis_names[0]
+    dp = mesh.shape[dp_axis]
+    if num_starts % dp != 0:
+        raise ValueError(f"num_starts={num_starts} must be divisible by dp={dp}")
+    if config.refresh_interval > 0:
+        warnings.warn(
+            "refresh_interval > 0 is not supported by the dp-sharded batched launch; running all "
+            "starts on each rank (~mesh-size x slower than requested)",
+            stacklevel=2,
+        )
+        return multi_start_refine_mega(
+            g, num_starts, config=config, base_seed=base_seed, init_sides=init_sides,
+            tracer=tracer, spmv_order=spmv_order,
+        )
+    mesh._check_member()
+    per = num_starts // dp
+    mine = slice(mesh.coords[dp_axis] * per, (mesh.coords[dp_axis] + 1) * per)
+
+    def run_batch(batch: np.ndarray) -> list[KLResult]:
+        local = refine_mega_batch(g, batch[mine], config, tracer=tracer, spmv_order=spmv_order)
+        return [r for part in mesh.all_gather_object(local, dp_axis) for r in part]
+
+    return _run_starts(run_batch, _init_batch(g.num_nodes, num_starts, base_seed, init_sides), config)

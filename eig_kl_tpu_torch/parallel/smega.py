@@ -9,7 +9,7 @@ first-max candidate per side and the owner's ``w_ab``; each shard updates
 only its own rows of ``A @ s`` (owner-computes).  On one card a shard is a
 thread block, the S shards are one thread-block cluster, and the rounds go
 through the cluster's distributed shared memory.  ``n_shards`` stands in
-for ``mesh.shape["mp"]``; the same engine across cards is ROADMAP.md A8b.
+for ``mesh.shape["mp"]``; the same engine across cards is ROADMAP.md A8c.
 
 Per swap, per shard ``r`` (nodes ``[r * n_local, (r + 1) * n_local)``):
 
@@ -51,6 +51,7 @@ from eig_kl_tpu_torch.kl.result import KLResult, best_iteration, replay_swaps
 from eig_kl_tpu_torch.ops._build import Kernel
 from eig_kl_tpu_torch.ops.partition import sides_to_signs
 from eig_kl_tpu_torch.ops.spmv import spmv
+from eig_kl_tpu_torch.parallel.mesh import Mesh, NotPorted
 from eig_kl_tpu_torch.utils.config import KLConfig
 from eig_kl_tpu_torch.utils.device import resolve_device
 
@@ -273,7 +274,7 @@ def smega_pass_cuda(
     if n_shards not in CLUSTER_SHARDS:
         raise ValueError(
             f"K5 runs {n_shards} shards as one thread-block cluster, which takes 1, 2, 4 "
-            "or 8 blocks; more shards, or shards on several cards, are ROADMAP.md A8b"
+            "or 8 blocks; more shards, or shards on several cards, are ROADMAP.md A8c"
         )
     n_pad = sf0.shape[0] if sf0.dim() == 1 else 0
     dev = sf0.device
@@ -362,7 +363,7 @@ def _host_cut(g: Graph, rows: np.ndarray, sides: np.ndarray) -> float:
 def smega_refine(
     g: Graph,
     sides: np.ndarray,
-    n_shards: int,
+    n_shards: int | Mesh,
     config: KLConfig = KLConfig(),
     *,
     device: str | torch.device | None = None,
@@ -380,8 +381,18 @@ def smega_refine(
     start only.  ``plan`` (a :class:`SmegaPlan` for ``n_shards``) skips the
     host build and the upload on repeated calls on one graph; a plan for
     another shard count is refused.  ``align`` sets the per-shard node
-    granularity (a multiple of 128).
+    granularity (a multiple of 128).  A :class:`Mesh` in place of
+    ``n_shards`` (the JAX call ``smega_refine(g, sides, mesh)``) runs one
+    shard on the rank's device where its ``"mp"`` axis holds one rank;
+    across ranks it raises :class:`NotPorted`.
     """
+    if isinstance(n_shards, Mesh):
+        if n_shards.shape[n_shards.axis_names[1]] > 1:
+            raise NotPorted(
+                "smega_refine over more than one rank: K5 across cards (ROADMAP.md A8c), which needs a "
+                "machine with at least two cards"
+            )
+        n_shards, device = 1, n_shards.device
     dev = resolve_device(device)
     n = g.num_nodes
     if plan is None:

@@ -567,7 +567,7 @@ def test_k5_refuses_other_shard_counts(cuda, n_shards):
     g_host = clique_expand(_hypergraph("gen_0.02"), "kl")
     g, _, sf0, as0, cut0, cap, nf0, nf1 = _smega_inputs(g_host, n_shards, cuda)
     before = K5.launches
-    with pytest.raises(ValueError, match="A8b"):
+    with pytest.raises(ValueError, match="A8c"):
         smega_pass_cuda(g, n_shards, sf0, as0, cut0, cap, nf0, nf1, cap + 1, 16, 1e-6)
     assert K5.launches == before
 
@@ -1801,3 +1801,80 @@ def _gen002_host():
     from eig_kl_tpu_torch.graph.expand import clique_expand
 
     return clique_expand(_hypergraph("gen_0.02"), "kl")
+
+
+@pytest.fixture()
+def one_rank(cuda):
+    """A one-rank NCCL group on the card (the port's make_mesh makes it),
+    destroyed after the test."""
+    from eig_kl_tpu_torch.parallel.mesh import make_mesh, release_default_group
+
+    yield make_mesh(device="cuda")
+    release_default_group()
+
+
+def test_sharded_oc_one_rank_equals_k2_on_gen002(cuda, one_rank):
+    """sharded_refine_oc at one rank (NCCL) on gen 0.02x from a random
+    split: K2's one-start pass from the same split, swap for swap and gain
+    for gain; the recount agrees with the tracked cut."""
+    from eig_kl_tpu_torch.kl.init import random_split
+    from eig_kl_tpu_torch.kl.megakernel import kl_pass_cuda
+    from eig_kl_tpu_torch.ops.partition import cut_size, sides_to_signs
+    from eig_kl_tpu_torch.ops.spmv import spmv
+    from eig_kl_tpu_torch.parallel import sharded_kl
+    from eig_kl_tpu_torch.parallel.sharded_kl2 import sharded_refine_oc
+    from eig_kl_tpu_torch.utils.config import KLConfig
+
+    host = _gen002_host()
+    n = host.num_nodes
+    sides = random_split(n, 5)
+    got = sharded_refine_oc(host, sides, one_rank, KLConfig(gain_eps=1e-6))
+    g = host.to_device(cuda)
+    s = sides_to_signs(torch.as_tensor(sides).to(cuda), torch.float32)
+    a_s = spmv(g, s)
+    n1 = int(sides.sum())
+    out = kl_pass_cuda(g, s, a_s, float(cut_size(g, s, a_s)), min(n1, n - n1), KLConfig().terminate_limit(n), 1e-6)
+    it = int(out.scalars[2])
+    assert got.iterations == it > 100
+    np.testing.assert_array_equal(sharded_kl.last_swaps[0], out.log_a[1 : it + 1].cpu().numpy())
+    np.testing.assert_array_equal(sharded_kl.last_swaps[1], out.log_b[1 : it + 1].cpu().numpy())
+    np.testing.assert_array_equal(got.gain_trajectory[1:], out.log_gain[1 : it + 1].cpu().numpy())
+    assert abs(got.final_cut - got.verified_cut) <= 1e-5 * got.final_cut
+
+
+def test_multi_start_sharded_dp1_equals_multi_start(cuda, one_rank):
+    """multi_start_refine_mega_sharded at dp = 1 on the card: every start's
+    best cut and the best start equal multi_start_refine_mega's, one batched
+    K2 launch per pass."""
+    from eig_kl_tpu_torch.kl.megakernel import K2_STARTS
+    from eig_kl_tpu_torch.parallel import multi_start_refine_mega, multi_start_refine_mega_sharded
+    from eig_kl_tpu_torch.utils.config import KLConfig
+
+    g = _gen002_host().to_device(cuda)
+    cfg = KLConfig(gain_eps=1e-6, passes=0)
+    K2_STARTS.clear()
+    best_s, cuts_s = multi_start_refine_mega_sharded(g, 4, mesh=one_rank, config=cfg, base_seed=3)
+    assert set(K2_STARTS) == {4}
+    best_1, cuts_1 = multi_start_refine_mega(g, 4, config=cfg, base_seed=3)
+    np.testing.assert_array_equal(cuts_s, cuts_1)
+    assert (best_s.best_cut, best_s.iterations, best_s.verified_cut) == (
+        best_1.best_cut, best_1.iterations, best_1.verified_cut)
+    np.testing.assert_array_equal(best_s.best_sides, best_1.best_sides)
+
+
+def test_profiled_cli_trace_names_k1_step_and_k2(cuda, tmp_path, monkeypatch, capsys):
+    """``fused -EIG`` on gen 0.02x with EIG_KL_TPU_PROFILE_DIR set: one
+    Chrome trace, whose kernel events include K1's power step and K2."""
+    import json
+
+    from eig_kl_tpu_torch.cli.main import main
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("EIG_KL_TPU_PROFILE_DIR", str(tmp_path / "profile"))
+    assert main(["fused", GEN_002, "-EIG"]) == 0
+    assert "Power iterations: 201" in capsys.readouterr().out
+    (trace,) = (tmp_path / "profile").iterdir()
+    with open(trace) as f:
+        names = {e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
+    assert any("power_step_kernel" in s for s in names), sorted(names)[:20]
+    assert any("kl_pass_kernel" in s for s in names), sorted(names)[:20]

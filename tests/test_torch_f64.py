@@ -129,13 +129,21 @@ def test_eig_precision_rule(device, flags, dtype):
     assert eig_dtype(args) == dtype
 
 
-def test_f64_on_the_card_is_ported_and_sharded_is_not():
-    from eig_kl_tpu_torch.cli.main import NotPorted, _check_ported, build_parser
+def test_f64_on_the_card_is_ported_and_sharded_is_not(tmp_path, monkeypatch, capsys):
+    """f64 parses for the card; ``kl --sharded``, refused with ROADMAP.md
+    A8b's name until the engines across ranks were ported, now runs in f64
+    too (one rank, on the CPU), its cut recounted within the f64 drift."""
+    from eig_kl_tpu_torch.cli.main import build_parser, main
 
     for cmd in (["kl", "c.hgr", "--f64"], ["fused", "c.hgr", "-EIG", "--f64"]):
-        _check_ported(build_parser().parse_args([*cmd, "--device", "cuda"]))
-    with pytest.raises(NotPorted, match="A8b"):
-        _check_ported(build_parser().parse_args(["kl", "c.hgr", "--f64", "--sharded"]))
+        args = build_parser().parse_args([*cmd, "--device", "cuda"])
+        assert args.f64 and args.device == "cuda"
+    monkeypatch.chdir(tmp_path)
+    assert main(["kl", GEN_002, "--f64", "--sharded", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    final = float(out.split("Final cut size")[1].split(":")[1].split()[0])
+    verified = float(out.split("Verified cut size")[1].split(":")[1].split()[0])
+    assert final == verified and "Warning" not in out
 
 
 @pytest.mark.parametrize(
