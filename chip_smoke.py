@@ -40,9 +40,12 @@ version, then the paths that take them.  Last, the engines across ranks
 multi-start and the sharded power iteration at one rank over NCCL in this
 process and at two ranks on the same card over gloo in two processes,
 held to K2's swaps, to the one-card multi-start and to the JAX package's
-runs (``tools/sharded_reference.py``); and the fused CLI with
-``EIG_KL_TPU_PROFILE_DIR`` set, whose Chrome trace must name K1's power
-step and K2.
+runs (``tools/sharded_reference.py``); ``smega_refine`` across the two
+ranks (kernel K5R, its rounds through CUDA IPC between the two processes)
+on gen 1.0x (the first 1,000 swaps) and gen 0.02x (a whole pass), held to
+K5 at S = 2 in one process, to K2's swaps and to its plain version across
+the ranks; and the fused CLI with ``EIG_KL_TPU_PROFILE_DIR`` set, whose
+Chrome trace must name K1's power step and K2.
 Any failed check raises, so the script exits nonzero and prints no
 result; so does a machine without a CUDA card.
 """
@@ -405,6 +408,11 @@ def turns(designs: dict, kernel: str, calls: int = 50) -> dict[str, list[float |
 #: relative and the vector 1.2e-6 apart between 1 and 2 devices, 5.8e-4 and
 #: 1.1e-5 to the single chip) is the rounding of their norms.
 SHARDED_DEADLINE_S = 300
+#: smega_refine across the two ranks (K5R): the swaps of gen 1.0x's pass it
+#: runs, and the swaps over which it is held to the plain version across
+#: the ranks on the card (a loop of PyTorch calls and two gathers a swap).
+SMEGA_RANKS_CAP, SMEGA_RANKS_PLAIN_CAP = 1000, 200
+SMEGA_RANKS_LABEL = "two processes on one card, time-sliced: not a cross-card figure"
 JAX_SHARDED_POWER = {1: (1000, 2.0929136276245117, "fae28b91cf9e09c0"),
                      2: (1000, 2.0928163528442383, "87aea64dc2f0bece")}
 JAX_SINGLE_POWER = (2.091707706451416, "438b197f19182959")
@@ -480,6 +488,68 @@ def sharded_runs(g_host, sides, init_sides, dev) -> dict:
     (lam, v), secs, launched, _ = counted(lambda: sharded_power.sharded_power_fiedler(g_host, mesh, cfg))
     out["power"] = {"lam": float(lam), "v": v.cpu().numpy(), "iterations": sharded_power.last_iterations,
                     "seconds": secs, "launches": launched}
+    if ranks > 1:
+        out["smega"] = smega_ranks_runs(g_host, sides, mesh, counted)
+    return out
+
+
+def smega_ranks_runs(g_host, sides, mesh, counted) -> dict:
+    """One rank's runs of smega_refine across the mesh's ranks (K5R), each
+    through ``counted``: (a) gen 1.0x from ``sides``, the first
+    SMEGA_RANKS_CAP swaps; (b) gen 0.02x's whole pass from a random split.
+    Then (c), pass by pass from the same inputs: K5R bit for bit the plain
+    version across the ranks (on the card, the first SMEGA_RANKS_PLAIN_CAP
+    swaps) and K5 at S = ranks in this process (its logs, scalars and this
+    rank's stripe of sf), both timed.  The plans and the exchange buffers
+    are made outside the clock, as a caller reuses them."""
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.io.hgr import read_hgr
+    from eig_kl_tpu_torch.kl.init import random_split
+    from eig_kl_tpu_torch.parallel import smega
+    from eig_kl_tpu_torch.utils.config import KLConfig
+
+    dev, mp = mesh.device, mesh.axis_names[1]
+    n_ranks, me = mesh.shape[mp], mesh.coords[mp]
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+
+    def device_ms():  # the last K5R launch's own device time
+        return smega.peer_buffers(mesh).last_pass_ns / 1e6 if on_card else 0.0
+
+    if on_card:
+        smega.peer_buffers(mesh)
+    g002 = clique_expand(read_hgr(GEN_002), "kl")
+    runs = {"gen1": (g_host, sides, KLConfig(gain_eps=1e-6, max_iterations=SMEGA_RANKS_CAP)),
+            "gen002": (g002, random_split(g002.num_nodes, SEED), KLConfig(gain_eps=1e-6))}
+    out = {}
+    for tag, (g, start, cfg) in runs.items():
+        plan = smega.SmegaPlan(g, n_ranks)
+        part = plan.rank_part(me, dev)
+        r, secs, launched, _ = counted(lambda: smega.smega_refine(g, start, mesh, cfg, plan=plan))
+        run = {"result": _kl_fields(r), "seconds": secs, "launches": launched,
+               "device_ms": device_ms(), "n_local": part.n_local,
+               "layout": smega.k5_layout(part.n_local, 1)}
+        args = smega.pass_inputs(plan, start, cfg, dev, part)
+        k5 = smega.smega_pass(plan.device_graph(dev), n_ranks, *smega.pass_inputs(plan, start, cfg, dev))
+        k5r = smega.smega_pass_ranks(mesh, part, *args)
+        run["pass_device_ms"] = device_ms()
+        stripe = slice(part.r0, part.r0 + part.n_local)
+        for name in PASS_FIELDS:
+            want = getattr(k5, name)[stripe] if name == "sf" else getattr(k5, name)
+            check(torch.equal(getattr(k5r, name), want), f"K5R ({tag}, rank {me}): {name} differs from K5's at S = "
+                  f"{n_ranks} in one process")
+        if tag == "gen1":
+            plain_args = args[:3] + (SMEGA_RANKS_PLAIN_CAP,) + args[4:]
+            k5r = smega.smega_pass_ranks(mesh, part, *plain_args)
+            run["plain_cap_device_ms"] = device_ms()
+            sync()
+            t0 = time.perf_counter()
+            plain = smega.smega_pass_ranks_plain(mesh, part, *plain_args)
+            sync()
+            run["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            check_same_pass(k5r, plain, f"K5R (rank {me}) against the plain version across the ranks")
+            run["max_abs_err"] = float((k5r.log_cut - plain.log_cut).abs().max())
+        out[tag] = run
     return out
 
 
@@ -645,6 +715,53 @@ def sharded_phase(dev, hg, g_host, sides, k2_pass, card, expect_swaps=None, powe
                              ("one rank to the one-card gkl2 exit", lam1, v1))
     }
 
+    # smega_refine across the two ranks (K5R, two processes on this card):
+    # (a) gen 1.0x's first SMEGA_RANKS_CAP swaps and (b) gen 0.02x's whole
+    # pass, each equal on both ranks and to K5 at S = 2 in this process,
+    # bit for bit, and (a) to K2's swaps; one K5R launch per rank per run.
+    # The ranks held themselves to K5 and to the plain version pass by pass.
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.io.hgr import read_hgr
+    from eig_kl_tpu_torch.kl.init import random_split
+    from eig_kl_tpu_torch.parallel.smega import smega_refine
+
+    g002 = clique_expand(read_hgr(GEN_002), "kl")
+    k5_runs = {"gen1": smega_refine(g_host, sides, 2, KLConfig(gain_eps=1e-6, max_iterations=SMEGA_RANKS_CAP),
+                                    device=dev),
+               "gen002": smega_refine(g002, random_split(g002.num_nodes, SEED), 2, KLConfig(gain_eps=1e-6),
+                                      device=dev)}
+    cap = min(SMEGA_RANKS_CAP, it)
+    check(k5_runs["gen1"].iterations == cap, f"K5 at S = 2 ran {k5_runs['gen1'].iterations} swaps, not {cap}")
+    check(np.array_equal(k5_runs["gen1"].gain_trajectory[1:], k2_gain[:cap]), "K5 at S = 2 gained otherwise than K2")
+    k2_sides = sides.copy()
+    for v in np.concatenate([k2_a[:cap], k2_b[:cap]]):
+        k2_sides[v] ^= 1
+    check(np.array_equal(k5_runs["gen1"].sides, k2_sides), "K5 at S = 2 swapped other nodes than K2")
+    for tag, ref in k5_runs.items():
+        for r, t in enumerate(two):
+            run = t["smega"][tag]
+            _same_kl(run["result"], _kl_fields(ref), f"smega_refine across 2 ranks ({tag}, rank {r}) against K5 at S = 2")
+            check(not on_card or run["launches"] == {"smega_ranks_pass_f32": 1, "spmv_csr_f32": 1},
+                  f"smega_refine across 2 ranks ({tag}, rank {r}) launched {run['launches']}")
+    capped_nodes = torch.as_tensor(np.concatenate([k2_a[:cap], k2_b[:cap]])).to(dev)
+    k5r_bound = k2_bound(g_dev, [(cap, capped_nodes)])
+    smega_ranks = {
+        "label": SMEGA_RANKS_LABEL, "card": card, "cap": cap, "bound_ms": k5r_bound[0], "bound_by": k5r_bound[1],
+        **{tag: {"swaps": two[0]["smega"][tag]["result"]["iterations"],
+                 "best_cut": two[0]["smega"][tag]["result"]["best_cut"],
+                 "n_local": two[0]["smega"][tag]["n_local"], "layout": two[0]["smega"][tag]["layout"],
+                 "device_ms_by_rank": [t["smega"][tag]["device_ms"] for t in two],
+                 "pass_device_ms_by_rank": [t["smega"][tag]["pass_device_ms"] for t in two],
+                 "us_per_swap": 1e3 * max(t["smega"][tag]["device_ms"] for t in two)
+                 / max(two[0]["smega"][tag]["result"]["iterations"], 1),
+                 "e2e_s_by_rank": [t["smega"][tag]["seconds"] for t in two],
+                 "launches_by_rank": [t["smega"][tag]["launches"] for t in two]} for tag in k5_runs},
+        "plain_cap": SMEGA_RANKS_PLAIN_CAP,
+        "plain_ms_by_rank": [t["smega"]["gen1"]["plain_ms"] for t in two],
+        "plain_cap_device_ms_by_rank": [t["smega"]["gen1"]["plain_cap_device_ms"] for t in two],
+        "max_abs_err": max(t["smega"]["gen1"]["max_abs_err"] for t in two),
+    }
+
     # The fused CLI under EIG_KL_TPU_PROFILE_DIR: one Chrome trace naming
     # K1's power step and K2.
     cwd = os.getcwd()
@@ -682,6 +799,7 @@ def sharded_phase(dev, hg, g_host, sides, k2_pass, card, expect_swaps=None, powe
             "iterations": t["power"]["iterations"], "lambda": t["power"]["lam"], "seconds": t["power"]["seconds"],
             "launches": t["power"]["launches"]} for t in (one, two[0])},
         "power_gkl2_one_card": {"lambda": lam1},
+        "smega_ranks": smega_ranks,
         "power_spread": power_spread,
         "oc_best_recount": recount, "oc_drift": oc_drift,
         "profiled_cli": {"seconds": cli_s, "trace_mib": trace_mb, "kernels_named": named},
@@ -702,6 +820,17 @@ def sharded_phase(dev, hg, g_host, sides, k2_pass, card, expect_swaps=None, powe
               f"{t['seconds']:.3f} s")
     print(f"the one-card gkl2 exit: lambda {lam1}; spread {power_spread}; the profiled fused CLI: {cli_s:.2f} s, one trace of "
           f"{trace_mb:.1f} MiB naming {named}")
+    for tag, what in (("gen1", f"gen {MULTIPLIER}x, the first {cap} swaps of the one start's pass (cap printed)"),
+                      ("gen002", "gen 0.02x, the whole pass from a random split")):
+        t = smega_ranks[tag]
+        print(f"smega_refine across 2 ranks (K5R; {SMEGA_RANKS_LABEL}; {card}) on {what}: {t['swaps']} swaps, best "
+              f"cut {t['best_cut']}, = K5 at S = 2 in one process bit for bit, on both ranks; {t['n_local']} nodes "
+              f"per rank, layout {t['layout']!r}; device ms by rank {t['device_ms_by_rank']}, "
+              f"{t['us_per_swap']:.1f} us per swap; e2e s by rank {t['e2e_s_by_rank']}; launches per rank "
+              f"{t['launches_by_rank']}")
+    print(f"K5R against the plain version across the 2 ranks on the card, {SMEGA_RANKS_PLAIN_CAP} swaps: bit for bit "
+          f"on both ranks; plain ms by rank {smega_ranks['plain_ms_by_rank']}, K5R device ms by rank "
+          f"{smega_ranks['plain_cap_device_ms_by_rank']}; bound {k5r_bound[0]:.4f} ms by {k5r_bound[1]} ({cap} swaps)")
     print(f"sharded phase: {summary['phase_s']:.1f} s")
     tmp_dir.cleanup()
     return summary
@@ -3001,11 +3130,12 @@ def main() -> int:
     print(json.dumps({"v2_forms": {"card": card, "paths": form_paths}}))
     print(f"forms phase: {time.perf_counter() - t_phase:.1f} s")
 
-    # Phase 15: the engines across ranks (ROADMAP.md A8b) from the one
+    # Phase 15: the engines across ranks (ROADMAP.md A8b, A8c) from the one
     # start's spectral split: sharded_refine_oc against K2's pass (phase 9),
     # the dp-sharded multi-start against the one-card one, the sharded power
     # iteration, at one rank over NCCL and two ranks on this card over gloo;
-    # then the fused CLI under EIG_KL_TPU_PROFILE_DIR.
+    # smega_refine across the two ranks (K5R); then the fused CLI under
+    # EIG_KL_TPU_PROFILE_DIR.
     sharded = sharded_phase(dev, hg, g_host, sm_sides, k2_main, card, expect_swaps=MAIN_SWAPS,
                             power_ref=JAX_SHARDED_POWER)
     print(json.dumps({"sharded": sharded}))
@@ -3182,6 +3312,28 @@ def main() -> int:
             "us_per_swap_by_layout_on_smaller_circuits": k5_crossover,
             "k2_pass_ms": k2_main_ms,
             "e2e_s_by_shards": sm_s,
+        },
+        {
+            "name": f"K5R smega_ranks_pass_f32, 2 ranks ({SMEGA_RANKS_LABEL}), the first "
+                    f"{sharded['smega_ranks']['cap']} swaps of the main path's pass",
+            "route": "cuda",
+            "source": "eig_kl_tpu_torch/csrc/smega.cu",
+            "replaces": "eig_kl_tpu/parallel/smega.py:166 (n_dev > 1: the launch barrier :210-216, round A "
+                        ":310-362, round B :480-559)",
+            "launches": sharded["smega_ranks"]["gen1"]["launches_by_rank"][0].get("smega_ranks_pass_f32", 0),
+            "launches_by_rank": sharded["smega_ranks"]["gen1"]["launches_by_rank"],
+            "max_abs_err": sharded["smega_ranks"]["max_abs_err"],
+            "ms": max(sharded["smega_ranks"]["gen1"]["device_ms_by_rank"]),
+            "ms_from": "the kernel's own %globaltimer, the slower rank",
+            "plain_ms": max(sharded["smega_ranks"]["plain_ms_by_rank"]),
+            "plain_swaps": sharded["smega_ranks"]["plain_cap"],
+            "bound_ms": sharded["smega_ranks"]["bound_ms"],
+            "bound_by": sharded["smega_ranks"]["bound_by"],
+            "library_ms": None,
+            "us_per_swap": sharded["smega_ranks"]["gen1"]["us_per_swap"],
+            "gen002_whole_pass": {k: sharded["smega_ranks"]["gen002"][k]
+                                  for k in ("swaps", "device_ms_by_rank", "us_per_swap", "launches_by_rank")},
+            "card": card,
         },
         {
             "name": "K6 tree_sum_f32, the 1-D norm over n",

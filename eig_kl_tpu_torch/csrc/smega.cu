@@ -1,5 +1,7 @@
 // K5: the node-sharded KL pass (smega) on one card, its S shards the S
-// blocks of one thread-block cluster, in float32.
+// blocks of one thread-block cluster, in float32; and K5R, the same pass
+// across the S ranks of a process group, one block per rank, its two
+// rounds per swap through peer memory (the TPU kernel's multi-device form).
 //
 // Replaces eig_kl_tpu/parallel/smega.py:_kernel (:166), launched by
 // _smega_call (:613, the pallas_call at :633).  There every shard is a TPU
@@ -94,10 +96,51 @@
 //   csrc/kl_common.cuh, instantiated for f32: K5 stays f32, as the JAX
 //   package's smega kernel is (eig_kl_tpu/parallel/smega.py:107).
 
+// K5R (smega_ranks_pass_f32): the same block body, templated on its
+// exchange (PeerExchange below, ClusterExchange for K5), one persistent
+// block of 1,024 threads per rank, each rank on its own card, or several
+// ranks on one card (CUDA IPC works between processes of one device; the
+// card then time-slices between their contexts, so a round can wait for a
+// whole time slice).  A rank holds only what a TPU shard holds: its stripe
+// of sf and a_s, and its column slice, for every node v the entries of row
+// v whose column lies in its stripe (the content of _build_colT, :93, in
+// CSR form), so update_row's range test always passes.
+// * Exchange buffer: each rank cudaMallocs one PeerBuffer (below) and
+//   exports it (cudaIpcGetMemHandle); every rank maps every peer's
+//   (cudaIpcOpenMemHandle with lazy peer access) and gets the S pointers
+//   (its own among them) as a kernel argument.  Every rank writes into its
+//   peers' buffers and reads only its own.
+// * Epochs: a flag holds (call << 32) | (swap + 1), the call numbered by
+//   the wrapper alike on every rank, so no flag is ever reset and a stale
+//   flag of an earlier call, or of an aborted one, never matches.
+// * Round A: lane k < S of warp 0 stores this rank's candidate into slot
+//   [swap & 1][me] of peer k's buffer, __threadfence_system(), then the
+//   flag with st.release.sys; then lane k spins with ld.acquire.sys on its
+//   own buffer's flag [swap & 1][k] and reads candidate k.
+// * Round B: b's owner alone stores w_ab into slot [swap & 1] of every
+//   buffer, fences, and releases the flags; thread 0 of every rank spins on
+//   its own.
+// * Slot reuse: a rank writes slot parity p again at swap i + 2, which it
+//   reaches only after swap i + 1's round A, that is after every peer wrote
+//   its swap i + 1 candidate, which a peer does only once it has finished
+//   swap i, its reads of swap i's candidates and w_ab included.  So two
+//   slots per round are enough (the TPU kernel's "round B's wait
+//   transitively fences slot reuse two iterations apart", smega.py:34-37).
+//   Across calls the wrapper's launch barrier (a group collective after
+//   each rank's previous launch finished) stands in for the TPU's barrier
+//   semaphore (smega.py:210-216).
+// * No hang: every spin is bounded by %globaltimer; on expiry the rank
+//   records (code, round, swap, peer) in its status words, leaves the loop
+//   with its peers' state unknown, and the wrapper raises naming the rank
+//   and the round.
+// * Every rank writes the logs and scalars into its own outputs (they are
+//   the same bits on every rank), and its final stripe of sf.
+
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <cstring>
 
 #include "kl_common.cuh"
 
@@ -112,14 +155,138 @@ constexpr int kFlat = 0;
 constexpr int kCacheGlobal = 1;
 constexpr int kCacheShared = 2;
 
-struct Candidate {
+struct alignas(16) Candidate {
   float m_l;
   int a;
   float m_r;
   int b;
 };
 
-template <int kLayout>
+// K5's exchange: the blocks of one cluster, through distributed shared
+// memory between cluster barriers.  Its reads never fail.
+struct ClusterExchange {
+  // The blocks share one launch's arrays: the state holds every shard's
+  // stripe, and block 0 alone writes the logs and scalars.
+  static constexpr bool kShared = true;
+  __device__ int rank() const { return static_cast<int>(cg::this_cluster().block_rank()); }
+  // All threads, once this block's candidate is in `cand`.
+  __device__ void publish_a(const Candidate*, int) const { cg::this_cluster().sync(); }
+  // Lane k of warp 0: block k's candidate.
+  __device__ bool read_a(const Candidate* cand, int k, int, Candidate* c) const {
+    *c = *cg::this_cluster().map_shared_rank(cand, k);
+    return true;
+  }
+  // Thread 0 of b's owner.
+  __device__ void publish_b(float* slot, float w, int) const { *slot = w; }
+  // All threads, after the row updates.
+  __device__ void sync_b() const { cg::this_cluster().sync(); }
+  // Thread 0: the owner's w_ab.
+  __device__ bool read_b(float* slot, int owner, int, float* w) const {
+    *w = *cg::this_cluster().map_shared_rank(slot, owner);
+    return true;
+  }
+  // No block leaves while a peer may still read its shared memory.
+  __device__ void finish(unsigned long long) const { cg::this_cluster().sync(); }
+  __device__ void fail(int, int, int) const {}
+};
+
+// K5R's exchange buffer, one per rank, written by its peers.
+struct PeerBuffer {
+  Candidate cand[2][kMaxShards];
+  unsigned long long cand_flag[2][kMaxShards];
+  float wab[2][2];  // [parity][0]; 16-byte rows
+  unsigned long long wab_flag[2];
+};
+
+__device__ __forceinline__ void store_release_sys(unsigned long long* p, unsigned long long v) {
+  asm volatile("st.release.sys.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ unsigned long long load_acquire_sys(const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.sys.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// K5R's status words: 0 or kTimedOut, the round (0 A, 1 B), the swap and
+// the peer waited for; then the kernel's own duration in ns (thread 0's
+// %globaltimer from its start to its end).
+constexpr long long kTimedOut = 1;
+
+// K5R's exchange: the ranks of a group, through their PeerBuffers.
+struct PeerExchange {
+  static constexpr bool kShared = false;  // every rank has its own arrays
+  PeerBuffer* peer[kMaxShards];  // every rank's buffer, this rank's own at [me]
+  int me;
+  int n_ranks;
+  unsigned call;
+  unsigned long long timeout_ns;
+  long long* status;
+
+  __device__ int rank() const { return me; }
+  __device__ unsigned long long epoch(int swap) const {
+    return (static_cast<unsigned long long>(call) << 32) | static_cast<unsigned>(swap + 1);
+  }
+  // Spins until *flag holds the epoch; false when the bound expires.
+  __device__ bool wait(const unsigned long long* flag, unsigned long long e) const {
+    const unsigned long long t0 = global_ns();
+    while (load_acquire_sys(flag) != e) {
+      if (global_ns() - t0 > timeout_ns) return false;
+    }
+    return true;
+  }
+  __device__ void publish_a(const Candidate* cand, int swap) const {
+    __syncthreads();  // the candidate is in shared memory
+    const int lane = threadIdx.x;
+    if (lane < n_ranks) {
+      const int p = swap & 1;
+      PeerBuffer* to = peer[lane];
+      *reinterpret_cast<int4*>(&to->cand[p][me]) = *reinterpret_cast<const int4*>(cand);
+      __threadfence_system();
+      store_release_sys(&to->cand_flag[p][me], epoch(swap));
+    }
+  }
+  __device__ bool read_a(const Candidate*, int k, int swap, Candidate* c) const {
+    const int p = swap & 1;
+    if (!wait(&peer[me]->cand_flag[p][k], epoch(swap))) return false;
+    const int4 v = __ldcv(reinterpret_cast<const int4*>(&peer[me]->cand[p][k]));
+    *c = Candidate{__int_as_float(v.x), v.y, __int_as_float(v.z), v.w};
+    return true;
+  }
+  __device__ void publish_b(float*, float w, int swap) const {
+    const int p = swap & 1;
+    for (int k = 0; k < n_ranks; ++k) peer[k]->wab[p][0] = w;
+    __threadfence_system();
+    for (int k = 0; k < n_ranks; ++k) store_release_sys(&peer[k]->wab_flag[p], epoch(swap));
+  }
+  __device__ void sync_b() const { __syncthreads(); }
+  __device__ bool read_b(float*, int, int swap, float* w) const {
+    const int p = swap & 1;
+    if (!wait(&peer[me]->wab_flag[p], epoch(swap))) return false;
+    *w = __ldcv(&peer[me]->wab[p][0]);
+    return true;
+  }
+  __device__ void finish(unsigned long long t_start) const {
+    if (threadIdx.x == 0) status[4] = static_cast<long long>(global_ns() - t_start);
+  }
+  __device__ void fail(int round, int swap, int waited_for) const {
+    status[0] = kTimedOut;
+    status[1] = round;
+    status[2] = swap;
+    status[3] = waited_for;
+  }
+};
+
+// The pass of one shard, nodes [r0, r0 + n_local) with r0 = me * n_local.
+// sf and as hold the whole padded state (K5) or the rank's stripe (K5R);
+// indptr, indices and data are rows whose entries the shard keeps where
+// their column lies in its stripe (K5: the whole CSR; K5R: its column
+// slice).
+template <int kLayout, class Exchange>
 __global__ void __launch_bounds__(kThreads, 1)
     smega_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
                  const float* __restrict__ data, float* sf, float* as, int n_local,
@@ -127,16 +294,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                  int terminate_limit, float gain_eps,
                  float* __restrict__ log_cut, float* __restrict__ log_gain,
                  int* __restrict__ log_a, int* __restrict__ log_b,
-                 float* __restrict__ out) {
+                 float* __restrict__ out, const Exchange ex) {
   constexpr bool kCache = kLayout != kFlat;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int me = static_cast<int>(cluster.block_rank());
+  const int me = ex.rank();
+  const bool logs = !Exchange::kShared || me == 0;
 
   __shared__ Candidate cand;
   __shared__ float wab_slot;
   __shared__ float red_v[2][kWarps];
   __shared__ int red_i[2][kWarps];
-  __shared__ int sh_a, sh_b, sh_go, sh_count;
+  __shared__ int sh_a, sh_b, sh_go, sh_count, sh_err;
   __shared__ float sh_ml, sh_mr, sh_wab;
   extern __shared__ float4 dyn[];
 
@@ -150,14 +317,18 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // This shard's stripe, at local offsets: in global memory or, with
   // kCacheShared, loaded into the dynamic shared memory ahead of the cache.
-  float* sfl = sf + r0;
-  float* asl = as + r0;
+  if constexpr (Exchange::kShared) {
+    sf += r0;
+    as += r0;
+  }
+  float* sfl = sf;
+  float* asl = as;
   unsigned* cw = reinterpret_cast<unsigned*>(dyn);
   if constexpr (kLayout == kCacheShared) {
     float4* sf4s = dyn;
     float4* as4s = dyn + n4;
-    const float4* sf4g = reinterpret_cast<const float4*>(sf + r0);
-    const float4* as4g = reinterpret_cast<const float4*>(as + r0);
+    const float4* sf4g = reinterpret_cast<const float4*>(sf);
+    const float4* as4g = reinterpret_cast<const float4*>(as);
     for (int q = tid; q < n4; q += kThreads) {
       sf4s[q] = sf4g[q];
       as4s[q] = as4g[q];
@@ -178,15 +349,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   int term = 0, stop = 0, nf0 = nf0_in, nf1 = nf1_in;
   float cut = cut0, comp = 0.0f, best = cut0;
   int it = 0;  // every thread counts the swaps
+  const unsigned long long t_start = global_ns();
   if (tid == 0) {
-    if (me == 0) log_cut[0] = cut0;
+    if (logs) log_cut[0] = cut0;
     sh_go = cap > 0 && nf0 > 0 && nf1 > 0;
     sh_count = 0;
+    sh_err = 0;
   }
   __syncthreads();
 
   const float neg_inf = __int_as_float(0xff800000);
   while (sh_go) {
+    const int swap = it;
     // Round A, local part: this shard's first maximum of D per side (with
     // the cache: of the row maxima, the row's index).
     float vl = neg_inf, vr = neg_inf;
@@ -280,21 +454,30 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lane == 0) cand = Candidate{vl, il, vr, ir};
       }
     }
-    cluster.sync();
+    ex.publish_a(&cand, swap);
 
     // Round A, exchange: every block combines the S candidates alike.
     if (warp == 0) {
       vl = vr = neg_inf;
       il = ir = INT_MAX;
+      bool late = false;
       if (lane < n_shards) {
-        const Candidate c = *cluster.map_shared_rank(&cand, lane);
-        vl = c.m_l;
-        il = c.a;
-        vr = c.m_r;
-        ir = c.b;
+        Candidate c;
+        late = !ex.read_a(&cand, lane, swap, &c);
+        if (!late) {
+          vl = c.m_l;
+          il = c.a;
+          vr = c.m_r;
+          ir = c.b;
+        }
       }
+      const unsigned missing = __ballot_sync(kFull, late);
       warp_argmax(vl, il);
       warp_argmax(vr, ir);
+      if (lane == 0 && missing != 0u) {
+        sh_err = 1;
+        ex.fail(0, swap, __ffs(missing) - 1);
+      }
       if (lane == 0) {
         sh_a = il;
         sh_ml = vl;
@@ -308,7 +491,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int b = sh_b;
     // No free node on a side: only if the caller's free counts disagree
     // with sf0.  Every block sees the same a and b, so all leave together.
-    if (a == INT_MAX || b == INT_MAX) break;
+    // (A rank whose wait expired leaves alone, and raises.)
+    if (sh_err || a == INT_MAX || b == INT_MAX) break;
     const int owner_a = a / n_local;
     const int owner_b = b / n_local;
 
@@ -326,7 +510,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (owner_b == me) {
         sfl[b - r0] = 0.0f;
         if constexpr (kCache) mark(cache, (b - r0) / kRow, rows, &sh_count);
-        wab_slot = sh_wab;
+        ex.publish_b(&wab_slot, sh_wab, swap);
       }
     }
     if constexpr (kCache) {
@@ -340,20 +524,24 @@ __global__ void __launch_bounds__(kThreads, 1)
         if (lane == 0) cache.dirty[r >> 5] = 0u;  // its word's rows are all listed
       }
     }
-    cluster.sync();
+    ex.sync_b();
 
     // Round B: w_ab from b's owner, then the replicated bookkeeping.
     ++it;
-    if (tid == 0) {
+    float w_ab;
+    if (tid == 0 && !ex.read_b(&wab_slot, owner_b, swap, &w_ab)) {
+      sh_err = 1;
+      sh_go = 0;
+      ex.fail(1, swap, owner_b);
+    } else if (tid == 0) {
       sh_count = 0;  // read by every thread before the barrier above
-      const float w_ab = *cluster.map_shared_rank(&wab_slot, owner_b);
       const float gain = __fsub_rn(__fadd_rn(sh_ml, sh_mr), __fmul_rn(2.0f, w_ab));
       const float y = __fsub_rn(-gain, comp);
       const float t = __fadd_rn(cut, y);
       comp = __fsub_rn(__fsub_rn(t, cut), y);
       cut = t;
       best = fminf(cut, best);
-      if (me == 0) {
+      if (logs) {
         log_cut[it] = cut;
         log_gain[it] = gain;
         log_a[it] = a;
@@ -367,18 +555,17 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
   }
-  // No block leaves while a peer may still read its shared memory.
-  cluster.sync();
+  ex.finish(t_start);
 
   if constexpr (kLayout == kCacheShared) {
-    float4* sf4g = reinterpret_cast<float4*>(sf + r0);
-    float4* as4g = reinterpret_cast<float4*>(as + r0);
+    float4* sf4g = reinterpret_cast<float4*>(sf);
+    float4* as4g = reinterpret_cast<float4*>(as);
     for (int q = tid; q < n4; q += kThreads) {
       sf4g[q] = dyn[q];
       as4g[q] = dyn[n4 + q];
     }
   }
-  if (tid == 0 && me == 0) {
+  if (tid == 0 && logs) {
     out[0] = cut;
     out[1] = best;
     out[2] = static_cast<float>(it);
@@ -404,6 +591,58 @@ long long shared_bytes(int n_local, int layout) {
   return layout == kCacheShared ? 8LL * n_local + cache : cache;
 }
 
+bool valid_pass(int n_local, int layout, int cap, int log_len) {
+  const int unit = layout == kFlat ? 4 : kRow;
+  return n_local >= unit && n_local % unit == 0 && layout >= kFlat && layout <= kCacheShared &&
+         log_len >= 1 && cap < log_len;
+}
+
+// Launches the pass in a layout on `blocks` blocks, as one cluster of that
+// many where `cluster` is set (K5), else as a plain grid (K5R's one block).
+// Returns cudaErrorLaunchOutOfResources, launching nothing, where the card
+// cannot hold the blocks with the layout's shared memory.
+template <class Exchange>
+int launch(int layout, int blocks, bool cluster, const void* stream, const int* indptr,
+           const int* indices, const float* data, float* sf, float* as, int n_local,
+           int n_shards, float cut0, int cap, int nf0, int nf1, int terminate_limit,
+           float gain_eps, float* log_cut, float* log_gain, int* log_a, int* log_b, float* out,
+           const Exchange& ex) {
+  auto kernel = layout == kFlat          ? smega_kernel<kFlat, Exchange>
+                : layout == kCacheGlobal ? smega_kernel<kCacheGlobal, Exchange>
+                                         : smega_kernel<kCacheShared, Exchange>;
+  const long long smem = shared_bytes(n_local, layout);
+  if (smem > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  // The opt-in first, so that the occupancy query sees the real footprint.
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(blocks, 1, 1);
+  config.blockDim = dim3(kThreads, 1, 1);
+  config.dynamicSmemBytes = static_cast<size_t>(smem);
+  config.stream = static_cast<cudaStream_t>(const_cast<void*>(stream));
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = blocks;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  config.attrs = cluster ? &attr : nullptr;
+  config.numAttrs = cluster ? 1 : 0;
+  int fits = 0;
+  if (cluster) {
+    err = cudaOccupancyMaxActiveClusters(&fits, reinterpret_cast<const void*>(kernel), &config);
+  } else {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fits, kernel, kThreads, static_cast<size_t>(smem));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (fits < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  err = cudaLaunchKernelEx(&config, kernel, indptr, indices, data, sf, as, n_local, n_shards, cut0,
+                           cap, nf0, nf1, terminate_limit, gain_eps, log_cut, log_gain, log_a,
+                           log_b, out, ex);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // One pass over n_shards * n_local nodes of a graph of at most that many
@@ -421,47 +660,75 @@ extern "C" int smega_pass_f32(const void* indptr, const void* indices,
                               int log_len, void* log_cut,
                               void* log_gain, void* log_a, void* log_b, void* out,
                               void* stream) {
-  const int unit = layout == kFlat ? 4 : kRow;
-  if (n_local < unit || n_local % unit != 0 || !valid_shards(n_shards) ||
-      layout < kFlat || layout > kCacheShared || log_len < 1 || cap >= log_len) {
+  if (!valid_shards(n_shards) || !valid_pass(n_local, layout, cap, log_len)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = layout == kFlat          ? smega_kernel<kFlat>
-                : layout == kCacheGlobal ? smega_kernel<kCacheGlobal>
-                                         : smega_kernel<kCacheShared>;
-  const long long smem = shared_bytes(n_local, layout);
-  if (smem > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  // The opt-in first, so that the occupancy query sees the real footprint.
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(n_shards, 1, 1);
-  config.blockDim = dim3(kThreads, 1, 1);
-  config.dynamicSmemBytes = static_cast<size_t>(smem);
-  config.stream = static_cast<cudaStream_t>(stream);
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = n_shards;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  config.attrs = &attr;
-  config.numAttrs = 1;
-  int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, reinterpret_cast<const void*>(kernel),
-                                       &config);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (clusters < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
-  err = cudaLaunchKernelEx(
-      &config, kernel, static_cast<const int*>(indptr),
-      static_cast<const int*>(indices), static_cast<const float*>(data),
-      static_cast<float*>(sf), static_cast<float*>(as), n_local, n_shards, cut0,
-      cap, nf0, nf1, terminate_limit, gain_eps,
-      static_cast<float*>(log_cut), static_cast<float*>(log_gain),
-      static_cast<int*>(log_a), static_cast<int*>(log_b), static_cast<float*>(out));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch(layout, n_shards, true, stream, static_cast<const int*>(indptr),
+                static_cast<const int*>(indices), static_cast<const float*>(data),
+                static_cast<float*>(sf), static_cast<float*>(as), n_local, n_shards, cut0, cap,
+                nf0, nf1, terminate_limit, gain_eps, static_cast<float*>(log_cut),
+                static_cast<float*>(log_gain), static_cast<int*>(log_a),
+                static_cast<int*>(log_b), static_cast<float*>(out), ClusterExchange{});
 }
+
+// K5R: rank `rank` of n_ranks (1..8) runs its shard of n_ranks * n_local
+// nodes, one block.  indptr, indices and data are its column slice (rows
+// of every node, columns in its stripe); sf and as its stripe, updated in
+// place; the logs and out as smega_pass_f32's, written by every rank.
+// buffers holds the n_ranks ranks' exchange buffers, mapped into this
+// process (this rank's own at [rank]); call numbers this call alike on
+// every rank (from 1); a spin gives up after timeout_ns.  status receives
+// 5 int64 words (see PeerExchange::fail and finish), zeroed by the caller.
+extern "C" int smega_ranks_pass_f32(const void* indptr, const void* indices, const void* data,
+                                    void* sf, void* as, int n_local, int rank, int n_ranks,
+                                    int layout, float cut0, int cap, int nf0, int nf1,
+                                    int terminate_limit, float gain_eps, int log_len,
+                                    void* log_cut, void* log_gain, void* log_a, void* log_b,
+                                    void* out, void* const* buffers, unsigned call,
+                                    long long timeout_ns, void* status, void* stream) {
+  if (n_ranks < 1 || n_ranks > kMaxShards || rank < 0 || rank >= n_ranks || call == 0 ||
+      timeout_ns <= 0 || !valid_pass(n_local, layout, cap, log_len)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  PeerExchange ex = {};
+  for (int k = 0; k < n_ranks; ++k) ex.peer[k] = static_cast<PeerBuffer*>(buffers[k]);
+  ex.me = rank;
+  ex.n_ranks = n_ranks;
+  ex.call = call;
+  ex.timeout_ns = static_cast<unsigned long long>(timeout_ns);
+  ex.status = static_cast<long long*>(status);
+  return launch(layout, 1, false, stream, static_cast<const int*>(indptr),
+                static_cast<const int*>(indices), static_cast<const float*>(data),
+                static_cast<float*>(sf), static_cast<float*>(as), n_local, n_ranks, cut0, cap, nf0,
+                nf1, terminate_limit, gain_eps, static_cast<float*>(log_cut),
+                static_cast<float*>(log_gain), static_cast<int*>(log_a),
+                static_cast<int*>(log_b), static_cast<float*>(out), ex);
+}
+
+// K5R's exchange buffer on `device`: allocated by cudaMalloc (so that its
+// IPC handle maps the base of the allocation), zeroed, and exported into
+// the 64 bytes at handle.
+extern "C" int smega_exchange_alloc(int device, void** buffer, void* handle) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess) err = cudaMalloc(buffer, sizeof(PeerBuffer));
+  if (err == cudaSuccess) err = cudaMemset(*buffer, 0, sizeof(PeerBuffer));
+  if (err == cudaSuccess) err = cudaDeviceSynchronize();
+  if (err == cudaSuccess) {
+    err = cudaIpcGetMemHandle(static_cast<cudaIpcMemHandle_t*>(handle), *buffer);
+  }
+  return static_cast<int>(err);
+}
+
+// A peer's exchange buffer, mapped into this process from its handle.
+extern "C" int smega_exchange_open(int device, const void* handle, void** buffer) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaIpcMemHandle_t h;
+  memcpy(&h, handle, sizeof(h));
+  return static_cast<int>(cudaIpcOpenMemHandle(buffer, h, cudaIpcMemLazyEnablePeerAccess));
+}
+
+extern "C" int smega_exchange_handle_bytes() { return static_cast<int>(sizeof(cudaIpcMemHandle_t)); }
 
 extern "C" const char* smega_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -141,6 +141,14 @@ def build(names=KERNEL_SOURCES) -> dict[str, str]:
     return logs
 
 
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The library built from ``csrc/<name>.cu``, built first if missing,
+    loaded once per process."""
+    build([name])
+    return ctypes.CDLL(str(library_path(name)))
+
+
 class Kernel:
     """One C entry point of a built library, with its launch count.
 
@@ -158,8 +166,7 @@ class Kernel:
         self._err = None
 
     def _load(self):
-        build([self.source])
-        lib = ctypes.CDLL(str(library_path(self.source)))
+        lib = library(self.source)
         fn = getattr(lib, self.symbol)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int

@@ -14,9 +14,11 @@ CLI's ``kl --sharded``) and the power iteration
 (:func:`sharded_power_fiedler`) split the nodes over ``"mp"``;
 :func:`multi_start_refine_mega_sharded` splits the starts over ``"dp"``.
 The JAX ``multi_start_refine`` (a ``vmap`` of the XLA engine) has no
-counterpart: the port's one engine plays that part.  K5 across cards, its
-two rounds per swap through peer memory, is ROADMAP.md A8c: it needs a
-machine with at least two cards to run.
+counterpart: the port's one engine plays that part.  ``smega_refine`` on a
+mesh runs one shard per rank of ``"mp"``: kernel K5R, its two rounds per
+swap stores into the peers' memory through CUDA IPC (the ranks of one
+host: a card each, or several on one card), and on the CPU its plain
+version over the group.
 """
 
 from eig_kl_tpu_torch.parallel.mesh import make_mesh, node_sharding

@@ -44,10 +44,6 @@ _created_default = False
 _meshes: dict[tuple, "Mesh"] = {}
 
 
-class NotPorted(NotImplementedError):
-    """A part of the JAX package that the port does not run yet."""
-
-
 def world_size() -> int:
     """The ranks of the default group, or of the ``torchrun`` launch
     (``WORLD_SIZE``) before the group exists; 1 without either."""

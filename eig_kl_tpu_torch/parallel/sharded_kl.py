@@ -94,33 +94,41 @@ class _Shard:
         return spmv(self.graph, x)[self.r0 : self.r0 + self.n_l].to(s.dtype)
 
 
-def _shard(g: Graph, mesh: Mesh, dtype: torch.dtype, device: torch.device) -> _Shard:
+def rows_graph(g: Graph, n_pad: int, rows: range, dtype: torch.dtype, device: torch.device) -> DeviceGraph:
+    """The rows ``rows`` of the host graph as a CSR graph over all ``n_pad``
+    rows whose other rows are empty, degrees included, at the whole graph's
+    ELL width (which sets the SpMV's order: a rank's rows of ``A @ s`` then
+    equal the whole graph's bit for bit)."""
     n = g.num_nodes
-    mp = mesh.shape[mesh.axis_names[1]]
-    n_pad = -(-n // mp) * mp
-    rows = node_sharding(mesh, n_pad, mesh.axis_names[1])
-    r0, n_l = rows.start, len(rows)
-    hi = min(rows.stop, n)
-    lo = min(r0, n)
+    lo, hi = min(rows.start, n), min(rows.stop, n)
     indptr = np.zeros(n_pad + 1, dtype=np.int64)
     counts = np.zeros(n_pad, dtype=np.int64)
     counts[lo:hi] = g.degrees[lo:hi]
     np.cumsum(counts, out=indptr[1:])
     sl = slice(int(g.indptr[lo]), int(g.indptr[hi]))
-    # bf16 has no SpMV of its own: its row sums add in f32, rounded once.
-    gdt = torch.float32 if dtype == torch.bfloat16 else dtype
     deg = np.zeros(n_pad, dtype=np.float64)
     deg[lo:hi] = g.weighted_degrees[lo:hi]
-    local = DeviceGraph(
+    return DeviceGraph(
         indptr=torch.as_tensor(indptr.astype(np.int32)).to(device),
         indices=torch.as_tensor(g.indices[sl].astype(np.int32)).to(device),
-        data=torch.as_tensor(g.data[sl]).to(gdt).to(device),
-        degrees=torch.as_tensor(deg).to(gdt).to(device),
-        total_weight=torch.zeros((), dtype=gdt, device=device),
+        data=torch.as_tensor(g.data[sl]).to(dtype).to(device),
+        degrees=torch.as_tensor(deg).to(dtype).to(device),
+        total_weight=torch.zeros((), dtype=dtype, device=device),
         row_width=ell_width(g.max_degree),
     )
-    deg_l = torch.as_tensor(deg[r0 : r0 + n_l]).to(dtype).to(device)
-    return _Shard(n=n, n_pad=n_pad, r0=r0, n_l=n_l, graph=local, deg_l=deg_l)
+
+
+def _shard(g: Graph, mesh: Mesh, dtype: torch.dtype, device: torch.device) -> _Shard:
+    n = g.num_nodes
+    mp = mesh.shape[mesh.axis_names[1]]
+    n_pad = -(-n // mp) * mp
+    rows = node_sharding(mesh, n_pad, mesh.axis_names[1])
+    # bf16 has no SpMV of its own: its row sums add in f32, rounded once.
+    local = rows_graph(g, n_pad, rows, torch.float32 if dtype == torch.bfloat16 else dtype, device)
+    deg = np.zeros(n_pad, dtype=np.float64)
+    deg[: g.num_nodes] = g.weighted_degrees
+    deg_l = torch.as_tensor(deg[rows.start : rows.stop]).to(dtype).to(device)
+    return _Shard(n=n, n_pad=n_pad, r0=rows.start, n_l=len(rows), graph=local, deg_l=deg_l)
 
 
 def _wide(dtype: torch.dtype) -> torch.dtype:

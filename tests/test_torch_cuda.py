@@ -1878,3 +1878,135 @@ def test_profiled_cli_trace_names_k1_step_and_k2(cuda, tmp_path, monkeypatch, ca
         names = {e["name"] for e in json.load(f)["traceEvents"] if e.get("cat") == "kernel"}
     assert any("power_step_kernel" in s for s in names), sorted(names)[:20]
     assert any("kl_pass_kernel" in s for s in names), sorted(names)[:20]
+
+
+def _k5r_rank(rank: int, tmp: str, mode: str) -> None:
+    """One of two ranks on the one card (gloo for the host side), run in a
+    process of its own: "pass" runs smega_refine across the two ranks (K5R)
+    on the dyadic graph, whole and capped at 50 swaps, the pass itself in
+    each of K5R's three layouts, and K5 at S = 2 in this process from the
+    same inputs; "timeout" makes rank 1 map the
+    buffers and pass the launch barrier but never launch, and rank 0's K5R
+    wait for it with a 1 s bound.  Writes its results for the test."""
+    import datetime
+    import pickle
+    import time
+
+    import torch.distributed as dist
+
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+    from eig_kl_tpu_torch.kl.init import random_split
+    from eig_kl_tpu_torch.parallel import smega
+    from eig_kl_tpu_torch.parallel.mesh import make_mesh
+    from eig_kl_tpu_torch.utils.config import KLConfig
+
+    dist.init_process_group("gloo", store=dist.FileStore(os.path.join(tmp, "store"), 2), rank=rank, world_size=2,
+                            timeout=datetime.timedelta(seconds=60))
+    mesh = make_mesh(2, device="cuda")
+    g = clique_expand(_hypergraph("dyadic"), "kl")
+    sides = random_split(g.num_nodes, 5)
+    plan = smega.SmegaPlan(g, 2, align=128)
+    out = {}
+    try:
+        if mode == "pass":
+            for cap in (None, 50):
+                cfg = KLConfig(gain_eps=1e-6, max_iterations=cap)
+                smega.K5R.launches = 0
+                r = smega.smega_refine(g, sides, mesh, cfg, plan=plan)
+                part = plan.rank_part(rank, mesh.device)
+                k5 = smega.smega_pass_cuda(plan.device_graph(mesh.device), 2,
+                                           *smega.pass_inputs(plan, sides, cfg, mesh.device))
+                stripe = slice(part.r0, part.r0 + part.n_local)
+                out[cap] = {
+                    "launches": smega.K5R.launches,
+                    "result": {f: getattr(r, f) for f in ("iterations", "initial_cut", "final_cut", "best_cut",
+                                                          "verified_cut", "sides", "best_sides", "cut_trajectory",
+                                                          "gain_trajectory")},
+                }
+                for layout in smega.K5_LAYOUTS:
+                    k5r = smega.smega_pass_ranks_cuda(
+                        mesh, part, *smega.pass_inputs(plan, sides, cfg, mesh.device, part), _layout=layout)
+                    out[cap][layout] = {
+                        name: (getattr(k5r, name).cpu().numpy(),
+                               (getattr(k5, name)[stripe] if name == "sf" else getattr(k5, name)).cpu().numpy())
+                        for name in ("sf", "log_cut", "log_gain", "log_a", "log_b", "scalars")}
+        elif rank == 0:
+            cfg = KLConfig(gain_eps=1e-6)
+            part = plan.rank_part(0, mesh.device)
+            t0 = time.monotonic()
+            try:
+                smega.smega_pass_ranks_cuda(mesh, part, *smega.pass_inputs(plan, sides, cfg, mesh.device, part),
+                                            spin_timeout_s=1.0)
+            except RuntimeError as e:
+                out["error"] = str(e)
+            out["seconds"] = time.monotonic() - t0
+            open(os.path.join(tmp, "done"), "w").close()
+        else:
+            smega.peer_buffers(mesh).launch_barrier(mesh)
+            t0 = time.monotonic()
+            while not os.path.exists(os.path.join(tmp, "done")) and time.monotonic() - t0 < 60:
+                time.sleep(0.05)
+    except Exception:  # noqa: BLE001 -- the test reports it
+        import traceback
+
+        out["exception"] = traceback.format_exc()
+    with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _two_ranks(tmp_path, mode: str) -> list[dict]:
+    """Runs _k5r_rank in two processes on the one card, killed after 120 s."""
+    import pickle
+    import subprocess
+    import sys
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = f"import sys; sys.path.insert(0, {here!r}); from test_torch_cuda import _k5r_rank; _k5r_rank({{}}, {str(tmp_path)!r}, {mode!r})"
+    env = dict(os.environ, PYTHONPATH=os.path.dirname(here), OMP_NUM_THREADS="1", LOCAL_RANK="0")
+    procs = [subprocess.Popen([sys.executable, "-c", code.format(r)], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT) for r in range(2)]
+    logs = []
+    for p in procs:
+        try:
+            logs.append(p.communicate(timeout=120)[0])
+        except subprocess.TimeoutExpired:
+            p.kill()
+            logs.append(p.communicate()[0])
+    outs = []
+    for r in range(2):
+        path = tmp_path / f"rank{r}.pkl"
+        assert path.exists(), b"\n".join(logs).decode(errors="replace")[-3000:]
+        outs.append(pickle.loads(path.read_bytes()))
+        assert "exception" not in outs[-1], outs[-1]["exception"]
+    return outs
+
+
+def test_k5r_two_processes_equal_k5_at_two_shards(cuda, tmp_path):
+    """K5R in two processes on the one card (CUDA IPC between them, the card
+    time-slicing their contexts), on a 3,000-node dyadic graph from a random
+    split, whole and capped at 50 swaps: one launch per rank for
+    smega_refine; in each of its layouts (flat, the row-max cache with the
+    state in global and in shared memory) each rank's logs, scalars and
+    stripe of sf bit for bit K5's at S = 2 in one process; smega_refine's
+    results the same on both ranks."""
+    outs = _two_ranks(tmp_path, "pass")
+    for cap in (None, 50):
+        for r, out in enumerate(outs):
+            run = out[cap]
+            assert run["launches"] == 1
+            for layout in ("flat", "global", "shared"):
+                for name, (got, want) in run[layout].items():
+                    np.testing.assert_array_equal(got, want, err_msg=f"rank {r}, cap {cap}, {layout}: {name}")
+            for f, v in run["result"].items():
+                np.testing.assert_array_equal(v, outs[0][cap]["result"][f], err_msg=f)
+        assert outs[0][cap]["result"]["iterations"] == (cap or outs[0][None]["result"]["iterations"]) > 0
+
+
+def test_k5r_rank_whose_peer_never_launches_raises(cuda, tmp_path):
+    """Rank 1 maps the buffers and passes the launch barrier but never
+    launches: rank 0's K5R gives up round A after its 1 s bound and raises,
+    naming itself, the round and the peer, instead of hanging."""
+    outs = _two_ranks(tmp_path, "timeout")
+    err = outs[0].get("error", "")
+    assert "rank 0 of 2" in err and "round A" in err and "from rank 1" in err, err
+    assert 1.0 <= outs[0]["seconds"] < 15.0, outs[0]["seconds"]

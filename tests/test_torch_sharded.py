@@ -1,7 +1,8 @@
 """The port's engines across ranks (``eig_kl_tpu_torch.parallel``: the mesh,
 ``sharded_refine``, ``sharded_refine_oc``, ``sharded_power_fiedler``,
-``multi_start_refine_mega_sharded``) against the JAX package on its 8
-virtual CPU devices, and ``kl --sharded`` against the unsharded ``kl``.
+``multi_start_refine_mega_sharded``, ``smega_refine`` on a mesh) against the
+JAX package on its 8 virtual CPU devices, and ``kl --sharded`` against the
+unsharded ``kl``.
 
 The port's ranks are processes: one gloo group of 2 ranks and one of 4,
 each started once for the module, each rank on one thread, running every
@@ -15,10 +16,17 @@ verified cuts): the JAX ``psum`` over the CPU's virtual devices adds in
 device order, which :meth:`Mesh.sum` repeats.  The bf16 case is held to
 the JAX test's own drift bound and to real node ids.  The power
 iteration equals the JAX one bit for bit too: its iterations, lambda and
-vector.
+vector.  ``smega_refine`` across 2 ranks (the plain version of K5R, its two
+rounds per swap two gathers over the group) equals the JAX ``smega_refine``
+on ``make_mesh(2)`` in interpret mode bit for bit, every field; that run
+takes 10-100 s, so ``tools/smega_ranks_reference.py`` records it in
+``tools/smega_ranks_reference.npz`` with a digest of its inputs, which the
+test checks, and the test also holds the port's swaps to the JAX XLA
+engine's, run here.
 """
 
 import datetime
+import hashlib
 import os
 import pickle
 import subprocess
@@ -33,6 +41,13 @@ import torch
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 GEN_002 = os.path.join(REPO, "benchmarks", "data", "gen_0.02_42.hgr")
+SMEGA_REFERENCE = os.path.join(REPO, "tools", "smega_ranks_reference.npz")
+#: smega across ranks: (case, graph of _jax_graphs, max_iterations), as
+#: tools/smega_ranks_reference.py runs the JAX package.
+SMEGA_CASES = (("dyadic", "dyadic", None), ("dyadic cap 7", "dyadic", 7), ("overflow", "overflow", None))
+#: gen 0.02x's pass across ranks stops here (of about 960 swaps): two
+#: gathers over gloo a swap take milliseconds on a busy host.
+SMEGA_GEN002_CAP = 300
 DEADLINE_S = 300
 WORLDS = (2, 4)
 RESULT_FIELDS = ("initial_cut", "final_cut", "best_cut", "verified_cut", "iterations")
@@ -98,7 +113,6 @@ def _multi_case(inp, world):
     pass and passes until converged; its refusals and its refresh
     fallback; smega_refine across ranks."""
     from eig_kl_tpu_torch.parallel import make_mesh, multi_start_refine_mega, smega_refine
-    from eig_kl_tpu_torch.parallel.mesh import NotPorted
     from eig_kl_tpu_torch.parallel.multi_start import multi_start_refine_mega_sharded
     from eig_kl_tpu_torch.utils.config import KLConfig
 
@@ -120,12 +134,33 @@ def _multi_case(inp, world):
         best_r, cuts_r = multi_start_refine_mega_sharded(g, 4, mesh=mesh, config=cfg, base_seed=5)
     out["refresh"] = ([str(w.message) for w in caught], cuts_r,
                       multi_start_refine_mega(g, 4, config=cfg, base_seed=5, spmv_order="plan")[1])
-    try:
-        smega_refine(host, inp["dyadic"]["sides"], make_mesh(2, device="cpu"), device="cpu")
-    except NotPorted as e:
-        out["smega"] = str(e)
+    out["smega"] = _kl(smega_refine(host, inp["dyadic"]["sides"], make_mesh(2, device="cpu")))
     out["smega_one_rank"] = _kl(smega_refine(host, inp["dyadic"]["sides"], mesh))
     return out
+
+
+def _smega_case(name, cap):
+    def run(inp, world):
+        from eig_kl_tpu_torch.parallel import make_mesh, smega_refine
+        from eig_kl_tpu_torch.utils.config import KLConfig
+
+        g = _graph(inp[name]["graph"])
+        return _kl(smega_refine(g, inp[name]["sides"], make_mesh(2, device="cpu"), KLConfig(max_iterations=cap),
+                                align=128))
+
+    return run
+
+
+def _smega_refusal_case(inp, world):
+    """A plan built for 4 shards, given with a mesh of 2 ranks."""
+    from eig_kl_tpu_torch.parallel import SmegaPlan, make_mesh, smega_refine
+
+    g = _graph(inp["dyadic"]["graph"])
+    try:
+        smega_refine(g, inp["dyadic"]["sides"], make_mesh(2, device="cpu"), plan=SmegaPlan(g, 4))
+    except ValueError as e:
+        return str(e)
+    return None
 
 
 CASES = {
@@ -136,6 +171,9 @@ CASES = {
         "overflow oc S=2": _refine_case("overflow", "oc", 2),
         **{f"power {m} S=2": _power_case(f"power {m}", 2) for m in (64, 61)},
         "multi": _multi_case,
+        **{f"smega {case}": _smega_case(name, cap) for case, name, cap in SMEGA_CASES},
+        "smega gen002": _smega_case("gen002", SMEGA_GEN002_CAP),
+        "smega refusal": _smega_refusal_case,
     },
     4: {
         "mesh": _mesh_case,
@@ -255,6 +293,15 @@ def _jax_graphs():
         hg = random_hypergraph(np.random.default_rng(0), num_nodes=m, num_nets=128, max_net=5)
         out[f"power {m}"] = (clique_expand(hg, "kl"), iters)
     return out
+
+
+def inputs_digest(g, sides) -> str:
+    """The first 16 hex digits of the SHA-256 of a graph's CSR arrays and a
+    split (tools/smega_ranks_reference.py records it beside each run)."""
+    h = hashlib.sha256()
+    for a in (g.indptr, g.indices, g.data, sides):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()[:16]
 
 
 @pytest.fixture(scope="module")
@@ -414,15 +461,75 @@ def test_multi_start_sharded_equals_one_card_and_jax(jax_graphs, ranks):
 
 def test_multi_start_sharded_refusals_and_refresh(ranks):
     """The JAX function's ValueError for starts not divisible by dp, its
-    warning and one-card run with refresh_interval > 0, and smega_refine
-    across ranks refused as ROADMAP.md A8c."""
+    warning and one-card run with refresh_interval > 0, and smega_refine on
+    a mesh of 2 ranks, no longer refused: equal to its one-rank run (on the
+    (2, 1) mesh's row) bit for bit."""
     for out in ranks.case(2, "multi"):
         assert out["indivisible"] == "num_starts=3 must be divisible by dp=2"
         msgs, cuts, one_card = out["refresh"]
         assert any("refresh_interval > 0" in m for m in msgs)
         np.testing.assert_array_equal(cuts, one_card)
-        assert "A8c" in out["smega"]
         assert out["smega_one_rank"]["iterations"] > 0
+        for f in RESULT_FIELDS:
+            assert out["smega"][f] == out["smega_one_rank"][f], f
+        for f in ARRAY_FIELDS:
+            np.testing.assert_array_equal(out["smega"][f], out["smega_one_rank"][f], err_msg=f)
+
+
+@pytest.mark.parametrize("case, name, cap", SMEGA_CASES)
+def test_smega_across_ranks_equals_jax_smega(jax_graphs, ranks, case, name, cap):
+    """smega_refine across 2 ranks (gloo, the plain version) against the JAX
+    smega_refine on make_mesh(2) (interpret, align=128), recorded by
+    tools/smega_ranks_reference.py for these very inputs: every field bit
+    for bit on both ranks, whole and capped; the swaps also equal the JAX
+    XLA engine's, run here."""
+    import jax.numpy as jnp
+
+    from eig_kl_tpu.kl.engine import refine
+    from eig_kl_tpu.utils.config import KLConfig
+
+    g, sides = jax_graphs[name]
+    ref = np.load(SMEGA_REFERENCE)
+    assert str(ref[f"{case}/inputs"]) == inputs_digest(g, sides), "the recorded run had other inputs"
+    xla = refine(g.to_device(dtype=jnp.float32), sides, KLConfig(max_iterations=cap))
+    assert 0 < xla.iterations == int(ref[f"{case}/iterations"]) <= (cap or xla.iterations)
+    np.testing.assert_array_equal(np.asarray(xla.sides), ref[f"{case}/sides"])
+    np.testing.assert_array_equal(np.asarray(xla.gain_trajectory), ref[f"{case}/gain_trajectory"])
+    for got in ranks.case(2, f"smega {case}"):
+        for f in RESULT_FIELDS:
+            assert got[f] == ref[f"{case}/{f}"].item(), f
+        for f in ARRAY_FIELDS:
+            np.testing.assert_array_equal(got[f], ref[f"{case}/{f}"], err_msg=f)
+
+
+def test_smega_across_ranks_gen002_equals_one_process(jax_graphs, ranks):
+    """gen 0.02x from a random split, the first 300 swaps: smega_refine
+    across 2 ranks equals the port's one-process pass at 2 shards,
+    smega_refine(g, sides, 2), bit for bit (no JAX interpret run at this
+    size)."""
+    from eig_kl_tpu_torch.parallel import smega_refine
+    from eig_kl_tpu_torch.utils.config import KLConfig
+
+    g, sides = jax_graphs["gen002"]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        one = _kl(smega_refine(_graph((g.indptr, g.indices, g.data)), sides, 2,
+                               KLConfig(max_iterations=SMEGA_GEN002_CAP), device="cpu"))
+    finally:
+        torch.set_num_threads(threads)
+    assert one["iterations"] == SMEGA_GEN002_CAP
+    for got in ranks.case(2, "smega gen002"):
+        for f in RESULT_FIELDS:
+            assert got[f] == one[f], f
+        for f in ARRAY_FIELDS:
+            np.testing.assert_array_equal(got[f], one[f], err_msg=f)
+
+
+def test_smega_plan_for_other_shards_refused_on_every_rank(ranks):
+    """A plan built for 4 shards given with a mesh of 2 ranks: every rank
+    raises the same ValueError, before any collective."""
+    assert ranks.case(2, "smega refusal") == ["plan built for 4 shards, not 2"] * 2
 
 
 @pytest.mark.parametrize("world", WORLDS)

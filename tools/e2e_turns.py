@@ -3,7 +3,7 @@ comparing two checkouts.
 
 Run on a machine with one CUDA card::
 
-    python3 tools/e2e_turns.py [--tree DIR] [--runs N] [--path one_start|momentum|lobpcg_f64]
+    python3 tools/e2e_turns.py [--tree DIR] [--runs N] [--path one_start|momentum|lobpcg_f64|smega]
 
 It imports ``eig_kl_tpu_torch`` from ``DIR`` (default: this repository)
 and generates the circuit at 1.0x (seed 42).  ``--path one_start`` (the
@@ -13,7 +13,11 @@ path ``chip_smoke.py`` calls the one start; ``--path momentum`` runs
 of the circuit's largest component (184,406 nodes), as ``chip_smoke.py``'s
 momentum phase does; ``--path lobpcg_f64`` runs ``spectral_partition``
 with LOBPCG at its f64 default on that component (its blocked products
-are K1's ``spmm_csr_f64``), as ``chip_smoke.py``'s f64 phase does.  Each
+are K1's ``spmm_csr_f64``), as ``chip_smoke.py``'s f64 phase does;
+``--path smega`` runs ``smega_refine`` (kernel K5) at S = 1 and at S = 8
+on the circuit's KL graph from a random split (seed 42), each with a plan
+built before the clock, and reports K5's own milliseconds per pass
+(CUDA events around ``smega_pass_cuda`` on the same inputs).  Each
 runs once to warm up and then ``N`` times
 (default 5), each timed from a synchronised card to a synchronised card.
 It also times the host's cost of a K6 norm, the wall time of 2,000
@@ -51,7 +55,7 @@ def main() -> int:
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent),
                         help="the checkout whose eig_kl_tpu_torch is timed")
     parser.add_argument("--runs", type=int, default=5, help="timed runs after the warm-up")
-    parser.add_argument("--path", choices=("one_start", "momentum", "lobpcg_f64"), default="one_start",
+    parser.add_argument("--path", choices=("one_start", "momentum", "lobpcg_f64", "smega"), default="one_start",
                         help="the path timed")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
@@ -94,6 +98,44 @@ def main() -> int:
 
         def spans(r):
             return {"spans_s": dict(sorted(r.timings.items()))}
+    elif args.path == "smega":
+        from eig_kl_tpu_torch.kl.init import random_split
+        from eig_kl_tpu_torch.ops.partition import sides_to_signs
+        from eig_kl_tpu_torch.ops.spmv import spmv
+        from eig_kl_tpu_torch.parallel import smega
+        from eig_kl_tpu_torch.utils.config import KLConfig
+
+        g = clique_expand(hg, "kl")
+        sides = random_split(g.num_nodes, 42)
+        config = KLConfig(gain_eps=1e-6)
+        plans = {S: smega.SmegaPlan(g, S) for S in (1, 8)}
+
+        def k5_ms(S):
+            """K5's milliseconds for the pass, by CUDA events (the inputs as
+            smega_refine builds them: the one API both checkouts share)."""
+            dg, n = plans[S].device_graph(dev), g.num_nodes
+            s = sides_to_signs(torch.as_tensor(sides).to(dev), torch.float32)
+            sf0 = torch.zeros(plans[S].n_pad, device=dev)
+            as0 = torch.zeros_like(sf0)
+            sf0[:n], as0[:n] = s, spmv(dg, s)
+            n1 = int(sides.sum())
+            cap = min(n1, n - n1)
+            args = (dg, S, sf0, as0, 0.0, cap, n - n1, n1, cap + 1, config.terminate_limit(n), config.gain_eps)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            smega.smega_pass_cuda(*args)
+            end.record()
+            torch.cuda.synchronize()
+            return start.elapsed_time(end)
+
+        def run():
+            return {S: (smega.smega_refine(g, sides, S, config, plan=plans[S]), k5_ms(S)) for S in plans}
+
+        def figures(r):
+            return {f"S{S}": [x.iterations, x.best_cut] for S, (x, _) in r.items()}
+
+        def spans(r):
+            return {"k5_ms": {f"S{S}": ms for S, (_, ms) in r.items()}}
     else:
         from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
         from eig_kl_tpu_torch.utils.config import SpectralConfig

@@ -72,11 +72,11 @@ extern "C" int k5_phase_reset() {
 # (a line of the swap loop, the same line with its stamp); each occurs once.
 STAMPS = (
     ("  while (sh_go) {\n", "  K5_STAMP(0);\n  while (sh_go) {\n    K5_STAMP(1);\n"),
-    ("    cluster.sync();\n\n    // Round A,", "    K5_STAMP(2);\n    cluster.sync();\n\n    // Round A,"),
+    ("    ex.publish_a(&cand, swap);\n", "    K5_STAMP(2);\n    ex.publish_a(&cand, swap);\n"),
     ("    const int a = sh_a;\n", "    K5_STAMP(3);\n    const int a = sh_a;\n"),
     ("      const int dirty = sh_count;\n", "      K5_STAMP(4);\n      const int dirty = sh_count;\n"),
-    ("    cluster.sync();\n\n    // Round B:", "    K5_STAMP(5);\n    cluster.sync();\n\n    // Round B:"),
-    ("    __syncthreads();\n  }\n  // No block leaves", "    __syncthreads();\n    K5_STAMP(6);\n  }\n  // No block leaves"),
+    ("    ex.sync_b();\n", "    K5_STAMP(5);\n    ex.sync_b();\n"),
+    ("    __syncthreads();\n  }\n  ex.finish(", "    __syncthreads();\n    K5_STAMP(6);\n  }\n  ex.finish("),
 )
 
 
