@@ -46,6 +46,13 @@ on gen 1.0x (the first 1,000 swaps) and gen 0.02x (a whole pass), held to
 K5 at S = 2 in one process, to K2's swaps and to its plain version across
 the ranks; and the fused CLI with ``EIG_KL_TPU_PROFILE_DIR`` set, whose
 Chrome trace must name K1's power step and K2.
+Every lazy walk gathers z = dsinv * w: the momentum step's rescale writes
+it (``lazy_rescale``), else the z pass (``lazy_z``); both are held to their
+plain versions, each walk is held and timed given z and held with its z
+pass, and each momentum run must launch one walk and one rescale per step
+and no z pass but one per check and one at the start (the walks' earlier
+design, two gathers per entry, is timed beside them by
+``tools/lazy_walk_turns.py``).
 Any failed check raises, so the script exits nonzero and prints no
 result; so does a machine without a CUDA card.
 """
@@ -867,14 +874,22 @@ def main() -> int:
         K1_LAPLACIAN_F64,
         K1_LAZY,
         K1_LAZY_F64,
+        K1_RESCALE,
+        K1_RESCALE_F64,
         K1_SPMM,
         K1_SPMM_F64,
         K1_STEP,
         K1_STEP_F64,
+        K1_Z,
+        K1_Z_F64,
         laplacian_cuda,
         laplacian_plain,
+        lazy_rescale_cuda,
+        lazy_rescale_plain,
         lazy_walk_cuda,
         lazy_walk_plain,
+        lazy_z_cuda,
+        lazy_z_plain,
         power_step_cuda,
         power_step_plain,
         row_ids,
@@ -942,10 +957,10 @@ def main() -> int:
     card = card_line()
     f32_kernels = (K1, K1_STEP, K1_LAPLACIAN, K1_SPMM, K1_LAZY, K2, V.K3A, V.K3B, V.K3C, K4, K5, K6,
                    K6_SCALE, K6_STEP, K6_AXPY, K1_V2, K1_V2_BF16I, K1_LAZY_V2, K1_LAZY_V2_BF16I, K4_FUSED,
-                   K1_V1, K7) + tuple(k for k in K1_V2_FORMS.values() if k not in (K1_V2, K1_V2_BF16I, K1_LAZY_V2,
-                                                                                  K1_LAZY_V2_BF16I))
+                   K1_V1, K7, K1_RESCALE, K1_Z) + tuple(k for k in K1_V2_FORMS.values()
+                                                        if k not in (K1_V2, K1_V2_BF16I, K1_LAZY_V2, K1_LAZY_V2_BF16I))
     f64_kernels = (K1_F64, K1_STEP_F64, K1_LAPLACIAN_F64, K1_SPMM_F64, K1_LAZY_F64, K2_F64, K4_F64,
-                   K6_F64, K6_SCALE_F64, K6_AXPY_F64, K7_F64)
+                   K6_F64, K6_SCALE_F64, K6_AXPY_F64, K7_F64, K1_RESCALE_F64, K1_Z_F64)
     all_kernels = f32_kernels + f64_kernels
 
     def reset_counts():
@@ -968,6 +983,11 @@ def main() -> int:
         turn_libs = earlier.result()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s ({', '.join(logs) or 'cached'}; the earlier designs "
           f"{', '.join(turn_libs)})")
+
+    def same_bits(a, b):
+        view = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
+
     for name, log in logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -1940,10 +1960,17 @@ def main() -> int:
         bound=bound(csr_bytes + 12 * ln, 2 * l_nnz + 2 * ln),
     )
     a_lk = torch.sparse_csr_tensor(lk.indptr.long(), lk.indices.long(), lk.data, size=(ln, ln))
+    # The walk gathers z = dsinv * w, given here as the momentum step's
+    # rescale gives it: its bytes are w, dsinv and z read and y written (16
+    # n; z's write is the rescale's or the z pass's), its operations two per
+    # entry and the epilogue's three per row.
+    zl = lazy_z_cuda(xl, dl)
+    check(same_bits(lazy_walk_cuda(lk, xl, dl), lazy_walk_cuda(lk, xl, dl, z=zl)),
+          "the lazy walk with its z pass differs from the walk given z")
     new["lazy walk"] = dict(
-        kern=lambda: lazy_walk_cuda(lk, xl, dl), plain=lambda: lazy_walk_plain(lk, xl, dl),
+        kern=lambda: lazy_walk_cuda(lk, xl, dl, z=zl), plain=lambda: lazy_walk_plain(lk, xl, dl, z=zl),
         lib=lambda: 0.5 * (xl + dl * (a_lk @ (dl * xl))), symbol="lazy_walk_kernel",
-        bound=bound(4 * (lk.indptr.numel() + 2 * l_nnz) + 12 * ln, 2 * l_nnz + 4 * ln),
+        bound=bound(4 * (lk.indptr.numel() + 2 * l_nnz) + 16 * ln, 2 * l_nnz + 3 * ln),
     )
     for k in (4, 12):
         X = (torch.rand(ln, k, generator=gen) - 0.5).to(dev)
@@ -1997,12 +2024,59 @@ def main() -> int:
     ul = R.axpy(-R.fma_dot(ql, xl), ql, xl)
     cl = 1.0 / R.tree_norm(ul)
     wl = ul * cl
-    scaled_err = held_bitwise(lambda: lazy_walk_cuda(lk, wl, dl, (ul, cl)),
+    zwl = lazy_z_cuda(wl, dl)
+    scaled_err = held_bitwise(lambda: lazy_walk_cuda(lk, wl, dl, (ul, cl), z=zwl),
                               lambda: lazy_walk_plain(lk, wl, dl, (ul, cl)), "the scaled lazy walk")
     new["lazy walk"]["err"] = max(new["lazy walk"]["err"], scaled_err)
+    check(same_bits(lazy_walk_cuda(lk, wl, dl, (ul, cl)), lazy_walk_cuda(lk, wl, dl, (ul, cl), z=zwl)),
+          "the scaled lazy walk with its z pass differs from the walk given z")
     print(f"lazy walk, scaled (the momentum check's walk, ELL width {lk.row_width}): bitwise equal to its plain "
-          "version")
+          "version, with z given and with its z pass")
 
+    # The momentum step's rescale (w * inv, u * inv) with the next walk's z
+    # in one launch, and the z pass, at the component's length: bit for bit
+    # their plain versions.  Bytes: u, w and dsinv read, three vectors
+    # written (the z pass: w and dsinv read, z written); a multiply per
+    # value written.  The rescale has no one PyTorch call: beside it, the
+    # two multiplies it replaces (the z pass: torch.mul).
+    ur = (torch.rand(ln, generator=gen) - 0.5).to(dev)
+    ur[::89] = -0.0
+    inv_r = 1.0 / R.tree_norm(ur)
+    zk = {
+        "lazy rescale": dict(kern=lambda: lazy_rescale_cuda(ur, xl, inv_r, dl),
+                             plain=lambda: lazy_rescale_plain(ur, xl, inv_r, dl), lib=None,
+                             replaced=lambda: (xl * inv_r, ur * inv_r), bound=bound(24 * ln + 4, 3 * ln)),
+        "z pass": dict(kern=lambda: lazy_z_cuda(xl, dl), plain=lambda: lazy_z_plain(xl, dl),
+                       lib=lambda: dl * xl, bound=bound(12 * ln, ln)),
+    }
+
+    def hold_z_kernels(entries):
+        """Hold each of the rescale's and the z pass's entries (one output
+        or three) bit for bit against its plain version and time it."""
+        for what, e in entries.items():
+            outs = [e["kern"](), e["kern"](), e["plain"]()]
+            got, again, ref = ([o] if torch.is_tensor(o) else list(o) for o in outs)
+            check(all(same_bits(a, b) for a, b in zip(got, ref)), f"{what} is not bitwise its plain version")
+            check(all(same_bits(a, b) for a, b in zip(got, again)), f"two launches of {what} differ")
+            e["err"] = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+            e["ms"] = cuda_ms(e["kern"], 200)
+            e["plain_ms"] = cuda_ms(e["plain"], 200)
+            e["device_us"] = device_us_per_launch(lambda e=e: [e["kern"]() for _ in range(50)], "lazy_rescale")
+            e["library_ms"] = None if e["lib"] is None else cuda_ms(e["lib"], 200)
+            e["library_device_us"] = None if e["lib"] is None else library_device_us(e["lib"])
+            if "replaced" in e:
+                e["replaced_ms"] = cuda_ms(e["replaced"], 200)
+                e["replaced_device_us"] = library_device_us(e["replaced"])
+            print(
+                f"{what}: bitwise equal to its plain version; {e['ms']:.4f} ms, device {fmt_us(e['device_us'])} per "
+                f"launch, plain {e['plain_ms']:.4f} ms, "
+                + (f"library {e['library_ms']:.4f} ms (device {fmt_us([e['library_device_us']])})" if e["lib"] else
+                   f"the two PyTorch multiplies it replaces {e['replaced_ms']:.4f} ms (device "
+                   f"{fmt_us([e['replaced_device_us']])})")
+                + f", bound {e['bound'][0]:.5f} ms by {e['bound'][1]}"
+            )
+
+    hold_z_kernels(zk)
 
     # The Lanczos path: spectral_partition, f32 on the card plus the host
     # f64 refinement (dtype=torch.float32, given: the default is f64), then
@@ -2102,12 +2176,17 @@ def main() -> int:
     reset_counts()
     (mo_lam, mo_med, mo_vals, mo_sides, mo_iters), mo_s = momentum_run()
     mo_launches = {kern.symbol: kern.launches for kern in all_kernels}
-    check(K1_LAZY.launches > mo_iters and K6_AXPY.launches > 0 and K4.launches > 0,
-          f"the momentum path launched {mo_launches}")
-    # K4: the start's deflation, then per check one launch for the two
-    # deflation dots and one for the Rayleigh quotient; the final
-    # eigenvalue's quotient.
+    # Each inner step: one lazy walk and one lazy_rescale (its two carries
+    # and the next walk's z), no z pass; each check: the Rayleigh quotient's
+    # walk after one z pass, whose z the next step's walk reuses; and the z
+    # pass of the start.  K4: the start's deflation, then per check one
+    # launch for the two deflation dots and one for the Rayleigh quotient;
+    # the final eigenvalue's quotient.
     mo_checks = (mo_iters - 1) // mom_config.check_interval
+    mo_steps = mo_iters - 1
+    check(K1_LAZY.launches == mo_steps + mo_checks and K1_RESCALE.launches == mo_steps
+          and K1_Z.launches == mo_checks + 1 and K6_AXPY.launches > 0 and K4.launches > 0,
+          f"the momentum path launched {mo_launches} for {mo_steps} steps and {mo_checks} checks")
     check(K4.launches == 2 + 2 * mo_checks, f"K4 launched {K4.launches} times for {mo_checks} momentum checks")
     mo_digest = hashlib.sha256(np.ascontiguousarray(mo_sides.astype(np.int8)).tobytes()).hexdigest()[:16]
     check(mo_iters == JAX_LCC_MOMENTUM_ITERS, f"momentum: {mo_iters} iterations, JAX {JAX_LCC_MOMENTUM_ITERS}")
@@ -2194,10 +2273,13 @@ def main() -> int:
             bound=bound64(lcsr64 + 8 * ln + 16 * ln * k, (2 * l_nnz + 2 * ln) * k),
             replaces="eig_kl_tpu/ops/spmv_pallas.py:339 (vmapped by eig_kl_tpu/spectral/lobpcg_solver.py:51-56)",
             source="eig_kl_tpu_torch/csrc/spmv_csr.cu")
+    zl64 = lazy_z_cuda(xl64, dl64)
+    check(same_bits(lazy_walk_cuda(lk64, xl64, dl64), lazy_walk_cuda(lk64, xl64, dl64, z=zl64)),
+          "the f64 lazy walk with its z pass differs from the walk given z")
     f64["K1 lazy_walk_f64"] = dict(
-        kern=lambda: lazy_walk_cuda(lk64, xl64, dl64), plain=lambda: lazy_walk_plain(lk64, xl64, dl64),
+        kern=lambda: lazy_walk_cuda(lk64, xl64, dl64, z=zl64), plain=lambda: lazy_walk_plain(lk64, xl64, dl64, z=zl64),
         lib=lambda: 0.5 * (xl64 + dl64 * (alk64 @ (dl64 * xl64))), symbol="lazy_walk_kernel",
-        bound=bound64(4 * (lk64.indptr.numel() + l_nnz) + 8 * l_nnz + 24 * ln, 2 * l_nnz + 4 * ln),
+        bound=bound64(4 * (lk64.indptr.numel() + l_nnz) + 8 * l_nnz + 32 * ln, 2 * l_nnz + 3 * ln),
         replaces="eig_kl_tpu/ops/spmv_pallas.py:339 (with eig_kl_tpu/spectral/power.py:305's epilogue)",
         source="eig_kl_tpu_torch/csrc/spmv_csr.cu")
     w64 = (torch.rand(n, generator=gen, dtype=torch.float64) - 0.5).to(dev)
@@ -2233,9 +2315,26 @@ def main() -> int:
     ul64 = R.axpy(-R.fma_dot(ql64, xl64), ql64, xl64)
     cl64 = 1.0 / R.tree_norm(ul64)
     wl64 = ul64 * cl64
-    scaled64_err = held64(lambda: lazy_walk_cuda(lk64, wl64, dl64, (ul64, cl64)),
+    zwl64 = lazy_z_cuda(wl64, dl64)
+    scaled64_err = held64(lambda: lazy_walk_cuda(lk64, wl64, dl64, (ul64, cl64), z=zwl64),
                           lambda: lazy_walk_plain(lk64, wl64, dl64, (ul64, cl64)), "the scaled f64 lazy walk")
-    print("lazy walk f64, scaled (the momentum check's walk): bitwise equal to its plain version")
+    check(same_bits(lazy_walk_cuda(lk64, wl64, dl64, (ul64, cl64)), lazy_walk_cuda(lk64, wl64, dl64, (ul64, cl64),
+                                                                                   z=zwl64)),
+          "the scaled f64 lazy walk with its z pass differs from the walk given z")
+    print("lazy walk f64, scaled (the momentum check's walk): bitwise equal to its plain version, with z given and "
+          "with its z pass")
+    ur64 = (torch.rand(ln, generator=gen, dtype=torch.float64) - 0.5).to(dev)
+    ur64[::89] = -0.0
+    inv_r64 = 1.0 / R.tree_norm(ur64)
+    zk64 = {
+        "lazy rescale f64": dict(kern=lambda: lazy_rescale_cuda(ur64, xl64, inv_r64, dl64),
+                                 plain=lambda: lazy_rescale_plain(ur64, xl64, inv_r64, dl64), lib=None,
+                                 replaced=lambda: (xl64 * inv_r64, ur64 * inv_r64),
+                                 bound=bound64(48 * ln + 8, 3 * ln)),
+        "z pass f64": dict(kern=lambda: lazy_z_cuda(xl64, dl64), plain=lambda: lazy_z_plain(xl64, dl64),
+                           lib=lambda: dl64 * xl64, bound=bound64(24 * ln, ln)),
+    }
+    hold_z_kernels(zk64)
     for what, e in f64.items():
         e["err"] = held64(e["kern"], e["plain"], what)
         e["ms"] = cuda_ms(e["kern"], e.get("reps", 200))
@@ -2426,8 +2525,10 @@ def main() -> int:
     reset_counts()
     (m64_lam, m64_med, _, m64_sides, m64_iters), m64_s = momentum64_run()
     m64_launches = {kern.symbol: kern.launches for kern in all_kernels}
-    check(not f32_launched() and K1_LAZY_F64.launches > m64_iters and K6_AXPY_F64.launches > 0
-          and K4_F64.launches == 1 + 2 * ((m64_iters - 1) // mom_config.check_interval),
+    m64_steps, m64_checks = m64_iters - 1, (m64_iters - 1) // mom_config.check_interval
+    check(not f32_launched() and K1_LAZY_F64.launches == m64_steps + m64_checks
+          and K1_RESCALE_F64.launches == m64_steps and K1_Z_F64.launches == m64_checks + 1
+          and K6_AXPY_F64.launches > 0 and K4_F64.launches == 1 + 2 * m64_checks,
           f"the f64 momentum path launched {m64_launches}")
     with open(MOMENTUM_F64_SIDES, "rb") as f:
         jax_m64 = np.unpackbits(np.frombuffer(f.read(), np.uint8))[:ln].astype(np.int8)
@@ -2501,13 +2602,15 @@ def main() -> int:
     ds2d = ds.view(P // 128, 128)
     a_g = torch.sparse_csr_tensor(g.indptr.long(), g.indices.long(), g.data, size=(n, n))
     xs_n, ds_n = xs[:n], ds[:n]
+    zs2d = lazy_z_cuda(xs2d, ds2d)
     # Bytes: the kept entries' CSR arrays, the COO tail's (row, col, w)
     # triplets (not the layout's 4 B per 32 rows that tell a warp where its
     # rows' triplets start), x's n values gathered (its sectors counted once each: every
     # value is read), y's P written; the lazy walk reads w and dsinv over
-    # the whole padded state for its gathers and its epilogue.  Operations:
-    # a product and an add per entry (bf16: one rounding more), the lazy
-    # walk's scaled gathers and its epilogue.
+    # the whole padded state for its epilogue and gathers z = dsinv * w,
+    # given (the momentum step's rescale writes it, and counts the write):
+    # z read once, 4 P.  Operations: a product and an add per entry (bf16:
+    # one rounding more) and the walk's epilogue.
     m_kept, m_tail = vlay.cols.numel(), vlay.tail.num_entries
     v2_entries = 4 * (n + 1) + 8 * m_kept + 12 * m_tail
     v2_bytes = v2_entries + 4 * n + 4 * P
@@ -2519,15 +2622,18 @@ def main() -> int:
             kern=lambda: spmv_v2_cuda(vlay, xs2d), plain=lambda: spmv_v2_plain(vlay, xs2d),
             lib=lambda: a_g @ xs_n, symbol="spmv_v2_kernel", bound=bound(v2_bytes, 2 * (m_kept + m_tail))),
         "lazy walk v2 bf16i": dict(
-            kern=lambda: spmv_v2_cuda(vlay, xs2d, True, dsinv=ds2d),
-            plain=lambda: lazy_walk_v2_plain(vlay, xs2d, ds2d, True),
-            lib=None, symbol="spmv_v2_kernel", bound=bound(v2_entries + 12 * P, 4 * (m_kept + m_tail) + 3 * P)),
+            kern=lambda: spmv_v2_cuda(vlay, xs2d, True, dsinv=ds2d, z=zs2d),
+            plain=lambda: lazy_walk_v2_plain(vlay, xs2d, ds2d, True, z=zs2d),
+            lib=None, symbol="spmv_v2_kernel", bound=bound(v2_entries + 16 * P, 3 * (m_kept + m_tail) + 3 * P)),
         "lazy walk v2 f32": dict(
-            kern=lambda: spmv_v2_cuda(vlay, xs2d, False, dsinv=ds2d),
-            plain=lambda: lazy_walk_v2_plain(vlay, xs2d, ds2d, False),
+            kern=lambda: spmv_v2_cuda(vlay, xs2d, False, dsinv=ds2d, z=zs2d),
+            plain=lambda: lazy_walk_v2_plain(vlay, xs2d, ds2d, False, z=zs2d),
             lib=lambda: 0.5 * (xs_n + ds_n * (a_g @ (ds_n * xs_n))), symbol="spmv_v2_kernel",
-            bound=bound(v2_entries + 12 * P, 3 * (m_kept + m_tail) + 3 * P)),
+            bound=bound(v2_entries + 16 * P, 2 * (m_kept + m_tail) + 3 * P)),
     }
+    for bf in (True, False):
+        check(same_bits(spmv_v2_cuda(vlay, xs2d, bf, dsinv=ds2d), spmv_v2_cuda(vlay, xs2d, bf, dsinv=ds2d, z=zs2d)),
+              f"the v2 lazy walk (bf16 {bf}) with its z pass differs from the walk given z")
     for what, e in plan_k.items():
         e["err"] = held_bitwise(e["kern"], e["plain"], what)
         e["ms"] = cuda_ms(e["kern"], 200)
@@ -2681,8 +2787,14 @@ def main() -> int:
         out = power_partition_fiedler(lkp, dataclasses.replace(mom_config, inter_dtype=inter), dtype=torch.float32)
         torch.cuda.synchronize()
         mom_runs[inter] = (out, time.perf_counter() - t, {kern.symbol: kern.launches for kern in all_kernels if kern.launches})
+        # One walk and one rescale per step, one z pass per check and at the
+        # start, as on the CSR path (phase 10).
         lazy_k = K1_LAZY_V2_BF16I if inter == "bfloat16" else K1_LAZY_V2
-        check(lazy_k.launches > out[4] and K1_LAZY.launches == 0, f"momentum {inter} padded: {mom_runs[inter][2]}")
+        p_steps = out[4] - 1
+        p_checks = p_steps // mom_config.check_interval
+        check(lazy_k.launches == p_steps + p_checks and K1_RESCALE.launches == p_steps
+              and K1_Z.launches == p_checks + 1 and K1_LAZY.launches == 0,
+              f"momentum {inter} padded: {mom_runs[inter][2]} for {p_steps} steps and {p_checks} checks")
     for inter, ((m_lam, m_med, m_vals, m_sides, m_iters), m_s, m_launch) in mom_runs.items():
         ham = int((m_sides != mo_sides).sum())
         ham = min(ham, ln - ham)
@@ -2913,8 +3025,8 @@ def main() -> int:
         # bf16 weights and each kept entry's 2 B slot for the mxu2 and vpu
         # orders; a v1 tail's chunks (col, row, weight, their base and
         # window) read by spmv_v1_f32.  Operations: a product and an add per
-        # entry, one rounding more with bf16 products, the lazy walk's scaled
-        # gather and its epilogue.
+        # entry, one rounding more with bf16 products, and the lazy walk's
+        # epilogue.
         nn, pp, m = lay.num_nodes, lay.padded_nodes, lay.cols.numel()
         tail = lay.tail
         if isinstance(tail, CooTail):
@@ -2925,21 +3037,22 @@ def main() -> int:
         else:
             t_bytes = t_m = 0
         entries = 4 * (nn + 1) + m * (6 if products == "bf16w" else 8) + (0 if order == "mxu" else 2 * m) + t_bytes
-        per = 2 + (products != "f32") + lazy
-        if lazy:
-            return bound(entries + 12 * pp, per * (m + t_m) + 3 * pp)
+        per = 2 + (products != "f32")
+        if lazy:  # w, dsinv and z read, y written (phase 12)
+            return bound(entries + 16 * pp, per * (m + t_m) + 3 * pp)
         return bound(entries + 4 * nn + 4 * pp, per * (m + t_m))
 
     def form_check(lay, x2d, d2d, reduce, products, lazy, lib=None, timed=True):
         bf16, bf16w = products != "f32", products == "bf16w"
         kern = v2_kernel(lay, bf16, reduce, bf16w, lazy)
         kw = dict(reduce=reduce, bf16_weights=bf16w)
+        z2d = lazy_z_cuda(x2d, d2d) if lazy else None
         if lazy:
             def run():
-                return spmv_v2_cuda(lay, x2d, bf16, dsinv=d2d, **kw)
+                return spmv_v2_cuda(lay, x2d, bf16, dsinv=d2d, z=z2d, **kw)
 
             def plain():
-                return lazy_walk_v2_plain(lay, x2d, d2d, bf16, **kw)
+                return lazy_walk_v2_plain(lay, x2d, d2d, bf16, z=z2d, **kw)
         else:
             def run():
                 return spmv_v2_cuda(lay, x2d, bf16, **kw)
@@ -2956,7 +3069,7 @@ def main() -> int:
         base_w = bf16w and order != "mxu"
         base_d = d2d if lazy else None
         base_us = device_us_per_launch(
-            lambda: [spmv_v2_cuda(lay, x2d, bf16, dsinv=base_d, bf16_weights=base_w) for _ in range(50)],
+            lambda: [spmv_v2_cuda(lay, x2d, bf16, dsinv=base_d, bf16_weights=base_w, z=z2d) for _ in range(50)],
             "spmv_v2_kernel")
         e = forms[kern.symbol] = dict(
             err=err, ms=cuda_ms(run, 200), plain_ms=cuda_ms(plain, 3),
@@ -2966,7 +3079,7 @@ def main() -> int:
             bound=form_bound(lay, products, order, lazy), rblock=lay.rblock, nodes=lay.num_nodes,
             base_device_us=None if base_us is None else base_us[0],
         )
-        if order == "mxu2":
+        if order == "mxu2" and not lazy:
             # The earlier design (a lane per row, a switch on the slot class) and
             # the group design (a thread per partial) beside the kernel, in
             # turns, on the same layout and state; each gives its bits.
@@ -3393,7 +3506,7 @@ def main() -> int:
         new_entry("K1 spmm_csr_f32, deg * X - A @ X, k = 12", "spmm k=12", "eig_kl_tpu_torch/csrc/spmv_csr.cu",
                   "eig_kl_tpu/ops/spmv_pallas.py:339 (vmapped by eig_kl_tpu/spectral/lobpcg_solver.py:51-56)",
                   lo_launches["spmm_csr_f32"], k1_columns_ms=new["spmm k=12"]["k1_columns_ms"]),
-        new_entry("K1 lazy_walk_f32, 0.5 (w + dsinv * A @ (dsinv * w))", "lazy walk",
+        new_entry("K1 lazy_walk_f32, 0.5 (w + dsinv * A @ z), z = dsinv * w given", "lazy walk",
                   "eig_kl_tpu_torch/csrc/spmv_csr.cu",
                   "eig_kl_tpu/ops/spmv_pallas.py:339 (with eig_kl_tpu/spectral/power.py:305's epilogue)",
                   mo_launches["lazy_walk_f32"], launches_momentum_path=mo_launches),
@@ -3431,6 +3544,7 @@ def main() -> int:
             "bound_ms": e["bound"][0], "bound_by": e["bound"][1], "library_ms": e["library_ms"],
             "library_device_us": e["library_device_us"],
             "device_us_per_launch": None if e["device_us"] is None else e["device_us"][0],
+            **({"turns_device_us": e["turns_device_us"]} if "turns_device_us" in e else {}),
             **({"library_none_because": "no PyTorch call rounds each product to bf16 before the sum"}
                if e["lib"] is None else {}),
             **({"device_us_per_launch_6000_nodes": None if v2_6000["device_us"] is None else v2_6000["device_us"][0],
@@ -3468,6 +3582,28 @@ def main() -> int:
                 "library_ms_two_dots": k4_batch64["library_ms_two_dots"],
                 "library_device_us_two_dots": k4_batch64["library_device_us_two_dots"]}
                if what.startswith("K4") else {}),
+            **({"turns_device_us": e["turns_device_us"]} if "turns_device_us" in e else {}),
+        })
+    # lazy_rescale and the z pass: launches from the momentum runs (f32 on the
+    # component's CSR graph, and f64).
+    z_launches = {"lazy rescale": mo_launches["lazy_rescale_f32"], "z pass": mo_launches["lazy_z_f32"],
+                  "lazy rescale f64": m64_launches["lazy_rescale_f64"], "z pass f64": m64_launches["lazy_z_f64"]}
+    for what, e in {**zk, **zk64}.items():
+        rescale = what.startswith("lazy rescale")
+        kernels.append({
+            "name": f"K1 {'lazy_rescale' if rescale else 'lazy_z'}_{'f64' if what.endswith('f64') else 'f32'}, "
+                    + ("the momentum step's (w * inv, u * inv) and the next walk's z = dsinv * (u * inv) in one pass"
+                       if rescale else "the z pass z = dsinv * w for a walk whose vector no rescale made"),
+            "route": "cuda", "source": "eig_kl_tpu_torch/csrc/spmv_csr.cu",
+            "replaces": "none: eig_kl_tpu/spectral/power.py:322 (w * inv, u * inv) and the product dsinv_st * w "
+                        "of :305 that XLA fuses into the walk's gather, XLA element-wise ops, no Pallas kernel",
+            "launches": z_launches[what], "max_abs_err": e["err"], "ms": e["ms"], "plain_ms": e["plain_ms"],
+            "bound_ms": e["bound"][0], "bound_by": e["bound"][1], "library_ms": e["library_ms"],
+            "library_device_us": e["library_device_us"],
+            "device_us_per_launch": None if e["device_us"] is None else e["device_us"][0],
+            **({"library_none_because": "no one PyTorch call writes the three vectors",
+                "replaced_torch_ms": e["replaced_ms"], "replaced_torch_device_us": e["replaced_device_us"]}
+               if rescale else {}),
         })
     kernels += [
         {

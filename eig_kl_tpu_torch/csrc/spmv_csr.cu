@@ -8,11 +8,16 @@
 // * spmm_csr:    Y = A @ X (or deg * X - A @ X) for X of shape (n, k)
 //   row-major, 1 <= k <= 16, LOBPCG's blocked product
 //   (eig_kl_tpu/spectral/lobpcg_solver.py:51-56, a vmap of the SpMV);
-// * lazy_walk:   y = 0.5 * (w + dsinv * (A @ (dsinv * w))), the momentum
-//   exit's lazy walk (eig_kl_tpu/spectral/power.py:297-305); given w = u * c
-//   (c one value), the epilogue 0.5 * fma(u, c, dsinv * Ax): the momentum
-//   check's walk of its deflated iterate on a graph wider than 32, where
-//   XLA recomputes w in the epilogue's fusion and fuses that product.
+// * lazy_walk:   y = 0.5 * (w + dsinv * (A @ z)), z = dsinv * w, the
+//   momentum exit's lazy walk (eig_kl_tpu/spectral/power.py:297-305); given
+//   w = u * c (c one value), the epilogue 0.5 * fma(u, c, dsinv * Ax): the
+//   momentum check's walk of its deflated iterate on a graph wider than 32,
+//   where XLA recomputes w in the epilogue's fusion and fuses that product.
+// The lazy walks gather z, made beforehand by lazy_rescale (below): one
+// random gather per entry, as the SpMV's (gathering dsinv[j] and w[j] would
+// take two).  z[j] is one rounded product, so forming it once per node
+// gives the bits of forming it per entry, and the JAX package forms it as a
+// vector too (power.py:305, matvec(dsinv_st * w)).
 // Two more, f32 only, take a TPU plan's layout (ops/spmv_plan.py) and add
 // each row in that kernel's own order, which the JAX package runs wherever
 // its f32 SpMV has a plan (the mega engine's starting A @ s and recount, and
@@ -67,9 +72,9 @@
 // subtraction that takes it: the power step's last operation x - c * lap,
 // the Laplacian's deg * x - Ax and the lazy walk's w + dsinv * Ax are each
 // one fused multiply-add (tests/test_torch_lanczos.py holds the plain
-// versions to XLA's bits).  The lazy walk's gather multiplies dsinv[j] *
-// w[j] with one rounding, as the element-wise product that XLA fuses into
-// its gather does.  In f64 the order is the same, and every product is
+// versions to XLA's bits).  The lazy walk's z = dsinv * w is one rounding
+// per value, as the element-wise product that XLA fuses into its gather.
+// In f64 the order is the same, and every product is
 // rounded before its add, as the plain version's f64 branch does (PyTorch
 // has no exact f64 fused multiply-add): the lanes of W <= 32 add rounded
 // products, and each epilogue rounds its product before the add.  Every
@@ -134,8 +139,8 @@ __host__ __device__ __forceinline__ int buffer_values(int row_width) {
   return row_width <= kWindow ? (kFusedLanes<T> ? 2 * kSpan : kSpan) : kChunk;
 }
 
-// What a row sum gathers for column j of the matrix: x[j], X[j * k + c] or
-// dsinv[j] * w[j] (one rounding).
+// What a row sum gathers for column j of the matrix: x[j] (the lazy walk's
+// z[j]) or X[j * k + c].
 template <class T>
 struct GatherX {
   const T* __restrict__ x;
@@ -147,14 +152,6 @@ struct GatherColumn {
   int k, c;
   __device__ __forceinline__ T operator()(int j) const {
     return __ldg(x + static_cast<long long>(j) * k + c);
-  }
-};
-template <class T>
-struct GatherScaled {
-  const T* __restrict__ w;
-  const T* __restrict__ s;
-  __device__ __forceinline__ T operator()(int j) const {
-    return mul_rn(__ldg(s + j), __ldg(w + j));
   }
 };
 
@@ -363,15 +360,16 @@ template <class T>
 __global__ void __launch_bounds__(kThreads)
     lazy_walk_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
                      const T* __restrict__ data, const T* __restrict__ w,
-                     const T* __restrict__ dsinv, const T* __restrict__ u,
-                     const T* __restrict__ c, T* __restrict__ y, int n, int row_width) {
+                     const T* __restrict__ z, const T* __restrict__ dsinv,
+                     const T* __restrict__ u, const T* __restrict__ c, T* __restrict__ y, int n,
+                     int row_width) {
   int r0;
   T* buf = warp_buffer<T>(row_width, r0);
   if (r0 >= n) return;
   const int row = r0 + (threadIdx.x & 31);
   const T wr = __ldg(w + min(row, n - 1));
   const T sr = __ldg(dsinv + min(row, n - 1));
-  const T ax = row_sum(indptr, indices, data, GatherScaled<T>{w, dsinv}, buf, r0, n, row_width);
+  const T ax = row_sum(indptr, indices, data, GatherX<T>{z}, buf, r0, n, row_width);
   if (row >= n) return;
   if (u != nullptr) {
     // w = u * c, recomputed in the epilogue: its product is the one fused.
@@ -379,6 +377,32 @@ __global__ void __launch_bounds__(kThreads)
   } else {
     y[row] = mul_rn(T(0.5), mul_add(sr, ax, wr));
   }
+}
+
+// lazy_rescale: the momentum step's rescale of its two carries, w' = u *
+// inv and wp' = w * inv (eig_kl_tpu/spectral/power.py:316-322, `(w * inv, u *
+// inv)`, inv one value), and the next lazy walk's z = dsinv * w', each
+// product rounded once, in one pass; without inv (and w) the standalone z
+// pass, z = dsinv * u, for a walk whose vector no rescale made.  Replaces
+// no TPU kernel: the JAX package's two products are XLA element-wise
+// operations, and z is the product that XLA fuses into the walk's gather.
+// Bound by bytes (a read of u, w and dsinv and a write of three vectors);
+// one value per thread, every load and store coalesced.
+template <class T>
+__global__ void __launch_bounds__(256)
+    lazy_rescale_kernel(const T* __restrict__ u, const T* __restrict__ w, const T* __restrict__ inv,
+                        const T* __restrict__ dsinv, T* __restrict__ u_out, T* __restrict__ w_out,
+                        T* __restrict__ z, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  T ui = __ldg(u + i);
+  if (inv != nullptr) {
+    const T c = __ldg(inv);
+    ui = mul_rn(ui, c);
+    u_out[i] = ui;
+    if (w != nullptr) w_out[i] = mul_rn(__ldg(w + i), c);
+  }
+  z[i] = mul_rn(__ldg(dsinv + i), ui);
 }
 
 // The blocked product's vector walk: kCols = 4 columns per walk of the
@@ -718,8 +742,9 @@ spmv_v1_kernel(const int* __restrict__ x_base, const short* __restrict__ col_loc
 // stages; the mxu2 order adds each entry into every partial, +0 into those
 // of the other slot classes, so the lanes of a warp never diverge on a
 // class (a switch on it took 1.8 times as long on the card).  kLazy: the
-// lazy walk 0.5 * fma(dsinv, A (dsinv * w), w), x being w, the gather
-// dsinv[j] * w[j] with one rounding.  Rows n .. rows - 1 (the padded
+// lazy walk 0.5 * fma(dsinv, A z, w), x being w, the gather z[j] = dsinv[j]
+// * w[j] (lazy_rescale's, one rounding), the COO tail's gathers too; the
+// epilogue reads w and dsinv coalesced.  Rows n .. rows - 1 (the padded
 // state's padding) are empty.
 constexpr int kV2Chunk = kStage;  // entries a warp stages at a time
 constexpr int kV2Seq = 0, kV2Lanes = 1, kV2Blocks = 2;  // the reduce's orders
@@ -744,7 +769,7 @@ spmv_v2_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
                const int* __restrict__ tail_warp,
                const int* __restrict__ tail_rows, const int* __restrict__ tail_cols,
                const float* __restrict__ tail_w, const float* __restrict__ tail_y,
-               const float* __restrict__ x,
+               const float* __restrict__ x, const float* __restrict__ z,
                const float* __restrict__ dsinv, float* __restrict__ y, int n, int rows) {
   static_assert(kBf16 || std::is_same_v<TW, float>, "bf16 weights come with bf16 products");
   constexpr int kSlotBits = kReduce == kV2Seq ? 0 : 9;
@@ -755,13 +780,8 @@ spmv_v2_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
   const int r0 = (blockIdx.x * kWarps + warp) * 32;
   if (r0 >= rows) return;
   const int row = r0 + lane;
-  auto gather = [&](int j) {
-    if constexpr (kLazy) {
-      return __fmul_rn(__ldg(dsinv + j), __ldg(x + j));
-    } else {
-      return __ldg(x + j);
-    }
-  };
+  const float* __restrict__ gathered = kLazy ? z : x;
+  auto gather = [&](int j) { return __ldg(gathered + j); };
   float sum = 0.0f;
   if (r0 < n) {  // whole warps: the __syncwarp calls below see every lane
     const int lo = __ldg(ptr + min(row, n - 1));
@@ -941,15 +961,31 @@ int spmm_csr(const void* indptr, const void* indices, const void* data, const vo
 
 template <class T>
 int lazy_walk(const void* indptr, const void* indices, const void* data, const void* w,
-              const void* dsinv, const void* u, const void* c, void* y, int n, int row_width,
-              void* stream) {
-  if ((u == nullptr) != (c == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+              const void* z, const void* dsinv, const void* u, const void* c, void* y, int n,
+              int row_width, void* stream) {
+  if ((u == nullptr) != (c == nullptr) || z == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   if (n > 0) {
     lazy_walk_kernel<T><<<blocks_for(n), kThreads, shared_bytes<T>(row_width),
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int*>(indptr), static_cast<const int*>(indices),
-        static_cast<const T*>(data), static_cast<const T*>(w), static_cast<const T*>(dsinv),
-        static_cast<const T*>(u), static_cast<const T*>(c), static_cast<T*>(y), n, row_width);
+        static_cast<const T*>(data), static_cast<const T*>(w), static_cast<const T*>(z),
+        static_cast<const T*>(dsinv), static_cast<const T*>(u), static_cast<const T*>(c),
+        static_cast<T*>(y), n, row_width);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int lazy_rescale(const void* u, const void* w, const void* inv, const void* dsinv, void* u_out,
+                 void* w_out, void* z, int n, void* stream) {
+  if ((inv == nullptr) != (u_out == nullptr) || (w == nullptr) != (w_out == nullptr) ||
+      (w != nullptr && inv == nullptr) || z == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n > 0) {
+    lazy_rescale_kernel<T><<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const T*>(u), static_cast<const T*>(w), static_cast<const T*>(inv),
+        static_cast<const T*>(dsinv), static_cast<T*>(u_out), static_cast<T*>(w_out), static_cast<T*>(z), n);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1004,20 +1040,40 @@ extern "C" int spmm_csr_f64(const void* indptr, const void* indices, const void*
   return spmm_csr<double>(indptr, indices, data, x, deg, y, n, k, row_width, stream);
 }
 
-// u and c (both null, or both set): the epilogue 0.5 * (u * c + dsinv * Ax),
-// c one value, its product fused.
+// z = dsinv * w (lazy_rescale's); u and c (both null, or both set): the
+// epilogue 0.5 * (u * c + dsinv * Ax), c one value, its product fused.
 extern "C" int lazy_walk_f32(const void* indptr, const void* indices, const void* data,
-                             const void* w, const void* dsinv, const void* u, const void* c,
-                             void* y, int n, int row_width, void* stream) {
-  return lazy_walk<float>(indptr, indices, data, w, dsinv, u, c, y, n, row_width, stream);
+                             const void* w, const void* z, const void* dsinv, const void* u,
+                             const void* c, void* y, int n, int row_width, void* stream) {
+  return lazy_walk<float>(indptr, indices, data, w, z, dsinv, u, c, y, n, row_width, stream);
 }
 
-// u and c (both null, or both set): the epilogue 0.5 * (u * c + dsinv * Ax),
-// c one value, its product fused.
 extern "C" int lazy_walk_f64(const void* indptr, const void* indices, const void* data,
-                             const void* w, const void* dsinv, const void* u, const void* c,
-                             void* y, int n, int row_width, void* stream) {
-  return lazy_walk<double>(indptr, indices, data, w, dsinv, u, c, y, n, row_width, stream);
+                             const void* w, const void* z, const void* dsinv, const void* u,
+                             const void* c, void* y, int n, int row_width, void* stream) {
+  return lazy_walk<double>(indptr, indices, data, w, z, dsinv, u, c, y, n, row_width, stream);
+}
+
+// u_out = u * inv, w_out = w * inv (inv one value on the card) and z =
+// dsinv * u_out, n values each: the momentum step's rescale and its next
+// walk's z.
+extern "C" int lazy_rescale_f32(const void* u, const void* w, const void* inv, const void* dsinv,
+                                void* u_out, void* w_out, void* z, int n, void* stream) {
+  return lazy_rescale<float>(u, w, inv, dsinv, u_out, w_out, z, n, stream);
+}
+
+extern "C" int lazy_rescale_f64(const void* u, const void* w, const void* inv, const void* dsinv,
+                                void* u_out, void* w_out, void* z, int n, void* stream) {
+  return lazy_rescale<double>(u, w, inv, dsinv, u_out, w_out, z, n, stream);
+}
+
+// The standalone z pass, z = dsinv * w: lazy_rescale's kernel with no inv.
+extern "C" int lazy_z_f32(const void* w, const void* dsinv, void* z, int n, void* stream) {
+  return lazy_rescale<float>(w, nullptr, nullptr, dsinv, nullptr, nullptr, z, n, stream);
+}
+
+extern "C" int lazy_z_f64(const void* w, const void* dsinv, void* z, int n, void* stream) {
+  return lazy_rescale<double>(w, nullptr, nullptr, dsinv, nullptr, nullptr, z, n, stream);
 }
 
 // win_ptr/win_chunks: each y window's chunks in plan order (chunks in all);
@@ -1049,15 +1105,17 @@ namespace {
 // tail_cols, tail_w) in CSR order and tail_warp, where the triplets of rows
 // 32 i .. 32 i + 31 start (i up to ceil(n / 32)), or tail_y, the v1 tail's
 // A @ x (at most one of the two, or neither).  x (the lazy walk: w) and y
-// hold rows values (n, or the padded state's P); dsinv (the lazy walk's,
-// null for the SpMV) as many.
+// hold rows values (n, or the padded state's P); z and dsinv (the lazy
+// walk's, null for the SpMV) as many.
 template <bool kBf16, bool kLazy, int kReduce, class TW>
 int spmv_v2(const void* ptr, const void* cols, const void* w, const void* slot, int shift, int lanes,
             const void* tail_warp, const void* tail_rows, const void* tail_cols, const void* tail_w,
-            const void* tail_y, const void* x, const void* dsinv, void* y, int n, int rows, void* stream) {
+            const void* tail_y, const void* x, const void* z, const void* dsinv, void* y, int n, int rows,
+            void* stream) {
   const bool coo = tail_warp != nullptr;
   if (rows < n || (tail_y != nullptr && coo) || coo != (tail_rows != nullptr) ||
       coo != (tail_cols != nullptr) || coo != (tail_w != nullptr) || kLazy != (dsinv != nullptr) ||
+      kLazy != (z != nullptr) ||
       (kReduce == kV2Seq) != (slot == nullptr) || (kReduce == kV2Lanes) != (lanes == 2 || lanes == 4) ||
       (kReduce != kV2Lanes && lanes != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1068,36 +1126,46 @@ int spmv_v2(const void* ptr, const void* cols, const void* w, const void* slot, 
         static_cast<const short*>(slot), shift, lanes, static_cast<const int*>(tail_warp),
         static_cast<const int*>(tail_rows), static_cast<const int*>(tail_cols),
         static_cast<const float*>(tail_w), static_cast<const float*>(tail_y), static_cast<const float*>(x),
-        static_cast<const float*>(dsinv), static_cast<float*>(y), n, rows);
+        static_cast<const float*>(z), static_cast<const float*>(dsinv), static_cast<float*>(y), n, rows);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// The v2 entry points, each (ptr, cols, w, slot, shift, lanes, tail_warp,
-// tail_rows, tail_cols, tail_w, tail_y, x, dsinv, y, n, rows, stream):
-// spmv_v2[_mxu2 | _vpu][_bf16i | _bf16w]_f32, y = A @ x with f32 products,
-// bf16 products, or bf16 products of bf16 weights, in the order of the
-// default reduce, of _reduce_kernel_mxu2 or of _reduce_kernel (dsinv null);
-// lazy_walk_v2..._f32 the same with y = 0.5 * fma(dsinv, A (dsinv * w), w),
-// tail_y (if set) the v1 tail's A (dsinv * w).
-#define V2_ENTRY(NAME, BF16, LAZY, REDUCE, TW)                                                          \
+// The v2 entry points: spmv_v2[_mxu2 | _vpu][_bf16i | _bf16w]_f32 (ptr,
+// cols, w, slot, shift, lanes, tail_warp, tail_rows, tail_cols, tail_w,
+// tail_y, x, dsinv, y, n, rows, stream; dsinv null), y = A @ x with f32
+// products, bf16 products, or bf16 products of bf16 weights, in the order
+// of the default reduce, of _reduce_kernel_mxu2 or of _reduce_kernel;
+// lazy_walk_v2..._f32 (x, z, dsinv in place of x, dsinv) the same with y =
+// 0.5 * fma(dsinv, A z, w), x being w and z = dsinv * w, tail_y (if set)
+// the v1 tail's A z.
+#define V2_ENTRY(NAME, BF16, REDUCE, TW)                                                                \
   extern "C" int NAME(const void* ptr, const void* cols, const void* w, const void* slot, int shift,    \
                       int lanes, const void* tail_warp, const void* tail_rows, const void* tail_cols,   \
                       const void* tail_w, const void* tail_y, const void* x, const void* dsinv, void* y, \
                       int n, int rows, void* stream) {                                                  \
-    return spmv_v2<BF16, LAZY, REDUCE, TW>(ptr, cols, w, slot, shift, lanes, tail_warp, tail_rows,       \
-                                           tail_cols, tail_w, tail_y, x, dsinv, y, n, rows, stream);     \
+    return spmv_v2<BF16, false, REDUCE, TW>(ptr, cols, w, slot, shift, lanes, tail_warp, tail_rows,     \
+                                            tail_cols, tail_w, tail_y, x, nullptr, dsinv, y, n, rows,    \
+                                            stream);                                                    \
+  }
+#define V2_LAZY_ENTRY(NAME, BF16, REDUCE, TW)                                                           \
+  extern "C" int NAME(const void* ptr, const void* cols, const void* w, const void* slot, int shift,    \
+                      int lanes, const void* tail_warp, const void* tail_rows, const void* tail_cols,   \
+                      const void* tail_w, const void* tail_y, const void* x, const void* z,             \
+                      const void* dsinv, void* y, int n, int rows, void* stream) {                      \
+    return spmv_v2<BF16, true, REDUCE, TW>(ptr, cols, w, slot, shift, lanes, tail_warp, tail_rows,       \
+                                           tail_cols, tail_w, tail_y, x, z, dsinv, y, n, rows, stream);  \
   }
 
 #define V2_FORMS(SPMV, LAZY_WALK, REDUCE)                                        \
-  V2_ENTRY(SPMV##_f32, false, false, REDUCE, float)                              \
-  V2_ENTRY(SPMV##_bf16i_f32, true, false, REDUCE, float)                         \
-  V2_ENTRY(SPMV##_bf16w_f32, true, false, REDUCE, __nv_bfloat16)                 \
-  V2_ENTRY(LAZY_WALK##_f32, false, true, REDUCE, float)                          \
-  V2_ENTRY(LAZY_WALK##_bf16i_f32, true, true, REDUCE, float)                     \
-  V2_ENTRY(LAZY_WALK##_bf16w_f32, true, true, REDUCE, __nv_bfloat16)
+  V2_ENTRY(SPMV##_f32, false, REDUCE, float)                                     \
+  V2_ENTRY(SPMV##_bf16i_f32, true, REDUCE, float)                                \
+  V2_ENTRY(SPMV##_bf16w_f32, true, REDUCE, __nv_bfloat16)                        \
+  V2_LAZY_ENTRY(LAZY_WALK##_f32, false, REDUCE, float)                           \
+  V2_LAZY_ENTRY(LAZY_WALK##_bf16i_f32, true, REDUCE, float)                      \
+  V2_LAZY_ENTRY(LAZY_WALK##_bf16w_f32, true, REDUCE, __nv_bfloat16)
 
 V2_FORMS(spmv_v2, lazy_walk_v2, kV2Seq)
 V2_FORMS(spmv_v2_mxu2, lazy_walk_v2_mxu2, kV2Lanes)

@@ -30,6 +30,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -147,6 +149,16 @@ def library(name: str) -> ctypes.CDLL:
     loaded once per process."""
     build([name])
     return ctypes.CDLL(str(library_path(name)))
+
+
+def stream_handle(device: torch.device) -> int:
+    """The current stream of the CUDA ``device`` as the handle an entry
+    point takes: the value of ``torch.cuda.current_stream(device).cuda_stream``,
+    read without building the Python stream object, which costs the host
+    more than a launch of the momentum step's small kernels.  A device
+    without an index is the current one, as for ``current_stream``."""
+    index = device.index
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device() if index is None else index)
 
 
 class Kernel:

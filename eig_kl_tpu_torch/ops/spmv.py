@@ -6,7 +6,9 @@ kernel order, :mod:`eig_kl_tpu_torch.ops.spmv_plan`; the v3 route,
 epilogue on K1's SpMV: the power step (:func:`power_step`), the "eig"
 Laplacian of Lanczos and LOBPCG (:func:`laplacian`), LOBPCG's blocked
 product (:func:`spmm`) and the momentum exit's lazy walk
-(:func:`lazy_walk`).
+(:func:`lazy_walk`), which gathers ``z = dsinv * w``: the momentum step's
+rescale makes it in the same pass (:func:`lazy_rescale`), else the z pass
+(:func:`lazy_z`), both of :mod:`eig_kl_tpu_torch.ops.rescale`.
 
 Replaces the XLA ELL SpMV of ``eig_kl_tpu/ops/partition.py:spmv``, which
 the JAX package runs for a graph without a plan.  The power solver runs
@@ -53,7 +55,20 @@ import numpy as np
 import torch
 
 from eig_kl_tpu_torch.graph.csr import CsrPlan, DeviceGraph
-from eig_kl_tpu_torch.ops._build import Kernel
+from eig_kl_tpu_torch.ops._build import Kernel, stream_handle
+from eig_kl_tpu_torch.ops.rescale import (  # noqa: F401  (exported)
+    K1_RESCALE,
+    K1_RESCALE_F64,
+    K1_Z,
+    K1_Z_F64,
+    checked_z,
+    lazy_rescale,
+    lazy_rescale_cuda,
+    lazy_rescale_plain,
+    lazy_z,
+    lazy_z_cuda,
+    lazy_z_plain,
+)
 from eig_kl_tpu_torch.ops.spmv_plan import plan_spmv
 from eig_kl_tpu_torch.ops.spmv_v3 import SpmvPlanV3, spmv_v3
 
@@ -73,7 +88,7 @@ K1, K1_F64 = _pair("spmv_csr", lambda _: [_P] * 5 + [_I, _I, _P])
 K1_STEP, K1_STEP_F64 = _pair("power_step", lambda t: [_P] * 5 + [t, _P, _I, _I, _I, _P])
 K1_LAPLACIAN, K1_LAPLACIAN_F64 = _pair("laplacian", lambda _: [_P] * 6 + [_I, _I, _P])
 K1_SPMM, K1_SPMM_F64 = _pair("spmm_csr", lambda _: [_P] * 6 + [_I, _I, _I, _P])
-K1_LAZY, K1_LAZY_F64 = _pair("lazy_walk", lambda _: [_P] * 8 + [_I, _I, _P])
+K1_LAZY, K1_LAZY_F64 = _pair("lazy_walk", lambda _: [_P] * 9 + [_I, _I, _P])
 _F64 = {K1: K1_F64, K1_STEP: K1_STEP_F64, K1_LAPLACIAN: K1_LAPLACIAN_F64, K1_SPMM: K1_SPMM_F64,
         K1_LAZY: K1_LAZY_F64}
 #: The dtypes K1 takes on the card.
@@ -354,7 +369,7 @@ def spmm_cuda(g: DeviceGraph, X: torch.Tensor, *, laplacian: bool = False) -> to
     return Y
 
 
-def lazy_walk(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=None) -> torch.Tensor:
+def lazy_walk(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=None, z=None) -> torch.Tensor:
     """The lazy walk ``(I + D^-1/2 A D^-1/2) / 2`` applied to ``w``:
     ``0.5 * (w + dsinv * (A @ (dsinv * w)))``, the momentum exit's operator
     (``eig_kl_tpu/spectral/power.py:297-305``).  K1's lazy-walk entry point
@@ -366,17 +381,22 @@ def lazy_walk(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=None)
     product ``dsinv * Ax`` rounded: the momentum check's walk of the
     deflated iterate on a graph wider than 32 from 4,096 values, where XLA
     recomputes ``w`` inside the epilogue's fusion and contracts its product
-    instead (ROADMAP.md C9)."""
+    instead (ROADMAP.md C9).
+
+    ``z``: ``dsinv * w`` (:func:`lazy_z`, or :func:`lazy_rescale`'s third
+    output), the vector the walk gathers; without it the walk makes it
+    first.  The result is the same bits either way."""
     if w.device.type == "cpu":
-        return lazy_walk_plain(g, w, dsinv, scaled)
-    return lazy_walk_cuda(g, w, dsinv, scaled)
+        return lazy_walk_plain(g, w, dsinv, scaled, z)
+    return lazy_walk_cuda(g, w, dsinv, scaled, z)
 
 
-def lazy_walk_plain(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=None) -> torch.Tensor:
-    """:func:`lazy_walk` in plain PyTorch: the inner product rounded once,
-    ``w + dsinv * Ax`` one fused multiply-add in f32 (with ``scaled``,
-    ``u * c + round(dsinv * Ax)``), the halving exact."""
-    ax = spmv_plain(g, (dsinv * w).to(g.dtype)).to(w.dtype)
+def lazy_walk_plain(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=None, z=None) -> torch.Tensor:
+    """:func:`lazy_walk` in plain PyTorch: ``z = dsinv * w`` rounded once
+    (or given), ``w + dsinv * Az`` one fused multiply-add in f32 (with
+    ``scaled``, ``u * c + round(dsinv * Az)``), the halving exact."""
+    z = lazy_z_plain(w, dsinv) if z is None else checked_z(z, w)
+    ax = spmv_plain(g, z.to(g.dtype)).to(w.dtype)
     if scaled is not None:
         u, c = scaled
         if w.dtype != torch.float32:
@@ -387,13 +407,15 @@ def lazy_walk_plain(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled
     return 0.5 * fma_f32(dsinv, ax, w)
 
 
-def lazy_walk_cuda(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=None) -> torch.Tensor:
+def lazy_walk_cuda(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=None, z=None) -> torch.Tensor:
     """Launch K1's lazy-walk entry point on the current stream: the graph,
-    ``w`` and ``dsinv`` (contiguous, ``(n,)``), all f32 or all f64, on one
-    card; ``scaled`` as :func:`lazy_walk` takes it, ``u`` like ``w`` and
-    ``c`` 0-d, both on that card."""
+    ``w``, ``dsinv`` and ``z`` (contiguous, ``(n,)``), all f32 or all f64,
+    on one card; without ``z``, the z pass (:func:`lazy_z_cuda`) first;
+    ``scaled`` as :func:`lazy_walk` takes it, ``u`` like ``w`` and ``c``
+    0-d, both on that card."""
     _check_card(g, w, "lazy_walk_cuda")
     _check_vector(g, dsinv, w, "dsinv")
+    z = lazy_z_cuda(w, dsinv) if z is None else checked_z(z, w)
     u = c = None
     if scaled is not None:
         u, c = scaled
@@ -402,9 +424,8 @@ def lazy_walk_cuda(g: DeviceGraph, w: torch.Tensor, dsinv: torch.Tensor, scaled=
             raise ValueError(f"c must be a 0-d {w.dtype} tensor on w's card")
     y = torch.empty_like(w)
     _typed(K1_LAZY, w.dtype)(
-        g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), w.data_ptr(),
+        g.indptr.data_ptr(), g.indices.data_ptr(), g.data.data_ptr(), w.data_ptr(), z.data_ptr(),
         dsinv.data_ptr(), None if u is None else u.data_ptr(), None if c is None else c.data_ptr(),
-        y.data_ptr(), g.num_nodes, g.row_width,
-        torch.cuda.current_stream(w.device).cuda_stream,
+        y.data_ptr(), g.num_nodes, g.row_width, stream_handle(w.device),
     )
     return y

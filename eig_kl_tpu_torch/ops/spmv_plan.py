@@ -120,7 +120,8 @@ import numpy as np
 import torch
 
 from eig_kl_tpu_torch.graph.csr import PLAN_WINDOW
-from eig_kl_tpu_torch.ops._build import Kernel
+from eig_kl_tpu_torch.ops._build import Kernel, stream_handle
+from eig_kl_tpu_torch.ops.rescale import checked_z, lazy_z, lazy_z_cuda, lazy_z_plain
 
 CHUNK = 512  #: entries per chunk (the TPU kernel's (4, 128) tile)
 SCAN_SHIFTS = (1, 2, 4, 8, 16, 32, 64, 128, 256)  #: the scan's rounds
@@ -146,10 +147,10 @@ K1_V1 = Kernel("spmv_csr", "spmv_v1_f32", [_P] * 10 + [_I] * 4 + [_P])
 #: The v2 order's entry points, a warp per 32 rows, by (reduce order,
 #: products, lazy walk): reduce order "mxu" (the default's, and "mxuv"'s),
 #: "mxu2" or "vpu"; products "f32", "bf16i" (bf16) or "bf16w" (bf16, of the
-#: bf16 weights).  ``spmv_v2[_mxu2 | _vpu][_bf16i | _bf16w]_f32`` and
-#: ``lazy_walk_v2...`` each take ``(ptr, cols, w, slot, shift, lanes,
-#: tail_warp, tail_rows, tail_cols, tail_w, tail_y, x, dsinv, y, n, rows,
-#: stream)``.
+#: bf16 weights).  ``spmv_v2[_mxu2 | _vpu][_bf16i | _bf16w]_f32`` takes
+#: ``(ptr, cols, w, slot, shift, lanes, tail_warp, tail_rows, tail_cols,
+#: tail_w, tail_y, x, dsinv, y, n, rows, stream)`` (dsinv null), and
+#: ``lazy_walk_v2...`` the same with ``x, z, dsinv`` for ``x, dsinv``.
 V2_ORDERS = ("mxu", "mxu2", "vpu")
 V2_PRODUCTS = ("f32", "bf16i", "bf16w")
 K1_V2_FORMS = {
@@ -157,7 +158,7 @@ K1_V2_FORMS = {
         "spmv_csr",
         f"{'lazy_walk' if lazy else 'spmv'}_v2{'' if order == 'mxu' else '_' + order}"
         f"{'' if prod == 'f32' else '_' + prod}_f32",
-        [_P] * 4 + [_I, _I] + [_P] * 8 + [_I, _I, _P])
+        [_P] * 4 + [_I, _I] + [_P] * (8 + lazy) + [_I, _I, _P])
     for order in V2_ORDERS for prod in V2_PRODUCTS for lazy in (False, True)
 }
 K1_V2, K1_V2_BF16I = K1_V2_FORMS["mxu", "f32", False], K1_V2_FORMS["mxu", "bf16i", False]
@@ -748,27 +749,32 @@ def v2_kernel(layout: V2Layout, bf16: bool = False, reduce: str = "mxu", bf16_we
 
 
 def spmv_v2_cuda(layout: V2Layout, x: torch.Tensor, bf16: bool = False, dsinv: torch.Tensor | None = None,
-                 reduce: str = "mxu", bf16_weights: bool = False) -> torch.Tensor:
+                 reduce: str = "mxu", bf16_weights: bool = False, z: torch.Tensor | None = None) -> torch.Tensor:
     """Launch ``spmv_v2_f32`` (``bf16``: ``spmv_v2_bf16i_f32``;
     ``bf16_weights``: ``spmv_v2_bf16w_f32``; the "mxu2" and "vpu" orders:
     ``spmv_v2_mxu2...`` and ``spmv_v2_vpu...``, :func:`v2_kernel`) on the
     current stream, and for a v1 tail ``spmv_v1_f32`` first, whose result it
     adds.  With ``dsinv`` (the shape of ``x``) the lazy walk ``0.5 *
-    fma(dsinv, A (dsinv * x), x)``: ``lazy_walk_v2...``.  "mxuv", and "mxu2"
-    where its order is the default's, launch the default's form."""
+    fma(dsinv, A z, x)``, ``z = dsinv * x``: ``lazy_walk_v2...``, which
+    gathers ``z`` (given, or made by the z pass, ``ops/rescale.py:lazy_z``,
+    first).  "mxuv", and "mxu2" where its order is the default's, launch
+    the default's form."""
     order, lanes, _ = _v2_form(layout, bf16, reduce, bf16_weights)
     kernel = v2_kernel(layout, bf16, reduce, bf16_weights, dsinv is not None)
     flat, _ = _flat(layout, x)
     ts = (x, layout.cols) if dsinv is None else (x, dsinv, layout.cols)
     _check_card(ts, "spmv_v2_cuda")
-    if dsinv is not None and dsinv.shape != x.shape:
-        raise ValueError(f"dsinv has x's shape {tuple(x.shape)}, got {tuple(dsinv.shape)}")
+    if dsinv is None and z is not None:
+        raise ValueError("z is the lazy walk's: pass dsinv with it")
+    if dsinv is not None:
+        if dsinv.shape != x.shape:
+            raise ValueError(f"dsinv has x's shape {tuple(x.shape)}, got {tuple(dsinv.shape)}")
+        z = lazy_z_cuda(x, dsinv) if z is None else checked_z(z, x)
     slots = None if order == "mxu" else layout.slots
     tail = layout.tail
     tail_y = coo = None
     if isinstance(tail, V1Layout):
-        xs = flat if dsinv is None else _flat(layout, dsinv)[0] * flat
-        tail_y = spmv_v1_cuda(tail, xs.contiguous())
+        tail_y = spmv_v1_cuda(tail, (flat if z is None else _flat(layout, z)[0]).contiguous())
     elif isinstance(tail, CooTail):
         coo = tail
     y = torch.empty_like(x)
@@ -777,8 +783,9 @@ def spmv_v2_cuda(layout: V2Layout, x: torch.Tensor, bf16: bool = False, dsinv: t
         (layout.weights_bf16 if bf16_weights else layout.weights).data_ptr(),
         None if slots is None else slots.data_ptr(), layout.shift, lanes,
         *((None,) * 4 if coo is None else (t.data_ptr() for t in (coo.warp_ptr, coo.rows, coo.cols, coo.weights))),
-        None if tail_y is None else tail_y.data_ptr(), x.data_ptr(), None if dsinv is None else dsinv.data_ptr(),
-        y.data_ptr(), layout.num_nodes, x.numel(), torch.cuda.current_stream(x.device).cuda_stream,
+        None if tail_y is None else tail_y.data_ptr(), x.data_ptr(),
+        *((None,) if z is None else (z.data_ptr(), dsinv.data_ptr())),
+        y.data_ptr(), layout.num_nodes, x.numel(), stream_handle(x.device),
     )
     return y
 
@@ -805,29 +812,32 @@ def plan_spmv(layout: V1Layout | V2Layout, x: torch.Tensor, bf16: bool = False, 
 
 
 def lazy_walk_v2_plain(layout: V2Layout, w: torch.Tensor, dsinv: torch.Tensor, bf16: bool = False,
-                       reduce: str = "mxu", bf16_weights: bool = False) -> torch.Tensor:
+                       reduce: str = "mxu", bf16_weights: bool = False, z: torch.Tensor | None = None) -> torch.Tensor:
     """The lazy-walk form of ``spmv_v2_f32`` in plain PyTorch: ``0.5 *
-    fma(dsinv, A (dsinv * w), w)``, the product ``dsinv * w`` rounded once,
-    the SpMV :func:`spmv_v2_plain`."""
-    from eig_kl_tpu_torch.ops.spmv import fma_f32
+    fma(dsinv, A z, w)``, ``z = dsinv * w`` rounded once (or given), the
+    SpMV :func:`spmv_v2_plain`."""
+    from eig_kl_tpu_torch.ops.spmv import fma_f32  # spmv imports this module
 
-    return 0.5 * fma_f32(dsinv, spmv_v2_plain(layout, dsinv * w, bf16, reduce, bf16_weights), w)
+    z = lazy_z_plain(w, dsinv) if z is None else checked_z(z, w)
+    return 0.5 * fma_f32(dsinv, spmv_v2_plain(layout, z, bf16, reduce, bf16_weights), w)
 
 
 def plan_lazy_walk(layout: V1Layout | V2Layout, w: torch.Tensor, dsinv: torch.Tensor, bf16: bool = False,
-                   reduce: str = "mxu", bf16_weights: bool = False) -> torch.Tensor:
+                   reduce: str = "mxu", bf16_weights: bool = False, z: torch.Tensor | None = None) -> torch.Tensor:
     """The lazy walk ``0.5 * (w + dsinv * A (dsinv * w))`` through the plan's
     SpMV (the JAX package's ``opm_sym`` on a planned graph,
-    ``eig_kl_tpu/spectral/power.py:297-305``): the product ``dsinv * w``
-    rounded once, ``w + dsinv * Ax`` one fused multiply-add, the halving
-    exact.  A v2 layout: ``spmv_v2_f32``'s lazy form on the card (the form
-    of :func:`v2_kernel`), :func:`lazy_walk_v2_plain` on the CPU; a v1
-    layout: the scaled vector, :func:`spmv_v1` and K6's axpy (``bf16``,
-    ``reduce`` and ``bf16_weights`` ignored)."""
+    ``eig_kl_tpu/spectral/power.py:297-305``): ``z = dsinv * w`` rounded
+    once (``z``, or the z pass, ``ops/rescale.py:lazy_z``), ``w + dsinv * Az``
+    one fused multiply-add, the halving exact.  A v2 layout:
+    ``spmv_v2_f32``'s lazy form on the card (the form of :func:`v2_kernel`),
+    :func:`lazy_walk_v2_plain` on the CPU; a v1 layout: :func:`spmv_v1` of
+    ``z`` and K6's axpy (``bf16``, ``reduce`` and ``bf16_weights``
+    ignored)."""
     if isinstance(layout, V2Layout):
         if w.device.type == "cpu":
-            return lazy_walk_v2_plain(layout, w, dsinv, bf16, reduce, bf16_weights)
-        return spmv_v2_cuda(layout, w, bf16, dsinv=dsinv, reduce=reduce, bf16_weights=bf16_weights)
+            return lazy_walk_v2_plain(layout, w, dsinv, bf16, reduce, bf16_weights, z)
+        return spmv_v2_cuda(layout, w, bf16, dsinv=dsinv, reduce=reduce, bf16_weights=bf16_weights, z=z)
     from eig_kl_tpu_torch.ops.reduce import axpy
 
-    return 0.5 * axpy(dsinv, spmv_v1(layout, dsinv * w), w)
+    z = lazy_z(w, dsinv) if z is None else checked_z(z, w)
+    return 0.5 * axpy(dsinv, spmv_v1(layout, z), w)

@@ -21,8 +21,11 @@ scale.
 The "momentum" exit (``power.py:263-391`` of the JAX package) runs a
 Chebyshev/Polyak recurrence on the symmetrized lazy walk
 ``(I + D^-1/2 A D^-1/2) / 2``, K1's lazy-walk entry point on the card
-(``ops/spmv.py:lazy_walk``).  Its dots are XLA's vector dot in the
-iterate's dtype (:func:`fma_dot`, K4 on the card), its deflation ``w - c
+(``ops/spmv.py:lazy_walk``), which gathers ``z = dsinv * w``: each step's
+rescale of its two carries writes the next walk's z in the same launch
+(``ops/rescale.py:lazy_rescale``), and a check's walk takes the z pass
+(``lazy_z``), whose z the next step's walk reuses.  Its dots are XLA's
+vector dot in the iterate's dtype (:func:`fma_dot`, K4 on the card), its deflation ``w - c
 q0`` one fused multiply-add per element in f32 (K6's axpy on the card),
 its norms K6.
 
@@ -70,6 +73,7 @@ from eig_kl_tpu_torch.ops.reduce import (
     tree_dot, tree_norm, tree_norm_2d,
 )
 from eig_kl_tpu_torch.ops.select import upper_median
+from eig_kl_tpu_torch.ops.rescale import lazy_rescale, lazy_z
 from eig_kl_tpu_torch.ops.spmv import WINDOW, lazy_walk, power_step, spmv
 from eig_kl_tpu_torch.ops.spmv_plan import plan_lazy_walk, plan_spmv, reduce_impl_from_env
 from eig_kl_tpu_torch.ops.spmv_v3 import spmv_v3_padded
@@ -104,12 +108,14 @@ class PowerOperator:
     dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     #: the norm of a state.
     norm: Callable[[torch.Tensor], torch.Tensor]
-    #: (w, dsinv as a state) -> 0.5 (w + dsinv A (dsinv w)), the lazy walk.
-    lazy: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-    #: (w, u, c, dsinv as a state) -> the momentum check's Rayleigh quotient
-    #: ``w . lazy(w)`` of its deflated unit iterate ``w = u * c`` (a
-    #: vector), which XLA makes in the same program as the dot.
-    rayleigh: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+    #: (w, dsinv as a state, z = dsinv w or None) -> 0.5 (w + dsinv A z),
+    #: the lazy walk, which gathers z (without it, makes it first).
+    lazy: Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
+    #: (w, u, c, dsinv as a state, z or None) -> the momentum check's Rayleigh
+    #: quotient ``w . lazy(w)`` of its deflated unit iterate ``w = u * c``
+    #: (a vector; z of its state), which XLA makes in the same program as the
+    #: dot.
+    rayleigh: Callable[[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
     #: the degrees with 1 where a degree is 0, as a vector.
     safe_deg: torch.Tensor
     #: whether the state is the padded one (a plan's).
@@ -140,16 +146,16 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
             def matvec(x2d):
                 return plan_spmv(layout, x2d, bf16, **form)
 
-            def lazy(w2d, dsinv2d):
-                return plan_lazy_walk(layout, w2d, dsinv2d, bf16, **form)
+            def lazy(w2d, dsinv2d, z2d=None):
+                return plan_lazy_walk(layout, w2d, dsinv2d, bf16, z=z2d, **form)
         else:
 
             def matvec(x2d):
                 return spmv_v3_padded(g.plan, x2d)
 
-            def lazy(w2d, dsinv2d):
-                ax = spmv_v3_padded(g.plan, dsinv2d * w2d)
-                return 0.5 * axpy(dsinv2d, ax, w2d)
+            def lazy(w2d, dsinv2d, z2d=None):
+                z2d = lazy_z(w2d, dsinv2d) if z2d is None else z2d
+                return 0.5 * axpy(dsinv2d, spmv_v3_padded(g.plan, z2d), w2d)
 
         def to_state(x):
             z = torch.zeros(P, dtype=dtype, device=g.device)
@@ -173,8 +179,8 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
         def dot(x, y):
             return fused_dot(x.reshape(-1), y.reshape(-1), "lanes")
 
-        def rayleigh(w, u, c, dsinv2d):
-            return fused_dot(w, from_state(lazy(to_state(w), dsinv2d)), "lanes")
+        def rayleigh(w, u, c, dsinv2d, z2d=None):
+            return fused_dot(w, from_state(lazy(to_state(w), dsinv2d, z2d)), "lanes")
 
         return PowerOperator(to_state, from_state, norm_lap, step, dot, tree_norm_2d, lazy, rayleigh, safe_deg,
                              True)
@@ -189,8 +195,8 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
         nrm = tree_norm(y)
         return normalize(y, nrm), nrm
 
-    def lazy(w, dsinv):
-        return lazy_walk(g_csr, w, dsinv)
+    def lazy(w, dsinv, z=None):
+        return lazy_walk(g_csr, w, dsinv, z=z)
 
     def dot(x, y):
         # The Rayleigh quotient jnp.vdot(v, norm_lap(v)): XLA fuses the
@@ -205,7 +211,7 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
             return fused_dot(x, y, "rows" if g.row_width == 8 else "chain")
         return fused_dot(x, y, "laplacian" if g.row_width <= 2 * WINDOW else "windows3")
 
-    def rayleigh(w, u, c, dsinv):
+    def rayleigh(w, u, c, dsinv, z=None):
         # jnp.vdot(w, opm_sym(w)) with w = u * c made in the same program.
         # Up to 32 columns XLA fuses the walk, row sums included, into the
         # dot below 4,096 values ("chain").  Above 32 the windowed row sums
@@ -218,11 +224,11 @@ def power_operator(g: DeviceGraph, shift: float, dtype: torch.dtype, inter_dtype
         # ROADMAP.md C).  From three row windows the loop is "windows3"; at
         # ELL width 8 it is "rows", as for the final quotient.
         if g.row_width <= WINDOW:
-            return fused_dot(w, lazy(w, dsinv), "rows" if g.row_width == 8 else "chain")
+            return fused_dot(w, lazy(w, dsinv, z), "rows" if g.row_width == 8 else "chain")
         order = "walk" if g.row_width <= 2 * WINDOW else "windows3"
         if w.numel() * w.element_size() < FUSED_DOT_BYTES:
-            return fused_dot(w, lazy(w, dsinv), order)
-        return fused_dot(w, lazy_walk(g_csr, w, dsinv, scaled=(u, c)), order)
+            return fused_dot(w, lazy(w, dsinv, z), order)
+        return fused_dot(w, lazy_walk(g_csr, w, dsinv, scaled=(u, c), z=z), order)
 
     return PowerOperator(lambda x: x, lambda x: x, norm_lap, step, dot if dtype == torch.float32 else tree_dot,
                          tree_norm, lazy, rayleigh, safe_deg,
@@ -349,6 +355,7 @@ def _momentum(op: PowerOperator, x0, n, dtype, check_interval, stable_checks, ma
     w0 = w0 / torch.where(nv0 > 0, nv0, 1.0)
     x = to_state(w0)
     xp = to_state(torch.zeros_like(w0))
+    z = lazy_z(x, dsinv_st)  # the walks gather z = dsinv w
     beta = torch.zeros((), dtype=dtype, device=w0.device)
     split = split_of_w(w0)
     stable, iteration = 0, 1
@@ -361,9 +368,12 @@ def _momentum(op: PowerOperator, x0, n, dtype, check_interval, stable_checks, ma
             break
         wp, w = xp, x
         for _ in range(check_interval):
-            u = op.lazy(w, dsinv_st) - beta * wp
+            u = op.lazy(w, dsinv_st, z) - beta * wp
             inv = _reciprocal(op.norm(u))
-            wp, w = w * inv, u * inv
+            # (w * inv, u * inv) and the next walk's z in one pass.  The
+            # interval's last z goes unread: the check makes the z of the
+            # deflated iterate.
+            wp, w, z = lazy_rescale(u, w, inv, dsinv_st)
         # Deflate the constant mode from both carries (by linearity the
         # projected pair still satisfies the recurrence): their two dots
         # are one K4 launch on the card, each its own chain.  On a padded
@@ -377,9 +387,10 @@ def _momentum(op: PowerOperator, x0, n, dtype, check_interval, stable_checks, ma
         inv = _reciprocal(tree_norm(defl))
         wv, wpv = defl * inv, axpy(-c[1], q0, wp_flat) * inv
         x = to_state(wv)
+        z = lazy_z(x, dsinv_st)  # this check's walk's, and the next inner loop's first
         # One more lazy walk per check: the symmetric Rayleigh quotient of
         # the deflated unit iterate, a lower bound on the Fiedler mode's mu.
-        mu = torch.clamp(op.rayleigh(wv, defl, inv, dsinv_st), 0.05, 1.0 - 1e-7)
+        mu = torch.clamp(op.rayleigh(wv, defl, inv, dsinv_st, z), 0.05, 1.0 - 1e-7)
         beta = momentum_beta(mu)
         new_split = split_of_w(wv)
         d = int((new_split != split).sum())

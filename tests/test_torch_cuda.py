@@ -2010,3 +2010,163 @@ def test_k5r_rank_whose_peer_never_launches_raises(cuda, tmp_path):
     err = outs[0].get("error", "")
     assert "rank 0 of 2" in err and "round A" in err and "from rank 1" in err, err
     assert 1.0 <= outs[0]["seconds"] < 15.0, outs[0]["seconds"]
+
+
+@pytest.mark.parametrize("form", ["ell f32", "ell f64", "ell scaled f32", "ell scaled f64", "v2 mxu f32",
+                                  "v2 mxu bf16i", "v2 mxu bf16w", "v2 mxu2 bf16i", "v2 vpu f32", "v1"])
+def test_lazy_walks_with_z_equal_plain_bitwise(cuda, form):
+    """Every lazy walk gathers ``z = dsinv * w``: given z (no z pass), and
+    given only w (the z pass first, one launch), bit for bit its plain
+    version on the CPU; K1's ELL walk on a graph of ELL width 48 in f32 and
+    f64 and its scaled epilogue, the v2 order's walks at row block 512 (the
+    6,000-node graph, a v1 tail) in each reduce order and products, the v1
+    plan's walk (gen 0.02x)."""
+    import importlib
+
+    from eig_kl_tpu_torch.graph.csr import CsrPlan
+    from eig_kl_tpu_torch.ops.spmv_plan import K1_V1, plan_lazy_walk, v2_kernel
+
+    S = importlib.import_module("eig_kl_tpu_torch.ops.spmv")
+    dtype = torch.float64 if form.endswith("f64") else torch.float32
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    rng = np.random.default_rng(31)
+    if form.startswith("ell"):
+        host = _graphs_host("hub44")
+        g_cpu, g = host.to_device("cpu", dtype), host.to_device(cuda, dtype)
+        n = g.num_nodes
+        u = torch.as_tensor(rng.standard_normal(n)).to(dtype)
+        u[::41] = -0.0
+        c = torch.tensor(0.37, dtype=dtype)
+        w = u * c
+        d = torch.as_tensor(1.0 / np.sqrt(rng.uniform(0.5, 9.0, n))).to(dtype)
+        scaled = (u, c) if "scaled" in form else None
+        kernel = S.K1_LAZY if dtype == torch.float32 else S.K1_LAZY_F64
+        z_pass = S.K1_Z if dtype == torch.float32 else S.K1_Z_F64
+
+        def walk(graph, dev, **kw):
+            sc = None if scaled is None else tuple(t.to(dev) for t in scaled)
+            return S.lazy_walk(graph, w.to(dev), d.to(dev), sc, **kw)
+        graphs = (g_cpu, g)
+    else:
+        kind = "v1" if form == "v1" else "v2"
+        _, order, products = ("v1", "mxu", "f32") if kind == "v1" else form.split()
+        host = _plan_graph("gen_0.02" if kind == "v1" else "6000")
+        geometry = {} if kind == "v1" else dict(rblock=512, bf16_weights=True)
+        lay_c, lay = (CsrPlan.for_graph(host.to_device(dv), kernel=kind, **geometry).layout for dv in ("cpu", cuda))
+        n, P = host.num_nodes, lay.padded_nodes
+        w = _padded_state(n, P, 3)
+        degrees = torch.as_tensor(host.weighted_degrees.astype(np.float32))
+        d = torch.zeros(P)
+        d[:n] = 1.0 / torch.sqrt(torch.where(degrees > 0, degrees, 1.0))
+        d = d.view(P // 128, 128)
+        bf16 = products != "f32"
+        form_kw = dict(reduce=order, bf16_weights=products == "bf16w")
+        kernel = K1_V1 if kind == "v1" else v2_kernel(lay, bf16, order, products == "bf16w", lazy=True)
+        z_pass = S.K1_Z
+
+        def walk(layout, dev, **kw):
+            return plan_lazy_walk(layout, w.to(dev), d.to(dev), bf16, **form_kw, **kw)
+        graphs = (lay_c, lay)
+    z = S.lazy_z(w.to(cuda), d.to(cuda))
+    assert torch.equal(z.cpu().view(bits), (d * w).view(bits))
+    want = walk(graphs[0], "cpu")
+    before = (kernel.launches, z_pass.launches)
+    got_z, got_w = walk(graphs[1], cuda, z=z), walk(graphs[1], cuda)
+    assert (kernel.launches, z_pass.launches) == (before[0] + 2, before[1] + 1)
+    for got in (got_z, got_w):
+        assert torch.equal(got.cpu().view(bits), want.view(bits))
+    with pytest.raises(ValueError, match="z"):
+        walk(graphs[1], cuda, z=z.to(torch.float64 if dtype == torch.float32 else torch.float32))
+
+
+@pytest.mark.parametrize("padded", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lazy_rescale_and_z_pass_equal_plain_bitwise(cuda, dtype, padded):
+    """``lazy_rescale_f32`` / ``_f64`` writes ``(w * inv, u * inv, dsinv *
+    (u * inv))`` in one launch, and the z pass ``dsinv * w`` in one, bit for
+    bit their plain versions, on the component's length (184,406) and on a
+    padded state whose dsinv is +0 in the padding; -0 inputs and an inv of
+    1 (a zero norm) included."""
+    import importlib
+
+    S = importlib.import_module("eig_kl_tpu_torch.ops.spmv")
+    rng = np.random.default_rng(41)
+    n = 184406
+    shape = (1441, 128) if padded else (n,)
+    u, w = (torch.as_tensor(rng.standard_normal(shape)).to(dtype) for _ in range(2))
+    d = torch.as_tensor(rng.uniform(0.1, 1.0, shape)).to(dtype)
+    if padded:
+        d.view(-1)[n:] = 0.0
+    u.view(-1)[::97] = -0.0
+    bits = torch.int32 if dtype == torch.float32 else torch.int64
+    rescale, z_pass = (S.K1_RESCALE, S.K1_Z) if dtype == torch.float32 else (S.K1_RESCALE_F64, S.K1_Z_F64)
+    for inv in (torch.tensor(1.0 / 2.9, dtype=dtype), torch.tensor(1.0, dtype=dtype)):
+        before = (rescale.launches, z_pass.launches)
+        got = S.lazy_rescale(u.to(cuda), w.to(cuda), inv.to(cuda), d.to(cuda))
+        z = S.lazy_z(u.to(cuda), d.to(cuda))
+        assert (rescale.launches, z_pass.launches) == (before[0] + 1, before[1] + 1)
+        for a, b in zip(got, S.lazy_rescale_plain(u, w, inv, d)):
+            assert a.shape == u.shape and torch.equal(a.cpu().view(bits), b.view(bits))
+        assert torch.equal(z.cpu().view(bits), (d * u).view(bits))
+    with pytest.raises(ValueError, match="inv"):
+        S.lazy_rescale(u.to(cuda), w.to(cuda), inv.reshape(1).to(cuda), d.to(cuda))
+
+
+def test_stream_handle_is_the_current_stream(cuda):
+    """The handle the momentum step's wrappers pass their entry points
+    (``ops/_build.py:stream_handle``) is ``torch.cuda.current_stream``'s, on
+    the default stream and inside another, for a tensor's device and for
+    ``torch.device("cuda")``; the rescale launched there is ordered on
+    it."""
+    from eig_kl_tpu_torch.ops._build import stream_handle
+    from eig_kl_tpu_torch.ops.rescale import lazy_rescale_cuda, lazy_rescale_plain
+
+    u = torch.linspace(-1.0, 1.0, 1 << 20, device=cuda)
+    inv = torch.tensor(0.25, device=cuda)
+    for device in (cuda, u.device):
+        assert stream_handle(device) == torch.cuda.current_stream(device).cuda_stream
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        for device in (cuda, u.device):
+            assert stream_handle(device) == side.cuda_stream != torch.cuda.default_stream(cuda).cuda_stream
+        got = lazy_rescale_cuda(u, u, inv, u)
+    side.synchronize()
+    for a, b in zip(got, lazy_rescale_plain(u.cpu(), u.cpu(), inv.cpu(), u.cpu())):
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("path", ["csr f32", "csr f64", "padded v1"])
+def test_momentum_inner_step_launches_one_walk_and_no_z_pass(cuda, path):
+    """The momentum exit's inner step launches one lazy walk and one
+    ``lazy_rescale``, and no z pass: over a run of s steps and k checks the
+    walks are s + k, the rescales s, the z passes k + 1 (a check's walk,
+    whose z the next step's walk reuses, and the start); the run equals the
+    CPU's bit for bit (gen 0.02x, 201 steps; its v1 plan on the padded
+    state)."""
+    import importlib
+
+    from eig_kl_tpu_torch.ops.spmv_plan import K1_V1
+    from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
+    from eig_kl_tpu_torch.utils.config import SpectralConfig
+
+    S = importlib.import_module("eig_kl_tpu_torch.ops.spmv")
+    dtype = torch.float64 if path.endswith("f64") else torch.float32
+    host = _plan_graph("gen_0.02")
+    with_plan = path.startswith("padded")
+    g_cpu, g = (host.to_device(dv, dtype, with_plan=with_plan) for dv in ("cpu", cuda))
+    cfg = SpectralConfig(solver="power", convergence="momentum", max_iterations=201, inter_dtype="bfloat16")
+    f64 = dtype == torch.float64
+    walk = K1_V1 if with_plan else (S.K1_LAZY_F64 if f64 else S.K1_LAZY)
+    rescale, z_pass = (S.K1_RESCALE_F64, S.K1_Z_F64) if f64 else (S.K1_RESCALE, S.K1_Z)
+    before = (walk.launches, rescale.launches, z_pass.launches)
+    card = power_partition_fiedler(g, cfg, dtype=dtype)
+    steps, checks = card[4] - 1, (card[4] - 1) // cfg.check_interval
+    # The v1 plan's walk is its SpMV (spmv_v1_f32) and K6's axpy; the solve
+    # launches the same SpMV for its first step and its final quotient.
+    got = (walk.launches - before[0], rescale.launches - before[1], z_pass.launches - before[2])
+    assert got == (steps + checks + 2 * with_plan, steps, checks + 1)
+    cpu = power_partition_fiedler(g_cpu, cfg, dtype=dtype)
+    assert card[4] == cpu[4] == 201
+    np.testing.assert_array_equal(card[3], cpu[3])
+    assert np.array_equal(card[2], cpu[2])

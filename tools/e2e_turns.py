@@ -3,7 +3,7 @@ comparing two checkouts.
 
 Run on a machine with one CUDA card::
 
-    python3 tools/e2e_turns.py [--tree DIR] [--runs N] [--path one_start|momentum|lobpcg_f64|smega]
+    python3 tools/e2e_turns.py [--tree DIR] [--runs N] [--path one_start|momentum|momentum_plan|lobpcg_f64|smega]
 
 It imports ``eig_kl_tpu_torch`` from ``DIR`` (default: this repository)
 and generates the circuit at 1.0x (seed 42).  ``--path one_start`` (the
@@ -11,8 +11,15 @@ default) runs ``fused_partition(hg, use_eig=True, device="cuda")``, the
 path ``chip_smoke.py`` calls the one start; ``--path momentum`` runs
 ``power_partition_fiedler`` with the momentum exit, in f32, on the KL graph
 of the circuit's largest component (184,406 nodes), as ``chip_smoke.py``'s
-momentum phase does; ``--path lobpcg_f64`` runs ``spectral_partition``
-with LOBPCG at its f64 default on that component (its blocked products
+momentum phase does; ``--path momentum_plan`` the same exit on that
+component's padded state with its v2 plan attached (built before the
+clock) and bf16 intermediates (``lazy_walk_v2_bf16i_f32``), as
+``chip_smoke.py``'s plan phase does; both momentum paths also count the
+device's kernels in one profiled run after the timed ones (every launch,
+PyTorch's own included, with its device time, by kernel name) and the
+host's microseconds per call of the step's rescale and its lazy walk.
+``--path lobpcg_f64`` runs ``spectral_partition`` with LOBPCG at its f64
+default on that component (its blocked products
 are K1's ``spmm_csr_f64``), as ``chip_smoke.py``'s f64 phase does;
 ``--path smega`` runs ``smega_refine`` (kernel K5) at S = 1 and at S = 8
 on the circuit's KL graph from a random split (seed 42), each with a plan
@@ -50,12 +57,65 @@ def _largest_component(hg):
     return module.largest_component(hg)
 
 
+def _kernels_of_one_run(run, torch) -> dict:
+    """The device's kernels in one profiled ``run()``: how many, their
+    device microseconds, and both by kernel name."""
+    from collections import Counter
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    count, device_us = Counter(), Counter()
+    for e in kernels:
+        name = e.name.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0][:70]
+        count[name] += 1
+        device_us[name] += e.time_range.elapsed_us()
+    return {"launches_per_run": len(kernels), "device_us_per_run": sum(device_us.values()),
+            "launches_and_device_us_by_kernel": {k: [count[k], us] for k, us in device_us.most_common()}}
+
+
+def _step_host_us(lk, torch) -> dict:
+    """The host's microseconds per call of the momentum step's rescale and
+    of its lazy walk, as the tree's loop makes them (``lazy_rescale`` and
+    the walk given z where the tree has them, else ``(w * inv, u * inv)``
+    and the walk of w): 2,000 calls each up to one synchronisation at
+    their end, after 100 to warm up."""
+    from eig_kl_tpu_torch.spectral import power
+
+    op = power.power_operator(lk, 2.0, torch.float32, "bfloat16")
+    gen = torch.Generator().manual_seed(7)
+    u, w = (op.to_state((torch.rand(lk.num_nodes, generator=gen) - 0.5).to(lk.device)) for _ in range(2))
+    dsinv = op.to_state(1.0 / torch.sqrt(op.safe_deg))
+    inv = torch.tensor(0.5, device=lk.device)
+    if hasattr(power, "lazy_rescale"):
+        z = power.lazy_z(w, dsinv)
+        calls = {"rescale": lambda: power.lazy_rescale(u, w, inv, dsinv), "walk": lambda: op.lazy(w, dsinv, z)}
+    else:
+        calls = {"rescale": lambda: (w * inv, u * inv), "walk": lambda: op.lazy(w, dsinv)}
+    out = {}
+    for name, fn in calls.items():
+        for _ in range(100):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(2000):
+            fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) / 2000 * 1e6
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tree", default=str(Path(__file__).resolve().parent.parent),
                         help="the checkout whose eig_kl_tpu_torch is timed")
     parser.add_argument("--runs", type=int, default=5, help="timed runs after the warm-up")
-    parser.add_argument("--path", choices=("one_start", "momentum", "lobpcg_f64", "smega"), default="one_start",
+    parser.add_argument("--path", choices=("one_start", "momentum", "momentum_plan", "lobpcg_f64", "smega"),
+                        default="one_start",
                         help="the path timed")
     args = parser.parse_args()
     sys.path.insert(0, str(Path(args.tree).resolve()))
@@ -140,8 +200,9 @@ def main() -> int:
         from eig_kl_tpu_torch.spectral.power import power_partition_fiedler
         from eig_kl_tpu_torch.utils.config import SpectralConfig
 
-        lk = clique_expand(_largest_component(hg), "kl").to_device(dev, torch.float32)
-        config = SpectralConfig(solver="power", convergence="momentum")
+        lk = clique_expand(_largest_component(hg), "kl").to_device(dev, torch.float32,
+                                                                   with_plan=args.path == "momentum_plan")
+        config = SpectralConfig(solver="power", convergence="momentum", inter_dtype="bfloat16")
 
         def run():
             return power_partition_fiedler(lk, config, dtype=torch.float32)
@@ -162,6 +223,9 @@ def main() -> int:
         runs.append({"e2e_s": time.perf_counter() - t0, **spans(r)})
         if figures(r) != first:
             raise AssertionError(f"a repeated run gave {figures(r)}, not {first}")
+    launches = {}
+    if args.path.startswith("momentum"):
+        launches = {**_kernels_of_one_run(run, torch), "host_us_per_call": _step_host_us(lk, torch)}
     n = clique_expand(hg, "kl").num_nodes
     v = torch.rand(n, generator=torch.Generator().manual_seed(42)).to(dev)
     for _ in range(100):
@@ -178,6 +242,7 @@ def main() -> int:
         "path": args.path,
         **first,
         "runs": runs,
+        **launches,
         "tree_norm_wall_us_per_call": norm_us,
     }))
     return 0

@@ -7,15 +7,18 @@ earlier, new), on the same layouts and inputs:
 * ``spmv_v1_earlier_f32``: one 512-thread block per y window walks the
   window's chunks one after another, each chunk's scan in shared memory
   (9 steps, 18 block barriers);
-* ``spmv_v2_mxu2[_bf16i|_bf16w]_earlier_f32`` and their lazy walks: a lane
-  per row (K1's warp per 32 rows) carrying the 4 (or 2) partials, a switch
-  on each entry's slot class;
+* ``spmv_v2_mxu2[_bf16i|_bf16w]_earlier_f32``: a lane per row (K1's warp
+  per 32 rows) carrying the 4 (or 2) partials, a switch on each entry's
+  slot class;
 * the same with ``_group``: a group of 4 (or 2) threads per row, a
   partial per thread, the design first proposed for them, which the card
   timed slower than the kernel's branch-free lane per row.
 
 Each takes the arguments of the kernel it stands beside (``spmv_v1_earlier``
 those of ``spmv_v1_f32`` before its scratch and tickets) and gives its bits.
+The templates keep their lazy-walk branch, but no lazy walk is built from
+them: the port's lazy walks now gather ``z = dsinv * w`` and take it as an
+argument, and ``tools/lazy_walk_turns.py`` holds their earlier design.
 Nothing here is imported by the port.  Needs ``nvcc`` and a card::
 
     python3 -c "import tools.v1_mxu2_turns as T; T.build()"
@@ -279,10 +282,7 @@ int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 #define MXU2_FORMS(SUFFIX)                                                              \
   MXU2_ENTRY(spmv_v2_mxu2##SUFFIX##_f32, false, false, float)                           \
   MXU2_ENTRY(spmv_v2_mxu2_bf16i##SUFFIX##_f32, true, false, float)                      \
-  MXU2_ENTRY(spmv_v2_mxu2_bf16w##SUFFIX##_f32, true, false, __nv_bfloat16)              \
-  MXU2_ENTRY(lazy_walk_v2_mxu2##SUFFIX##_f32, false, true, float)                       \
-  MXU2_ENTRY(lazy_walk_v2_mxu2_bf16i##SUFFIX##_f32, true, true, float)                  \
-  MXU2_ENTRY(lazy_walk_v2_mxu2_bf16w##SUFFIX##_f32, true, true, __nv_bfloat16)
+  MXU2_ENTRY(spmv_v2_mxu2_bf16w##SUFFIX##_f32, true, false, __nv_bfloat16)
 
 MXU2_FORMS(_earlier)
 """
@@ -477,9 +477,6 @@ spmv_v2_mxu2_kernel(const int* __restrict__ ptr, const int* __restrict__ cols,
 GROUP_ENTRY(spmv_v2_mxu2_group_f32, false, false, float)
 GROUP_ENTRY(spmv_v2_mxu2_bf16i_group_f32, true, false, float)
 GROUP_ENTRY(spmv_v2_mxu2_bf16w_group_f32, true, false, __nv_bfloat16)
-GROUP_ENTRY(lazy_walk_v2_mxu2_group_f32, false, true, float)
-GROUP_ENTRY(lazy_walk_v2_mxu2_bf16i_group_f32, true, true, float)
-GROUP_ENTRY(lazy_walk_v2_mxu2_bf16w_group_f32, true, true, __nv_bfloat16)
 """
 
 #: The mxu2 forms' other designs, by suffix: their sources.
