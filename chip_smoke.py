@@ -338,6 +338,31 @@ def device_us_per_call(fn, calls: int) -> tuple[float, float] | None:
     return sum(e.time_range.elapsed_us() for e in kernels) / calls, len(kernels) / calls
 
 
+def one_kernel_per_call(fn, calls: int, kernel: str) -> int:
+    """Run ``fn`` ``calls`` times under the profiler, a marker kernel (an
+    add of one value) before each call and after the last; check that
+    between every two markers it saw ran exactly one kernel, with
+    ``kernel`` in its name, over at least half of the calls (the profiler
+    may miss the first kernels of its window).  Returns the calls seen."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    mark = torch.zeros(1, device="cuda")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            mark.add_(1)
+            fn()
+        mark.add_(1)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA), key=lambda e: e.time_range.start)
+    check(bool(events) and kernel not in events[-1].name, f"the profiler missed the last marker after {kernel}")
+    at = [i for i, e in enumerate(events) if e.name == events[-1].name]
+    between = [[e.name for e in events[a + 1 : b]] for a, b in zip(at, at[1:])]
+    check(len(between) >= calls // 2 and all(len(s) == 1 and kernel in s[0] for s in between),
+          f"{calls} calls: the kernels between markers were {between}, not one {kernel} each")
+    return len(between)
+
+
 def library_device_us(fn, calls: int = 50) -> float | None:
     """Device microseconds of all the kernels of one call of ``fn`` (a
     library call), by the profiler over ``calls`` calls; None if it saw
@@ -373,21 +398,25 @@ def device_us_per_launch(fn, kernel: str, num_groups: int = 1) -> list[float] | 
     ``kernel`` ``num_groups`` times, one after another) under the
     profiler: the mean device time in microseconds of each of the
     ``num_groups`` launches per call, in launch order (K3b: its groups), or
-    None if the profiler saw no whole call."""
+    None if the profiler saw no whole call in three windows (a window now
+    and then records none of its kernels)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = sorted(
-        (e for e in prof.events() if e.device_type == DeviceType.CUDA and kernel in e.name),
-        key=lambda e: e.time_range.start,
-    )
-    # The profiler may miss the first kernels of the window: count whole
-    # calls from the last launch back.
-    kernels = kernels[len(kernels) % num_groups :]
-    if not kernels:
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA and kernel in e.name),
+            key=lambda e: e.time_range.start,
+        )
+        # The profiler may miss the first kernels of the window: count whole
+        # calls from the last launch back.
+        kernels = kernels[len(kernels) % num_groups :]
+        if kernels:
+            break
+    else:
         return None
     per = [kernels[k::num_groups] for k in range(num_groups)]
     return [sum(e.time_range.elapsed_us() for e in group) / len(group) for group in per]
@@ -1972,18 +2001,29 @@ def main() -> int:
         lib=lambda: 0.5 * (xl + dl * (a_lk @ (dl * xl))), symbol="lazy_walk_kernel",
         bound=bound(4 * (lk.indptr.numel() + 2 * l_nnz) + 16 * ln, 2 * l_nnz + 3 * ln),
     )
-    for k in (4, 12):
+    # The blocked product walks the rows once for all k columns where k is a
+    # multiple of 4: held at k = 4, 8, 12 and 16 in both forms to its plain
+    # version and to K1 on each column, one kernel per call in the
+    # profiler; timed at LOBPCG's k = 4 and 12 below.
+    for k in (4, 8, 12, 16):
         X = (torch.rand(ln, k, generator=gen) - 0.5).to(dev)
         cols = [X[:, j].contiguous() for j in range(k)]
-        new[f"spmm k={k}"] = dict(
-            kern=lambda X=X: spmm_cuda(lg, X, laplacian=True),
-            plain=lambda X=X: spmm_plain(lg, X, laplacian=True),
-            lib=lambda X=X: lg.degrees[:, None] * X - torch.sparse.mm(a_lcc, X), symbol="spmm",
-            bound=bound(csr_bytes + 4 * ln + 8 * ln * k, (2 * l_nnz + 2 * ln) * k),
-            k1_columns=lambda cols=cols: [spmv_csr(lg, c) for c in cols],
-        )
-        check(torch.equal(spmm_cuda(lg, X), torch.stack([spmv_csr(lg, c) for c in cols], dim=1)),
+        for laplacian in (False, True):
+            check(same_bits(spmm_cuda(lg, X, laplacian=laplacian), spmm_plain(lg, X, laplacian=laplacian)),
+                  f"the blocked product at k = {k} (laplacian={laplacian}) differs from its plain version")
+        check(same_bits(spmm_cuda(lg, X), torch.stack([spmv_csr(lg, c) for c in cols], dim=1)),
               f"a column of the blocked product at k = {k} differs from K1 on that column")
+        one_kernel_per_call(lambda X=X: spmm_cuda(lg, X, laplacian=True), 20, "spmm_walk_kernel")
+        if k in (4, 12):
+            new[f"spmm k={k}"] = dict(
+                kern=lambda X=X: spmm_cuda(lg, X, laplacian=True),
+                plain=lambda X=X: spmm_plain(lg, X, laplacian=True),
+                lib=lambda X=X: lg.degrees[:, None] * X - torch.sparse.mm(a_lcc, X), symbol="spmm",
+                bound=bound(csr_bytes + 4 * ln + 8 * ln * k, (2 * l_nnz + 2 * ln) * k),
+                k1_columns=lambda cols=cols: [spmv_csr(lg, c) for c in cols],
+            )
+    print("blocked product at k = 4, 8, 12, 16: both forms bitwise equal to the plain version and to K1 on each "
+          "column, one spmm_walk_kernel per call in the profile")
     c_axpy = torch.tensor(-0.37, device=dev)
     yl = (torch.rand(ln, generator=gen) - 0.5).to(dev)
     new["axpy"] = dict(
@@ -2047,7 +2087,7 @@ def main() -> int:
                              plain=lambda: lazy_rescale_plain(ur, xl, inv_r, dl), lib=None,
                              replaced=lambda: (xl * inv_r, ur * inv_r), bound=bound(24 * ln + 4, 3 * ln)),
         "z pass": dict(kern=lambda: lazy_z_cuda(xl, dl), plain=lambda: lazy_z_plain(xl, dl),
-                       lib=lambda: dl * xl, bound=bound(12 * ln, ln)),
+                       lib=lambda: dl * xl, bound=bound(12 * ln, ln), symbol="lazy_z_kernel"),
     }
 
     def hold_z_kernels(entries):
@@ -2061,7 +2101,8 @@ def main() -> int:
             e["err"] = max(float((a - b).abs().max()) for a, b in zip(got, ref))
             e["ms"] = cuda_ms(e["kern"], 200)
             e["plain_ms"] = cuda_ms(e["plain"], 200)
-            e["device_us"] = device_us_per_launch(lambda e=e: [e["kern"]() for _ in range(50)], "lazy_rescale")
+            e["device_us"] = device_us_per_launch(lambda e=e: [e["kern"]() for _ in range(50)],
+                                                  e.get("symbol", "lazy_rescale_kernel"))
             e["library_ms"] = None if e["lib"] is None else cuda_ms(e["lib"], 200)
             e["library_device_us"] = None if e["lib"] is None else library_device_us(e["lib"])
             if "replaced" in e:
@@ -2261,11 +2302,17 @@ def main() -> int:
         bound=bound64(lcsr64 + 24 * ln, 2 * l_nnz + 2 * ln),
         replaces="eig_kl_tpu/ops/spmv_pallas.py:339 (with eig_kl_tpu/spectral/lanczos.py:60's epilogue)",
         source="eig_kl_tpu_torch/csrc/spmv_csr.cu")
-    for k in (4, 12):
+    for k in (4, 8, 12, 16):
         X64 = (torch.rand(ln, k, generator=gen, dtype=torch.float64) - 0.5).to(dev)
+        for laplacian in (False, True):
+            check(same_bits(spmm_cuda(lg64, X64, laplacian=laplacian), spmm_plain(lg64, X64, laplacian=laplacian)),
+                  f"the f64 blocked product at k = {k} (laplacian={laplacian}) differs from its plain version")
         check(torch.equal(bits64(spmm_cuda(lg64, X64)),
                           bits64(torch.stack([spmv_csr(lg64, X64[:, j].contiguous()) for j in range(k)], dim=1))),
               f"a column of the f64 blocked product at k = {k} differs from K1 on that column")
+        one_kernel_per_call(lambda X=X64: spmm_cuda(lg64, X, laplacian=True), 20, "spmm_walk_kernel")
+        if k not in (4, 12):
+            continue
         f64[f"K1 spmm_csr_f64 k={k}"] = dict(
             kern=lambda X=X64: spmm_cuda(lg64, X, laplacian=True),
             plain=lambda X=X64: spmm_plain(lg64, X, laplacian=True),
@@ -2332,7 +2379,7 @@ def main() -> int:
                                  replaced=lambda: (xl64 * inv_r64, ur64 * inv_r64),
                                  bound=bound64(48 * ln + 8, 3 * ln)),
         "z pass f64": dict(kern=lambda: lazy_z_cuda(xl64, dl64), plain=lambda: lazy_z_plain(xl64, dl64),
-                           lib=lambda: dl64 * xl64, bound=bound64(24 * ln, ln)),
+                           lib=lambda: dl64 * xl64, bound=bound64(24 * ln, ln), symbol="lazy_z_kernel"),
     }
     hold_z_kernels(zk64)
     for what, e in f64.items():

@@ -107,16 +107,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
   }
 }
 
-template <int kBytes>
-__device__ __forceinline__ void copy_async(void* dst, const void* src) {
-  if constexpr (kBytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src) : "memory");
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr(dst)), "l"(src), "n"(kBytes)
-                 : "memory");
-  }
-}
-
 // The arrive-on of `bar` once this thread's cp.async copies so far are done.
 __device__ __forceinline__ void copies_arrive(uint64_t* bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_addr(bar)) : "memory");

@@ -82,6 +82,19 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
+// kBytes (4, 8 or 16) of global memory into shared memory, asynchronously
+// (cp.async; 16 bytes through L2 alone): nothing passes through registers,
+// and the copy is the thread's until cp.async.wait_all (or an mbarrier).
+template <int kBytes>
+__device__ __forceinline__ void copy_async(void* dst, const void* src) {
+  if constexpr (kBytes == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(smem_addr(dst)), "l"(src), "n"(kBytes)
+                 : "memory");
+  }
+}
+
 // 16 bytes of shared memory into registers, as a volatile asm statement:
 // the compiler may neither drop it nor load the same bytes again later
 // instead of keeping them in registers (which it does to a plain load of

@@ -94,15 +94,15 @@
 // enters the next window.  A warp's span holds at most 32 * W entries, so
 // for W <= 32 it is one buffer of 1,024 entries; for W > 32 the warp takes
 // it 256 entries at a time and each lane carries its chain across them.
-// The blocked product takes X four columns at a time where k is a multiple
-// of 4: the gather of X[j * k + c0 .. + 3] per entry fetches the four
-// values from one 32-byte sector (one 16-byte load in f32, two in f64:
-// Hopper has no 32-byte load), where K1 fetches a sector for one value,
-// so four columns cost about one K1 launch.  The warp stages its span 256
-// entries at a time (data, and the four gathered values of each entry),
-// and each lane carries its row's four sets of chains (32 accumulators)
-// across the chunks.  Any other k, or an X not 16-byte aligned, takes one
-// column at a time through K1's walk.  The W <= 32 buffer of f64 holds the rounded
+// The blocked product, where k is a multiple of 4 and X 16-byte aligned,
+// walks the rows once for all k columns (spmm_walk_kernel): the k / 4
+// warps of a row group stage the span's data and each entry's whole row
+// of X, its 16-byte vectors loaded by adjacent threads (one request for
+// the row's sectors: two at k = 12 in f32, where a walk per 4 columns
+// fetched three), and each warp then walks the rows for its 4 columns, a
+// lane carrying its row's four sets of chains (32 accumulators).  Any
+// other k, or an X not 16-byte aligned, takes one column at a time
+// through K1's walk.  The W <= 32 buffer of f64 holds the rounded
 // products (8 bytes each, the bytes of f32's data and gathered x), so its
 // shared memory per block is the same in both types.
 
@@ -382,12 +382,11 @@ __global__ void __launch_bounds__(kThreads)
 // lazy_rescale: the momentum step's rescale of its two carries, w' = u *
 // inv and wp' = w * inv (eig_kl_tpu/spectral/power.py:316-322, `(w * inv, u *
 // inv)`, inv one value), and the next lazy walk's z = dsinv * w', each
-// product rounded once, in one pass; without inv (and w) the standalone z
-// pass, z = dsinv * u, for a walk whose vector no rescale made.  Replaces
-// no TPU kernel: the JAX package's two products are XLA element-wise
-// operations, and z is the product that XLA fuses into the walk's gather.
-// Bound by bytes (a read of u, w and dsinv and a write of three vectors);
-// one value per thread, every load and store coalesced.
+// product rounded once, in one pass (the standalone z pass is lazy_z_kernel
+// below).  Replaces no TPU kernel: the JAX package's two products are XLA
+// element-wise operations, and z is the product that XLA fuses into the
+// walk's gather.  Bound by bytes (a read of u, w and dsinv and a write of
+// three vectors); one value per thread, every load and store coalesced.
 template <class T>
 __global__ void __launch_bounds__(256)
     lazy_rescale_kernel(const T* __restrict__ u, const T* __restrict__ w, const T* __restrict__ inv,
@@ -395,119 +394,148 @@ __global__ void __launch_bounds__(256)
                         T* __restrict__ z, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  T ui = __ldg(u + i);
-  if (inv != nullptr) {
-    const T c = __ldg(inv);
-    ui = mul_rn(ui, c);
-    u_out[i] = ui;
-    if (w != nullptr) w_out[i] = mul_rn(__ldg(w + i), c);
-  }
+  const T c = __ldg(inv);
+  const T ui = mul_rn(__ldg(u + i), c);
+  u_out[i] = ui;
+  if (w != nullptr) w_out[i] = mul_rn(__ldg(w + i), c);
   z[i] = mul_rn(__ldg(dsinv + i), ui);
 }
 
-// The blocked product's vector walk: kCols = 4 columns per walk of the
-// rows, gathered kCols / V 16-byte vectors at a time (V = 4 f32 or 2 f64
-// values): one load in f32, two loads of one 32-byte sector in f64.
-constexpr int kCols = 4;
-constexpr int kChunkV = 256;  // entries staged at a time, kCols columns each
-constexpr int kPerLaneV = 4;
-constexpr int kStageV = 32 * kPerLaneV;
+// The blocked product's one walk, at k = kCols * G columns (G = 1 .. 4)
+// with X and Y 16-byte aligned: one walk of the rows for all k columns.  A
+// row group of 32 rows takes G warps, warp g its columns kCols * g ..
+// kCols * g + 3; a block takes kWarps / G row groups (one at G = 3).  Per
+// chunk of kChunkW entries of the group's span, the group's 32 G threads
+// stage each entry's gathered row of X (k values, Q = k * sizeof(T) / 16
+// vectors of 16 bytes) in shared memory: thread t takes vector t of the
+// chunk's vectors, so the Q vectors of one row of X go to adjacent threads
+// of one instruction, which fetches the row's sectors once (two at k = 12
+// in f32, where a walk per 4 columns fetched three).  Past the group's
+// barrier each warp walks its 32 rows over its 4 columns in row_sum's
+// (XLA's) order; a second barrier frees the chunk.  So the span's indices
+// and data are read once per launch, and each value of Y has one writer.
+//
+// What sets the time is the L2's rate of scattered sectors (K1's x gathers
+// alone take about 10 us at gen 1.0x) and the three dependent loads each
+// row group waits on (indptr, the indices, the gathers) times the row
+// groups an SM holds at once.  So: the epilogue's own row of X and degree
+// are loaded first, off that chain; where the walk adds rounded products
+// (f64, and f32 at W > 32) the staging threads form them, so no lane waits
+// on its row's length for the multiplies; and a row group keeps only the
+// chains its order needs (kChains: 8 lanes at 16 < W <= 32, else the one
+// chain or the window's and the row's sums), so more groups fit.  In f32 a
+// thread holds its kPerThreadW gathers in registers (each with its
+// index); in f64, whose vectors would need twice the registers, the group
+// copies the chunk's indices and data into shared memory and every gather
+// is a cp.async straight into shared memory.
+constexpr int kCols = 4;        // columns per warp
+constexpr int kChunkW = 256;    // entries staged at a time
+constexpr int kPerThreadW = 8;  // f32: gathers in flight per thread
 
-// Values of T per warp: the data, then kCols values per entry.
-constexpr int kBufferV = kChunkV * (1 + kCols);
+// The launch's shape at G warps per row group.  A staged row of X holds
+// kQ vectors, padded to an odd count in f32 (where kQ = G), so that lanes
+// reading different entries spread over the banks; in f64 (kQ = 2 G) the
+// padding would cost more occupancy than the conflicts it saves.
+template <class T, int G>
+struct Blocked {
+  static constexpr int kV = Vec16<T>::kWidth;
+  static constexpr int kK = kCols * G;
+  static constexpr int kQ = kK / kV;
+  static constexpr int kRowVecs = std::is_same<T, float>::value && kQ % 2 == 0 ? kQ + 1 : kQ;
+  static constexpr int kGroups = kWarps / G;  // row groups per block
+  static constexpr int kGroupThreads = 32 * G;
+  static constexpr int kThreads = kGroupThreads * kGroups;
+  // Bytes per row group: the chunk's indices (f64), data, then its staged rows of X.
+  static constexpr int kGroupBytes =
+      kChunkW * ((std::is_same<T, float>::value ? 0 : sizeof(int)) + sizeof(T) * (1 + kRowVecs * kV));
+  static_assert(kCols % kV == 0 && G >= 1 && G <= kWarps, "whole vectors per warp, 1 to kWarps warps per group");
+};
 
-// Columns c0 .. c0 + kCols - 1 of A @ X for row r0 + lane into out[], X
-// row-major (n, k) with k a multiple of kCols and X 16-byte aligned: each
-// column added in row_sum's (XLA's) order.  `buf` is the warp's
-// kBufferV values.
-template <class T>
-__device__ __forceinline__ void row_sum_v(const int* __restrict__ indptr,
-                                          const int* __restrict__ indices,
-                                          const T* __restrict__ data,
-                                          const T* __restrict__ x, int k, int c0, T* buf,
-                                          int r0, int n, int row_width, T (&out)[kCols]) {
+// The G warps of row group `group` of the block (barrier 1 + group).
+__device__ __forceinline__ void group_sync(int group, int threads) {
+  asm volatile("barrier.sync %0, %1;" : : "r"(group + 1), "r"(threads) : "memory");
+}
+
+template <class T, int G, int kChains>
+__global__ void __launch_bounds__(Blocked<T, G>::kThreads)
+    spmm_walk_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
+                     const T* __restrict__ data, const T* __restrict__ x,
+                     const T* __restrict__ deg, T* __restrict__ y, int n, int row_width) {
+  using B = Blocked<T, G>;
   using V = typename Vec16<T>::type;
-  constexpr int kV = Vec16<T>::kWidth;
-  constexpr int kQ = kCols / kV;  // 16-byte vectors per entry
-  static_assert(kCols % kV == 0, "whole 16-byte vectors per entry");
+  constexpr int kV = B::kV;
+  constexpr int kQ = B::kQ;
+  constexpr int kS = B::kRowVecs;
+  constexpr int kQw = kCols / kV;  // a warp's vectors of a row of X
+  constexpr bool kLanes8 = kChains == kLanes;
+  constexpr bool kRegisterGathers = std::is_same<T, float>::value;
+  extern __shared__ __align__(16) unsigned char shared_raw[];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int group = warp / G;
+  const int g = warp % G;
+  const int tid = threadIdx.x - group * B::kGroupThreads;
+  const int r0 = (blockIdx.x * B::kGroups + group) * 32;
+  if (r0 >= n) return;  // the whole row group: its barrier waits on no one
+  int* cols = reinterpret_cast<int*>(shared_raw + group * B::kGroupBytes);  // f64 only
+  T* d = reinterpret_cast<T*>(cols + (kRegisterGathers ? 0 : kChunkW));
+  V* xs = reinterpret_cast<V*>(d + kChunkW);
   const int row = r0 + lane;
-  __syncwarp();  // the buffer's last reader (a call before this one) is done
   const int lo = __ldg(indptr + min(row, n - 1));
   const int hi = row < n ? __ldg(indptr + min(row, n - 1) + 1) : lo;
   const int span_lo = __ldg(indptr + r0);
   const int span_hi = __ldg(indptr + min(r0 + 32, n));
-  T* d = buf;
-  V* xv = reinterpret_cast<V*>(buf + kChunkV);
-  const bool lanes8 = row_width <= kWindow;
+  // The epilogue's row of X and degree, loaded now, off the chain above.
+  const long long at = static_cast<long long>(min(row, n - 1)) * B::kK + kCols * g;
+  V xr[kQw];
+#pragma unroll
+  for (int v = 0; v < kQw; ++v) xr[v] = __ldg(reinterpret_cast<const V*>(x + at) + v);
+  const T dr = deg != nullptr ? __ldg(deg + min(row, n - 1)) : T(0);
   const bool chain = row_width <= kChainWidth;  // one chain in acc[0]
   const int windows = (row_width + kWindow - 1) / kWindow;
-  const int pad = lanes8 ? 0 : (windows * kWindow - row_width) / 2;
-  // W <= 32: the 8 lane chains; W > 32: acc[0] the window's sum, acc[1] the row's.
-  T acc[kLanes][kCols];
+  const int pad = (windows * kWindow - row_width) / 2;
+  // f32 at W <= 32 fuses each product into its lane's add, so the chunk
+  // keeps the data and X apart; everywhere else the walk adds rounded
+  // products.
+  const bool fused = std::is_same<T, float>::value && row_width <= kWindow;
+  // kLanes8: the 8 lane chains; else acc[0] the one chain, or the window's
+  // sum and acc[1] the row's.
+  T acc[kChains][kCols];
 #pragma unroll
-  for (int q = 0; q < kLanes; ++q) {
+  for (int q = 0; q < kChains; ++q) {
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) acc[q][c] = T(0);
+    for (int e = 0; e < kCols; ++e) acc[q][e] = T(0);
   }
-  for (int c = span_lo; c < span_hi; c += kChunkV) {
-    const int len = min(kChunkV, span_hi - c);
-    for (int base = 0; base < len; base += kStageV) {
-      int col[kPerLaneV];
-      T w[kPerLaneV];
-      V xg[kPerLaneV][kQ];
+  // Entry t of the chunk into the chains a[0..3] where `take`: fused,
+  // data[t] * X + a; else a + the staged product.
+  auto add_entry = [&](auto kFused, int t, bool take, T (&a)[kCols]) {
+    V xt[kQw];
 #pragma unroll
-      for (int q = 0; q < kPerLaneV; ++q) {
-        const int i = min(base + lane + 32 * q, len - 1);
-        col[q] = __ldg(indices + c + i);
-        w[q] = __ldg(data + c + i);
-      }
+    for (int v = 0; v < kQw; ++v) xt[v] = xs[t * kS + g * kQw + v];
+    if constexpr (decltype(kFused)::value) {
+      const T wt = d[t];
 #pragma unroll
-      for (int q = 0; q < kPerLaneV; ++q) {
-        const V* src = reinterpret_cast<const V*>(x + static_cast<long long>(col[q]) * k + c0);
+      for (int e = 0; e < kCols; ++e) a[e] = take ? mul_add(wt, vec_at(xt[e / kV], e % kV), a[e]) : a[e];
+    } else {
 #pragma unroll
-        for (int v = 0; v < kQ; ++v) xg[q][v] = __ldg(src + v);
-      }
-#pragma unroll
-      for (int q = 0; q < kPerLaneV; ++q) {
-        const int i = base + lane + 32 * q;
-        if (i < len) {
-          d[i] = w[q];
-#pragma unroll
-          for (int v = 0; v < kQ; ++v) xv[i * kQ + v] = xg[q][v];
-        }
-      }
+      for (int e = 0; e < kCols; ++e) a[e] = take ? add_rn(a[e], vec_at(xt[e / kV], e % kV)) : a[e];
     }
-    __syncwarp();
-    // This row's entries in the chunk, as positions in the row.
-    const int pb = max(lo, c) - lo;
+  };
+  // This row's entries of the chunk at c (len entries) in XLA's order.
+  auto walk = [&](auto kFused, int c, int len) {
+    const int pb = max(lo, c) - lo;  // as positions in the row
     const int pe = min(hi, c + len) - lo;
-    if (chain) {
-      for (int p = pb; p < pe; ++p) {
-        const int t = lo + p - c;
-        const T wt = d[t];
-        V xt[kQ];
-#pragma unroll
-        for (int v = 0; v < kQ; ++v) xt[v] = xv[t * kQ + v];
-#pragma unroll
-        for (int e = 0; e < kCols; ++e) acc[0][e] = mul_add(wt, vec_at(xt[e / kV], e % kV), acc[0][e]);
-      }
-    } else if (lanes8) {
+    if constexpr (kLanes8) {
       for (int p0 = pb & ~(kLanes - 1); p0 < pe; p0 += kLanes) {
 #pragma unroll
         for (int q = 0; q < kLanes; ++q) {
           const int p = p0 + q;
-          const int t = min(max(lo + p, c), c + len - 1) - c;
-          const T wt = d[t];
-          V xt[kQ];
-#pragma unroll
-          for (int v = 0; v < kQ; ++v) xt[v] = xv[t * kQ + v];
-          if (p >= pb && p < pe) {
-#pragma unroll
-            for (int e = 0; e < kCols; ++e) acc[q][e] = mul_add(wt, vec_at(xt[e / kV], e % kV), acc[q][e]);
-          }
+          add_entry(kFused, min(max(lo + p, c), c + len - 1) - c, p >= pb && p < pe, acc[q]);
         }
       }
+    } else if (chain) {
+#pragma unroll 4
+      for (int p = pb; p < pe; ++p) add_entry(kFused, lo + p - c, true, acc[0]);
     } else {
       for (int p = pb; p < pe;) {
         const int offset = (p + pad) & (kWindow - 1);
@@ -519,67 +547,142 @@ __device__ __forceinline__ void row_sum_v(const int* __restrict__ indptr,
           }
         }
         const int end = min(pe, p + kWindow - offset);
-        for (; p < end; ++p) {
-          const int t = lo + p - c;
-          const T wt = d[t];
-          V xt[kQ];
-#pragma unroll
-          for (int v = 0; v < kQ; ++v) xt[v] = xv[t * kQ + v];
-#pragma unroll
-          for (int e = 0; e < kCols; ++e) acc[0][e] = add_rn(acc[0][e], mul_rn(wt, vec_at(xt[e / kV], e % kV)));
-        }
+#pragma unroll 4
+        for (; p < end; ++p) add_entry(kFused, lo + p - c, true, acc[0]);
       }
     }
-    __syncwarp();
-  }
+  };
+  for (int c = span_lo; c < span_hi; c += kChunkW) {
+    const int len = min(kChunkW, span_hi - c);
+    const int vecs = len * kQ;
+    if constexpr (kRegisterGathers) {
+      if (fused) {
+        for (int i = tid; i < len; i += B::kGroupThreads) d[i] = __ldg(data + c + i);
+      }
+      for (int base = 0; base < vecs; base += B::kGroupThreads * kPerThreadW) {
+        int f[kPerThreadW];
+        int col[kPerThreadW];
+        T w[kPerThreadW];
+        V xg[kPerThreadW];
 #pragma unroll
-  for (int e = 0; e < kCols; ++e) {
-    if (chain) {
-      out[e] = acc[0][e];
-    } else if (lanes8) {
-      out[e] = add_rn(add_rn(add_rn(acc[0][e], acc[4][e]), add_rn(acc[2][e], acc[6][e])),
-                      add_rn(add_rn(acc[1][e], acc[5][e]), add_rn(acc[3][e], acc[7][e])));
+        for (int q = 0; q < kPerThreadW; ++q) {
+          f[q] = min(base + tid + B::kGroupThreads * q, vecs - 1);
+          col[q] = __ldg(indices + c + f[q] / kQ);
+          w[q] = __ldg(data + c + f[q] / kQ);
+        }
+#pragma unroll
+        for (int q = 0; q < kPerThreadW; ++q) {
+          xg[q] = __ldg(reinterpret_cast<const V*>(x + static_cast<long long>(col[q]) * B::kK) + f[q] % kQ);
+        }
+#pragma unroll
+        for (int q = 0; q < kPerThreadW; ++q) {
+          if (!fused) {
+            T part[kV];
+#pragma unroll
+            for (int e = 0; e < kV; ++e) part[e] = mul_rn(w[q], vec_at(xg[q], e));
+            xg[q] = vec_of(part);
+          }
+          if (base + tid + B::kGroupThreads * q < vecs) xs[f[q] / kQ * kS + f[q] % kQ] = xg[q];
+        }
+      }
     } else {
-      out[e] = add_rn(acc[1][e], acc[0][e]);
+      for (int i = tid; i < len; i += B::kGroupThreads) {
+        copy_async<sizeof(int)>(cols + i, indices + c + i);
+        copy_async<sizeof(T)>(d + i, data + c + i);
+      }
+      asm volatile("cp.async.wait_all;" ::: "memory");
+      group_sync(group, B::kGroupThreads);
+#pragma unroll 4
+      for (int f = tid; f < vecs; f += B::kGroupThreads) {
+        const int t = f / kQ;
+        copy_async<16>(xs + t * kS + f % kQ,
+                       reinterpret_cast<const V*>(x + static_cast<long long>(cols[t]) * B::kK) + f % kQ);
+      }
+      asm volatile("cp.async.wait_all;" ::: "memory");
+      for (int f = tid; f < vecs; f += B::kGroupThreads) {  // the products of this thread's vectors
+        const int t = f / kQ;
+        V* at_f = xs + t * kS + f % kQ;
+        const V xv = *at_f;
+        T part[kV];
+#pragma unroll
+        for (int e = 0; e < kV; ++e) part[e] = mul_rn(d[t], vec_at(xv, e));
+        *at_f = vec_of(part);
+      }
     }
+    group_sync(group, B::kGroupThreads);
+    if (fused) {
+      walk(std::integral_constant<bool, kRegisterGathers>{}, c, len);
+    } else {
+      walk(std::false_type{}, c, len);
+    }
+    group_sync(group, B::kGroupThreads);  // the chunk's last reader is done
+  }
+  if (row >= n) return;
+#pragma unroll
+  for (int v = 0; v < kQw; ++v) {
+    T part[kV];
+#pragma unroll
+    for (int e = 0; e < kV; ++e) {
+      const int col = v * kV + e;
+      T ax;
+      if constexpr (kLanes8) {
+        ax = add_rn(add_rn(add_rn(acc[0][col], acc[4][col]), add_rn(acc[2][col], acc[6][col])),
+                    add_rn(add_rn(acc[1][col], acc[5][col]), add_rn(acc[3][col], acc[7][col])));
+      } else {
+        ax = chain ? acc[0][col] : add_rn(acc[1][col], acc[0][col]);
+      }
+      part[e] = deg != nullptr ? mul_add(dr, vec_at(xr[v], e), -ax) : ax;
+    }
+    reinterpret_cast<V*>(y + at)[v] = vec_of(part);
   }
 }
 
+// The z pass, z = dsinv * w (lazy_z_f32 / _f64), each product rounded once,
+// for a walk whose vector no rescale made.  Replaces no TPU kernel (as
+// lazy_rescale).  Bound by bytes: w and dsinv read, z written; at the
+// component's 184,406 values its time is a launch and one round trip.
+// Where the three vectors are 16-byte aligned, a block takes kZVecs *
+// kZThreads 16-byte vectors of each (4 f32 or 2 f64 values each): thread t
+// the vectors t and t + kZThreads, so that each warp's load and store
+// covers 512 contiguous bytes, and a thread has two loads of each array in
+// flight; the last block takes its values one per thread.  Unaligned
+// vectors take a value per thread.
+constexpr int kZThreads = 128;
+constexpr int kZVecs = 2;
+
 template <class T>
-__global__ void __launch_bounds__(kThreads)
-    spmm_v_kernel(const int* __restrict__ indptr, const int* __restrict__ indices,
-                  const T* __restrict__ data, const T* __restrict__ x,
-                  const T* __restrict__ deg, T* __restrict__ y, int n, int k,
-                  int row_width) {
-  using V = typename Vec16<T>::type;
-  constexpr int kV = Vec16<T>::kWidth;
-  constexpr int kQ = kCols / kV;
-  extern __shared__ __align__(16) unsigned char shared_raw[];
-  const int warp = threadIdx.x >> 5;
-  const int r0 = (blockIdx.x * kWarps + warp) * 32;
-  if (r0 >= n) return;
-  T* buf = reinterpret_cast<T*>(shared_raw) + warp * kBufferV;
-  const int row = r0 + (threadIdx.x & 31);
-  const long long base = static_cast<long long>(min(row, n - 1)) * k;
-  const T dr = deg != nullptr ? __ldg(deg + min(row, n - 1)) : T(0);
-  for (int c0 = 0; c0 < k; c0 += kCols) {
-    T ax[kCols];
-    row_sum_v<T>(indptr, indices, data, x, k, c0, buf, r0, n, row_width, ax);
-    if (row < n) {
+constexpr int kZBlockValues = kZThreads * kZVecs * Vec16<T>::kWidth;
+
+template <class T, bool kVec>
+__global__ void __launch_bounds__(kZThreads)
+    lazy_z_kernel(const T* __restrict__ w, const T* __restrict__ dsinv, T* __restrict__ z, int n) {
+  if constexpr (kVec) {
+    using V = typename Vec16<T>::type;
+    constexpr int kV = Vec16<T>::kWidth;
+    const long long b0 = static_cast<long long>(blockIdx.x) * kZBlockValues<T>;
+    if (b0 + kZBlockValues<T> <= n) {
+      const V* wv = reinterpret_cast<const V*>(w + b0) + threadIdx.x;
+      const V* sv = reinterpret_cast<const V*>(dsinv + b0) + threadIdx.x;
+      V a[kZVecs], s[kZVecs];
 #pragma unroll
-      for (int v = 0; v < kQ; ++v) {
-        T part[kV];
-        if (deg != nullptr) {
-          const V xr = __ldg(reinterpret_cast<const V*>(x + base + c0) + v);
-#pragma unroll
-          for (int e = 0; e < kV; ++e) part[e] = mul_add(dr, vec_at(xr, e), -ax[v * kV + e]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < kV; ++e) part[e] = ax[v * kV + e];
-        }
-        reinterpret_cast<V*>(y + base + c0)[v] = vec_of(part);
+      for (int q = 0; q < kZVecs; ++q) {
+        a[q] = __ldg(wv + q * kZThreads);
+        s[q] = __ldg(sv + q * kZThreads);
       }
+#pragma unroll
+      for (int q = 0; q < kZVecs; ++q) {
+        T part[kV];
+#pragma unroll
+        for (int e = 0; e < kV; ++e) part[e] = mul_rn(vec_at(s[q], e), vec_at(a[q], e));
+        reinterpret_cast<V*>(z + b0)[threadIdx.x + q * kZThreads] = vec_of(part);
+      }
+    } else {
+      const long long end = min(static_cast<long long>(n), b0 + kZBlockValues<T>);
+      for (long long e = b0 + threadIdx.x; e < end; e += kZThreads) z[e] = mul_rn(__ldg(dsinv + e), __ldg(w + e));
     }
+  } else {
+    const long long i = static_cast<long long>(blockIdx.x) * kZThreads + threadIdx.x;
+    if (i < n) z[i] = mul_rn(__ldg(dsinv + i), __ldg(w + i));
   }
 }
 
@@ -933,12 +1036,29 @@ int laplacian(const void* indptr, const void* indices, const void* data, const v
   return static_cast<int>(cudaGetLastError());
 }
 
+// One launch of the blocked walk at G = k / kCols warps per row group,
+// with the chains the width's order needs.
+template <class T, int G>
+void spmm_walk(const int* indptr, const int* indices, const T* data, const T* x, const T* deg, T* y,
+               int n, int row_width, cudaStream_t stream) {
+  using B = Blocked<T, G>;
+  const int groups = (n + 31) / 32;
+  const dim3 grid((groups + B::kGroups - 1) / B::kGroups);
+  const size_t shared = B::kGroups * B::kGroupBytes;
+  if (row_width > kChainWidth && row_width <= kWindow) {
+    spmm_walk_kernel<T, G, kLanes><<<grid, B::kThreads, shared, stream>>>(indptr, indices, data, x, deg, y, n,
+                                                                           row_width);
+  } else {
+    spmm_walk_kernel<T, G, 2><<<grid, B::kThreads, shared, stream>>>(indptr, indices, data, x, deg, y, n,
+                                                                      row_width);
+  }
+}
+
 template <class T>
 int spmm_csr(const void* indptr, const void* indices, const void* data, const void* x,
              const void* deg, void* y, int n, int k, int row_width, void* stream) {
   if (k < 1 || k > 16) return static_cast<int>(cudaErrorInvalidValue);
   const bool aligned = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y)) % 16 == 0;
-  constexpr int kV = Vec16<T>::kWidth;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* ip = static_cast<const int*>(indptr);
   const auto* ix = static_cast<const int*>(indices);
@@ -946,15 +1066,17 @@ int spmm_csr(const void* indptr, const void* indices, const void* data, const vo
   const auto* xp = static_cast<const T*>(x);
   const auto* gp = static_cast<const T*>(deg);
   auto* yp = static_cast<T*>(y);
-  if (n > 0 && k % 4 == 0 && aligned) {
-    spmm_v_kernel<T><<<blocks_for(n), kThreads, kWarps * kBufferV * sizeof(T), s>>>(
-        ip, ix, dp, xp, gp, yp, n, k, row_width);
-  } else if (n > 0) {
-    spmm_kernel<T><<<blocks_for(n), kThreads, shared_bytes<T>(row_width),
-                     static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(indptr), static_cast<const int*>(indices),
-        static_cast<const T*>(data), static_cast<const T*>(x), static_cast<const T*>(deg),
-        static_cast<T*>(y), n, k, row_width);
+  if (n <= 0) return static_cast<int>(cudaGetLastError());
+  if (k % kCols == 0 && aligned) {
+    switch (k / kCols) {
+      case 1: spmm_walk<T, 1>(ip, ix, dp, xp, gp, yp, n, row_width, s); break;
+      case 2: spmm_walk<T, 2>(ip, ix, dp, xp, gp, yp, n, row_width, s); break;
+      case 3: spmm_walk<T, 3>(ip, ix, dp, xp, gp, yp, n, row_width, s); break;
+      default: spmm_walk<T, 4>(ip, ix, dp, xp, gp, yp, n, row_width, s); break;
+    }
+  } else {
+    spmm_kernel<T><<<blocks_for(n), kThreads, shared_bytes<T>(row_width), s>>>(ip, ix, dp, xp, gp, yp, n, k,
+                                                                                row_width);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -978,14 +1100,29 @@ int lazy_walk(const void* indptr, const void* indices, const void* data, const v
 template <class T>
 int lazy_rescale(const void* u, const void* w, const void* inv, const void* dsinv, void* u_out,
                  void* w_out, void* z, int n, void* stream) {
-  if ((inv == nullptr) != (u_out == nullptr) || (w == nullptr) != (w_out == nullptr) ||
-      (w != nullptr && inv == nullptr) || z == nullptr) {
+  if (inv == nullptr || u_out == nullptr || (w == nullptr) != (w_out == nullptr) || z == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n > 0) {
     lazy_rescale_kernel<T><<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(u), static_cast<const T*>(w), static_cast<const T*>(inv),
         static_cast<const T*>(dsinv), static_cast<T*>(u_out), static_cast<T*>(w_out), static_cast<T*>(z), n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <class T>
+int lazy_z(const void* w, const void* dsinv, void* z, int n, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool aligned =
+      (reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(dsinv) | reinterpret_cast<uintptr_t>(z)) % 16 == 0;
+  const auto* wp = static_cast<const T*>(w);
+  const auto* sp = static_cast<const T*>(dsinv);
+  auto* zp = static_cast<T*>(z);
+  if (n > 0 && aligned) {
+    lazy_z_kernel<T, true><<<(n + kZBlockValues<T> - 1) / kZBlockValues<T>, kZThreads, 0, s>>>(wp, sp, zp, n);
+  } else if (n > 0) {
+    lazy_z_kernel<T, false><<<(n + kZThreads - 1) / kZThreads, kZThreads, 0, s>>>(wp, sp, zp, n);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1067,13 +1204,13 @@ extern "C" int lazy_rescale_f64(const void* u, const void* w, const void* inv, c
   return lazy_rescale<double>(u, w, inv, dsinv, u_out, w_out, z, n, stream);
 }
 
-// The standalone z pass, z = dsinv * w: lazy_rescale's kernel with no inv.
+// The standalone z pass, z = dsinv * w, n values.
 extern "C" int lazy_z_f32(const void* w, const void* dsinv, void* z, int n, void* stream) {
-  return lazy_rescale<float>(w, nullptr, nullptr, dsinv, nullptr, nullptr, z, n, stream);
+  return lazy_z<float>(w, dsinv, z, n, stream);
 }
 
 extern "C" int lazy_z_f64(const void* w, const void* dsinv, void* z, int n, void* stream) {
-  return lazy_rescale<double>(w, nullptr, nullptr, dsinv, nullptr, nullptr, z, n, stream);
+  return lazy_z<double>(w, dsinv, z, n, stream);
 }
 
 // win_ptr/win_chunks: each y window's chunks in plan order (chunks in all);

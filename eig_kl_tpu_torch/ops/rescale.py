@@ -21,7 +21,7 @@ from eig_kl_tpu_torch.ops._build import Kernel, stream_handle
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 #: The momentum step's rescale with its next walk's z, and the standalone z
-#: pass (the same kernel without the rescale), each with its own count.
+#: pass (a kernel of its own, 16-byte loads and stores), each with its own count.
 K1_RESCALE, K1_RESCALE_F64 = (Kernel("spmv_csr", f"lazy_rescale_{s}", [_P] * 7 + [_I, _P]) for s in ("f32", "f64"))
 K1_Z, K1_Z_F64 = (Kernel("spmv_csr", f"lazy_z_{s}", [_P] * 3 + [_I, _P]) for s in ("f32", "f64"))
 _RESCALE = {torch.float32: K1_RESCALE, torch.float64: K1_RESCALE_F64}

@@ -329,9 +329,9 @@ def spmm(g: DeviceGraph, X: torch.Tensor, *, laplacian: bool = False) -> torch.T
     column (the JAX package's ``vmap`` of ``spmv``,
     ``eig_kl_tpu/spectral/lobpcg_solver.py:51-56``); with ``laplacian``,
     ``deg * X - A @ X``.  K1's blocked entry point for a tensor on the card
-    (``1 <= k <= 16``; four columns per walk of the rows where k is a
-    multiple of 4 and X 16-byte aligned, from one 32-byte sector of each
-    gathered row of X, else one), :func:`spmm_plain` on the CPU."""
+    (``1 <= k <= 16``; one walk of the rows for all k columns where k is a
+    multiple of 4 and X 16-byte aligned, each gathered row of X loaded
+    whole, else a walk per column), :func:`spmm_plain` on the CPU."""
     if X.device.type == "cpu":
         return spmm_plain(g, X, laplacian=laplacian)
     return spmm_cuda(g, X, laplacian=laplacian)

@@ -17,6 +17,7 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401  (autouse: PyTorch on one thread)
 
 from conftest import random_hypergraph
 

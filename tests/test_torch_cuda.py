@@ -1591,6 +1591,93 @@ def test_k1_f64_blocked_product_equals_plain_bitwise(cuda, kind):
             assert torch.equal(AX[:, j], S.spmv_csr(g, X[:, j].contiguous().to(cuda)))
 
 
+def _window_hypergraph(width):
+    """Rows of at most ``width`` entries (ELL width ``width``, 8 to 64):
+    windows of ``width / 2 + 1`` consecutive nodes, 70 % of them, over all
+    but the last 50 of 3,000 nodes (rows of degree 0); ``width`` "tiny":
+    19 nodes, five nets of 3 and one across them, four rows of degree 0."""
+    from eig_kl_tpu_torch.io.hgr import Hypergraph
+
+    if width == "tiny":
+        pins = np.array([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 1, 5, 9], np.int32)
+        return Hypergraph(19, 6, pins, np.arange(0, 19, 3, dtype=np.int64))
+    rng = np.random.default_rng(14)
+    n, k = 3000, width // 2 + 1
+    nets = [np.arange(i, i + k) for i in range(n - 50 - k) if rng.random() < 0.7]
+    offs = np.zeros(len(nets) + 1, np.int64)
+    np.cumsum([k] * len(nets), out=offs[1:])
+    return Hypergraph(n, len(nets), np.concatenate(nets).astype(np.int32), offs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("width", [8, 16, 24, 32, 48, 64, "tiny"])
+def test_k1_blocked_walk_equals_plain_bitwise(cuda, width, dtype):
+    """The blocked product's one walk of the rows for all k columns (k = 4,
+    8, 12, 16; X 16-byte aligned) on graphs of ELL width 8 to 64 with rows
+    of degree 0, at n = 3,000 (not a multiple of a block's rows) and n =
+    19: bit for bit the plain version, with and without the Laplacian's
+    epilogue, deterministic, one launch per product, and each column K1 on
+    that column; an X one value off 16-byte alignment takes the walk per
+    column, to the same bits."""
+    import importlib
+
+    from eig_kl_tpu_torch.graph.expand import clique_expand
+
+    S = importlib.import_module("eig_kl_tpu_torch.ops.spmv")
+    host = clique_expand(_window_hypergraph(width), "eig")
+    g_cpu, g = host.to_device("cpu", dtype), host.to_device(cuda, dtype)
+    assert g.row_width == (8 if width == "tiny" else width)
+    kernel, bits = (S.K1_SPMM, torch.int32) if dtype == torch.float32 else (S.K1_SPMM_F64, torch.int64)
+    rng = np.random.default_rng(23)
+    n = g.num_nodes
+    for k in (4, 8, 12, 16):
+        X = torch.as_tensor(rng.standard_normal((n, k))).to(dtype)
+        X[::37] = -0.0
+        Xc = X.to(cuda)
+        X_odd = torch.empty(n * k + 1, dtype=dtype, device=cuda)[1:].view(n, k)
+        X_odd.copy_(Xc)
+        assert Xc.data_ptr() % 16 == 0 and X_odd.data_ptr() % 16 != 0
+        for laplacian in (False, True):
+            want = S.spmm_plain(g_cpu, X, laplacian=laplacian).view(bits)
+            before = kernel.launches
+            outs = [S.spmm(g, Xi, laplacian=laplacian) for Xi in (Xc, Xc, X_odd)]
+            assert kernel.launches == before + 3
+            for Y in outs:
+                assert torch.equal(Y.cpu().view(bits), want), (k, laplacian)
+        AX = S.spmm(g, Xc)
+        for j in range(k):
+            assert torch.equal(AX[:, j].view(bits), S.spmv_csr(g, Xc[:, j].contiguous()).view(bits)), (k, j)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lazy_z_vectors_equal_plain_bitwise(cuda, dtype):
+    """The z pass at n = 1, 3, 4, 5, 1,023, 1,024, 2,049 and 184,406 (two
+    16-byte vectors of each array per thread, a block's 1,024 f32 or 512
+    f64 values; the last block's values one per thread), and with w, dsinv
+    or both one value off 16-byte alignment (a value per thread): bit for
+    bit ``lazy_z_plain``, one launch each."""
+    import importlib
+
+    S = importlib.import_module("eig_kl_tpu_torch.ops.spmv")
+    kernel, bits = (S.K1_Z, torch.int32) if dtype == torch.float32 else (S.K1_Z_F64, torch.int64)
+    rng = np.random.default_rng(43)
+    for n in (1, 3, 4, 5, 1023, 1024, 2049, 184406):
+        w_host = torch.as_tensor(rng.standard_normal(n)).to(dtype)
+        w_host[::7] = -0.0
+        d_host = torch.as_tensor(rng.uniform(0.1, 1.0, n)).to(dtype)
+        want = S.lazy_z_plain(w_host, d_host).view(bits)
+        for w_off, d_off in ((0, 0), (1, 0), (0, 1), (1, 1)):
+            w = torch.empty(n + 1, dtype=dtype, device=cuda)[w_off:w_off + n]
+            d = torch.empty(n + 1, dtype=dtype, device=cuda)[d_off:d_off + n]
+            w.copy_(w_host)
+            d.copy_(d_host)
+            assert (w.data_ptr() % 16 != 0, d.data_ptr() % 16 != 0) == (bool(w_off), bool(d_off))
+            before = kernel.launches
+            z = S.lazy_z(w, d)
+            assert kernel.launches == before + 1
+            assert torch.equal(z.cpu().view(bits), want), (n, w_off, d_off)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", ["hub10", "hub30"])
 def test_k1_lazy_walk_scaled_equals_plain_bitwise(cuda, kind, dtype):

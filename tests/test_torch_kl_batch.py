@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401  (autouse: PyTorch on one thread)
 
 from tests.conftest import random_hypergraph
 from tests.test_torch_kl import _pass_inputs, _port_graph, dyadic_hypergraph

@@ -20,6 +20,7 @@ Each case runs on a few hundred nodes on one thread, in a second or two.
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401  (autouse: PyTorch on one thread)
 
 from conftest import random_hypergraph
 from test_torch_plan_order import _one_thread

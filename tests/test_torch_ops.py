@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401  (autouse: PyTorch on one thread)
 
 from tests.conftest import random_hypergraph
 

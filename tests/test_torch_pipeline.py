@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401  (autouse: PyTorch on one thread)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 GEN_002 = str(REPO / "benchmarks" / "data" / "gen_0.02_42.hgr")

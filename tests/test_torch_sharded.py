@@ -38,6 +38,7 @@ import warnings
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401  (autouse: PyTorch on one thread)
 
 REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
 GEN_002 = os.path.join(REPO, "benchmarks", "data", "gen_0.02_42.hgr")

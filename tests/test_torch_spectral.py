@@ -20,6 +20,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401  (autouse: PyTorch on one thread)
 
 GEN_002 = os.path.join(
     os.path.dirname(__file__), "..", "benchmarks", "data", "gen_0.02_42.hgr"

@@ -8,6 +8,7 @@ import os
 
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401  (autouse: PyTorch on one thread)
 
 from eig_kl_tpu_torch.utils import tracing
 

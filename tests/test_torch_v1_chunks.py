@@ -13,6 +13,7 @@ import os
 import numpy as np
 import pytest
 import torch
+from torch_one_thread import one_thread  # noqa: F401  (autouse: PyTorch on one thread)
 
 GEN_002 = os.path.join(os.path.dirname(__file__), "..", "benchmarks", "data", "gen_0.02_42.hgr")
 V1_KINDS = ("gen_0.02", "crafted", "6000_tail")
